@@ -1,0 +1,48 @@
+"""pdp_lqr_tpu_torch — the PyTorch / CUDA port of ``pdp_lqr_tpu``.
+
+A second package beside the JAX one, with the same sub-package layout
+and the same public names, written for one NVIDIA H100.  Plain tensor
+code is PyTorch; the fused sweep kernels are CUDA C++ built with ``nvcc``
+at first use (``ops/_build.py``).  It imports neither ``jax`` nor
+``pdp_lqr_tpu``.
+
+Ported so far:
+
+- ``config``, ``problem``, ``convert`` — constants, the stage-stacked
+  problem model, and the numpy hand-over from the JAX package.
+- ``models`` — quadrotor, double integrator, random LQ.
+- ``ops.riccati`` / ``solvers.sequential`` — plain-torch sequential
+  Riccati, the port's independent witness.
+- ``ops.cuda_riccati`` — the shared-model inner solve on three kernels
+  (matrix sweep, cached-factor vector sweep, closed-loop rollout).
+- ``api.ScenarioServer.solve`` — one model serving B scenarios.
+
+Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
+the kernels' plain PyTorch versions.
+"""
+
+from pdp_lqr_tpu_torch.config import SolverConfig, LQR_INFTY, DIVISION_TOL
+from pdp_lqr_tpu_torch.problem import (
+    LQRProblem,
+    build_problem,
+    ADMMIterates,
+    StageParams,
+    init_iterates,
+    make_stage_params,
+)
+from pdp_lqr_tpu_torch.api import ScenarioServer
+
+__all__ = [
+    "SolverConfig",
+    "LQR_INFTY",
+    "DIVISION_TOL",
+    "LQRProblem",
+    "build_problem",
+    "ADMMIterates",
+    "StageParams",
+    "init_iterates",
+    "make_stage_params",
+    "ScenarioServer",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Where one ``ScenarioServer.solve`` request spends its time, on the card.
+
+    python3 scripts/request_breakdown.py [--requests 20]
+
+Serves the smoke run's workload (quadrotor, constrained, N=512, B=4096,
+float32) and prints as JSON lines:
+
+  * the request's time by CUDA events, the host's time to enqueue it (host
+    clock around the call, no synchronise) and the host's time with a
+    synchronise at the end: where the first is close to the second, the
+    host and not the card sets the request time;
+  * from ``torch.profiler`` over the same requests: device time by kernel
+    name (per request), the device's busy time and its idle share.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from pdp_lqr_tpu_torch import ScenarioServer  # noqa: E402
+from pdp_lqr_tpu_torch.models import quadrotor  # noqa: E402
+
+N, B, SIGMA, RHO = 512, 4096, 1e-6, 0.01
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("request_breakdown: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+    model, _ = quadrotor(N=N, constrained=True, dtype=torch.float32, device=dev)
+    server = ScenarioServer(model, rho=RHO, sigma=SIGMA, device=dev)
+    rng = np.random.default_rng(0)
+    c = torch.as_tensor((rng.normal(size=(B, N, model.nx)) * 0.01)
+                        .astype(np.float32)).to(dev)
+    x0 = torch.as_tensor(rng.normal(size=(B, model.nx)).astype(np.float32)
+                         * 0.1).to(dev)
+    for _ in range(3):
+        server.solve(x0, c)
+    torch.cuda.synchronize()
+
+    event_ms, enqueue_ms, synced_ms = [], [], []
+    for _ in range(args.requests):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        server.solve(x0, c)
+        end.record()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        event_ms.append(start.elapsed_time(end))
+        enqueue_ms.append((t1 - t0) * 1e3)
+        synced_ms.append((t2 - t0) * 1e3)
+    med = lambda xs: float(np.median(xs))
+    print(json.dumps({
+        "card": card, "N": N, "B": B, "requests": args.requests,
+        "request_ms_cuda_events": med(event_ms),
+        "host_enqueue_ms": med(enqueue_ms),
+        "host_with_synchronise_ms": med(synced_ms)}), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.requests):
+            server.solve(x0, c)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # Device-side rows only: an operator's row repeats its kernels' time.
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us = ev.self_device_time_total
+        if device_us > 0:
+            rows.append({"name": ev.key[:90], "calls_per_request":
+                         ev.count / args.requests,
+                         "device_ms_per_request": device_us / 1e3 / args.requests})
+    rows.sort(key=lambda r: -r["device_ms_per_request"])
+    busy_ms = sum(r["device_ms_per_request"] for r in rows)
+    print(json.dumps({
+        "card": card, "profiled_requests": args.requests,
+        "window_ms_per_request": window_ms / args.requests,
+        "device_busy_ms_per_request": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (window_ms / args.requests),
+        "device_kernels_per_request": sum(r["calls_per_request"] for r in rows),
+        "by_kernel": rows[:25]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
