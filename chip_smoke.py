@@ -36,7 +36,7 @@ RHO = 0.01
 NX, NU, NC = 12, 4, 16          # quadrotor, constrained=True
 N_MAIN, B_MAIN = 512, 4096      # the serving workload
 N_SMALL, B_SMALL = 64, 256      # kernel-vs-plain comparison shape
-B_RAGGED = 250                  # not a multiple of 4 words or of a block's 32
+B_RAGGED = 250                  # not a multiple of a block's 32 scenarios
 REQUESTS = 3                    # requests of the counted main-path run
 TIMED_REQUESTS = 20
 
@@ -45,8 +45,9 @@ TIMED_REQUESTS = 20
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-# Kernel (CUDA) against plain version (PyTorch ops), same inputs, relative
-# to the output's largest magnitude.  float64: both are exact to rounding.
+# Kernel (CUDA) against plain version (PyTorch ops), same inputs, each
+# output relative to its own largest magnitude.  float64: both are exact
+# to rounding.
 # float32: the two sum in different orders and the recursion carries the
 # difference across the stages, so a few hundred ulps are allowed.
 TOL = {torch.float64: 1e-9, torch.float32: 2e-4}
@@ -90,16 +91,29 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times))
 
 
-def rel_err(outs, refs):
-    """Largest |out - ref| over all outputs, absolute and relative to the
-    largest reference magnitude."""
-    abs_err, scale = 0.0, 0.0
-    for out, ref in zip(outs, refs):
-        require(out.shape == ref.shape, (out.shape, ref.shape))
-        require(bool(torch.isfinite(out).all()), "kernel output not finite")
-        abs_err = max(abs_err, float((out - ref).abs().max()))
-        scale = max(scale, float(ref.abs().max()))
-    return abs_err, abs_err / max(scale, 1e-30)
+# Names of the kernels' outputs, in the order the wrappers return them.
+K1_ALL = ("K", "d", "M", "v", "P", "L")
+K1_GAINS = ("K", "d")
+K1_CLOSED = ("K", "d", "M", "v")
+K2_OUT = ("d", "v")
+K3_OUT = ("ws", "xN")
+
+
+def rel_err(names, outs, refs):
+    """Largest |out - ref| of every output, relative to that output's own
+    largest reference magnitude (an output whose reference is all zero
+    must be zero too).  Returns the largest absolute error and
+    {name: relative error}."""
+    require(len(names) == len(outs) == len(refs), (names, len(outs), len(refs)))
+    abs_err, rel = 0.0, {}
+    for name, out, ref in zip(names, outs, refs):
+        require(out.shape == ref.shape, (name, out.shape, ref.shape))
+        require(bool(torch.isfinite(out).all()), f"{name}: output not finite")
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        abs_err = max(abs_err, err)
+        rel[name] = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+    return abs_err, rel
 
 
 def nbytes(*tensors):
@@ -225,26 +239,26 @@ def main():
         rng = np.random.default_rng(SEED)
         before = dict(cr.LAUNCHES)
 
-        def compare(name, outs, refs):
-            abs_err, rel = rel_err(outs, refs)
+        def compare(name, names, outs, refs):
+            abs_err, rel = rel_err(names, outs, refs)
             cases.append({"kernel": name, "dtype": str(dt).split(".")[-1],
-                          "max_abs_err": abs_err, "max_rel_err": rel,
+                          "max_abs_err": abs_err, "rel_err": rel,
                           "tol_rel": TOL[dt]})
-            require(rel <= TOL[dt], (name, dt, abs_err, rel))
+            require(max(rel.values()) <= TOL[dt], (name, dt, abs_err, rel))
 
         # K1 on the one shared model (trailing batch 1), all outputs.
         one = random_stage_data(rng, N_SMALL, NX, NU, NC, 1, dt, dev)
         fac = cr.backward_lanes(*one, export_factors=True)
-        compare("backward_lanes[batch=1,export]", fac,
+        compare("backward_lanes[batch=1,export]", K1_ALL, fac,
                 cr.backward_lanes_reference(*one, export_factors=True))
         # K1 per instance (one block each), gains only.
         few = random_stage_data(rng, N_SMALL, NX, NU, NC, 5, dt, dev)
-        compare("backward_lanes[batch=5,gains]",
+        compare("backward_lanes[batch=5,gains]", K1_GAINS,
                 cr.backward_lanes(*few, emit_closed_loop=False),
                 cr.backward_lanes_reference(*few, emit_closed_loop=False))
         # K1 without constraint rows.
         free = random_stage_data(rng, N_SMALL, NX, NU, 0, 2, dt, dev)
-        compare("backward_lanes[nc=0]", cr.backward_lanes(*free),
+        compare("backward_lanes[nc=0]", K1_CLOSED, cr.backward_lanes(*free),
                 cr.backward_lanes_reference(*free))
 
         # K2 / K3, shared model: factors of `one`, B scenarios.
@@ -258,35 +272,34 @@ def main():
         Pc = cr.fold_Pc(P, c)
         dv = cr.backward_vectors_lanes(A, Bm, c, hf, P, K, L, pN,
                                        shared=True, Pc=Pc)
-        compare("backward_vectors_lanes[shared,Pc]", dv,
+        compare("backward_vectors_lanes[shared,Pc]", K2_OUT, dv,
                 cr.backward_vectors_lanes_reference(A, Bm, c, hf, P, K, L, pN, Pc=Pc))
-        compare("backward_vectors_lanes[shared,P]",
+        compare("backward_vectors_lanes[shared,P]", K2_OUT,
                 cr.backward_vectors_lanes(A, Bm, c, hf, P, K, L, pN, shared=True),
                 cr.backward_vectors_lanes_reference(A, Bm, c, hf, P, K, L, pN))
         d, v = dv
-        compare("forward_lanes[shared]",
+        compare("forward_lanes[shared]", K3_OUT,
                 cr.forward_lanes(M, v, K, d, x0, shared=True),
                 cr.forward_lanes_reference(M, v, K, d, x0))
-        # The same on a ragged batch: word-by-word copies (rows not 16-byte
-        # aligned) and a last block with idle lanes.
+        # The same on a ragged batch: a last block with idle lanes.
         cut = lambda x: x[..., :B_RAGGED].contiguous()
         c_r, hf_r, pN_r, x0_r, Pc_r = (cut(x) for x in (c, hf, pN, x0, Pc))
         dv_r = cr.backward_vectors_lanes(A, Bm, c_r, hf_r, P, K, L, pN_r,
                                          shared=True, Pc=Pc_r)
-        compare(f"backward_vectors_lanes[shared,Pc,B={B_RAGGED}]", dv_r,
+        compare(f"backward_vectors_lanes[shared,Pc,B={B_RAGGED}]", K2_OUT, dv_r,
                 cr.backward_vectors_lanes_reference(
                     A, Bm, c_r, hf_r, P, K, L, pN_r, Pc=Pc_r))
-        compare(f"forward_lanes[shared,B={B_RAGGED}]",
+        compare(f"forward_lanes[shared,B={B_RAGGED}]", K3_OUT,
                 cr.forward_lanes(M, dv_r[1], K, dv_r[0], x0_r, shared=True),
                 cr.forward_lanes_reference(M, dv_r[1], K, dv_r[0], x0_r))
 
         # K2 / K3, one matrix set per scenario (trailing batch = B).
         wide = lambda x: x.expand(x.shape[:-1] + (B_SMALL,)).contiguous()
         Aw, Bw, Kw, Mw, Pw, Lw = (wide(x) for x in (A, Bm, K, M, P, L))
-        compare("backward_vectors_lanes[per-instance,P]",
+        compare("backward_vectors_lanes[per-instance,P]", K2_OUT,
                 cr.backward_vectors_lanes(Aw, Bw, c, hf, Pw, Kw, Lw, pN),
                 cr.backward_vectors_lanes_reference(Aw, Bw, c, hf, Pw, Kw, Lw, pN))
-        compare("forward_lanes[per-instance]",
+        compare("forward_lanes[per-instance]", K3_OUT,
                 cr.forward_lanes(Mw, v, Kw, d, x0),
                 cr.forward_lanes_reference(Mw, v, Kw, d, x0))
         torch.cuda.synchronize()
@@ -373,6 +386,8 @@ def main():
     }
     outputs = {"backward_lanes": k1_out, "backward_vectors_lanes": k2_out,
                "forward_lanes": k3_out}
+    out_names = {"backward_lanes": K1_ALL, "backward_vectors_lanes": K2_OUT,
+                 "forward_lanes": K3_OUT}
     moved = {
         "backward_lanes": nbytes(*k1_in, *k1_out),
         # P itself is not read in Pc mode.
@@ -394,14 +409,14 @@ def main():
     for name in ("backward_lanes", "backward_vectors_lanes", "forward_lanes"):
         ms = cuda_ms(kernel[name], TIMED_REQUESTS)
         plain_ms = cuda_ms(plain[name], 2, warmup=1)
-        abs_err, rel = rel_err(outputs[name], plain[name]())
-        require(rel <= TOL[torch.float32], (name, abs_err, rel))
+        abs_err, rel = rel_err(out_names[name], outputs[name], plain[name]())
+        require(max(rel.values()) <= TOL[torch.float32], (name, abs_err, rel))
         bound_ms, bound_by = bound(moved[name], flops[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pdp_lqr_tpu_torch/ops/csrc/riccati_kernels.cu",
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+            "max_abs_err": abs_err, "rel_err": rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # No single PyTorch call computes a stage recurrence.
             "library_ms": None,

@@ -59,16 +59,10 @@ __device__ long long riccati_prof[8];
 #define PROF_DONE
 #endif
 
-// Asynchronous copy of W words from device to shared memory (cp.async;
-// W words are 4, 8 or 16 bytes, both addresses aligned to as many).
-template <int W>
-__device__ __forceinline__ void copy_words(scalar* dst, const scalar* src)
-{
-    __pipeline_memcpy_async(dst, src, W * sizeof(scalar));
-}
+// Asynchronous copy of one word from device to shared memory (cp.async).
 __device__ __forceinline__ void copy_word(scalar* dst, const scalar* src)
 {
-    copy_words<1>(dst, src);
+    __pipeline_memcpy_async(dst, src, sizeof(scalar));
 }
 
 #ifdef NC
@@ -381,7 +375,12 @@ int launch_backward(int N, int Bt, int threads, cudaStream_t stream,
 // thread per scenario: the carry and the stage temporaries live in
 // registers, and every stream, matrices included, is batch-last, so a
 // warp reads and writes whole lines.  PC_MODE: the P argument holds the
-// pre-folded Pc = P_{k+1} c_k.
+// pre-folded Pc = P_{k+1} c_k.  These are kernels of their own, not the
+// shared-model ones below with another stride: there a block stages ONE
+// matrix set per stage in shared memory for all its scenarios, and 32
+// sets a stage would not fit.
+
+constexpr int PI_THREADS = 64;               // scenarios per block
 
 template <bool PC_MODE>
 __global__ void backward_vectors_kernel(
@@ -556,9 +555,9 @@ __global__ void forward_kernel(
 //   * every stage's inputs — the shared matrices and the 32 scenarios'
 //     vectors — are copied asynchronously (cp.async) into a ring of
 //     shared-memory slots VS_PF stages ahead of their use, so device
-//     memory latency is off the per-stage chain.  The copies of a stage
-//     are dealt evenly over the block's threads, 16 bytes each where the
-//     batch and the pointers are aligned to that, else one word each;
+//     memory latency is off the per-stage chain.  A copy is one word:
+//     the matrix words are dealt over the block's threads, and a thread
+//     copies its own scenario's entry of every VS_GROUPS-th vector row;
 //   * the matrices lie in the slot so that each thread's reads are
 //     contiguous rows at one address per warp (a broadcast).
 
@@ -567,40 +566,36 @@ constexpr int VS_GROUPS = 4;                 // threads per scenario
 constexpr int VS_THREADS = VS_LANES * VS_GROUPS;
 constexpr int VS_RX = (NX + VS_GROUPS - 1) / VS_GROUPS;   // state rows/thread
 constexpr int VS_RU = (NU + VS_GROUPS - 1) / VS_GROUPS;   // input rows/thread
-#ifndef RICCATI_PF
-#define RICCATI_PF 6
-#endif
-constexpr int VS_PF = RICCATI_PF;            // stages in flight (>= 2)
+constexpr int VS_PF = 4;                     // stages in flight (>= 2)
 constexpr int VS_SLOTS = VS_PF + 1;
-constexpr int VS_W16 = 16 / (int)sizeof(scalar);          // words in 16 bytes
-#define RICCATI_PAD4(words) (((words) + 3) / 4 * 4)   // keeps 16-byte alignment
 
-// Fill the ring slot S with one stage, W words per copy: `mat_words`
-// matrix words (word w from mat_src(w)) to the slot's start, then `rows`
-// per-scenario rows (row r from row_src(r), `nv` live lanes) from word
-// `vec_at` on, VS_LANES words apart.  W divides mat_words and nv.
-template <int W, class MatSrc, class RowSrc>
-__device__ __forceinline__ void fill_slot(
-    scalar* S, int mat_words, int vec_at, int rows, int nv,
-    MatSrc mat_src, RowSrc row_src)
+// Copy `words` contiguous matrix words into a ring slot, dealt over the
+// block's threads.
+__device__ __forceinline__ void copy_matrix(scalar* dst, const scalar* src,
+                                            int words)
 {
-    constexpr int PER_ROW = VS_LANES / W;
-    const int mat_copies = mat_words / W;
-    for (int q = threadIdx.x; q < mat_copies + rows * PER_ROW; q += VS_THREADS) {
-        if (q < mat_copies) {
-            copy_words<W>(S + q * W, mat_src(q * W));
-        } else {
-            const int row = (q - mat_copies) / PER_ROW;
-            const int at = (q - mat_copies) % PER_ROW * W;
-            if (at < nv)
-                copy_words<W>(S + vec_at + row * VS_LANES + at, row_src(row) + at);
-        }
+    for (int w = threadIdx.x; w < words; w += VS_THREADS)
+        copy_word(dst + w, src + w);
+}
+
+// Copy this thread's scenario's entries of a (ROWS, Bt) per-scenario
+// stage tensor into a ring slot: rows grp, grp + VS_GROUPS, ...; `src`
+// points at the scenario's entry of row 0.
+template <int ROWS>
+__device__ __forceinline__ void copy_rows(scalar* dst, const scalar* src,
+                                          size_t Bs, int lane, int grp)
+{
+#pragma unroll
+    for (int r = 0; r < (ROWS + VS_GROUPS - 1) / VS_GROUPS; ++r) {
+        const int row = grp + r * VS_GROUPS;
+        if (row < ROWS)
+            copy_word(dst + row * VS_LANES + lane, src + row * Bs);
     }
 }
 
 // ---- K2.  The wrapper packs each stage's matrices into one run, laid out
 // for the reads below: A^T [i][t], B^T [j][t], B [i][t], K^T [i][t],
-// L [i][t], then (plain-P mode) P [i][j]; padded to a multiple of 4 words.
+// L [i][t], then (plain-P mode) P [i][j].
 constexpr int K2_AT = 0;
 constexpr int K2_BT = K2_AT + NX * NX;
 constexpr int K2_B = K2_BT + NU * NX;
@@ -608,7 +603,7 @@ constexpr int K2_KT = K2_B + NX * NU;
 constexpr int K2_L = K2_KT + NX * NU;
 constexpr int K2_P = K2_L + NU * NU;
 template <bool PC_MODE> struct K2Layout {
-    static constexpr int PACK = RICCATI_PAD4(K2_P + (PC_MODE ? 0 : NX * NX));
+    static constexpr int PACK = K2_P + (PC_MODE ? 0 : NX * NX);
     // Per-scenario rows after the pack: c, hf, then (Pc mode) Pc.
     static constexpr int VEC_ROWS = NX + NZ + (PC_MODE ? NX : 0);
     static constexpr int SLOT_WORDS = PACK + VEC_ROWS * VS_LANES;
@@ -619,7 +614,7 @@ template <bool PC_MODE> struct K2Layout {
 template <bool PC_MODE>
 __global__ void __launch_bounds__(VS_THREADS)
 backward_vectors_shared_kernel(
-    int N, int Bt, int wide,
+    int N, int Bt,
     const scalar* __restrict__ pack, const scalar* __restrict__ c,
     const scalar* __restrict__ hf, const scalar* __restrict__ Pc,
     const scalar* __restrict__ pN,
@@ -637,7 +632,6 @@ backward_vectors_shared_kernel(
     const size_t b0 = (size_t)blockIdx.x * VS_LANES;
     const size_t b = b0 + lane;
     const bool valid = b < Bs;
-    const int nv = (int)(Bs - b0 < VS_LANES ? Bs - b0 : VS_LANES);  // live lanes
 
     // Stage n of the sweep is model stage k = N-1-n.  One copy group per
     // call (empty past the end), so groups and stages stay in step.
@@ -645,18 +639,16 @@ backward_vectors_shared_kernel(
         if (n < N) {
             const size_t ks = (size_t)(N - 1 - n);
             scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
-            auto mat_src = [&](int w) { return pack + ks * Lay::PACK + w; };
-            auto row_src = [&](int row) -> const scalar* {
-                if (row < NX) return c + (ks * NX + row) * Bs + b0;
-                if (row < NX + NZ) return hf + (ks * NZ + (row - NX)) * Bs + b0;
-                return Pc + (ks * NX + (row - NX - NZ)) * Bs + b0;
-            };
-            if (wide)
-                fill_slot<VS_W16>(S, Lay::PACK, Lay::PACK, Lay::VEC_ROWS, nv,
-                                  mat_src, row_src);
-            else
-                fill_slot<1>(S, Lay::PACK, Lay::PACK, Lay::VEC_ROWS, nv,
-                             mat_src, row_src);
+            scalar* V = S + Lay::PACK;
+            copy_matrix(S, pack + ks * Lay::PACK, Lay::PACK);
+            if (valid) {
+                copy_rows<NX>(V, c + ks * NX * Bs + b, Bs, lane, grp);
+                copy_rows<NZ>(V + NX * VS_LANES, hf + ks * NZ * Bs + b, Bs,
+                              lane, grp);
+                if (PC_MODE)
+                    copy_rows<NX>(V + (NX + NZ) * VS_LANES,
+                                  Pc + ks * NX * Bs + b, Bs, lane, grp);
+            }
         }
         __pipeline_commit();
     };
@@ -774,14 +766,14 @@ backward_vectors_shared_kernel(
 
 // ---- K3 slot layout (words): [K; M] row-major, then d and v rows.
 constexpr int K3_KM = 0;
-constexpr int K3_VEC = RICCATI_PAD4(NZ * NX);
+constexpr int K3_VEC = NZ * NX;
 constexpr int K3_SLOT_WORDS = K3_VEC + NZ * VS_LANES;
 constexpr int K3_SMEM_WORDS =
     VS_SLOTS * K3_SLOT_WORDS + 2 * NX * VS_LANES;
 
 __global__ void __launch_bounds__(VS_THREADS)
 forward_shared_kernel(
-    int N, int Bt, int wide,
+    int N, int Bt,
     const scalar* __restrict__ M, const scalar* __restrict__ v,
     const scalar* __restrict__ K, const scalar* __restrict__ d,
     const scalar* __restrict__ x0,
@@ -798,24 +790,18 @@ forward_shared_kernel(
     const size_t b0 = (size_t)blockIdx.x * VS_LANES;
     const size_t b = b0 + lane;
     const bool valid = b < Bs;
-    const int nv = (int)(Bs - b0 < VS_LANES ? Bs - b0 : VS_LANES);
 
     auto prefetch = [&](int k) {
         if (k < N) {
             const size_t ks = (size_t)k;
             scalar* S = ring + (k % VS_SLOTS) * K3_SLOT_WORDS;
-            auto mat_src = [&](int w) {
-                return w < NU * NX ? K + ks * NU * NX + w
-                                   : M + ks * NX * NX + (w - NU * NX);
-            };
-            auto row_src = [&](int row) {
-                return row < NU ? d + (ks * NU + row) * Bs + b0
-                                : v + (ks * NX + (row - NU)) * Bs + b0;
-            };
-            if (wide)
-                fill_slot<VS_W16>(S, NZ * NX, K3_VEC, NZ, nv, mat_src, row_src);
-            else
-                fill_slot<1>(S, NZ * NX, K3_VEC, NZ, nv, mat_src, row_src);
+            copy_matrix(S, K + ks * NU * NX, NU * NX);
+            copy_matrix(S + NU * NX, M + ks * NX * NX, NX * NX);
+            if (valid) {
+                copy_rows<NU>(S + K3_VEC, d + ks * NU * Bs + b, Bs, lane, grp);
+                copy_rows<NX>(S + K3_VEC + NU * VS_LANES,
+                              v + ks * NX * Bs + b, Bs, lane, grp);
+            }
         }
         __pipeline_commit();
     };
@@ -882,11 +868,6 @@ forward_shared_kernel(
     }
 }
 
-// 16-byte copies need 16-byte aligned addresses and sizes: every pointer,
-// the batch row (Bt words), and each per-stage matrix run.
-inline bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
-inline bool words16(size_t words) { return (words * sizeof(scalar)) % 16 == 0; }
-
 template <class Kernel>
 int set_smem(Kernel kernel, size_t smem)
 {
@@ -934,35 +915,28 @@ int riccati_backward(int N, int Bt, int emit_mv, int export_factors,
 #else  // !NC
 
 // Per-instance mode: one matrix set per scenario.
-int riccati_backward_vectors(int N, int Bt, int pc_mode, int threads,
-                             void* stream,
+int riccati_backward_vectors(int N, int Bt, int pc_mode, void* stream,
                              const void* A, const void* B, const void* c,
                              const void* hf, const void* P, const void* K,
                              const void* L, const void* pN, void* d, void* v)
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + threads - 1) / threads;
+    const int blocks = (Bt + PI_THREADS - 1) / PI_THREADS;
 #define RICCATI_BV_ARGS                                                      \
     N, Bt, (const scalar*)A, (const scalar*)B, (const scalar*)c,             \
         (const scalar*)hf, (const scalar*)P, (const scalar*)K,               \
         (const scalar*)L, (const scalar*)pN, (scalar*)d, (scalar*)v
     if (pc_mode)
-        backward_vectors_kernel<true><<<blocks, threads, 0, st>>>(RICCATI_BV_ARGS);
+        backward_vectors_kernel<true><<<blocks, PI_THREADS, 0, st>>>(RICCATI_BV_ARGS);
     else
-        backward_vectors_kernel<false><<<blocks, threads, 0, st>>>(RICCATI_BV_ARGS);
+        backward_vectors_kernel<false><<<blocks, PI_THREADS, 0, st>>>(RICCATI_BV_ARGS);
 #undef RICCATI_BV_ARGS
     return (int)cudaGetLastError();
 }
 
-// Words of one stage of the packed matrices (see the layout at K2).
-int riccati_pack_words(int pc_mode)
-{
-    return pc_mode ? K2Layout<true>::PACK : K2Layout<false>::PACK;
-}
-
-// Shared-model mode: `pack` (N, riccati_pack_words) holds the matrices;
-// `Pc` is read in Pc mode only.
+// Shared-model mode: `pack` holds each stage's matrices as one run (see
+// the layout at K2); `Pc` is read in Pc mode only.
 int riccati_backward_vectors_shared(int N, int Bt, int pc_mode, void* stream,
                                     const void* pack, const void* c,
                                     const void* hf, const void* Pc,
@@ -971,10 +945,8 @@ int riccati_backward_vectors_shared(int N, int Bt, int pc_mode, void* stream,
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
-    const int wide = words16(Bt) && aligned16(pack) && aligned16(c) &&
-                     aligned16(hf) && (!pc_mode || aligned16(Pc));
 #define RICCATI_BV_ARGS                                                      \
-    N, Bt, wide, (const scalar*)pack, (const scalar*)c, (const scalar*)hf,   \
+    N, Bt, (const scalar*)pack, (const scalar*)c, (const scalar*)hf,   \
         (const scalar*)Pc, (const scalar*)pN, (scalar*)d, (scalar*)v
     if (pc_mode) {
         const size_t smem = K2Layout<true>::SMEM_WORDS * sizeof(scalar);
@@ -991,7 +963,7 @@ int riccati_backward_vectors_shared(int N, int Bt, int pc_mode, void* stream,
     return (int)cudaGetLastError();
 }
 
-int riccati_forward(int N, int Bt, int shared, int threads, void* stream,
+int riccati_forward(int N, int Bt, int shared, void* stream,
                     const void* M, const void* v, const void* K,
                     const void* d, const void* x0, void* ws, void* xN)
 {
@@ -1000,17 +972,14 @@ int riccati_forward(int N, int Bt, int shared, int threads, void* stream,
     if (shared) {
         const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
         const size_t smem = K3_SMEM_WORDS * sizeof(scalar);
-        const int wide = words16(Bt) && words16(NU * NX) && words16(NX * NX) &&
-                         aligned16(M) && aligned16(K) && aligned16(v) &&
-                         aligned16(d);
         int e = set_smem(forward_shared_kernel, smem);
         if (e) return e;
         forward_shared_kernel<<<blocks, VS_THREADS, smem, st>>>(
-            N, Bt, wide, (const scalar*)M, (const scalar*)v, (const scalar*)K,
+            N, Bt, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     } else {
-        const int blocks = (Bt + threads - 1) / threads;
-        forward_kernel<<<blocks, threads, 0, st>>>(
+        const int blocks = (Bt + PI_THREADS - 1) / PI_THREADS;
+        forward_kernel<<<blocks, PI_THREADS, 0, st>>>(
             N, Bt, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     }

@@ -78,10 +78,9 @@ def bind_library(lib, *, with_matrix_sweep: bool):
         entries = {"riccati_backward": [_INT] * 5 + [_PTR] * 17}
     else:
         entries = {
-            "riccati_backward_vectors": [_INT] * 4 + [_PTR] * 11,
+            "riccati_backward_vectors": [_INT] * 3 + [_PTR] * 11,
             "riccati_backward_vectors_shared": [_INT] * 3 + [_PTR] * 8,
-            "riccati_pack_words": [_INT],
-            "riccati_forward": [_INT] * 4 + [_PTR] * 8,
+            "riccati_forward": [_INT] * 3 + [_PTR] * 8,
         }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -112,17 +111,6 @@ def _check_status(name, status):
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
-
-
-def _scenario_threads(Bt: int) -> int:
-    """Threads per block of the one-thread-per-scenario kernels: the
-    smallest block that still leaves the card's 132 SMs a few blocks
-    each, so that a serving batch of a few thousand spreads over all of
-    them instead of filling a fraction."""
-    threads = 32
-    while threads < 256 and Bt > threads * 132 * 4:
-        threads *= 2
-    return threads
 
 
 def _matrix_threads(nx: int, nu: int) -> int:
@@ -311,17 +299,16 @@ def backward_vectors_lanes_reference(A, B, c, hf, P, K, L, pN, *, Pc=None):
     return torch.stack(ds[::-1], dim=0), torch.stack(vs[::-1], dim=0)
 
 
-def _pack_shared_matrices(A, B, K, L, P, words):
+def _pack_shared_matrices(A, B, K, L, P):
     """One contiguous run per stage for the shared-mode kernel, laid out
     for its reads: A^T, B^T, B, K^T, L, then P (plain-P mode; None in Pc
-    mode), zero-padded to ``words`` — (N, words)."""
+    mode) — (N, words)."""
     N = A.shape[0]
     T = lambda x: x[..., 0].transpose(1, 2)
     parts = [T(A), T(B), B[..., 0], T(K), L[..., 0]]
     if P is not None:
         parts.append(P[..., 0])
-    flat = torch.cat([x.reshape(N, -1) for x in parts], dim=1)
-    return torch.nn.functional.pad(flat, (0, words - flat.shape[1])).contiguous()
+    return torch.cat([x.reshape(N, -1) for x in parts], dim=1)
 
 
 def _launch_backward_vectors(lib, A, B, c, hf, P, K, L, pN, shared,
@@ -334,9 +321,7 @@ def _launch_backward_vectors(lib, A, B, c, hf, P, K, L, pN, shared,
     d = torch.empty((N, nu, Bt), dtype=c.dtype, device=c.device)
     v = torch.empty((N, nx, Bt), dtype=c.dtype, device=c.device)
     if shared:
-        pack = _pack_shared_matrices(
-            A, B, K, L, None if pc_mode else P,
-            lib.riccati_pack_words(int(pc_mode)))
+        pack = _pack_shared_matrices(A, B, K, L, None if pc_mode else P)
         status = lib.riccati_backward_vectors_shared(
             N, Bt, int(pc_mode), stream, pack.data_ptr(), c.data_ptr(),
             hf.data_ptr(), P.data_ptr() if pc_mode else None, pN.data_ptr(),
@@ -344,7 +329,7 @@ def _launch_backward_vectors(lib, A, B, c, hf, P, K, L, pN, shared,
         )
     else:
         status = lib.riccati_backward_vectors(
-            N, Bt, int(pc_mode), _scenario_threads(Bt), stream,
+            N, Bt, int(pc_mode), stream,
             *(x.data_ptr() for x in (A, B, c, hf, P, K, L, pN, d, v)),
         )
     _check_status("backward_vectors_lanes", status)
@@ -371,8 +356,10 @@ def backward_vectors_lanes(A, B, c, hf, P, K, L, pN, *, shared=False,
     pre-folded per-scenario ``P_{k+1} c_k`` and ``P`` is then not read
     (it may be None).
 
-    On the card: one thread per scenario, the carry in registers; see
-    the note in the kernel source.
+    On the card: shared mode gives a scenario four threads and stages
+    each stage's inputs through shared memory; per-instance mode is one
+    thread per scenario, the carry in registers.  See the notes in the
+    kernel source.
     """
     N, nx = A.shape[0], A.shape[1]
     nu = B.shape[2]
@@ -427,7 +414,7 @@ def _launch_forward(lib, M, v, K, d, x0, shared, stream):
     ws = torch.empty((N, nx + nu, Bt), dtype=v.dtype, device=v.device)
     xN = torch.empty((nx, Bt), dtype=v.dtype, device=v.device)
     status = lib.riccati_forward(
-        N, Bt, int(shared), _scenario_threads(Bt), stream,
+        N, Bt, int(shared), stream,
         *(x.data_ptr() for x in (M, v, K, d, x0, ws, xN)),
     )
     _check_status("forward_lanes", status)
@@ -443,8 +430,8 @@ def forward_lanes(M, v, K, d, x0, *, shared=False):
     The per-scenario vectors v (N,nx,B), d (N,nu,B), x0 (nx,B) run the
     full batch.
 
-    On the card: one thread per scenario, the state in registers; see
-    the note in the kernel source.
+    On the card: the two modes are laid out as in
+    backward_vectors_lanes; see the notes in the kernel source.
     """
     N, nx = M.shape[0], M.shape[1]
     nu = K.shape[1]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse the CUDA kernels' logic on a CPU, where there is no ``nvcc``.
 
-    python3 scripts/emulate_kernels.py
+    python3 scripts/emulate_kernels.py [--quick]
 
 A CUDA kernel runs only on a card.  Its indexing, its shared-memory
 layout and the order of its barriers can still be rehearsed without one:
@@ -14,7 +14,8 @@ and holds every kernel and mode against its plain PyTorch version at small
 sizes.  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
-on them.  Takes a minute or two (about ten small g++ builds).
+on them.  About half a minute (ten small g++ builds); ``--quick`` runs
+the one case that ``tests/test_torch_emulate.py`` keeps alive.
 """
 
 from __future__ import annotations
@@ -182,21 +183,28 @@ def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
           cr.forward_lanes_reference(M1, v2, K1, d2, x02), tol)
 
 
-def main():
+# (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
+# (one shared instance, as served; a batch of 64 fills its blocks, 70
+# leaves a ragged last block), no constraint rows, two odd small shapes.
+CASES = [
+    (torch.float64, 12, 4, 16, 6, 1, 70, 1e-10),
+    (torch.float32, 5, 2, 3, 7, 2, 33, 1e-3),
+    (torch.float32, 12, 4, 16, 9, 3, 64, 1e-3),
+    (torch.float64, 12, 4, 0, 5, 2, 70, 1e-10),
+    (torch.float64, 2, 1, 1, 4, 1, 5, 1e-10),
+]
+QUICK = CASES[:1]
+
+
+def main(cases=CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
-    # Quadrotor widths in both dtypes (one shared instance, as served; a
-    # batch of 64 takes the 16-byte copies, 70 the word copies and a ragged
-    # last block), no constraint rows, and two odd small shapes.
-    run(torch.float64, 12, 4, 16, 6, 1, 64, 1e-10)
-    run(torch.float32, 12, 4, 16, 9, 3, 70, 1e-3)
-    run(torch.float64, 12, 4, 0, 5, 2, 70, 1e-10)
-    run(torch.float32, 5, 2, 3, 7, 2, 33, 1e-3)
-    run(torch.float64, 2, 1, 1, 4, 1, 5, 1e-10)
+    for case in cases:
+        run(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(QUICK if "--quick" in sys.argv[1:] else CASES))

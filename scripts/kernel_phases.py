@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a stage's time goes inside the three sweep kernels, on the card.
 
-    python3 scripts/kernel_phases.py [--pf 2 4 6 8]
+    python3 scripts/kernel_phases.py [--batches 1024 4096 16384]
 
 The vendor's profilers do not run everywhere, so the kernels carry an
 opt-in diagnostic build (``-DRICCATI_PROFILE``): thread 0 of block 0 sums
@@ -10,8 +10,7 @@ This script builds that variant for the serving shape (quadrotor nx=12,
 nu=4, nc=16, N=512, B=4096, float32), runs each kernel on the tensors the
 main path hands it, and prints cycles per stage per section as JSON, next
 to the card's clocks, a device-memory copy rate as a sanity check of the
-card's state, and the kernels' times for other batch sizes and other
-prefetch depths of the per-scenario kernels (``-DRICCATI_PF``).
+card's state, and the per-scenario kernels' times at other batch sizes.
 """
 
 from __future__ import annotations
@@ -98,7 +97,6 @@ def inputs(B, dev):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pf", type=int, nargs="*", default=[2, 4, 6, 8])
     ap.add_argument("--batches", type=int, nargs="*", default=[1024, 4096, 16384])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -137,16 +135,15 @@ def main():
             "implied_GHz": sum(cycles) * N / (ms * 1e-3) / 1e9,
             "clocks_now": smi("clocks.sm")}), flush=True)
 
-    for pf in args.pf:
-        lib = library(None, RICCATI_PF=pf)
-        row = {"card": card, "RICCATI_PF": pf}
-        for B in args.batches:
-            _, k2, k3 = inputs(B, dev)
-            row[f"K2_ms_B{B}"] = cuda_ms(lambda: cr._launch_backward_vectors(
-                lib, *k2, True, True, stream()))
-            row[f"K3_ms_B{B}"] = cuda_ms(lambda: cr._launch_forward(
-                lib, *k3, True, stream()))
-        print(json.dumps(row), flush=True)
+    lib = library()
+    row = {"card": card}
+    for B in args.batches:
+        _, k2, k3 = inputs(B, dev)
+        row[f"K2_ms_B{B}"] = cuda_ms(lambda: cr._launch_backward_vectors(
+            lib, *k2, True, True, stream()))
+        row[f"K3_ms_B{B}"] = cuda_ms(lambda: cr._launch_forward(
+            lib, *k3, True, stream()))
+    print(json.dumps(row), flush=True)
     return 0
 
 

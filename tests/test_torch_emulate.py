@@ -1,0 +1,24 @@
+"""The CUDA kernel source, rehearsed on the CPU.
+
+``scripts/emulate_kernels.py`` rewrites ``riccati_kernels.cu`` into host
+C++ (one OS thread per CUDA thread) and holds every kernel and mode
+against its plain PyTorch version.  Running one of its cases here keeps
+the rewrite in step with the kernel source, and catches a wrong index or
+a missing barrier in the source where there is no card.
+"""
+
+import importlib.util
+import shutil
+from pathlib import Path
+
+import pytest
+
+SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "emulate_kernels.py"
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs g++ (C++20)")
+def test_kernel_source_agrees_with_plain_versions_on_host_threads():
+    spec = importlib.util.spec_from_file_location("emulate_kernels", SCRIPT)
+    emu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emu)
+    assert emu.main(emu.QUICK) == 0

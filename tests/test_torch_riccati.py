@@ -381,7 +381,5 @@ def test_kernel_defines_and_block_sizes():
         "SCALAR": "double", "NX": 12, "NU": 4}
     with pytest.raises(TypeError):
         cr.kernel_defines(torch.float16, 12, 4)
-    assert cr._scenario_threads(4096) == 32
-    assert cr._scenario_threads(1 << 20) == 256
     assert cr._matrix_threads(12, 4) == 256
     assert cr._matrix_threads(2, 1) == 32
