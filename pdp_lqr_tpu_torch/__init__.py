@@ -15,7 +15,14 @@ Ported so far:
   Riccati, the port's independent witness.
 - ``ops.cuda_riccati`` — the shared-model inner solve on three kernels
   (matrix sweep, cached-factor vector sweep, closed-loop rollout).
-- ``api.ScenarioServer.solve`` — one model serving B scenarios.
+- ``ops.projections`` — box / SOC / rotated-SOC projections.
+- ``ops.cuda_admm`` — the split conic ADMM iteration on two kernels
+  (prefold vector sweep; rollout + projection + dual + residuals).
+- ``solvers.admm`` — ``ADMMSettings`` / ``ADMMState`` / ``ADMMInfo`` and
+  ``solve_fused`` in shared split mode (cached factors, uniform rho).
+- ``mpc.shift_state`` — the one-stage shift of a warm start.
+- ``api.ScenarioServer`` — one model serving B scenarios: ``solve`` (inner
+  LQ solves) and ``solve_admm`` (the conic ADMM loop).
 
 Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
 the kernels' plain PyTorch versions.
@@ -30,7 +37,15 @@ from pdp_lqr_tpu_torch.problem import (
     init_iterates,
     make_stage_params,
 )
+from pdp_lqr_tpu_torch.solvers.admm import (
+    ADMMSettings,
+    ADMMState,
+    ADMMInfo,
+    solve_fused,
+    init_state,
+)
 from pdp_lqr_tpu_torch.api import ScenarioServer
+from pdp_lqr_tpu_torch import mpc
 
 __all__ = [
     "SolverConfig",
@@ -42,7 +57,13 @@ __all__ = [
     "StageParams",
     "init_iterates",
     "make_stage_params",
+    "ADMMSettings",
+    "ADMMState",
+    "ADMMInfo",
+    "solve_fused",
+    "init_state",
     "ScenarioServer",
+    "mpc",
 ]
 
 __version__ = "0.1.0"

@@ -1,9 +1,9 @@
 """Serving API of the port: ``ScenarioServer``.
 
 Counterpart of ``pdp_lqr_tpu/api.py``.  Ported so far: the
-one-model-many-scenarios server and its inner LQ solve.  The conic ADMM
-loop (``solve_admm``) and the reference-shaped solver classes follow in
-later slices.
+one-model-many-scenarios server with its inner LQ solve (``solve``) and
+the conic ADMM loop over the scenario batch (``solve_admm``, split
+iteration).  The reference-shaped solver classes follow in later slices.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from pdp_lqr_tpu_torch.ops import cuda_riccati
 from pdp_lqr_tpu_torch.problem import LQRProblem, init_iterates
+from pdp_lqr_tpu_torch.solvers import admm
 
 
 class ScenarioServer:
@@ -26,6 +27,7 @@ class ScenarioServer:
 
         server = ScenarioServer(model)               # on the card
         ws = server.solve(x0s)                       # inner LQ solves
+        ws, state, info = server.solve_admm(x0s, cones, settings)
 
     ``model`` is UNBATCHED.  It is moved to ``device`` (default: the
     card; with no card that raises).  ``device="cpu"`` runs the kernels'
@@ -56,4 +58,25 @@ class ScenarioServer:
 
     def solve_admm(self, x0s, cones=(), settings=None, state=None,
                    soc_shift=None, c=None, split: bool | None = None):
-        raise NotImplementedError("ported in the ADMM slice")
+        """Full conic ADMM over the scenario batch (``solve_fused`` in
+        shared mode: one copy of the problem streams on the card).
+        Returns (ws, state, info) — ``state`` warm-starts the next tick.
+
+        ``split`` selects the iteration: True = the split kernel pair
+        (the long-horizon serving path; requires cached_factors or a
+        rho_ladder in ``settings``), False = the single-kernel fused
+        iteration (not ported yet: raises ``NotImplementedError``), None
+        (default) = split whenever the settings allow it
+        (cached_factors + uniform_rho, or a rho_ladder)."""
+        if settings is None:
+            settings = admm.ADMMSettings()
+        if split is None:
+            split = bool(settings.rho_ladder) or (
+                settings.cached_factors and settings.uniform_rho)
+        m = self.model if c is None else dataclasses.replace(
+            self.model, c=self._tensor(c))
+        if state is not None:
+            state = state.to(device=self.device)
+        return admm.solve_fused(
+            m, self._tensor(x0s), tuple(cones or ()), settings,
+            state=state, soc_shift=soc_shift, single_kernel=not split)

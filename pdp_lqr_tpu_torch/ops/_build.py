@@ -15,6 +15,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,8 +57,17 @@ def _defines(defines: dict) -> list[str]:
     return [f"-D{k}={v}" for k, v in sorted(defines.items())]
 
 
-def library_path(source: str, defines: dict) -> Path:
+def _source_text(source: str) -> bytes:
+    """The source and the headers of ``csrc`` it includes: what a
+    library's name is hashed from."""
     text = (CSRC / source).read_bytes()
+    for header in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        text += (CSRC / header.decode()).read_bytes()
+    return text
+
+
+def library_path(source: str, defines: dict) -> Path:
+    text = _source_text(source)
     tag = hashlib.sha256(
         text + " ".join(NVCC_FLAGS + tuple(_defines(defines))).encode()
     ).hexdigest()[:16]

@@ -1,0 +1,629 @@
+// Split conic ADMM iteration kernels for NVIDIA Hopper (sm_90a), plain C
+// interface.
+//
+// Two kernels, the counterparts of the split pair in
+// pdp_lqr_tpu/ops/pallas_admm.py:
+//
+//   admm_bwd_vec_prefold  <- _admm_bwd_vec_prefold_kernel
+//                            (admm_bwd_vec_prefold_lanes, kernel A)
+//   admm_fwd_update       <- _admm_fwd_update_kernel_il, packed, one rung,
+//                            hf-emit (admm_fwd_update_lanes, kernel B)
+//
+// One model serves Bt scenarios.  Every tensor is batch-last: element
+// (k, i, j) of scenario b of an (N, R, C, Bt) tensor lives at
+// ((k*R + i)*C + j)*Bt + b; the shared streams carry Bt = 1.  The problem
+// sizes are compile-time constants; a shared library is one
+// specialisation:
+//
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+//        -Xcompiler -fPIC -DSCALAR=float -DNX=12 -DNU=4 \
+//        [-DNC=19 -DDIAG_COST=1 -DHAS_SHIFT=1 -DNCONES=1 -DCONE0=16003000]
+//
+// Without -DNC the library holds kernel A (it reads no constraint rows);
+// with it, kernel B, whose cost form (DIAG_COST: Hs is the diagonal),
+// shift presence and cone list (NCONES cones, each one integer
+// offset * 1000000 + dim * 1000 + kind, kind 0 a second-order cone, 1 a
+// rotated one) are compile-time too.
+//
+// What bounds both kernels on this card is bytes (the per-scenario
+// streams; the shared ones are kilobytes), and what a plain loop runs into
+// first is latency: N dependent stages, a few thousand scenarios.  Both
+// take the geometry of the shared-model sweeps in riccati_kernels.cu
+// (lanes_common.cuh): a block serves 32 scenarios with 4 threads each
+// (kernel A) or 8 (kernel B), a
+// thread owns a slice of the rows of each per-scenario vector, what the
+// others need is exchanged through shared memory, and every stage's inputs
+// — the shared matrices and the 32 scenarios' vectors — are copied
+// asynchronously into a ring of shared-memory slots 4 stages ahead of
+// their use.  The whole horizon runs inside one launch; the per-scenario
+// carry (p; x and the four residual maxima) never leaves the block.
+//
+// Each extern "C" entry point launches on the given stream, does not
+// synchronise, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_pipeline.h>
+#include <cuda_runtime.h>
+
+#if !defined(SCALAR) || !defined(NX) || !defined(NU)
+#error "build with -DSCALAR=<float|double> -DNX=<n> -DNU=<n> [-DNC=<n> ...]"
+#endif
+
+// Kernel B runs eight threads a scenario, not the four of the other
+// shared-model kernels: its stage is three times theirs.  With four its
+// float32 instantiations took 142-168 registers a thread and a launch at
+// N=512, B=4096 took 1.96 ms on an H100 (700 W); with eight they take
+// 115-128 and the launch 1.40 ms (chip_smoke.py; PERF.md).  Kernel A, like
+// the two sweeps it is modelled on, was no faster with eight at that batch
+// and slower at four times that batch, so it keeps four.
+#ifdef NC
+#define VS_GROUPS_N 8
+#endif
+
+#include "lanes_common.cuh"
+
+namespace {
+
+#ifndef NC
+// ------------------------------------------------------------- kernel A
+// The cached-factor vector recursion, backwards from p = pN:
+//   Pcp  = Pc + p                 rbar = hf[:nu] + B^T Pcp
+//   d    = -(L L^T)^{-1} rbar     v    = B d + c
+//   p    = hf[nu:] + A^T Pcp + K^T rbar
+// on the packed shared streams AK = [A; K] (nz x nx a stage) and
+// BL = [B; L] (nz x nu), read as they are: the slot holds both row-major
+// and a thread's reads of them are one address per warp (a broadcast).
+// It writes dv = [d | v].  Every thread solves the nu x nu system (each
+// needs the whole of d); the rows of v and p are split over the
+// scenario's threads.
+
+constexpr int K4_AK = 0;
+constexpr int K4_BL = K4_AK + NZ * NX;
+constexpr int K4_PACK = K4_BL + NZ * NU;
+// Per-scenario rows after the matrices: c, hf, Pc.
+constexpr int K4_SLOT_WORDS = K4_PACK + (NX + NZ + NX) * VS_LANES;
+constexpr int K4_SMEM_WORDS = VS_SLOTS * K4_SLOT_WORDS + 2 * NX * VS_LANES;
+
+__global__ void __launch_bounds__(VS_THREADS)
+bwd_vec_prefold_kernel(
+    int N, int Bt,
+    const scalar* __restrict__ pN, const scalar* __restrict__ AK,
+    const scalar* __restrict__ BL, const scalar* __restrict__ c,
+    const scalar* __restrict__ Pc, const scalar* __restrict__ hf,
+    scalar* __restrict__ dv_out)
+{
+    extern __shared__ double smem_aligned[];
+    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    scalar* xs = ring + VS_SLOTS * K4_SLOT_WORDS;            // Pcp exchange, x2
+
+    const int tid = threadIdx.x;
+    const int lane = tid % VS_LANES;
+    const int grp = tid / VS_LANES;
+    const size_t Bs = (size_t)Bt;
+    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const bool valid = b < Bs;
+
+    // Stage n of the sweep is model stage k = N-1-n.  One copy group per
+    // call (empty past the end), so groups and stages stay in step.
+    auto prefetch = [&](int n) {
+        if (n < N) {
+            const size_t ks = (size_t)(N - 1 - n);
+            scalar* S = ring + (n % VS_SLOTS) * K4_SLOT_WORDS;
+            scalar* V = S + K4_PACK;
+            copy_matrix(S + K4_AK, AK + ks * NZ * NX, NZ * NX);
+            copy_matrix(S + K4_BL, BL + ks * NZ * NU, NZ * NU);
+            if (valid) {
+                copy_rows<NX>(V, c + ks * NX * Bs + b, Bs, lane, grp);
+                copy_rows<NZ>(V + NX * VS_LANES, hf + ks * NZ * Bs + b, Bs,
+                              lane, grp);
+                copy_rows<NX>(V + (NX + NZ) * VS_LANES, Pc + ks * NX * Bs + b,
+                              Bs, lane, grp);
+            }
+        }
+        __pipeline_commit();
+    };
+
+    // Pcp rows this thread owns, for the stage held in slot S.
+    scalar p[VS_RX];
+    auto put_Pcp = [&](const scalar* S, scalar* dst) {
+        const scalar* pc = S + K4_PACK + (NX + NZ) * VS_LANES;
+#pragma unroll
+        for (int r = 0; r < VS_RX; ++r) {
+            const int i = grp * VS_RX + r;
+            if (i < NX) dst[i * VS_LANES + lane] = pc[i * VS_LANES + lane] + p[r];
+        }
+    };
+
+#pragma unroll
+    for (int r = 0; r < VS_RX; ++r) {
+        const int i = grp * VS_RX + r;
+        p[r] = (valid && i < NX) ? pN[i * Bs + b] : (scalar)0;
+    }
+    for (int n = 0; n < VS_PF; ++n) prefetch(n);
+    __pipeline_wait_prior(VS_PF - 1);        // stage 0 landed (my copies)
+    __syncthreads();                         // ... and everyone's
+    put_Pcp(ring, xs);
+
+    for (int n = 0; n < N; ++n) {
+        const size_t ks = (size_t)(N - 1 - n);
+        const scalar* S = ring + (n % VS_SLOTS) * K4_SLOT_WORDS;
+        const scalar* sA = S + K4_AK;                // A[i][j] at i*NX + j
+        const scalar* sK = sA + NX * NX;             // K[t][i] at t*NX + i
+        const scalar* sB = S + K4_BL;                // B[i][j] at i*NU + j
+        const scalar* sL = sB + NX * NU;             // L[i][j] at i*NU + j
+        const scalar* cv = S + K4_PACK;
+        const scalar* hv = cv + NX * VS_LANES;
+        // Stage n+1 has landed too (it is read at the end of this stage),
+        // and the barrier publishes it and this stage's Pcp.
+        __pipeline_wait_prior(VS_PF - 2);
+        __syncthreads();
+
+        scalar Pcp[NX], rbar[NU], dv[NU], inv[NU];
+        const scalar* xin = xs + (n & 1) * NX * VS_LANES;
+#pragma unroll
+        for (int t = 0; t < NX; ++t) Pcp[t] = xin[t * VS_LANES + lane];
+
+        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar.
+#pragma unroll
+        for (int j = 0; j < NU; ++j) rbar[j] = hv[j * VS_LANES + lane];
+#pragma unroll
+        for (int t = 0; t < NX; ++t) {
+#pragma unroll
+            for (int j = 0; j < NU; ++j) rbar[j] += sB[t * NU + j] * Pcp[t];
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[i * NU + i];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+            scalar acc = rbar[i];
+#pragma unroll
+            for (int t = 0; t < i; ++t) acc -= sL[i * NU + t] * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = NU - 1; i >= 0; --i) {
+            scalar acc = dv[i];
+#pragma unroll
+            for (int t = i + 1; t < NU; ++t) acc -= sL[t * NU + i] * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) dv[i] = -dv[i];
+
+#pragma unroll
+        for (int j = 0; j < NU; ++j)     // each input row stored by one group
+            if (j / VS_RU == grp && valid) dv_out[(ks * NZ + j) * Bs + b] = dv[j];
+        // Own rows: v = B d + c ; p = hf_x + A^T Pcp + K^T rbar.
+#pragma unroll
+        for (int r = 0; r < VS_RX; ++r) {
+            const int i = grp * VS_RX + r;
+            if (i < NX) {
+                scalar vv = cv[i * VS_LANES + lane];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) vv += sB[i * NU + t] * dv[t];
+                if (valid) dv_out[(ks * NZ + NU + i) * Bs + b] = vv;
+                scalar acc = hv[(NU + i) * VS_LANES + lane];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * Pcp[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rbar[t];
+                p[r] = acc;
+            }
+        }
+        if (n + 1 < N)
+            put_Pcp(ring + ((n + 1) % VS_SLOTS) * K4_SLOT_WORDS,
+                    xs + ((n + 1) & 1) * NX * VS_LANES);
+        prefetch(n + VS_PF);
+    }
+    __pipeline_wait_prior(0);
+}
+
+#else  // NC
+// ------------------------------------------------------------- kernel B
+// Per stage, forwards from x = x0 (alpha the relaxation, m the per-row
+// rho scale, 0 on padded rows):
+//   u = K x + d            w~ = [u; x]           x+ = M x + v
+//   z~ = D w~              w+ = alpha w~ + (1-alpha) w
+//   v  = alpha z~ + (1-alpha) z + [m>0] y / (rho m)
+//   z+ = project(v) [m>0]  y+ = y + rho m (alpha z~ + (1-alpha) z - z+)
+//   hf+ = h - sigma w+ - D^T (rho m z+ - y+)      (next iteration's cost)
+// and the running maxima over the stages of the four residual terms
+//   |D w+ - z+|,
+//   |(1-alpha) Hs (w - w~) + alpha sigma (w - w~)
+//      + D^T rho m ((alpha-1)(z~ - z) + (z - z+))|,
+//   max(|D w+|, |z+|),  max(|Hs w+ - sigma w+|, |D^T y+|).
+// A thread holds all of w~ and w+ (each thread computes u itself: nu
+// short dot products cost less than a barrier) and owns its share of the
+// constraint rows and of the rows of w.  Two exchanges through
+// shared memory a stage: the (shifted) v of the constraint rows, so that
+// a thread can take the norm over a cone whose rows lie with other
+// threads (only when there are cones), and rg = rho m z+ - y+, the dual
+// residual's row term and y+, which every row of hf+ and of the residual
+// sums needs in full.
+
+#if !defined(DIAG_COST) || !defined(HAS_SHIFT) || !defined(NCONES)
+#error "kernel B: build with -DDIAG_COST -DHAS_SHIFT -DNCONES [-DCONE0 ...] as well"
+#endif
+
+constexpr int NB = 3 + HAS_SHIFT;             // bnd rows: lb, ub, mask[, shift]
+constexpr int NW = NZ + 2 * NC;               // wzy rows: w, z, y
+constexpr int HS_WORDS = DIAG_COST ? NZ : NZ * NZ;
+constexpr int VS_RZ = (NZ + VS_GROUPS - 1) / VS_GROUPS;   // w rows/thread
+constexpr int VS_RC = (NC + VS_GROUPS - 1) / VS_GROUPS;   // constraint rows/thread
+
+// Slot layout (words): the shared matrices, then dv and wzy rows.
+constexpr int K5_MK = 0;
+constexpr int K5_HS = K5_MK + NZ * NX;
+constexpr int K5_D = K5_HS + HS_WORDS;
+constexpr int K5_BND = K5_D + NC * NZ;
+constexpr int K5_H = K5_BND + NB * NC;
+constexpr int K5_VEC = K5_H + NZ;
+constexpr int K5_SLOT_WORDS = K5_VEC + (NZ + NW) * VS_LANES;
+// After the ring: x (x2), the cone stage's v, then rg / zt / y+ (which the
+// closing reduction of the residual maxima reuses).
+constexpr int K5_EX_ROWS = 3 * NC > 4 * VS_GROUPS ? 3 * NC : 4 * VS_GROUPS;
+constexpr int K5_SMEM_WORDS =
+    VS_SLOTS * K5_SLOT_WORDS + (2 * NX + NC + K5_EX_ROWS) * VS_LANES;
+
+// Field f (0 offset, 1 dim, 2 kind) of cone q; constant after unrolling.
+// Cone q arrives as one integer, -DCONE<q> = offset * 1000000 + dim * 1000
+// + kind (a -D value cannot hold a comma).
+#define CONE_ROW(v) {(v) / 1000000, (v) / 1000 % 1000, (v) % 1000}
+#if NCONES > 8
+#error "kernel B: at most 8 cones"
+#endif
+__device__ __forceinline__ int cone_field(int q, int f)
+{
+    const int table[NCONES > 0 ? NCONES : 1][3] = {
+#if NCONES == 0
+        {0, 0, 0}
+#endif
+#if NCONES > 0
+        CONE_ROW(CONE0),
+#endif
+#if NCONES > 1
+        CONE_ROW(CONE1),
+#endif
+#if NCONES > 2
+        CONE_ROW(CONE2),
+#endif
+#if NCONES > 3
+        CONE_ROW(CONE3),
+#endif
+#if NCONES > 4
+        CONE_ROW(CONE4),
+#endif
+#if NCONES > 5
+        CONE_ROW(CONE5),
+#endif
+#if NCONES > 6
+        CONE_ROW(CONE6),
+#endif
+#if NCONES > 7
+        CONE_ROW(CONE7),
+#endif
+    };
+    return table[q][f];
+}
+
+// Row j of the projection of one cone block onto its cone.  The block
+// lies, already shifted, in rows off .. off+dim-1 of the exchange buffer
+// `vx`.  kind 0: [t; x] onto ||x|| <= t; kind 1: [p; q; x] onto the
+// rotated cone by the change of basis ((p+q)/sqrt2, (p-q)/sqrt2, x).
+__device__ __forceinline__ scalar cone_row(const scalar* vx, int off, int dim,
+                                           int kind, int j, int lane)
+{
+    const scalar eps = (scalar)1e-12;
+    const scalar rh = (scalar)0.7071067811865476;
+    auto at = [&](int i) { return vx[(off + i) * VS_LANES + lane]; };
+    scalar t = at(0), s = (scalar)0, sq = (scalar)0;
+    int first = 1;
+    if (kind == 1) {
+        const scalar pp = at(0), qq = at(1);
+        t = rh * (pp + qq);
+        s = rh * (pp - qq);
+        sq = s * s;
+        first = 2;
+    }
+    for (int i = first; i < dim; ++i) sq += at(i) * at(i);
+    const scalar nxn = sqrt(sq);
+    const scalar scale = (scalar)0.5 * (t + nxn);
+    const bool inside = nxn <= t;
+    const bool polar = nxn <= -t;
+    const scalar safe = nxn > eps ? nxn : (scalar)1;
+    const scalar t_p = inside ? t : (polar ? (scalar)0 : scale);
+    auto x_p = [&](scalar x) {
+        return inside ? x : (polar ? (scalar)0 : scale * (x / safe));
+    };
+    if (kind == 0) return j == 0 ? t_p : x_p(at(j));
+    const scalar s_p = x_p(s);
+    if (j == 0) return rh * (t_p + s_p);
+    if (j == 1) return rh * (t_p - s_p);
+    return x_p(at(j));
+}
+
+__global__ void __launch_bounds__(VS_THREADS)
+fwd_update_kernel(
+    int N, int Bt, double alpha_d, double sigma_d,
+    const scalar* __restrict__ rho, const scalar* __restrict__ x0,
+    const scalar* __restrict__ MK, const scalar* __restrict__ Hs,
+    const scalar* __restrict__ D, const scalar* __restrict__ bnd,
+    const scalar* __restrict__ h, const scalar* __restrict__ dv,
+    const scalar* __restrict__ wzy,
+    scalar* __restrict__ wzy_new, scalar* __restrict__ hf_new,
+    scalar* __restrict__ xN, scalar* __restrict__ res)
+{
+    extern __shared__ double smem_aligned[];
+    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    scalar* xs = ring + VS_SLOTS * K5_SLOT_WORDS;           // x exchange, x2
+    scalar* vx = xs + 2 * NX * VS_LANES;                    // shifted v (cones)
+    scalar* ex = vx + NC * VS_LANES;                        // rg | zt | y+
+
+    const int tid = threadIdx.x;
+    const int lane = tid % VS_LANES;
+    const int grp = tid / VS_LANES;
+    const size_t Bs = (size_t)Bt;
+    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const bool valid = b < Bs;
+
+    const scalar alpha = (scalar)alpha_d;
+    const scalar oma = (scalar)(1.0 - alpha_d);
+    const scalar amo = (scalar)(alpha_d - 1.0);
+    const scalar sigma = (scalar)sigma_d;
+    const scalar asig = (scalar)(alpha_d * sigma_d);
+    const scalar rho_b = valid ? rho[b] : (scalar)1;
+
+    auto prefetch = [&](int k) {
+        if (k < N) {
+            const size_t ks = (size_t)k;
+            scalar* S = ring + (k % VS_SLOTS) * K5_SLOT_WORDS;
+            copy_matrix(S + K5_MK, MK + ks * NZ * NX, NZ * NX);
+            copy_matrix(S + K5_HS, Hs + ks * HS_WORDS, HS_WORDS);
+            copy_matrix(S + K5_D, D + ks * NC * NZ, NC * NZ);
+            copy_matrix(S + K5_BND, bnd + ks * NB * NC, NB * NC);
+            copy_matrix(S + K5_H, h + ks * NZ, NZ);
+            if (valid) {
+                copy_rows<NZ>(S + K5_VEC, dv + ks * NZ * Bs + b, Bs, lane, grp);
+                copy_rows<NW>(S + K5_VEC + NZ * VS_LANES,
+                              wzy + ks * NW * Bs + b, Bs, lane, grp);
+            }
+        }
+        __pipeline_commit();
+    };
+
+#pragma unroll
+    for (int r = 0; r < VS_RX; ++r) {
+        const int i = grp * VS_RX + r;
+        if (i < NX) xs[i * VS_LANES + lane] = valid ? x0[i * Bs + b] : (scalar)0;
+    }
+    for (int k = 0; k < VS_PF; ++k) prefetch(k);
+    // Running maxima of this thread's rows: r_prim, r_dual, prim / dual scale.
+    scalar rp = (scalar)0, rd = (scalar)0, ps = (scalar)0, ds = (scalar)0;
+
+    for (int k = 0; k < N; ++k) {
+        const size_t ks = (size_t)k;
+        const scalar* S = ring + (k % VS_SLOTS) * K5_SLOT_WORDS;
+        const scalar* sM = S + K5_MK;                // M[i][t] at i*NX + t
+        const scalar* sK = sM + NX * NX;             // K[j][t] at j*NX + t
+        const scalar* sHs = S + K5_HS;
+        const scalar* sD = S + K5_D;                 // D[c][e] at c*NZ + e
+        const scalar* sbnd = S + K5_BND;             // lb | ub | m [| shift]
+        const scalar* sh = S + K5_H;
+        const scalar* dvv = S + K5_VEC;              // d rows, then v rows
+        const scalar* wv = dvv + NZ * VS_LANES;      // w rows, z rows, y rows
+        __pipeline_wait_prior(VS_PF - 1);    // stage k landed (my copies)
+        __syncthreads();                     // ... everyone's, and x_k
+
+        const scalar* xin = xs + (k & 1) * NX * VS_LANES;
+        scalar* xout = xs + ((k + 1) & 1) * NX * VS_LANES;
+        scalar x[NX], w_t[NZ], w_new[NZ], dw[NZ];
+#pragma unroll
+        for (int t = 0; t < NX; ++t) x[t] = xin[t * VS_LANES + lane];
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+            scalar acc = dvv[j * VS_LANES + lane];
+#pragma unroll
+            for (int t = 0; t < NX; ++t) acc += sK[j * NX + t] * x[t];
+            w_t[j] = acc;
+        }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) w_t[NU + i] = x[i];
+#pragma unroll
+        for (int e = 0; e < NZ; ++e) {
+            const scalar w = wv[e * VS_LANES + lane];
+            w_new[e] = alpha * w_t[e] + oma * w;
+            dw[e] = w - w_t[e];
+        }
+        // Own rows of the rollout: x+ = M x + v.
+#pragma unroll
+        for (int r = 0; r < VS_RX; ++r) {
+            const int i = grp * VS_RX + r;
+            if (i < NX) {
+                scalar acc = dvv[(NU + i) * VS_LANES + lane];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += sM[i * NX + t] * x[t];
+                xout[i * VS_LANES + lane] = acc;
+            }
+        }
+
+        // Own constraint rows, up to the value to project.
+        scalar zt[VS_RC], zo[VS_RC], yo[VS_RC], vv[VS_RC], relax[VS_RC],
+            Dwn[VS_RC], rho_m[VS_RC];
+#pragma unroll
+        for (int r = 0; r < VS_RC; ++r) {
+            const int ci = grp * VS_RC + r;
+            if (ci < NC) {
+                scalar a = (scalar)0, an = (scalar)0;
+#pragma unroll
+                for (int e = 0; e < NZ; ++e) {
+                    a += sD[ci * NZ + e] * w_t[e];
+                    an += sD[ci * NZ + e] * w_new[e];
+                }
+                zt[r] = a;
+                Dwn[r] = an;
+                zo[r] = wv[(NZ + ci) * VS_LANES + lane];
+                yo[r] = wv[(NZ + NC + ci) * VS_LANES + lane];
+                const scalar m = sbnd[2 * NC + ci];
+                rho_m[r] = rho_b * m;
+                relax[r] = alpha * zt[r] + oma * zo[r];
+                const scalar floor_ = (scalar)1e-30;
+                vv[r] = relax[r] + (m > (scalar)0
+                    ? yo[r] / (rho_m[r] > floor_ ? rho_m[r] : floor_)
+                    : (scalar)0);
+                if (NCONES > 0)
+                    vx[ci * VS_LANES + lane] =
+                        vv[r] + (HAS_SHIFT ? sbnd[3 * NC + ci] : (scalar)0);
+            }
+        }
+        if (NCONES > 0) __syncthreads();
+
+        // Projection, dual update, stores, and this row's exchange terms.
+#pragma unroll
+        for (int r = 0; r < VS_RC; ++r) {
+            const int ci = grp * VS_RC + r;
+            if (ci < NC) {
+                const scalar m = sbnd[2 * NC + ci];
+                scalar zp = fmin(fmax(vv[r], sbnd[ci]), sbnd[NC + ci]);
+#pragma unroll
+                for (int q = 0; q < NCONES; ++q) {
+                    const int off = cone_field(q, 0), dim = cone_field(q, 1);
+                    if (ci >= off && ci < off + dim) {
+                        zp = cone_row(vx, off, dim, cone_field(q, 2), ci - off,
+                                      lane);
+                        if (HAS_SHIFT) zp -= sbnd[3 * NC + ci];
+                    }
+                }
+                const scalar z_new = zp * (m > (scalar)0 ? (scalar)1 : (scalar)0);
+                const scalar y_new = yo[r] + rho_m[r] * (relax[r] - z_new);
+                if (valid) {
+                    wzy_new[(ks * NW + NZ + ci) * Bs + b] = z_new;
+                    wzy_new[(ks * NW + NZ + NC + ci) * Bs + b] = y_new;
+                }
+                ex[ci * VS_LANES + lane] = rho_m[r] * z_new - y_new;
+                ex[(NC + ci) * VS_LANES + lane] =
+                    rho_m[r] * (amo * (zt[r] - zo[r]) + (zo[r] - z_new));
+                ex[(2 * NC + ci) * VS_LANES + lane] = y_new;
+                rp = fmax(rp, fabs(Dwn[r] - z_new));
+                ps = fmax(ps, fmax(fabs(Dwn[r]), fabs(z_new)));
+            }
+        }
+        __syncthreads();
+
+        // Own rows of w: w+, the next iteration's hf, the dual residual.
+#pragma unroll
+        for (int r = 0; r < VS_RZ; ++r) {
+            const int e = grp * VS_RZ + r;
+            if (e < NZ) {
+                const scalar wo = wv[e * VS_LANES + lane];
+                scalar wt_e;
+                if (e < NU) {
+                    wt_e = dvv[e * VS_LANES + lane];
+#pragma unroll
+                    for (int t = 0; t < NX; ++t) wt_e += sK[e * NX + t] * x[t];
+                } else {
+                    wt_e = xin[(e - NU) * VS_LANES + lane];
+                }
+                const scalar wn_e = alpha * wt_e + oma * wo;
+                const scalar dw_e = wo - wt_e;
+                scalar hfn = sh[e] - sigma * wn_e;
+                scalar dT = (scalar)0, dty = (scalar)0;
+#pragma unroll
+                for (int ci = 0; ci < NC; ++ci) {
+                    const scalar Dce = sD[ci * NZ + e];
+                    hfn -= ex[ci * VS_LANES + lane] * Dce;
+                    dT += ex[(NC + ci) * VS_LANES + lane] * Dce;
+                    dty += ex[(2 * NC + ci) * VS_LANES + lane] * Dce;
+                }
+                scalar Hdw, Hwn;
+                if (DIAG_COST) {
+                    Hdw = sHs[e] * dw_e;
+                    Hwn = sHs[e] * wn_e;
+                } else {
+                    Hdw = (scalar)0;
+                    Hwn = (scalar)0;
+#pragma unroll
+                    for (int f = 0; f < NZ; ++f) {
+                        Hdw += sHs[e * NZ + f] * dw[f];
+                        Hwn += sHs[e * NZ + f] * w_new[f];
+                    }
+                }
+                const scalar dvec = oma * Hdw + asig * dw_e + dT;
+                const scalar Hw = Hwn - sigma * wn_e;
+                rd = fmax(rd, fabs(dvec));
+                ds = fmax(ds, fmax(fabs(Hw), fabs(dty)));
+                if (valid) {
+                    wzy_new[(ks * NW + e) * Bs + b] = wn_e;
+                    hf_new[(ks * NZ + e) * Bs + b] = hfn;
+                }
+            }
+        }
+        prefetch(k + VS_PF);
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const scalar* xfin = xs + (N & 1) * NX * VS_LANES;
+#pragma unroll
+    for (int r = 0; r < VS_RX; ++r) {
+        const int i = grp * VS_RX + r;
+        if (i < NX && valid) xN[i * Bs + b] = xfin[i * VS_LANES + lane];
+    }
+    // The threads of a scenario join their maxima.
+    ex[(grp * 4 + 0) * VS_LANES + lane] = rp;
+    ex[(grp * 4 + 1) * VS_LANES + lane] = rd;
+    ex[(grp * 4 + 2) * VS_LANES + lane] = ps;
+    ex[(grp * 4 + 3) * VS_LANES + lane] = ds;
+    __syncthreads();
+    for (int q = grp; q < 4; q += VS_GROUPS) {
+        scalar m = ex[q * VS_LANES + lane];
+        for (int g = 1; g < VS_GROUPS; ++g)
+            m = fmax(m, ex[(g * 4 + q) * VS_LANES + lane]);
+        if (valid) res[q * Bs + b] = m;
+    }
+}
+
+#endif  // NC
+
+}  // namespace
+
+extern "C" {
+
+#ifndef NC
+int admm_bwd_vec_prefold(int N, int Bt, void* stream,
+                         const void* pN, const void* AK, const void* BL,
+                         const void* c, const void* Pc, const void* hf,
+                         void* dv)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+    const size_t smem = K4_SMEM_WORDS * sizeof(scalar);
+    int e = set_smem(bwd_vec_prefold_kernel, smem);
+    if (e) return e;
+    bwd_vec_prefold_kernel<<<blocks, VS_THREADS, smem, st>>>(
+        N, Bt, (const scalar*)pN, (const scalar*)AK, (const scalar*)BL,
+        (const scalar*)c, (const scalar*)Pc, (const scalar*)hf, (scalar*)dv);
+    return (int)cudaGetLastError();
+}
+#else  // NC
+int admm_fwd_update(int N, int Bt, double alpha, double sigma, void* stream,
+                    const void* rho, const void* x0, const void* MK,
+                    const void* Hs, const void* D, const void* bnd,
+                    const void* h, const void* dv, const void* wzy,
+                    void* wzy_new, void* hf_new, void* xN, void* res)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+    const size_t smem = K5_SMEM_WORDS * sizeof(scalar);
+    int e = set_smem(fwd_update_kernel, smem);
+    if (e) return e;
+    fwd_update_kernel<<<blocks, VS_THREADS, smem, st>>>(
+        N, Bt, alpha, sigma, (const scalar*)rho, (const scalar*)x0,
+        (const scalar*)MK, (const scalar*)Hs, (const scalar*)D,
+        (const scalar*)bnd, (const scalar*)h, (const scalar*)dv,
+        (const scalar*)wzy, (scalar*)wzy_new, (scalar*)hf_new, (scalar*)xN,
+        (scalar*)res);
+    return (int)cudaGetLastError();
+}
+#endif  // NC
+
+}  // extern "C"

@@ -28,11 +28,9 @@
 #error "build with -DSCALAR=<float|double> -DNX=<n> -DNU=<n> [-DNC=<n>]"
 #endif
 
-typedef SCALAR scalar;
+#include "lanes_common.cuh"
 
 namespace {
-
-constexpr int NZ = NX + NU;
 
 // Diagnostic build (-DRICCATI_PROFILE): thread 0 of block 0 sums the SM
 // cycles it spends in each marked section of a stage; riccati_read_prof
@@ -58,12 +56,6 @@ __device__ long long riccati_prof[8];
 #define PROF_MARK(i)
 #define PROF_DONE
 #endif
-
-// Asynchronous copy of one word from device to shared memory (cp.async).
-__device__ __forceinline__ void copy_word(scalar* dst, const scalar* src)
-{
-    __pipeline_memcpy_async(dst, src, sizeof(scalar));
-}
 
 #ifdef NC
 // ------------------------------------------------------------------ K1
@@ -561,38 +553,6 @@ __global__ void forward_kernel(
 //   * the matrices lie in the slot so that each thread's reads are
 //     contiguous rows at one address per warp (a broadcast).
 
-constexpr int VS_LANES = 32;                 // scenarios per block
-constexpr int VS_GROUPS = 4;                 // threads per scenario
-constexpr int VS_THREADS = VS_LANES * VS_GROUPS;
-constexpr int VS_RX = (NX + VS_GROUPS - 1) / VS_GROUPS;   // state rows/thread
-constexpr int VS_RU = (NU + VS_GROUPS - 1) / VS_GROUPS;   // input rows/thread
-constexpr int VS_PF = 4;                     // stages in flight (>= 2)
-constexpr int VS_SLOTS = VS_PF + 1;
-
-// Copy `words` contiguous matrix words into a ring slot, dealt over the
-// block's threads.
-__device__ __forceinline__ void copy_matrix(scalar* dst, const scalar* src,
-                                            int words)
-{
-    for (int w = threadIdx.x; w < words; w += VS_THREADS)
-        copy_word(dst + w, src + w);
-}
-
-// Copy this thread's scenario's entries of a (ROWS, Bt) per-scenario
-// stage tensor into a ring slot: rows grp, grp + VS_GROUPS, ...; `src`
-// points at the scenario's entry of row 0.
-template <int ROWS>
-__device__ __forceinline__ void copy_rows(scalar* dst, const scalar* src,
-                                          size_t Bs, int lane, int grp)
-{
-#pragma unroll
-    for (int r = 0; r < (ROWS + VS_GROUPS - 1) / VS_GROUPS; ++r) {
-        const int row = grp + r * VS_GROUPS;
-        if (row < ROWS)
-            copy_word(dst + row * VS_LANES + lane, src + row * Bs);
-    }
-}
-
 // ---- K2.  The wrapper packs each stage's matrices into one run, laid out
 // for the reads below: A^T [i][t], B^T [j][t], B [i][t], K^T [i][t],
 // L [i][t], then (plain-P mode) P [i][j].
@@ -866,14 +826,6 @@ forward_shared_kernel(
         const int i = grp * VS_RX + r;
         if (i < NX && valid) xN[i * Bs + b] = xfin[i * VS_LANES + lane];
     }
-}
-
-template <class Kernel>
-int set_smem(Kernel kernel, size_t smem)
-{
-    if (smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 #endif  // NC

@@ -5,7 +5,8 @@
 
 A CUDA kernel runs only on a card.  Its indexing, its shared-memory
 layout and the order of its barriers can still be rehearsed without one:
-this script rewrites ``ops/csrc/riccati_kernels.cu`` into host C++ (each
+this script rewrites ``ops/csrc/riccati_kernels.cu`` and
+``ops/csrc/admm_kernels.cu`` into host C++ (each
 ``<<<grid, block, smem, stream>>>`` launch becomes a loop over blocks that
 starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
 ``cp.async`` a ``memcpy``), builds it with ``g++ -std=c++20`` into
@@ -14,8 +15,8 @@ and holds every kernel and mode against its plain PyTorch version at small
 sizes.  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
-on them.  About half a minute (ten small g++ builds); ``--quick`` runs
-the one case that ``tests/test_torch_emulate.py`` keeps alive.
+on them.  About a minute (some twenty small g++ builds); ``--quick`` runs
+the cases that ``tests/test_torch_emulate.py`` keeps alive.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from pdp_lqr_tpu_torch.ops import _build, cuda_riccati as cr  # noqa: E402
+from chip_smoke import random_admm_inputs  # noqa: E402
+from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr  # noqa: E402
 
 OUT = ROOT / "build" / "emulate"
 
@@ -86,40 +88,55 @@ void emu_launch(int grid, int block, size_t smem, void*, F f) {
 }
 
 
-def host_source() -> str:
-    src = (_build.CSRC / cr.SOURCE).read_text()
+def host_source(source: str) -> str:
+    src = (_build.CSRC / source).read_text()
     shared = "extern __shared__ double smem_aligned[];"
     if shared not in src:
-        raise RuntimeError(f"{cr.SOURCE}: expected `{shared}` in every kernel")
+        raise RuntimeError(f"{source}: expected `{shared}` in every kernel")
     src = src.replace(shared, "double* smem_aligned = emu_smem;")
     launch = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^>]*?)>>>\((.*?)\);", re.S)
     src, n = launch.subn(
         lambda m: f"emu_launch({m.group(2)}, [&]{{ {m.group(1)}({m.group(3)}); }});",
         src)
     if n == 0:
-        raise RuntimeError(f"{cr.SOURCE}: no kernel launch found to rewrite")
+        raise RuntimeError(f"{source}: no kernel launch found to rewrite")
     return src
 
 
-def library(dtype, nx, nu, nc=None) -> ctypes.CDLL:
-    defines = cr.kernel_defines(dtype, nx, nu, nc)
-    tag = "_".join(f"{k}{v}" for k, v in sorted(defines.items()))
+def build_host(source: str, defines: dict) -> ctypes.CDLL:
+    """One specialisation of one kernel source as a host library."""
+    tag = Path(source).stem + "_" + "_".join(
+        f"{k}{v}" for k, v in sorted(defines.items()))
     cpp, so = OUT / f"{tag}.cpp", OUT / f"{tag}.so"
-    cpp.write_text(host_source())
+    cpp.write_text(host_source(source))
     cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-           f"-I{OUT / 'include'}", *[f"-D{k}={v}" for k, v in defines.items()],
+           f"-I{OUT / 'include'}", f"-I{_build.CSRC}",
+           *[f"-D{k}={v}" for k, v in defines.items()],
            "-o", str(so), str(cpp)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed: {' '.join(cmd)}\n{proc.stderr[:6000]}")
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def library(dtype, nx, nu, nc=None) -> ctypes.CDLL:
+    lib = build_host(cr.SOURCE, cr.kernel_defines(dtype, nx, nu, nc))
     cr.bind_library(lib, with_matrix_sweep=nc is not None)
     return lib
 
 
+def admm_library(dtype, nx, nu, nc=None, **modes) -> ctypes.CDLL:
+    lib = build_host(ca.SOURCE, ca.kernel_defines(dtype, nx, nu, nc, **modes))
+    ca.bind_library(lib, forward_update=nc is not None)
+    return lib
+
+
 def check(what, outs, refs, tol):
-    err = max(float((a - b).abs().max()) for a, b in zip(outs, refs))
-    print(f"{what}: max abs err {err:.2e}", flush=True)
+    """Largest error over the outputs, each against its own largest
+    magnitude where that exceeds 1."""
+    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in zip(outs, refs))
+    print(f"{what}: max err {err:.2e}", flush=True)
     if not err <= tol:
         raise RuntimeError(f"{what}: {err} > {tol}")
 
@@ -183,6 +200,33 @@ def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
           cr.forward_lanes_reference(M1, v2, K1, d2, x02), tol)
 
 
+def run_admm(dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol):
+    """The two kernels of the split ADMM iteration at one size and mode,
+    ``Bs`` scenarios on one shared model (random matrices: at these short
+    horizons the recursions need no stable model)."""
+    rng = np.random.default_rng(2)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} B={Bs} "
+           f"cones={cones} diag={diag_cost} shift={has_shift}")
+    L = torch.tril(T(N, nu, nu) * 0.2)
+    L = (L + torch.diag_embed(1.0 + T(N, nu).abs())).unsqueeze(-1)
+    k4_in, k5_in = random_admm_inputs(
+        rng, T(N, nx, nx, 1) * 0.3, T(N, nx, nu, 1) * 0.5, T(N, nu, nx, 1) * 0.3,
+        T(N, nx, nx, 1) * 0.25, L, nc, Bs, cones, diag_cost, has_shift)
+    check(f"K4 [{tag}]",
+          [ca._launch_bwd_vec_prefold(admm_library(dtype, nx, nu), *k4_in, None)],
+          [ca.admm_bwd_vec_prefold_lanes_reference(*k4_in, nu=nu)], tol)
+    rho, x0, MK, Hs, D, bnd, dv, wzy, h = k5_in
+    lib = admm_library(dtype, nx, nu, nc, cones=cones, diag_cost=diag_cost,
+                       has_shift=has_shift)
+    check(f"K5 [{tag}]",
+          ca._launch_fwd_update(lib, rho, x0, MK, Hs, D, bnd, dv, wzy, h,
+                                1.6, 1e-6, None),
+          ca.admm_fwd_update_lanes_reference(
+              rho, x0, MK, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones,
+              alpha=1.6, sigma=1e-6), tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -193,18 +237,33 @@ CASES = [
     (torch.float64, 12, 4, 0, 5, 2, 70, 1e-10),
     (torch.float64, 2, 1, 1, 4, 1, 5, 1e-10),
 ]
-QUICK = CASES[:1]
+# (dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol): the
+# quadrotor's box rows with a diagonal and a full stage cost, its thrust
+# cone with a shift, a rotated cone and two cones on odd small shapes.
+ADMM_CASES = [
+    (torch.float64, 12, 4, 19, 6, 70, ((16, 3, "soc"),), True, True, 1e-10),
+    (torch.float64, 12, 4, 16, 5, 33, (), True, False, 1e-10),
+    (torch.float32, 12, 4, 16, 7, 64, (), False, False, 1e-3),
+    (torch.float64, 5, 2, 7, 6, 40, ((1, 4, "rsoc"),), False, False, 1e-10),
+    (torch.float32, 3, 2, 9, 5, 33, ((0, 3, "soc"), (4, 5, "rsoc")), True,
+     True, 1e-3),
+    (torch.float64, 2, 1, 1, 4, 5, (), False, False, 1e-10),
+]
+QUICK, ADMM_QUICK = CASES[:1], ADMM_CASES[:1]
 
 
-def main(cases=CASES):
+def main(cases=CASES, admm_cases=ADMM_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
     for case in cases:
         run(*case)
+    for case in admm_cases:
+        run_admm(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(QUICK if "--quick" in sys.argv[1:] else CASES))
+    quick = "--quick" in sys.argv[1:]
+    sys.exit(main(QUICK, ADMM_QUICK) if quick else main())

@@ -10,7 +10,9 @@ This script builds that variant for the serving shape (quadrotor nx=12,
 nu=4, nc=16, N=512, B=4096, float32), runs each kernel on the tensors the
 main path hands it, and prints cycles per stage per section as JSON, next
 to the card's clocks, a device-memory copy rate as a sanity check of the
-card's state, and the per-scenario kernels' times at other batch sizes.
+card's state, and the per-scenario kernels' times at other batch sizes
+(the two kernels of the split ADMM iteration included, on random iterates
+around the same model's factors).
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from chip_smoke import k5_call, random_admm_inputs  # noqa: E402
 from pdp_lqr_tpu_torch import init_iterates  # noqa: E402
 from pdp_lqr_tpu_torch.models import quadrotor  # noqa: E402
-from pdp_lqr_tpu_torch.ops import _build, cuda_riccati as cr  # noqa: E402
+from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr  # noqa: E402
 
 N, SIGMA, RHO = 512, 1e-6, 0.01
 SECTIONS = {
@@ -138,11 +141,19 @@ def main():
     lib = library()
     row = {"card": card}
     for B in args.batches:
-        _, k2, k3 = inputs(B, dev)
+        k1, k2, k3 = inputs(B, dev)
         row[f"K2_ms_B{B}"] = cuda_ms(lambda: cr._launch_backward_vectors(
             lib, *k2, True, True, stream()))
         row[f"K3_ms_B{B}"] = cuda_ms(lambda: cr._launch_forward(
             lib, *k3, True, stream()))
+        # The ADMM pair (wrappers): box rows only, diagonal stage cost.
+        K, _, M, _, _, L = cr.backward_lanes(*k1, export_factors=True)
+        k4_in, k5_in = random_admm_inputs(
+            np.random.default_rng(0), k1[0], k1[1], K, M, L, 16, B, (), True,
+            False)
+        row[f"K4_ms_B{B}"] = cuda_ms(
+            lambda: ca.admm_bwd_vec_prefold_lanes(*k4_in, nu=4))
+        row[f"K5_ms_B{B}"] = cuda_ms(lambda: k5_call(ca, k5_in, ()))
     print(json.dumps(row), flush=True)
     return 0
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Where one ``ScenarioServer.solve`` request spends its time, on the card.
+"""Where one ``ScenarioServer`` request spends its time, on the card.
 
-    python3 scripts/request_breakdown.py [--requests 20]
+    python3 scripts/request_breakdown.py [--admm] [--requests 20]
 
 Serves the smoke run's workload (quadrotor, constrained, N=512, B=4096,
-float32) and prints as JSON lines:
+float32): ``solve`` requests or, with ``--admm``, 20-iteration
+``solve_admm`` requests (the split conic ADMM loop at the smoke run's
+settings).  It prints as JSON lines:
 
   * the request's time by CUDA events, the host's time to enqueue it (host
     clock around the call, no synchronise) and the host's time with a
     synchronise at the end: where the first is close to the second, the
     host and not the card sets the request time;
   * from ``torch.profiler`` over the same requests: device time by kernel
-    name (per request), the device's busy time and its idle share.
+    name (per request), the device's busy time and its idle share; with
+    ``--admm`` also the kernels launched per ADMM iteration.
 """
 
 from __future__ import annotations
@@ -28,15 +31,21 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from pdp_lqr_tpu_torch import ScenarioServer  # noqa: E402
+from pdp_lqr_tpu_torch import ADMMSettings, ScenarioServer  # noqa: E402
 from pdp_lqr_tpu_torch.models import quadrotor  # noqa: E402
 
 N, B, SIGMA, RHO = 512, 4096, 1e-6, 0.01
+ADMM_ITERS = 20
+ADMM_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25, rho=0.1,
+                     eps_abs=1e-4, eps_rel=1e-4, cached_factors=True,
+                     uniform_rho=True, diag_cost=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=20)
+    ap.add_argument("--admm", action="store_true",
+                    help="time solve_admm requests instead of solve requests")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("request_breakdown: needs a CUDA device", file=sys.stderr)
@@ -51,10 +60,17 @@ def main():
     rng = np.random.default_rng(0)
     c = torch.as_tensor((rng.normal(size=(B, N, model.nx)) * 0.01)
                         .astype(np.float32)).to(dev)
-    x0 = torch.as_tensor(rng.normal(size=(B, model.nx)).astype(np.float32)
-                         * 0.1).to(dev)
+    if args.admm:
+        settings = ADMMSettings(**ADMM_SETTINGS)
+        x0 = torch.as_tensor((0.03 + 0.01 * rng.normal(size=(B, model.nx)))
+                             .astype(np.float32)).to(dev)
+        request = lambda: server.solve_admm(x0, (), settings, c=c)
+    else:
+        x0 = torch.as_tensor(rng.normal(size=(B, model.nx)).astype(np.float32)
+                             * 0.1).to(dev)
+        request = lambda: server.solve(x0, c)
     for _ in range(3):
-        server.solve(x0, c)
+        request()
     torch.cuda.synchronize()
 
     event_ms, enqueue_ms, synced_ms = [], [], []
@@ -62,7 +78,7 @@ def main():
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
         start.record()
-        server.solve(x0, c)
+        request()
         end.record()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
@@ -73,6 +89,7 @@ def main():
     med = lambda xs: float(np.median(xs))
     print(json.dumps({
         "card": card, "N": N, "B": B, "requests": args.requests,
+        "entry_point": "solve_admm" if args.admm else "solve",
         "request_ms_cuda_events": med(event_ms),
         "host_enqueue_ms": med(enqueue_ms),
         "host_with_synchronise_ms": med(synced_ms)}), flush=True)
@@ -81,7 +98,7 @@ def main():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.requests):
-            server.solve(x0, c)
+            request()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -96,12 +113,15 @@ def main():
                          "device_ms_per_request": device_us / 1e3 / args.requests})
     rows.sort(key=lambda r: -r["device_ms_per_request"])
     busy_ms = sum(r["device_ms_per_request"] for r in rows)
+    per_request = sum(r["calls_per_request"] for r in rows)
+    extra = {"device_kernels_per_iteration": per_request / ADMM_ITERS} \
+        if args.admm else {}
     print(json.dumps({
-        "card": card, "profiled_requests": args.requests,
+        "card": card, "profiled_requests": args.requests, **extra,
         "window_ms_per_request": window_ms / args.requests,
         "device_busy_ms_per_request": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (window_ms / args.requests),
-        "device_kernels_per_request": sum(r["calls_per_request"] for r in rows),
+        "device_kernels_per_request": per_request,
         "by_kernel": rows[:25]}), flush=True)
     return 0
 

@@ -361,8 +361,15 @@ def test_scenario_server_contract():
     server = plt_.ScenarioServer(model, device="cpu")
     ws = server.solve(np.zeros((3, 2)))
     assert ws.shape == (3, 5, 3) and ws.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="ADMM slice"):
+    # Default settings give no batch-shared factors: that is the
+    # single-kernel iteration, which is not ported yet.
+    with pytest.raises(NotImplementedError, match="K8"):
         server.solve_admm(np.zeros((3, 2)))
+    ws, state, info = server.solve_admm(
+        np.zeros((3, 2)), settings=plt_.ADMMSettings(
+            max_iter=5, cached_factors=True, uniform_rho=True))
+    assert ws.shape == (3, 5, 3) and state.z.shape == (3, 5, 1)
+    assert info.iterations.tolist() == [5, 5, 5]
     batched = dataclasses.replace(model, A=model.A[None])
     with pytest.raises(ValueError, match="UNBATCHED"):
         plt_.ScenarioServer(batched, device="cpu")
@@ -384,7 +391,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pdp_lqr_tpu_torch, pdp_lqr_tpu_torch.models, "
         "pdp_lqr_tpu_torch.convert, pdp_lqr_tpu_torch.solvers.sequential, "
-        "pdp_lqr_tpu_torch.ops.cuda_riccati\n"
+        "pdp_lqr_tpu_torch.ops.cuda_riccati, pdp_lqr_tpu_torch.ops.cuda_admm, "
+        "pdp_lqr_tpu_torch.ops.projections, pdp_lqr_tpu_torch.solvers.admm, "
+        "pdp_lqr_tpu_torch.mpc\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pdp_lqr_tpu' or m.startswith('pdp_lqr_tpu.')]\n"
         "assert not bad, bad\n"
