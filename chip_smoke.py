@@ -5,17 +5,22 @@
 
 Builds the port's CUDA kernels from ``pdp_lqr_tpu_torch/ops/csrc`` with
 ``nvcc`` (into ``build/``), holds each kernel against its plain PyTorch
-version on the card, then drives the port's two main paths through their
-public entry points, ``ScenarioServer(quadrotor N=512)`` for B=4096
-scenarios in float32: ``solve`` (the inner LQ solve, checked against the
-port's own sequential Riccati solver in float64) and ``solve_admm`` (the
-conic ADMM loop in split mode: a 20-iteration request checked against the
-port's plain path in float64, a small adapting run whose rho changes force
-refactorizations, and a cold solve followed by a warm receding-horizon
-tick), and times the paths and their kernels with CUDA events.  Each phase
-prints one JSON line; any failed check raises, so the exit code is
-non-zero and no result line appears.  It needs one CUDA device and imports
-nothing of JAX.
+version on the card, then drives the port's paths through their public
+entry points on the quadrotor (N=512, float32): ``ScenarioServer.solve``
+for B=4096 scenarios (the inner LQ solve, checked against the port's own
+sequential Riccati solver in float64); ``ScenarioServer.solve_admm`` in
+split mode (a 20-iteration request checked against the port's plain path
+in float64, a small adapting run whose rho changes force
+refactorizations, a cold solve followed by a warm receding-horizon tick);
+the same with a four-rung rho ladder (per-scenario rho: a 20-iteration
+request and a 60-iteration adapting run), checked at N=64 in float64
+against the replicated loop; ``solve_fused`` on a batched problem of
+B=1024 (the replicated per-instance loop, with and without cached
+factors); ``suggest_rho_ladder``; and ``solve_lanes`` (the per-instance
+inner solve).  It times the paths and their kernels with CUDA events.
+Each phase prints one JSON line; any failed check raises, so the exit
+code is non-zero and no result line appears.  It needs one CUDA device
+and imports nothing of JAX.
 
 Last three lines of the output: the card's name and power limit, one
 JSON object describing every kernel, and
@@ -56,6 +61,19 @@ ADMM_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25, rho=0.1,
 NC_CONE = NC + 3                # with the thrust cone's three rows
 THRUST_CONE = ((NC, 3, "soc"),)
 THRUST_SHIFT = 8.0              # on the cone's t-row
+# The rho ladder (``bench.py --admm 20 --split --ladder``): four rungs, the
+# start state puts scenario b on rung b mod 4, so every rung is live.
+LADDER = (0.01, 0.1, 1.0, 10.0)
+LADDER_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25,
+                       eps_abs=1e-4, eps_rel=1e-4, diag_cost=True,
+                       rho_ladder=LADDER)
+LADDER_ADAPT_ITERS = 60         # adaptation after iterations 25 and 50
+# The replicated per-instance loop (``bench.py --admm 20``: B=1024, a
+# batched problem, per-instance adaptive rho), and its --cached variant.
+B_REP = 1024
+REP_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25, rho=0.1,
+                    eps_abs=1e-4, eps_rel=1e-4)
+PROBE_BATCH, PROBE_ITERS = 128, 50   # suggest_rho_ladder's probe
 # Kernel B's modes held against the plain version: (name, nc, cones,
 # diagonal stage cost, shift).
 K5_MODES = (
@@ -88,6 +106,21 @@ ADMM_PATH_ATOL = 7e-5
 # The adapting run (float32 kernels) against the plain path in float32 on
 # the CPU, whole batch, same quantities: 10x the 4.2e-5 measured.
 ADMM_REFACTOR_ATOL = 5e-4
+# The ladder request and the replicated requests (float32 kernels) against
+# the same solve_fused on the plain versions in float64 on the CPU, first 8
+# scenarios (no quantity is a max over the batch, so a subset is a valid
+# witness), absolute, on ws / w / z / y and the residuals: 10x the 2.72e-5
+# (ladder, on y: rho up to 10 scales the duals) and 6.67e-6 (replicated)
+# measured on an H100 (see PERF.md).
+LADDER_ATOL = 3e-4
+REPLICATED_ATOL = 7e-5
+# The ladder against the replicated loop with the same per-instance rho
+# (N=64, B=256, float64, both on the card's kernels): the same function.
+LADDER_VS_REPLICATED_ATOL = 1e-9
+# solve_lanes against the shared solve on the same data (both float32
+# kernels; 10x the 4.72e-6 measured), and against the f64 sequential solver
+# (as MAIN_PATH_ATOL).
+LANES_VS_SHARED_ATOL = 5e-5
 
 
 def require(ok, *what):
@@ -132,6 +165,9 @@ K2_OUT = ("d", "v")
 K3_OUT = ("ws", "xN")
 K4_OUT = ("dv",)
 K5_OUT = ("wzy", "hf", "xN", "res")
+K5_RUNG_OUT = ("wzy", "xN", "res")
+K6_OUT = ("dv",)
+K1_EXPORT = ("K", "d", "P", "L")
 
 
 def rel_err(names, outs, refs):
@@ -188,13 +224,16 @@ def registers_by_kernel(logs):
         for name, st, ld, regs in pat.findall(log[1]):
             m = re.search(r"\d+(backward_vectors_shared_kernel|"
                           r"forward_shared_kernel|backward_vectors_kernel|"
-                          r"backward_kernel|forward_kernel|"
-                          r"bwd_vec_prefold_kernel|fwd_update_kernel)"
+                          r"forward_rollout_kernel|backward_kernel|"
+                          r"forward_kernel|bwd_vec_prefold_kernel|"
+                          r"bwd_vec_kernel|fwd_update_kernel)"
                           r"(?:I((?:Lb[01]E)+)E)?", name)
             if not m:
                 continue
             flags = ",".join(re.findall(r"Lb([01])E", m.group(2) or ""))
             key = f"{m.group(1)}<{flags}>/{scalar}/nc={log[0].get('NC', '-')}"
+            if "NRUNG" in log[0]:
+                key += f",rungs={log[0]['NRUNG']}"
             if "DIAG_COST" in log[0]:
                 key += (f",diag={log[0]['DIAG_COST']},shift={log[0]['HAS_SHIFT']}"
                         f",cones={log[0]['NCONES']}")
@@ -224,32 +263,31 @@ def k3_flops(N, nx, nu, Bt):
     return N * Bt * (2 * nu * nx + 2 * nx * nx)
 
 
-def k5_flops(N, nx, nu, nc, Bt, diag_cost):
+def k5_flops(N, nx, nu, nc, Bt, diag_cost, emit_hf=True):
     nz = nx + nu
     per_stage = (
         2 * nu * nx + 2 * nx * nx              # u, x+
         + 4 * nc * nz                          # D w~, D w+
-        + 6 * nc * nz                          # hf+, D^T zt, D^T y+
+        + (6 if emit_hf else 4) * nc * nz      # [hf+,] D^T zt, D^T y+
         + (4 * nz if diag_cost else 4 * nz * nz)   # Hs dw, Hs w+
         + 10 * nz + 20 * nc                    # relax, project, dual, maxima
     )
     return N * Bt * per_stage
 
 
-def random_admm_inputs(rng, A, Bm, K, M, L, nc, Bt, cones, diag_cost,
-                       has_shift):
-    """Random inputs of the split iteration's two kernels around one
-    shared model's matrices (trailing size 1): the argument tuples of
-    ``admm_bwd_vec_prefold_lanes`` and of ``admm_fwd_update_lanes`` in its
-    packed form (rho, x0, MK, Hs, D, bnd, dv, wzy, h)."""
-    N, nx, nu = A.shape[0], A.shape[1], Bm.shape[2]
+def k6_flops(N, nx, nu, nc, Bt):
     nz = nx + nu
-    dt, dev = A.dtype, A.device
-    T = lambda *s, scale=0.3: torch.as_tensor(
-        rng.normal(size=s) * scale).to(device=dev, dtype=dt).contiguous()
-    AK, BL, MK = (torch.cat(pair, dim=1) for pair in ((A, K), (Bm, L), (M, K)))
-    k4_in = (T(nx, Bt), AK, BL, T(N, nx, Bt, scale=0.1), T(N, nx, Bt),
-             T(N, nz, Bt))
+    fold = 3 * nc + nz * (2 + 2 * nc)          # rg, hf = h - sigma w - D^T rg
+    return N * Bt * fold + k2_flops(N, nx, nu, Bt)   # P c, then K2's recursion
+
+
+def k7_flops(N, nx, nu, Bt):
+    return N * Bt * (2 * nu * nx + 2 * nx * nx + 2 * nx * nu + nx)
+
+
+def _stage_bounds(T, N, nz, nc, cones, diag_cost, has_shift, dt, dev):
+    """Random shared stage data of kernel B: Hs, D and the packed bound
+    stream bnd = stack(lb, ub, rho-scale mask[, shift])."""
     Hs = T(N, nz, 1).abs() + 0.1 if diag_cost else T(N, nz, nz, 1)
     D = T(N, nc, nz, 1, scale=0.5)
     lb, ub = -T(N, nc, 1).abs(), T(N, nc, 1).abs()
@@ -262,7 +300,29 @@ def random_admm_inputs(rng, A, Bm, K, M, L, nc, Bt, cones, diag_cost,
     for off, dim, _ in cones:                  # a cone's rows share their mask
         mask[:, off:off + dim] = 1.0
     parts = [lb, ub, mask] + ([T(N, nc, 1)] if has_shift else [])
-    bnd = torch.stack(parts, dim=1).contiguous()
+    return Hs, D, torch.stack(parts, dim=1).contiguous()
+
+
+def _normal(rng, dt, dev):
+    return lambda *s, scale=0.3: torch.as_tensor(
+        rng.normal(size=s) * scale).to(device=dev, dtype=dt).contiguous()
+
+
+def random_admm_inputs(rng, A, Bm, K, M, L, nc, Bt, cones, diag_cost,
+                       has_shift):
+    """Random inputs of the split iteration's two kernels around one
+    shared model's matrices (trailing size 1): the argument tuples of
+    ``admm_bwd_vec_prefold_lanes`` and of ``admm_fwd_update_lanes`` in its
+    packed form (rho, x0, MK, Hs, D, bnd, dv, wzy, h)."""
+    N, nx, nu = A.shape[0], A.shape[1], Bm.shape[2]
+    nz = nx + nu
+    dt, dev = A.dtype, A.device
+    T = _normal(rng, dt, dev)
+    AK, BL, MK = (torch.cat(pair, dim=1) for pair in ((A, K), (Bm, L), (M, K)))
+    k4_in = (T(nx, Bt), AK, BL, T(N, nx, Bt, scale=0.1), T(N, nx, Bt),
+             T(N, nz, Bt))
+    Hs, D, bnd = _stage_bounds(T, N, nz, nc, cones, diag_cost, has_shift, dt,
+                               dev)
     rho = torch.as_tensor(rng.uniform(0.05, 2.0, size=(1, Bt))).to(
         device=dev, dtype=dt)
     k5_in = (rho, T(nx, Bt), MK, Hs, D, bnd, T(N, nz, Bt),
@@ -270,20 +330,75 @@ def random_admm_inputs(rng, A, Bm, K, M, L, nc, Bt, cones, diag_cost,
     return k4_in, k5_in
 
 
-def k5_call(ca, k5_in, cones):
-    """Kernel B's wrapper on the packed argument tuple."""
-    rho, x0, MK, Hs, D, bnd, dv, wzy, h = k5_in
+def random_ladder_inputs(rng, A, Bm, R, nc, Bt, cones, diag_cost,
+                         has_shift):
+    """Random inputs of K6 and of K5's rung form around one shared
+    model's dynamics (trailing size 1) with R rungs of factors stacked on
+    rows.  Returns (K6's positional arguments (rho, pN, A, B, h, D, mask,
+    P, L, K, c, wzy), K5's as ``k5_call`` takes them (rho, x0, M, Hs, D,
+    bnd, dv, wzy, h; its K is K6's), the rung of each scenario ((B,)
+    int32, scenario b on rung b mod R), and a pre-folded Pc for K6's
+    one-rung Pc form)."""
+    N, nx, nu = A.shape[0], A.shape[1], Bm.shape[2]
+    nz = nx + nu
+    dt, dev = A.dtype, A.device
+    T = _normal(rng, dt, dev)
+    L = torch.tril(T(N, R, nu, nu, scale=0.2)) + torch.diag_embed(
+        1.0 + T(N, R, nu).abs())
+    L = L.reshape(N, R * nu, nu, 1).contiguous()
+    P, K, M = T(N, R * nx, nx, 1), T(N, R * nu, nx, 1), T(N, R * nx, nx, 1,
+                                                          scale=0.25)
+    Hs, D, bnd = _stage_bounds(T, N, nz, nc, cones, diag_cost, has_shift, dt,
+                               dev)
+    rho = torch.as_tensor(rng.uniform(0.05, 2.0, size=(1, Bt))).to(
+        device=dev, dtype=dt)
+    wzy, h = T(N, nz + 2 * nc, Bt), T(N, nz, 1)
+    k6_in = (rho, T(nx, Bt), A, Bm, h, D, bnd[:, 2].contiguous(), P, L, K,
+             T(N, nx, Bt, scale=0.1), wzy)
+    k5_in = (rho, T(nx, Bt), M, Hs, D, bnd, T(N, nz, Bt), wzy, h)
+    rung = torch.as_tensor(np.arange(Bt) % R, dtype=torch.int32, device=dev)
+    return k6_in, k5_in, rung, T(N, nx, Bt)
+
+
+def k5_call(ca, k5_in, cones, K=None, rung=None):
+    """Kernel B's wrapper on the packed argument tuple (``K`` None) or on
+    the rung form's (M, K, ...) with the packed bound stream."""
+    rho, x0, M, Hs, D, bnd, dv, wzy, h = k5_in
     return ca.admm_fwd_update_lanes(
-        rho, x0, MK, None, Hs, D, bnd, None, None, None, dv, wzy, nu=NU,
-        cones=cones, alpha=ALPHA, sigma=SIGMA, h=h)
+        rho, x0, M, K, Hs, D, bnd, None, None, None, dv, wzy, nu=NU,
+        cones=cones, alpha=ALPHA, sigma=SIGMA, h=h, rung=rung)
 
 
-def k5_plain(ca, k5_in, cones):
-    """Kernel B's plain version on the packed argument tuple."""
-    rho, x0, MK, Hs, D, bnd, dv, wzy, h = k5_in
+def k5_plain(ca, k5_in, cones, K=None, rung=None):
+    """Kernel B's plain version on the same arguments."""
+    rho, x0, M, Hs, D, bnd, dv, wzy, h = k5_in
     return ca.admm_fwd_update_lanes_reference(
-        rho, x0, MK, Hs, D, bnd, dv, wzy, h, nu=NU, cones=cones, alpha=ALPHA,
-        sigma=SIGMA)
+        rho, x0, M, K, Hs, D, bnd, dv, wzy, h, nu=NU, cones=cones, alpha=ALPHA,
+        sigma=SIGMA, rung=rung)
+
+
+def zero_state(n, N, nc, dt, device, rho):
+    """Zero iterates of ``n`` scenarios with the given per-scenario rho."""
+    from pdp_lqr_tpu_torch.solvers.admm import ADMMState
+    zeros = lambda *s: torch.zeros((n,) + s, dtype=dt, device=device)
+    return ADMMState(
+        w=zeros(N + 1, NX + NU), z=zeros(N + 1, nc), y=zeros(N + 1, nc),
+        rho=torch.as_tensor(rho).to(device=device, dtype=dt))
+
+
+def batched(model, n, c):
+    """The model written out once a scenario (a leading batch axis on
+    every field; views, no copies), with per-scenario drift ``c``."""
+    import pdp_lqr_tpu_torch as plt_
+    return plt_.LQRProblem(**{
+        f.name: c if f.name == "c" else getattr(model, f.name)[None].expand(
+            (n,) + getattr(model, f.name).shape)
+        for f in dataclasses.fields(model)})
+
+
+def zero_counts():
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
+    return {k: 0 for k in (*cr.LAUNCHES, *ca.LAUNCHES)}
 
 
 @contextlib.contextmanager
@@ -370,6 +485,16 @@ def main():
         for _, nc, cones, diag, shift in K5_MODES:
             jobs.append((ca.SOURCE, ca.kernel_defines(
                 dt, NX, NU, nc, cones=cones, diag_cost=diag, has_shift=shift)))
+        # The ladder's pair: K6 on 1, 3, 4 rungs; K5's rung form on 4.
+        for R in (1, 3, len(LADDER)):
+            jobs.append((ca.SOURCE, ca.kernel_defines(dt, NX, NU, NC, fold=True,
+                                                      rungs=R)))
+        jobs.append((ca.SOURCE, ca.kernel_defines(
+            dt, NX, NU, NC_CONE, fold=True, rungs=len(LADDER))))
+        for nc, cones, shift in ((NC, (), False), (NC_CONE, THRUST_CONE, True)):
+            jobs.append((ca.SOURCE, ca.kernel_defines(
+                dt, NX, NU, nc, cones=cones, diag_cost=True, has_shift=shift,
+                rungs=len(LADDER))))
     paths = _build.build_many(jobs)
     regs = registers_by_kernel(
         [(job[1], _build.build_logs.get(path, "")) for job, path in zip(jobs, paths)])
@@ -461,13 +586,65 @@ def main():
                             [ca.admm_bwd_vec_prefold_lanes_reference(*k4_in, nu=NU)])
                 compare(f"admm_fwd_update_lanes[{mode},B={Bt}]", K5_OUT,
                         k5_call(ca, k5_in, cones), k5_plain(ca, k5_in, cones))
+
+        # The rho ladder's pair: K6 on 1, 3 and 4 rungs (and its Pc form),
+        # K5's rung form on 4 rungs with and without hf-emit, box rows and
+        # the thrust cone with a shift; a ragged batch on 4 rungs.
+        for R, nc, cones, shift, Bt in ((1, NC, (), False, B_SMALL),
+                                        (3, NC, (), False, B_SMALL),
+                                        (4, NC, (), False, B_SMALL),
+                                        (4, NC_CONE, THRUST_CONE, True, B_SMALL),
+                                        (4, NC, (), False, B_RAGGED)):
+            k6_in, k5_in, rung, Pc6 = random_ladder_inputs(
+                rng, A, Bm, R, nc, Bt, cones, True, shift)
+            rung = rung if R > 1 else None
+            tag = f"R={R},nc={nc},B={Bt}"
+            compare(f"admm_bwd_vec_lanes[{tag}]", K6_OUT,
+                    [ca.admm_bwd_vec_lanes(*k6_in, nu=NU, sigma=SIGMA, rung=rung)],
+                    [ca.admm_bwd_vec_lanes_reference(*k6_in, nu=NU, sigma=SIGMA,
+                                                     rung=rung)])
+            if R == 1:
+                pc_in = k6_in[:7] + (None,) + k6_in[8:]
+                compare(f"admm_bwd_vec_lanes[Pc,{tag}]", K6_OUT,
+                        [ca.admm_bwd_vec_lanes(*pc_in, nu=NU, sigma=SIGMA, Pc=Pc6)],
+                        [ca.admm_bwd_vec_lanes_reference(*pc_in, nu=NU,
+                                                         sigma=SIGMA, Pc=Pc6)])
+            if R < 4:
+                continue
+            for hf_emit in ((False, True) if Bt == B_SMALL else (False,)):
+                k5r = k5_in[:8] + (k5_in[8] if hf_emit else None,)
+                compare(f"admm_fwd_update_lanes[rung,{tag},hf={int(hf_emit)}]",
+                        K5_OUT if hf_emit else K5_RUNG_OUT,
+                        k5_call(ca, k5r, cones, K=k6_in[9], rung=rung),
+                        k5_plain(ca, k5r, cones, K=k6_in[9], rung=rung))
+
+        # K7 and the per-instance K1 (one block an instance) with closed-loop
+        # maps and factor export, and with export alone.
+        k7_in = (Aw, Bw, c, Kw, d, x0)
+        compare("forward_rollout_lanes", K3_OUT, cr.forward_rollout_lanes(*k7_in),
+                cr.forward_rollout_lanes_reference(*k7_in))
+        k7_r = tuple(cut(x) for x in k7_in)
+        compare(f"forward_rollout_lanes[B={B_RAGGED}]", K3_OUT,
+                cr.forward_rollout_lanes(*k7_r),
+                cr.forward_rollout_lanes_reference(*k7_r))
+        compare("backward_lanes[batch=5,export]", K1_ALL,
+                cr.backward_lanes(*few, export_factors=True),
+                cr.backward_lanes_reference(*few, export_factors=True))
+        compare("backward_lanes[batch=5,export,gains]", K1_EXPORT,
+                cr.backward_lanes(*few, export_factors=True, emit_closed_loop=False),
+                cr.backward_lanes_reference(*few, export_factors=True,
+                                            emit_closed_loop=False))
+
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
-        require(launched == {"backward_lanes": 3, "backward_vectors_lanes": 4,
-                             "forward_lanes": 3}, launched)
+        require(launched == {"backward_lanes": 5, "backward_vectors_lanes": 4,
+                             "forward_lanes": 3, "forward_rollout_lanes": 2},
+                launched)
         launched = {k: ca.LAUNCHES[k] - before_admm[k] for k in ca.LAUNCHES}
         require(launched == {"admm_bwd_vec_prefold_lanes": 2,
-                             "admm_fwd_update_lanes": 2 * len(K5_MODES)}, launched)
+                             "admm_bwd_vec_lanes": 6,
+                             "admm_fwd_update_lanes": 2 * len(K5_MODES) + 5},
+                launched)
     emit("kernels", card=card, shape={"N": N_SMALL, "B": B_SMALL, "nx": NX,
                                       "nu": NU, "nc": NC}, cases=cases)
 
@@ -489,7 +666,10 @@ def main():
         ws = server.solve(x0_t, c_t)
     torch.cuda.synchronize()
     launches = dict(cr.LAUNCHES)
-    require(launches == {k: REQUESTS for k in launches}, launches)
+    require(launches == {"backward_lanes": REQUESTS,
+                         "backward_vectors_lanes": REQUESTS,
+                         "forward_lanes": REQUESTS, "forward_rollout_lanes": 0},
+            launches)
     require(ws.shape == (B_MAIN, N_MAIN + 1, NX + NU), ws.shape)
     require(ws.dtype == torch.float32 and ws.device.type == "cuda")
     require(bool(torch.isfinite(ws).all()), "main path: non-finite output")
@@ -539,7 +719,7 @@ def main():
     admm_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
     host_reads = dict(admm.HOST_READS)
     require(admm_launches == {
-        "backward_lanes": 1, "backward_vectors_lanes": 0, "forward_lanes": 0,
+        **zero_counts(), "backward_lanes": 1,
         "admm_bwd_vec_prefold_lanes": ADMM_ITERS,
         "admm_fwd_update_lanes": ADMM_ITERS}, admm_launches)
     require(ws_a.shape == (B_MAIN, N_MAIN + 1, NX + NU), ws_a.shape)
@@ -638,7 +818,176 @@ def main():
          warm_host_reads=warm_reads, rho_after_cold=float(state_c.rho[0]),
          warm_iter_converged_max=int(info_w.iter_converged.max()))
 
-    # ---------------------------------------------------------- 8: timing
+    it32 = plt_.init_iterates(model, rho=RHO)
+
+    # ------------------------------------------------ 8: the rho ladder
+    # solve_admm with a four-rung ladder at full width, the admm_path
+    # phase's data; the start state puts scenario b on rung b mod 4.
+    st_lad = admm.ADMMSettings(**LADDER_SETTINGS)
+    rung0 = torch.tensor([LADDER[b % len(LADDER)] for b in range(B_MAIN)],
+                         dtype=torch.float64)
+    ladder_state = lambda n, dt, device: zero_state(n, N_MAIN, NC, dt, device,
+                                                    rung0[:n])
+    lad_state = ladder_state(B_MAIN, torch.float32, dev)
+    ladder_request = lambda: server.solve_admm(x0a_t, (), st_lad,
+                                               state=lad_state, c=ca_t)
+    ladder_request()                             # builds K6, K5's rung form
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls(ca, list(ca.LAUNCHES)) as lad_args:
+        ws_l, state_l, info_l = ladder_request()
+    torch.cuda.synchronize()
+    ladder_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    ladder_reads = dict(admm.HOST_READS)
+    require(ladder_launches == {**zero_counts(), "backward_lanes": 1,
+                                "admm_bwd_vec_lanes": ADMM_ITERS,
+                                "admm_fwd_update_lanes": ADMM_ITERS},
+            ladder_launches)
+    require(ws_l.shape == (B_MAIN, N_MAIN + 1, NX + NU) and state_l.factors is None)
+    # No adaptation inside 20 iterations: every scenario keeps its rung.
+    require(torch.equal(state_l.rho.cpu(), rung0.float()))
+    ref_l = admm_outputs(*cpu_server.solve_admm(
+        x0_a[:n_ref].astype(np.float64), (), st_lad,
+        state=ladder_state(n_ref, torch.float64, "cpu"),
+        c=c_a[:n_ref].astype(np.float64)))
+    errs_l = admm_errors(admm_outputs(ws_l, state_l, info_l, n_ref), ref_l)
+    require(max(errs_l.values()) <= LADDER_ATOL, errs_l)
+    # The adapting run: the update after iterations 25 and 50 snaps each
+    # scenario's rho to its nearest rung.
+    reset_counts()
+    out_la = server.solve_admm(
+        x0a_t, (), dataclasses.replace(st_lad, max_iter=LADDER_ADAPT_ITERS),
+        state=lad_state, c=ca_t)
+    torch.cuda.synchronize()
+    adapt_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(adapt_launches == {**zero_counts(), "backward_lanes": 1,
+                               "admm_bwd_vec_lanes": LADDER_ADAPT_ITERS,
+                               "admm_fwd_update_lanes": LADDER_ADAPT_ITERS},
+            adapt_launches)
+    rho_la = out_la[1].rho.cpu()
+    rungs32 = torch.tensor(LADDER, dtype=torch.float32)
+    require(bool(torch.isin(rho_la, rungs32).all()), "a rho off the rungs")
+    require(bool(torch.isfinite(out_la[0]).all()), "adapting ladder: not finite")
+    emit("admm_ladder", card=card, model="quadrotor constrained", N=N_MAIN,
+         B=B_MAIN, dtype="float32", settings=LADDER_SETTINGS,
+         launches=ladder_launches, host_reads=ladder_reads,
+         max_abs_err_vs_plain_f64=errs_l,
+         ref_max_magnitude={k: float(v.abs().max()) for k, v in ref_l.items()},
+         atol=LADDER_ATOL, r_prim_max=float(info_l.r_prim.max()),
+         adapting={"iterations": LADDER_ADAPT_ITERS, "launches": adapt_launches,
+                   "rung_occupancy": {str(r): int((rho_la == r).sum())
+                                      for r in rungs32.tolist()},
+                   "scenarios_moved": int((rho_la != rung0.float()).sum()),
+                   "converged": int(out_la[2].converged.sum())})
+
+    # ------------------------------- 9: the ladder is the replicated loop
+    # Per-instance rung rho, adaptation off, N=64, B=256, float64, both on
+    # the card's kernels: the same function.
+    m64, _ = quadrotor(N=N_SMALL, constrained=True, dtype=torch.float64,
+                       device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    x0_v = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(B_SMALL, NX))).to(dev)
+    c_v = torch.as_tensor(rng.normal(size=(B_SMALL, N_SMALL, NX)) * 0.01).to(dev)
+    st_v = zero_state(B_SMALL, N_SMALL, NC, torch.float64, dev, rung0[:B_SMALL])
+    st_fix = admm.ADMMSettings(**{**LADDER_SETTINGS, "adaptive_rho": False})
+    reset_counts()
+    out_v = plt_.solve_fused(dataclasses.replace(m64, c=c_v), x0_v, (), st_fix,
+                             state=st_v)
+    rep_v = plt_.solve_fused(batched(m64, B_SMALL, c_v), x0_v, (),
+                             dataclasses.replace(st_fix, rho_ladder=()),
+                             state=st_v)
+    torch.cuda.synchronize()
+    vs_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(vs_launches["admm_bwd_vec_lanes"] == ADMM_ITERS
+            and vs_launches["forward_lanes"] == ADMM_ITERS, vs_launches)
+    errs_v = admm_errors(admm_outputs(*out_v), admm_outputs(*rep_v))
+    require(max(errs_v.values()) <= LADDER_VS_REPLICATED_ATOL, errs_v)
+    emit("ladder_vs_replicated", card=card, N=N_SMALL, B=B_SMALL,
+         dtype="float64", iterations=ADMM_ITERS, launches=vs_launches,
+         max_abs_err=errs_v, atol=LADDER_VS_REPLICATED_ATOL)
+
+    # ---------------------------- 10: the replicated per-instance loop
+    # solve_fused on a batched problem (one model a scenario, the model
+    # written out B_REP times, per-scenario drift): per-instance adaptive
+    # rho, without and with cached factors.  First 8 scenarios against the
+    # plain path in float64 on the CPU.
+    bp_main = batched(model, B_REP, ca_t[:B_REP])
+    x0_rep = x0a_t[:B_REP]
+    bp_ref = batched(cpu_model, n_ref, torch.as_tensor(c_a[:n_ref]).double())
+    rep = {}
+    for cached in (False, True):
+        st = admm.ADMMSettings(**REP_SETTINGS, cached_factors=cached)
+        request = (lambda st=st: plt_.solve_fused(bp_main, x0_rep, (), st))
+        request()
+        torch.cuda.synchronize()
+        reset_counts()
+        with recorded_calls(cr, list(cr.LAUNCHES)) as rec:
+            out = request()
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        want = ({"backward_lanes": 1, "backward_vectors_lanes": ADMM_ITERS - 1}
+                if cached else {"backward_lanes": ADMM_ITERS})
+        require(counts == {**zero_counts(), **want,
+                           "forward_lanes": ADMM_ITERS}, counts)
+        ref = admm_outputs(*plt_.solve_fused(
+            bp_ref, x0_a[:n_ref].astype(np.float64), (), st))
+        errs = admm_errors(admm_outputs(*out, n_ref), ref)
+        require(max(errs.values()) <= REPLICATED_ATOL, errs)
+        rep[cached] = {"request": request, "launches": counts, "args": dict(rec),
+                       "host_reads": dict(admm.HOST_READS), "errs": errs,
+                       "ref_max_magnitude": {k: float(v.abs().max())
+                                             for k, v in ref.items()}}
+    emit("admm_replicated", card=card, model="quadrotor constrained, batched",
+         N=N_MAIN, B=B_REP, dtype="float32", settings=REP_SETTINGS,
+         **{("cached" if c else "uncached"): {
+             k: v for k, v in r.items() if k not in ("request", "args")}
+            for c, r in rep.items()}, atol=REPLICATED_ATOL)
+
+    # --------------------------------------------- 11: suggest_rho_ladder
+    # The probe: 128 strided scenarios of the 4096 through the replicated
+    # loop, 50 iterations (adaptation after 25 and 50).
+    reset_counts()
+    t0 = time.time()
+    suggested = admm.suggest_rho_ladder(
+        dataclasses.replace(model, c=ca_t), x0a_t, (),
+        admm.ADMMSettings(**REP_SETTINGS), rungs=len(LADDER),
+        probe_batch=PROBE_BATCH, probe_iters=PROBE_ITERS)
+    probe_s = time.time() - t0
+    probe_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(1 <= len(suggested) <= len(LADDER) and list(suggested) == sorted(suggested)
+            and all(np.isfinite(r) and r > 0 for r in suggested), suggested)
+    require(probe_launches["backward_lanes"] == PROBE_ITERS, probe_launches)
+    emit("suggest_rho_ladder", card=card, N=N_MAIN, B=B_MAIN,
+         probe_batch=PROBE_BATCH, probe_iters=PROBE_ITERS, rungs=suggested,
+         seconds=probe_s, launches=probe_launches)
+
+    # ------------------------------------------------- 12: solve_lanes
+    # The per-instance inner solve (K1 without closed-loop maps, then K7)
+    # on the main path's data written out once a scenario: the same
+    # answers as the shared solve, and the f64 sequential solver's.
+    bl = batched(model, B_MAIN, c_t)
+    it_b = plt_.ADMMIterates(**{f.name: getattr(it32, f.name)[None].expand(
+        (B_MAIN,) + getattr(it32, f.name).shape) for f in dataclasses.fields(it32)})
+    lanes_request = lambda: cr.solve_lanes(bl, it_b, x0_t, SIGMA)
+    lanes_request()
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls(cr, list(cr.LAUNCHES)) as lanes_args:
+        ws_lanes = lanes_request()
+    torch.cuda.synchronize()
+    lanes_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(lanes_launches == {**zero_counts(), "backward_lanes": 1,
+                               "forward_rollout_lanes": 1}, lanes_launches)
+    lanes_vs_shared = float((ws_lanes - ws).abs().max())
+    lanes_vs_seq = float((ws_lanes[:n_ref].double() - ws_ref).abs().max())
+    require(lanes_vs_shared <= LANES_VS_SHARED_ATOL, lanes_vs_shared)
+    require(lanes_vs_seq <= MAIN_PATH_ATOL, lanes_vs_seq)
+    emit("lanes_solve", card=card, N=N_MAIN, B=B_MAIN, dtype="float32",
+         launches=lanes_launches, max_abs_err_vs_shared_solve=lanes_vs_shared,
+         max_abs_err_vs_sequential_f64=lanes_vs_seq,
+         atol={"vs_shared": LANES_VS_SHARED_ATOL, "vs_sequential": MAIN_PATH_ATOL})
+
+    # ---------------------------------------------------------- 13: timing
     # Peak device memory of a path: the largest allocation while its
     # requests are timed, the tensors that earlier phases still hold included.
     torch.cuda.reset_peak_memory_stats()
@@ -646,7 +995,6 @@ def main():
     solve_peak = torch.cuda.max_memory_allocated()
 
     # The kernels alone, on the tensors the main path hands them.
-    it32 = plt_.init_iterates(model, rho=RHO)
     prep = cr.prepare_shared(dataclasses.replace(model, c=c_t), it32, x0_t, SIGMA)
     A_sh, B_sh, H_sh, D_sh, rho_sh, PN_sh, c_l, hf_l, pN_l, x0_l, _ = prep
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
@@ -671,85 +1019,143 @@ def main():
     k4_out = [ca.admm_bwd_vec_prefold_lanes(*k4_args, **k4_kw)]
     k5_out = k5_call(ca, k5_in, ())
 
-    plain = {
-        "backward_lanes": lambda: cr.backward_lanes_reference(
-            *k1_in, export_factors=True),
-        "backward_vectors_lanes": lambda: cr.backward_vectors_lanes_reference(
-            *k2_in, Pc=Pc),
-        "forward_lanes": lambda: cr.forward_lanes_reference(*k3_in),
-        K4: lambda: [ca.admm_bwd_vec_prefold_lanes_reference(*k4_args, **k4_kw)],
-        K5: lambda: k5_plain(ca, k5_in, ()),
+    # The rho ladder's pair, the replicated loop's per-instance K1 / K2 /
+    # K3 and solve_lanes' K1 / K7, on the tensors of their counted runs.
+    K6, K7 = "admm_bwd_vec_lanes", "forward_rollout_lanes"
+    k6_args, k6_kw = lad_args[K6]
+    l5, l5_kw = lad_args[K5]
+    k5r_in = (l5[0], l5[1], l5[2], l5[4], l5[5], l5[6], l5[10], l5[11], None)
+    rung_l = l5_kw["rung"]
+    r1_args, r1_kw = rep[False]["args"]["backward_lanes"]
+    r3_args, _ = rep[False]["args"]["forward_lanes"]
+    r2_args, _ = rep[True]["args"]["backward_vectors_lanes"]
+    g1_args, g1_kw = lanes_args["backward_lanes"]
+    k7_args, _ = lanes_args[K7]
+
+    # name: (launch counter, paths, kernel, plain version, output names,
+    # operations, TPU kernel it replaces).
+    spec = {
+        "backward_lanes": (
+            "backward_lanes", ("solve", "solve_admm", "admm_ladder"),
+            lambda: cr.backward_lanes(*k1_in, export_factors=True),
+            lambda: cr.backward_lanes_reference(*k1_in, export_factors=True),
+            K1_ALL, k1_flops(N_MAIN, NX, NU, NC, 1), "pallas_riccati.py:778"),
+        "backward_vectors_lanes": (
+            "backward_vectors_lanes", ("solve",),
+            lambda: cr.backward_vectors_lanes(*k2_in, shared=True, Pc=Pc),
+            lambda: cr.backward_vectors_lanes_reference(*k2_in, Pc=Pc),
+            K2_OUT, k2_flops(N_MAIN, NX, NU, B_MAIN), "pallas_riccati.py:1023"),
+        "forward_lanes": (
+            "forward_lanes", ("solve",),
+            lambda: cr.forward_lanes(*k3_in, shared=True),
+            lambda: cr.forward_lanes_reference(*k3_in),
+            K3_OUT, k3_flops(N_MAIN, NX, NU, B_MAIN), "pallas_riccati.py:1201"),
+        K4: (K4, ("solve_admm",),
+             lambda: [ca.admm_bwd_vec_prefold_lanes(*k4_args, **k4_kw)],
+             lambda: [ca.admm_bwd_vec_prefold_lanes_reference(*k4_args, **k4_kw)],
+             K4_OUT, k2_flops(N_MAIN, NX, NU, B_MAIN),   # K2's recursion
+             "pallas_admm.py:526"),
+        K5: (K5, ("solve_admm",), lambda: k5_call(ca, k5_in, ()),
+             lambda: k5_plain(ca, k5_in, ()), K5_OUT,
+             k5_flops(N_MAIN, NX, NU, NC, B_MAIN, ADMM_SETTINGS["diag_cost"]),
+             "pallas_admm.py:867"),
+        K6: (K6, ("admm_ladder",),
+             lambda: [ca.admm_bwd_vec_lanes(*k6_args, **k6_kw)],
+             lambda: [ca.admm_bwd_vec_lanes_reference(*k6_args, **k6_kw)],
+             K6_OUT, k6_flops(N_MAIN, NX, NU, NC, B_MAIN), "pallas_admm.py:766"),
+        K5 + "[rung]": (
+            K5, ("admm_ladder",),
+            lambda: k5_call(ca, k5r_in, (), K=l5[3], rung=rung_l),
+            lambda: k5_plain(ca, k5r_in, (), K=l5[3], rung=rung_l),
+            K5_RUNG_OUT,
+            k5_flops(N_MAIN, NX, NU, NC, B_MAIN, True, emit_hf=False),
+            "pallas_admm.py:867"),
+        K7: (K7, ("lanes_solve",), lambda: cr.forward_rollout_lanes(*k7_args),
+             lambda: cr.forward_rollout_lanes_reference(*k7_args), K3_OUT,
+             k7_flops(N_MAIN, NX, NU, B_MAIN), "pallas_riccati.py:1319"),
+        "backward_lanes[per-instance]": (
+            "backward_lanes", ("admm_replicated", "admm_replicated_cached"),
+            lambda: cr.backward_lanes(*r1_args, **r1_kw),
+            lambda: cr.backward_lanes_reference(*r1_args, **r1_kw),
+            K1_CLOSED, k1_flops(N_MAIN, NX, NU, NC, B_REP),
+            "pallas_riccati.py:778"),
+        "backward_lanes[per-instance,gains]": (
+            "backward_lanes", ("lanes_solve",),
+            lambda: cr.backward_lanes(*g1_args, **g1_kw),
+            lambda: cr.backward_lanes_reference(*g1_args, **g1_kw),
+            K1_GAINS, k1_flops(N_MAIN, NX, NU, NC, B_MAIN),
+            "pallas_riccati.py:778"),
+        "backward_vectors_lanes[per-instance]": (
+            "backward_vectors_lanes", ("admm_replicated_cached",),
+            lambda: cr.backward_vectors_lanes(*r2_args),
+            lambda: cr.backward_vectors_lanes_reference(*r2_args), K2_OUT,
+            k2_flops(N_MAIN, NX, NU, B_REP), "pallas_riccati.py:1023"),
+        "forward_lanes[per-instance]": (
+            "forward_lanes", ("admm_replicated", "admm_replicated_cached"),
+            lambda: cr.forward_lanes(*r3_args),
+            lambda: cr.forward_lanes_reference(*r3_args), K3_OUT,
+            k3_flops(N_MAIN, NX, NU, B_REP), "pallas_riccati.py:1201"),
     }
-    kernel = {
-        "backward_lanes": lambda: cr.backward_lanes(*k1_in, export_factors=True),
-        "backward_vectors_lanes": lambda: cr.backward_vectors_lanes(
-            *k2_in, shared=True, Pc=Pc),
-        "forward_lanes": lambda: cr.forward_lanes(*k3_in, shared=True),
-        K4: lambda: [ca.admm_bwd_vec_prefold_lanes(*k4_args, **k4_kw)],
-        K5: lambda: k5_call(ca, k5_in, ()),
-    }
-    outputs = {"backward_lanes": k1_out, "backward_vectors_lanes": k2_out,
-               "forward_lanes": k3_out, K4: k4_out, K5: k5_out}
-    out_names = {"backward_lanes": K1_ALL, "backward_vectors_lanes": K2_OUT,
-                 "forward_lanes": K3_OUT, K4: K4_OUT, K5: K5_OUT}
-    moved = {
-        "backward_lanes": nbytes(*k1_in, *k1_out),
-        # P itself is not read in Pc mode.
-        "backward_vectors_lanes": nbytes(A_sh, B_sh, c_l, hf_l, Pc, K, L,
-                                         pN_l, *k2_out),
-        "forward_lanes": nbytes(*k3_in, *k3_out),
-        K4: nbytes(*k4_args, *k4_out),
-        K5: nbytes(*k5_in, *k5_out),
-    }
-    flops = {
-        "backward_lanes": k1_flops(N_MAIN, NX, NU, NC, 1),
-        "backward_vectors_lanes": k2_flops(N_MAIN, NX, NU, B_MAIN),
-        "forward_lanes": k3_flops(N_MAIN, NX, NU, B_MAIN),
-        K4: k2_flops(N_MAIN, NX, NU, B_MAIN),        # K2's recursion
-        K5: k5_flops(N_MAIN, NX, NU, NC, B_MAIN, ADMM_SETTINGS["diag_cost"]),
-    }
-    replaces = {
-        "backward_lanes": "pdp_lqr_tpu/ops/pallas_riccati.py:778",
-        "backward_vectors_lanes": "pdp_lqr_tpu/ops/pallas_riccati.py:1023",
-        "forward_lanes": "pdp_lqr_tpu/ops/pallas_riccati.py:1201",
-        K4: "pdp_lqr_tpu/ops/pallas_admm.py:526",
-        K5: "pdp_lqr_tpu/ops/pallas_admm.py:867",
-    }
-    # Launches of the two main paths, each counted from zero: REQUESTS
-    # requests of `solve`, one 20-iteration request of `solve_admm`.
-    by_path = {name: {"solve": launches.get(name, 0),
-                      "solve_admm": admm_launches[name]} for name in admm_launches}
+    # Each path counted from zero: REQUESTS requests of `solve`, one
+    # 20-iteration request of `solve_admm`, of the ladder and of each
+    # replicated variant, one `solve_lanes`.
+    path_launches = {"solve": launches, "solve_admm": admm_launches,
+                     "admm_ladder": ladder_launches,
+                     "admm_replicated": rep[False]["launches"],
+                     "admm_replicated_cached": rep[True]["launches"],
+                     "lanes_solve": lanes_launches}
     kernels = []
-    for name in ("backward_lanes", "backward_vectors_lanes", "forward_lanes",
-                 K4, K5):
-        ms = cuda_ms(kernel[name], TIMED_REQUESTS)
-        plain_ms = cuda_ms(plain[name], 2, warmup=1)
-        abs_err, rel = rel_err(out_names[name], outputs[name], plain[name]())
+    for name, (counter, paths, kernel, plain, names, flops, replaces) in spec.items():
+        out = kernel()
+        ms = cuda_ms(kernel, TIMED_REQUESTS)
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        abs_err, rel = rel_err(names, out, plain())
         require(max(rel.values()) <= TOL[torch.float32], (name, abs_err, rel))
-        bound_ms, bound_by = bound(moved[name], flops[name])
+        args = {"backward_lanes": k1_in, "backward_vectors_lanes": (
+                    A_sh, B_sh, c_l, hf_l, Pc, K, L, pN_l),   # P is not read
+                "forward_lanes": k3_in, K4: k4_args, K5: k5_in,
+                K6: k6_args + (rung_l,), K5 + "[rung]": k5r_in + (l5[3], rung_l),
+                K7: k7_args, "backward_lanes[per-instance]": r1_args,
+                "backward_lanes[per-instance,gains]": g1_args,
+                "backward_vectors_lanes[per-instance]": r2_args,
+                "forward_lanes[per-instance]": r3_args}[name]
+        moved = nbytes(*args, *out)
+        bound_ms, bound_by = bound(moved, flops)
+        by_path = {p: path_launches[p][counter] for p in paths}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pdp_lqr_tpu_torch/ops/csrc/" + (
-                ca.SOURCE if name in ca.LAUNCHES else cr.SOURCE),
-            "replaces": replaces[name], "launches": sum(by_path[name].values()),
-            "launches_by_path": by_path[name],
+                ca.SOURCE if counter in ca.LAUNCHES else cr.SOURCE),
+            "replaces": "pdp_lqr_tpu/ops/" + replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": abs_err, "rel_err": rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # No single PyTorch call computes a stage recurrence.
             "library_ms": None,
-            "bytes": moved[name], "flops": flops[name],
+            "bytes": moved, "flops": flops,
         })
     fold_ms = cuda_ms(lambda: cr.fold_Pc(P, c_l), TIMED_REQUESTS)
     prep_ms = cuda_ms(lambda: cr.prepare_shared(
         dataclasses.replace(model, c=c_t), it32, x0_t, SIGMA), TIMED_REQUESTS)
-    # The ADMM request and the warm tick, whole; what an iteration costs
+    # The requests, whole; for the split loops what an iteration costs
     # beside its two kernels (the terminal stage, the statistics, the
     # host's launches, and a 20th of the request's set-up and factor build).
-    torch.cuda.reset_peak_memory_stats()
-    admm_ms = cuda_ms(admm_request, ADMM_TIMED_REQUESTS)
-    admm_peak = torch.cuda.max_memory_allocated()
-    warm_ms = cuda_ms(warm_tick, ADMM_TIMED_REQUESTS)
     kernel_ms = {k["name"]: k["ms"] for k in kernels}
+
+    def timed(request, reps, batch):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(request, reps)
+        return {"request_ms": ms, "solves_per_s": batch / (ms * 1e-3),
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+    admm_t = timed(admm_request, ADMM_TIMED_REQUESTS, B_MAIN)
+    warm_ms = cuda_ms(warm_tick, ADMM_TIMED_REQUESTS)
+    ladder_t = timed(ladder_request, ADMM_TIMED_REQUESTS, B_MAIN)
+    rep_t = {c: timed(rep[c]["request"], ADMM_TIMED_REQUESTS, B_REP)
+             for c in (False, True)}
+    lanes_t = timed(lanes_request, TIMED_REQUESTS, B_MAIN)
+    beside = lambda t, kA, kB, fac: (t["request_ms"] - fac) / ADMM_ITERS \
+        - kernel_ms[kA] - kernel_ms[kB]
     emit("timing", card=card, N=N_MAIN, B=B_MAIN, dtype="float32",
          requests=TIMED_REQUESTS, solve_ms=solve_ms,
          solves_per_s=B_MAIN / (solve_ms * 1e-3),
@@ -757,20 +1163,29 @@ def main():
          glue_ms={"Pc_fold": fold_ms, "prepare_shared": prep_ms},
          peak_memory_bytes=solve_peak,
          admm={"requests": ADMM_TIMED_REQUESTS, "iterations": ADMM_ITERS,
-               "request_ms": admm_ms,
-               "solves_per_s": B_MAIN / (admm_ms * 1e-3),
-               "iterations_per_s": ADMM_ITERS / (admm_ms * 1e-3),
-               "ms_per_iteration_beside_kernels":
-                   (admm_ms - kernel_ms["backward_lanes"]) / ADMM_ITERS
-                   - kernel_ms[K4] - kernel_ms[K5],
+               **admm_t,
+               "iterations_per_s": ADMM_ITERS / (admm_t["request_ms"] * 1e-3),
+               "ms_per_iteration_beside_kernels": beside(
+                   admm_t, K4, K5, kernel_ms["backward_lanes"]),
                "host_reads_per_request": host_reads,
                "warm_tick_ms": warm_ms, "warm_iterations": warm_iters,
                "warm_ticks_per_s": 1e3 / warm_ms,
                "warm_solves_per_s": B_MAIN / (warm_ms * 1e-3),
-               "warm_host_reads_per_tick": warm_reads,
-               "peak_memory_bytes": admm_peak})
+               "warm_host_reads_per_tick": warm_reads},
+         admm_ladder={"requests": ADMM_TIMED_REQUESTS, "iterations": ADMM_ITERS,
+                      "rungs": len(LADDER), **ladder_t,
+                      "ms_per_iteration_beside_kernels": beside(
+                          ladder_t, K6, K5 + "[rung]",
+                          kernel_ms["backward_lanes"]),
+                      "host_reads_per_request": ladder_reads},
+         admm_replicated={"B": B_REP, "iterations": ADMM_ITERS,
+                          "uncached": {**rep_t[False], "host_reads_per_request":
+                                       rep[False]["host_reads"]},
+                          "cached": {**rep_t[True], "host_reads_per_request":
+                                     rep[True]["host_reads"]}},
+         lanes_solve=lanes_t, suggest_rho_ladder_s=probe_s)
 
-    # ------------------------------------------------------------ 9: end
+    # ------------------------------------------------------------ 14: end
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

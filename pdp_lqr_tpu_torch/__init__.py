@@ -13,13 +13,18 @@ Ported so far:
 - ``models`` — quadrotor, double integrator, random LQ.
 - ``ops.riccati`` / ``solvers.sequential`` — plain-torch sequential
   Riccati, the port's independent witness.
-- ``ops.cuda_riccati`` — the shared-model inner solve on three kernels
-  (matrix sweep, cached-factor vector sweep, closed-loop rollout).
+- ``ops.cuda_riccati`` — the inner solve on four kernels (matrix sweep,
+  cached-factor vector sweep, closed-loop rollout, rollout from the raw
+  dynamics): one shared model (``solve_shared``) or one model a scenario
+  (``solve_lanes``).
 - ``ops.projections`` — box / SOC / rotated-SOC projections.
-- ``ops.cuda_admm`` — the split conic ADMM iteration on two kernels
-  (prefold vector sweep; rollout + projection + dual + residuals).
-- ``solvers.admm`` — ``ADMMSettings`` / ``ADMMState`` / ``ADMMInfo`` and
-  ``solve_fused`` in shared split mode (cached factors, uniform rho).
+- ``ops.cuda_admm`` — the split conic ADMM iteration on three kernels
+  (prefold vector sweep; vector sweep with the iterate fold on R ladder
+  rungs; rollout + projection + dual + residuals).
+- ``solvers.admm`` — ``ADMMSettings`` / ``ADMMState`` / ``ADMMInfo``,
+  ``suggest_rho_ladder`` and ``solve_fused`` in shared split mode (cached
+  factors with a uniform rho, or a rho ladder) and on batched problems (the
+  replicated per-instance loop).
 - ``mpc.shift_state`` — the one-stage shift of a warm start.
 - ``api.ScenarioServer`` — one model serving B scenarios: ``solve`` (inner
   LQ solves) and ``solve_admm`` (the conic ADMM loop).

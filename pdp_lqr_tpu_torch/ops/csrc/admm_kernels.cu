@@ -1,13 +1,15 @@
 // Split conic ADMM iteration kernels for NVIDIA Hopper (sm_90a), plain C
 // interface.
 //
-// Two kernels, the counterparts of the split pair in
+// Three kernels, the counterparts of the split kernels in
 // pdp_lqr_tpu/ops/pallas_admm.py:
 //
 //   admm_bwd_vec_prefold  <- _admm_bwd_vec_prefold_kernel
-//                            (admm_bwd_vec_prefold_lanes, kernel A)
-//   admm_fwd_update       <- _admm_fwd_update_kernel_il, packed, one rung,
-//                            hf-emit (admm_fwd_update_lanes, kernel B)
+//                            (admm_bwd_vec_prefold_lanes, K4)
+//   admm_bwd_vec          <- _admm_bwd_vec_kernel_il
+//                            (admm_bwd_vec_lanes, K6)
+//   admm_fwd_update       <- _admm_fwd_update_kernel_il
+//                            (admm_fwd_update_lanes, K5)
 //
 // One model serves Bt scenarios.  Every tensor is batch-last: element
 // (k, i, j) of scenario b of an (N, R, C, Bt) tensor lives at
@@ -17,20 +19,25 @@
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DSCALAR=float -DNX=12 -DNU=4 \
-//        [-DNC=19 -DDIAG_COST=1 -DHAS_SHIFT=1 -DNCONES=1 -DCONE0=16003000]
+//        [-DNC=19 [-DNRUNG=4] (-DFOLD=1 |
+//         -DDIAG_COST=1 -DHAS_SHIFT=1 -DNCONES=1 -DCONE0=16003000)]
 //
-// Without -DNC the library holds kernel A (it reads no constraint rows);
-// with it, kernel B, whose cost form (DIAG_COST: Hs is the diagonal),
-// shift presence and cone list (NCONES cones, each one integer
+// Without -DNC the library holds K4 (it reads no constraint rows); with it
+// and -DFOLD, K6; with it alone, K5, whose cost form (DIAG_COST: Hs is the
+// diagonal), shift presence and cone list (NCONES cones, each one integer
 // offset * 1000000 + dim * 1000 + kind, kind 0 a second-order cone, 1 a
-// rotated one) are compile-time too.
+// rotated one) are compile-time too.  NRUNG (default 1) is the number of
+// rho-ladder rungs whose factors K6 and K5 read, stacked on the rows of
+// their shared streams: a scenario's rung is an int32 index, and a thread
+// reads that rung's matrices at an offset in the ring slot, which holds
+// all of them (the TPU kernels blend all rungs with one-hot weights).
 //
-// What bounds both kernels on this card is bytes (the per-scenario
+// What bounds these kernels on this card is bytes (the per-scenario
 // streams; the shared ones are kilobytes), and what a plain loop runs into
-// first is latency: N dependent stages, a few thousand scenarios.  Both
+// first is latency: N dependent stages, a few thousand scenarios.  They
 // take the geometry of the shared-model sweeps in riccati_kernels.cu
 // (lanes_common.cuh): a block serves 32 scenarios with 4 threads each
-// (kernel A) or 8 (kernel B), a
+// (K4, K6) or 8 (K5), a
 // thread owns a slice of the rows of each per-scenario vector, what the
 // others need is exchanged through shared memory, and every stage's inputs
 // — the shared matrices and the 32 scenarios' vectors — are copied
@@ -47,15 +54,19 @@
 #if !defined(SCALAR) || !defined(NX) || !defined(NU)
 #error "build with -DSCALAR=<float|double> -DNX=<n> -DNU=<n> [-DNC=<n> ...]"
 #endif
+#ifndef NRUNG
+#define NRUNG 1
+#endif
 
-// Kernel B runs eight threads a scenario, not the four of the other
+// K5 runs eight threads a scenario, not the four of the other
 // shared-model kernels: its stage is three times theirs.  With four its
 // float32 instantiations took 142-168 registers a thread and a launch at
 // N=512, B=4096 took 1.96 ms on an H100 (700 W); with eight they take
-// 115-128 and the launch 1.40 ms (chip_smoke.py; PERF.md).  Kernel A, like
+// 115-128 and the launch 1.40 ms (chip_smoke.py; PERF.md).  K4, like
 // the two sweeps it is modelled on, was no faster with eight at that batch
-// and slower at four times that batch, so it keeps four.
-#ifdef NC
+// and slower at four times that batch, so it keeps four, and K6, its
+// recursion with the fold in front, does the same.
+#if defined(NC) && !defined(FOLD)
 #define VS_GROUPS_N 8
 #endif
 
@@ -217,15 +228,230 @@ bwd_vec_prefold_kernel(
     __pipeline_wait_prior(0);
 }
 
-#else  // NC
-// ------------------------------------------------------------- kernel B
+#elif defined(FOLD)
+// ------------------------------------------------------------------- K6
+// K4's recursion with the iterate fold in front of it, on the scenario's
+// own rung of R stacked factor sets.  Per stage, backwards from p = pN:
+//   rg   = rho m z - y             hf = h - sigma w - D^T rg
+//   Pcp  = P c + p  (or Pc + p)    rbar = hf[:nu] + B^T Pcp
+//   d    = -(L L^T)^{-1} rbar      v    = B d + c
+//   p    = hf[nu:] + A^T Pcp + K^T rbar
+// A thread folds every constraint row itself (nc products of one
+// multiply-add each: cheaper than a barrier) and then the rows of hf it
+// needs: all nu input rows (each thread solves the nu x nu system) and
+// its own state rows.  PC_MODE: the per-scenario Pc = P_{k+1} c_k rides
+// the ring instead of the P stream (one rung only).
+
+constexpr int K6_NW = NZ + 2 * NC;            // wzy rows: w, z, y
+constexpr int K6_A = 0;
+constexpr int K6_B = K6_A + NX * NX;
+constexpr int K6_H = K6_B + NX * NU;
+constexpr int K6_D = K6_H + NZ;
+constexpr int K6_MASK = K6_D + NC * NZ;
+template <bool PC_MODE> struct K6Layout {
+    // The R rungs of P (not in Pc mode), L and K, rung r at r * rows*cols.
+    static constexpr int P = K6_MASK + NC;
+    static constexpr int L = P + (PC_MODE ? 0 : NRUNG * NX * NX);
+    static constexpr int K = L + NRUNG * NU * NU;
+    // Per-scenario rows after the matrices: c, wzy, then (Pc mode) Pc.
+    static constexpr int VEC = K + NRUNG * NU * NX;
+    static constexpr int SLOT_WORDS =
+        VEC + (NX + K6_NW + (PC_MODE ? NX : 0)) * VS_LANES;
+    static constexpr int SMEM_WORDS =
+        VS_SLOTS * SLOT_WORDS + 2 * NX * VS_LANES;
+};
+
+template <bool PC_MODE>
+__global__ void __launch_bounds__(VS_THREADS)
+bwd_vec_kernel(
+    int N, int Bt, double sigma_d,
+    const scalar* __restrict__ rho, const scalar* __restrict__ pN,
+    const scalar* __restrict__ A, const scalar* __restrict__ B,
+    const scalar* __restrict__ h, const scalar* __restrict__ D,
+    const scalar* __restrict__ mask, const scalar* __restrict__ P,
+    const scalar* __restrict__ L, const scalar* __restrict__ K,
+    const scalar* __restrict__ c, const scalar* __restrict__ Pc,
+    const scalar* __restrict__ wzy, const int* __restrict__ rung,
+    scalar* __restrict__ dv_out)
+{
+    using Lay = K6Layout<PC_MODE>;
+    extern __shared__ double smem_aligned[];
+    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    scalar* xs = ring + VS_SLOTS * Lay::SLOT_WORDS;          // Pcp exchange, x2
+
+    const int tid = threadIdx.x;
+    const int lane = tid % VS_LANES;
+    const int grp = tid / VS_LANES;
+    const size_t Bs = (size_t)Bt;
+    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const bool valid = b < Bs;
+    const scalar sigma = (scalar)sigma_d;
+    const scalar rho_b = valid ? rho[b] : (scalar)0;
+    // This scenario's rung: where its matrices lie in a slot.
+    const int r_ix = (NRUNG > 1 && valid) ? rung[b] : 0;
+    const int oP = Lay::P + r_ix * NX * NX;
+    const int oL = Lay::L + r_ix * NU * NU;
+    const int oK = Lay::K + r_ix * NU * NX;
+
+    // Stage n of the sweep is model stage k = N-1-n.  One copy group per
+    // call (empty past the end), so groups and stages stay in step.
+    auto prefetch = [&](int n) {
+        if (n < N) {
+            const size_t ks = (size_t)(N - 1 - n);
+            scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
+            scalar* V = S + Lay::VEC;
+            copy_matrix(S + K6_A, A + ks * NX * NX, NX * NX);
+            copy_matrix(S + K6_B, B + ks * NX * NU, NX * NU);
+            copy_matrix(S + K6_H, h + ks * NZ, NZ);
+            copy_matrix(S + K6_D, D + ks * NC * NZ, NC * NZ);
+            copy_matrix(S + K6_MASK, mask + ks * NC, NC);
+            if (!PC_MODE)
+                copy_matrix(S + Lay::P, P + ks * NRUNG * NX * NX,
+                            NRUNG * NX * NX);
+            copy_matrix(S + Lay::L, L + ks * NRUNG * NU * NU, NRUNG * NU * NU);
+            copy_matrix(S + Lay::K, K + ks * NRUNG * NU * NX, NRUNG * NU * NX);
+            if (valid) {
+                copy_rows<NX>(V, c + ks * NX * Bs + b, Bs, lane, grp);
+                copy_rows<K6_NW>(V + NX * VS_LANES, wzy + ks * K6_NW * Bs + b,
+                                 Bs, lane, grp);
+                if (PC_MODE)
+                    copy_rows<NX>(V + (NX + K6_NW) * VS_LANES,
+                                  Pc + ks * NX * Bs + b, Bs, lane, grp);
+            }
+        }
+        __pipeline_commit();
+    };
+
+    // Pcp rows this thread owns, for the stage held in slot S.
+    scalar p[VS_RX];
+    auto put_Pcp = [&](const scalar* S, scalar* dst) {
+        const scalar* cv = S + Lay::VEC;
+#pragma unroll
+        for (int r = 0; r < VS_RX; ++r) {
+            const int i = grp * VS_RX + r;
+            if (i < NX) {
+                scalar acc;
+                if (PC_MODE) {
+                    acc = cv[(NX + K6_NW + i) * VS_LANES + lane];
+                } else {
+                    acc = (scalar)0;
+#pragma unroll
+                    for (int t = 0; t < NX; ++t)
+                        acc += S[oP + i * NX + t] * cv[t * VS_LANES + lane];
+                }
+                dst[i * VS_LANES + lane] = acc + p[r];
+            }
+        }
+    };
+
+#pragma unroll
+    for (int r = 0; r < VS_RX; ++r) {
+        const int i = grp * VS_RX + r;
+        p[r] = (valid && i < NX) ? pN[i * Bs + b] : (scalar)0;
+    }
+    for (int n = 0; n < VS_PF; ++n) prefetch(n);
+    __pipeline_wait_prior(VS_PF - 1);        // stage 0 landed (my copies)
+    __syncthreads();                         // ... and everyone's
+    put_Pcp(ring, xs);
+
+    for (int n = 0; n < N; ++n) {
+        const size_t ks = (size_t)(N - 1 - n);
+        const scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
+        const scalar* sA = S + K6_A;                 // A[i][j] at i*NX + j
+        const scalar* sB = S + K6_B;                 // B[i][j] at i*NU + j
+        const scalar* sh = S + K6_H;
+        const scalar* sD = S + K6_D;                 // D[c][e] at c*NZ + e
+        const scalar* sm = S + K6_MASK;
+        const scalar* sL = S + oL;                   // L[i][j] at i*NU + j
+        const scalar* sK = S + oK;                   // K[t][i] at t*NX + i
+        const scalar* cv = S + Lay::VEC;
+        const scalar* wv = cv + NX * VS_LANES;       // w rows, z rows, y rows
+        // Stage n+1 has landed too (it is read at the end of this stage),
+        // and the barrier publishes it and this stage's Pcp.
+        __pipeline_wait_prior(VS_PF - 2);
+        __syncthreads();
+
+        scalar Pcp[NX], rg[NC], rbar[NU], dv[NU], inv[NU];
+        const scalar* xin = xs + (n & 1) * NX * VS_LANES;
+#pragma unroll
+        for (int t = 0; t < NX; ++t) Pcp[t] = xin[t * VS_LANES + lane];
+#pragma unroll
+        for (int ci = 0; ci < NC; ++ci)
+            rg[ci] = rho_b * sm[ci] * wv[(NZ + ci) * VS_LANES + lane]
+                - wv[(NZ + NC + ci) * VS_LANES + lane];
+        // Row e of the folded cost hf.
+        auto hf_row = [&](int e) {
+            scalar acc = sh[e] - sigma * wv[e * VS_LANES + lane];
+#pragma unroll
+            for (int ci = 0; ci < NC; ++ci) acc -= rg[ci] * sD[ci * NZ + e];
+            return acc;
+        };
+
+        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar.
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+            scalar acc = hf_row(j);
+#pragma unroll
+            for (int t = 0; t < NX; ++t) acc += sB[t * NU + j] * Pcp[t];
+            rbar[j] = acc;
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[i * NU + i];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+            scalar acc = rbar[i];
+#pragma unroll
+            for (int t = 0; t < i; ++t) acc -= sL[i * NU + t] * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = NU - 1; i >= 0; --i) {
+            scalar acc = dv[i];
+#pragma unroll
+            for (int t = i + 1; t < NU; ++t) acc -= sL[t * NU + i] * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) dv[i] = -dv[i];
+
+#pragma unroll
+        for (int j = 0; j < NU; ++j)     // each input row stored by one group
+            if (j / VS_RU == grp && valid) dv_out[(ks * NZ + j) * Bs + b] = dv[j];
+        // Own rows: v = B d + c ; p = hf_x + A^T Pcp + K^T rbar.
+#pragma unroll
+        for (int r = 0; r < VS_RX; ++r) {
+            const int i = grp * VS_RX + r;
+            if (i < NX) {
+                scalar vv = cv[i * VS_LANES + lane];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) vv += sB[i * NU + t] * dv[t];
+                if (valid) dv_out[(ks * NZ + NU + i) * Bs + b] = vv;
+                scalar acc = hf_row(NU + i);
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * Pcp[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rbar[t];
+                p[r] = acc;
+            }
+        }
+        if (n + 1 < N)
+            put_Pcp(ring + ((n + 1) % VS_SLOTS) * Lay::SLOT_WORDS,
+                    xs + ((n + 1) & 1) * NX * VS_LANES);
+        prefetch(n + VS_PF);
+    }
+    __pipeline_wait_prior(0);
+}
+
+#else  // K5
+// ------------------------------------------------------------------- K5
 // Per stage, forwards from x = x0 (alpha the relaxation, m the per-row
 // rho scale, 0 on padded rows):
 //   u = K x + d            w~ = [u; x]           x+ = M x + v
 //   z~ = D w~              w+ = alpha w~ + (1-alpha) w
 //   v  = alpha z~ + (1-alpha) z + [m>0] y / (rho m)
 //   z+ = project(v) [m>0]  y+ = y + rho m (alpha z~ + (1-alpha) z - z+)
-//   hf+ = h - sigma w+ - D^T (rho m z+ - y+)      (next iteration's cost)
+//   hf+ = h - sigma w+ - D^T (rho m z+ - y+)      (EMIT_HF: next
+//                                                   iteration's cost)
 // and the running maxima over the stages of the four residual terms
 //   |D w+ - z+|,
 //   |(1-alpha) Hs (w - w~) + alpha sigma (w - w~)
@@ -238,7 +464,9 @@ bwd_vec_prefold_kernel(
 // a thread can take the norm over a cone whose rows lie with other
 // threads (only when there are cones), and rg = rho m z+ - y+, the dual
 // residual's row term and y+, which every row of hf+ and of the residual
-// sums needs in full.
+// sums needs in full.  M and K come as two streams with a stage stride
+// each: the packed MK = [M; K] of one rung is both at once (stride nz*nx,
+// K nx*nx words in), the rung form R rungs of each stacked on rows.
 
 #if !defined(DIAG_COST) || !defined(HAS_SHIFT) || !defined(NCONES)
 #error "kernel B: build with -DDIAG_COST -DHAS_SHIFT -DNCONES [-DCONE0 ...] as well"
@@ -250,9 +478,11 @@ constexpr int HS_WORDS = DIAG_COST ? NZ : NZ * NZ;
 constexpr int VS_RZ = (NZ + VS_GROUPS - 1) / VS_GROUPS;   // w rows/thread
 constexpr int VS_RC = (NC + VS_GROUPS - 1) / VS_GROUPS;   // constraint rows/thread
 
-// Slot layout (words): the shared matrices, then dv and wzy rows.
-constexpr int K5_MK = 0;
-constexpr int K5_HS = K5_MK + NZ * NX;
+// Slot layout (words): the shared matrices (all R rungs of M and K), then
+// dv and wzy rows.
+constexpr int K5_M = 0;
+constexpr int K5_K = K5_M + NRUNG * NX * NX;
+constexpr int K5_HS = K5_K + NRUNG * NU * NX;
 constexpr int K5_D = K5_HS + HS_WORDS;
 constexpr int K5_BND = K5_D + NC * NZ;
 constexpr int K5_H = K5_BND + NB * NC;
@@ -341,14 +571,16 @@ __device__ __forceinline__ scalar cone_row(const scalar* vx, int off, int dim,
     return x_p(at(j));
 }
 
+template <bool EMIT_HF>
 __global__ void __launch_bounds__(VS_THREADS)
 fwd_update_kernel(
-    int N, int Bt, double alpha_d, double sigma_d,
+    int N, int Bt, double alpha_d, double sigma_d, int m_stride, int k_stride,
     const scalar* __restrict__ rho, const scalar* __restrict__ x0,
-    const scalar* __restrict__ MK, const scalar* __restrict__ Hs,
+    const scalar* __restrict__ M, const scalar* __restrict__ K,
+    const scalar* __restrict__ Hs,
     const scalar* __restrict__ D, const scalar* __restrict__ bnd,
-    const scalar* __restrict__ h, const scalar* __restrict__ dv,
-    const scalar* __restrict__ wzy,
+    const scalar* __restrict__ h, const int* __restrict__ rung,
+    const scalar* __restrict__ dv, const scalar* __restrict__ wzy,
     scalar* __restrict__ wzy_new, scalar* __restrict__ hf_new,
     scalar* __restrict__ xN, scalar* __restrict__ res)
 {
@@ -371,16 +603,27 @@ fwd_update_kernel(
     const scalar sigma = (scalar)sigma_d;
     const scalar asig = (scalar)(alpha_d * sigma_d);
     const scalar rho_b = valid ? rho[b] : (scalar)1;
+    // This scenario's rung: where its M and K lie in a slot.
+    const int r_ix = (NRUNG > 1 && valid) ? rung[b] : 0;
+    // The packed MK of one rung: one copy a stage fills both.
+    const bool packed = NRUNG == 1 && K == M + NX * NX && k_stride == m_stride;
+    const int oM = K5_M + r_ix * NX * NX;
+    const int oK = K5_K + r_ix * NU * NX;
 
     auto prefetch = [&](int k) {
         if (k < N) {
             const size_t ks = (size_t)k;
             scalar* S = ring + (k % VS_SLOTS) * K5_SLOT_WORDS;
-            copy_matrix(S + K5_MK, MK + ks * NZ * NX, NZ * NX);
+            if (packed) {            // [M; K] is one run, as the slot holds it
+                copy_matrix(S + K5_M, M + ks * m_stride, NZ * NX);
+            } else {
+                copy_matrix(S + K5_M, M + ks * m_stride, NRUNG * NX * NX);
+                copy_matrix(S + K5_K, K + ks * k_stride, NRUNG * NU * NX);
+            }
             copy_matrix(S + K5_HS, Hs + ks * HS_WORDS, HS_WORDS);
             copy_matrix(S + K5_D, D + ks * NC * NZ, NC * NZ);
             copy_matrix(S + K5_BND, bnd + ks * NB * NC, NB * NC);
-            copy_matrix(S + K5_H, h + ks * NZ, NZ);
+            if (EMIT_HF) copy_matrix(S + K5_H, h + ks * NZ, NZ);
             if (valid) {
                 copy_rows<NZ>(S + K5_VEC, dv + ks * NZ * Bs + b, Bs, lane, grp);
                 copy_rows<NW>(S + K5_VEC + NZ * VS_LANES,
@@ -402,8 +645,8 @@ fwd_update_kernel(
     for (int k = 0; k < N; ++k) {
         const size_t ks = (size_t)k;
         const scalar* S = ring + (k % VS_SLOTS) * K5_SLOT_WORDS;
-        const scalar* sM = S + K5_MK;                // M[i][t] at i*NX + t
-        const scalar* sK = sM + NX * NX;             // K[j][t] at j*NX + t
+        const scalar* sM = S + oM;                   // M[i][t] at i*NX + t
+        const scalar* sK = S + oK;                   // K[j][t] at j*NX + t
         const scalar* sHs = S + K5_HS;
         const scalar* sD = S + K5_D;                 // D[c][e] at c*NZ + e
         const scalar* sbnd = S + K5_BND;             // lb | ub | m [| shift]
@@ -498,7 +741,7 @@ fwd_update_kernel(
                     wzy_new[(ks * NW + NZ + ci) * Bs + b] = z_new;
                     wzy_new[(ks * NW + NZ + NC + ci) * Bs + b] = y_new;
                 }
-                ex[ci * VS_LANES + lane] = rho_m[r] * z_new - y_new;
+                if (EMIT_HF) ex[ci * VS_LANES + lane] = rho_m[r] * z_new - y_new;
                 ex[(NC + ci) * VS_LANES + lane] =
                     rho_m[r] * (amo * (zt[r] - zo[r]) + (zo[r] - z_new));
                 ex[(2 * NC + ci) * VS_LANES + lane] = y_new;
@@ -524,12 +767,12 @@ fwd_update_kernel(
                 }
                 const scalar wn_e = alpha * wt_e + oma * wo;
                 const scalar dw_e = wo - wt_e;
-                scalar hfn = sh[e] - sigma * wn_e;
+                scalar hfn = EMIT_HF ? sh[e] - sigma * wn_e : (scalar)0;
                 scalar dT = (scalar)0, dty = (scalar)0;
 #pragma unroll
                 for (int ci = 0; ci < NC; ++ci) {
                     const scalar Dce = sD[ci * NZ + e];
-                    hfn -= ex[ci * VS_LANES + lane] * Dce;
+                    if (EMIT_HF) hfn -= ex[ci * VS_LANES + lane] * Dce;
                     dT += ex[(NC + ci) * VS_LANES + lane] * Dce;
                     dty += ex[(2 * NC + ci) * VS_LANES + lane] * Dce;
                 }
@@ -552,7 +795,7 @@ fwd_update_kernel(
                 ds = fmax(ds, fmax(fabs(Hw), fabs(dty)));
                 if (valid) {
                     wzy_new[(ks * NW + e) * Bs + b] = wn_e;
-                    hf_new[(ks * NZ + e) * Bs + b] = hfn;
+                    if (EMIT_HF) hf_new[(ks * NZ + e) * Bs + b] = hfn;
                 }
             }
         }
@@ -580,7 +823,7 @@ fwd_update_kernel(
     }
 }
 
-#endif  // NC
+#endif  // K4 / K6 / K5
 
 }  // namespace
 
@@ -603,27 +846,70 @@ int admm_bwd_vec_prefold(int N, int Bt, void* stream,
         (const scalar*)c, (const scalar*)Pc, (const scalar*)hf, (scalar*)dv);
     return (int)cudaGetLastError();
 }
-#else  // NC
-int admm_fwd_update(int N, int Bt, double alpha, double sigma, void* stream,
-                    const void* rho, const void* x0, const void* MK,
-                    const void* Hs, const void* D, const void* bnd,
-                    const void* h, const void* dv, const void* wzy,
-                    void* wzy_new, void* hf_new, void* xN, void* res)
+#elif defined(FOLD)
+int admm_bwd_vec(int N, int Bt, double sigma, int pc_mode, void* stream,
+                 const void* rho, const void* pN, const void* A,
+                 const void* B, const void* h, const void* D,
+                 const void* mask, const void* P, const void* L,
+                 const void* K, const void* c, const void* Pc,
+                 const void* wzy, const void* rung, void* dv)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    if (pc_mode && NRUNG != 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+#define ADMM_BV_ARGS                                                         \
+    N, Bt, sigma, (const scalar*)rho, (const scalar*)pN, (const scalar*)A,   \
+        (const scalar*)B, (const scalar*)h, (const scalar*)D,                \
+        (const scalar*)mask, (const scalar*)P, (const scalar*)L,             \
+        (const scalar*)K, (const scalar*)c, (const scalar*)Pc,               \
+        (const scalar*)wzy, (const int*)rung, (scalar*)dv
+    if (pc_mode) {
+        const size_t smem = K6Layout<true>::SMEM_WORDS * sizeof(scalar);
+        int e = set_smem(bwd_vec_kernel<true>, smem);
+        if (e) return e;
+        bwd_vec_kernel<true><<<blocks, VS_THREADS, smem, st>>>(ADMM_BV_ARGS);
+    } else {
+        const size_t smem = K6Layout<false>::SMEM_WORDS * sizeof(scalar);
+        int e = set_smem(bwd_vec_kernel<false>, smem);
+        if (e) return e;
+        bwd_vec_kernel<false><<<blocks, VS_THREADS, smem, st>>>(ADMM_BV_ARGS);
+    }
+#undef ADMM_BV_ARGS
+    return (int)cudaGetLastError();
+}
+#else  // K5
+int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
+                    int k_stride, int emit_hf, void* stream,
+                    const void* rho, const void* x0, const void* M,
+                    const void* K, const void* Hs, const void* D,
+                    const void* bnd, const void* h, const void* rung,
+                    const void* dv, const void* wzy, void* wzy_new,
+                    void* hf_new, void* xN, void* res)
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
     const size_t smem = K5_SMEM_WORDS * sizeof(scalar);
-    int e = set_smem(fwd_update_kernel, smem);
-    if (e) return e;
-    fwd_update_kernel<<<blocks, VS_THREADS, smem, st>>>(
-        N, Bt, alpha, sigma, (const scalar*)rho, (const scalar*)x0,
-        (const scalar*)MK, (const scalar*)Hs, (const scalar*)D,
-        (const scalar*)bnd, (const scalar*)h, (const scalar*)dv,
-        (const scalar*)wzy, (scalar*)wzy_new, (scalar*)hf_new, (scalar*)xN,
-        (scalar*)res);
+#define ADMM_FU_ARGS                                                         \
+    N, Bt, alpha, sigma, m_stride, k_stride, (const scalar*)rho,             \
+        (const scalar*)x0, (const scalar*)M, (const scalar*)K,               \
+        (const scalar*)Hs, (const scalar*)D, (const scalar*)bnd,             \
+        (const scalar*)h, (const int*)rung, (const scalar*)dv,               \
+        (const scalar*)wzy, (scalar*)wzy_new, (scalar*)hf_new, (scalar*)xN,  \
+        (scalar*)res
+    if (emit_hf) {
+        int e = set_smem(fwd_update_kernel<true>, smem);
+        if (e) return e;
+        fwd_update_kernel<true><<<blocks, VS_THREADS, smem, st>>>(ADMM_FU_ARGS);
+    } else {
+        int e = set_smem(fwd_update_kernel<false>, smem);
+        if (e) return e;
+        fwd_update_kernel<false><<<blocks, VS_THREADS, smem, st>>>(ADMM_FU_ARGS);
+    }
+#undef ADMM_FU_ARGS
     return (int)cudaGetLastError();
 }
-#endif  // NC
+#endif  // K4 / K6 / K5
 
 }  // extern "C"

@@ -1,11 +1,12 @@
 // Riccati sweep kernels for NVIDIA Hopper (sm_90a), plain C interface.
 //
-// Three kernels, the counterparts of the three fused sweep kernels in
+// Four kernels, the counterparts of four fused sweep kernels in
 // pdp_lqr_tpu/ops/pallas_riccati.py:
 //
-//   riccati_backward          <- _backward_kernel      (backward_lanes)
-//   riccati_backward_vectors  <- _backward_vec_kernel  (backward_vectors_lanes)
-//   riccati_forward           <- _forward_kernel       (forward_lanes)
+//   riccati_backward          <- _backward_kernel      (backward_lanes, K1)
+//   riccati_backward_vectors  <- _backward_vec_kernel  (backward_vectors_lanes, K2)
+//   riccati_forward           <- _forward_kernel       (forward_lanes, K3)
+//   riccati_forward_rollout   <- _forward_abc_kernel   (forward_rollout_lanes, K7)
 //
 // Every tensor is batch-last: element (k, i, j) of instance b of an
 // (N, R, C, Bt) tensor lives at ((k*R + i)*C + j)*Bt + b.  The problem
@@ -16,7 +17,7 @@
 //        -Xcompiler -fPIC -DSCALAR=float -DNX=12 -DNU=4 [-DNC=16] ...
 //
 // With -DNC the library holds the matrix sweep (the only kernel that
-// reads constraint rows); without it, the two per-scenario kernels.
+// reads constraint rows); without it, the three per-scenario kernels.
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -828,6 +829,110 @@ forward_shared_kernel(
     }
 }
 
+// ---- K7, per-instance rollout from the raw dynamics: u = K x + d,
+// x+ = A x + B u + c, every matrix per scenario (trailing size Bt).  What
+// bounds it is bytes: 272 words a scenario and stage in (A, B, c, K, d)
+// and out (ws).  One thread a scenario leaves a batch of 4,096 at 128 warps
+// for 132 SMs, each stage waiting on its own loads (the first K2/K3 measured
+// so).  Here a block serves 32 scenarios with RO_GROUPS threads each (a
+// warp is one group, so a warp's loads of one matrix entry are 32
+// neighbouring words): a thread computes all of u itself (nu short dot
+// products on K rows that the scenario's threads share through L1) and
+// owns a slice of the rows of x+; x goes round through shared memory, one
+// barrier a stage.  Each stage's loads are issued before that barrier, so
+// they are in flight while the block waits on it.
+constexpr int RO_GROUPS = 8;                 // threads per scenario
+constexpr int RO_THREADS = VS_LANES * RO_GROUPS;
+constexpr int RO_RX = (NX + RO_GROUPS - 1) / RO_GROUPS;   // x rows/thread
+constexpr int RO_RU = (NU + RO_GROUPS - 1) / RO_GROUPS;   // u rows stored/thread
+
+__global__ void __launch_bounds__(RO_THREADS)
+forward_rollout_kernel(
+    int N, int Bt,
+    const scalar* __restrict__ A, const scalar* __restrict__ B,
+    const scalar* __restrict__ c, const scalar* __restrict__ K,
+    const scalar* __restrict__ d, const scalar* __restrict__ x0,
+    scalar* __restrict__ ws, scalar* __restrict__ xN)
+{
+    extern __shared__ double smem_aligned[];
+    scalar* xs = reinterpret_cast<scalar*>(smem_aligned);   // x exchange, x2
+
+    const int tid = threadIdx.x;
+    const int lane = tid % VS_LANES;
+    const int grp = tid / VS_LANES;
+    const size_t Bs = (size_t)Bt;
+    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const bool valid = b < Bs;
+    const size_t bb = valid ? b : 0;         // an idle lane reads scenario 0
+
+#pragma unroll
+    for (int r = 0; r < RO_RX; ++r) {
+        const int i = grp * RO_RX + r;
+        if (i < NX) xs[i * VS_LANES + lane] = x0[i * Bs + bb];
+    }
+
+    for (int k = 0; k < N; ++k) {
+        const size_t ks = (size_t)k;
+        scalar Kr[NU][NX], dr[NU], Ar[RO_RX][NX], Br[RO_RX][NU], cr[RO_RX];
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+            dr[j] = __ldg(d + (ks * NU + j) * Bs + bb);
+#pragma unroll
+            for (int t = 0; t < NX; ++t)
+                Kr[j][t] = __ldg(K + ((ks * NU + j) * NX + t) * Bs + bb);
+        }
+#pragma unroll
+        for (int r = 0; r < RO_RX; ++r) {
+            const int i = grp * RO_RX + r < NX ? grp * RO_RX + r : NX - 1;
+            cr[r] = __ldg(c + (ks * NX + i) * Bs + bb);
+#pragma unroll
+            for (int t = 0; t < NX; ++t)
+                Ar[r][t] = __ldg(A + ((ks * NX + i) * NX + t) * Bs + bb);
+#pragma unroll
+            for (int t = 0; t < NU; ++t)
+                Br[r][t] = __ldg(B + ((ks * NX + i) * NU + t) * Bs + bb);
+        }
+        __syncthreads();                     // x_k published
+
+        const scalar* xin = xs + (k & 1) * NX * VS_LANES;
+        scalar* xout = xs + ((k + 1) & 1) * NX * VS_LANES;
+        scalar x[NX], u[NU];
+#pragma unroll
+        for (int t = 0; t < NX; ++t) x[t] = xin[t * VS_LANES + lane];
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+            scalar acc = dr[j];
+#pragma unroll
+            for (int t = 0; t < NX; ++t) acc += Kr[j][t] * x[t];
+            u[j] = acc;
+        }
+#pragma unroll
+        for (int r = 0; r < RO_RU; ++r) {
+            const int j = grp * RO_RU + r;
+            if (j < NU && valid) ws[(ks * NZ + j) * Bs + b] = u[j];
+        }
+#pragma unroll
+        for (int r = 0; r < RO_RX; ++r) {
+            const int i = grp * RO_RX + r;
+            if (i < NX) {
+                if (valid) ws[(ks * NZ + NU + i) * Bs + b] = x[i];
+                scalar acc = cr[r];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += Ar[r][t] * x[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += Br[r][t] * u[t];
+                xout[i * VS_LANES + lane] = acc;
+            }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RO_RX; ++r) {
+        const int i = grp * RO_RX + r;
+        if (i < NX && valid) xN[i * Bs + b] = xs[((N & 1) * NX + i) * VS_LANES + lane];
+    }
+}
+
 #endif  // NC
 
 }  // namespace
@@ -935,6 +1040,22 @@ int riccati_forward(int N, int Bt, int shared, void* stream,
             N, Bt, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     }
+    return (int)cudaGetLastError();
+}
+
+int riccati_forward_rollout(int N, int Bt, void* stream,
+                            const void* A, const void* B, const void* c,
+                            const void* K, const void* d, const void* x0,
+                            void* ws, void* xN)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+    const size_t smem = 2 * NX * VS_LANES * sizeof(scalar);
+    forward_rollout_kernel<<<blocks, RO_THREADS, smem, st>>>(
+        N, Bt, (const scalar*)A, (const scalar*)B, (const scalar*)c,
+        (const scalar*)K, (const scalar*)d, (const scalar*)x0, (scalar*)ws,
+        (scalar*)xN);
     return (int)cudaGetLastError();
 }
 

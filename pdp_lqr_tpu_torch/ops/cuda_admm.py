@@ -1,22 +1,28 @@
-"""The split conic ADMM iteration's two kernels for an NVIDIA card.
+"""The split conic ADMM iteration's kernels for an NVIDIA card.
 
-Counterpart of the split pair in ``pdp_lqr_tpu/ops/pallas_admm.py``
+Counterpart of the split kernels in ``pdp_lqr_tpu/ops/pallas_admm.py``
 (named after its route, CUDA C++).  Wrapper names, argument order, the
 batch-last ``(N, ..., B)`` layout and the returned tuples are that
-module's.  Two kernels live here, written by hand in
+module's.  Three kernels live here, written by hand in
 ``csrc/admm_kernels.cu``:
 
-  admm_bwd_vec_prefold_lanes  kernel A: the cached-factor vector sweep on
-                              the packed streams AK = [A; K], BL = [B; L]
-                              and the already-folded linear cost ``hf``
-  admm_fwd_update_lanes       kernel B: closed-loop rollout fused with the
-                              relaxation, the box / cone projection, the
-                              dual update, the next iteration's ``hf``
-                              and the residual maxima
+  admm_bwd_vec_prefold_lanes  kernel A (K4): the cached-factor vector
+                              sweep on the packed streams AK = [A; K],
+                              BL = [B; L] and the already-folded cost ``hf``
+  admm_bwd_vec_lanes          kernel A (K6): the same sweep with the
+                              iterate fold inside the kernel and R rungs
+                              of factors, one picked per scenario
+  admm_fwd_update_lanes       kernel B (K5): closed-loop rollout fused with
+                              the relaxation, the box / cone projection,
+                              the dual update, optionally the next
+                              iteration's ``hf``, and the residual maxima
 
 One model serves B scenarios: the shared streams carry a trailing batch
 dimension of size 1 — one copy that every block reads — while the
-per-scenario tensors run the full batch.
+per-scenario tensors run the full batch.  A rho ladder stacks R rungs'
+factors on the rows of a shared stream; a scenario's rung is an int32
+index (``rung``, (B,)) that the caller keeps beside rho, or the JAX
+wrapper's one-hot ``ladder_oh`` (R, B), turned into that index.
 
 Beside each kernel stands a plain PyTorch version (``*_reference``): a
 Python loop over stages on the same tensors.  A wrapper takes the plain
@@ -39,7 +45,8 @@ SOURCE = "admm_kernels.cu"
 
 # Launches of each kernel made by this process (a wrapper adds one
 # exactly where it launches its kernel).
-LAUNCHES = {"admm_bwd_vec_prefold_lanes": 0, "admm_fwd_update_lanes": 0}
+LAUNCHES = {"admm_bwd_vec_prefold_lanes": 0, "admm_bwd_vec_lanes": 0,
+            "admm_fwd_update_lanes": 0}
 
 _DOUBLE = ctypes.c_double
 _CONE_KINDS = {"soc": 0, "rsoc": 1}
@@ -53,20 +60,29 @@ def reset_launch_counts():
 
 def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
                    cones=(), diag_cost: bool = False,
-                   has_shift: bool = False) -> dict:
+                   has_shift: bool = False, fold: bool = False,
+                   rungs: int = 1) -> dict:
     """The ``-D`` flags of one specialisation of the kernel source:
-    without ``nc`` kernel A (it reads no constraint rows), with it
-    kernel B, whose cone list (normalized ``(offset, dim, kind)``), cost
-    form and shift presence are compile-time too."""
+    without ``nc`` kernel K4 (it reads no constraint rows); with it and
+    ``fold`` kernel K6; with it alone kernel K5, whose cone list
+    (normalized ``(offset, dim, kind)``), cost form and shift presence
+    are compile-time too.  ``rungs`` (K5, K6) is the number of ladder
+    rungs the factor streams stack."""
     if dtype not in _SCALARS:
         raise TypeError(f"the kernels take float32 or float64, got {dtype}")
     defines = {"SCALAR": _SCALARS[dtype], "NX": nx, "NU": nu}
     if nc is None:
         return defines
+    defines["NC"] = nc
+    if rungs != 1:
+        defines["NRUNG"] = int(rungs)
+    if fold:
+        defines["FOLD"] = 1
+        return defines
     if len(cones) > MAX_CONES:
         raise ValueError(f"kernel B takes at most {MAX_CONES} cones, "
                          f"got {len(cones)}")
-    defines.update(NC=nc, DIAG_COST=int(diag_cost), HAS_SHIFT=int(has_shift),
+    defines.update(DIAG_COST=int(diag_cost), HAS_SHIFT=int(has_shift),
                    NCONES=len(cones))
     for q, (off, dim, kind) in enumerate(cones):
         if off < 0 or off + dim > nc or dim >= 1000:
@@ -77,24 +93,59 @@ def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
     return defines
 
 
-def bind_library(lib, *, forward_update: bool):
+def bind_library(lib, defines: dict):
     """Declare the C entry point's argument types (pointers and the
-    stream as ``c_void_p``: ctypes would cut them to 32 bits otherwise)."""
-    if forward_update:
-        fn = lib.admm_fwd_update
-        fn.argtypes = [_INT, _INT, _DOUBLE, _DOUBLE] + [_PTR] * 14
-    else:
+    stream as ``c_void_p``: ctypes would cut them to 32 bits otherwise);
+    which entry the library holds follows from its ``-D`` flags."""
+    if "NC" not in defines:
         fn = lib.admm_bwd_vec_prefold
         fn.argtypes = [_INT, _INT] + [_PTR] * 8
+    elif "FOLD" in defines:
+        fn = lib.admm_bwd_vec
+        fn.argtypes = [_INT, _INT, _DOUBLE, _INT] + [_PTR] * 16
+    else:
+        fn = lib.admm_fwd_update
+        fn.argtypes = [_INT, _INT, _DOUBLE, _DOUBLE, _INT, _INT, _INT] \
+            + [_PTR] * 16
     fn.restype = _INT
     lib._admm_bound = True
 
 
 def _library(dtype, nx, nu, nc=None, **modes):
-    lib = _build.load(SOURCE, kernel_defines(dtype, nx, nu, nc, **modes))
+    defines = kernel_defines(dtype, nx, nu, nc, **modes)
+    lib = _build.load(SOURCE, defines)
     if not getattr(lib, "_admm_bound", False):
-        bind_library(lib, forward_update=nc is not None)
+        bind_library(lib, defines)
     return lib
+
+
+def _rungs(stacked, rows, R, rung, ladder_oh, Bt, device):
+    """The per-scenario rung index (int32, (B,)) of R stacked rungs, from
+    ``rung`` or from the one-hot ``ladder_oh`` (R, B); None for one rung."""
+    if stacked.shape[1] != R * rows:
+        raise ValueError(f"a rung stream has {stacked.shape[1]} rows, "
+                         f"expected {R} x {rows}")
+    if R == 1:
+        return None
+    if rung is None:
+        if ladder_oh is None:
+            raise ValueError(f"{R} rungs need `rung` or `ladder_oh`")
+        _check("ladder_oh", ladder_oh, (R, Bt), ladder_oh.dtype, device)
+        rung = torch.argmax(ladder_oh, dim=0).to(torch.int32)
+    _check("rung", rung, (Bt,), torch.int32, device)
+    return rung
+
+
+def _pick(X, rows, rung):
+    """Rung ``rung[b]`` of the R rungs stacked on the rows of a shared
+    (N, R*rows, cols, 1) stream, per scenario: (N, rows, cols, B); the
+    stream itself for one rung."""
+    if rung is None:
+        return X
+    N, _, cols, _ = X.shape
+    R = X.shape[1] // rows
+    sel = X[..., 0].reshape(N, R, rows, cols)[:, rung.long()]
+    return sel.permute(0, 2, 3, 1)
 
 
 # -------------------------------------------------------------- kernel A
@@ -166,14 +217,125 @@ def admm_bwd_vec_prefold_lanes(pN, AK, BL, c, Pc, hf, *, nu):
     return dv
 
 
-# -------------------------------------------------------------- kernel B
+# ------------------------------------------------------------------ K6
 
-def admm_fwd_update_lanes_reference(rho, x0, MK, Hs, D, bnd, dv, wzy, h, *,
-                                    nu, cones, alpha, sigma):
-    """Plain PyTorch version of ``admm_fwd_update_lanes`` (packed
-    streams, hf-emit): a Python loop over the stages, k = 0 .. N-1.
+def _fold_hf(h, D, mask, rho, wzy, sigma):
+    """hf = h - sigma w - D^T (rho m z - y) from the packed iterates
+    wzy = [w | z | y] (N, nz + 2 nc, B): the iterate fold of the
+    reference's update_problem_data (lqr_solver.hpp:41-56)."""
+    nz, nc = D.shape[2], D.shape[1]
+    rg = (rho * mask) * wzy[:, nz:nz + nc] - wzy[:, nz + nc:]
+    return h - sigma * wzy[:, :nz] - torch.einsum("kczb,kcb->kzb", D, rg)
+
+
+def admm_bwd_vec_lanes_reference(rho, pN, A, B, h, D, mask, P, L, K, c, wzy,
+                                 *, nu, sigma, rung=None, Pc=None):
+    """Plain PyTorch version of ``admm_bwd_vec_lanes``: the iterate fold,
+    then the cached-factor vector recursion of
+    ``cuda_riccati.backward_vectors_lanes_reference`` on each scenario's
+    rung (``rung`` (B,) int32, None for one rung)."""
+    nx = A.shape[1]
+    hf = _fold_hf(h, D, mask, rho, wzy, sigma)
+    d, v = cuda_riccati.backward_vectors_lanes_reference(
+        A, B, c, hf, None if Pc is not None else _pick(P, nx, rung),
+        _pick(K, nu, rung), _pick(L, nu, rung), pN, Pc=Pc)
+    return torch.cat([d, v], dim=1)
+
+
+def _launch_bwd_vec(lib, rho, pN, A, B, h, D, mask, P, L, K, c, wzy, rung,
+                    Pc, sigma, stream):
+    """Allocate K6's output and launch it (no argument checks)."""
+    N, nz = wzy.shape[0], A.shape[1] + B.shape[2]
+    Bt = wzy.shape[-1]
+    dv = torch.empty((N, nz, Bt), dtype=wzy.dtype, device=wzy.device)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    status = lib.admm_bwd_vec(
+        N, Bt, float(sigma), int(Pc is not None), stream,
+        *(ptr(x) for x in (rho, pN, A, B, h, D, mask, P, L, K, c, Pc, wzy,
+                           rung, dv)))
+    _check_status("admm_bwd_vec_lanes", status)
+    return dv
+
+
+def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
+                       sigma, ladder_oh=None, Pc=None, rung=None):
+    """Split-iteration kernel A with the in-kernel iterate fold (K6).
+
+    Shared streams (trailing size 1): A (N,nx,nx,1), B (N,nx,nu,1), h
+    (N,nz,1) the raw linear cost, D (N,nc,nz,1), mask (N,nc,1) the
+    per-row rho scale, and the cached factors of R rungs stacked on rows:
+    P (N,R*nx,nx,1), L (N,R*nu,nu,1), K (N,R*nu,nx,1).  Per scenario: rho
+    (1,B), pN (nx,B) the iterate-folded terminal linear cost, c (N,nx,B)
+    and the packed iterates wzy = [w | z | y] (N, nz+2nc, B).  Per stage,
+    backwards from p = pN, on the scenario's own rung:
+
+      rg   = rho m z - y            hf = h - sigma w - D^T rg
+      Pcp  = P c + p                rbar = hf[:nu] + B^T Pcp
+      d    = -(L L^T)^{-1} rbar     v    = B d + c
+      p    = hf[nu:] + A^T Pcp + K^T rbar
+
+    Returns dv (N, nz, B) = [d | v].
+
+    The rung of scenario b is ``rung[b]`` ((B,) int32) or, as in the JAX
+    wrapper, the row where the one-hot ``ladder_oh`` (R, B) is 1.  ``Pc``
+    ((N,nx,B), one rung only) is the pre-folded ``P_{k+1} c_k``; ``P``
+    is then not read (it may be None).
+
+    On the card: a block serves 32 scenarios with 4 threads each and
+    copies every stage's inputs, all R rungs' factors included, into a
+    shared-memory ring ahead of their use; a thread reads its scenario's
+    rung at an offset in the slot.  See the kernel source.
+    """
+    N, nx = A.shape[0], A.shape[1]
+    nz, nc = nx + nu, D.shape[1]
+    Bt = wzy.shape[-1]
+    dt, dev = wzy.dtype, wzy.device
+    pc_mode = Pc is not None
+    R = L.shape[1] // nu
+    if pc_mode and (R != 1 or ladder_oh is not None or rung is not None):
+        raise ValueError("Pc mode is non-ladder only")
+    checks = [
+        ("rho", rho, (1, Bt)), ("pN", pN, (nx, Bt)),
+        ("A", A, (N, nx, nx, 1)), ("B", B, (N, nx, nu, 1)),
+        ("h", h, (N, nz, 1)), ("D", D, (N, nc, nz, 1)),
+        ("mask", mask, (N, nc, 1)), ("L", L, (N, R * nu, nu, 1)),
+        ("K", K, (N, R * nu, nx, 1)), ("c", c, (N, nx, Bt)),
+        ("wzy", wzy, (N, nz + 2 * nc, Bt)),
+        ("Pc", Pc, (N, nx, Bt)) if pc_mode else ("P", P, (N, R * nx, nx, 1)),
+    ]
+    for name, x, shape in checks:
+        _check(name, x, shape, dt, dev)
+    rung = _rungs(L, nu, R, rung, ladder_oh, Bt, dev)
+    if dev.type == "cpu":
+        return admm_bwd_vec_lanes_reference(
+            rho, pN, A, B, h, D, mask, P, L, K, c, wzy, nu=nu, sigma=sigma,
+            rung=rung, Pc=Pc)
+    if dev.type != "cuda":
+        raise ValueError(f"admm_bwd_vec_lanes: no kernel for device {dev}")
+    lib = _library(dt, nx, nu, nc, fold=True, rungs=R)
+    with torch.cuda.device(dev):
+        dv = _launch_bwd_vec(lib, rho, pN, A, B, h, D, mask,
+                             None if pc_mode else P, L, K, c, wzy, rung, Pc,
+                             sigma, _stream())
+    LAUNCHES["admm_bwd_vec_lanes"] += 1
+    return dv
+
+
+# ------------------------------------------------------------- kernel B
+
+def admm_fwd_update_lanes_reference(rho, x0, M, K, Hs, D, bnd, dv, wzy, h, *,
+                                    nu, cones, alpha, sigma, rung=None):
+    """Plain PyTorch version of ``admm_fwd_update_lanes``: a Python loop
+    over the stages, k = 0 .. N-1.  ``K`` None: ``M`` is the packed
+    MK = [M; K]; else M (N,R*nx,nx,1) and K (N,R*nu,nx,1) stack R rungs,
+    picked per scenario by ``rung``.  ``bnd`` = stack(lb, ub, mask[,
+    shift]) (N, 3+s, nc, 1); ``h`` None: no hf-emit (three outputs).
     ``cones`` are normalized ``(offset, dim, kind)`` 3-tuples."""
-    N, nz, nx = MK.shape[0], MK.shape[1], MK.shape[2]
+    nx = M.shape[2]
+    if K is None:
+        M, K = M[:, :nx], M[:, nx:]
+    M, K = _pick(M, nx, rung), _pick(K, nu, rung)
+    N, nz = M.shape[0], nx + nu
     nc = D.shape[1]
     has_shift = bnd.shape[1] == 4
     diag_cost = Hs.ndim == 3
@@ -183,10 +345,9 @@ def admm_fwd_update_lanes_reference(rho, x0, MK, Hs, D, bnd, dv, wzy, h, *,
     amax = lambda t: t.abs().amax(dim=0)
     wzy_rows, hf_rows = [], []
     for k in range(N):
-        M, K = MK[k, :nx], MK[k, nx:]
-        u = _mv(K, x) + dv[k, :nu]
+        u = _mv(K[k], x) + dv[k, :nu]
         w_t = torch.cat([u, x], dim=0)
-        x = _mv(M, x) + dv[k, nu:]
+        x = _mv(M[k], x) + dv[k, nu:]
 
         w, z, y = wzy[k, :nz], wzy[k, nz:nz + nc], wzy[k, nz + nc:]
         Dk = D[k]
@@ -204,9 +365,10 @@ def admm_fwd_update_lanes_reference(rho, x0, MK, Hs, D, bnd, dv, wzy, h, *,
             * active.to(v.dtype)
         y_new = y + rho_m * (relaxed - z_new)
         wzy_rows.append(torch.cat([w_new, z_new, y_new], dim=0))
-        # The next iteration's folded linear cost, valid while rho stays.
-        rg = rho_m * z_new - y_new
-        hf_rows.append(h[k] - sigma * w_new - _mtv(Dk, rg))
+        if h is not None:
+            # The next iteration's folded linear cost, valid while rho stays.
+            rg = rho_m * z_new - y_new
+            hf_rows.append(h[k] - sigma * w_new - _mtv(Dk, rg))
 
         Hmv = (lambda t: Hs[k] * t) if diag_cost else (lambda t: _mv(Hs[k], t))
         Dw_new = _mv(Dk, w_new)
@@ -221,97 +383,146 @@ def admm_fwd_update_lanes_reference(rho, x0, MK, Hs, D, bnd, dv, wzy, h, *,
             torch.maximum(amax(Dw_new), amax(z_new)),
             torch.maximum(amax(Hw), amax(dty)),
         ]))
+    if h is None:
+        return torch.stack(wzy_rows), x, acc
     return torch.stack(wzy_rows), torch.stack(hf_rows), x, acc
 
 
-def _launch_fwd_update(lib, rho, x0, MK, Hs, D, bnd, dv, wzy, h, alpha,
-                       sigma, stream):
-    """Allocate kernel B's outputs and launch it (no argument checks)."""
-    N, nz, nx = MK.shape[0], MK.shape[1], MK.shape[2]
+def _launch_fwd_update(lib, rho, x0, M, K, Hs, D, bnd, dv, wzy, h, rung,
+                       alpha, sigma, stream):
+    """Allocate kernel B's outputs and launch it (no argument checks).
+    ``K`` None: ``M`` is the packed MK = [M; K] of one rung."""
+    nx = M.shape[2]
+    N, nu = wzy.shape[0], dv.shape[1] - nx
     Bt = wzy.shape[-1]
+    if K is None:
+        # Both streams read off MK: a stage of it is nz x nx words.
+        m_stride = k_stride = (nx + nu) * nx
+        k_ptr = M.data_ptr() + nx * nx * M.element_size()
+    else:
+        m_stride, k_stride = M.shape[1] * nx, K.shape[1] * nx
+        k_ptr = K.data_ptr()
     new = lambda *shape: torch.empty(shape, dtype=wzy.dtype, device=wzy.device)
-    wzy_new, hf_new = new(*wzy.shape), new(N, nz, Bt)
+    wzy_new = new(*wzy.shape)
+    hf_new = None if h is None else new(N, nx + nu, Bt)
     xN, res = new(nx, Bt), new(4, Bt)
+    ptr = lambda x: None if x is None else x.data_ptr()
     status = lib.admm_fwd_update(
-        N, Bt, float(alpha), float(sigma), stream,
-        *(x.data_ptr() for x in (rho, x0, MK, Hs, D, bnd, h, dv, wzy,
-                                 wzy_new, hf_new, xN, res)))
+        N, Bt, float(alpha), float(sigma), m_stride, k_stride,
+        int(h is not None), stream,
+        *(ptr(x) for x in (rho, x0, M)), k_ptr,
+        *(ptr(x) for x in (Hs, D, bnd, h, rung, dv, wzy, wzy_new, hf_new,
+                           xN, res)))
     _check_status("admm_fwd_update_lanes", status)
+    if h is None:
+        return wzy_new, xN, res
     return wzy_new, hf_new, xN, res
+
+
+def stack_bounds(lb, ub, mask, shift=None):
+    """Kernel B's packed bound stream bnd = stack(lb, ub, mask[, shift])
+    (N, 3+s, nc, 1) from the four (N, nc, 1) streams: loop-invariant, so
+    a caller stacks it once per solve."""
+    parts = [lb, ub, mask] + ([] if shift is None else [shift])
+    return torch.stack(parts, dim=1).contiguous()
 
 
 def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
                           dv, wzy, *, nu, cones, alpha, sigma,
-                          ladder_oh=None, h=None):
-    """Split-iteration kernel B: closed-loop rollout + relax / project /
-    dual / residual tail, in its packed hf-emit form.
+                          ladder_oh=None, h=None, rung=None):
+    """Split-iteration kernel B (K5): closed-loop rollout + relax /
+    project / dual / residual tail.
 
-    The argument list is the JAX wrapper's; the form served is the one
-    the non-ladder split iteration calls: ``K``, ``ub``, ``mask``,
-    ``shift`` and ``ladder_oh`` are None, ``M`` carries MK = [M; K]
-    (N, nz, nx, 1), ``lb`` carries bnd = stack(lb, ub, mask[, shift])
-    (N, 3+s, nc, 1) (shift presence is read off its row count; the mask
-    row carries the per-row rho scale, 0 on padded rows), and ``h``
-    (N, nz, 1) is the raw linear cost.  ``Hs`` is the sigma-folded stage
-    Hessian (N, nz, nz, 1), or its diagonal (N, nz, 1) for a diagonal
-    stage cost (read off its rank).  ``D`` (N, nc, nz, 1).  Per scenario:
-    rho (1, B), x0 (nx, B), dv = [d | v] (N, nz, B) from kernel A and the
-    packed iterates wzy = [w | z | y] (N, nz + 2 nc, B).  ``cones`` are
-    normalized ``(offset, dim, kind)`` 3-tuples.
+    The argument list is the JAX wrapper's, every form of it:
 
-    Returns (wzy_new, hf_next (N, nz, B), xN (nx, B), res (4, B)) with
+    * packed (``K`` None, one rung): ``M`` carries MK = [M; K]
+      (N, nz, nx, 1) and ``lb`` carries bnd = stack(lb, ub, mask[, shift])
+      (N, 3+s, nc, 1) (shift presence is read off its row count; the mask
+      row carries the per-row rho scale, 0 on padded rows); ``ub``,
+      ``mask``, ``shift`` and ``ladder_oh`` None;
+    * unpacked: M (N, R*nx, nx, 1) and K (N, R*nu, nx, 1) stack R rungs'
+      closed-loop maps and gains on rows, picked per scenario by ``rung``
+      ((B,) int32) or the one-hot ``ladder_oh`` (R, B); lb, ub, mask
+      (the rho scale) and shift (or None) (N, nc, 1).  The port also
+      takes the packed bnd in ``lb`` here (``ub``, ``mask``, ``shift``
+      None), which a loop stacks once per solve (``stack_bounds``)
+      instead of once a call.
+
+    ``h`` (N, nz, 1), the raw linear cost, turns on hf-emit: the kernel
+    also writes the next iteration's folded cost.  ``Hs`` is the
+    sigma-folded stage Hessian (N, nz, nz, 1), or its diagonal (N, nz, 1)
+    for a diagonal stage cost (read off its rank).  D (N, nc, nz, 1).
+    Per scenario: rho (1, B), x0 (nx, B), dv = [d | v] (N, nz, B) from
+    kernel A and the packed iterates wzy = [w | z | y] (N, nz + 2 nc, B).
+    ``cones`` are normalized ``(offset, dim, kind)`` 3-tuples.
+
+    Returns (wzy_new, [hf_next (N, nz, B),] xN (nx, B), res (4, B)) with
     res rows [r_prim, r_dual, prim_scale, dual_scale] maxima over the
     stages; the caller folds the terminal stage.
 
-    The unpacked forms (separate M / K / bounds, R ladder rungs stacked
-    on rows) and the form without ``h`` belong to the rho-ladder
-    iteration and raise ``NotImplementedError`` until it is ported.
-
     On the card: a block serves 32 scenarios with 8 threads each, every
-    stage's inputs ride a shared-memory ring; see the kernel source.
+    stage's inputs (all R rungs of M and K) ride a shared-memory ring; a
+    thread reads its scenario's rung at an offset in the slot.  See the
+    kernel source.
     """
-    if (K is not None or ub is not None or mask is not None
-            or shift is not None or ladder_oh is not None or h is None):
-        raise NotImplementedError(
-            "admm_fwd_update_lanes serves the packed hf-emit form (K, ub, "
-            "mask, shift, ladder_oh None; h given); the unpacked R-rung "
-            "form and the form without hf-emit wait for the rho-ladder "
-            "iteration (ROADMAP M5, with kernel K6)")
-    MK, bnd = M, lb
     cones = tuple(cones)
-    N, nz, nx = MK.shape[0], MK.shape[1], MK.shape[2]
-    if nz != nx + nu:
-        raise ValueError(f"MK has {nz} rows, expected nx + nu = {nx + nu}")
-    Bt = wzy.shape[-1]
+    nx = M.shape[2]
+    nz = nx + nu
+    N, Bt = wzy.shape[0], wzy.shape[-1]
     nc = D.shape[1]
     dt, dev = wzy.dtype, wzy.device
-    if bnd.ndim != 4 or bnd.shape[1] not in (3, 4):
-        raise ValueError(f"bnd: shape {tuple(bnd.shape)}, expected "
-                         f"(N, 3 or 4, nc, 1)")
+    packed_bnd = ub is None
+    if K is None:
+        if not packed_bnd or mask is not None or shift is not None \
+                or ladder_oh is not None or rung is not None:
+            raise ValueError("packed mode (K=None) takes bnd via lb "
+                             "and is non-ladder only")
+        R = 1
+        _check("MK", M, (N, nz, nx, 1), dt, dev)
+    else:
+        R = K.shape[1] // nu
+        _check("M", M, (N, R * nx, nx, 1), dt, dev)
+        _check("K", K, (N, R * nu, nx, 1), dt, dev)
+    if packed_bnd:
+        if mask is not None or shift is not None:
+            raise ValueError("a packed bnd in lb takes ub, mask and shift "
+                             "None")
+        bnd = lb
+        if bnd.ndim != 4 or bnd.shape[1] not in (3, 4):
+            raise ValueError(f"bnd: shape {tuple(bnd.shape)}, expected "
+                             f"(N, 3 or 4, nc, 1)")
+    else:
+        for name, x in (("lb", lb), ("ub", ub), ("mask", mask),
+                        ("shift", shift)):
+            if x is not None or name != "shift":
+                _check(name, x, (N, nc, 1), dt, dev)
+        bnd = stack_bounds(lb, ub, mask, shift)
     if Hs.ndim not in (3, 4):
         raise ValueError(f"Hs: shape {tuple(Hs.shape)}, expected "
                          f"(N, nz, 1) or (N, nz, nz, 1)")
     has_shift = bnd.shape[1] == 4
     diag_cost = Hs.ndim == 3
-    for name, x, shape in (
+    checks = [
         ("rho", rho, (1, Bt)), ("x0", x0, (nx, Bt)),
-        ("MK", MK, (N, nz, nx, 1)),
         ("Hs", Hs, (N, nz, 1) if diag_cost else (N, nz, nz, 1)),
         ("D", D, (N, nc, nz, 1)), ("bnd", bnd, (N, bnd.shape[1], nc, 1)),
-        ("h", h, (N, nz, 1)), ("dv", dv, (N, nz, Bt)),
-        ("wzy", wzy, (N, nz + 2 * nc, Bt)),
-    ):
+        ("dv", dv, (N, nz, Bt)), ("wzy", wzy, (N, nz + 2 * nc, Bt)),
+    ]
+    if h is not None:
+        checks.append(("h", h, (N, nz, 1)))
+    for name, x, shape in checks:
         _check(name, x, shape, dt, dev)
+    rung = None if K is None else _rungs(K, nu, R, rung, ladder_oh, Bt, dev)
     if dev.type == "cpu":
         return admm_fwd_update_lanes_reference(
-            rho, x0, MK, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones,
-            alpha=alpha, sigma=sigma)
+            rho, x0, M, K, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones,
+            alpha=alpha, sigma=sigma, rung=rung)
     if dev.type != "cuda":
         raise ValueError(f"admm_fwd_update_lanes: no kernel for device {dev}")
     lib = _library(dt, nx, nu, nc, cones=cones, diag_cost=diag_cost,
-                   has_shift=has_shift)
+                   has_shift=has_shift, rungs=R)
     with torch.cuda.device(dev):
-        out = _launch_fwd_update(lib, rho, x0, MK, Hs, D, bnd, dv, wzy, h,
-                                 alpha, sigma, _stream())
+        out = _launch_fwd_update(lib, rho, x0, M, K, Hs, D, bnd, dv, wzy, h,
+                                 rung, alpha, sigma, _stream())
     LAUNCHES["admm_fwd_update_lanes"] += 1
     return out

@@ -3,12 +3,13 @@
 Counterpart of ``pdp_lqr_tpu/ops/pallas_riccati.py`` (the module is named
 after its route, CUDA C++, not after Pallas).  Function names, argument
 order, the batch-last ``(N, ..., B)`` layout and the returned tuples are
-that module's, so the two can be held against each other.  Three kernels
+that module's, so the two can be held against each other.  Four kernels
 live here, written by hand in ``csrc/riccati_kernels.cu``:
 
   backward_lanes          the matrix sweep with the in-kernel penalty fold
   backward_vectors_lanes  the cached-factor vector sweep
   forward_lanes           the closed-loop rollout
+  forward_rollout_lanes   the rollout from the raw dynamics (per instance)
 
 Beside each kernel stands a plain PyTorch version (``*_reference``): a
 Python loop over stages on the same batch-last tensors.  A wrapper takes
@@ -20,9 +21,13 @@ tensors carry a trailing batch dimension of size 1 — one copy that every
 thread reads — while the per-scenario vectors run the full batch.  The
 wrappers accept a trailing size of 1 or B on every matrix argument.
 
-The glue between the kernels (``prepare_shared``, the fold
-``Pc = P_{k+1} c_k``, the final transpose) is ordinary tensor code; its
-matrix products must run in full float32 (see ``config.full_f32_matmul``).
+Per-instance mode: every tensor has trailing size B, one model a
+scenario (``prepare_lanes`` / ``solve_lanes``, the replicated ADMM loop).
+
+The glue between the kernels (``prepare_shared``, ``prepare_lanes``, the
+fold ``Pc = P_{k+1} c_k``, the final transpose) is ordinary tensor code;
+its matrix products must run in full float32 (see
+``config.full_f32_matmul``).
 """
 
 from __future__ import annotations
@@ -33,14 +38,14 @@ import torch
 
 from pdp_lqr_tpu_torch.config import full_f32_matmul
 from pdp_lqr_tpu_torch.ops import _build
-from pdp_lqr_tpu_torch.problem import guarded_inverse
+from pdp_lqr_tpu_torch.problem import guarded_inverse, make_stage_params
 
 SOURCE = "riccati_kernels.cu"
 
 # Launches of each kernel made by this process (plain integers; a wrapper
 # adds one exactly where it launches its kernel).
 LAUNCHES = {"backward_lanes": 0, "backward_vectors_lanes": 0,
-            "forward_lanes": 0}
+            "forward_lanes": 0, "forward_rollout_lanes": 0}
 
 _SCALARS = {torch.float32: "float", torch.float64: "double"}
 _PTR = ctypes.c_void_p
@@ -54,8 +59,8 @@ def reset_launch_counts():
 
 def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None) -> dict:
     """The ``-D`` flags of one specialisation of the kernel source: with
-    ``nc`` the matrix sweep (K1), without it the two per-scenario kernels
-    (K2, K3), which read no constraint rows."""
+    ``nc`` the matrix sweep (K1), without it the three per-scenario
+    kernels (K2, K3, K7), which read no constraint rows."""
     if dtype not in _SCALARS:
         raise TypeError(f"the kernels take float32 or float64, got {dtype}")
     defines = {"SCALAR": _SCALARS[dtype], "NX": nx, "NU": nu}
@@ -81,6 +86,7 @@ def bind_library(lib, *, with_matrix_sweep: bool):
             "riccati_backward_vectors": [_INT] * 3 + [_PTR] * 11,
             "riccati_backward_vectors_shared": [_INT] * 3 + [_PTR] * 8,
             "riccati_forward": [_INT] * 3 + [_PTR] * 8,
+            "riccati_forward_rollout": [_INT] * 2 + [_PTR] * 9,
         }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -455,6 +461,127 @@ def forward_lanes(M, v, K, d, x0, *, shared=False):
     return out
 
 
+# ------------------------------------------------------------------- K7
+
+def forward_rollout_lanes_reference(A, B, c, K, d, x0):
+    """Plain PyTorch version of ``forward_rollout_lanes``."""
+    N = A.shape[0]
+    x = x0
+    rows = []
+    for k in range(N):
+        u = _mv(K[k], x) + d[k]
+        rows.append(torch.cat([u, x], dim=0))
+        x = _mv(A[k], x) + _mv(B[k], u) + c[k]
+    return torch.stack(rows, dim=0), x
+
+
+def _launch_forward_rollout(lib, A, B, c, K, d, x0, stream):
+    """Allocate K7's outputs and launch it (no argument checks)."""
+    N, nx, _, Bt = A.shape
+    nu = K.shape[1]
+    ws = torch.empty((N, nx + nu, Bt), dtype=A.dtype, device=A.device)
+    xN = torch.empty((nx, Bt), dtype=A.dtype, device=A.device)
+    status = lib.riccati_forward_rollout(
+        N, Bt, stream, *(x.data_ptr() for x in (A, B, c, K, d, x0, ws, xN)))
+    _check_status("forward_rollout_lanes", status)
+    return ws, xN
+
+
+def forward_rollout_lanes(A, B, c, K, d, x0):
+    """Closed-loop rollout from the raw dynamics: u = K x + d,
+    x+ = A x + B u + c, one model a scenario; returns (ws (N, nz, B) with
+    rows [u; x], xN (nx, B)).
+
+    A (N,nx,nx,B), B (N,nx,nu,B), c (N,nx,B), K (N,nu,nx,B), d (N,nu,B),
+    x0 (nx,B): the same result as forward_lanes on (M, v) = (A + B K,
+    B d + c), without forming them (backward_lanes(emit_closed_loop=
+    False) skips computing and writing them).
+
+    On the card: a block serves 32 scenarios with 8 threads each; see
+    the note in the kernel source.
+    """
+    N, nx, _, Bt = A.shape
+    nu = K.shape[1]
+    dt, dev = A.dtype, A.device
+    for name, x, shape in (
+        ("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
+        ("c", c, (N, nx, Bt)), ("K", K, (N, nu, nx, Bt)),
+        ("d", d, (N, nu, Bt)), ("x0", x0, (nx, Bt)),
+    ):
+        _check(name, x, shape, dt, dev)
+    if dev.type == "cpu":
+        return forward_rollout_lanes_reference(A, B, c, K, d, x0)
+    if dev.type != "cuda":
+        raise ValueError(f"forward_rollout_lanes: no kernel for device {dev}")
+    lib = _library(dt, nx, nu)
+    with torch.cuda.device(dev):
+        out = _launch_forward_rollout(lib, A, B, c, K, d, x0, _stream())
+    LAUNCHES["forward_rollout_lanes"] += 1
+    return out
+
+
+# --------------------------------------------------- per-instance (lanes)
+
+def _join_terminal(ws, xN, nu):
+    """(N, nz, B) stage rows and the final state (nx, B) -> ws
+    (B, N+1, nz), the terminal stage's controls zero."""
+    ws = from_lanes(ws)                          # (B, N, nz)
+    xN = xN.T                                    # (B, nx)
+    wN = torch.cat([xN.new_zeros(xN.shape[:-1] + (nu,)), xN], dim=-1)
+    return torch.cat([ws, wN[:, None, :]], dim=1)
+
+
+def prepare_lanes(problem, it, x0, sigma: float, storage_dtype=None):
+    """Transpose a batched problem (leading batch axis B on every field)
+    and its iterates into the lanes layout: the argument tuple of
+    ``solve_prepared``,
+    (A, B, c, H, h, D, rho, rg, PN, pN, x0, nu), every tensor batch-last
+    and contiguous.  The stage matrices are penalty-free: K1 folds
+    rho D D^T itself; the terminal stage is folded here.
+
+    ``storage_dtype`` (narrow stage streams) is not ported and raises.
+    """
+    if storage_dtype is not None:
+        raise NotImplementedError(
+            "storage_dtype (narrow stage streams, ROADMAP M6) is not "
+            "ported: the kernels read the compute dtype")
+    nu = problem.nu
+    params = make_stage_params(problem, it, sigma)
+    lanes = lambda x: to_lanes(x).contiguous()
+    with full_f32_matmul():
+        HN = params.H[:, -1, nu:, nu:]
+        hN = params.h[:, -1, nu:]
+        if problem.nc > 0:
+            DN, rhoN, gN = problem.D[:, -1, :, nu:], it.rho[:, -1], params.g[:, -1]
+            HN = HN + torch.einsum("bci,bc,bcj->bij", DN, rhoN, DN)
+            hN = hN - torch.einsum("bci,bc->bi", DN, rhoN * gN)
+    x0 = torch.as_tensor(x0).to(device=problem.A.device, dtype=problem.A.dtype)
+    return (lanes(problem.A), lanes(problem.B), lanes(problem.c),
+            lanes(params.H[:, :-1]), lanes(params.h[:, :-1]),
+            lanes(problem.D[:, :-1]), lanes(it.rho[:, :-1]),
+            lanes(it.rho[:, :-1] * params.g[:, :-1]), lanes(HN), lanes(hN),
+            x0.T.contiguous(), nu)
+
+
+def solve_prepared(prep):
+    """Run the per-instance kernels on prepared lanes data -> ws
+    (B, N+1, nz): K1 for the gains only (no closed-loop maps), then K7
+    on the raw dynamics."""
+    A, B, c, H, h, D, rho, rg, PN, pN, x0_l, nu = prep
+    K, d = backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN,
+                          emit_closed_loop=False)
+    ws, xN = forward_rollout_lanes(A, B, c, K, d, x0_l)
+    return _join_terminal(ws, xN, nu)
+
+
+def solve_lanes(problem, it, x0, sigma: float, *, storage_dtype=None):
+    """Batched solve, one model a scenario: ``problem`` and ``it`` carry a
+    leading batch axis B, x0 (B, nx).  Returns ws (B, N+1, nz).
+    ``storage_dtype``: see prepare_lanes."""
+    return solve_prepared(prepare_lanes(problem, it, x0, sigma,
+                                        storage_dtype))
+
+
 # ------------------------------------------------- shared-stage (broadcast)
 
 def prepare_shared(problem, it, x0, sigma: float):
@@ -576,11 +703,7 @@ def solve_shared_cached(prep, factors):
         A_sh, B_sh, c_l, hf_l, P, K, L, pN_l, shared=True, Pc=Pc,
     )
     ws, xN = forward_lanes(M, v, K, d, x0_l, shared=True)
-
-    ws = from_lanes(ws)                          # (B, N, nz)
-    xN = xN.T                                    # (B, nx)
-    wN = torch.cat([xN.new_zeros(xN.shape[:-1] + (nu,)), xN], dim=-1)
-    return torch.cat([ws, wN[:, None, :]], dim=1)
+    return _join_terminal(ws, xN, nu)
 
 
 def solve_shared_prepared(prep):

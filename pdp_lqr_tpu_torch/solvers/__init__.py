@@ -3,7 +3,8 @@
   sequential — plain-torch Riccati recursion (reference LQRSolver), the
                port's independent witness
   admm       — the conic ADMM outer loop; ``solve_fused`` in shared split
-               mode on the kernel pair of ops.cuda_admm
-  (cuda)     — ops.cuda_riccati: the shared-model kernels behind
-               ``ScenarioServer.solve``
+               mode on the kernels of ops.cuda_admm, and on batched
+               problems on the per-instance kernels of ops.cuda_riccati
+  (cuda)     — ops.cuda_riccati: the kernels behind
+               ``ScenarioServer.solve`` and ``solve_lanes``
 """

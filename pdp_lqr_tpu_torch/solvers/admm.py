@@ -13,14 +13,24 @@
              ride the cached factors (the reference's
              ``backward_without_factorization``, lqr_solver.hpp:65-70).
 
-Ported so far: the data classes and ``solve_fused`` in its shared split
-mode — ONE unbatched model serving B scenarios, ``cached_factors`` with a
-batch-uniform rho — on the kernel pair of ``ops/cuda_admm.py`` plus the
-factor build of ``ops/cuda_riccati.py``.  The other modes of
-``solve_fused`` raise ``NotImplementedError`` naming the ROADMAP item
-they wait for; they are to land as functions of their own beside
-``_solve_shared_split`` and share ``_finish_stats`` and
-``_terminal_tail`` with it.
+Ported: the data classes, ``suggest_rho_ladder`` and ``solve_fused`` in
+three modes, one function each, sharing ``_finish_stats`` (and, the two
+shared ones, ``_terminal_pN`` / ``_terminal_tail``):
+
+  _solve_shared_split   ONE unbatched model serving B scenarios,
+                        ``cached_factors`` with a batch-uniform rho: K4 +
+                        K5 an iteration, K1 at each factor build;
+  _solve_shared_ladder  the same model with a ``rho_ladder``: per-scenario
+                        rho snapped to R rungs whose factors are built
+                        once a solve (one K1 launch over R instances);
+                        K6 + K5 (rung form) an iteration;
+  _solve_replicated     a batched problem (one model a scenario),
+                        per-instance rho: K1 (or K2 on cached factors) +
+                        K3 an iteration, the projection and residuals in
+                        tensor code.
+
+The single-kernel iteration (K8) and ``storage_dtype`` raise
+``NotImplementedError``.
 
 PyTorch runs eagerly, so what the JAX loop decides on the device
 (``lax.cond`` on a changed rho, the ``while_loop`` of ``early_exit``)
@@ -35,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from pdp_lqr_tpu_torch.config import full_f32_matmul
@@ -105,7 +116,8 @@ class ADMMState:
 
     ``factors`` (solve_fused with cached_factors only) carries, in the
     shared split mode, the row-packed streams the split kernels consume
-    — ([A;K], [B;L], [M;K], Pc, rho-at-factor) — so a warm-started solve
+    — ([A;K], [B;L], [M;K], Pc, rho-at-factor) — and in the replicated
+    mode the per-instance (K, M, P, L, rho-at-factor), so a warm-started solve
     skips even its FIRST refactorization while rho and the problem data
     are unchanged: the reference's steady-state MPC pattern
     (update_problem_data + backward_without_factorization + forward
@@ -179,11 +191,21 @@ def _batch_state(problem, Bb, settings) -> ADMMState:
     )
 
 
+
+
+def _snap(rungs, rho):
+    """Index of the rung nearest ``rho`` in log space (the first of a
+    tie), per instance: the ladder's rule (OperatorLadder's, batched)."""
+    return torch.argmin((rungs.log()[:, None] - rho.log()[None, :]).abs(),
+                        dim=0)
+
+
 def _finish_stats(settings, rho, stats, r_prim, r_dual, prim_scale,
-                  dual_scale):
+                  dual_scale, ladder=None):
     """Shared convergence / adaptive-rho tail (per instance).
     ``stats`` = (k, iter_converged, r_prim, r_dual, converged) with ``k``
-    a Python int.  Returns (rho_new, stats_new)."""
+    a Python int; ``ladder`` (the sorted rungs, a tensor) snaps an
+    adapted rho to its nearest rung.  Returns (rho_new, stats_new)."""
     k_it, iter_conv = stats[0], stats[1]
     conv = (r_prim <= settings.eps_abs + settings.eps_rel * prim_scale) \
         & (r_dual <= settings.eps_abs + settings.eps_rel * dual_scale)
@@ -203,6 +225,8 @@ def _finish_stats(settings, rho, stats, r_prim, r_dual, prim_scale,
         ratio = torch.sqrt(rp_rel.clamp(min=tiny) / rd_rel.clamp(min=tiny))
         upd = (ratio > 5.0) | (ratio < 0.2)
         target = (rho * ratio).clamp(settings.rho_min, settings.rho_max)
+        if ladder is not None:
+            target = ladder[_snap(ladder, target)]
         rho = torch.where(upd, target, rho)
     return rho, (k_next, iter_conv, r_prim, r_dual, conv)
 
@@ -241,7 +265,7 @@ def _terminal_pN(term: _Terminal, nu, sigma, wN, zN, yN, rhoN_m):
 
 
 def _terminal_tail(settings, term: _Terminal, cones3, nu, wN, zN, yN, rho,
-                   rhoN_m, stats, xN, res):
+                   rhoN_m, stats, xN, res, ladder=None):
     """Terminal stage (no control): relax / project / dual + residual
     merge + convergence / adaptive rho.  The kernels cover stages
     0..N-1 and hand over ``xN`` and their residual maxima ``res``
@@ -276,8 +300,29 @@ def _terminal_tail(settings, term: _Terminal, cones3, nu, wN, zN, yN, rho,
     dual_scale = torch.maximum(
         res[3], rowmax(torch.cat([HwnN, dtyN])).clamp(min=term.h_absmax))
     rho_n, stats_n = _finish_stats(settings, rho, stats, r_prim, r_dual,
-                                   prim_scale, dual_scale)
+                                   prim_scale, dual_scale, ladder)
     return w_newN, z_newN, y_newN, rho_n, stats_n
+
+
+def _start_stats(Bb, dt, dev):
+    return (
+        0,
+        torch.full((Bb,), -1, dtype=torch.int32, device=dev),
+        torch.full((Bb,), float("inf"), dtype=dt, device=dev),
+        torch.full((Bb,), float("inf"), dtype=dt, device=dev),
+        torch.zeros((Bb,), dtype=torch.bool, device=dev),
+    )
+
+
+def _info(stats, Bb, dev):
+    k_it, iter_conv, r_prim, r_dual, conv = stats
+    return ADMMInfo(
+        iterations=torch.full((Bb,), k_it, dtype=torch.int32, device=dev),
+        r_prim=r_prim, r_dual=r_dual, converged=conv,
+        iter_converged=torch.where(iter_conv < 0,
+                                   torch.full_like(iter_conv, k_it),
+                                   iter_conv),
+    )
 
 
 def solve_fused(
@@ -295,18 +340,27 @@ def solve_fused(
     """Batch-fused conic ADMM over B scenarios: the serving path.
 
     The arguments are the JAX function's (there is no ``interpret``: a
-    problem on the CPU runs the kernels' plain versions).  Served is the
-    shared split mode: a ``problem`` WITHOUT a leading batch axis
-    (``problem.A.ndim == 3``; ``c`` may still be batched (B, N, nx) for
-    per-scenario drift) with ``cached_factors`` and ``uniform_rho``, run
-    as the kernel pair of ``ops/cuda_admm.py`` an iteration and one
-    factor build of ``cuda_riccati.backward_lanes`` per rho change.
-    ``x0`` (B, nx) sets the batch.  ``single_kernel="auto"`` resolves to
-    that split iteration whenever the settings allow it.
+    problem on the CPU runs the kernels' plain versions).  Three modes:
 
-    Not ported yet, each raising ``NotImplementedError``: a batched
-    (per-instance) problem and ``single_kernel=True`` (ROADMAP M6),
-    ``rho_ladder`` (M5), ``storage_dtype`` and ``residual_weights`` (M6).
+    * a ``problem`` WITHOUT a leading batch axis (``problem.A.ndim == 3``;
+      ``c`` may still be batched (B, N, nx) for per-scenario drift) with
+      ``cached_factors`` and ``uniform_rho``: the shared split iteration,
+      the kernel pair K4 + K5 an iteration and one factor build of
+      ``cuda_riccati.backward_lanes`` per rho change;
+    * the same with a ``rho_ladder``: per-scenario rho on the rungs, K6 +
+      K5 an iteration on R rungs' factors built once;
+    * a batched problem (every field with a leading axis B): the
+      replicated two-kernel iteration, per-instance rho, with or without
+      ``cached_factors``; ``residual_weights`` (the unscaled-residual
+      termination of ``solve_equilibrated``) runs only here, as in JAX.
+
+    ``x0`` (B, nx) sets the batch.  ``single_kernel="auto"`` resolves to
+    the split pair on a shared model whose settings give batch-shared
+    factors, and to the replicated iteration on a batched problem, where
+    JAX picks its single-kernel iteration (K8) whenever that fits the
+    TPU's on-chip memory; the port has no K8 yet (same function).
+    ``single_kernel=True``, a shared model without batch-shared factors
+    and ``storage_dtype`` need K8 and raise ``NotImplementedError``.
 
     Returns (ws (B, N+1, nz), ADMMState (batched), ADMMInfo (batched)),
     on the problem's device; the trajectories are batch-leading views of
@@ -329,14 +383,12 @@ def solve_fused(
     dt, dev = problem.H.dtype, problem.H.device
     x0 = torch.as_tensor(x0).to(device=dev, dtype=dt)
     if problem.nc == 0:
-        if not shared_mode:
-            raise NotImplementedError(
-                "solve_fused on a batched (per-instance) problem waits "
-                "for the replicated path (ROADMAP M6, solve_lanes)")
         Bb = x0.shape[0]
         zc = torch.zeros_like(problem.e_lb)
         it = ADMMIterates(w=torch.zeros_like(problem.h), y=zc, z=zc, rho=zc)
-        ws = cuda_riccati.solve_shared(problem, it, x0, settings.sigma)
+        solve = (cuda_riccati.solve_shared if shared_mode
+                 else cuda_riccati.solve_lanes)
+        ws = solve(problem, it, x0, settings.sigma)
         zero = torch.zeros((Bb,), dtype=dt, device=dev)
         ones = torch.ones((Bb,), dtype=torch.int32, device=dev)
         info = ADMMInfo(iterations=ones, r_prim=zero, r_dual=zero,
@@ -344,10 +396,15 @@ def solve_fused(
         return ws, state or _batch_state(problem, Bb, settings), info
 
     if single_kernel == "auto":
-        # The port has no on-chip memory to fit: the split pair serves
-        # whenever the settings give it batch-shared factors.
-        single_kernel = not (shared_mode and (
-            ladder or (settings.cached_factors and settings.uniform_rho)))
+        # The port has no on-chip memory to fit: a shared model runs the
+        # split pair whenever the settings give it batch-shared factors,
+        # a batched problem the replicated iteration (the same function
+        # as K8's), unless storage_dtype asks for the single kernel.
+        if shared_mode:
+            single_kernel = not (ladder or (settings.cached_factors
+                                            and settings.uniform_rho))
+        else:
+            single_kernel = storage_dtype is not None
     split_mode = shared_mode and not single_kernel
     if split_mode:
         if not settings.cached_factors and not ladder:
@@ -368,53 +425,64 @@ def solve_fused(
             "accumulates residual maxima in-kernel without weights; "
             "pass single_kernel=False"
         )
+    if residual_weights is not None and split_mode:
+        raise ValueError(
+            "residual_weights (unscaled-residual termination) runs on "
+            "the replicated two-kernel iteration: pass a batched problem")
     if storage_dtype is not None and not (single_kernel or split_mode):
         raise ValueError("storage_dtype requires single_kernel=True "
                          "or the shared split iteration")
 
-    if not shared_mode:
-        raise NotImplementedError(
-            "solve_fused on a batched (per-instance) problem waits for "
-            "the replicated two-kernel iteration (ROADMAP M6)")
     if single_kernel:
         raise NotImplementedError(
             "the single-kernel iteration waits for kernel K8 "
-            "(admm_iter_lanes, ROADMAP M6); use cached_factors + "
-            "uniform_rho with single_kernel=False or \"auto\"")
-    if ladder:
-        raise NotImplementedError(
-            "rho_ladder waits for kernel K6 (admm_bwd_vec_lanes) and the "
-            "R-rung form of admm_fwd_update_lanes (ROADMAP M5)")
+            "(admm_iter_lanes, ROADMAP Queue 2); use cached_factors + "
+            "uniform_rho or a rho_ladder on a shared model, or a batched "
+            "problem, with single_kernel=False or \"auto\"")
     if storage_dtype is not None:
         raise NotImplementedError(
             "storage_dtype (narrow stage streams) is not ported yet "
             "(ROADMAP M6)")
-    if residual_weights is not None:
-        raise NotImplementedError(
-            "residual_weights is not ported yet (ROADMAP M6)")
+    if not shared_mode:
+        return _solve_replicated(problem, x0, cones, settings, state,
+                                 soc_shift, residual_weights)
+    if ladder:
+        return _solve_shared_ladder(problem, x0, cones, settings, state,
+                                    soc_shift, ladder)
     return _solve_shared_split(problem, x0, cones, settings, state,
                                soc_shift)
 
 
-def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
-    """``solve_fused`` in shared split mode with cached factors and a
-    batch-uniform rho (the non-ladder ``iteration_split`` of the JAX
-    function)."""
-    sigma, alpha = settings.sigma, settings.alpha
-    dt, dev = problem.H.dtype, problem.H.device
-    Bb, N = x0.shape[0], problem.N
-    nu, nx, nc = problem.nu, problem.nx, problem.nc
-    nz = nu + nx
-    cones3 = projections.normalize_cones(cones)
-    tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
-    one = lambda x: x[..., None].contiguous()       # shared: trailing 1
+@dataclasses.dataclass(frozen=True)
+class _SharedStreams:
+    """The shared split iterations' stage streams: ONE copy of the model
+    whatever B is (trailing size 1), the per-scenario drift c and the
+    terminal stage."""
 
-    # ---- the shared stage streams: ONE copy, whatever B is.
+    A: torch.Tensor       # (N, nx, nx, 1)
+    B: torch.Tensor       # (N, nx, nu, 1)
+    c: torch.Tensor       # (N, nx, B)
+    H: torch.Tensor       # (N, nz, nz, 1) H + sigma I
+    Hs: torch.Tensor      # H, or its diagonal (N, nz, 1) under diag_cost
+    D: torch.Tensor       # (N, nc, nz, 1)
+    h: torch.Tensor       # (N, nz, 1)
+    mask: torch.Tensor    # (N, nc, 1) the per-row rho scale
+    bnd: torch.Tensor     # (N, 3+s, nc, 1) [lb | ub | rho scale (| shift)]
+    HNx: torch.Tensor     # (nx, nx) terminal H[x, x] + sigma I
+    term: _Terminal
+
+
+def _shared_streams(problem, Bb, cones, settings, soc_shift):
+    sigma = settings.sigma
+    dt, dev = problem.H.dtype, problem.H.device
+    N, nu, nx, nc = problem.N, problem.nu, problem.nx, problem.nc
+    nz = nu + nx
+    one = lambda x: x[..., None].contiguous()       # shared: trailing 1
     mask1 = _con_mask(problem, cones).to(dt)                   # (N+1, nc)
     eq1 = torch.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub)
     scale1 = torch.where(eq1, mask1 * settings.rho_eq_boost, mask1)
-    shift = None if soc_shift is None else tensor(soc_shift)
-    A_l, B_l = one(problem.A), one(problem.B)
+    shift = None if soc_shift is None else torch.as_tensor(soc_shift).to(
+        device=dev, dtype=dt)
     if problem.c.ndim == 3:
         c_l = cuda_riccati.to_lanes(problem.c.to(dt)).contiguous()
     else:
@@ -430,15 +498,10 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
                 "diag_cost=True but problem.H has off-diagonal "
                 f"entries (max {float(offdiag):.2e})")
         Hs_l = one(torch.diagonal(problem.H[:-1], dim1=-2, dim2=-1) + sigma)
-    D_l = one(problem.D[:-1])
-    h_l = one(problem.h[:-1])
-    mask_st = one(scale1[:-1])            # carries the per-row rho scale
     # [lb | ub | rho-scale mask (| shift)] stacked for kernel B.
     bnd_parts = [problem.e_lb[:-1], problem.e_ub[:-1], scale1[:-1]]
     if shift is not None:
         bnd_parts.append(shift[:-1].expand(N, nc))
-    bnd_st = one(torch.stack(bnd_parts, dim=1))             # (N, 3+s, nc, 1)
-    HNx = problem.H[-1, nu:, nu:] + sigma * torch.eye(nx, dtype=dt, device=dev)
     term = _Terminal(
         HN=problem.H[-1, nu:, nu:], DNx=problem.D[-1, :, nu:], DN=problem.D[-1],
         hN=problem.h[-1][:, None],
@@ -449,38 +512,88 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
         h_absmax=problem.h.abs().max(),
         zero_u=torch.zeros((nu, Bb), dtype=dt, device=dev),
     )
-    zeros = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    return _SharedStreams(
+        A=one(problem.A), B=one(problem.B), c=c_l, H=H_l, Hs=Hs_l,
+        D=one(problem.D[:-1]), h=one(problem.h[:-1]),
+        mask=one(scale1[:-1]),                 # carries the per-row rho scale
+        bnd=one(torch.stack(bnd_parts, dim=1)),                # (N, 3+s, nc, 1)
+        HNx=problem.H[-1, nu:, nu:] + sigma * torch.eye(nx, dtype=dt,
+                                                        device=dev),
+        term=term)
 
-    def build_shared_factors(rho):
-        """Matrix sweep + factor export on the one model (rho is uniform
-        over the batch): the matrix half of the iteration never pays B."""
-        rho_u = rho[0]
-        with full_f32_matmul():
-            PN = HNx + term.DNx.T @ ((rho_u * term.scale) * term.DNx)
-        K, _, M, _, P, L = cuda_riccati.backward_lanes(
-            A_l, B_l, zeros(N, nx, 1), H_l, zeros(N, nz, 1), D_l,
-            rho_u * mask_st, zeros(N, nc, 1), one(PN), zeros(nx, 1),
-            export_factors=True)
-        return K, M, P, L
+
+def _shared_factors(S: _SharedStreams, rho_u):
+    """Matrix sweep + factor export of the one model at each rho of
+    ``rho_u`` (R,): ONE K1 launch over R instances (its per-instance
+    mode), the matrix half of the iteration never paying B.  Returns
+    (K, M, P, L) with trailing size R."""
+    N, nx, nu = S.A.shape[0], S.A.shape[1], S.B.shape[2]
+    nz, nc = nx + nu, S.D.shape[1]
+    R = rho_u.shape[0]
+    wide = lambda x: x.expand(x.shape[:-1] + (R,)).contiguous()
+    zeros = lambda *shape: torch.zeros(shape + (R,), dtype=S.A.dtype,
+                                       device=S.A.device)
+    DNx = S.term.DNx
+    with full_f32_matmul():
+        PN = S.HNx[..., None] + torch.einsum(
+            "ci,cr,cj->ijr", DNx, S.term.scale * rho_u[None, :], DNx)
+    K, _, M, _, P, L = cuda_riccati.backward_lanes(
+        wide(S.A), wide(S.B), zeros(N, nx), wide(S.H), zeros(N, nz),
+        wide(S.D), (S.mask * rho_u).contiguous(), zeros(N, nc),
+        PN.contiguous(), zeros(nx), export_factors=True)
+    return K, M, P, L
+
+
+def _packed_iterates(state, tensor):
+    """The warm state in the split loops' carry: stage rows packed
+    [w | z | y] (N, nz + 2nc, B) and the terminal rows apart."""
+    l3 = lambda x: torch.movedim(tensor(x), 0, -1)
+    w_l, z_l, y_l = l3(state.w), l3(state.z), l3(state.y)
+    wzy = torch.cat([w_l[:-1], z_l[:-1], y_l[:-1]], dim=1)
+    return (wzy,) + tuple(x[-1].contiguous() for x in (w_l, z_l, y_l))
+
+
+def _unpacked_state(wzy, wN, zN, yN, nz, nc, rho, factors):
+    rows = lambda a, b, last: torch.movedim(
+        torch.cat([wzy[:, a:b], last[None]], dim=0), -1, 0)
+    w_b = rows(0, nz, wN)
+    return w_b, ADMMState(
+        w=w_b, z=rows(nz, nz + nc, zN), y=rows(nz + nc, nz + 2 * nc, yN),
+        rho=rho, factors=factors)
+
+
+def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
+    """``solve_fused`` in shared split mode with cached factors and a
+    batch-uniform rho (the non-ladder ``iteration_split`` of the JAX
+    function)."""
+    sigma, alpha = settings.sigma, settings.alpha
+    dt, dev = problem.H.dtype, problem.H.device
+    Bb = x0.shape[0]
+    nu, nx, nc = problem.nu, problem.nx, problem.nc
+    nz = nu + nx
+    cones3 = projections.normalize_cones(cones)
+    tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
+    S = _shared_streams(problem, Bb, cones, settings, soc_shift)
+    term = S.term
 
     def build_split_factors(rho):
-        """Factor build + the per-scenario fold Pc = P_{k+1} c — only on
-        refactor iterations.  The carry rides packed on the per-stage
-        row axis: AK = [A; K], BL = [B; L] for kernel A, MK = [M; K] for
-        kernel B."""
-        K, M, P, L = build_shared_factors(rho)
-        return (torch.cat([A_l, K], dim=1), torch.cat([B_l, L], dim=1),
-                torch.cat([M, K], dim=1), cuda_riccati.fold_Pc(P, c_l), rho)
+        """Factor build (rho is uniform over the batch) + the
+        per-scenario fold Pc = P_{k+1} c — only on refactor iterations.
+        The carry rides packed on the per-stage row axis: AK = [A; K],
+        BL = [B; L] for kernel A, MK = [M; K] for kernel B."""
+        K, M, P, L = _shared_factors(S, rho[:1])
+        return (torch.cat([S.A, K], dim=1), torch.cat([S.B, L], dim=1),
+                torch.cat([M, K], dim=1), cuda_riccati.fold_Pc(P, S.c), rho)
 
     def fold_hf(wzy, rho):
         """hf = h - sigma w - D^T (rho m z - y) from the packed iterates:
         the fold in tensor code, used at entry and on refactor
         iterations (kernel B emits hf in steady state)."""
-        rg = (rho[None, None, :] * mask_st * wzy[:, nz:nz + nc]
+        rg = (rho[None, None, :] * S.mask * wzy[:, nz:nz + nc]
               - wzy[:, nz + nc:])
         with full_f32_matmul():
-            return (h_l - sigma * wzy[:, :nz]
-                    - D_l[..., 0].transpose(1, 2) @ rg)
+            return (S.h - sigma * wzy[:, :nz]
+                    - S.D[..., 0].transpose(1, 2) @ rg)
 
     if state is None:
         state = _batch_state(problem, Bb, settings)
@@ -488,18 +601,9 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
     # PRESERVES uniformity: a warm start carrying per-instance rho is
     # collapsed to the batch max (the conservative OSQP choice).
     rho = tensor(state.rho).expand(Bb).max().expand(Bb).contiguous()
-    l3 = lambda x: torch.movedim(tensor(x), 0, -1)
-    w_l, z_l, y_l = l3(state.w), l3(state.z), l3(state.y)
-    wzy = torch.cat([w_l[:-1], z_l[:-1], y_l[:-1]], dim=1)
-    wN, zN, yN = (x[-1].contiguous() for x in (w_l, z_l, y_l))
+    wzy, wN, zN, yN = _packed_iterates(state, tensor)
     hf = fold_hf(wzy, rho)
-    stats = (
-        0,
-        torch.full((Bb,), -1, dtype=torch.int32, device=dev),
-        torch.full((Bb,), float("inf"), dtype=dt, device=dev),
-        torch.full((Bb,), float("inf"), dtype=dt, device=dev),
-        torch.zeros((Bb,), dtype=torch.bool, device=dev),
-    )
+    stats = _start_stats(Bb, dt, dev)
     fac = None if state.factors is None else tuple(
         tensor(x) for x in state.factors)
     x0_l = x0.T.contiguous()
@@ -526,29 +630,280 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
             hf = fold_hf(wzy, rho)
         AK, BL, MK, Pc, _ = fac
 
-        dv = cuda_admm.admm_bwd_vec_prefold_lanes(pN, AK, BL, c_l, Pc, hf,
+        dv = cuda_admm.admm_bwd_vec_prefold_lanes(pN, AK, BL, S.c, Pc, hf,
                                                   nu=nu)
         wzy, hf, xN, res = cuda_admm.admm_fwd_update_lanes(
-            rho[None, :], x0_l, MK, None, Hs_l, D_l, bnd_st, None, None,
+            rho[None, :], x0_l, MK, None, S.Hs, S.D, S.bnd, None, None,
             None, dv, wzy, nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
-            h=h_l)
+            h=S.h)
         wN, zN, yN, rho, stats = _terminal_tail(
             settings, term, cones3, nu, wN, zN, yN, rho, rhoN_m, stats, xN,
             res)
         rho_may_differ = settings.adaptive_rho and stats[0] % interval == 0
 
-    k_it, iter_conv, r_prim, r_dual, conv = stats
-    rows = lambda a, b, last: torch.movedim(
-        torch.cat([wzy[:, a:b], last[None]], dim=0), -1, 0)
-    w_b = rows(0, nz, wN)
-    info = ADMMInfo(
-        iterations=torch.full((Bb,), k_it, dtype=torch.int32, device=dev),
-        r_prim=r_prim, r_dual=r_dual, converged=conv,
-        iter_converged=torch.where(iter_conv < 0,
-                                   torch.full_like(iter_conv, k_it),
-                                   iter_conv),
-    )
+    w_b, out = _unpacked_state(wzy, wN, zN, yN, nz, nc, rho, fac)
+    return w_b, out, _info(stats, Bb, dev)
+
+
+def _solve_shared_ladder(problem, x0, cones, settings, state, soc_shift,
+                         ladder):
+    """``solve_fused`` in shared split mode with a rho ladder (the ladder
+    ``iteration_split`` of the JAX function): per-scenario rho, always on
+    a rung; the R rungs' factors are built once a solve, so there is no
+    refactor and no factor carry (``state.factors`` is None on return)."""
+    sigma, alpha = settings.sigma, settings.alpha
+    dt, dev = problem.H.dtype, problem.H.device
+    Bb, N = x0.shape[0], problem.N
+    nu, nx, nc = problem.nu, problem.nx, problem.nc
+    nz = nu + nx
+    cones3 = projections.normalize_cones(cones)
+    tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
+    S = _shared_streams(problem, Bb, cones, settings, soc_shift)
+    term = S.term
+
+    rungs = torch.tensor(ladder, dtype=dt, device=dev)
+    R = len(ladder)
+    # R rungs' factors stacked on rows, rung r at rows r*n .. (r+1)*n.
+    stack = lambda X: X.permute(0, 3, 1, 2).reshape(
+        N, R * X.shape[1], X.shape[2], 1).contiguous()
+    K_r, M_r, P_r, L_r = (stack(X) for X in _shared_factors(S, rungs))
+
+    if state is None:
+        state = _batch_state(problem, Bb, settings)
+    # Snap the warm / initial rho onto the rungs (per instance); each
+    # scenario's rung index rides beside its rho into the kernels.
+    rung = _snap(rungs, tensor(state.rho).expand(Bb).clamp(min=1e-30))
+    rho = rungs[rung]
+    rung = rung.to(torch.int32)
+    wzy, wN, zN, yN = _packed_iterates(state, tensor)
+    stats = _start_stats(Bb, dt, dev)
+    x0_l = x0.T.contiguous()
+    interval = max(1, settings.rho_update_interval)
+
+    while stats[0] < settings.max_iter:
+        if settings.early_exit and stats[0] > 0:
+            HOST_READS["early_exit"] += 1
+            if bool(stats[4].all()):
+                break
+        rho_row = rho[None, :]
+        rhoN_m = rho_row * term.scale
+        pN = _terminal_pN(term, nu, sigma, wN, zN, yN, rhoN_m)
+        dv = cuda_admm.admm_bwd_vec_lanes(
+            rho_row, pN, S.A, S.B, S.h, S.D, S.mask, P_r, L_r, K_r, S.c,
+            wzy, nu=nu, sigma=sigma, rung=rung)
+        wzy, xN, res = cuda_admm.admm_fwd_update_lanes(
+            rho_row, x0_l, M_r, K_r, S.Hs, S.D, S.bnd, None, None, None,
+            dv, wzy, nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
+            rung=rung)
+        wN, zN, yN, rho, stats = _terminal_tail(
+            settings, term, cones3, nu, wN, zN, yN, rho, rhoN_m, stats, xN,
+            res, ladder=rungs)
+        if settings.adaptive_rho and stats[0] % interval == 0:
+            rung = _snap(rungs, rho).to(torch.int32)
+
+    w_b, out = _unpacked_state(wzy, wN, zN, yN, nz, nc, rho, None)
+    return w_b, out, _info(stats, Bb, dev)
+
+
+def _solve_replicated(problem, x0, cones, settings, state, soc_shift,
+                      residual_weights):
+    """``solve_fused`` on a batched problem: the replicated two-kernel
+    iteration (``iteration`` of the JAX function), per-instance rho.
+
+    Per iteration: the matrix sweep K1 on every instance (one block an
+    instance), or, with ``cached_factors`` while rho is unchanged, the
+    per-instance vector sweep K2 on the exported factors; then the
+    per-instance rollout K3.  The relaxation, projection, dual update and
+    residuals are tensor code on (N+1, rows, B) tensors, as in JAX; their
+    matrix products run on batch-major copies of D and H made once a
+    solve ((N+1, B, rows, cols): one batched product each)."""
+    sigma, alpha = settings.sigma, settings.alpha
+    dt, dev = problem.H.dtype, problem.H.device
+    Bb, N = problem.h.shape[0], problem.N
+    nu, nx, nc = problem.nu, problem.nx, problem.nc
+    nz = nu + nx
+    cones3 = projections.normalize_cones(cones)
+    tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
+    l3 = lambda x: torch.movedim(x, 0, -1).contiguous()   # (B, ...) -> lanes
+
+    mask = l3(_con_mask(problem, cones).to(dt))               # (N+1, nc, B)
+    eq = l3(torch.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub))
+    rsc = torch.where(eq, mask * settings.rho_eq_boost, mask)
+    eye = lambda n: torch.eye(n, dtype=dt, device=dev)
+    A_l, B_l, c_l = l3(problem.A), l3(problem.B), l3(problem.c)
+    H_l = l3(problem.H[:, :-1] + sigma * eye(nz))
+    Dst_l = l3(problem.D[:, :-1])
+    HN_l = l3(problem.H[:, -1, nu:, nu:] + sigma * eye(nx))   # (nx, nx, B)
+    DN_l = l3(problem.D[:, -1, :, nu:])                        # (nc, nx, B)
+    h_base = l3(problem.h)                                     # (N+1, nz, B)
+    uterm = torch.ones((N + 1, nz, 1), dtype=dt, device=dev)
+    uterm[-1, :nu] = 0.0
+    lb_l, ub_l = l3(problem.e_lb), l3(problem.e_ub)
+    shift_l = None if soc_shift is None else tensor(soc_shift)[..., None]
+    # Batch-major D and H (the terminal H on its x block only, as JAX
+    # reads it) for the residual products.
+    D_t = problem.D.transpose(0, 1).contiguous()               # (N+1, B, nc, nz)
+    H_t = problem.H.transpose(0, 1).clone()
+    H_t[-1, :, :nu] = 0.0
+    H_t[-1, :, :, :nu] = 0.0
+
+    def bmv(M_t, v):
+        """(N+1, B, r, s) by (N+1, s, B) -> (N+1, r, B)."""
+        with full_f32_matmul():
+            return torch.matmul(M_t, v.transpose(1, 2)[..., None])[..., 0] \
+                .transpose(1, 2)
+
+    Dw = lambda w: bmv(D_t, w)
+    Hw = lambda w: bmv(H_t, w)
+    DTy = lambda y: bmv(D_t.transpose(-1, -2), y)
+    if residual_weights is not None:
+        pwt = tensor(residual_weights[0])[..., None]           # (N+1, nc, 1)
+        dwt = tensor(residual_weights[1])[..., None]           # (N+1, nz, 1)
+        wp = lambda x: x * pwt
+        wd = lambda x: x * dwt
+    else:
+        wp = wd = lambda x: x
+    amax = lambda x: x.abs().amax(dim=(0, 1))                 # -> (B,)
+    h_absmax = amax(wd(h_base))
+
+    if state is None:
+        state = _batch_state(problem, Bb, settings)
+    rho = tensor(state.rho).expand(Bb).contiguous()
+    w, z, y = (torch.movedim(tensor(x), 0, -1) for x in
+               (state.w, state.z, state.y))
+    stats = _start_stats(Bb, dt, dev)
+    cached = settings.cached_factors
+    fac = None if (state.factors is None or not cached) else tuple(
+        tensor(x) for x in state.factors)
+    x0_l = x0.T.contiguous()
+    zero_u = torch.zeros((1, nu, Bb), dtype=dt, device=dev)
+    interval = max(1, settings.rho_update_interval)
+    rho_may_differ = True
+
+    while stats[0] < settings.max_iter:
+        if settings.early_exit and stats[0] > 0:
+            HOST_READS["early_exit"] += 1
+            if bool(stats[4].all()):
+                break
+        rho_vec = rho[None, None, :] * rsc                     # (N+1, nc, B)
+        inv_rho = torch.where(rsc > 0, 1.0 / rho_vec.clamp(min=1e-30), 0.0)
+        g = z - inv_rho * y
+        h_t = (h_base - sigma * w) * uterm
+        rg = rho_vec * g
+        with full_f32_matmul():
+            # Terminal linear fold (vector part, every iteration).
+            pN = h_t[-1, nu:] - torch.einsum("cxb,cb->xb", DN_l, rg[-1])
+
+        def full():
+            # Terminal matrix fold, then the matrix sweep on every
+            # instance (exporting the factors when they are cached).
+            with full_f32_matmul():
+                PN = HN_l + torch.einsum("cib,cb,cjb->ijb", DN_l,
+                                         rho_vec[-1], DN_l)
+            return cuda_riccati.backward_lanes(
+                A_l, B_l, c_l, H_l, h_t[:-1], Dst_l, rho_vec[:-1], rg[:-1],
+                PN.contiguous(), pN, export_factors=cached)
+
+        if cached:
+            refactor = fac is None
+            if not refactor and rho_may_differ:
+                HOST_READS["refactor"] += 1
+                refactor = bool((rho != fac[4]).any())
+            if refactor:
+                K, d, M, v, P, L = full()
+                fac = (K, M, P, L, rho)
+            else:
+                K, M, P, L, _ = fac
+                hf = (h_t - DTy(rg))[:-1].contiguous()
+                d, v = cuda_riccati.backward_vectors_lanes(
+                    A_l, B_l, c_l, hf, P, K, L, pN)
+        else:
+            K, d, M, v = full()
+        ws_l, xN = cuda_riccati.forward_lanes(M, v, K, d, x0_l)
+        w_t = torch.cat([ws_l, torch.cat([zero_u, xN[None]], dim=1)], dim=0)
+
+        z_t = Dw(w_t)
+        w_new = alpha * w_t + (1.0 - alpha) * w
+        v_z = alpha * z_t + (1.0 - alpha) * z + inv_rho * y
+        z_new = projections.project_rows(v_z, lb_l, ub_l, cones3, shift_l,
+                                         axis=1) * mask
+        y_new = y + rho_vec * (alpha * z_t + (1.0 - alpha) * z - z_new)
+
+        Dw_new = Dw(w_new)
+        r_prim = amax(wp((Dw_new - z_new) * mask))
+        if settings.exact_dual:
+            dw = w - w_t
+            zt_term = rho_vec * ((alpha - 1.0) * (z_t - z) + (z - z_new))
+            dvec = (1.0 - alpha) * Hw(dw) + sigma * dw + DTy(zt_term)
+            r_dual = amax(wd(dvec))
+            dual_scale = torch.maximum(
+                amax(wd(Hw(w_new))),
+                torch.maximum(amax(wd(DTy(y_new))), h_absmax))
+        else:
+            r_dual = rho * amax(wd(DTy((z_new - z) * mask)))
+            dual_scale = amax(wd(DTy(y_new)))
+        prim_scale = torch.maximum(amax(wp(Dw_new * mask)),
+                                   amax(wp(z_new)))
+        w, z, y = w_new, z_new, y_new
+        rho, stats = _finish_stats(settings, rho, stats, r_prim, r_dual,
+                                   prim_scale, dual_scale)
+        rho_may_differ = settings.adaptive_rho and stats[0] % interval == 0
+
+    w_b = torch.movedim(w, -1, 0)
     return w_b, ADMMState(
-        w=w_b, z=rows(nz, nz + nc, zN), y=rows(nz + nc, nz + 2 * nc, yN),
-        rho=rho, factors=fac,
-    ), info
+        w=w_b, z=torch.movedim(z, -1, 0), y=torch.movedim(y, -1, 0),
+        rho=rho, factors=fac), _info(stats, Bb, dev)
+
+
+def suggest_rho_ladder(problem, x0, cones: Sequence = (),
+                       settings: ADMMSettings = ADMMSettings(), *,
+                       rungs: int = 4, probe_batch: int = 128,
+                       probe_iters: Optional[int] = None, soc_shift=None):
+    """Pick ``rho_ladder`` rungs from the problem's own adaptive-rho
+    footprint (the JAX function's rule).
+
+    Runs a short PER-INSTANCE adaptive-rho probe on a strided subsample
+    of ``probe_batch`` scenarios through the replicated loop (the path
+    with unrestricted per-instance rho), then places up to ``rungs``
+    rungs at the log-space quantiles of the probe's final rho; rungs
+    closer than 10 % in log space are merged (the lower one kept).  A
+    shared model (``problem.A.ndim == 3``; only ``c`` may carry a batch
+    axis) is replicated over the subsample, a batched problem subsampled.
+    Returns a sorted tuple of 1..``rungs`` values, each rounded to four
+    significant digits.  The probe is set-up time, not the hot loop: its
+    one read of rho is the answer.
+    """
+    B = int(x0.shape[0])
+    idx = np.unique(np.linspace(0, B - 1,
+                                min(int(probe_batch), B)).astype(int))
+    dev = problem.H.device
+    sel = torch.as_tensor(idx, device=dev)
+    x0p = torch.as_tensor(x0).to(dev)[sel]
+    fields = [f.name for f in dataclasses.fields(problem)]
+    if problem.A.ndim == 3:
+        c_batched = problem.c.ndim == 3
+        pp = LQRProblem(**{
+            f: getattr(problem, f).expand(
+                (len(idx),) + getattr(problem, f).shape)
+            for f in fields if not (f == "c" and c_batched)},
+            **({"c": problem.c[sel]} if c_batched else {}))
+    else:
+        pp = LQRProblem(**{f: getattr(problem, f)[sel] for f in fields})
+    ps = dataclasses.replace(
+        settings, adaptive_rho=True, cached_factors=False,
+        uniform_rho=False, rho_ladder=(),
+        max_iter=int(probe_iters if probe_iters is not None
+                     else settings.max_iter))
+    _, st, _ = solve_fused(pp, x0p, tuple(cones), ps, soc_shift=soc_shift)
+    rho = st.rho.detach().double().cpu().numpy().ravel()
+    rho = rho[np.isfinite(rho) & (rho > 0.0)]
+    if rho.size == 0:  # degenerate probe: fall back to the start rho
+        return (float(settings.rho),)
+    logs = np.log(rho)
+    R = max(1, int(rungs))
+    picks = np.exp(np.quantile(logs, (np.arange(R) + 0.5) / R))
+    out = []
+    for r in picks:
+        if not out or np.log(r) - np.log(out[-1]) > 0.1:
+            out.append(float(r))
+    return tuple(float(f"{r:.4g}") for r in out)

@@ -12,7 +12,7 @@ starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
 ``cp.async`` a ``memcpy``), builds it with ``g++ -std=c++20`` into
 ``build/emulate/``, loads it through the wrappers' own ``ctypes`` bindings
 and holds every kernel and mode against its plain PyTorch version at small
-sizes.  It proves nothing about what ``nvcc`` accepts, about races between
+sizes (K1-K7 and every form of K5).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
 on them.  About a minute (some twenty small g++ builds); ``--quick`` runs
@@ -33,7 +33,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import random_admm_inputs  # noqa: E402
+from chip_smoke import random_admm_inputs, random_ladder_inputs  # noqa: E402
 from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr  # noqa: E402
 
 OUT = ROOT / "build" / "emulate"
@@ -64,7 +64,8 @@ static thread_local double* emu_smem;
 template <class T> inline T __ldg(const T* p) { return *p; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F>
@@ -126,8 +127,9 @@ def library(dtype, nx, nu, nc=None) -> ctypes.CDLL:
 
 
 def admm_library(dtype, nx, nu, nc=None, **modes) -> ctypes.CDLL:
-    lib = build_host(ca.SOURCE, ca.kernel_defines(dtype, nx, nu, nc, **modes))
-    ca.bind_library(lib, forward_update=nc is not None)
+    defines = ca.kernel_defines(dtype, nx, nu, nc, **modes)
+    lib = build_host(ca.SOURCE, defines)
+    ca.bind_library(lib, defines)
     return lib
 
 
@@ -182,6 +184,14 @@ def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
     check(f"K3 per-instance [{tag} B={Bt}]",
           cr._launch_forward(lib, M, v, K, d, x0, False, None),
           cr.forward_lanes_reference(M, v, K, d, x0), tol)
+    # K7 on a batch that leaves the last block's lanes partly idle.
+    Bw = Bs
+    wide = lambda x: x[..., :1].expand(x.shape[:-1] + (Bw,)).contiguous()
+    A7, B7, K7 = wide(A), wide(B), wide(K)
+    c7, d7, x07 = T(N, nx, Bw) * 0.1, T(N, nu, Bw), T(nx, Bw)
+    check(f"K7 per-instance [{tag} B={Bw}]",
+          cr._launch_forward_rollout(lib, A7, B7, c7, K7, d7, x07, None),
+          cr.forward_rollout_lanes_reference(A7, B7, c7, K7, d7, x07), tol)
 
     one = lambda x: x[..., :1].contiguous()
     A1, B1, P1, K1, L1, M1 = (one(x) for x in (A, B, P, K, L, M))
@@ -220,11 +230,47 @@ def run_admm(dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol):
     lib = admm_library(dtype, nx, nu, nc, cones=cones, diag_cost=diag_cost,
                        has_shift=has_shift)
     check(f"K5 [{tag}]",
-          ca._launch_fwd_update(lib, rho, x0, MK, Hs, D, bnd, dv, wzy, h,
-                                1.6, 1e-6, None),
+          ca._launch_fwd_update(lib, rho, x0, MK, None, Hs, D, bnd, dv, wzy,
+                                h, None, 1.6, 1e-6, None),
           ca.admm_fwd_update_lanes_reference(
-              rho, x0, MK, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones,
+              rho, x0, MK, None, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones,
               alpha=1.6, sigma=1e-6), tol)
+
+
+def run_ladder(dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol):
+    """K6 (with the Pc form at one rung) and K5's rung form, with and
+    without hf-emit, at one size and mode: ``Bs`` scenarios on R rungs of
+    one shared model's factors."""
+    rng = np.random.default_rng(3)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} B={Bs} "
+           f"R={R} cones={cones} diag={diag_cost} shift={has_shift}")
+    k6_in, k5_in, rung, Pc = random_ladder_inputs(
+        rng, T(N, nx, nx, 1) * 0.3, T(N, nx, nu, 1) * 0.5, R, nc, Bs, cones,
+        diag_cost, has_shift)
+    rung = rung if R > 1 else None
+    lib6 = admm_library(dtype, nx, nu, nc, fold=True, rungs=R)
+    check(f"K6 [{tag}]",
+          [ca._launch_bwd_vec(lib6, *k6_in, rung, None, 1e-6, None)],
+          [ca.admm_bwd_vec_lanes_reference(*k6_in, nu=nu, sigma=1e-6,
+                                           rung=rung)], tol)
+    if R == 1:
+        pc_in = k6_in[:7] + (None,) + k6_in[8:]
+        check(f"K6 Pc form [{tag}]",
+              [ca._launch_bwd_vec(lib6, *pc_in, None, Pc, 1e-6, None)],
+              [ca.admm_bwd_vec_lanes_reference(*pc_in, nu=nu, sigma=1e-6,
+                                               Pc=Pc)], tol)
+    rho, x0, M, Hs, D, bnd, dv, wzy, h = k5_in
+    K = k6_in[9]
+    lib5 = admm_library(dtype, nx, nu, nc, cones=cones, diag_cost=diag_cost,
+                        has_shift=has_shift, rungs=R)
+    for hh in (None, h):
+        check(f"K5 rung form [{tag} hf-emit={hh is not None}]",
+              ca._launch_fwd_update(lib5, rho, x0, M, K, Hs, D, bnd, dv, wzy,
+                                    hh, rung, 1.6, 1e-6, None),
+              ca.admm_fwd_update_lanes_reference(
+                  rho, x0, M, K, Hs, D, bnd, dv, wzy, hh, nu=nu,
+                  cones=cones, alpha=1.6, sigma=1e-6, rung=rung), tol)
 
 
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
@@ -249,10 +295,19 @@ ADMM_CASES = [
      True, 1e-3),
     (torch.float64, 2, 1, 1, 4, 5, (), False, False, 1e-10),
 ]
-QUICK, ADMM_QUICK = CASES[:1], ADMM_CASES[:1]
+# (dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol): the
+# quadrotor's box rows on four rungs, its thrust cone with a shift on
+# three, one rung (with K6's Pc form) and an odd small shape.
+LADDER_CASES = [
+    (torch.float64, 12, 4, 16, 5, 40, 4, (), True, False, 1e-10),
+    (torch.float32, 12, 4, 19, 4, 33, 3, ((16, 3, "soc"),), True, True, 1e-3),
+    (torch.float64, 12, 4, 16, 4, 33, 1, (), False, False, 1e-10),
+    (torch.float64, 3, 2, 6, 5, 35, 2, ((3, 3, "soc"),), False, True, 1e-10),
+]
+QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:1], LADDER_CASES[:1]
 
 
-def main(cases=CASES, admm_cases=ADMM_CASES):
+def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -260,10 +315,12 @@ def main(cases=CASES, admm_cases=ADMM_CASES):
         run(*case)
     for case in admm_cases:
         run_admm(*case)
+    for case in ladder_cases:
+        run_ladder(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
 
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
-    sys.exit(main(QUICK, ADMM_QUICK) if quick else main())
+    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK) if quick else main())

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Where one ``ScenarioServer`` request spends its time, on the card.
 
-    python3 scripts/request_breakdown.py [--admm] [--requests 20]
+    python3 scripts/request_breakdown.py [--admm | --ladder |
+                                          --replicated [--cached]]
+                                         [--requests 20]
 
-Serves the smoke run's workload (quadrotor, constrained, N=512, B=4096,
-float32): ``solve`` requests or, with ``--admm``, 20-iteration
-``solve_admm`` requests (the split conic ADMM loop at the smoke run's
-settings).  It prints as JSON lines:
+Serves the smoke run's workload (quadrotor, constrained, N=512, float32):
+``solve`` requests (B=4096) or one of the 20-iteration conic ADMM requests
+at the smoke run's settings: ``--admm`` the split loop with a uniform rho
+(B=4096), ``--ladder`` the split loop on a four-rung rho ladder, scenario b
+starting on rung b mod 4 (B=4096), ``--replicated`` ``solve_fused`` on a
+batched problem (B=1024, per-instance rho; ``--cached`` with cached
+factors).  It prints as JSON lines:
 
   * the request's time by CUDA events, the host's time to enqueue it (host
     clock around the call, no synchronise) and the host's time with a
     synchronise at the end: where the first is close to the second, the
     host and not the card sets the request time;
   * from ``torch.profiler`` over the same requests: device time by kernel
-    name (per request), the device's busy time and its idle share; with
-    ``--admm`` also the kernels launched per ADMM iteration.
+    name (per request), the device's busy time and its idle share; for an
+    ADMM request also the kernels launched per ADMM iteration.
 """
 
 from __future__ import annotations
@@ -31,22 +36,30 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from pdp_lqr_tpu_torch import ADMMSettings, ScenarioServer  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ADMM_ITERS, ADMM_SETTINGS, B_REP, LADDER, LADDER_SETTINGS, REP_SETTINGS,
+    batched, zero_state,
+)
+from pdp_lqr_tpu_torch import ADMMSettings, ScenarioServer, solve_fused  # noqa: E402
 from pdp_lqr_tpu_torch.models import quadrotor  # noqa: E402
 
 N, B, SIGMA, RHO = 512, 4096, 1e-6, 0.01
-ADMM_ITERS = 20
-ADMM_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25, rho=0.1,
-                     eps_abs=1e-4, eps_rel=1e-4, cached_factors=True,
-                     uniform_rho=True, diag_cost=True)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=20)
-    ap.add_argument("--admm", action="store_true",
-                    help="time solve_admm requests instead of solve requests")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--admm", action="store_true",
+                      help="20-iteration solve_admm requests, uniform rho")
+    kind.add_argument("--ladder", action="store_true",
+                      help="20-iteration solve_admm requests, four-rung ladder")
+    kind.add_argument("--replicated", action="store_true",
+                      help="20-iteration solve_fused on a batched problem")
+    ap.add_argument("--cached", action="store_true",
+                    help="with --replicated: cached factors")
     args = ap.parse_args()
+    iterative = args.admm or args.ladder or args.replicated
     if not torch.cuda.is_available():
         print("request_breakdown: needs a CUDA device", file=sys.stderr)
         return 1
@@ -60,12 +73,26 @@ def main():
     rng = np.random.default_rng(0)
     c = torch.as_tensor((rng.normal(size=(B, N, model.nx)) * 0.01)
                         .astype(np.float32)).to(dev)
-    if args.admm:
-        settings = ADMMSettings(**ADMM_SETTINGS)
+    if iterative:
         x0 = torch.as_tensor((0.03 + 0.01 * rng.normal(size=(B, model.nx)))
                              .astype(np.float32)).to(dev)
+    if args.admm:
+        settings = ADMMSettings(**ADMM_SETTINGS)
         request = lambda: server.solve_admm(x0, (), settings, c=c)
+        entry = "solve_admm"
+    elif args.ladder:
+        settings = ADMMSettings(**LADDER_SETTINGS)
+        state = zero_state(B, N, model.nc, torch.float32, dev, torch.tensor(
+            [LADDER[b % len(LADDER)] for b in range(B)]))
+        request = lambda: server.solve_admm(x0, (), settings, state=state, c=c)
+        entry = "solve_admm, rho ladder"
+    elif args.replicated:
+        settings = ADMMSettings(**REP_SETTINGS, cached_factors=args.cached)
+        bp = batched(model, B_REP, c[:B_REP])
+        request = lambda: solve_fused(bp, x0[:B_REP], (), settings)
+        entry = "solve_fused, batched" + (", cached" if args.cached else "")
     else:
+        entry = "solve"
         x0 = torch.as_tensor(rng.normal(size=(B, model.nx)).astype(np.float32)
                              * 0.1).to(dev)
         request = lambda: server.solve(x0, c)
@@ -88,8 +115,8 @@ def main():
         synced_ms.append((t2 - t0) * 1e3)
     med = lambda xs: float(np.median(xs))
     print(json.dumps({
-        "card": card, "N": N, "B": B, "requests": args.requests,
-        "entry_point": "solve_admm" if args.admm else "solve",
+        "card": card, "N": N, "B": B_REP if args.replicated else B,
+        "requests": args.requests, "entry_point": entry,
         "request_ms_cuda_events": med(event_ms),
         "host_enqueue_ms": med(enqueue_ms),
         "host_with_synchronise_ms": med(synced_ms)}), flush=True)
@@ -115,7 +142,7 @@ def main():
     busy_ms = sum(r["device_ms_per_request"] for r in rows)
     per_request = sum(r["calls_per_request"] for r in rows)
     extra = {"device_kernels_per_iteration": per_request / ADMM_ITERS} \
-        if args.admm else {}
+        if iterative else {}
     print(json.dumps({
         "card": card, "profiled_requests": args.requests, **extra,
         "window_ms_per_request": window_ms / args.requests,

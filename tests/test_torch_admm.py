@@ -28,6 +28,7 @@ from pdp_lqr_tpu.solvers import admm as jadmm
 import pdp_lqr_tpu_torch as plt_
 from pdp_lqr_tpu_torch import convert
 from pdp_lqr_tpu_torch.ops import cuda_admm as ca
+from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
 from pdp_lqr_tpu_torch.ops import projections as proj
 from pdp_lqr_tpu_torch.solvers import admm
 
@@ -330,10 +331,14 @@ def test_wrappers_check_their_arguments():
         call(wzy=t["wzy"].transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="shape"):
         call(rho=t["rho"][0])
-    for kw in (dict(K=t["MK"]), dict(ub=t["bnd"]), dict(h=None),
-               dict(ladder_oh=t["rho"])):
-        with pytest.raises(NotImplementedError, match="M5"):
-            call(**kw)
+    # Every form of the JAX wrapper runs; a mix of forms is refused.
+    with pytest.raises(ValueError, match="shape"):
+        call(K=t["MK"])                     # rung form: MK is not M
+    with pytest.raises(ValueError, match="packed mode"):
+        call(ub=t["bnd"])                   # MK packed, bounds unpacked
+    with pytest.raises(ValueError, match="non-ladder"):
+        call(ladder_oh=t["rho"])
+    assert len(call(h=None)) == 3           # no hf-emit: no hf output
     with pytest.raises(ValueError, match="cone rows"):
         ca.kernel_defines(torch.float32, 12, 4, 16, cones=((15, 3, "soc"),))
     with pytest.raises(ValueError, match="at most"):
@@ -368,6 +373,7 @@ def _refused(setup, settings=FIXED, batched=False, **kwargs):
     (dict(rho_ladder=(0.1,)), dict(single_kernel=True), "shared split"),
     (FIXED, dict(single_kernel=True, residual_weights=(None, None)),
      "residual_weights"),
+    (FIXED, dict(residual_weights=(None, None)), "batched problem"),
 ])
 def test_solve_fused_keeps_the_jax_value_errors(setup, settings, kwargs, match):
     with pytest.raises(ValueError, match=match):
@@ -384,17 +390,29 @@ def test_batched_ladder_is_a_value_error_as_in_jax(setup):
 
 
 @pytest.mark.parametrize("settings,batched,kwargs,match", [
-    (FIXED, True, dict(single_kernel=False), "M6"),
+    (FIXED, True, dict(single_kernel=True), "K8"),
     (FIXED, False, dict(single_kernel=True), "K8"),
     (dict(max_iter=4), False, {}, "K8"),            # "auto" without factors
-    (dict(rho_ladder=(0.05, 0.1)), False, {}, "M5"),
+    (None, True, dict(storage_dtype=torch.bfloat16), "storage_dtype"),
     (FIXED, False, dict(storage_dtype=torch.bfloat16), "storage_dtype"),
-    (FIXED, False, dict(residual_weights=(None, None)), "residual_weights"),
+    # "auto" on a batched problem: storage_dtype asks for the single kernel.
+    (dict(max_iter=4), True, dict(storage_dtype=torch.bfloat16), "K8"),
 ])
 def test_solve_fused_names_what_is_not_ported(setup, settings, batched, kwargs,
                                               match):
     with pytest.raises(NotImplementedError, match=match):
-        _refused(setup, settings, batched=batched, **kwargs)
+        if settings is None:                # the inner solve's narrow streams
+            tp = setup["torch"]
+            it = plt_.init_iterates(tp)
+            batch = lambda x: x[None].expand((B,) + x.shape)
+            cr.solve_lanes(
+                plt_.LQRProblem(**{f.name: batch(getattr(tp, f.name))
+                                   for f in dataclasses.fields(tp)}),
+                plt_.ADMMIterates(**{f.name: batch(getattr(it, f.name))
+                                     for f in dataclasses.fields(it)}),
+                setup["x0"], 1e-6, **kwargs)
+        else:
+            _refused(setup, settings, batched=batched, **kwargs)
 
 
 def test_server_split_false_waits_for_the_single_kernel(setup):

@@ -22,4 +22,4 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
     spec = importlib.util.spec_from_file_location("emulate_kernels", SCRIPT)
     emu = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(emu)
-    assert emu.main(emu.QUICK, emu.ADMM_QUICK) == 0
+    assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK) == 0

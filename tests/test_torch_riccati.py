@@ -371,7 +371,7 @@ def test_cpu_path_launches_no_kernel(port_prep):
     cr.reset_launch_counts()
     cr.solve_shared_prepared(port_prep)
     assert cr.LAUNCHES == {"backward_lanes": 0, "backward_vectors_lanes": 0,
-                           "forward_lanes": 0}
+                           "forward_lanes": 0, "forward_rollout_lanes": 0}
 
 
 def test_kernel_defines_and_block_sizes():
