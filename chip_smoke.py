@@ -17,7 +17,13 @@ request and a 60-iteration adapting run), checked at N=64 in float64
 against the replicated loop; ``solve_fused`` on a batched problem of
 B=1024 (the replicated per-instance loop, with and without cached
 factors); ``suggest_rho_ladder``; and ``solve_lanes`` (the per-instance
-inner solve).  It times the paths and their kernels with CUDA events.
+inner solve); the single-kernel iteration (K8): ``solve_admm``'s default
+path at N=64 (per-scenario rho), cached factors at N=512 (float32 and
+bfloat16 stage data) checked at N=64 in float64 against the split pair, a
+batched problem of B=1024 at N=64 (uncached, cached, cached with bfloat16)
+checked against the replicated loop, and the rocket soft-landing
+dispersion (B=512, N=48, two cones, ``single_kernel="auto"``).  It times
+the paths and their kernels with CUDA events.
 Each phase prints one JSON line; any failed check raises, so the exit
 code is non-zero and no result line appears.  It needs one CUDA device
 and imports nothing of JAX.
@@ -74,6 +80,24 @@ B_REP = 1024
 REP_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25, rho=0.1,
                     eps_abs=1e-4, eps_rel=1e-4)
 PROBE_BATCH, PROBE_ITERS = 128, 50   # suggest_rho_ladder's probe
+# The single-kernel iteration (K8): ``bench.py --admm 20 --batch 4096
+# --horizon 64 --single-kernel`` (per-scenario adaptive rho, no cached
+# factors), its cached-factor form at N=512, and a batched problem.
+N_SINGLE = 64
+SINGLE_SETTINGS = dict(max_iter=ADMM_ITERS, rho_update_interval=25, rho=0.1,
+                       eps_abs=1e-4, eps_rel=1e-4)
+# A run whose rho adapts (every 10th iteration from a start far from
+# balance), for the float64 cross-checks of K8 against the split pair and
+# the replicated loop: the same functions.
+CROSS_SETTINGS = dict(max_iter=30, rho_update_interval=10, rho=1e-3,
+                      eps_abs=1e-4, eps_rel=1e-4)
+# The rocket soft-landing Monte-Carlo dispersion
+# (examples/rocket_landing.py): B=512 entry states, N=48, 150 iterations.
+N_ROCKET, B_ROCKET = 48, 512
+ROCKET_SETTINGS = dict(max_iter=150, rho=1.0, rho_update_interval=10,
+                       eps_abs=1e-4, eps_rel=1e-3)
+# K8's modes held against its plain version: name -> (nc, cones, shift).
+K8_MODES = {"box": (NC, (), False), "cone+shift": (NC_CONE, THRUST_CONE, True)}
 # Kernel B's modes held against the plain version: (name, nc, cones,
 # diagonal stage cost, shift).
 K5_MODES = (
@@ -121,6 +145,21 @@ LADDER_VS_REPLICATED_ATOL = 1e-9
 # kernels; 10x the 4.72e-6 measured), and against the f64 sequential solver
 # (as MAIN_PATH_ATOL).
 LANES_VS_SHARED_ATOL = 5e-5
+# The single-kernel requests (float32 kernels) against the same solve_fused
+# on the plain versions in float64 on the CPU, first 8 scenarios, absolute,
+# on ws / w / z / y and the residuals; with bfloat16 stage data the plain
+# path gets the same bfloat16 data (the same function): 10x the 7.34e-6
+# measured on an H100 (see PERF.md).
+SINGLE_ATOL = 7e-5
+# The rocket dispersion (float32, 150 iterations, rho adapting every 10th)
+# against the plain path in float64 on the CPU, first 8 scenarios, each
+# quantity against its own largest magnitude where that exceeds 1 (states
+# run to 100 m, duals to 170): 10x the 2.0e-5 measured on an H100 (see
+# PERF.md).
+ROCKET_RTOL = 2e-4
+# K8 against the split pair and against the replicated loop, float64, both
+# on the card: the same function.
+SINGLE_CROSS_ATOL = 1e-9
 
 
 def require(ok, *what):
@@ -168,6 +207,7 @@ K5_OUT = ("wzy", "hf", "xN", "res")
 K5_RUNG_OUT = ("wzy", "xN", "res")
 K6_OUT = ("dv",)
 K1_EXPORT = ("K", "d", "P", "L")
+K8_OUT = ("w", "z", "y", "xN", "res")
 
 
 def rel_err(names, outs, refs):
@@ -226,17 +266,21 @@ def registers_by_kernel(logs):
                           r"forward_shared_kernel|backward_vectors_kernel|"
                           r"forward_rollout_kernel|backward_kernel|"
                           r"forward_kernel|bwd_vec_prefold_kernel|"
-                          r"bwd_vec_kernel|fwd_update_kernel)"
-                          r"(?:I((?:Lb[01]E)+)E)?", name)
+                          r"bwd_vec_kernel|fwd_update_kernel|iter_kernel)"
+                          r"(?:I(d|f|13__nv_bfloat16)?((?:Lb[01]E)+)E)?", name)
             if not m:
                 continue
-            flags = ",".join(re.findall(r"Lb([01])E", m.group(2) or ""))
+            flags = ",".join(re.findall(r"Lb([01])E", m.group(3) or ""))
+            if m.group(2) == "13__nv_bfloat16":
+                flags = "bf16," + flags
             key = f"{m.group(1)}<{flags}>/{scalar}/nc={log[0].get('NC', '-')}"
             if "NRUNG" in log[0]:
                 key += f",rungs={log[0]['NRUNG']}"
             if "DIAG_COST" in log[0]:
-                key += (f",diag={log[0]['DIAG_COST']},shift={log[0]['HAS_SHIFT']}"
-                        f",cones={log[0]['NCONES']}")
+                key += f",diag={log[0]['DIAG_COST']}"
+            if "NCONES" in log[0]:
+                key += (f",shift={log[0]['HAS_SHIFT']},cones={log[0]['NCONES']}"
+                        f",nx={log[0]['NX']}")
             found[key] = {"registers": int(regs), "spill_store_bytes": int(st),
                           "spill_load_bytes": int(ld)}
     return found
@@ -283,6 +327,21 @@ def k6_flops(N, nx, nu, nc, Bt):
 
 def k7_flops(N, nx, nu, Bt):
     return N * Bt * (2 * nu * nx + 2 * nx * nx + 2 * nx * nu + nx)
+
+
+def k8_flops(N, nx, nu, nc, Bt, cached):
+    """K8: phase 1 is K6's fold and K2's recursion (cached) or the
+    iterate fold and K1's sweep without its closed-loop maps; phase 2
+    K7's rollout and K5's tail on the full Hs without hf-emit."""
+    nz = nx + nu
+    if cached:
+        phase1 = k6_flops(N, nx, nu, nc, Bt)
+    else:
+        phase1 = (k1_flops(N, nx, nu, nc, Bt)
+                  + N * Bt * (2 * nz + 3 * nc - 2 * nx * nx * nu - 2 * nx * nu))
+    tail = (k5_flops(N, nx, nu, nc, Bt, False, emit_hf=False)
+            - N * Bt * (2 * nu * nx + 2 * nx * nx))
+    return phase1 + k7_flops(N, nx, nu, Bt) + tail
 
 
 def _stage_bounds(T, N, nz, nc, cones, diag_cost, has_shift, dt, dev):
@@ -358,6 +417,55 @@ def random_ladder_inputs(rng, A, Bm, R, nc, Bt, cones, diag_cost,
     k5_in = (rho, T(nx, Bt), M, Hs, D, bnd, T(N, nz, Bt), wzy, h)
     rung = torch.as_tensor(np.arange(Bt) % R, dtype=torch.int32, device=dev)
     return k6_in, k5_in, rung, T(N, nx, Bt)
+
+
+def random_iter_inputs(rng, N, nx, nu, nc, Bt, cones, shared, has_shift,
+                       dtype, device):
+    """Random inputs of K8 (``admm_iter_lanes``' positional arguments, in
+    the compute type) around a stable random model: its streams and
+    bounds have trailing size 1 with ``shared``, else one copy a scenario
+    (each its own).  A padded row, an equality boost, one-sided and free
+    rows, as in K5's check."""
+    nz, mb = nx + nu, 1 if shared else Bt
+    A, Bm, _, H, h, D, _, _, _, _ = random_stage_data(
+        rng, N, nx, nu, nc, mb, dtype, device)
+    T = _normal(rng, dtype, device)
+    lb, ub = -T(N, nc, mb).abs(), T(N, nc, mb).abs()
+    lb[:, ::3] = -float("inf")
+    ub[:, 1::4] = float("inf")
+    mask = torch.ones((N, nc, mb), dtype=dtype, device=device)
+    mask[:, nc - 1 if not cones else 0] = 0.0
+    mask[N // 2:, nc // 2] = 1e3
+    for off, dim, _ in cones:
+        mask[:, off:off + dim] = 1.0
+    rho = torch.as_tensor(rng.uniform(0.05, 2.0, size=(1, Bt))).to(
+        device=device, dtype=dtype)
+    GN = T(Bt, nx, nx)
+    PN = (GN @ GN.transpose(1, 2) + torch.eye(nx, dtype=dtype, device=device)
+          ).permute(1, 2, 0).contiguous()
+    return (A, Bm, T(N, nx, Bt, scale=0.1), H, h, D, lb, ub, mask,
+            T(N, nc, mb) if has_shift else None, T(N, nz, Bt), T(N, nc, Bt),
+            T(N, nc, Bt), rho, PN, T(nx, Bt), T(nx, Bt))
+
+
+def iter_factors(args, shared):
+    """K8's cached factors (P, L, K) for its inputs ``args``: K1's plain
+    version with export at scenario 0's rho on a shared model (one copy),
+    per scenario on a batched one."""
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+    A, Bm, c, H, _, D, _, _, mask, _, _, _, _, rho, PN, _, _ = args
+    N, nx, nu, nc, mb = A.shape[0], A.shape[1], Bm.shape[2], D.shape[1], A.shape[-1]
+    zeros = lambda *s: torch.zeros(s + (mb,), dtype=A.dtype, device=A.device)
+    K, _, P, L = cr.backward_lanes_reference(
+        A, Bm, c[..., :mb], H, zeros(N, nx + nu), D,
+        (rho[0, :mb] * mask).contiguous(), zeros(N, nc), PN[..., :mb],
+        zeros(nx), export_factors=True, emit_closed_loop=False)
+    return P, L, K
+
+
+def narrow_storage(args):
+    """K8's inputs with the stage data A, B, c, Hs, h, D stored as bfloat16."""
+    return tuple(x.to(torch.bfloat16) if i < 6 else x for i, x in enumerate(args))
 
 
 def k5_call(ca, k5_in, cones, K=None, rung=None):
@@ -440,6 +548,39 @@ def admm_errors(got, ref):
     return errs
 
 
+def profiled(request, reps):
+    """``torch.profiler`` over ``reps`` requests: (device time by kernel
+    name per request, sorted; device busy ms per request; the window's
+    host ms per request)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            request()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    for ev in prof.key_averages():
+        # Device-side rows only: an operator's row repeats its kernels' time.
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.self_device_time_total > 0:
+            rows.append({"name": ev.key[:90], "calls_per_request": ev.count / reps,
+                         "device_ms_per_request":
+                             ev.self_device_time_total / 1e3 / reps})
+    rows.sort(key=lambda r: -r["device_ms_per_request"])
+    return rows, sum(r["device_ms_per_request"] for r in rows), window_ms
+
+
+def timed(request, reps, batch):
+    """A request's median time by CUDA events, solves/s, and the peak
+    device memory while it ran (tensors that earlier phases hold included)."""
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(request, reps)
+    return {"request_ms": ms, "solves_per_s": batch / (ms * 1e-3),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -452,9 +593,10 @@ def main():
               "False); nothing was run", file=sys.stderr)
         return 1
 
+    t_start = time.time()
     import pdp_lqr_tpu_torch as plt_
     from pdp_lqr_tpu_torch import mpc
-    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.models import quadrotor, rocket, rocket_x0
     from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr
     from pdp_lqr_tpu_torch.solvers import admm, sequential
 
@@ -495,6 +637,14 @@ def main():
             jobs.append((ca.SOURCE, ca.kernel_defines(
                 dt, NX, NU, nc, cones=cones, diag_cost=True, has_shift=shift,
                 rungs=len(LADDER))))
+        # K8 (its eight forms are templates of one library a mode).
+        for nc, cones, shift in K8_MODES.values():
+            jobs.append((ca.SOURCE, ca.kernel_defines(
+                dt, NX, NU, nc, cones=cones, has_shift=shift, single=True)))
+    # K8 at the rocket's widths (two cones), float32.
+    jobs.append((ca.SOURCE, ca.kernel_defines(
+        torch.float32, 6, 3, 7, cones=((1, 3, "soc"), (4, 3, "soc")),
+        single=True)))
     paths = _build.build_many(jobs)
     regs = registers_by_kernel(
         [(job[1], _build.build_logs.get(path, "")) for job, path in zip(jobs, paths)])
@@ -635,6 +785,30 @@ def main():
                 cr.backward_lanes_reference(*few, export_factors=True,
                                             emit_closed_loop=False))
 
+        # K8 in each form: shared or batched, cached or not, the stage data
+        # in the compute type or bfloat16; box rows, and the thrust cone
+        # with a shift; a full and a ragged batch (the cached factors: K1's
+        # plain version with export, launching nothing).
+        k8_cases = 0
+        for Bt in (B_SMALL, B_RAGGED):
+            for mode, (nc, cones, shift) in K8_MODES.items():
+                for shared in (False, True):
+                    args = random_iter_inputs(rng, N_SMALL, NX, NU, nc, Bt,
+                                              cones, shared, shift, dt, dev)
+                    for factors in (None, iter_factors(args, shared)):
+                        for narrow in (False, True):
+                            a = narrow_storage(args) if narrow else args
+                            kw = dict(nu=NU, cones=cones, alpha=ALPHA,
+                                      sigma=SIGMA, factors=factors)
+                            form = (("shared" if shared else "batched")
+                                    + (",cached" if factors else "")
+                                    + (",bf16" if narrow else ""))
+                            compare(f"admm_iter_lanes[{form},{mode},B={Bt}]",
+                                    K8_OUT,
+                                    ca.admm_iter_lanes(*a, shared=shared, **kw),
+                                    ca.admm_iter_lanes_reference(*a, **kw))
+                            k8_cases += 1
+
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
         require(launched == {"backward_lanes": 5, "backward_vectors_lanes": 4,
@@ -643,7 +817,8 @@ def main():
         launched = {k: ca.LAUNCHES[k] - before_admm[k] for k in ca.LAUNCHES}
         require(launched == {"admm_bwd_vec_prefold_lanes": 2,
                              "admm_bwd_vec_lanes": 6,
-                             "admm_fwd_update_lanes": 2 * len(K5_MODES) + 5},
+                             "admm_fwd_update_lanes": 2 * len(K5_MODES) + 5,
+                             "admm_iter_lanes": k8_cases},
                 launched)
     emit("kernels", card=card, shape={"N": N_SMALL, "B": B_SMALL, "nx": NX,
                                       "nu": NU, "nc": NC}, cases=cases)
@@ -895,7 +1070,7 @@ def main():
                              state=st_v)
     rep_v = plt_.solve_fused(batched(m64, B_SMALL, c_v), x0_v, (),
                              dataclasses.replace(st_fix, rho_ladder=()),
-                             state=st_v)
+                             state=st_v, single_kernel=False)
     torch.cuda.synchronize()
     vs_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
     require(vs_launches["admm_bwd_vec_lanes"] == ADMM_ITERS
@@ -917,7 +1092,8 @@ def main():
     rep = {}
     for cached in (False, True):
         st = admm.ADMMSettings(**REP_SETTINGS, cached_factors=cached)
-        request = (lambda st=st: plt_.solve_fused(bp_main, x0_rep, (), st))
+        request = (lambda st=st: plt_.solve_fused(bp_main, x0_rep, (), st,
+                                                  single_kernel=False))
         request()
         torch.cuda.synchronize()
         reset_counts()
@@ -930,7 +1106,8 @@ def main():
         require(counts == {**zero_counts(), **want,
                            "forward_lanes": ADMM_ITERS}, counts)
         ref = admm_outputs(*plt_.solve_fused(
-            bp_ref, x0_a[:n_ref].astype(np.float64), (), st))
+            bp_ref, x0_a[:n_ref].astype(np.float64), (), st,
+            single_kernel=False))
         errs = admm_errors(admm_outputs(*out, n_ref), ref)
         require(max(errs.values()) <= REPLICATED_ATOL, errs)
         rep[cached] = {"request": request, "launches": counts, "args": dict(rec),
@@ -956,7 +1133,9 @@ def main():
     probe_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
     require(1 <= len(suggested) <= len(LADDER) and list(suggested) == sorted(suggested)
             and all(np.isfinite(r) and r > 0 for r in suggested), suggested)
-    require(probe_launches["backward_lanes"] == PROBE_ITERS, probe_launches)
+    # The probe is solve_fused on a batched problem, single_kernel="auto":
+    # K8.
+    require(probe_launches["admm_iter_lanes"] == PROBE_ITERS, probe_launches)
     emit("suggest_rho_ladder", card=card, N=N_MAIN, B=B_MAIN,
          probe_batch=PROBE_BATCH, probe_iters=PROBE_ITERS, rungs=suggested,
          seconds=probe_s, launches=probe_launches)
@@ -987,7 +1166,212 @@ def main():
          max_abs_err_vs_sequential_f64=lanes_vs_seq,
          atol={"vs_shared": LANES_VS_SHARED_ATOL, "vs_sequential": MAIN_PATH_ATOL})
 
-    # ---------------------------------------------------------- 13: timing
+    # ---------------------------- 13: the single-kernel iteration, one model
+    # ScenarioServer.solve_admm's default path (settings without cached
+    # factors): K8 an iteration, per-scenario adaptive rho, N=64, B=4096.
+    model_k, _ = quadrotor(N=N_SINGLE, constrained=True, dtype=torch.float32,
+                           device=dev)
+    server_k = plt_.ScenarioServer(model_k, rho=RHO, sigma=SIGMA, device=dev)
+    rng = np.random.default_rng(SEED)
+    c_k = (rng.normal(size=(B_MAIN, N_SINGLE, NX)) * 0.01).astype(np.float32)
+    x0_k = (0.03 + 0.01 * rng.normal(size=(B_MAIN, NX))).astype(np.float32)
+    ck_t, x0k_t = (torch.as_tensor(x).to(dev) for x in (c_k, x0_k))
+    st_single = admm.ADMMSettings(**SINGLE_SETTINGS)
+    single_request = lambda: server_k.solve_admm(x0k_t, (), st_single, c=ck_t)
+    single_request()                             # builds nothing new; warms up
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls(ca, ["admm_iter_lanes"]) as single_args:
+        ws_k, state_k, info_k = single_request()
+    torch.cuda.synchronize()
+    single_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    single_reads = dict(admm.HOST_READS)
+    require(single_launches == {**zero_counts(), "admm_iter_lanes": ADMM_ITERS},
+            single_launches)
+    require(ws_k.shape == (B_MAIN, N_SINGLE + 1, NX + NU) and state_k.factors is None)
+    for x in (ws_k, state_k.z, state_k.rho, info_k.r_dual):
+        require(x.dtype == torch.float32 and x.device.type == "cuda")
+    cpu_k = plt_.ScenarioServer(model_k.to(device="cpu", dtype=torch.float64),
+                                rho=RHO, sigma=SIGMA, device="cpu")
+    ref_k = admm_outputs(*cpu_k.solve_admm(
+        x0_k[:n_ref].astype(np.float64), (), st_single,
+        c=c_k[:n_ref].astype(np.float64)))
+    errs_k = admm_errors(admm_outputs(ws_k, state_k, info_k, n_ref), ref_k)
+    require(max(errs_k.values()) <= SINGLE_ATOL, errs_k)
+    single_t = timed(single_request, ADMM_TIMED_REQUESTS, B_MAIN)
+    rows_k, busy_k, window_k = profiled(single_request, 5)
+    emit("admm_single_shared", card=card, model="quadrotor constrained",
+         N=N_SINGLE, B=B_MAIN, dtype="float32", settings=SINGLE_SETTINGS,
+         launches=single_launches, host_reads=single_reads,
+         max_abs_err_vs_plain_f64=errs_k,
+         ref_max_magnitude={k: float(v.abs().max()) for k, v in ref_k.items()},
+         atol=SINGLE_ATOL, **single_t,
+         device_busy_ms_per_request=busy_k, window_ms_per_request=window_k,
+         device_idle_share=1.0 - busy_k / window_k, by_kernel=rows_k[:6])
+
+    # ------------------- 14: the single-kernel iteration on cached factors
+    # The admm_path phase's workload (N=512, B=4096) on K8 with cached
+    # factors at a uniform rho (split=False): K1 once, K8 an iteration; the
+    # stage data as float32 and as bfloat16.
+    st_sc = admm.ADMMSettings(**SINGLE_SETTINGS, cached_factors=True,
+                              uniform_rho=True)
+    model_c = dataclasses.replace(model, c=ca_t)
+    cached_requests = {
+        "float32": lambda: server.solve_admm(x0a_t, (), st_sc, c=ca_t,
+                                             split=False),
+        "bfloat16": lambda: plt_.solve_fused(
+            model_c, x0a_t, (), st_sc, single_kernel=True,
+            storage_dtype=torch.bfloat16)}
+    cpu_c = dataclasses.replace(cpu_model, c=torch.as_tensor(
+        c_a[:n_ref]).double())
+    sc = {}
+    for name, request in cached_requests.items():
+        request()
+        torch.cuda.synchronize()
+        reset_counts()
+        with recorded_calls(ca, ["admm_iter_lanes"]) as rec:
+            out = request()
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        require(counts == {**zero_counts(), "backward_lanes": 1,
+                           "admm_iter_lanes": ADMM_ITERS}, counts)
+        require(out[1].factors[0].shape == (N_MAIN, NU, NX, 1))
+        # The plain path on the same data (bfloat16-rounded alike).
+        ref = admm_outputs(*plt_.solve_fused(
+            cpu_c, x0_a[:n_ref].astype(np.float64), (), st_sc,
+            single_kernel=True, storage_dtype=None if name == "float32"
+            else torch.bfloat16))
+        errs = admm_errors(admm_outputs(*out, n_ref), ref)
+        require(max(errs.values()) <= SINGLE_ATOL, name, errs)
+        sc[name] = {"request": request, "out": out, "args": dict(rec),
+                    "launches": counts, "host_reads": dict(admm.HOST_READS),
+                    "errs": errs}
+    # What the bfloat16 rounding of the data moves, the whole batch.
+    rounding = admm_errors(admm_outputs(*sc["bfloat16"]["out"]),
+                           admm_outputs(*sc["float32"]["out"]))
+    # Cross-check: K8 on cached factors against the split pair (full Hs),
+    # N=64, B=256, float64, rho adapting: the same function.
+    m64c = dataclasses.replace(m64, c=c_v)
+    st_x = admm.ADMMSettings(**CROSS_SETTINGS, cached_factors=True,
+                             uniform_rho=True)
+    reset_counts()
+    x_k8 = plt_.solve_fused(m64c, x0_v, (), st_x, single_kernel=True)
+    x_split = plt_.solve_fused(m64c, x0_v, (), st_x, single_kernel=False)
+    torch.cuda.synchronize()
+    x_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(x_launches["admm_iter_lanes"] == x_launches["admm_fwd_update_lanes"]
+            == CROSS_SETTINGS["max_iter"], x_launches)
+    errs_x = admm_errors(admm_outputs(*x_k8), admm_outputs(*x_split))
+    require(max(errs_x.values()) <= SINGLE_CROSS_ATOL, errs_x)
+    emit("admm_single_cached", card=card, model="quadrotor constrained",
+         N=N_MAIN, B=B_MAIN, dtype="float32", settings=SINGLE_SETTINGS,
+         **{name: {k: v for k, v in r.items()
+                   if k not in ("request", "out", "args")}
+            for name, r in sc.items()},
+         atol=SINGLE_ATOL, bf16_vs_f32_storage=rounding,
+         vs_split_f64={"N": N_SMALL, "B": B_SMALL, "settings": CROSS_SETTINGS,
+                       "launches": x_launches, "rho_end": float(x_k8[1].rho[0]),
+                       "max_abs_err": errs_x, "atol": SINGLE_CROSS_ATOL})
+
+    # ----------------- 15: the single-kernel iteration on a batched problem
+    # The N=64 model written out once a scenario (B=1024, per-scenario
+    # drift): K8 uncached, on cached factors (K1 once, per instance), and on
+    # cached factors with bfloat16 stage data.
+    bp_k = batched(model_k, B_REP, ck_t[:B_REP])
+    x0_rk = x0k_t[:B_REP]
+    cpu_bk = batched(model_k.to(device="cpu", dtype=torch.float64), n_ref,
+                     torch.as_tensor(c_k[:n_ref]).double())
+    batched_variants = {"uncached": (False, None), "cached": (True, None),
+                        "cached_bf16": (True, torch.bfloat16)}
+    sb = {}
+    for name, (cached, storage) in batched_variants.items():
+        st = admm.ADMMSettings(**SINGLE_SETTINGS, cached_factors=cached)
+        request = (lambda st=st, storage=storage: plt_.solve_fused(
+            bp_k, x0_rk, (), st, single_kernel=True, storage_dtype=storage))
+        request()
+        torch.cuda.synchronize()
+        reset_counts()
+        with recorded_calls(ca, ["admm_iter_lanes"]) as rec:
+            out = request()
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        require(counts == {**zero_counts(), "backward_lanes": int(cached),
+                           "admm_iter_lanes": ADMM_ITERS}, name, counts)
+        ref = admm_outputs(*plt_.solve_fused(
+            cpu_bk, x0_k[:n_ref].astype(np.float64), (), st,
+            single_kernel=True, storage_dtype=storage))
+        errs = admm_errors(admm_outputs(*out, n_ref), ref)
+        require(max(errs.values()) <= SINGLE_ATOL, name, errs)
+        sb[name] = {"request": request, "args": dict(rec), "launches": counts,
+                    "host_reads": dict(admm.HOST_READS), "errs": errs}
+    # Cross-check against the replicated loop (exact dual residual), N=64,
+    # B=256, float64, rho adapting per scenario: the same function.
+    bp_v = batched(m64, B_SMALL, c_v)
+    cross_rep = {}
+    for cached in (False, True):
+        st = admm.ADMMSettings(**CROSS_SETTINGS, cached_factors=cached)
+        reset_counts()
+        a_k8 = plt_.solve_fused(bp_v, x0_v, (), st, single_kernel=True)
+        a_rep = plt_.solve_fused(bp_v, x0_v, (), st, single_kernel=False)
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        require(counts["admm_iter_lanes"] == counts["forward_lanes"]
+                == CROSS_SETTINGS["max_iter"], counts)
+        errs = admm_errors(admm_outputs(*a_k8), admm_outputs(*a_rep))
+        require(max(errs.values()) <= SINGLE_CROSS_ATOL, cached, errs)
+        cross_rep["cached" if cached else "uncached"] = {
+            "launches": counts, "max_abs_err": errs,
+            "rho_moved": int((a_k8[1].rho != CROSS_SETTINGS["rho"]).sum())}
+    emit("admm_single_batched", card=card, model="quadrotor constrained, batched",
+         N=N_SINGLE, B=B_REP, dtype="float32", settings=SINGLE_SETTINGS,
+         **{name: {k: v for k, v in r.items() if k not in ("request", "args")}
+            for name, r in sb.items()}, atol=SINGLE_ATOL,
+         vs_replicated_f64={"N": N_SMALL, "B": B_SMALL, "settings": CROSS_SETTINGS,
+                            "atol": SINGLE_CROSS_ATOL, **cross_rep})
+
+    # --------------------------------------- 16: the rocket landing dispersion
+    # examples/rocket_landing.py's Monte-Carlo section: B=512 dispersed entry
+    # states, N=48, two second-order cones a stage, 150 iterations, rho
+    # adapting per scenario every 10th; single_kernel="auto" resolves to K8.
+    rk, rk_cones = rocket(N=N_ROCKET, dtype=torch.float32, device=dev)
+    rk_cones = tuple(rk_cones)
+    x0_rkt = rocket_x0(batch=B_ROCKET, dtype=torch.float32, device=dev)
+    bp_rk = batched(rk, B_ROCKET, rk.c[None].expand((B_ROCKET,) + rk.c.shape))
+    st_rk = admm.ADMMSettings(**ROCKET_SETTINGS)
+    rocket_request = lambda: plt_.solve_fused(bp_rk, x0_rkt, rk_cones, st_rk)
+    rocket_request()
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls(ca, ["admm_iter_lanes"]) as rocket_args:
+        ws_rk, state_rk, info_rk = rocket_request()
+    torch.cuda.synchronize()
+    rocket_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(rocket_launches == {**zero_counts(), "admm_iter_lanes":
+                                ROCKET_SETTINGS["max_iter"]}, rocket_launches)
+    require(bool(torch.isfinite(ws_rk).all()), "rocket: not finite")
+    rk64, _ = rocket(N=N_ROCKET, device="cpu")
+    ref_rk = admm_outputs(*plt_.solve_fused(
+        batched(rk64, n_ref, rk64.c[None].expand((n_ref,) + rk64.c.shape)),
+        rocket_x0(batch=B_ROCKET, device="cpu")[:n_ref], rk_cones, st_rk))
+    errs_rk = admm_errors(admm_outputs(ws_rk, state_rk, info_rk, n_ref), ref_rk)
+    rel_rk = {k: v / max(1.0, float(ref_rk[k].abs().max()))
+              for k, v in errs_rk.items()}
+    require(max(rel_rk.values()) <= ROCKET_RTOL, rel_rk)
+    touchdown = ws_rk[:, -1, 3:6].norm(dim=1)          # |r_N|, metres
+    rocket_t = timed(rocket_request, 3, B_ROCKET)
+    emit("rocket_dispersion", card=card, model="rocket soft landing",
+         N=N_ROCKET, B=B_ROCKET, dtype="float32", settings=ROCKET_SETTINGS,
+         cones=rk_cones, launches=rocket_launches,
+         max_abs_err_vs_plain_f64=errs_rk, rel_err_vs_plain_f64=rel_rk,
+         ref_max_magnitude={k: float(v.abs().max()) for k, v in ref_rk.items()},
+         rtol=ROCKET_RTOL, request_ms=rocket_t["request_ms"],
+         landings_per_s=rocket_t["solves_per_s"],
+         converged_fraction=float(info_rk.converged.float().mean()),
+         touchdown_m_p50=float(touchdown.median()),
+         touchdown_m_max=float(touchdown.max()),
+         vertical_velocity_worst=float(ws_rk[:, -1, 8].min()))
+
+    # ---------------------------------------------------------- 17: timing
     # Peak device memory of a path: the largest allocation while its
     # requests are timed, the tensors that earlier phases still hold included.
     torch.cuda.reset_peak_memory_stats()
@@ -1031,12 +1415,28 @@ def main():
     r2_args, _ = rep[True]["args"]["backward_vectors_lanes"]
     g1_args, g1_kw = lanes_args["backward_lanes"]
     k7_args, _ = lanes_args[K7]
+    # K8 on the tensors of the last iteration of each of its counted runs:
+    # entry -> (path, recorded (args, kwargs)).
+    K8 = "admm_iter_lanes"
+    k8_runs = {
+        "[shared]": ("admm_single_shared", single_args[K8]),
+        "[shared,cached]": ("admm_single_cached", sc["float32"]["args"][K8]),
+        "[shared,cached,bf16]": ("admm_single_cached_bf16",
+                                 sc["bfloat16"]["args"][K8]),
+        "[batched]": ("admm_single_batched", sb["uncached"]["args"][K8]),
+        "[batched,cached]": ("admm_single_batched_cached",
+                             sb["cached"]["args"][K8]),
+        "[batched,cached,bf16]": ("admm_single_batched_cached_bf16",
+                                  sb["cached_bf16"]["args"][K8]),
+        "[rocket]": ("rocket_dispersion", rocket_args[K8]),
+    }
 
     # name: (launch counter, paths, kernel, plain version, output names,
     # operations, TPU kernel it replaces).
     spec = {
         "backward_lanes": (
-            "backward_lanes", ("solve", "solve_admm", "admm_ladder"),
+            "backward_lanes", ("solve", "solve_admm", "admm_ladder",
+                               "admm_single_cached", "admm_single_cached_bf16"),
             lambda: cr.backward_lanes(*k1_in, export_factors=True),
             lambda: cr.backward_lanes_reference(*k1_in, export_factors=True),
             K1_ALL, k1_flops(N_MAIN, NX, NU, NC, 1), "pallas_riccati.py:778"),
@@ -1074,7 +1474,9 @@ def main():
              lambda: cr.forward_rollout_lanes_reference(*k7_args), K3_OUT,
              k7_flops(N_MAIN, NX, NU, B_MAIN), "pallas_riccati.py:1319"),
         "backward_lanes[per-instance]": (
-            "backward_lanes", ("admm_replicated", "admm_replicated_cached"),
+            "backward_lanes", ("admm_replicated", "admm_replicated_cached",
+                               "admm_single_batched_cached",
+                               "admm_single_batched_cached_bf16"),
             lambda: cr.backward_lanes(*r1_args, **r1_kw),
             lambda: cr.backward_lanes_reference(*r1_args, **r1_kw),
             K1_CLOSED, k1_flops(N_MAIN, NX, NU, NC, B_REP),
@@ -1096,14 +1498,45 @@ def main():
             lambda: cr.forward_lanes_reference(*r3_args), K3_OUT,
             k3_flops(N_MAIN, NX, NU, B_REP), "pallas_riccati.py:1201"),
     }
+    # What each kernel reads (each input once; its outputs are added below).
+    args_of = {"backward_lanes": k1_in, "backward_vectors_lanes": (
+                   A_sh, B_sh, c_l, hf_l, Pc, K, L, pN_l),   # P is not read
+               "forward_lanes": k3_in, K4: k4_args, K5: k5_in,
+               K6: k6_args + (rung_l,), K5 + "[rung]": k5r_in + (l5[3], rung_l),
+               K7: k7_args, "backward_lanes[per-instance]": r1_args,
+               "backward_lanes[per-instance,gains]": g1_args,
+               "backward_vectors_lanes[per-instance]": r2_args,
+               "forward_lanes[per-instance]": r3_args}
+    for tag, (path, (a8, kw8)) in k8_runs.items():
+        plain_kw = {k: v for k, v in kw8.items() if k != "shared"}
+        cached8 = kw8["factors"] is not None
+        spec[K8 + tag] = (
+            K8, (path,), lambda a8=a8, kw8=kw8: ca.admm_iter_lanes(*a8, **kw8),
+            lambda a8=a8, kw=plain_kw: ca.admm_iter_lanes_reference(*a8, **kw),
+            K8_OUT, k8_flops(a8[0].shape[0], a8[0].shape[1], kw8["nu"],
+                             a8[5].shape[1], a8[10].shape[-1], cached8),
+            "pallas_admm.py:1069")
+        # PN is not read on cached factors.
+        args_of[K8 + tag] = tuple(x for i, x in enumerate(a8)
+                                  if not (cached8 and i == 14)) \
+            + tuple(kw8["factors"] or ())
     # Each path counted from zero: REQUESTS requests of `solve`, one
-    # 20-iteration request of `solve_admm`, of the ladder and of each
-    # replicated variant, one `solve_lanes`.
+    # 20-iteration request of `solve_admm`, of the ladder, of each
+    # replicated and single-kernel variant, one `solve_lanes`, one rocket
+    # dispersion.
     path_launches = {"solve": launches, "solve_admm": admm_launches,
                      "admm_ladder": ladder_launches,
                      "admm_replicated": rep[False]["launches"],
                      "admm_replicated_cached": rep[True]["launches"],
-                     "lanes_solve": lanes_launches}
+                     "lanes_solve": lanes_launches,
+                     "admm_single_shared": single_launches,
+                     "admm_single_cached": sc["float32"]["launches"],
+                     "admm_single_cached_bf16": sc["bfloat16"]["launches"],
+                     "admm_single_batched": sb["uncached"]["launches"],
+                     "admm_single_batched_cached": sb["cached"]["launches"],
+                     "admm_single_batched_cached_bf16":
+                         sb["cached_bf16"]["launches"],
+                     "rocket_dispersion": rocket_launches}
     kernels = []
     for name, (counter, paths, kernel, plain, names, flops, replaces) in spec.items():
         out = kernel()
@@ -1111,15 +1544,7 @@ def main():
         plain_ms = cuda_ms(plain, 2, warmup=1)
         abs_err, rel = rel_err(names, out, plain())
         require(max(rel.values()) <= TOL[torch.float32], (name, abs_err, rel))
-        args = {"backward_lanes": k1_in, "backward_vectors_lanes": (
-                    A_sh, B_sh, c_l, hf_l, Pc, K, L, pN_l),   # P is not read
-                "forward_lanes": k3_in, K4: k4_args, K5: k5_in,
-                K6: k6_args + (rung_l,), K5 + "[rung]": k5r_in + (l5[3], rung_l),
-                K7: k7_args, "backward_lanes[per-instance]": r1_args,
-                "backward_lanes[per-instance,gains]": g1_args,
-                "backward_vectors_lanes[per-instance]": r2_args,
-                "forward_lanes[per-instance]": r3_args}[name]
-        moved = nbytes(*args, *out)
+        moved = nbytes(*args_of[name], *out)
         bound_ms, bound_by = bound(moved, flops)
         by_path = {p: path_launches[p][counter] for p in paths}
         kernels.append({
@@ -1142,20 +1567,38 @@ def main():
     # host's launches, and a 20th of the request's set-up and factor build).
     kernel_ms = {k["name"]: k["ms"] for k in kernels}
 
-    def timed(request, reps, batch):
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(request, reps)
-        return {"request_ms": ms, "solves_per_s": batch / (ms * 1e-3),
-                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-
     admm_t = timed(admm_request, ADMM_TIMED_REQUESTS, B_MAIN)
     warm_ms = cuda_ms(warm_tick, ADMM_TIMED_REQUESTS)
     ladder_t = timed(ladder_request, ADMM_TIMED_REQUESTS, B_MAIN)
     rep_t = {c: timed(rep[c]["request"], ADMM_TIMED_REQUESTS, B_REP)
              for c in (False, True)}
     lanes_t = timed(lanes_request, TIMED_REQUESTS, B_MAIN)
+    sc_t = {name: timed(r["request"], ADMM_TIMED_REQUESTS, B_MAIN)
+            for name, r in sc.items()}
+    sb_t = {name: timed(r["request"], ADMM_TIMED_REQUESTS, B_REP)
+            for name, r in sb.items()}
+    # single_kernel="auto" on a batched problem: K8 against the replicated
+    # loop at B=1024, N=64 and N=512, uncached and cached (the settings of
+    # both are SINGLE_SETTINGS; two of the eight are timed above).
+    auto_ms = {}
+    for n_, bp_, x0_ in ((N_SINGLE, bp_k, x0_rk), (N_MAIN, bp_main, x0_rep)):
+        for cached in (False, True):
+            st = admm.ADMMSettings(**SINGLE_SETTINGS, cached_factors=cached)
+            for single in (True, False):
+                key = (f"N={n_},{'cached' if cached else 'uncached'},"
+                       f"{'K8' if single else 'replicated'}")
+                if n_ == N_SINGLE and single:
+                    auto_ms[key] = sb_t["cached" if cached else "uncached"][
+                        "request_ms"]
+                elif n_ == N_MAIN and not single:
+                    auto_ms[key] = rep_t[cached]["request_ms"]
+                else:
+                    auto_ms[key] = cuda_ms(
+                        lambda: plt_.solve_fused(bp_, x0_, (), st,
+                                                 single_kernel=single), 5,
+                        warmup=1)
     beside = lambda t, kA, kB, fac: (t["request_ms"] - fac) / ADMM_ITERS \
-        - kernel_ms[kA] - kernel_ms[kB]
+        - kernel_ms[kA] - kernel_ms.get(kB, 0.0)
     emit("timing", card=card, N=N_MAIN, B=B_MAIN, dtype="float32",
          requests=TIMED_REQUESTS, solve_ms=solve_ms,
          solves_per_s=B_MAIN / (solve_ms * 1e-3),
@@ -1183,9 +1626,30 @@ def main():
                                        rep[False]["host_reads"]},
                           "cached": {**rep_t[True], "host_reads_per_request":
                                      rep[True]["host_reads"]}},
-         lanes_solve=lanes_t, suggest_rho_ladder_s=probe_s)
+         lanes_solve=lanes_t, suggest_rho_ladder_s=probe_s,
+         admm_single_shared={"N": N_SINGLE, "iterations": ADMM_ITERS,
+                             **single_t,
+                             "ms_per_iteration_beside_kernel": beside(
+                                 single_t, K8 + "[shared]", None, 0.0),
+                             "host_reads_per_request": single_reads,
+                             "device_idle_share": 1.0 - busy_k / window_k},
+         admm_single_cached={"N": N_MAIN, "iterations": ADMM_ITERS, **{
+             name: {**t, "ms_per_iteration_beside_kernel": beside(
+                 t, K8 + ("[shared,cached]" if name == "float32"
+                          else "[shared,cached,bf16]"), None,
+                 kernel_ms["backward_lanes"]),
+                 "host_reads_per_request": sc[name]["host_reads"]}
+             for name, t in sc_t.items()}},
+         admm_single_batched={"N": N_SINGLE, "B": B_REP,
+                              "iterations": ADMM_ITERS, **{
+             name: {**t, "host_reads_per_request": sb[name]["host_reads"]}
+             for name, t in sb_t.items()}},
+         auto_rule={"B": B_REP, "request_ms": auto_ms},
+         rocket_dispersion={"N": N_ROCKET, "B": B_ROCKET, **rocket_t,
+                            "landings_per_s": rocket_t["solves_per_s"]},
+         elapsed_s=time.time() - t_start)
 
-    # ------------------------------------------------------------ 14: end
+    # ------------------------------------------------------------ 18: end
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 
 Counterpart of ``pdp_lqr_tpu/api.py``.  Ported so far: the
 one-model-many-scenarios server with its inner LQ solve (``solve``) and
-the conic ADMM loop over the scenario batch (``solve_admm``, split
-iteration).  The reference-shaped solver classes follow in later slices.
+the conic ADMM loop over the scenario batch (``solve_admm``: the split
+iteration, its rho-ladder form, or the single-kernel iteration, the
+default when the settings give no batch-shared factors).  The
+reference-shaped solver classes follow in later slices.
 """
 
 from __future__ import annotations
@@ -65,9 +67,10 @@ class ScenarioServer:
         ``split`` selects the iteration: True = the split kernel pair
         (the long-horizon serving path; requires cached_factors or a
         rho_ladder in ``settings``), False = the single-kernel fused
-        iteration (not ported yet: raises ``NotImplementedError``), None
-        (default) = split whenever the settings allow it
-        (cached_factors + uniform_rho, or a rho_ladder)."""
+        iteration (K8, per-scenario rho unless the settings cache
+        factors), None (default) = split whenever the settings allow it
+        (cached_factors + uniform_rho, or a rho_ladder), else the single
+        kernel: the default ``ADMMSettings()`` run K8."""
         if settings is None:
             settings = admm.ADMMSettings()
         if split is None:

@@ -52,16 +52,26 @@ def factors_from_numpy(factors, *, device="cuda", dtype=None):
 def state_from_numpy(fields, *, device="cuda", dtype=None) -> ADMMState:
     """A JAX ``ADMMState`` as a mapping with keys w, z, y, rho and
     (optionally) factors -> the port's, so that one package's state can
-    warm-start the other.  ``w, z, y, rho`` cross whole.  Split-mode
-    factors ``(AK, BL, MK, Pc, rho_f)`` cross like the shared factors
-    above: index 0 of the trailing axis of the three shared streams,
-    ``Pc`` and ``rho_f`` (per scenario) whole."""
+    warm-start the other.  ``w, z, y, rho`` cross whole, and so does
+    ``rho_f``, the last factor.  The shared factor streams cross like the
+    shared factors above, index 0 of their trailing axis: the split mode's
+    ``(AK, BL, MK, Pc, rho_f)`` (``Pc`` is per scenario and crosses whole)
+    and the single-kernel mode's ``(K, M, P, L, rho_f)`` on one model (told
+    apart by the fourth factor: ``Pc`` has three axes, ``L`` four).  A
+    batched problem's factors are per scenario and do not cross: they are
+    refused."""
     factors = fields.get("factors")
     if factors is not None:
-        AK, BL, MK, Pc, rho_f = factors
-        factors = factors_from_numpy((AK, BL, MK), device=device,
-                                     dtype=dtype) + (
-            _tensor(Pc, device, dtype), _tensor(rho_f, device, dtype))
+        *streams, rho_f = factors
+        n_shared = 3 if np.ndim(streams[3]) == 3 else 4
+        for x in streams[:n_shared]:
+            if np.ptp(np.asarray(x), axis=-1).max() > 0:
+                raise ValueError("factors that differ by scenario (a batched "
+                                 "problem's) do not cross; pass none")
+        factors = factors_from_numpy(streams[:n_shared], device=device,
+                                     dtype=dtype) + tuple(
+            _tensor(x, device, dtype) for x in streams[n_shared:]) + (
+            _tensor(rho_f, device, dtype),)
     return ADMMState(
         **{k: _tensor(fields[k], device, dtype) for k in ("w", "z", "y", "rho")},
         factors=factors)
@@ -69,12 +79,16 @@ def state_from_numpy(fields, *, device="cuda", dtype=None) -> ADMMState:
 
 def state_to_numpy(state: ADMMState) -> dict:
     """The port's ``ADMMState`` as a mapping of numpy arrays (keys w, z,
-    y, rho, factors).  The shared factor streams keep their trailing
-    size 1: a consumer that wants them W lanes wide repeats them."""
+    y, rho, factors).  The shared factor streams (trailing size 1) are
+    broadcast over the batch, the width the JAX package's iterations take
+    them at (a read-only view, no copy)."""
     out = lambda x: x.detach().cpu().numpy()
+    Bb = state.rho.shape[-1]
+    wide = lambda x: np.broadcast_to(x, x.shape[:-1] + (Bb,)) \
+        if x.ndim == 4 and x.shape[-1] == 1 else x
     return {
         "w": out(state.w), "z": out(state.z), "y": out(state.y),
         "rho": out(state.rho),
         "factors": None if state.factors is None
-        else tuple(out(x) for x in state.factors),
+        else tuple(wide(out(x)) for x in state.factors),
     }

@@ -1,10 +1,9 @@
-"""The split conic ADMM iteration's kernels for an NVIDIA card.
+"""The conic ADMM iteration's kernels for an NVIDIA card.
 
-Counterpart of the split kernels in ``pdp_lqr_tpu/ops/pallas_admm.py``
-(named after its route, CUDA C++).  Wrapper names, argument order, the
-batch-last ``(N, ..., B)`` layout and the returned tuples are that
-module's.  Three kernels live here, written by hand in
-``csrc/admm_kernels.cu``:
+Counterpart of ``pdp_lqr_tpu/ops/pallas_admm.py`` (named after its route,
+CUDA C++).  Wrapper names, argument order, the batch-last ``(N, ..., B)``
+layout and the returned tuples are that module's.  Four kernels live
+here, written by hand in ``csrc/admm_kernels.cu``:
 
   admm_bwd_vec_prefold_lanes  kernel A (K4): the cached-factor vector
                               sweep on the packed streams AK = [A; K],
@@ -16,6 +15,9 @@ module's.  Three kernels live here, written by hand in
                               the relaxation, the box / cone projection,
                               the dual update, optionally the next
                               iteration's ``hf``, and the residual maxima
+  admm_iter_lanes             K8: the whole iteration in one launch, the
+                              backward sweep (matrix, or vector on cached
+                              factors) then the rollout and K5's tail
 
 One model serves B scenarios: the shared streams carry a trailing batch
 dimension of size 1 — one copy that every block reads — while the
@@ -46,7 +48,7 @@ SOURCE = "admm_kernels.cu"
 # Launches of each kernel made by this process (a wrapper adds one
 # exactly where it launches its kernel).
 LAUNCHES = {"admm_bwd_vec_prefold_lanes": 0, "admm_bwd_vec_lanes": 0,
-            "admm_fwd_update_lanes": 0}
+            "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0}
 
 _DOUBLE = ctypes.c_double
 _CONE_KINDS = {"soc": 0, "rsoc": 1}
@@ -61,13 +63,15 @@ def reset_launch_counts():
 def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
                    cones=(), diag_cost: bool = False,
                    has_shift: bool = False, fold: bool = False,
-                   rungs: int = 1) -> dict:
+                   rungs: int = 1, single: bool = False) -> dict:
     """The ``-D`` flags of one specialisation of the kernel source:
     without ``nc`` kernel K4 (it reads no constraint rows); with it and
-    ``fold`` kernel K6; with it alone kernel K5, whose cone list
-    (normalized ``(offset, dim, kind)``), cost form and shift presence
-    are compile-time too.  ``rungs`` (K5, K6) is the number of ladder
-    rungs the factor streams stack."""
+    ``fold`` kernel K6; with it and ``single`` kernel K8; with it alone
+    kernel K5.  K5's and K8's cone list (normalized ``(offset, dim,
+    kind)``) and shift presence are compile-time, as is K5's cost form;
+    K8's forms (shared or batched, cached or not, the storage type) are
+    template switches of one library.  ``rungs`` (K5, K6) is the number
+    of ladder rungs the factor streams stack."""
     if dtype not in _SCALARS:
         raise TypeError(f"the kernels take float32 or float64, got {dtype}")
     defines = {"SCALAR": _SCALARS[dtype], "NX": nx, "NU": nu}
@@ -80,10 +84,13 @@ def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
         defines["FOLD"] = 1
         return defines
     if len(cones) > MAX_CONES:
-        raise ValueError(f"kernel B takes at most {MAX_CONES} cones, "
+        raise ValueError(f"kernels B and K8 take at most {MAX_CONES} cones, "
                          f"got {len(cones)}")
-    defines.update(DIAG_COST=int(diag_cost), HAS_SHIFT=int(has_shift),
-                   NCONES=len(cones))
+    if single:
+        defines["ITER"] = 1
+    else:
+        defines["DIAG_COST"] = int(diag_cost)
+    defines.update(HAS_SHIFT=int(has_shift), NCONES=len(cones))
     for q, (off, dim, kind) in enumerate(cones):
         if off < 0 or off + dim > nc or dim >= 1000:
             raise ValueError(f"cone rows {off}..{off + dim - 1} outside "
@@ -103,6 +110,10 @@ def bind_library(lib, defines: dict):
     elif "FOLD" in defines:
         fn = lib.admm_bwd_vec
         fn.argtypes = [_INT, _INT, _DOUBLE, _INT] + [_PTR] * 16
+    elif "ITER" in defines:
+        fn = lib.admm_iter
+        fn.argtypes = [_INT, _INT, _DOUBLE, _DOUBLE, _INT, _INT, _INT] \
+            + [_PTR] * 27
     else:
         fn = lib.admm_fwd_update
         fn.argtypes = [_INT, _INT, _DOUBLE, _DOUBLE, _INT, _INT, _INT] \
@@ -323,6 +334,40 @@ def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
 
 # ------------------------------------------------------------- kernel B
 
+def _stage_update(w_t, w, z, y, Dk, Hmv, lb, ub, m, sh, rho_b, *, cones,
+                  alpha, sigma):
+    """One stage of the iterate update after the rollout, the tail of K5
+    and K8: relaxation, projection, dual update, and the stage's four
+    residual terms (4, B), maxima over its rows: |D w+ - z+|, the exact
+    dual residual, max(|D w+|, |z+|), max(|Hs w+ - sigma w+|, |D^T y+|).
+    ``m`` is the per-row rho scale, ``Hmv(t)`` the stage's Hs t.  Returns
+    (w_new, z_new, y_new, rho m, terms)."""
+    amax = lambda t: t.abs().amax(dim=0)
+    z_t = _mv(Dk, w_t)
+    w_new = alpha * w_t + (1.0 - alpha) * w
+    rho_m = rho_b[None, :] * m
+    active = m > 0
+    relaxed = alpha * z_t + (1.0 - alpha) * z
+    v = relaxed + torch.where(
+        active, y / torch.clamp(rho_m, min=1e-30), torch.zeros_like(y))
+    z_new = projections.project_rows(v, lb, ub, cones, sh, axis=0) \
+        * active.to(v.dtype)
+    y_new = y + rho_m * (relaxed - z_new)
+    Dw_new = _mv(Dk, w_new)
+    dw = w - w_t
+    zt_term = rho_m * ((alpha - 1.0) * (z_t - z) + (z - z_new))
+    dvec = ((1.0 - alpha) * Hmv(dw) + (alpha * sigma) * dw
+            + _mtv(Dk, zt_term))
+    Hw = Hmv(w_new) - sigma * w_new
+    dty = _mtv(Dk, y_new)
+    terms = torch.stack([
+        amax(Dw_new - z_new), amax(dvec),
+        torch.maximum(amax(Dw_new), amax(z_new)),
+        torch.maximum(amax(Hw), amax(dty)),
+    ])
+    return w_new, z_new, y_new, rho_m, terms
+
+
 def admm_fwd_update_lanes_reference(rho, x0, M, K, Hs, D, bnd, dv, wzy, h, *,
                                     nu, cones, alpha, sigma, rung=None):
     """Plain PyTorch version of ``admm_fwd_update_lanes``: a Python loop
@@ -342,47 +387,23 @@ def admm_fwd_update_lanes_reference(rho, x0, M, K, Hs, D, bnd, dv, wzy, h, *,
     rho_b = rho[0]
     x = x0
     acc = torch.zeros((4, wzy.shape[-1]), dtype=wzy.dtype, device=wzy.device)
-    amax = lambda t: t.abs().amax(dim=0)
     wzy_rows, hf_rows = [], []
     for k in range(N):
         u = _mv(K[k], x) + dv[k, :nu]
         w_t = torch.cat([u, x], dim=0)
         x = _mv(M[k], x) + dv[k, nu:]
 
-        w, z, y = wzy[k, :nz], wzy[k, nz:nz + nc], wzy[k, nz + nc:]
-        Dk = D[k]
-        lb, ub, m = bnd[k, 0], bnd[k, 1], bnd[k, 2]
-        sh = bnd[k, 3] if has_shift else None
-
-        z_t = _mv(Dk, w_t)
-        w_new = alpha * w_t + (1.0 - alpha) * w
-        rho_m = rho_b[None, :] * m
-        active = m > 0
-        relaxed = alpha * z_t + (1.0 - alpha) * z
-        v = relaxed + torch.where(
-            active, y / torch.clamp(rho_m, min=1e-30), torch.zeros_like(y))
-        z_new = projections.project_rows(v, lb, ub, cones, sh, axis=0) \
-            * active.to(v.dtype)
-        y_new = y + rho_m * (relaxed - z_new)
+        Hmv = (lambda t: Hs[k] * t) if diag_cost else (lambda t: _mv(Hs[k], t))
+        w_new, z_new, y_new, rho_m, terms = _stage_update(
+            w_t, wzy[k, :nz], wzy[k, nz:nz + nc], wzy[k, nz + nc:], D[k], Hmv,
+            bnd[k, 0], bnd[k, 1], bnd[k, 2], bnd[k, 3] if has_shift else None,
+            rho_b, cones=cones, alpha=alpha, sigma=sigma)
         wzy_rows.append(torch.cat([w_new, z_new, y_new], dim=0))
         if h is not None:
             # The next iteration's folded linear cost, valid while rho stays.
             rg = rho_m * z_new - y_new
-            hf_rows.append(h[k] - sigma * w_new - _mtv(Dk, rg))
-
-        Hmv = (lambda t: Hs[k] * t) if diag_cost else (lambda t: _mv(Hs[k], t))
-        Dw_new = _mv(Dk, w_new)
-        dw = w - w_t
-        zt_term = rho_m * ((alpha - 1.0) * (z_t - z) + (z - z_new))
-        dvec = ((1.0 - alpha) * Hmv(dw) + (alpha * sigma) * dw
-                + _mtv(Dk, zt_term))
-        Hw = Hmv(w_new) - sigma * w_new
-        dty = _mtv(Dk, y_new)
-        acc = torch.maximum(acc, torch.stack([
-            amax(Dw_new - z_new), amax(dvec),
-            torch.maximum(amax(Dw_new), amax(z_new)),
-            torch.maximum(amax(Hw), amax(dty)),
-        ]))
+            hf_rows.append(h[k] - sigma * w_new - _mtv(D[k], rg))
+        acc = torch.maximum(acc, terms)
     if h is None:
         return torch.stack(wzy_rows), x, acc
     return torch.stack(wzy_rows), torch.stack(hf_rows), x, acc
@@ -525,4 +546,145 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
         out = _launch_fwd_update(lib, rho, x0, M, K, Hs, D, bnd, dv, wzy, h,
                                  rung, alpha, sigma, _stream())
     LAUNCHES["admm_fwd_update_lanes"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ K8
+
+def admm_iter_lanes_reference(A, B, c, Hs, h, D, lb, ub, mask, shift, w, z,
+                              y, rho, PN, pN, x0, *, nu, cones, alpha, sigma,
+                              factors=None):
+    """Plain PyTorch version of ``admm_iter_lanes``: K1's matrix sweep on
+    the iterate-folded stage data (or, on cached factors, K2's vector
+    sweep), K7's rollout from the raw dynamics, then K5's tail a stage at
+    a time.  Stage data stored narrower is upcast first; tensors of
+    trailing size 1 broadcast over the batch."""
+    dt = w.dtype
+    A, B, c, Hs, h, D = (x.to(dt) for x in (A, B, c, Hs, h, D))
+    rho_b = rho[0]
+    rho_m = rho_b * mask                                     # (N, nc, B)
+    rg = rho_m * z - y
+    h_t = h - sigma * w
+    if factors is None:
+        K, d = cuda_riccati.backward_lanes_reference(
+            A, B, c, Hs, h_t, D, rho_m, rg, PN, pN, emit_closed_loop=False)
+    else:
+        P, L, K = factors
+        hf = h_t - torch.einsum("kcb,kczb->kzb", rg, D)
+        d, _ = cuda_riccati.backward_vectors_lanes_reference(
+            A, B, c, hf, P, K, L, pN)
+    ws, xN = cuda_riccati.forward_rollout_lanes_reference(A, B, c, K, d, x0)
+    rows, res = [], None
+    for k in range(A.shape[0]):
+        out = _stage_update(
+            ws[k], w[k], z[k], y[k], D[k], lambda t, k=k: _mv(Hs[k], t),
+            lb[k], ub[k], mask[k], None if shift is None else shift[k],
+            rho_b, cones=cones, alpha=alpha, sigma=sigma)
+        rows.append(out[:3])
+        res = out[4] if res is None else torch.maximum(res, out[4])
+    w_new, z_new, y_new = (torch.stack(x) for x in zip(*rows))
+    return w_new, z_new, y_new, xN, res
+
+
+def _launch_iter(lib, A, B, c, Hs, h, D, lb, ub, mask, shift, w, z, y, rho,
+                 PN, pN, x0, factors, shared, alpha, sigma, stream):
+    """Allocate K8's outputs and its gain spill and launch it (no argument
+    checks).  The spill holds each scenario's gains contiguously: K and d
+    of every stage, or d alone on cached factors."""
+    N, nx, nu = A.shape[0], A.shape[1], B.shape[2]
+    nz, nc, Bt = nx + nu, D.shape[1], w.shape[-1]
+    cached = factors is not None
+    new = lambda *shape: torch.empty(shape, dtype=w.dtype, device=w.device)
+    spill = new(Bt, N, nu if cached else nu * (nx + 1))
+    out = (new(N, nz, Bt), new(N, nc, Bt), new(N, nc, Bt), new(nx, Bt),
+           new(4, Bt))
+    P, L, K = factors if cached else (None, None, None)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    status = lib.admm_iter(
+        N, Bt, float(alpha), float(sigma), int(shared), int(cached),
+        int(A.dtype == torch.bfloat16), stream,
+        *(ptr(x) for x in (rho, PN, pN, x0, A, B, c, Hs, h, D, lb, ub, mask,
+                           shift, P, L, K, w, z, y, spill) + out))
+    _check_status("admm_iter_lanes", status)
+    return out
+
+
+def admm_iter_lanes(A, B, c, Hs, h, D, lb, ub, mask, shift, w, z, y, rho,
+                    PN, pN, x0, *, nu, cones, alpha, sigma, factors=None,
+                    shared=False):
+    """One whole conic ADMM iteration over stages 0..N-1 in one launch (K8).
+
+    The JAX wrapper's arguments and layout.  Stage tensors: A (N,nx,nx,·),
+    B (N,nx,nu,·), c (N,nx,B), Hs (N,nz,nz,·) the sigma-folded H, h
+    (N,nz,·) the raw linear cost, D (N,nc,nz,·); lb, ub (N,nc,·), mask
+    (N,nc,·) the per-row RHO SCALE (0 on padded rows, the equality boost
+    on equality rows, 1 elsewhere; the projection mask is m > 0), shift
+    (N,nc,·) or None.  Per scenario: the iterates w (N,nz,B), z, y
+    (N,nc,B), rho (1,B), PN (nx,nx,B) / pN (nx,B) the iterate-folded
+    terminal cost-to-go, x0 (nx,B).  ``cones`` are normalized
+    ``(offset, dim, kind)`` 3-tuples.
+
+    ``·`` is B, or 1 with ``shared=True``: one model serving B scenarios
+    (its streams, and the factors, one copy; c stays per scenario).  A,
+    B, c, Hs, h and D may be stored in bfloat16 under a wider compute
+    type: they are upcast at load, and everything else keeps the compute
+    type (that of w).  ``factors`` (P (N,nx,nx,·), L (N,nu,nu,·), K
+    (N,nu,nx,·) from ``backward_lanes(export_factors=True)``) turns phase
+    1 into the vector sweep on them; valid while rho and the problem are
+    unchanged since the export; ``PN`` is then not read (it may be None).
+
+    Returns (w_new, z_new, y_new, xN, res) with res (4, B) rows [r_prim,
+    r_dual, prim_scale, dual_scale], maxima over stages 0..N-1 (the
+    caller folds in the terminal stage).
+
+    On the card: one warp a scenario, its carry and the stage's data in
+    the warp's slice of shared memory; the gains make a round trip
+    through a scratch buffer in device memory.  See the kernel source.
+    """
+    cones = tuple(cones)
+    N, nx = A.shape[0], A.shape[1]
+    nz, nc = nx + nu, D.shape[1]
+    Bt = w.shape[-1]
+    if nc == 0:
+        raise ValueError("single-kernel ADMM iteration requires nc > 0")
+    dt, dev, st = w.dtype, w.device, A.dtype
+    if st not in (dt, torch.bfloat16):
+        raise TypeError(f"stage data stored as {st}: the kernel takes the "
+                        f"compute type {dt} or bfloat16")
+    mb = 1 if shared else Bt
+    for name, x, shape in (
+        ("A", A, (N, nx, nx, mb)), ("B", B, (N, nx, nu, mb)),
+        ("c", c, (N, nx, Bt)), ("Hs", Hs, (N, nz, nz, mb)),
+        ("h", h, (N, nz, mb)), ("D", D, (N, nc, nz, mb)),
+    ):
+        _check(name, x, shape, st, dev)
+    checks = [
+        ("lb", lb, (N, nc, mb)), ("ub", ub, (N, nc, mb)),
+        ("mask", mask, (N, nc, mb)), ("w", w, (N, nz, Bt)),
+        ("z", z, (N, nc, Bt)), ("y", y, (N, nc, Bt)), ("rho", rho, (1, Bt)),
+        ("pN", pN, (nx, Bt)), ("x0", x0, (nx, Bt)),
+    ]
+    if factors is None or PN is not None:
+        checks.append(("PN", PN, (nx, nx, Bt)))
+    if shift is not None:
+        checks.append(("shift", shift, (N, nc, mb)))
+    if factors is not None:
+        P, L, K = factors
+        checks += [("P", P, (N, nx, nx, mb)), ("L", L, (N, nu, nu, mb)),
+                   ("K", K, (N, nu, nx, mb))]
+    for name, x, shape in checks:
+        _check(name, x, shape, dt, dev)
+    if dev.type == "cpu":
+        return admm_iter_lanes_reference(
+            A, B, c, Hs, h, D, lb, ub, mask, shift, w, z, y, rho, PN, pN, x0,
+            nu=nu, cones=cones, alpha=alpha, sigma=sigma, factors=factors)
+    if dev.type != "cuda":
+        raise ValueError(f"admm_iter_lanes: no kernel for device {dev}")
+    lib = _library(dt, nx, nu, nc, cones=cones, has_shift=shift is not None,
+                   single=True)
+    with torch.cuda.device(dev):
+        out = _launch_iter(lib, A, B, c, Hs, h, D, lb, ub, mask, shift, w, z,
+                           y, rho, PN, pN, x0, factors, shared, alpha, sigma,
+                           _stream())
+    LAUNCHES["admm_iter_lanes"] += 1
     return out

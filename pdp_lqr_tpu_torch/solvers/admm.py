@@ -14,8 +14,8 @@
              ``backward_without_factorization``, lqr_solver.hpp:65-70).
 
 Ported: the data classes, ``suggest_rho_ladder`` and ``solve_fused`` in
-three modes, one function each, sharing ``_finish_stats`` (and, the two
-shared ones, ``_terminal_pN`` / ``_terminal_tail``):
+four modes, one function each, sharing ``_finish_stats`` (and, all but the
+replicated one, ``_terminal_pN`` / ``_terminal_tail``):
 
   _solve_shared_split   ONE unbatched model serving B scenarios,
                         ``cached_factors`` with a batch-uniform rho: K4 +
@@ -24,12 +24,17 @@ shared ones, ``_terminal_pN`` / ``_terminal_tail``):
                         rho snapped to R rungs whose factors are built
                         once a solve (one K1 launch over R instances);
                         K6 + K5 (rung form) an iteration;
+  _solve_single_kernel  the single-kernel iteration, on either model: K8
+                        an iteration (the whole sweep, rollout and tail),
+                        per-instance rho, or cached factors rebuilt by K1
+                        when rho changes; ``storage_dtype`` streams the
+                        stage data narrower;
   _solve_replicated     a batched problem (one model a scenario),
                         per-instance rho: K1 (or K2 on cached factors) +
                         K3 an iteration, the projection and residuals in
                         tensor code.
 
-The single-kernel iteration (K8) and ``storage_dtype`` raise
+``storage_dtype`` on the split and ladder iterations raises
 ``NotImplementedError``.
 
 PyTorch runs eagerly, so what the JAX loop decides on the device
@@ -117,7 +122,8 @@ class ADMMState:
     ``factors`` (solve_fused with cached_factors only) carries, in the
     shared split mode, the row-packed streams the split kernels consume
     — ([A;K], [B;L], [M;K], Pc, rho-at-factor) — and in the replicated
-    mode the per-instance (K, M, P, L, rho-at-factor), so a warm-started solve
+    and single-kernel modes (K, M, P, L, rho-at-factor), per instance or,
+    on one model, one copy, so a warm-started solve
     skips even its FIRST refactorization while rho and the problem data
     are unchanged: the reference's steady-state MPC pattern
     (update_problem_data + backward_without_factorization + forward
@@ -233,20 +239,22 @@ def _finish_stats(settings, rho, stats, r_prim, r_dual, prim_scale,
 
 @dataclasses.dataclass(frozen=True)
 class _Terminal:
-    """The terminal stage's data (no control), shared over the batch:
-    the vectors carry a trailing size 1 that broadcasts over B."""
+    """The terminal stage's data (no control).  On one model it is shared
+    over the batch: the matrices are 2-D and the vectors carry a trailing
+    size 1 that broadcasts over B; on a batched problem each scenario has
+    its own, with a trailing size B on every field."""
 
-    HN: torch.Tensor      # (nx, nx) H_N[x, x], the original cost
-    DNx: torch.Tensor     # (nc, nx) x-columns of D_N
-    DN: torch.Tensor      # (nc, nz)
-    hN: torch.Tensor      # (nz, 1)
-    lb: torch.Tensor      # (nc, 1)
-    ub: torch.Tensor      # (nc, 1)
-    mask: torch.Tensor    # (nc, 1) 0/1
-    scale: torch.Tensor   # (nc, 1) per-row rho scale (mask * eq boost)
-    active: torch.Tensor  # (nc, 1) bool, scale > 0
+    HN: torch.Tensor      # (nx, nx[, B]) H_N[x, x], the original cost
+    DNx: torch.Tensor     # (nc, nx[, B]) x-columns of D_N
+    DN: torch.Tensor      # (nc, nz[, B])
+    hN: torch.Tensor      # (nz, 1 | B)
+    lb: torch.Tensor      # (nc, 1 | B)
+    ub: torch.Tensor      # (nc, 1 | B)
+    mask: torch.Tensor    # (nc, 1 | B) 0/1
+    scale: torch.Tensor   # (nc, 1 | B) per-row rho scale (mask * eq boost)
+    active: torch.Tensor  # (nc, 1 | B) bool, scale > 0
     shift: Optional[torch.Tensor]   # (nc, 1) or None
-    h_absmax: torch.Tensor          # () max |h| over the horizon
+    h_absmax: torch.Tensor          # () or (B,) max |h| over the horizon
     zero_u: torch.Tensor            # (nu, B) the terminal stage's controls
 
 
@@ -255,13 +263,47 @@ class _Terminal:
 # two functions below spend as few as they can (fused multiply-adds, one
 # product per matrix, one reduction per residual).
 
+def _tmv(M, v):
+    """M v, v (s, B): M (r, s) shared over the batch, or (r, s, B)."""
+    return M @ v if M.ndim == 2 else torch.einsum("rsb,sb->rb", M, v)
+
+
+def _taddmv(base, M, v, alpha=1.0):
+    """base + alpha M v (one fused product on a shared M)."""
+    if M.ndim == 2:
+        return torch.addmm(base, M, v, alpha=alpha)
+    return torch.add(base, _tmv(M, v), alpha=alpha)
+
+
 def _terminal_pN(term: _Terminal, nu, sigma, wN, zN, yN, rhoN_m):
     """The iterate-folded terminal linear cost
     ``h_x - sigma w_x - D_x^T (rho m z - y)``, (nx, B)."""
     rgN = rhoN_m * zN - yN
     with full_f32_matmul():
-        return torch.addmm(torch.add(term.hN[nu:], wN[nu:], alpha=-sigma),
-                           term.DNx.T, rgN, alpha=-1.0)
+        return _taddmv(torch.add(term.hN[nu:], wN[nu:], alpha=-sigma),
+                       term.DNx.transpose(0, 1), rgN, alpha=-1.0)
+
+
+def _terminal_fold(term: _Terminal, HNx):
+    """What the terminal penalty fold reads, once a solve: the products
+    DD[c, i*nx + j] = D_x[c, i] D_x[c, j] of each row and HNx = H_N[x, x]
+    + sigma I, flattened alike (a trailing B on a batched problem)."""
+    DNx = term.DNx
+    return (DNx[:, :, None] * DNx[:, None, :]).flatten(1, 2), HNx.flatten(0, 1)
+
+
+def _terminal_PN(fold, rhoN_m):
+    """The penalty-folded terminal cost-to-go ``HNx + D_x^T diag(rho m)
+    D_x`` of every scenario, (nx, nx, B), from ``_terminal_fold``'s
+    products: one product on one model."""
+    DD, HNx = fold
+    nx = HNx.shape[0] ** 0.5
+    with full_f32_matmul():
+        if DD.ndim == 2:
+            PN = torch.addmm(HNx[:, None], DD.T, rhoN_m)
+        else:
+            PN = torch.add(HNx, (DD * rhoN_m[:, None, :]).sum(0))
+    return PN.view(int(nx), int(nx), -1)
 
 
 def _terminal_tail(settings, term: _Terminal, cones3, nu, wN, zN, yN, rho,
@@ -275,7 +317,7 @@ def _terminal_tail(settings, term: _Terminal, cones3, nu, wN, zN, yN, rho,
     rowmax = lambda x: torch.linalg.vector_norm(x, float("inf"), dim=0)
     with full_f32_matmul():
         w_tN = torch.cat([term.zero_u, xN], dim=0)
-        z_tN = term.DNx @ xN
+        z_tN = _tmv(term.DNx, xN)
         # lerp(a, b, alpha) = alpha b + (1 - alpha) a: the relaxation.
         w_newN = torch.lerp(wN, w_tN, alpha)
         relaxed = torch.lerp(zN, z_tN, alpha)
@@ -285,15 +327,19 @@ def _terminal_tail(settings, term: _Terminal, cones3, nu, wN, zN, yN, rho,
             vN, term.lb, term.ub, cones3, term.shift, axis=0) * term.mask
         y_newN = torch.addcmul(yN, rhoN_m, relaxed - z_newN)
 
-        DwN = term.DN @ w_newN
+        DwN = _tmv(term.DN, w_newN)
         dwN = wN - w_tN
         zt_termN = rhoN_m * torch.add(zN - z_newN, z_tN - zN,
                                       alpha=alpha - 1.0)
         # (1-a) H dw + sigma dw + D^T zt, H acting on the x rows only.
-        dvecN = torch.addmm(sigma * dwN, term.DN.T, zt_termN)
-        dvecN[nu:].addmm_(term.HN, dwN[nu:], alpha=1.0 - alpha)
-        dtyN = term.DN.T @ y_newN
-        HwnN = term.HN @ w_newN[nu:]
+        DNt = term.DN.transpose(0, 1)
+        dvecN = _taddmv(sigma * dwN, DNt, zt_termN)
+        if term.HN.ndim == 2:
+            dvecN[nu:].addmm_(term.HN, dwN[nu:], alpha=1.0 - alpha)
+        else:
+            dvecN[nu:] += (1.0 - alpha) * _tmv(term.HN, dwN[nu:])
+        dtyN = _tmv(DNt, y_newN)
+        HwnN = _tmv(term.HN, w_newN[nu:])
     r_prim = torch.maximum(res[0], rowmax(DwN - z_newN))
     r_dual = torch.maximum(res[1], rowmax(dvecN))
     prim_scale = torch.maximum(res[2], rowmax(torch.cat([DwN, z_newN])))
@@ -340,7 +386,7 @@ def solve_fused(
     """Batch-fused conic ADMM over B scenarios: the serving path.
 
     The arguments are the JAX function's (there is no ``interpret``: a
-    problem on the CPU runs the kernels' plain versions).  Three modes:
+    problem on the CPU runs the kernels' plain versions).  Four modes:
 
     * a ``problem`` WITHOUT a leading batch axis (``problem.A.ndim == 3``;
       ``c`` may still be batched (B, N, nx) for per-scenario drift) with
@@ -349,18 +395,28 @@ def solve_fused(
       ``cuda_riccati.backward_lanes`` per rho change;
     * the same with a ``rho_ladder``: per-scenario rho on the rungs, K6 +
       K5 an iteration on R rungs' factors built once;
-    * a batched problem (every field with a leading axis B): the
-      replicated two-kernel iteration, per-instance rho, with or without
-      ``cached_factors``; ``residual_weights`` (the unscaled-residual
-      termination of ``solve_equilibrated``) runs only here, as in JAX.
+    * ``single_kernel=True``, on either kind of problem: K8 an iteration
+      (per-instance rho; or ``cached_factors``, on a shared model with a
+      batch-uniform rho, rebuilt by K1 when rho changes);
+      ``storage_dtype`` (bfloat16) streams the stage data A, B, c, H +
+      sigma I, h and D at that width (the kernel upcasts at load);
+    * a batched problem (every field with a leading axis B) with
+      ``single_kernel=False``: the replicated two-kernel iteration,
+      per-instance rho, with or without ``cached_factors``;
+      ``residual_weights`` (the unscaled-residual termination of
+      ``solve_equilibrated``) runs only here, as in JAX.
 
-    ``x0`` (B, nx) sets the batch.  ``single_kernel="auto"`` resolves to
-    the split pair on a shared model whose settings give batch-shared
-    factors, and to the replicated iteration on a batched problem, where
-    JAX picks its single-kernel iteration (K8) whenever that fits the
-    TPU's on-chip memory; the port has no K8 yet (same function).
-    ``single_kernel=True``, a shared model without batch-shared factors
-    and ``storage_dtype`` need K8 and raise ``NotImplementedError``.
+    ``x0`` (B, nx) sets the batch.  ``single_kernel="auto"`` is the port's
+    own rule (JAX's asks whether the iteration fits the TPU's on-chip
+    memory, which means nothing on the card): on a shared model, the split
+    pair whenever the settings give batch-shared factors (a ladder, or
+    cached factors with a uniform rho and no ``storage_dtype``), K8
+    otherwise; on a batched problem K8, unless ``residual_weights`` asks
+    for the replicated iteration: K8 took 0.6-0.75 of the replicated
+    loop's time at B=1024, N=64 and N=512, with and without cached factors
+    (quadrotor, one H100; PERF.md).  Both packages' single-kernel and
+    replicated iterations compute the same function, except the dual
+    residual under ``exact_dual=False``, which K8 ignores (as JAX's does).
 
     Returns (ws (B, N+1, nz), ADMMState (batched), ADMMInfo (batched)),
     on the problem's device; the trajectories are batch-leading views of
@@ -396,15 +452,12 @@ def solve_fused(
         return ws, state or _batch_state(problem, Bb, settings), info
 
     if single_kernel == "auto":
-        # The port has no on-chip memory to fit: a shared model runs the
-        # split pair whenever the settings give it batch-shared factors,
-        # a batched problem the replicated iteration (the same function
-        # as K8's), unless storage_dtype asks for the single kernel.
         if shared_mode:
-            single_kernel = not (ladder or (settings.cached_factors
-                                            and settings.uniform_rho))
+            single_kernel = not (ladder or (
+                settings.cached_factors and settings.uniform_rho
+                and storage_dtype is None))
         else:
-            single_kernel = storage_dtype is not None
+            single_kernel = residual_weights is None
     split_mode = shared_mode and not single_kernel
     if split_mode:
         if not settings.cached_factors and not ladder:
@@ -432,17 +485,19 @@ def solve_fused(
     if storage_dtype is not None and not (single_kernel or split_mode):
         raise ValueError("storage_dtype requires single_kernel=True "
                          "or the shared split iteration")
+    if storage_dtype not in (None, dt, torch.bfloat16):
+        raise NotImplementedError(
+            f"storage_dtype {storage_dtype}: K8 streams the stage data in "
+            f"the compute type or bfloat16 only")
+    if storage_dtype is not None and split_mode:
+        raise NotImplementedError(
+            "storage_dtype on the split and ladder iterations (narrow "
+            "streams into K1, K4-K6) is not ported yet (ROADMAP M6); "
+            "single_kernel=True takes it")
 
     if single_kernel:
-        raise NotImplementedError(
-            "the single-kernel iteration waits for kernel K8 "
-            "(admm_iter_lanes, ROADMAP Queue 2); use cached_factors + "
-            "uniform_rho or a rho_ladder on a shared model, or a batched "
-            "problem, with single_kernel=False or \"auto\"")
-    if storage_dtype is not None:
-        raise NotImplementedError(
-            "storage_dtype (narrow stage streams) is not ported yet "
-            "(ROADMAP M6)")
+        return _solve_single_kernel(problem, x0, cones, settings, state,
+                                    soc_shift, storage_dtype)
     if not shared_mode:
         return _solve_replicated(problem, x0, cones, settings, state,
                                  soc_shift, residual_weights)
@@ -705,6 +760,144 @@ def _solve_shared_ladder(problem, x0, cones, settings, state, soc_shift,
     return w_b, out, _info(stats, Bb, dev)
 
 
+def _batched_lanes(problem, cones, settings):
+    """A batched problem's streams in the lanes layout (batch last,
+    contiguous), as both per-instance iterations read them: the 0/1 row
+    mask and the per-row rho scale (mask * eq boost) (N+1, nc, B), A, B,
+    c, H + sigma I (N, nz, nz, B), D (N, nc, nz, B) and the terminal
+    H_N[x, x] + sigma I (nx, nx, B)."""
+    dt, dev, sigma = problem.H.dtype, problem.H.device, settings.sigma
+    nu, nx = problem.nu, problem.nx
+    l3 = lambda x: torch.movedim(x, 0, -1).contiguous()
+    eye = lambda n: torch.eye(n, dtype=dt, device=dev)
+    mask = l3(_con_mask(problem, cones).to(dt))
+    eq = l3(torch.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub))
+    return (mask, torch.where(eq, mask * settings.rho_eq_boost, mask),
+            l3(problem.A), l3(problem.B), l3(problem.c),
+            l3(problem.H[:, :-1] + sigma * eye(nu + nx)),
+            l3(problem.D[:, :-1]),
+            l3(problem.H[:, -1, nu:, nu:] + sigma * eye(nx)))
+
+
+def _solve_single_kernel(problem, x0, cones, settings, state, soc_shift,
+                         storage_dtype):
+    """``solve_fused``'s single-kernel iteration (``iteration_1k`` of the
+    JAX function): K8 an iteration, on one model serving B scenarios (its
+    streams one copy) or on a batched problem.  Per-instance rho; with
+    ``cached_factors`` K8 runs its vector sweep on factors that K1
+    rebuilds when rho changes (on one model one instance at the
+    batch-uniform rho, on a batched problem every instance).  The
+    terminal stage, convergence and adaptive rho are tensor code, shared
+    with the split iterations."""
+    sigma, alpha = settings.sigma, settings.alpha
+    dt, dev = problem.H.dtype, problem.H.device
+    shared = problem.A.ndim == 3
+    Bb, N = x0.shape[0], problem.N
+    nu, nx, nc = problem.nu, problem.nx, problem.nc
+    nz = nu + nx
+    cones3 = projections.normalize_cones(cones)
+    tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
+    cached = settings.cached_factors
+    if shared:
+        # The split loops' streams (diag_cost means nothing here).
+        S = _shared_streams(problem, Bb, cones,
+                            dataclasses.replace(settings, diag_cost=False),
+                            soc_shift)
+        A_l, B_l, c_l, H_l, h_l, D_l, mask_st = (
+            S.A, S.B, S.c, S.H, S.h, S.D, S.mask)
+        lb_st, ub_st = S.bnd[:, 0].contiguous(), S.bnd[:, 1].contiguous()
+        shift_st = S.bnd[:, 3].contiguous() if soc_shift is not None else None
+        HNx, term = S.HNx, S.term
+    else:
+        l3 = lambda x: torch.movedim(x, 0, -1).contiguous()   # -> lanes
+        mask, rsc, A_l, B_l, c_l, H_l, D_l, HNx = _batched_lanes(
+            problem, cones, settings)
+        h_l = l3(problem.h[:, :-1])
+        lb_st, ub_st = l3(problem.e_lb[:, :-1]), l3(problem.e_ub[:, :-1])
+        mask_st = rsc[:-1].contiguous()          # carries the rho scale
+        shift = None if soc_shift is None else tensor(soc_shift)
+        shift_st = None if shift is None else \
+            shift[:-1, :, None].expand(N, nc, Bb).contiguous()
+        term = _Terminal(
+            HN=l3(problem.H[:, -1, nu:, nu:]), DNx=l3(problem.D[:, -1, :, nu:]),
+            DN=l3(problem.D[:, -1]), hN=l3(problem.h[:, -1]),
+            lb=l3(problem.e_lb[:, -1]), ub=l3(problem.e_ub[:, -1]),
+            mask=mask[-1], scale=rsc[-1], active=rsc[-1] > 0,
+            shift=None if shift is None else shift[-1][:, None],
+            h_absmax=problem.h.abs().amax(dim=(1, 2)),
+            zero_u=torch.zeros((nu, Bb), dtype=dt, device=dev))
+    # The stage data K8 streams, narrower with storage_dtype (H + sigma I
+    # rounded after the sum, as in JAX); the factor builds read it whole.
+    narrow = (lambda x: x) if storage_dtype is None else (
+        lambda x: x.to(storage_dtype))
+    A_k, B_k, c_k, H_k, h_k, D_k = (narrow(x) for x in
+                                    (A_l, B_l, c_l, H_l, h_l, D_l))
+    fold = _terminal_fold(term, HNx)
+
+    def build_factors(rho, rhoN_m):
+        """The exported factors (K, M, P, L) at rho: one K1 instance at
+        the uniform rho on one model, every instance on a batched one."""
+        if shared:
+            return _shared_factors(S, rho[:1])
+        zeros = lambda *s: torch.zeros(s + (Bb,), dtype=dt, device=dev)
+        K, _, M, _, P, L = cuda_riccati.backward_lanes(
+            A_l, B_l, c_l, H_l, zeros(N, nz), D_l,
+            (rho[None, None, :] * mask_st).contiguous(), zeros(N, nc),
+            _terminal_PN(fold, rhoN_m), zeros(nx), export_factors=True)
+        return K, M, P, L
+
+    if state is None:
+        state = _batch_state(problem, Bb, settings)
+    rho = tensor(state.rho).expand(Bb).contiguous()
+    if shared and cached:
+        # The factor build reads rho[0] and the max-based adaptation only
+        # PRESERVES uniformity: a warm start carrying per-instance rho is
+        # collapsed to the batch max (the conservative OSQP choice).
+        rho = rho.max().expand(Bb).contiguous()
+    w_l, z_l, y_l = (torch.movedim(tensor(x), 0, -1) for x in
+                     (state.w, state.z, state.y))
+    w, z, y = (x[:-1].contiguous() for x in (w_l, z_l, y_l))
+    wN, zN, yN = (x[-1].contiguous() for x in (w_l, z_l, y_l))
+    stats = _start_stats(Bb, dt, dev)
+    fac = None if (state.factors is None or not cached) else tuple(
+        tensor(x) for x in state.factors)
+    x0_l = x0.T.contiguous()
+    interval = max(1, settings.rho_update_interval)
+    rho_may_differ = True
+
+    while stats[0] < settings.max_iter:
+        if settings.early_exit and stats[0] > 0:
+            HOST_READS["early_exit"] += 1
+            if bool(stats[4].all()):
+                break
+        rhoN_m = rho[None, :] * term.scale
+        pN = _terminal_pN(term, nu, sigma, wN, zN, yN, rhoN_m)
+        PN = factors = None
+        if cached:
+            refactor = fac is None
+            if not refactor and rho_may_differ:
+                HOST_READS["refactor"] += 1
+                refactor = bool((rho != fac[4]).any())
+            if refactor:
+                fac = build_factors(rho, rhoN_m) + (rho,)
+            factors = (fac[2], fac[3], fac[0])
+        else:
+            PN = _terminal_PN(fold, rhoN_m)
+        w, z, y, xN, res = cuda_admm.admm_iter_lanes(
+            A_k, B_k, c_k, H_k, h_k, D_k, lb_st, ub_st, mask_st, shift_st,
+            w, z, y, rho[None, :], PN, pN, x0_l, nu=nu, cones=cones3,
+            alpha=alpha, sigma=sigma, factors=factors, shared=shared)
+        wN, zN, yN, rho, stats = _terminal_tail(
+            settings, term, cones3, nu, wN, zN, yN, rho, rhoN_m, stats, xN,
+            res)
+        rho_may_differ = settings.adaptive_rho and stats[0] % interval == 0
+
+    rows = lambda s_, last: torch.movedim(torch.cat([s_, last[None]]), -1, 0)
+    w_b = rows(w, wN)
+    return w_b, ADMMState(w=w_b, z=rows(z, zN), y=rows(y, yN), rho=rho,
+                          factors=fac), _info(stats, Bb, dev)
+
+
 def _solve_replicated(problem, x0, cones, settings, state, soc_shift,
                       residual_weights):
     """``solve_fused`` on a batched problem: the replicated two-kernel
@@ -726,14 +919,8 @@ def _solve_replicated(problem, x0, cones, settings, state, soc_shift,
     tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
     l3 = lambda x: torch.movedim(x, 0, -1).contiguous()   # (B, ...) -> lanes
 
-    mask = l3(_con_mask(problem, cones).to(dt))               # (N+1, nc, B)
-    eq = l3(torch.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub))
-    rsc = torch.where(eq, mask * settings.rho_eq_boost, mask)
-    eye = lambda n: torch.eye(n, dtype=dt, device=dev)
-    A_l, B_l, c_l = l3(problem.A), l3(problem.B), l3(problem.c)
-    H_l = l3(problem.H[:, :-1] + sigma * eye(nz))
-    Dst_l = l3(problem.D[:, :-1])
-    HN_l = l3(problem.H[:, -1, nu:, nu:] + sigma * eye(nx))   # (nx, nx, B)
+    mask, rsc, A_l, B_l, c_l, H_l, Dst_l, HN_l = _batched_lanes(
+        problem, cones, settings)
     DN_l = l3(problem.D[:, -1, :, nu:])                        # (nc, nx, B)
     h_base = l3(problem.h)                                     # (N+1, nz, B)
     uterm = torch.ones((N + 1, nz, 1), dtype=dt, device=dev)

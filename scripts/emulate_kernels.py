@@ -12,7 +12,7 @@ starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
 ``cp.async`` a ``memcpy``), builds it with ``g++ -std=c++20`` into
 ``build/emulate/``, loads it through the wrappers' own ``ctypes`` bindings
 and holds every kernel and mode against its plain PyTorch version at small
-sizes (K1-K7 and every form of K5).  It proves nothing about what ``nvcc`` accepts, about races between
+sizes (K1-K8, every form of K5 and of K8).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
 on them.  About a minute (some twenty small g++ builds); ``--quick`` runs
@@ -33,7 +33,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import random_admm_inputs, random_ladder_inputs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    iter_factors, narrow_storage, random_admm_inputs, random_iter_inputs,
+    random_ladder_inputs,
+)
 from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr  # noqa: E402
 
 OUT = ROOT / "build" / "emulate"
@@ -61,6 +64,9 @@ static thread_local double* emu_smem;
 #define __device__
 #define __forceinline__ inline
 #define __syncthreads() emu_bar->arrive_and_wait()
+// A warp's barrier: the whole block's here (stronger, and every warp of a
+// block passes the same sequence of them).
+#define __syncwarp() emu_bar->arrive_and_wait()
 template <class T> inline T __ldg(const T* p) { return *p; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -84,6 +90,14 @@ void emu_launch(int grid, int block, size_t smem, void*, F f) {
             });
         for (auto& x : th) x.join();
     }
+}
+""",
+    "cuda_bf16.h": """#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t bits; };
+inline float __bfloat162float(__nv_bfloat16 v) {
+    uint32_t u = (uint32_t)v.bits << 16; float f; std::memcpy(&f, &u, 4); return f;
 }
 """,
 }
@@ -273,6 +287,31 @@ def run_ladder(dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol):
                   cones=cones, alpha=1.6, sigma=1e-6, rung=rung), tol)
 
 
+def run_iter(dtype, nx, nu, nc, N, Bs, cones, has_shift, tol):
+    """K8 in its eight forms (shared or batched, cached or not, the stage
+    data in the compute type or in bfloat16) at one size and mode, ``Bs``
+    scenarios."""
+    rng = np.random.default_rng(4)
+    lib = admm_library(dtype, nx, nu, nc, cones=cones, has_shift=has_shift,
+                       single=True)
+    for shared in (False, True):
+        args = random_iter_inputs(rng, N, nx, nu, nc, Bs, cones, shared,
+                                  has_shift, dtype, "cpu")
+        for factors in (None, iter_factors(args, shared)):
+            for narrow in (False, True):
+                a = narrow_storage(args) if narrow else args
+                tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} "
+                       f"N={N} B={Bs} cones={cones} shift={has_shift} "
+                       f"shared={shared} cached={factors is not None} "
+                       f"bf16={narrow}")
+                check(f"K8 [{tag}]",
+                      ca._launch_iter(lib, *a, factors, shared, 1.6, 1e-6,
+                                      None),
+                      ca.admm_iter_lanes_reference(
+                          *a, nu=nu, cones=cones, alpha=1.6, sigma=1e-6,
+                          factors=factors), tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -304,10 +343,21 @@ LADDER_CASES = [
     (torch.float64, 12, 4, 16, 4, 33, 1, (), False, False, 1e-10),
     (torch.float64, 3, 2, 6, 5, 35, 2, ((3, 3, "soc"),), False, True, 1e-10),
 ]
+# (dtype, nx, nu, nc, N, Bs, cones, has_shift, tol): the quadrotor's thrust
+# cone with a shift (a ragged last block), its box rows, the rocket's two
+# cones, and a rotated cone on an odd small shape.
+ITER_CASES = [
+    (torch.float64, 12, 4, 19, 5, 6, ((16, 3, "soc"),), True, 1e-10),
+    (torch.float32, 12, 4, 16, 4, 8, (), False, 1e-3),
+    (torch.float64, 6, 3, 7, 4, 5, ((1, 3, "soc"), (4, 3, "soc")), False, 1e-10),
+    (torch.float64, 3, 2, 9, 5, 7, ((0, 4, "rsoc"),), True, 1e-10),
+]
 QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:1], LADDER_CASES[:1]
+ITER_QUICK = ITER_CASES[:1]
 
 
-def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES):
+def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
+         iter_cases=ITER_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -317,10 +367,13 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES):
         run_admm(*case)
     for case in ladder_cases:
         run_ladder(*case)
+    for case in iter_cases:
+        run_iter(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
 
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
-    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK) if quick else main())
+    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK) if quick
+             else main())

@@ -2,16 +2,21 @@
 """Where one ``ScenarioServer`` request spends its time, on the card.
 
     python3 scripts/request_breakdown.py [--admm | --ladder |
-                                          --replicated [--cached]]
+                                          --replicated [--cached] |
+                                          --single [--cached] [--batched]]
                                          [--requests 20]
 
-Serves the smoke run's workload (quadrotor, constrained, N=512, float32):
-``solve`` requests (B=4096) or one of the 20-iteration conic ADMM requests
-at the smoke run's settings: ``--admm`` the split loop with a uniform rho
-(B=4096), ``--ladder`` the split loop on a four-rung rho ladder, scenario b
-starting on rung b mod 4 (B=4096), ``--replicated`` ``solve_fused`` on a
-batched problem (B=1024, per-instance rho; ``--cached`` with cached
-factors).  It prints as JSON lines:
+Serves the smoke run's workload (quadrotor, constrained, float32):
+``solve`` requests (N=512, B=4096) or one of the 20-iteration conic ADMM
+requests at the smoke run's settings: ``--admm`` the split loop with a
+uniform rho (N=512, B=4096), ``--ladder`` the split loop on a four-rung rho
+ladder, scenario b starting on rung b mod 4, ``--replicated``
+``solve_fused`` on a batched problem (N=512, B=1024, per-instance rho;
+``--cached`` with cached factors), ``--single`` the single-kernel
+iteration (K8): ``solve_admm``'s default path at N=64, B=4096
+(per-scenario rho), with ``--cached`` on cached factors at a uniform rho at
+N=512, B=4096, with ``--batched`` on a batched problem at N=64, B=1024.
+It prints as JSON lines:
 
   * the request's time by CUDA events, the host's time to enqueue it (host
     clock around the call, no synchronise) and the host's time with a
@@ -37,8 +42,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
-    ADMM_ITERS, ADMM_SETTINGS, B_REP, LADDER, LADDER_SETTINGS, REP_SETTINGS,
-    batched, zero_state,
+    ADMM_ITERS, ADMM_SETTINGS, B_REP, LADDER, LADDER_SETTINGS, N_SINGLE,
+    REP_SETTINGS, SINGLE_SETTINGS, batched, profiled, zero_state,
 )
 from pdp_lqr_tpu_torch import ADMMSettings, ScenarioServer, solve_fused  # noqa: E402
 from pdp_lqr_tpu_torch.models import quadrotor  # noqa: E402
@@ -56,10 +61,14 @@ def main():
                       help="20-iteration solve_admm requests, four-rung ladder")
     kind.add_argument("--replicated", action="store_true",
                       help="20-iteration solve_fused on a batched problem")
+    kind.add_argument("--single", action="store_true",
+                      help="20-iteration single-kernel (K8) requests")
     ap.add_argument("--cached", action="store_true",
-                    help="with --replicated: cached factors")
+                    help="with --replicated or --single: cached factors")
+    ap.add_argument("--batched", action="store_true",
+                    help="with --single: a batched problem (B=1024, N=64)")
     args = ap.parse_args()
-    iterative = args.admm or args.ladder or args.replicated
+    iterative = args.admm or args.ladder or args.replicated or args.single
     if not torch.cuda.is_available():
         print("request_breakdown: needs a CUDA device", file=sys.stderr)
         return 1
@@ -68,10 +77,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
 
-    model, _ = quadrotor(N=N, constrained=True, dtype=torch.float32, device=dev)
+    n = N_SINGLE if args.single and not (args.cached and not args.batched) \
+        else N
+    model, _ = quadrotor(N=n, constrained=True, dtype=torch.float32, device=dev)
     server = ScenarioServer(model, rho=RHO, sigma=SIGMA, device=dev)
     rng = np.random.default_rng(0)
-    c = torch.as_tensor((rng.normal(size=(B, N, model.nx)) * 0.01)
+    c = torch.as_tensor((rng.normal(size=(B, n, model.nx)) * 0.01)
                         .astype(np.float32)).to(dev)
     if iterative:
         x0 = torch.as_tensor((0.03 + 0.01 * rng.normal(size=(B, model.nx)))
@@ -89,8 +100,21 @@ def main():
     elif args.replicated:
         settings = ADMMSettings(**REP_SETTINGS, cached_factors=args.cached)
         bp = batched(model, B_REP, c[:B_REP])
-        request = lambda: solve_fused(bp, x0[:B_REP], (), settings)
+        request = lambda: solve_fused(bp, x0[:B_REP], (), settings,
+                                      single_kernel=False)
         entry = "solve_fused, batched" + (", cached" if args.cached else "")
+    elif args.single:
+        settings = ADMMSettings(**SINGLE_SETTINGS, cached_factors=args.cached,
+                                uniform_rho=args.cached and not args.batched)
+        if args.batched:
+            bp = batched(model, B_REP, c[:B_REP])
+            request = lambda: solve_fused(bp, x0[:B_REP], (), settings,
+                                          single_kernel=True)
+        else:
+            request = lambda: server.solve_admm(x0, (), settings, c=c,
+                                                split=False)
+        entry = ("solve_fused, batched" if args.batched else "solve_admm") \
+            + ", single kernel" + (", cached" if args.cached else "")
     else:
         entry = "solve"
         x0 = torch.as_tensor(rng.normal(size=(B, model.nx)).astype(np.float32)
@@ -115,39 +139,22 @@ def main():
         synced_ms.append((t2 - t0) * 1e3)
     med = lambda xs: float(np.median(xs))
     print(json.dumps({
-        "card": card, "N": N, "B": B_REP if args.replicated else B,
+        "card": card, "N": n,
+        "B": B_REP if args.replicated or args.batched else B,
         "requests": args.requests, "entry_point": entry,
         "request_ms_cuda_events": med(event_ms),
         "host_enqueue_ms": med(enqueue_ms),
         "host_with_synchronise_ms": med(synced_ms)}), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.requests):
-            request()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # Device-side rows only: an operator's row repeats its kernels' time.
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        device_us = ev.self_device_time_total
-        if device_us > 0:
-            rows.append({"name": ev.key[:90], "calls_per_request":
-                         ev.count / args.requests,
-                         "device_ms_per_request": device_us / 1e3 / args.requests})
-    rows.sort(key=lambda r: -r["device_ms_per_request"])
-    busy_ms = sum(r["device_ms_per_request"] for r in rows)
+    rows, busy_ms, window_ms = profiled(request, args.requests)
     per_request = sum(r["calls_per_request"] for r in rows)
     extra = {"device_kernels_per_iteration": per_request / ADMM_ITERS} \
         if iterative else {}
     print(json.dumps({
         "card": card, "profiled_requests": args.requests, **extra,
-        "window_ms_per_request": window_ms / args.requests,
+        "window_ms_per_request": window_ms,
         "device_busy_ms_per_request": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / (window_ms / args.requests),
+        "device_idle_share": 1.0 - busy_ms / window_ms,
         "device_kernels_per_request": per_request,
         "by_kernel": rows[:25]}), flush=True)
     return 0

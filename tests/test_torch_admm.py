@@ -389,19 +389,26 @@ def test_batched_ladder_is_a_value_error_as_in_jax(setup):
                  storage_dtype=torch.bfloat16)
 
 
+BF16 = dict(storage_dtype=torch.bfloat16)
+
+
+# storage_dtype runs on K8 only: the split pair, the ladder's pair and
+# solve_lanes (K1, K4-K7) read the compute type, and K8 takes bfloat16.
 @pytest.mark.parametrize("settings,batched,kwargs,match", [
-    (FIXED, True, dict(single_kernel=True), "K8"),
-    (FIXED, False, dict(single_kernel=True), "K8"),
-    (dict(max_iter=4), False, {}, "K8"),            # "auto" without factors
-    (None, True, dict(storage_dtype=torch.bfloat16), "storage_dtype"),
-    (FIXED, False, dict(storage_dtype=torch.bfloat16), "storage_dtype"),
-    # "auto" on a batched problem: storage_dtype asks for the single kernel.
-    (dict(max_iter=4), True, dict(storage_dtype=torch.bfloat16), "K8"),
+    (FIXED, False, dict(single_kernel=False, **BF16), "split and ladder"),
+    (dict(rho_ladder=(0.1, 1.0)), False, BF16, "split and ladder"),
+    (dict(rho_ladder=(0.1,)), False, dict(single_kernel=False, **BF16),
+     "split and ladder"),
+    (None, True, BF16, "storage_dtype"),     # the inner solve's narrow streams
+    (FIXED, False, dict(single_kernel=True, storage_dtype=torch.float32),
+     "bfloat16 only"),
+    (dict(max_iter=4), True, dict(storage_dtype=torch.float32),
+     "bfloat16 only"),
 ])
 def test_solve_fused_names_what_is_not_ported(setup, settings, batched, kwargs,
                                               match):
     with pytest.raises(NotImplementedError, match=match):
-        if settings is None:                # the inner solve's narrow streams
+        if settings is None:
             tp = setup["torch"]
             it = plt_.init_iterates(tp)
             batch = lambda x: x[None].expand((B,) + x.shape)
@@ -415,11 +422,21 @@ def test_solve_fused_names_what_is_not_ported(setup, settings, batched, kwargs,
             _refused(setup, settings, batched=batched, **kwargs)
 
 
-def test_server_split_false_waits_for_the_single_kernel(setup):
+def test_server_split_false_runs_the_single_kernel(setup, monkeypatch):
+    calls = []
+    k8 = ca.admm_iter_lanes
+    monkeypatch.setattr(ca, "admm_iter_lanes",
+                        lambda *a, **kw: (calls.append(1), k8(*a, **kw))[1])
     server = plt_.ScenarioServer(setup["torch"], device="cpu")
-    with pytest.raises(NotImplementedError, match="K8"):
-        server.solve_admm(setup["x0"], CONES, admm.ADMMSettings(**FIXED),
-                          split=False)
+    got = server.solve_admm(setup["x0"], CONES, admm.ADMMSettings(**FIXED),
+                            soc_shift=setup["shift"], split=False)
+    assert len(calls) == FIXED["max_iter"]
+    # Cached factors at the uniform rho: (K, M, P, L, rho_f), one copy.
+    assert got[1].factors[0].shape == (N, NU, NX, 1)
+    ref = plt_.solve_fused(setup["torch"], setup["x0"], CONES,
+                           admm.ADMMSettings(**FIXED), soc_shift=setup["shift"],
+                           single_kernel=True)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1].y, ref[1].y)
 
 
 def test_diag_cost_rejects_an_off_diagonal_cost(setup):

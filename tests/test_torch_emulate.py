@@ -3,7 +3,7 @@
 ``scripts/emulate_kernels.py`` rewrites ``riccati_kernels.cu`` and
 ``admm_kernels.cu`` into host C++ (one OS thread per CUDA thread) and holds
 every kernel and mode against its plain PyTorch version.  Running one case
-of each source here keeps
+of each kernel here (K8 in its eight forms) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
@@ -22,4 +22,5 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
     spec = importlib.util.spec_from_file_location("emulate_kernels", SCRIPT)
     emu = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(emu)
-    assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK) == 0
+    assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK,
+                    emu.ITER_QUICK) == 0

@@ -362,9 +362,10 @@ def test_scenario_server_contract():
     ws = server.solve(np.zeros((3, 2)))
     assert ws.shape == (3, 5, 3) and ws.device.type == "cpu"
     # Default settings give no batch-shared factors: that is the
-    # single-kernel iteration, which is not ported yet.
-    with pytest.raises(NotImplementedError, match="K8"):
-        server.solve_admm(np.zeros((3, 2)))
+    # single-kernel iteration (K8), per-scenario rho, no factors kept.
+    ws, state, info = server.solve_admm(np.zeros((3, 2)))
+    assert ws.shape == (3, 5, 3) and state.factors is None
+    assert info.iterations.tolist() == [250, 250, 250]
     ws, state, info = server.solve_admm(
         np.zeros((3, 2)), settings=plt_.ADMMSettings(
             max_iter=5, cached_factors=True, uniform_rho=True))

@@ -12,7 +12,7 @@ convergence at a fixed rho and a warm restart from its state (one trace
 for both).  The
 port runs on ``device="cpu"`` through its kernels' plain PyTorch
 versions, with and without ``cached_factors`` against each (the two are
-the same function).  Limits: 1e-10 for one kernel launch, 1e-9 absolute
+the same function), ``single_kernel=False`` as on the JAX side.  Limits: 1e-10 for one kernel launch, 1e-9 absolute
 for a whole solve, equality for what is counted.
 """
 
@@ -83,11 +83,12 @@ def _jax_solve(setup, settings, state=None, weights=False):
         if weights else None)
 
 
-def _port(setup, settings, state=None, weights=False, **kw):
+def _port(setup, settings, state=None, weights=False, single_kernel=False):
     return plt_.solve_fused(
         setup["torch"], setup["x0"], CONES, admm.ADMMSettings(**settings),
         state=state, soc_shift=setup["shift"],
-        residual_weights=setup["weights"] if weights else None, **kw)
+        residual_weights=setup["weights"] if weights else None,
+        single_kernel=single_kernel)
 
 
 @pytest.fixture(scope="module")
@@ -182,8 +183,10 @@ def test_early_exit_then_warm_restart_matches_jax(setup, jax_early):
 
 
 def test_auto_resolves_to_the_replicated_iteration(setup, jax_solves):
-    _assert_same(_port(setup, FIXED, single_kernel="auto"),
-                 jax_solves["fixed"])
+    """With residual_weights (only the replicated loop takes them); without,
+    "auto" picks K8 on a batched problem (tests/test_torch_single_kernel.py)."""
+    _assert_same(_port(setup, ADAPT, weights=True, single_kernel="auto"),
+                 jax_solves["adapt"])
 
 
 # --------------------------------------------------- solve_lanes and K7

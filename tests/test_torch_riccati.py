@@ -368,10 +368,27 @@ def test_lanes_layout_round_trip():
 
 
 def test_cpu_path_launches_no_kernel(port_prep):
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca
     cr.reset_launch_counts()
+    ca.reset_launch_counts()
     cr.solve_shared_prepared(port_prep)
+    # K8 on CPU tensors (one model, nx=2, nu=1, one row): its plain version.
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.as_tensor(rng.normal(size=s) * 0.3)
+    one = lambda *s: torch.ones(s, dtype=torch.float64)
+    eye = lambda n, *s: torch.eye(n, dtype=torch.float64).reshape(
+        (n, n) + (1,) * len(s)).expand((n, n) + s).contiguous()
+    ca.admm_iter_lanes(
+        eye(2, 4, 1).permute(2, 0, 1, 3).contiguous(), t(4, 2, 1, 1),
+        t(4, 2, 5), eye(3, 4, 1).permute(2, 0, 1, 3).contiguous(), t(4, 3, 1),
+        t(4, 1, 3, 1), -one(4, 1, 1), one(4, 1, 1), one(4, 1, 1), None,
+        t(4, 3, 5), t(4, 1, 5), t(4, 1, 5), one(1, 5), eye(2, 5), t(2, 5),
+        t(2, 5), nu=1, cones=(), alpha=1.6, sigma=1e-6, shared=True)
     assert cr.LAUNCHES == {"backward_lanes": 0, "backward_vectors_lanes": 0,
                            "forward_lanes": 0, "forward_rollout_lanes": 0}
+    assert ca.LAUNCHES == {"admm_bwd_vec_prefold_lanes": 0,
+                           "admm_bwd_vec_lanes": 0,
+                           "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0}
 
 
 def test_kernel_defines_and_block_sizes():
