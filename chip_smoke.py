@@ -22,8 +22,15 @@ path at N=64 (per-scenario rho), cached factors at N=512 (float32 and
 bfloat16 stage data) checked at N=64 in float64 against the split pair, a
 batched problem of B=1024 at N=64 (uncached, cached, cached with bfloat16)
 checked against the replicated loop, and the rocket soft-landing
-dispersion (B=512, N=48, two cones, ``single_kernel="auto"``).  It times
-the paths and their kernels with CUDA events.
+dispersion (B=512, N=48, two cones, ``single_kernel="auto"``); the
+segment-parallel PDP solve (``parallel.pdp_sharded_fused.solve``, K9 + K3
+in S segments, B=1024, S=8 and a sweep of S, checked against
+``solve_lanes`` and the f64 sequential solver), the paper's long-horizon
+case (N=1024, B=128, S=1 and 32), the conic ADMM loop on it
+(``parallel.admm_sharded.solve``, uncached and cached, thrust cone with a
+shift, checked at N=64 in float64 against the replicated loop) and
+``solve_packed`` (K11 + K12, against ``solve_lanes``).  It times the paths
+and their kernels with CUDA events.
 Each phase prints one JSON line; any failed check raises, so the exit
 code is non-zero and no result line appears.  It needs one CUDA device
 and imports nothing of JAX.
@@ -96,6 +103,16 @@ CROSS_SETTINGS = dict(max_iter=30, rho_update_interval=10, rho=1e-3,
 N_ROCKET, B_ROCKET = 48, 512
 ROCKET_SETTINGS = dict(max_iter=150, rho=1.0, rho_update_interval=10,
                        eps_abs=1e-4, eps_rel=1e-3)
+# The segment-parallel PDP path: the main model written out once a
+# scenario (B=1024), its horizon in S=8 segments of 64 stages; the solve
+# timed once at each of PDP_SEGMENTS too.  The paper's own case: a few
+# long-horizon instances (N=1024, B=128) in 1 and in 32 segments.  The
+# kernels phase and the float64 cross-check of the ADMM loop cut N=64 into
+# S_SMALL segments.
+B_PDP, S_PDP = 1024, 8
+PDP_SEGMENTS = (1, 4, 16, 32)
+N_LAT, B_LAT, S_LAT = 1024, 128, 32
+S_SMALL = 4
 # K8's modes held against its plain version: name -> (nc, cones, shift).
 K8_MODES = {"box": (NC, (), False), "cone+shift": (NC_CONE, THRUST_CONE, True)}
 # Kernel B's modes held against the plain version: (name, nc, cones,
@@ -160,6 +177,19 @@ ROCKET_RTOL = 2e-4
 # K8 against the split pair and against the replicated loop, float64, both
 # on the card: the same function.
 SINGLE_CROSS_ATOL = 1e-9
+# The PDP solve (float32 kernels) against solve_lanes on the same data
+# (K1 + K7, float32 kernels: the same function by another algorithm), all
+# scenarios, absolute, at every S and in the long-horizon case: 10x the
+# 7.39e-6 measured on an H100 (see PERF.md); against the f64 sequential
+# solver as MAIN_PATH_ATOL (4.4e-6 measured).
+PDP_VS_LANES_ATOL = 7.4e-5
+# The PDP ADMM loop against the replicated loop (N=64, B=256, float64, both
+# on the card's kernels, rho adapting every 10th iteration): the same
+# function; 10x the 2.8e-13 measured on an H100.
+PDP_ADMM_CROSS_ATOL = 3e-12
+# solve_packed against solve_lanes: the same kernels' arithmetic through
+# other strides (float32 at full size, float64 at N=64); measured equal.
+PACKED_ATOL = {torch.float32: 1e-12, torch.float64: 1e-12}
 
 
 def require(ok, *what):
@@ -208,6 +238,10 @@ K5_RUNG_OUT = ("wzy", "xN", "res")
 K6_OUT = ("dv",)
 K1_EXPORT = ("K", "d", "P", "L")
 K8_OUT = ("w", "z", "y", "xN", "res")
+K9_OUT = ("K", "d", "M", "v", "Gp", "P0", "p0", "F0", "C0", "f0")
+K9_ALL = ("K", "d", "M", "v", "Gp", "P", "L", "F", "P0", "p0", "F0", "C0",
+          "f0")
+K10_OUT = ("d", "v", "p0", "f0")
 
 
 def rel_err(names, outs, refs):
@@ -252,6 +286,27 @@ def random_stage_data(rng, N, nx, nu, nc, Bt, dtype, device):
     return tuple(lanes(x) for x in (A, Bm, c, H, h, D, rho, rg, PN, pN))
 
 
+def random_carries(rng, S, nx, Bt, dtype, device):
+    """Random per-segment carries (P, p, F, C, f) of K9, (S, nx[, nx], Bt):
+    P and C symmetric positive definite, F near the identity."""
+    spd = lambda: (lambda G: G @ np.swapaxes(G, -1, -2) + np.eye(nx))(
+        rng.normal(size=(Bt, S, nx, nx)) * 0.3)
+    F = np.eye(nx) + rng.normal(size=(Bt, S, nx, nx)) * 0.2
+    lanes = lambda x: torch.as_tensor(np.moveaxis(x, 0, -1)).to(
+        device=device, dtype=dtype).contiguous()
+    return tuple(lanes(x) for x in (spd(), rng.normal(size=(Bt, S, nx)) * 0.3,
+                                    F, spd() * 0.5,
+                                    rng.normal(size=(Bt, S, nx)) * 0.3))
+
+
+def pack_streams(A, B, c, H, h, D, rho, rg):
+    """K11/K12's row-packed streams Sd = (A | B | c), Sc = (H | h | D | rho
+    | rho g) of per-instance stage tensors."""
+    flat = lambda x: x.flatten(1, 2)
+    return (torch.cat([flat(A), flat(B), c], dim=1).contiguous(),
+            torch.cat([flat(H), h, flat(D), rho, rg], dim=1).contiguous())
+
+
 def registers_by_kernel(logs):
     """``-Xptxas -v`` output -> {kernel: {registers, spill bytes}}."""
     found = {}
@@ -263,6 +318,7 @@ def registers_by_kernel(logs):
         scalar = "f64" if log[0]["SCALAR"] == "double" else "f32"
         for name, st, ld, regs in pat.findall(log[1]):
             m = re.search(r"\d+(backward_vectors_shared_kernel|"
+                          r"backward_pdp_vectors_kernel|"
                           r"forward_shared_kernel|backward_vectors_kernel|"
                           r"forward_rollout_kernel|backward_kernel|"
                           r"forward_kernel|bwd_vec_prefold_kernel|"
@@ -301,6 +357,21 @@ def k1_flops(N, nx, nu, nc, Bt):
 
 def k2_flops(N, nx, nu, Bt):
     return N * Bt * (2 * nx * nx + 6 * nx * nu + 2 * nu * nu + nx)
+
+
+def k9_flops(N, nx, nu, nc, Bt):
+    """K1 with closed-loop maps, plus F+ A, F+ B, F+ c, the nx extra
+    right-hand sides, F = F+ A + (F+ B) K, C's triangle and f."""
+    return k1_flops(N, nx, nu, nc, Bt) + N * Bt * (
+        2 * nx ** 3 + 2 * nx * nx * nu + 2 * nx * nx        # FA FB Fc
+        + 2 * nu * nu * nx                                  # Gp columns
+        + 2 * nx * nx * nu + nx * (nx + 1) * nu             # F, C
+        + 2 * nx * nu + 2 * nx)                             # f
+
+
+def k10_flops(N, nx, nu, Bt):
+    """K2's recursion on the P stream, plus f = F v + f."""
+    return k2_flops(N, nx, nu, Bt) + N * Bt * (2 * nx * nx + 2 * nx * nx)
 
 
 def k3_flops(N, nx, nu, Bt):
@@ -621,7 +692,7 @@ def main():
     t0 = time.time()
     jobs = []
     for dt in (torch.float32, torch.float64):
-        for nc in (NC, 0, None):
+        for nc in (NC, NC_CONE, 0, None):
             jobs.append((cr.SOURCE, cr.kernel_defines(dt, NX, NU, nc)))
         jobs.append((ca.SOURCE, ca.kernel_defines(dt, NX, NU)))
         for _, nc, cones, diag, shift in K5_MODES:
@@ -809,10 +880,51 @@ def main():
                                     ca.admm_iter_lanes_reference(*a, **kw))
                             k8_cases += 1
 
+        # K9 (both forms) in S_SMALL segments from random carries, K10 on
+        # its factors, K3 in the same segments, on a full and a ragged
+        # batch; K11 and K12 on the packed streams of the same stage data.
+        pdp_data = random_stage_data(rng, N_SMALL, NX, NU, NC, B_SMALL, dt, dev)
+        for Bt in (B_SMALL, B_RAGGED):
+            stages = tuple(x[..., :Bt].contiguous() for x in pdp_data[:8])
+            k9_in = stages + random_carries(rng, S_SMALL, NX, Bt, dt, dev)
+            for export in (False, True):
+                compare(f"backward_pdp_lanes[S={S_SMALL},B={Bt}"
+                        + (",export]" if export else "]"),
+                        K9_ALL if export else K9_OUT,
+                        cr.backward_pdp_lanes(*k9_in, export_factors=export,
+                                              segments=S_SMALL),
+                        cr.backward_pdp_lanes_reference(
+                            *k9_in, export_factors=export, segments=S_SMALL))
+            K9f, d9, M9, v9, _, P9, L9, F9 = cr.backward_pdp_lanes_reference(
+                *k9_in, export_factors=True, segments=S_SMALL)[:8]
+            k10_in = (stages[0], stages[1], stages[2], vec(N_SMALL, NX + NU, Bt),
+                      P9, K9f, L9, F9, vec(S_SMALL, NX, Bt))
+            compare(f"backward_pdp_vectors_lanes[S={S_SMALL},B={Bt}]", K10_OUT,
+                    cr.backward_pdp_vectors_lanes(*k10_in, segments=S_SMALL),
+                    cr.backward_pdp_vectors_lanes_reference(
+                        *k10_in, segments=S_SMALL))
+            k3s_in = (M9, v9, K9f, d9, vec(S_SMALL, NX, Bt))
+            compare(f"forward_lanes[S={S_SMALL},B={Bt}]", K3_OUT,
+                    cr.forward_lanes(*k3s_in, segments=S_SMALL),
+                    cr.forward_lanes_reference(*k3s_in, segments=S_SMALL))
+            Sd, Sc = pack_streams(*stages)
+            PN_p, pN_p = (x[..., :Bt].contiguous() for x in pdp_data[8:])
+            compare(f"backward_packed[B={Bt}]", ("G",),
+                    [cr.backward_packed(Sd, Sc, PN_p, pN_p, NU, NC)],
+                    [cr.backward_packed_reference(Sd, Sc, PN_p, pN_p, NU, NC)])
+            G_p = cr.backward_packed_reference(Sd, Sc, PN_p, pN_p, NU, NC)
+            x0_p = vec(NX, Bt)
+            compare(f"forward_packed[B={Bt}]", K3_OUT,
+                    cr.forward_packed(Sd, G_p, x0_p, NU),
+                    cr.forward_packed_reference(Sd, G_p, x0_p, NU))
+
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
         require(launched == {"backward_lanes": 5, "backward_vectors_lanes": 4,
-                             "forward_lanes": 3, "forward_rollout_lanes": 2},
+                             "forward_lanes": 5, "forward_rollout_lanes": 2,
+                             "backward_pdp_lanes": 4,
+                             "backward_pdp_vectors_lanes": 2,
+                             "backward_packed": 2, "forward_packed": 2},
                 launched)
         launched = {k: ca.LAUNCHES[k] - before_admm[k] for k in ca.LAUNCHES}
         require(launched == {"admm_bwd_vec_prefold_lanes": 2,
@@ -841,10 +953,10 @@ def main():
         ws = server.solve(x0_t, c_t)
     torch.cuda.synchronize()
     launches = dict(cr.LAUNCHES)
-    require(launches == {"backward_lanes": REQUESTS,
+    require(launches == {**{k: 0 for k in cr.LAUNCHES},
+                         "backward_lanes": REQUESTS,
                          "backward_vectors_lanes": REQUESTS,
-                         "forward_lanes": REQUESTS, "forward_rollout_lanes": 0},
-            launches)
+                         "forward_lanes": REQUESTS}, launches)
     require(ws.shape == (B_MAIN, N_MAIN + 1, NX + NU), ws.shape)
     require(ws.dtype == torch.float32 and ws.device.type == "cuda")
     require(bool(torch.isfinite(ws).all()), "main path: non-finite output")
@@ -1371,7 +1483,216 @@ def main():
          touchdown_m_max=float(touchdown.max()),
          vertical_velocity_worst=float(ws_rk[:, -1, 8].min()))
 
-    # ---------------------------------------------------------- 17: timing
+    # ------------------------------- 17: the segment-parallel PDP solve
+    # parallel.pdp_sharded_fused.solve at full width: the main path's model
+    # and data written out once a scenario (B=1024), rho 0.01 on the
+    # constraint rows, the horizon in S=8 segments (K9 and K3 in segments
+    # once a request, the condensed system in between).  Against
+    # solve_lanes on the same data (the lanes phase's first 1024
+    # scenarios) and against the f64 sequential solver (main path's).
+    from pdp_lqr_tpu_torch.parallel import admm_sharded, make_mesh
+    from pdp_lqr_tpu_torch.parallel import pdp_sharded_fused as psf
+    PDP_KERNELS = ["backward_pdp_lanes", "backward_pdp_vectors_lanes",
+                   "forward_lanes"]
+    bp_pdp = batched(model, B_PDP, c_t[:B_PDP])
+    it_pdp = plt_.ADMMIterates(**{f.name: getattr(it32, f.name)[None].expand(
+        (B_PDP,) + getattr(it32, f.name).shape) for f in dataclasses.fields(it32)})
+    x0_pdp = x0_t[:B_PDP]
+    pdp_request = lambda S=S_PDP: psf.solve(make_mesh(time=S, device=dev),
+                                            bp_pdp, it_pdp, x0_pdp, SIGMA)
+    pdp_request()
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls(cr, PDP_KERNELS) as pdp_args:
+        ws_pdp = pdp_request()
+    torch.cuda.synchronize()
+    pdp_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(pdp_launches == {**zero_counts(), "backward_pdp_lanes": 1,
+                             "forward_lanes": 1}, pdp_launches)
+    require(ws_pdp.shape == (B_PDP, N_MAIN + 1, NX + NU), ws_pdp.shape)
+    require(ws_pdp.dtype == torch.float32 and ws_pdp.device.type == "cuda")
+    require(bool(torch.isfinite(ws_pdp).all()), "pdp_solve: non-finite output")
+    pdp_vs_lanes = float((ws_pdp - ws_lanes[:B_PDP]).abs().max())
+    pdp_vs_seq = float((ws_pdp[:n_ref].double() - ws_ref).abs().max())
+    require(pdp_vs_lanes <= PDP_VS_LANES_ATOL, pdp_vs_lanes)
+    require(pdp_vs_seq <= MAIN_PATH_ATOL, pdp_vs_seq)
+    pdp_by_S = {}
+    for S in PDP_SEGMENTS:
+        reset_counts()
+        ws_S = pdp_request(S)
+        torch.cuda.synchronize()
+        require(cr.LAUNCHES["backward_pdp_lanes"] == 1, S, dict(cr.LAUNCHES))
+        pdp_by_S[S] = {
+            "max_abs_err_vs_lanes": float((ws_S - ws_lanes[:B_PDP]).abs().max()),
+            "max_abs_err_vs_sequential_f64":
+                float((ws_S[:n_ref].double() - ws_ref).abs().max())}
+        require(pdp_by_S[S]["max_abs_err_vs_lanes"] <= PDP_VS_LANES_ATOL, S,
+                pdp_by_S[S])
+        require(pdp_by_S[S]["max_abs_err_vs_sequential_f64"] <= MAIN_PATH_ATOL,
+                S, pdp_by_S[S])
+    emit("pdp_solve", card=card, model="quadrotor constrained, batched",
+         N=N_MAIN, B=B_PDP, S=S_PDP, dtype="float32", launches=pdp_launches,
+         max_abs_err_vs_solve_lanes=pdp_vs_lanes,
+         max_abs_err_vs_sequential_f64=pdp_vs_seq, by_segments=pdp_by_S,
+         atol={"vs_lanes": PDP_VS_LANES_ATOL, "vs_sequential": MAIN_PATH_ATOL})
+
+    # ----------------------------------- 18: the paper's long-horizon case
+    # A few long-horizon instances (N=1024, B=128): one segment against 32,
+    # and solve_lanes on the same data.
+    model_lat, _ = quadrotor(N=N_LAT, constrained=True, dtype=torch.float32,
+                             device=dev)
+    rng = np.random.default_rng(SEED + 2)
+    c_lat = torch.as_tensor(rng.normal(size=(B_LAT, N_LAT, NX)) * 0.01).to(
+        device=dev, dtype=torch.float32)
+    x0_lat = torch.as_tensor(rng.normal(size=(B_LAT, NX)) * 0.1).to(
+        device=dev, dtype=torch.float32)
+    bp_lat = batched(model_lat, B_LAT, c_lat)
+    it_l = plt_.init_iterates(model_lat, rho=RHO)
+    it_lat = plt_.ADMMIterates(**{f.name: getattr(it_l, f.name)[None].expand(
+        (B_LAT,) + getattr(it_l, f.name).shape) for f in dataclasses.fields(it_l)})
+    lat_lanes = lambda: cr.solve_lanes(bp_lat, it_lat, x0_lat, SIGMA)
+    lat_request = {S: (lambda S=S: psf.solve(make_mesh(time=S, device=dev),
+                                             bp_lat, it_lat, x0_lat, SIGMA))
+                   for S in (1, S_LAT)}
+    ws_lat_lanes = lat_lanes()
+    lat = {}
+    for S, request in lat_request.items():
+        request()
+        torch.cuda.synchronize()
+        reset_counts()
+        ws_S = request()
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        require(counts == {**zero_counts(), "backward_pdp_lanes": 1,
+                           "forward_lanes": 1}, S, counts)
+        err = float((ws_S - ws_lat_lanes).abs().max())
+        require(bool(torch.isfinite(ws_S).all()) and err <= PDP_VS_LANES_ATOL,
+                S, err)
+        lat[S] = {"launches": counts, "max_abs_err_vs_solve_lanes": err}
+    emit("pdp_latency", card=card, model="quadrotor constrained, batched",
+         N=N_LAT, B=B_LAT, dtype="float32", by_segments=lat,
+         atol=PDP_VS_LANES_ATOL)
+
+    # ------------------------------ 19: the conic ADMM loop on the PDP solve
+    # parallel.admm_sharded.solve at full width: the thrust-cone quadrotor
+    # with a shift (B=1024, N=512, S=8), the replicated loop's settings (20
+    # iterations, rho 0.1, per-instance adaptation every 25th: none inside
+    # 20), uncached (K9 + K3 every iteration) and cached (K9 once, K10 +
+    # K3 every iteration); solve_fused's "auto" (K8) on the same data.
+    # Then the same loop against the replicated loop in float64 on the
+    # card (N=64, B=256, S=4, rho adapting every 10th iteration).
+    model_c, cones_c = quadrotor(N=N_MAIN, constrained=True, thrust_cone=True,
+                                 dtype=torch.float32, device=dev)
+    shift_c = np.zeros((N_MAIN + 1, NC_CONE), np.float32)
+    shift_c[:, NC] = THRUST_SHIFT
+    rng = np.random.default_rng(SEED + 3)
+    c_pa = torch.as_tensor(rng.normal(size=(B_PDP, N_MAIN, NX)) * 0.01).to(
+        device=dev, dtype=torch.float32)
+    x0_pa = torch.as_tensor(rng.normal(size=(B_PDP, NX)) * 0.05).to(
+        device=dev, dtype=torch.float32)
+    bp_pa = batched(model_c, B_PDP, c_pa)
+    mesh_pa = make_mesh(time=S_PDP, device=dev)
+    pa = {}
+    for cached in (False, True):
+        st = admm.ADMMSettings(**REP_SETTINGS, cached_factors=cached)
+        request = (lambda st=st: admm_sharded.solve(
+            mesh_pa, bp_pa, x0_pa, cones_c, st, soc_shift=shift_c))
+        request()
+        torch.cuda.synchronize()
+        reset_counts()
+        with recorded_calls(cr, PDP_KERNELS) as rec:
+            out = request()
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        want = ({"backward_pdp_lanes": 1,
+                 "backward_pdp_vectors_lanes": ADMM_ITERS} if cached
+                else {"backward_pdp_lanes": ADMM_ITERS})
+        require(counts == {**zero_counts(), **want,
+                           "forward_lanes": ADMM_ITERS}, cached, counts)
+        require(out[0].shape == (B_PDP, N_MAIN + 1, NX + NU))
+        for x in (out[0], out[1].z, out[1].y, out[1].rho, out[2].r_prim):
+            require(x.dtype == torch.float32 and x.device.type == "cuda")
+            require(bool(torch.isfinite(x).all()), "pdp_admm: not finite")
+        require(bool((out[2].iterations == ADMM_ITERS).all()))
+        pa[cached] = {"request": request, "args": dict(rec), "out": out,
+                      "launches": counts, "host_reads": dict(admm.HOST_READS)}
+    auto_pa = lambda: plt_.solve_fused(bp_pa, x0_pa, cones_c,
+                                       admm.ADMMSettings(**REP_SETTINGS),
+                                       soc_shift=shift_c)
+    reset_counts()
+    out_auto = auto_pa()
+    torch.cuda.synchronize()
+    require(ca.LAUNCHES["admm_iter_lanes"] == ADMM_ITERS, dict(ca.LAUNCHES))
+    # float32 at N=512: the cached loop and K8's iteration against the
+    # uncached loop (the same function three ways), reported.
+    ref_pa = admm_outputs(*pa[False]["out"])
+    pa_vs = {"cached": admm_errors(admm_outputs(*pa[True]["out"]), ref_pa),
+             "single_kernel_auto": admm_errors(admm_outputs(*out_auto), ref_pa)}
+    # float64 cross-check against the replicated loop on the card.
+    m64c_s, _ = quadrotor(N=N_SMALL, constrained=True, thrust_cone=True,
+                          dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    c_x = torch.as_tensor(rng.normal(size=(B_SMALL, N_SMALL, NX)) * 0.01).to(dev)
+    x0_x = torch.as_tensor(rng.normal(size=(B_SMALL, NX)) * 0.05).to(dev)
+    bp_x = batched(m64c_s, B_SMALL, c_x)
+    shift_x = shift_s.astype(np.float64)
+    cross_pa = {}
+    for cached in (False, True):
+        st = admm.ADMMSettings(**CROSS_SETTINGS, cached_factors=cached)
+        reset_counts()
+        a_pdp = admm_sharded.solve(make_mesh(time=S_SMALL, device=dev), bp_x,
+                                   x0_x, cones_c, st, soc_shift=shift_x)
+        a_rep = plt_.solve_fused(bp_x, x0_x, cones_c, st, soc_shift=shift_x,
+                                 single_kernel=False)
+        torch.cuda.synchronize()
+        counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+        require(counts["forward_lanes"] == 2 * CROSS_SETTINGS["max_iter"], counts)
+        errs = admm_errors(admm_outputs(*a_pdp), admm_outputs(*a_rep))
+        require(max(errs.values()) <= PDP_ADMM_CROSS_ATOL, cached, errs)
+        cross_pa["cached" if cached else "uncached"] = {
+            "launches": counts, "max_abs_err": errs,
+            "rho_moved": int((a_pdp[1].rho != CROSS_SETTINGS["rho"]).sum())}
+    emit("pdp_admm", card=card, model="quadrotor constrained + thrust cone, "
+         "batched", N=N_MAIN, B=B_PDP, S=S_PDP, dtype="float32",
+         settings=REP_SETTINGS, shift=THRUST_SHIFT,
+         **{("cached" if c else "uncached"): {
+             k: v for k, v in r.items() if k in ("launches", "host_reads")}
+            for c, r in pa.items()},
+         max_abs_err_vs_uncached_f32=pa_vs,
+         r_prim_max=float(pa[False]["out"][2].r_prim.max()),
+         vs_replicated_f64={"N": N_SMALL, "B": B_SMALL, "S": S_SMALL,
+                            "settings": CROSS_SETTINGS,
+                            "atol": PDP_ADMM_CROSS_ATOL, **cross_pa})
+
+    # --------------------------------------------------- 20: solve_packed
+    # The packed-stream pair (K11 + K12) on solve_lanes' workload (B=4096,
+    # N=512, float32) against solve_lanes; and in float64 at N=64, B=256.
+    packed_request = lambda: cr.solve_packed(bl, it_b, x0_t, SIGMA)
+    packed_request()
+    torch.cuda.synchronize()
+    reset_counts()
+    with recorded_calls(cr, ["backward_packed", "forward_packed"]) as pk_args:
+        ws_pk = packed_request()
+    torch.cuda.synchronize()
+    packed_launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(packed_launches == {**zero_counts(), "backward_packed": 1,
+                                "forward_packed": 1}, packed_launches)
+    packed_err = {"float32": float((ws_pk - ws_lanes).abs().max())}
+    bp64 = batched(m64, B_SMALL, c_v)                 # N=64, float64
+    it_s = plt_.init_iterates(m64, rho=RHO)
+    it64b = plt_.ADMMIterates(**{f.name: getattr(it_s, f.name)[None].expand(
+        (B_SMALL,) + getattr(it_s, f.name).shape) for f in dataclasses.fields(it_s)})
+    packed_err["float64"] = float((cr.solve_packed(bp64, it64b, x0_v, SIGMA)
+                                   - cr.solve_lanes(bp64, it64b, x0_v, SIGMA))
+                                  .abs().max())
+    for dt_name, dt_ in (("float32", torch.float32), ("float64", torch.float64)):
+        require(packed_err[dt_name] <= PACKED_ATOL[dt_], dt_name, packed_err)
+    emit("packed", card=card, N=N_MAIN, B=B_MAIN, dtype="float32",
+         launches=packed_launches, max_abs_err_vs_solve_lanes=packed_err,
+         atol={k: PACKED_ATOL[v] for k, v in (("float32", torch.float32),
+                                              ("float64", torch.float64))})
+
+    # ---------------------------------------------------------- 21: timing
     # Peak device memory of a path: the largest allocation while its
     # requests are timed, the tensors that earlier phases still hold included.
     torch.cuda.reset_peak_memory_stats()
@@ -1498,6 +1819,50 @@ def main():
             lambda: cr.forward_lanes_reference(*r3_args), K3_OUT,
             k3_flops(N_MAIN, NX, NU, B_REP), "pallas_riccati.py:1201"),
     }
+    # The PDP paths' kernels and the packed pair, on the tensors of their
+    # counted runs (K9 of the S=8 solve and of the cached loop's factor
+    # build, K10 of the cached loop, K3 in segments of the solve).
+    K9, K10 = "backward_pdp_lanes", "backward_pdp_vectors_lanes"
+    k9_args, k9_kw = pdp_args[K9]
+    k3s_args, k3s_kw = pdp_args["forward_lanes"]
+    k9e_args, k9e_kw = pa[True]["args"][K9]
+    k10_args, k10_kw = pa[True]["args"][K10]
+    k11_args, _ = pk_args["backward_packed"]
+    k12_args, _ = pk_args["forward_packed"]
+    spec.update({
+        K9: (K9, ("pdp_solve", "pdp_admm"),
+             lambda: cr.backward_pdp_lanes(*k9_args, **k9_kw),
+             lambda: cr.backward_pdp_lanes_reference(*k9_args, **k9_kw),
+             K9_OUT, k9_flops(N_MAIN, NX, NU, NC, B_PDP),
+             "pallas_riccati.py:481"),
+        K9 + "[export]": (
+            K9, ("pdp_admm_cached",),
+            lambda: cr.backward_pdp_lanes(*k9e_args, **k9e_kw),
+            lambda: cr.backward_pdp_lanes_reference(*k9e_args, **k9e_kw),
+            K9_ALL, k9_flops(N_MAIN, NX, NU, NC_CONE, B_PDP),
+            "pallas_riccati.py:481"),
+        K10: (K10, ("pdp_admm_cached",),
+              lambda: cr.backward_pdp_vectors_lanes(*k10_args, **k10_kw),
+              lambda: cr.backward_pdp_vectors_lanes_reference(*k10_args,
+                                                              **k10_kw),
+              K10_OUT, k10_flops(N_MAIN, NX, NU, B_PDP),
+              "pallas_riccati.py:644"),
+        "forward_lanes[segments]": (
+            "forward_lanes", ("pdp_solve", "pdp_admm", "pdp_admm_cached"),
+            lambda: cr.forward_lanes(*k3s_args, **k3s_kw),
+            lambda: cr.forward_lanes_reference(*k3s_args, **k3s_kw), K3_OUT,
+            k3_flops(N_MAIN, NX, NU, B_PDP), "pallas_riccati.py:1201"),
+        "backward_packed": (
+            "backward_packed", ("packed_solve",),
+            lambda: [cr.backward_packed(*k11_args)],
+            lambda: [cr.backward_packed_reference(*k11_args)], ("G",),
+            k1_flops(N_MAIN, NX, NU, NC, B_MAIN), "pallas_riccati.py:1485"),
+        "forward_packed": (
+            "forward_packed", ("packed_solve",),
+            lambda: cr.forward_packed(*k12_args),
+            lambda: cr.forward_packed_reference(*k12_args), K3_OUT,
+            k7_flops(N_MAIN, NX, NU, B_MAIN), "pallas_riccati.py:1543"),
+    })
     # What each kernel reads (each input once; its outputs are added below).
     args_of = {"backward_lanes": k1_in, "backward_vectors_lanes": (
                    A_sh, B_sh, c_l, hf_l, Pc, K, L, pN_l),   # P is not read
@@ -1506,7 +1871,10 @@ def main():
                K7: k7_args, "backward_lanes[per-instance]": r1_args,
                "backward_lanes[per-instance,gains]": g1_args,
                "backward_vectors_lanes[per-instance]": r2_args,
-               "forward_lanes[per-instance]": r3_args}
+               "forward_lanes[per-instance]": r3_args,
+               K9: k9_args, K9 + "[export]": k9e_args, K10: k10_args,
+               "forward_lanes[segments]": k3s_args,
+               "backward_packed": k11_args[:4], "forward_packed": k12_args[:3]}
     for tag, (path, (a8, kw8)) in k8_runs.items():
         plain_kw = {k: v for k, v in kw8.items() if k != "shared"}
         cached8 = kw8["factors"] is not None
@@ -1536,7 +1904,11 @@ def main():
                      "admm_single_batched_cached": sb["cached"]["launches"],
                      "admm_single_batched_cached_bf16":
                          sb["cached_bf16"]["launches"],
-                     "rocket_dispersion": rocket_launches}
+                     "rocket_dispersion": rocket_launches,
+                     "pdp_solve": pdp_launches,
+                     "pdp_admm": pa[False]["launches"],
+                     "pdp_admm_cached": pa[True]["launches"],
+                     "packed_solve": packed_launches}
     kernels = []
     for name, (counter, paths, kernel, plain, names, flops, replaces) in spec.items():
         out = kernel()
@@ -1597,6 +1969,35 @@ def main():
                         lambda: plt_.solve_fused(bp_, x0_, (), st,
                                                  single_kernel=single), 5,
                         warmup=1)
+    # The PDP paths: the solve at S=8 (and once at each S of the sweep),
+    # the condensed system of its boundaries alone (device time and the
+    # host's time to enqueue it), the long-horizon case, the ADMM loop
+    # beside K8's at the same data, and the packed pair.
+    from pdp_lqr_tpu_torch.ops import condensed
+    pdp_t = timed(pdp_request, TIMED_REQUESTS, B_PDP)
+    pdp_S_ms = {S: cuda_ms(lambda S=S: pdp_request(S), 3, warmup=1)
+                for S in PDP_SEGMENTS}
+    _, _, _, _, _, P0_, p0_, F0_, C0_, f0_ = cr.backward_pdp_lanes(*k9_args,
+                                                                   **k9_kw)
+    bm = lambda x: torch.movedim(x, -1, 0)
+
+    def condensed_solve():
+        fac_ = condensed.cholesky_backward(bm(P0_), bm(F0_), bm(C0_))
+        return condensed.cholesky_forward(fac_, bm(p0_), bm(f0_), x0_pdp)
+
+    condensed_ms = cuda_ms(condensed_solve, TIMED_REQUESTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_REQUESTS):
+        condensed_solve()
+    condensed_enqueue_ms = (time.perf_counter() - t0) * 1e3 / TIMED_REQUESTS
+    torch.cuda.synchronize()
+    lat_t = {S: timed(r, 5, B_LAT) for S, r in lat_request.items()}
+    lat_lanes_t = timed(lat_lanes, 5, B_LAT)
+    pa_t = {c: timed(pa[c]["request"], ADMM_TIMED_REQUESTS, B_PDP)
+            for c in (False, True)}
+    pa_auto_t = timed(auto_pa, ADMM_TIMED_REQUESTS, B_PDP)
+    packed_t = timed(packed_request, TIMED_REQUESTS, B_MAIN)
     beside = lambda t, kA, kB, fac: (t["request_ms"] - fac) / ADMM_ITERS \
         - kernel_ms[kA] - kernel_ms.get(kB, 0.0)
     emit("timing", card=card, N=N_MAIN, B=B_MAIN, dtype="float32",
@@ -1647,9 +2048,21 @@ def main():
          auto_rule={"B": B_REP, "request_ms": auto_ms},
          rocket_dispersion={"N": N_ROCKET, "B": B_ROCKET, **rocket_t,
                             "landings_per_s": rocket_t["solves_per_s"]},
+         pdp_solve={"B": B_PDP, "S": S_PDP, **pdp_t,
+                    "request_ms_by_segments": pdp_S_ms,
+                    "condensed_ms": condensed_ms,
+                    "condensed_enqueue_ms": condensed_enqueue_ms,
+                    "solve_lanes_ms_B4096": lanes_t["request_ms"]},
+         pdp_latency={"N": N_LAT, "B": B_LAT,
+                      **{f"S={S}": t for S, t in lat_t.items()},
+                      "solve_lanes": lat_lanes_t},
+         pdp_admm={"B": B_PDP, "S": S_PDP, "iterations": ADMM_ITERS,
+                   "uncached": pa_t[False], "cached": pa_t[True],
+                   "single_kernel_auto": pa_auto_t},
+         packed={"B": B_MAIN, **packed_t, "solve_lanes": lanes_t},
          elapsed_s=time.time() - t_start)
 
-    # ------------------------------------------------------------ 18: end
+    # ------------------------------------------------------------ 22: end
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,12 @@ Ported so far:
 - ``ops.cuda_riccati`` — the inner solve on four kernels (matrix sweep,
   cached-factor vector sweep, closed-loop rollout, rollout from the raw
   dynamics): one shared model (``solve_shared``) or one model a scenario
-  (``solve_lanes``).
+  (``solve_lanes``, and ``solve_packed`` on row-packed streams); and the
+  segment reduction of the parallel solver and its cached vector sweep.
+- ``ops.condensed`` — the condensed boundary system (Cholesky variant).
+- ``parallel`` — the segment-parallel PDP solve
+  (``pdp_sharded_fused.solve``) and the conic ADMM loop on it
+  (``admm_sharded.solve``), the horizon in S segments on one card.
 - ``ops.projections`` — box / SOC / rotated-SOC projections.
 - ``ops.cuda_admm`` — the split conic ADMM iteration on three kernels
   (prefold vector sweep; vector sweep with the iterate fold on R ladder

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pdp_lqr_tpu_torch.ops.condensed import CholeskyCondensedFactors
 from pdp_lqr_tpu_torch.problem import ADMMIterates, LQRProblem
 from pdp_lqr_tpu_torch.solvers.admm import ADMMState
 
@@ -47,6 +48,21 @@ def factors_from_numpy(factors, *, device="cuda", dtype=None):
         _tensor(np.asarray(x)[..., :1], device, dtype).contiguous()
         for x in factors
     )
+
+
+def pdp_factors_from_numpy(factors, *, device="cuda", dtype=None):
+    """The segment-parallel solver's cached factors ``(K, M, Gp, P, L, F,
+    fac)`` -> the port's (``parallel.pdp_sharded_fused``'s
+    ``segment_solve_cached`` takes them).  The six stage tensors cross
+    whole, batch-last over the full horizon (N, ..., B) — the JAX
+    package's per-device shards joined along the "time" axis; ``fac``, the
+    condensed Cholesky factors, is a mapping with keys Pchol, Cchol, Pinv,
+    Asolved and A, each (B, S, nx, nx)."""
+    *stages, fac = factors
+    return tuple(_tensor(x, device, dtype).contiguous() for x in stages) + (
+        CholeskyCondensedFactors(**{
+            k: _tensor(fac[k], device, dtype)
+            for k in ("Pchol", "Cchol", "Pinv", "Asolved", "A")}),)
 
 
 def state_from_numpy(fields, *, device="cuda", dtype=None) -> ADMMState:

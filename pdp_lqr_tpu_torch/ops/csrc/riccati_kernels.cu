@@ -1,12 +1,18 @@
 // Riccati sweep kernels for NVIDIA Hopper (sm_90a), plain C interface.
 //
-// Four kernels, the counterparts of four fused sweep kernels in
+// The counterparts of the fused sweep kernels in
 // pdp_lqr_tpu/ops/pallas_riccati.py:
 //
 //   riccati_backward          <- _backward_kernel      (backward_lanes, K1)
 //   riccati_backward_vectors  <- _backward_vec_kernel  (backward_vectors_lanes, K2)
 //   riccati_forward           <- _forward_kernel       (forward_lanes, K3)
 //   riccati_forward_rollout   <- _forward_abc_kernel   (forward_rollout_lanes, K7)
+//   riccati_backward_pdp      <- _backward_pdp_kernel  (backward_pdp_lanes, K9)
+//   riccati_backward_pdp_vectors
+//                             <- _backward_pdp_vec_kernel
+//                                                      (backward_pdp_vectors_lanes, K10)
+//   riccati_backward_packed   <- _backward_packed_kernel (backward_packed, K11)
+//   riccati_forward_packed    <- _forward_packed_kernel  (forward_packed, K12)
 //
 // Every tensor is batch-last: element (k, i, j) of instance b of an
 // (N, R, C, Bt) tensor lives at ((k*R + i)*C + j)*Bt + b.  The problem
@@ -16,8 +22,15 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -DSCALAR=float -DNX=12 -DNU=4 [-DNC=16] ...
 //
-// With -DNC the library holds the matrix sweep (the only kernel that
-// reads constraint rows); without it, the three per-scenario kernels.
+// With -DNC the library holds the matrix sweeps (K1, K9, K11: the only
+// kernels that read constraint rows); without it, the per-scenario kernels.
+//
+// Segments (K9, K10, K3): the horizon of N stages is cut into S segments
+// of N/S contiguous stages, each run by its own blocks or threads in one
+// launch: the one-card form of the reference's segment-parallel solver
+// (lqr_solver_parallel.hpp), whose segments the JAX package puts on the
+// devices of a mesh axis.  Per-segment carries and boundary values are
+// (S, ..., Bt) tensors.
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -59,7 +72,7 @@ __device__ long long riccati_prof[8];
 #endif
 
 #ifdef NC
-// ------------------------------------------------------------------ K1
+// ------------------------------------------------------- K1, K9, K11
 // Matrix sweep.  What bounds it on this card: neither bytes nor
 // operations (one instance moves a few megabytes and does a few tens of
 // kFLOP per stage) but the chain of N dependent stages, each a chain of
@@ -73,6 +86,25 @@ __device__ long long riccati_prof[8];
 // on the carry (done by the warps that idle while one warp runs the
 // Cholesky and the solves).  The serving path runs the kernel on ONE
 // instance (the shared model); per-instance batches give one block each.
+//
+// PDP (K9, the segment reduction of the reference's parallel solver):
+// one block per (segment, instance), S*Bt blocks, each sweeping its own
+// N/S stages from its own initial carry, so the chain a block runs is
+// S times shorter.  On top of K1's stage it carries the segment's
+// closed-loop transition F, its offset f and the Gram C of the boundary
+// dual, and solves [K Gp d] = -Huu^{-1} [G (F+ B)^T rbar] with 2nx+1
+// right-hand sides:
+//     Gp = -Huu^{-1} B^T F+^T,   F = F+ (A + B K) = F+ A + (F+ B) K,
+//     f  = F+ (B d + c) + f+ = F+ c + (F+ B) d + f+,
+//     C  = C+ - (F+ B) Gp       (upper triangle, mirrored: exactly symmetric,
+//                                so the condensed Cholesky sees what JAX's does).
+// F+ A, F+ B and F+ c are formed beside P A in phase 1, so F, f and C need
+// no extra barrier.  After the segment's first stage the block writes the
+// carry it hands its left neighbour, (P0, p0, F0, C0, f0).
+//
+// PACKED (K11): the stage data come row-packed, Sd = (A | B | c) and
+// Sc = (H | h | D | rho | rho g), and the gains go out as G = (K | d): only
+// the strides of the streams change (the entry point offsets the pointers).
 
 // Stage buffer layout (words).
 constexpr int S_A = 0;
@@ -90,10 +122,31 @@ constexpr int K1_WORDS =
     + 2 * NX * NX + 2 * NX                                     // P, p (x2)
     + NX * NX + NX * NU + NX                                   // PA PB Pcp
     + NU * NX + NU + NU * NU + NU * NX + NU;                   // G rbar Huu K d
+constexpr int K9_WORDS =
+    K1_WORDS
+    + 4 * NX * NX + 2 * NX                                     // F, C, f (x2)
+    + NX * NX + NX * NU + NX                                   // FA FB Fc
+    + NU * NX;                                                 // Gp
 
-template <bool EMIT_MV, bool EXPORT>
+// Rows a stage takes in each stream: packed (K11) or one tensor a stream.
+constexpr int SD_ROWS = NX * (NX + NU + 1);                    // A | B | c
+constexpr int SC_ROWS = NZ * NZ + NZ + NC * NZ + 2 * NC;       // H | h | D | rho | rg
+constexpr int G_ROWS = NU * NX + NU;                           // K | d
+template <bool PACKED> struct K1Rows {
+    static constexpr int A = PACKED ? SD_ROWS : NX * NX;
+    static constexpr int B = PACKED ? SD_ROWS : NX * NU;
+    static constexpr int C = PACKED ? SD_ROWS : NX;
+    static constexpr int H = PACKED ? SC_ROWS : NZ * NZ;
+    static constexpr int HV = PACKED ? SC_ROWS : NZ;
+    static constexpr int D = PACKED ? SC_ROWS : NC * NZ;
+    static constexpr int RHO = PACKED ? SC_ROWS : NC;
+    static constexpr int K = PACKED ? G_ROWS : NU * NX;
+    static constexpr int DV = PACKED ? G_ROWS : NU;
+};
+
+template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED>
 __global__ void backward_kernel(
-    int N, int Bt,
+    int N, int Bt, int S,
     const scalar* __restrict__ A, const scalar* __restrict__ B,
     const scalar* __restrict__ c, const scalar* __restrict__ H,
     const scalar* __restrict__ h, const scalar* __restrict__ D,
@@ -101,8 +154,14 @@ __global__ void backward_kernel(
     const scalar* __restrict__ PN, const scalar* __restrict__ pN,
     scalar* __restrict__ K_out, scalar* __restrict__ d_out,
     scalar* __restrict__ M_out, scalar* __restrict__ v_out,
-    scalar* __restrict__ P_out, scalar* __restrict__ L_out)
+    scalar* __restrict__ P_out, scalar* __restrict__ L_out,
+    const scalar* __restrict__ Fi, const scalar* __restrict__ Ci,
+    const scalar* __restrict__ fi, scalar* __restrict__ Gp_out,
+    scalar* __restrict__ F_out, scalar* __restrict__ P0_out,
+    scalar* __restrict__ p0_out, scalar* __restrict__ F0_out,
+    scalar* __restrict__ C0_out, scalar* __restrict__ f0_out)
 {
+    using R = K1Rows<PACKED>;
     extern __shared__ double smem_aligned[];
     scalar* s = reinterpret_cast<scalar*>(smem_aligned);
     scalar* stage0 = s;        s += S_WORDS;
@@ -119,11 +178,27 @@ __global__ void backward_kernel(
     scalar* sHuu = s;          s += NU * NU;
     scalar* sK = s;            s += NU * NX;
     scalar* sd = s;            s += NU;
+    // K9's segment carries and products (past K1's words; unused by K1).
+    scalar* F = s;             s += NX * NX;
+    scalar* Fn = s;            s += NX * NX;
+    scalar* C = s;             s += NX * NX;
+    scalar* Cn = s;            s += NX * NX;
+    scalar* f = s;             s += NX;
+    scalar* fn = s;            s += NX;
+    scalar* sFA = s;           s += NX * NX;
+    scalar* sFB = s;           s += NX * NU;
+    scalar* sFc = s;           s += NX;
+    scalar* sGp = s;           s += NU * NX;
 
     const int tid = threadIdx.x;
     const int nt = blockDim.x;
-    const size_t b = blockIdx.x;
+    // Block (segment, instance): the segment's stages are k0 .. k0+Nl-1.
+    const int seg = PDP ? (int)(blockIdx.x / Bt) : 0;
+    const size_t b = PDP ? blockIdx.x % Bt : blockIdx.x;
     const size_t Bs = (size_t)Bt;
+    const int Nl = PDP ? N / S : N;
+    const int k0 = seg * Nl;
+    const size_t cs = (size_t)seg;          // this segment's carry slot
 
     // Copy stage k's data into buffer `which`, asynchronously.
     auto prefetch = [&](int k, int which) {
@@ -131,20 +206,20 @@ __global__ void backward_kernel(
         const size_t ks = (size_t)k;
         if (k >= 0) {
             for (int i = tid; i < NX * NX; i += nt)
-                copy_word(S + S_A + i, A + (ks * NX * NX + i) * Bs + b);
+                copy_word(S + S_A + i, A + (ks * R::A + i) * Bs + b);
             for (int i = tid; i < NX * NU; i += nt)
-                copy_word(S + S_B + i, B + (ks * NX * NU + i) * Bs + b);
+                copy_word(S + S_B + i, B + (ks * R::B + i) * Bs + b);
             for (int i = tid; i < NX; i += nt)
-                copy_word(S + S_C + i, c + (ks * NX + i) * Bs + b);
+                copy_word(S + S_C + i, c + (ks * R::C + i) * Bs + b);
             for (int i = tid; i < NZ * NZ; i += nt)
-                copy_word(S + S_H + i, H + (ks * NZ * NZ + i) * Bs + b);
+                copy_word(S + S_H + i, H + (ks * R::H + i) * Bs + b);
             for (int i = tid; i < NZ; i += nt)
-                copy_word(S + S_HV + i, h + (ks * NZ + i) * Bs + b);
+                copy_word(S + S_HV + i, h + (ks * R::HV + i) * Bs + b);
             for (int i = tid; i < NC * NZ; i += nt)
-                copy_word(S + S_D + i, D + (ks * NC * NZ + i) * Bs + b);
+                copy_word(S + S_D + i, D + (ks * R::D + i) * Bs + b);
             for (int i = tid; i < NC; i += nt) {
-                copy_word(S + S_RHO + i, rho + (ks * NC + i) * Bs + b);
-                copy_word(S + S_RG + i, rg + (ks * NC + i) * Bs + b);
+                copy_word(S + S_RHO + i, rho + (ks * R::RHO + i) * Bs + b);
+                copy_word(S + S_RG + i, rg + (ks * R::RHO + i) * Bs + b);
             }
         }
         __pipeline_commit();
@@ -175,46 +250,73 @@ __global__ void backward_kernel(
     // The warps that fold while warp 0 factors and solves; a block of a
     // single warp folds after it has solved.
     const int fold_first = nt > 32 ? 32 : 0;
+    // Right-hand sides of the phase-3 solve: [G rbar], or [G (F+ B)^T rbar].
+    constexpr int NCOL = PDP ? 2 * NX + 1 : NX + 1;
 
-    prefetch(N - 1, 0);
-    for (int i = tid; i < NX * NX; i += nt) P[i] = PN[i * Bs + b];
-    for (int i = tid; i < NX; i += nt) p[i] = pN[i * Bs + b];
+    prefetch(k0 + Nl - 1, 0);
+    for (int i = tid; i < NX * NX; i += nt) P[i] = PN[(cs * NX * NX + i) * Bs + b];
+    for (int i = tid; i < NX; i += nt) p[i] = pN[(cs * NX + i) * Bs + b];
+    if (PDP) {
+        for (int i = tid; i < NX * NX; i += nt) {
+            F[i] = Fi[(cs * NX * NX + i) * Bs + b];
+            C[i] = Ci[(cs * NX * NX + i) * Bs + b];
+        }
+        for (int i = tid; i < NX; i += nt) f[i] = fi[(cs * NX + i) * Bs + b];
+    }
     __pipeline_wait_prior(0);
     __syncthreads();
     fold(stage0, 0);
     __syncthreads();
     PROF_INIT
 
-    for (int k = N - 1; k >= 0; --k) {
+    for (int k = k0 + Nl - 1; k >= k0; --k) {
         const size_t ks = (size_t)k;
-        scalar* S = ((N - 1 - k) & 1) ? stage1 : stage0;
-        scalar* Snext = ((N - 1 - k) & 1) ? stage0 : stage1;
+        const int n = k0 + Nl - 1 - k;      // stages done in this block
+        scalar* S = (n & 1) ? stage1 : stage0;
+        scalar* Snext = (n & 1) ? stage0 : stage1;
         const scalar* sA = S + S_A;
         const scalar* sB = S + S_B;
         const scalar* sc = S + S_C;
         const scalar* sH = S + S_H;       // folded already
         const scalar* sh = S + S_HV;
-        prefetch(k - 1, (N - k) & 1);
+        prefetch(k > k0 ? k - 1 : -1, (n + 1) & 1);
         PROF_MARK(0);
 
-        // ---- phase 1: products with the carry: PA, PB, Pcp = P c + p.
+        // ---- phase 1: products with the carry: PA, PB, Pcp = P c + p
+        // (and with F: FA, FB, Fc).
         for (int e = tid; e < NX * NX; e += nt) {
             const int i = e / NX, j = e % NX;
             scalar acc = P[i * NX] * sA[j];
             for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sA[t * NX + j];
             sPA[e] = acc;
             if (EXPORT) P_out[(ks * NX * NX + e) * Bs + b] = P[e];
+            if (PDP) {
+                scalar fa = F[i * NX] * sA[j];
+                for (int t = 1; t < NX; ++t) fa += F[i * NX + t] * sA[t * NX + j];
+                sFA[e] = fa;
+                if (EXPORT) F_out[(ks * NX * NX + e) * Bs + b] = F[e];
+            }
         }
         for (int e = tid; e < NX * NU; e += nt) {
             const int i = e / NU, j = e % NU;
             scalar acc = P[i * NX] * sB[j];
             for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sB[t * NU + j];
             sPB[e] = acc;
+            if (PDP) {
+                scalar fb = F[i * NX] * sB[j];
+                for (int t = 1; t < NX; ++t) fb += F[i * NX + t] * sB[t * NU + j];
+                sFB[e] = fb;
+            }
         }
         for (int i = tid; i < NX; i += nt) {
             scalar acc = P[i * NX] * sc[0];
             for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sc[t];
             sPcp[i] = acc + p[i];
+            if (PDP) {
+                scalar fc = F[i * NX] * sc[0];
+                for (int t = 1; t < NX; ++t) fc += F[i * NX + t] * sc[t];
+                sFc[i] = fc;
+            }
         }
         PROF_MARK(1);
         __syncthreads();
@@ -246,11 +348,11 @@ __global__ void backward_kernel(
         __syncthreads();
         PROF_MARK(4);
 
-        // ---- phase 3: [K d] = -Huu^{-1} [G rbar], one thread per column:
-        // each factors the NU x NU block itself, in registers (cheaper than
-        // a barrier), then substitutes.  Meanwhile the other warps fold the
-        // next stage's penalty.
-        for (int col = tid; col <= NX; col += nt) {
+        // ---- phase 3: [K (Gp) d] = -Huu^{-1} [G ((F+ B)^T) rbar], one
+        // thread per column: each factors the NU x NU block itself, in
+        // registers (cheaper than a barrier), then substitutes.  Meanwhile
+        // the other warps fold the next stage's penalty.
+        for (int col = tid; col < NCOL; col += nt) {
             scalar Lr[NU][NU], inv[NU], y[NU];
 #pragma unroll
             for (int j = 0; j < NU; ++j) {
@@ -269,7 +371,9 @@ __global__ void backward_kernel(
             }
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
-                scalar acc = (col < NX) ? sG[i * NX + col] : srbar[i];
+                scalar acc = col < NX ? sG[i * NX + col]
+                           : (PDP && col < 2 * NX) ? sFB[(col - NX) * NU + i]
+                           : srbar[i];
 #pragma unroll
                 for (int t = 0; t < i; ++t) acc -= Lr[i][t] * y[t];
                 y[i] = acc * inv[i];
@@ -284,6 +388,7 @@ __global__ void backward_kernel(
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
                 if (col < NX) sK[i * NX + col] = -y[i];
+                else if (PDP && col < 2 * NX) sGp[i * NX + col - NX] = -y[i];
                 else sd[i] = -y[i];
             }
             if (EXPORT && col == 0) {     // chol(Huu), zeros above the diagonal
@@ -295,14 +400,14 @@ __global__ void backward_kernel(
                             (j <= i) ? Lr[i][j] : (scalar)0;
             }
         }
-        if (k > 0) fold(Snext, fold_first);
+        if (k > k0) fold(Snext, fold_first);
         PROF_MARK(5);
         __syncthreads();
         PROF_MARK(6);
 
         // ---- phase 4: P+ = Q + A^T PA + G^T K (upper triangle, mirrored:
         // exactly symmetric), p+ = q + A^T Pcp + K^T rbar, the closed-loop
-        // maps M = A + B K, v = B d + c, and the stores.
+        // maps M = A + B K, v = B d + c, the segment carries, and the stores.
         for (int e = tid; e < NX * NX; e += nt) {
             const int i = e / NX, j = e % NX;
             if (j >= i) {
@@ -311,11 +416,22 @@ __global__ void backward_kernel(
                 for (int t = 0; t < NU; ++t) acc += sG[t * NX + i] * sK[t * NX + j];
                 Pn[i * NX + j] = acc;
                 Pn[j * NX + i] = acc;
+                if (PDP) {
+                    scalar cc = C[e];
+                    for (int t = 0; t < NU; ++t) cc -= sFB[i * NU + t] * sGp[t * NX + j];
+                    Cn[i * NX + j] = cc;
+                    Cn[j * NX + i] = cc;
+                }
             }
             if (EMIT_MV) {
                 scalar m = sA[e];
                 for (int t = 0; t < NU; ++t) m += sB[i * NU + t] * sK[t * NX + j];
                 M_out[(ks * NX * NX + e) * Bs + b] = m;
+            }
+            if (PDP) {
+                scalar fm = sFA[e];
+                for (int t = 0; t < NU; ++t) fm += sFB[i * NU + t] * sK[t * NX + j];
+                Fn[e] = fm;
             }
         }
         for (int i = tid; i < NX; i += nt) {
@@ -328,37 +444,67 @@ __global__ void backward_kernel(
                 for (int t = 0; t < NU; ++t) vv += sB[i * NU + t] * sd[t];
                 v_out[(ks * NX + i) * Bs + b] = vv;
             }
+            if (PDP) {
+                scalar fv = sFc[i];
+                for (int t = 0; t < NU; ++t) fv += sFB[i * NU + t] * sd[t];
+                fn[i] = fv + f[i];
+            }
         }
-        for (int e = tid; e < NU * NX; e += nt)
-            K_out[(ks * NU * NX + e) * Bs + b] = sK[e];
+        for (int e = tid; e < NU * NX; e += nt) {
+            K_out[(ks * R::K + e) * Bs + b] = sK[e];
+            if (PDP) Gp_out[(ks * NU * NX + e) * Bs + b] = sGp[e];
+        }
         for (int i = tid; i < NU; i += nt)
-            d_out[(ks * NU + i) * Bs + b] = sd[i];
+            d_out[(ks * R::DV + i) * Bs + b] = sd[i];
         __syncthreads();
         PROF_MARK(7);
 
         scalar* t0 = P; P = Pn; Pn = t0;
         scalar* t1 = p; p = pn; pn = t1;
+        if (PDP) {
+            scalar* t2 = F; F = Fn; Fn = t2;
+            scalar* t3 = C; C = Cn; Cn = t3;
+            scalar* t4 = f; f = fn; fn = t4;
+        }
     }
     PROF_DONE
+    if (PDP) {      // the carry after the segment's first stage
+        for (int i = tid; i < NX * NX; i += nt) {
+            P0_out[(cs * NX * NX + i) * Bs + b] = P[i];
+            F0_out[(cs * NX * NX + i) * Bs + b] = F[i];
+            C0_out[(cs * NX * NX + i) * Bs + b] = C[i];
+        }
+        for (int i = tid; i < NX; i += nt) {
+            p0_out[(cs * NX + i) * Bs + b] = p[i];
+            f0_out[(cs * NX + i) * Bs + b] = f[i];
+        }
+    }
 }
 
-template <bool EMIT_MV, bool EXPORT>
-int launch_backward(int N, int Bt, int threads, cudaStream_t stream,
-                    const scalar* A, const scalar* B, const scalar* c,
-                    const scalar* H, const scalar* h, const scalar* D,
-                    const scalar* rho, const scalar* rg, const scalar* PN,
-                    const scalar* pN, scalar* K, scalar* d, scalar* M,
-                    scalar* v, scalar* P, scalar* L)
+struct BackwardArgs {
+    int N, Bt, S, threads;
+    cudaStream_t stream;
+    const scalar *A, *B, *c, *H, *h, *D, *rho, *rg, *PN, *pN;
+    scalar *K, *d, *M, *v, *P, *L;
+    const scalar *Fi, *Ci, *fi;
+    scalar *Gp, *F, *P0, *p0, *F0, *C0, *f0;
+};
+
+template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED>
+int launch_backward(const BackwardArgs& a)
 {
-    const size_t smem = ((size_t)K1_WORDS * sizeof(scalar) + 15) / 16 * 16;
+    const size_t words = PDP ? K9_WORDS : K1_WORDS;
+    const size_t smem = (words * sizeof(scalar) + 15) / 16 * 16;
+    auto kernel = backward_kernel<EMIT_MV, EXPORT, PDP, PACKED>;
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
-            backward_kernel<EMIT_MV, EXPORT>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    backward_kernel<EMIT_MV, EXPORT><<<Bt, threads, smem, stream>>>(
-        N, Bt, A, B, c, H, h, D, rho, rg, PN, pN, K, d, M, v, P, L);
+    kernel<<<a.S * a.Bt, a.threads, smem, a.stream>>>(
+        a.N, a.Bt, a.S, a.A, a.B, a.c, a.H, a.h, a.D, a.rho, a.rg, a.PN,
+        a.pN, a.K, a.d, a.M, a.v, a.P, a.L, a.Fi, a.Ci, a.fi, a.Gp, a.F,
+        a.P0, a.p0, a.F0, a.C0, a.f0);
     return (int)cudaGetLastError();
 }
 
@@ -487,24 +633,173 @@ __global__ void backward_vectors_kernel(
     }
 }
 
+// ---- K10, the cached-factor vector sweep of the segment reduction (K9's
+// export_factors outputs P_{k+1}, K, chol(Huu), F_{k+1} per stage): K2's
+// per-instance recursion with the segment offset f = F v + f carried
+// beside p.  One thread per (segment, scenario), the carries in registers,
+// every stream batch-last as in K2; the blocks of segment s cover its
+// scenarios.  p starts at the segment's pi (zero but on the last), f at 0;
+// after the segment's first stage the thread writes (p0, f0).
+__global__ void backward_pdp_vectors_kernel(
+    int N, int Bt, int S,
+    const scalar* __restrict__ A, const scalar* __restrict__ B,
+    const scalar* __restrict__ c, const scalar* __restrict__ hf,
+    const scalar* __restrict__ P, const scalar* __restrict__ K,
+    const scalar* __restrict__ L, const scalar* __restrict__ F,
+    const scalar* __restrict__ pi,
+    scalar* __restrict__ d_out, scalar* __restrict__ v_out,
+    scalar* __restrict__ p0, scalar* __restrict__ f0)
+{
+    const unsigned bps = (Bt + PI_THREADS - 1) / PI_THREADS;   // blocks a segment
+    const size_t seg = blockIdx.x / bps;
+    const size_t b = (size_t)(blockIdx.x % bps) * blockDim.x + threadIdx.x;
+    if (b >= (size_t)Bt) return;
+    const size_t Bs = (size_t)Bt;
+    const int Nl = N / S;
+    const size_t s0 = seg * (size_t)Nl;         // the segment's first stage
+    A += s0 * NX * NX * Bs;
+    B += s0 * NX * NU * Bs;
+    c += s0 * NX * Bs;
+    hf += s0 * NZ * Bs;
+    P += s0 * NX * NX * Bs;
+    K += s0 * NU * NX * Bs;
+    L += s0 * NU * NU * Bs;
+    F += s0 * NX * NX * Bs;
+    d_out += s0 * NU * Bs;
+    v_out += s0 * NX * Bs;
+
+    scalar p[NX], f[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+        p[i] = pi[(seg * NX + i) * Bs + b];
+        f[i] = (scalar)0;
+    }
+
+    for (int k = Nl - 1; k >= 0; --k) {
+        const size_t ks = (size_t)k;
+        const scalar* Ak = A + ks * NX * NX * Bs + b;
+        const scalar* Bk = B + ks * NX * NU * Bs + b;
+        const scalar* Kk = K + ks * NU * NX * Bs + b;
+        const scalar* Lk = L + ks * NU * NU * Bs + b;
+        const scalar* Pk = P + ks * NX * NX * Bs + b;
+        const scalar* Fk = F + ks * NX * NX * Bs + b;
+
+        scalar cv[NX], Pcp[NX], rbar[NU], dv[NU], inv[NU], vv[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) cv[i] = c[(ks * NX + i) * Bs + b];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) rbar[i] = hf[(ks * NZ + i) * Bs + b];
+
+        // Pcp = P c + p
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            scalar acc = __ldg(Pk + (i * NX) * Bs) * cv[0];
+#pragma unroll
+            for (int t = 1; t < NX; ++t) acc += __ldg(Pk + (i * NX + t) * Bs) * cv[t];
+            Pcp[i] = acc + p[i];
+        }
+        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar
+#pragma unroll
+        for (int t = 0; t < NX; ++t) {
+#pragma unroll
+            for (int i = 0; i < NU; ++i)
+                rbar[i] += __ldg(Bk + (t * NU + i) * Bs) * Pcp[t];
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / __ldg(Lk + (i * NU + i) * Bs);
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+            scalar acc = rbar[i];
+#pragma unroll
+            for (int t = 0; t < i; ++t) acc -= __ldg(Lk + (i * NU + t) * Bs) * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = NU - 1; i >= 0; --i) {
+            scalar acc = dv[i];
+#pragma unroll
+            for (int t = i + 1; t < NU; ++t) acc -= __ldg(Lk + (t * NU + i) * Bs) * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+            dv[i] = -dv[i];
+            d_out[(ks * NU + i) * Bs + b] = dv[i];
+        }
+        // v = B d + c
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            scalar acc = cv[i];
+#pragma unroll
+            for (int t = 0; t < NU; ++t) acc += __ldg(Bk + (i * NU + t) * Bs) * dv[t];
+            vv[i] = acc;
+            v_out[(ks * NX + i) * Bs + b] = acc;
+        }
+        // p = hf_x + A^T Pcp + K^T rbar (into cv, no longer read)
+#pragma unroll
+        for (int i = 0; i < NX; ++i) cv[i] = hf[(ks * NZ + NU + i) * Bs + b];
+#pragma unroll
+        for (int t = 0; t < NX; ++t) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i) cv[i] += __ldg(Ak + (t * NX + i) * Bs) * Pcp[t];
+        }
+#pragma unroll
+        for (int t = 0; t < NU; ++t) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i) cv[i] += __ldg(Kk + (t * NX + i) * Bs) * rbar[t];
+        }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) p[i] = cv[i];
+        // f = F v + f
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            scalar acc = f[i];
+#pragma unroll
+            for (int t = 0; t < NX; ++t) acc += __ldg(Fk + (i * NX + t) * Bs) * vv[t];
+            f[i] = acc;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+        p0[(seg * NX + i) * Bs + b] = p[i];
+        f0[(seg * NX + i) * Bs + b] = f[i];
+    }
+}
+
+// ---- K3, per instance.  Segment form: the blocks of segment s roll its
+// N/S stages out from x0[s] and write their own end state to xN[s] (the
+// segment's boundary state comes from the condensed solve).  S = 1 is the
+// whole horizon.  The streams are shifted to the segment's first stage
+// before the loop, so the loop is the one-segment rollout's.
 __global__ void forward_kernel(
-    int N, int Bt,
+    int N, int Bt, int S,
     const scalar* __restrict__ M, const scalar* __restrict__ v,
     const scalar* __restrict__ K, const scalar* __restrict__ d,
     const scalar* __restrict__ x0,
     scalar* __restrict__ ws, scalar* __restrict__ xN)
 {
-    const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    const unsigned bps = (Bt + PI_THREADS - 1) / PI_THREADS;   // blocks a segment
+    const size_t seg = blockIdx.x / bps;
+    const size_t b = (size_t)(blockIdx.x % bps) * blockDim.x + threadIdx.x;
     if (b >= (size_t)Bt) return;
     const size_t Bs = (size_t)Bt;
     const size_t mb = Bs;
     const size_t mo = b;
+    const int Nl = N / S;
+    const size_t s0 = seg * (size_t)Nl;         // the segment's first stage
+    M += s0 * NX * NX * Bs;
+    K += s0 * NU * NX * Bs;
+    v += s0 * NX * Bs;
+    d += s0 * NU * Bs;
+    ws += s0 * NZ * Bs;
+    x0 += seg * NX * Bs;
+    xN += seg * NX * Bs;
 
     scalar x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x0[i * Bs + b];
 
-    for (int k = 0; k < N; ++k) {
+    for (int k = 0; k < Nl; ++k) {
         const size_t ks = (size_t)k;
         const scalar* Mk = M + ks * NX * NX * mb + mo;
         const scalar* Kk = K + ks * NU * NX * mb + mo;
@@ -841,11 +1136,16 @@ forward_shared_kernel(
 // owns a slice of the rows of x+; x goes round through shared memory, one
 // barrier a stage.  Each stage's loads are issued before that barrier, so
 // they are in flight while the block waits on it.
+//
+// PACKED (K12): A, B, c are row blocks of one packed Sd = (A | B | c) and
+// K, d of G = (K | d), K11's output; only the strides change (the entry
+// point offsets the pointers).
 constexpr int RO_GROUPS = 8;                 // threads per scenario
 constexpr int RO_THREADS = VS_LANES * RO_GROUPS;
 constexpr int RO_RX = (NX + RO_GROUPS - 1) / RO_GROUPS;   // x rows/thread
 constexpr int RO_RU = (NU + RO_GROUPS - 1) / RO_GROUPS;   // u rows stored/thread
 
+template <bool PACKED>
 __global__ void __launch_bounds__(RO_THREADS)
 forward_rollout_kernel(
     int N, int Bt,
@@ -864,6 +1164,12 @@ forward_rollout_kernel(
     const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
     const bool valid = b < Bs;
     const size_t bb = valid ? b : 0;         // an idle lane reads scenario 0
+    // Rows a stage takes in each stream.
+    constexpr int RA = PACKED ? NX * (NX + NU + 1) : NX * NX;
+    constexpr int RB = PACKED ? NX * (NX + NU + 1) : NX * NU;
+    constexpr int RC = PACKED ? NX * (NX + NU + 1) : NX;
+    constexpr int RK = PACKED ? NU * NX + NU : NU * NX;
+    constexpr int RD = PACKED ? NU * NX + NU : NU;
 
 #pragma unroll
     for (int r = 0; r < RO_RX; ++r) {
@@ -876,21 +1182,21 @@ forward_rollout_kernel(
         scalar Kr[NU][NX], dr[NU], Ar[RO_RX][NX], Br[RO_RX][NU], cr[RO_RX];
 #pragma unroll
         for (int j = 0; j < NU; ++j) {
-            dr[j] = __ldg(d + (ks * NU + j) * Bs + bb);
+            dr[j] = __ldg(d + (ks * RD + j) * Bs + bb);
 #pragma unroll
             for (int t = 0; t < NX; ++t)
-                Kr[j][t] = __ldg(K + ((ks * NU + j) * NX + t) * Bs + bb);
+                Kr[j][t] = __ldg(K + (ks * RK + j * NX + t) * Bs + bb);
         }
 #pragma unroll
         for (int r = 0; r < RO_RX; ++r) {
             const int i = grp * RO_RX + r < NX ? grp * RO_RX + r : NX - 1;
-            cr[r] = __ldg(c + (ks * NX + i) * Bs + bb);
+            cr[r] = __ldg(c + (ks * RC + i) * Bs + bb);
 #pragma unroll
             for (int t = 0; t < NX; ++t)
-                Ar[r][t] = __ldg(A + ((ks * NX + i) * NX + t) * Bs + bb);
+                Ar[r][t] = __ldg(A + (ks * RA + i * NX + t) * Bs + bb);
 #pragma unroll
             for (int t = 0; t < NU; ++t)
-                Br[r][t] = __ldg(B + ((ks * NX + i) * NU + t) * Bs + bb);
+                Br[r][t] = __ldg(B + (ks * RB + i * NU + t) * Bs + bb);
         }
         __syncthreads();                     // x_k published
 
@@ -956,18 +1262,78 @@ int riccati_backward(int N, int Bt, int emit_mv, int export_factors,
                      void* P, void* L)
 {
     if (N <= 0 || Bt <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-#define RICCATI_BW_ARGS                                                      \
-    N, Bt, threads, st, (const scalar*)A, (const scalar*)B,                  \
-        (const scalar*)c, (const scalar*)H, (const scalar*)h,                \
-        (const scalar*)D, (const scalar*)rho, (const scalar*)rg,             \
-        (const scalar*)PN, (const scalar*)pN, (scalar*)K, (scalar*)d,        \
-        (scalar*)M, (scalar*)v, (scalar*)P, (scalar*)L
-    if (emit_mv && export_factors) return launch_backward<true, true>(RICCATI_BW_ARGS);
-    if (emit_mv) return launch_backward<true, false>(RICCATI_BW_ARGS);
-    if (export_factors) return launch_backward<false, true>(RICCATI_BW_ARGS);
-    return launch_backward<false, false>(RICCATI_BW_ARGS);
-#undef RICCATI_BW_ARGS
+    BackwardArgs a{};
+    a.N = N; a.Bt = Bt; a.S = 1; a.threads = threads;
+    a.stream = (cudaStream_t)stream;
+    a.A = (const scalar*)A; a.B = (const scalar*)B; a.c = (const scalar*)c;
+    a.H = (const scalar*)H; a.h = (const scalar*)h; a.D = (const scalar*)D;
+    a.rho = (const scalar*)rho; a.rg = (const scalar*)rg;
+    a.PN = (const scalar*)PN; a.pN = (const scalar*)pN;
+    a.K = (scalar*)K; a.d = (scalar*)d; a.M = (scalar*)M; a.v = (scalar*)v;
+    a.P = (scalar*)P; a.L = (scalar*)L;
+    if (emit_mv && export_factors) return launch_backward<true, true, false, false>(a);
+    if (emit_mv) return launch_backward<true, false, false, false>(a);
+    if (export_factors) return launch_backward<false, true, false, false>(a);
+    return launch_backward<false, false, false, false>(a);
+}
+
+// K9: S segments of N/S stages, one block per (segment, instance).  The
+// initial carries (Pi, pi, Fi, Ci, fi) and the boundary outputs (P0, p0,
+// F0, C0, f0) are (S, nx[, nx], Bt); with export_factors also P, L, F per
+// stage.
+int riccati_backward_pdp(int N, int Bt, int S, int export_factors,
+                         int threads, void* stream,
+                         const void* A, const void* B, const void* c,
+                         const void* H, const void* h, const void* D,
+                         const void* rho, const void* rg, const void* Pi,
+                         const void* pi, const void* Fi, const void* Ci,
+                         const void* fi, void* K, void* d, void* M, void* v,
+                         void* Gp, void* P, void* L, void* F, void* P0,
+                         void* p0, void* F0, void* C0, void* f0)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    if (S <= 0 || N % S != 0) return (int)cudaErrorInvalidValue;
+    BackwardArgs a{};
+    a.N = N; a.Bt = Bt; a.S = S; a.threads = threads;
+    a.stream = (cudaStream_t)stream;
+    a.A = (const scalar*)A; a.B = (const scalar*)B; a.c = (const scalar*)c;
+    a.H = (const scalar*)H; a.h = (const scalar*)h; a.D = (const scalar*)D;
+    a.rho = (const scalar*)rho; a.rg = (const scalar*)rg;
+    a.PN = (const scalar*)Pi; a.pN = (const scalar*)pi;
+    a.Fi = (const scalar*)Fi; a.Ci = (const scalar*)Ci; a.fi = (const scalar*)fi;
+    a.K = (scalar*)K; a.d = (scalar*)d; a.M = (scalar*)M; a.v = (scalar*)v;
+    a.Gp = (scalar*)Gp; a.P = (scalar*)P; a.L = (scalar*)L; a.F = (scalar*)F;
+    a.P0 = (scalar*)P0; a.p0 = (scalar*)p0; a.F0 = (scalar*)F0;
+    a.C0 = (scalar*)C0; a.f0 = (scalar*)f0;
+    if (export_factors) return launch_backward<true, true, true, false>(a);
+    return launch_backward<true, false, true, false>(a);
+}
+
+// K11: K1 for the gains only, on row-packed Sd (N, nx(nx+nu+1), Bt) and
+// Sc (N, nz^2+nz+nc*nz+2nc, Bt); the gains go out as G (N, nu*nx+nu, Bt).
+int riccati_backward_packed(int N, int Bt, int threads, void* stream,
+                            const void* Sd, const void* Sc, const void* PN,
+                            const void* pN, void* G)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    const scalar* sd = (const scalar*)Sd;
+    const scalar* sc = (const scalar*)Sc;
+    const size_t Bs = (size_t)Bt;
+    BackwardArgs a{};
+    a.N = N; a.Bt = Bt; a.S = 1; a.threads = threads;
+    a.stream = (cudaStream_t)stream;
+    a.A = sd;
+    a.B = sd + (size_t)(NX * NX) * Bs;
+    a.c = sd + (size_t)(NX * NX + NX * NU) * Bs;
+    a.H = sc;
+    a.h = sc + (size_t)(NZ * NZ) * Bs;
+    a.D = sc + (size_t)(NZ * NZ + NZ) * Bs;
+    a.rho = sc + (size_t)(NZ * NZ + NZ + NC * NZ) * Bs;
+    a.rg = sc + (size_t)(NZ * NZ + NZ + NC * NZ + NC) * Bs;
+    a.PN = (const scalar*)PN; a.pN = (const scalar*)pN;
+    a.K = (scalar*)G;
+    a.d = (scalar*)G + (size_t)(NU * NX) * Bs;
+    return launch_backward<false, false, false, true>(a);
 }
 #else  // !NC
 
@@ -1020,11 +1386,15 @@ int riccati_backward_vectors_shared(int N, int Bt, int pc_mode, void* stream,
     return (int)cudaGetLastError();
 }
 
-int riccati_forward(int N, int Bt, int shared, void* stream,
+// K3.  Shared mode runs the whole horizon (S = 1); per-instance mode takes
+// S segments, x0 and xN (S, nx, Bt).
+int riccati_forward(int N, int Bt, int shared, int S, void* stream,
                     const void* M, const void* v, const void* K,
                     const void* d, const void* x0, void* ws, void* xN)
 {
     if (N <= 0 || Bt <= 0) return 0;
+    if (S <= 0 || N % S != 0 || (shared && S != 1))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (shared) {
         const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
@@ -1035,11 +1405,30 @@ int riccati_forward(int N, int Bt, int shared, void* stream,
             N, Bt, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     } else {
-        const int blocks = (Bt + PI_THREADS - 1) / PI_THREADS;
+        const int blocks = S * ((Bt + PI_THREADS - 1) / PI_THREADS);
         forward_kernel<<<blocks, PI_THREADS, 0, st>>>(
-            N, Bt, (const scalar*)M, (const scalar*)v, (const scalar*)K,
+            N, Bt, S, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     }
+    return (int)cudaGetLastError();
+}
+
+// K10: S segments; pi, p0 and f0 are (S, nx, Bt).
+int riccati_backward_pdp_vectors(int N, int Bt, int S, void* stream,
+                                 const void* A, const void* B, const void* c,
+                                 const void* hf, const void* P, const void* K,
+                                 const void* L, const void* F, const void* pi,
+                                 void* d, void* v, void* p0, void* f0)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    if (S <= 0 || N % S != 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = S * ((Bt + PI_THREADS - 1) / PI_THREADS);
+    backward_pdp_vectors_kernel<<<blocks, PI_THREADS, 0, st>>>(
+        N, Bt, S, (const scalar*)A, (const scalar*)B, (const scalar*)c,
+        (const scalar*)hf, (const scalar*)P, (const scalar*)K,
+        (const scalar*)L, (const scalar*)F, (const scalar*)pi, (scalar*)d,
+        (scalar*)v, (scalar*)p0, (scalar*)f0);
     return (int)cudaGetLastError();
 }
 
@@ -1052,10 +1441,28 @@ int riccati_forward_rollout(int N, int Bt, void* stream,
     cudaStream_t st = (cudaStream_t)stream;
     const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
     const size_t smem = 2 * NX * VS_LANES * sizeof(scalar);
-    forward_rollout_kernel<<<blocks, RO_THREADS, smem, st>>>(
+    forward_rollout_kernel<false><<<blocks, RO_THREADS, smem, st>>>(
         N, Bt, (const scalar*)A, (const scalar*)B, (const scalar*)c,
         (const scalar*)K, (const scalar*)d, (const scalar*)x0, (scalar*)ws,
         (scalar*)xN);
+    return (int)cudaGetLastError();
+}
+
+// K12: K7 on row-packed Sd (N, nx(nx+nu+1), Bt) and G (N, nu*nx+nu, Bt).
+int riccati_forward_packed(int N, int Bt, void* stream, const void* Sd,
+                           const void* G, const void* x0, void* ws, void* xN)
+{
+    if (N <= 0 || Bt <= 0) return 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    const scalar* sd = (const scalar*)Sd;
+    const scalar* g = (const scalar*)G;
+    const size_t Bs = (size_t)Bt;
+    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+    const size_t smem = 2 * NX * VS_LANES * sizeof(scalar);
+    forward_rollout_kernel<true><<<blocks, RO_THREADS, smem, st>>>(
+        N, Bt, sd, sd + (size_t)(NX * NX) * Bs,
+        sd + (size_t)(NX * NX + NX * NU) * Bs, g, g + (size_t)(NU * NX) * Bs,
+        (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     return (int)cudaGetLastError();
 }
 

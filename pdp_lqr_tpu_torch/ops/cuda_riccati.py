@@ -3,13 +3,21 @@
 Counterpart of ``pdp_lqr_tpu/ops/pallas_riccati.py`` (the module is named
 after its route, CUDA C++, not after Pallas).  Function names, argument
 order, the batch-last ``(N, ..., B)`` layout and the returned tuples are
-that module's, so the two can be held against each other.  Four kernels
+that module's, so the two can be held against each other.  Eight kernels
 live here, written by hand in ``csrc/riccati_kernels.cu``:
 
   backward_lanes          the matrix sweep with the in-kernel penalty fold
   backward_vectors_lanes  the cached-factor vector sweep
-  forward_lanes           the closed-loop rollout
+  forward_lanes           the closed-loop rollout (per instance also in
+                          S horizon segments)
   forward_rollout_lanes   the rollout from the raw dynamics (per instance)
+  backward_pdp_lanes      the segment reduction of the parallel solver: the
+                          matrix sweep of S horizon segments at once, with
+                          each segment's coupling (Gp, F, C, f) and boundary
+  backward_pdp_vectors_lanes
+                          its cached-factor vector sweep
+  backward_packed         the matrix sweep, gains only, on row-packed streams
+  forward_packed          the rollout from the raw dynamics on packed streams
 
 Beside each kernel stands a plain PyTorch version (``*_reference``): a
 Python loop over stages on the same batch-last tensors.  A wrapper takes
@@ -33,6 +41,7 @@ its matrix products must run in full float32 (see
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -45,7 +54,9 @@ SOURCE = "riccati_kernels.cu"
 # Launches of each kernel made by this process (plain integers; a wrapper
 # adds one exactly where it launches its kernel).
 LAUNCHES = {"backward_lanes": 0, "backward_vectors_lanes": 0,
-            "forward_lanes": 0, "forward_rollout_lanes": 0}
+            "forward_lanes": 0, "forward_rollout_lanes": 0,
+            "backward_pdp_lanes": 0, "backward_pdp_vectors_lanes": 0,
+            "backward_packed": 0, "forward_packed": 0}
 
 _SCALARS = {torch.float32: "float", torch.float64: "double"}
 _PTR = ctypes.c_void_p
@@ -59,8 +70,8 @@ def reset_launch_counts():
 
 def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None) -> dict:
     """The ``-D`` flags of one specialisation of the kernel source: with
-    ``nc`` the matrix sweep (K1), without it the three per-scenario
-    kernels (K2, K3, K7), which read no constraint rows."""
+    ``nc`` the matrix sweeps (K1, K9, K11), without it the per-scenario
+    kernels (K2, K3, K7, K10, K12), which read no constraint rows."""
     if dtype not in _SCALARS:
         raise TypeError(f"the kernels take float32 or float64, got {dtype}")
     defines = {"SCALAR": _SCALARS[dtype], "NX": nx, "NU": nu}
@@ -80,13 +91,17 @@ def bind_library(lib, *, with_matrix_sweep: bool):
     """Declare the C entry points' argument types (pointers and the stream
     as ``c_void_p``: ctypes would cut them to 32 bits otherwise)."""
     if with_matrix_sweep:
-        entries = {"riccati_backward": [_INT] * 5 + [_PTR] * 17}
+        entries = {"riccati_backward": [_INT] * 5 + [_PTR] * 17,
+                   "riccati_backward_pdp": [_INT] * 5 + [_PTR] * 27,
+                   "riccati_backward_packed": [_INT] * 3 + [_PTR] * 6}
     else:
         entries = {
             "riccati_backward_vectors": [_INT] * 3 + [_PTR] * 11,
             "riccati_backward_vectors_shared": [_INT] * 3 + [_PTR] * 8,
-            "riccati_forward": [_INT] * 3 + [_PTR] * 8,
+            "riccati_forward": [_INT] * 4 + [_PTR] * 8,
             "riccati_forward_rollout": [_INT] * 2 + [_PTR] * 9,
+            "riccati_backward_pdp_vectors": [_INT] * 3 + [_PTR] * 14,
+            "riccati_forward_packed": [_INT] * 2 + [_PTR] * 6,
         }
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
@@ -157,48 +172,68 @@ def _chol_solve_lanes(L, rhs):
 
 # ------------------------------------------------------------------- K1
 
+def _sym(X):
+    """The symmetric matrix of X's upper triangle, batch-last (n, n, B):
+    what the kernels compute (upper triangle, mirrored)."""
+    X = torch.movedim(X, -1, 0)
+    return torch.movedim(X.triu() + X.triu(1).transpose(-1, -2), 0, -1)
+
+
+def _fold_penalty(Hk, hk, Dk, rhok, rgk):
+    """H += sum_c rho_c D_c D_c^T ; h -= sum_c (rho g)_c D_c (one stage)."""
+    if Dk.shape[0] == 0:
+        return Hk, hk
+    return (Hk + torch.einsum("crb,cb,csb->rsb", Dk, rhok, Dk),
+            hk - torch.einsum("cb,crb->rb", rgk, Dk))
+
+
+def _sweep_stage(P, p, Ak, Bk, ck, Hk, hk, extra=None):
+    """One stage of the P-form matrix sweep on the carry (P, p) = (P_{k+1},
+    p_{k+1}) and the folded stage cost: returns (K, d, L, X, P, p), with X
+    = -Huu^{-1} ``extra`` (nu, m, B) solved beside [K d] (None without)."""
+    nx, nu = Ak.shape[0], Bk.shape[1]
+    R, S, Q = Hk[:nu, :nu], Hk[:nu, nu:], Hk[nu:, nu:]
+    r, q = hk[:nu], hk[nu:]
+    PA = torch.einsum("ijb,jkb->ikb", P, Ak)
+    PB = torch.einsum("ijb,jkb->ikb", P, Bk)
+    Pcp = _mv(P, ck) + p
+    G = S + torch.einsum("tib,tjb->ijb", Bk, PA)
+    rbar = r + _mtv(Bk, Pcp)
+    Huu = R + torch.einsum("tib,tjb->ijb", Bk, PB)
+    # Only the lower triangle of Huu is read, as in the kernel.
+    L = torch.movedim(
+        torch.linalg.cholesky(torch.movedim(Huu, -1, 0).tril()), 0, -1)
+    rhs = [G] + ([] if extra is None else [extra]) + [rbar[:, None, :]]
+    sol = -_chol_solve_lanes(L, torch.cat(rhs, dim=1))
+    K, d = sol[:, :nx], sol[:, -1]
+    X = None if extra is None else sol[:, nx:-1]
+    Pn = _sym(Q + torch.einsum("tib,tjb->ijb", Ak, PA)
+              + torch.einsum("tib,tjb->ijb", G, K))
+    pn = q + _mtv(Ak, Pcp) + _mtv(K, rbar)
+    return K, d, L, X, Pn, pn
+
+
+def _closed_loop(Ak, Bk, ck, K, d):
+    """M = A + B K, v = B d + c."""
+    return Ak + torch.einsum("itb,tjb->ijb", Bk, K), _mv(Bk, d) + ck
+
+
 def backward_lanes_reference(A, B, c, H, h, D, rho, rg, PN, pN, *,
                              export_factors=False, emit_closed_loop=True):
     """Plain PyTorch version of ``backward_lanes`` (same arguments, same
     returns): a Python loop over the stages, k = N-1 .. 0."""
-    N, nx, _, Bt = A.shape
-    nu = B.shape[2]
-    nc = D.shape[1]
+    N = A.shape[0]
     P, p = PN, pN
     Ks, ds, Ms, vs, Ps, Ls = [], [], [], [], [], []
     for k in range(N - 1, -1, -1):
-        Hk, hk = H[k], h[k]
-        if nc > 0:
-            # Penalty fold: H += sum_c rho_c D_c D_c^T ; h -= sum_c (rho g)_c D_c
-            Hk = Hk + torch.einsum("crb,cb,csb->rsb", D[k], rho[k], D[k])
-            hk = hk - torch.einsum("cb,crb->rb", rg[k], D[k])
-        R, S, Q = Hk[:nu, :nu], Hk[:nu, nu:], Hk[nu:, nu:]
-        r, q = hk[:nu], hk[nu:]
-
-        PA = torch.einsum("ijb,jkb->ikb", P, A[k])
-        PB = torch.einsum("ijb,jkb->ikb", P, B[k])
-        Pcp = _mv(P, c[k]) + p
-        G = S + torch.einsum("tib,tjb->ijb", B[k], PA)
-        rbar = r + _mtv(B[k], Pcp)
-        Huu = R + torch.einsum("tib,tjb->ijb", B[k], PB)
-        # Only the lower triangle of Huu is read, as in the kernel.
-        L = torch.movedim(
-            torch.linalg.cholesky(torch.movedim(Huu, -1, 0).tril()), 0, -1)
-        sol = -_chol_solve_lanes(L, torch.cat([G, rbar[:, None, :]], dim=1))
-        K, d = sol[:, :nx], sol[:, nx]
-
-        Pn = (Q + torch.einsum("tib,tjb->ijb", A[k], PA)
-              + torch.einsum("tib,tjb->ijb", G, K))
-        # Exactly symmetric: upper triangle mirrored.
-        Pn = torch.movedim(Pn, -1, 0)
-        Pn = torch.movedim(Pn.triu() + Pn.triu(1).transpose(-1, -2), 0, -1)
-        pn = q + _mtv(A[k], Pcp) + _mtv(K, rbar)
-
+        Hk, hk = _fold_penalty(H[k], h[k], D[k], rho[k], rg[k])
+        K, d, L, _, Pn, pn = _sweep_stage(P, p, A[k], B[k], c[k], Hk, hk)
         Ks.append(K)
         ds.append(d)
         if emit_closed_loop:
-            Ms.append(A[k] + torch.einsum("itb,tjb->ijb", B[k], K))
-            vs.append(_mv(B[k], d) + c[k])
+            M, v = _closed_loop(A[k], B[k], c[k], K, d)
+            Ms.append(M)
+            vs.append(v)
         if export_factors:
             Ps.append(P)
             Ls.append(L)
@@ -287,9 +322,9 @@ def backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN, *,
 
 # ------------------------------------------------------------------- K2
 
-def backward_vectors_lanes_reference(A, B, c, hf, P, K, L, pN, *, Pc=None):
-    """Plain PyTorch version of ``backward_vectors_lanes``.  The matrix
-    tensors broadcast over the batch when their trailing size is 1."""
+def _vector_sweep(A, B, c, hf, P, K, L, pN, Pc=None):
+    """K2's recursion over the stages, k = N-1 .. 0: returns (d, v) and
+    the carry p after stage 0."""
     N = A.shape[0]
     nu = B.shape[2]
     p = pN
@@ -302,7 +337,13 @@ def backward_vectors_lanes_reference(A, B, c, hf, P, K, L, pN, *, Pc=None):
         ds.append(d)
         vs.append(_mv(B[k], d) + c[k])
         p = hf[k, nu:] + _mtv(A[k], Pcp) + _mtv(K[k], rbar)
-    return torch.stack(ds[::-1], dim=0), torch.stack(vs[::-1], dim=0)
+    return torch.stack(ds[::-1], dim=0), torch.stack(vs[::-1], dim=0), p
+
+
+def backward_vectors_lanes_reference(A, B, c, hf, P, K, L, pN, *, Pc=None):
+    """Plain PyTorch version of ``backward_vectors_lanes``.  The matrix
+    tensors broadcast over the batch when their trailing size is 1."""
+    return _vector_sweep(A, B, c, hf, P, K, L, pN, Pc)[:2]
 
 
 def _pack_shared_matrices(A, B, K, L, P):
@@ -399,35 +440,51 @@ def backward_vectors_lanes(A, B, c, hf, P, K, L, pN, *, shared=False,
 
 # ------------------------------------------------------------------- K3
 
-def forward_lanes_reference(M, v, K, d, x0):
-    """Plain PyTorch version of ``forward_lanes``.  M and K broadcast over
-    the batch when their trailing size is 1."""
-    N = M.shape[0]
+def _rollout(M, v, K, d, x0):
     x = x0
     rows = []
-    for k in range(N):
+    for k in range(M.shape[0]):
         u = _mv(K[k], x) + d[k]
         rows.append(torch.cat([u, x], dim=0))
         x = _mv(M[k], x) + v[k]
     return torch.stack(rows, dim=0), x
 
 
-def _launch_forward(lib, M, v, K, d, x0, shared, stream):
+def _segments(N, S):
+    """The stage slices of S equal segments of an N-stage horizon."""
+    if S < 1 or N % S:
+        raise ValueError(f"{S} segments do not divide a horizon of {N} stages")
+    Nl = N // S
+    return [slice(s * Nl, (s + 1) * Nl) for s in range(S)]
+
+
+def forward_lanes_reference(M, v, K, d, x0, *, segments=None):
+    """Plain PyTorch version of ``forward_lanes``.  M and K broadcast over
+    the batch when their trailing size is 1."""
+    if segments is None:
+        return _rollout(M, v, K, d, x0)
+    outs = [_rollout(M[sl], v[sl], K[sl], d[sl], x0[s])
+            for s, sl in enumerate(_segments(M.shape[0], segments))]
+    return (torch.cat([w for w, _ in outs], dim=0),
+            torch.stack([x for _, x in outs], dim=0))
+
+
+def _launch_forward(lib, M, v, K, d, x0, shared, stream, segments=None):
     """Allocate K3's outputs and launch it (no argument checks)."""
     N, nx = M.shape[0], M.shape[1]
     nu = K.shape[1]
     Bt = v.shape[-1]
     ws = torch.empty((N, nx + nu, Bt), dtype=v.dtype, device=v.device)
-    xN = torch.empty((nx, Bt), dtype=v.dtype, device=v.device)
+    xN = torch.empty(x0.shape, dtype=v.dtype, device=v.device)
     status = lib.riccati_forward(
-        N, Bt, int(shared), stream,
+        N, Bt, int(shared), segments or 1, stream,
         *(x.data_ptr() for x in (M, v, K, d, x0, ws, xN)),
     )
     _check_status("forward_lanes", status)
     return ws, xN
 
 
-def forward_lanes(M, v, K, d, x0, *, shared=False):
+def forward_lanes(M, v, K, d, x0, *, shared=False, segments=None):
     """Closed-loop rollout u = K x + d, x+ = M x + v; returns
     (ws (N, nz, B) with rows [u; x], xN (nx, B)).
 
@@ -436,27 +493,38 @@ def forward_lanes(M, v, K, d, x0, *, shared=False):
     The per-scenario vectors v (N,nx,B), d (N,nu,B), x0 (nx,B) run the
     full batch.
 
+    ``segments=S`` (per instance only): the horizon is S segments of N/S
+    stages, each rolled out from its own start state, x0 (S,nx,B); xN
+    (S,nx,B) holds each segment's end state.  ``None``: one segment, x0
+    and xN (nx,B).
+
     On the card: the two modes are laid out as in
-    backward_vectors_lanes; see the notes in the kernel source.
+    backward_vectors_lanes; see the notes in the kernel source.  The
+    segments of the per-instance kernel run side by side in one launch.
     """
     N, nx = M.shape[0], M.shape[1]
     nu = K.shape[1]
     Bt = v.shape[-1]
     mb = 1 if shared else Bt
     dt, dev = v.dtype, v.device
+    if segments is not None:
+        if shared:
+            raise ValueError("forward_lanes: segments run per instance only")
+        _segments(N, segments)
+    x0_shape = (nx, Bt) if segments is None else (segments, nx, Bt)
     for name, x, shape in (
         ("M", M, (N, nx, nx, mb)), ("v", v, (N, nx, Bt)),
         ("K", K, (N, nu, nx, mb)), ("d", d, (N, nu, Bt)),
-        ("x0", x0, (nx, Bt)),
+        ("x0", x0, x0_shape),
     ):
         _check(name, x, shape, dt, dev)
     if dev.type == "cpu":
-        return forward_lanes_reference(M, v, K, d, x0)
+        return forward_lanes_reference(M, v, K, d, x0, segments=segments)
     if dev.type != "cuda":
         raise ValueError(f"forward_lanes: no kernel for device {dev}")
     lib = _library(dt, nx, nu)
     with torch.cuda.device(dev):
-        out = _launch_forward(lib, M, v, K, d, x0, shared, _stream())
+        out = _launch_forward(lib, M, v, K, d, x0, shared, _stream(), segments)
     LAUNCHES["forward_lanes"] += 1
     return out
 
@@ -520,6 +588,214 @@ def forward_rollout_lanes(A, B, c, K, d, x0):
     return out
 
 
+# ------------------------------------------------------------- K9, K10
+
+def _pdp_segment_reference(A, B, c, H, h, D, rho, rg, P, p, F, C, f,
+                           export_factors):
+    """K9 on one segment: the stage loop from the segment's carry."""
+    nx = A.shape[1]
+    cols = {name: [] for name in ("K", "d", "M", "v", "Gp", "P", "L", "F")}
+    for k in range(A.shape[0] - 1, -1, -1):
+        Hk, hk = _fold_penalty(H[k], h[k], D[k], rho[k], rg[k])
+        FB = torch.einsum("ijb,jkb->ikb", F, B[k])
+        K, d, L, Gp, Pn, pn = _sweep_stage(P, p, A[k], B[k], c[k], Hk, hk,
+                                           extra=FB.transpose(0, 1))
+        M, v = _closed_loop(A[k], B[k], c[k], K, d)
+        for name, x in (("K", K), ("d", d), ("M", M), ("v", v), ("Gp", Gp),
+                        ("P", P), ("L", L), ("F", F)):
+            cols[name].append(x)
+        # F = F+ M, f = F+ v + f+, C = C+ - (F+ B) Gp (upper triangle,
+        # mirrored, as the kernel).
+        F, f = (torch.einsum("ijb,jkb->ikb", F, M), _mv(F, v) + f)
+        C = _sym(C - torch.einsum("itb,tjb->ijb", FB, Gp))
+        P, p = Pn, pn
+    names = ("K", "d", "M", "v", "Gp") + (("P", "L", "F") if export_factors
+                                          else ())
+    stages = tuple(torch.stack(cols[n][::-1], dim=0) for n in names)
+    return stages, (P, p, F, C, f)
+
+
+def backward_pdp_lanes_reference(A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci,
+                                 fi, *, export_factors=False, segments=None):
+    """Plain PyTorch version of ``backward_pdp_lanes`` (same arguments,
+    same returns): each segment's stage loop in turn."""
+    if segments is None:
+        stages, bnd = _pdp_segment_reference(
+            A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi, export_factors)
+        return stages + bnd
+    parts = [_pdp_segment_reference(
+        A[sl], B[sl], c[sl], H[sl], h[sl], D[sl], rho[sl], rg[sl], Pi[s],
+        pi[s], Fi[s], Ci[s], fi[s], export_factors)
+        for s, sl in enumerate(_segments(A.shape[0], segments))]
+    stages = tuple(torch.cat(xs, dim=0) for xs in zip(*(q[0] for q in parts)))
+    return stages + tuple(torch.stack(xs, dim=0)
+                          for xs in zip(*(q[1] for q in parts)))
+
+
+def _launch_backward_pdp(lib, A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi,
+                         export_factors, segments, stream):
+    """Allocate K9's outputs and launch it (no argument checks)."""
+    N, nx, _, Bt = A.shape
+    nu = B.shape[2]
+    new = lambda *shape: torch.empty(shape, dtype=A.dtype, device=A.device)
+    K, d, M, v, Gp = (new(N, nu, nx, Bt), new(N, nu, Bt), new(N, nx, nx, Bt),
+                      new(N, nx, Bt), new(N, nu, nx, Bt))
+    P = L = F = None
+    if export_factors:
+        P, L, F = new(N, nx, nx, Bt), new(N, nu, nu, Bt), new(N, nx, nx, Bt)
+    bnd = tuple(new(*x.shape) for x in (Pi, pi, Fi, Ci, fi))
+    ptr = lambda x: None if x is None else x.data_ptr()
+    status = lib.riccati_backward_pdp(
+        N, Bt, segments or 1, int(export_factors), _matrix_threads(nx, nu),
+        stream, *(ptr(x) for x in (A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci,
+                                   fi, K, d, M, v, Gp, P, L, F) + bnd))
+    _check_status("backward_pdp_lanes", status)
+    out = (K, d, M, v, Gp)
+    if export_factors:
+        out = out + (P, L, F)
+    return out + bnd
+
+
+def backward_pdp_lanes(A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi, *,
+                       export_factors=False, segments=None):
+    """Fused PDP segment reduction; all tensors batch-last.
+
+    Stage tensors as in ``backward_lanes``, one model an instance
+    (trailing size B).  (Pi, pi, Fi, Ci, fi) are the initial carries: the
+    last segment's are the folded terminal cost-to-go with F = I, C = f =
+    0; the others' P = p = 0, F = I, C = f = 0
+    (lqr_kernel_parallel.hpp:51-67 in P-form).
+
+    Returns (K, d, M, v, Gp, P0, p0, F0, C0, f0); with ``export_factors``
+    (K, d, M, v, Gp, P, L, F, P0, p0, F0, C0, f0), where (P, L, F) are the
+    per-stage P_{k+1}, chol(Huu), F_{k+1} that backward_pdp_vectors_lanes
+    reads while rho is unchanged, and (P0, p0, F0, C0, f0) the carry
+    after the segment's first stage, which goes to the condensed system.
+
+    ``segments=S``: the N stages are S segments of N/S, swept at once
+    from their own carries; the carries and boundary values carry a
+    leading segment axis, (S,nx,nx,B) / (S,nx,B).  ``None``: one segment,
+    carries (nx,nx,B) / (nx,B), the JAX function's layout.
+
+    On the card: one thread block per (segment, instance); see the note
+    at K1 in the kernel source.
+    """
+    N, nx, _, Bt = A.shape
+    nu = B.shape[2]
+    nz = nx + nu
+    nc = D.shape[1]
+    dt, dev = A.dtype, A.device
+    lead = () if segments is None else (segments,)
+    if segments is not None:
+        _segments(N, segments)
+    for name, x, shape in (
+        ("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
+        ("c", c, (N, nx, Bt)), ("H", H, (N, nz, nz, Bt)),
+        ("h", h, (N, nz, Bt)), ("D", D, (N, nc, nz, Bt)),
+        ("rho", rho, (N, nc, Bt)), ("rg", rg, (N, nc, Bt)),
+        ("Pi", Pi, lead + (nx, nx, Bt)), ("pi", pi, lead + (nx, Bt)),
+        ("Fi", Fi, lead + (nx, nx, Bt)), ("Ci", Ci, lead + (nx, nx, Bt)),
+        ("fi", fi, lead + (nx, Bt)),
+    ):
+        _check(name, x, shape, dt, dev)
+    if dev.type == "cpu":
+        return backward_pdp_lanes_reference(
+            A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi,
+            export_factors=export_factors, segments=segments)
+    if dev.type != "cuda":
+        raise ValueError(f"backward_pdp_lanes: no kernel for device {dev}")
+    lib = _library(dt, nx, nu, nc)
+    with torch.cuda.device(dev):
+        out = _launch_backward_pdp(lib, A, B, c, H, h, D, rho, rg, Pi, pi, Fi,
+                                   Ci, fi, export_factors, segments, _stream())
+    LAUNCHES["backward_pdp_lanes"] += 1
+    return out
+
+
+def backward_pdp_vectors_lanes_reference(A, B, c, hf, P, K, L, F, pi, *,
+                                         segments=None):
+    """Plain PyTorch version of ``backward_pdp_vectors_lanes``: K2's
+    recursion on each segment from its pi, and f0 = sum_k F_{k+1} v_k."""
+    def segment(sl, p):
+        d, v, p0 = _vector_sweep(A[sl], B[sl], c[sl], hf[sl], P[sl], K[sl],
+                                 L[sl], p)
+        return d, v, p0, torch.einsum("kijb,kjb->ib", F[sl], v)
+
+    if segments is None:
+        return segment(slice(None), pi)
+    parts = [segment(sl, pi[s])
+             for s, sl in enumerate(_segments(A.shape[0], segments))]
+    d, v, p0, f0 = zip(*parts)
+    return (torch.cat(d, dim=0), torch.cat(v, dim=0), torch.stack(p0, dim=0),
+            torch.stack(f0, dim=0))
+
+
+def _launch_backward_pdp_vectors(lib, A, B, c, hf, P, K, L, F, pi, segments,
+                                 stream):
+    """Allocate K10's outputs and launch it (no argument checks)."""
+    N, nx = A.shape[0], A.shape[1]
+    nu = B.shape[2]
+    Bt = c.shape[-1]
+    d = torch.empty((N, nu, Bt), dtype=c.dtype, device=c.device)
+    v = torch.empty((N, nx, Bt), dtype=c.dtype, device=c.device)
+    p0 = torch.empty(pi.shape, dtype=c.dtype, device=c.device)
+    f0 = torch.empty(pi.shape, dtype=c.dtype, device=c.device)
+    status = lib.riccati_backward_pdp_vectors(
+        N, Bt, segments or 1, stream,
+        *(x.data_ptr() for x in (A, B, c, hf, P, K, L, F, pi, d, v, p0, f0)))
+    _check_status("backward_pdp_vectors_lanes", status)
+    return d, v, p0, f0
+
+
+def backward_pdp_vectors_lanes(A, B, c, hf, P, K, L, F, pi, *, segments=None):
+    """Cached-factor PDP segment vector sweep.
+
+    (P, K, L, F) from backward_pdp_lanes(export_factors=True); hf (N,nz,B)
+    the fully iterate-folded linear cost (h - sigma w - D^T rho g); pi the
+    iterate-folded terminal linear cost on the last segment, zeros on the
+    others.  Per stage, from p = pi and f = 0:
+
+      Pcp  = P c + p            rbar = hf[:nu] + B^T Pcp
+      d    = -(L L^T)^{-1} rbar v    = B d + c
+      p    = hf[nu:] + A^T Pcp + K^T rbar      f = F v + f
+
+    Returns (d (N,nu,B), v (N,nx,B), p0, f0): the vector half of each
+    segment's boundary, (nx,B), or (S,nx,B) with ``segments=S`` (pi then
+    (S,nx,B) too).
+
+    On the card: one thread per (segment, scenario), as the per-instance
+    backward_vectors_lanes; see the note in the kernel source.
+    """
+    N, nx = A.shape[0], A.shape[1]
+    nu = B.shape[2]
+    nz = nx + nu
+    Bt = c.shape[-1]
+    dt, dev = c.dtype, c.device
+    lead = () if segments is None else (segments,)
+    if segments is not None:
+        _segments(N, segments)
+    for name, x, shape in (
+        ("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
+        ("c", c, (N, nx, Bt)), ("hf", hf, (N, nz, Bt)),
+        ("P", P, (N, nx, nx, Bt)), ("K", K, (N, nu, nx, Bt)),
+        ("L", L, (N, nu, nu, Bt)), ("F", F, (N, nx, nx, Bt)),
+        ("pi", pi, lead + (nx, Bt)),
+    ):
+        _check(name, x, shape, dt, dev)
+    if dev.type == "cpu":
+        return backward_pdp_vectors_lanes_reference(A, B, c, hf, P, K, L, F,
+                                                    pi, segments=segments)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"backward_pdp_vectors_lanes: no kernel for device {dev}")
+    lib = _library(dt, nx, nu)
+    with torch.cuda.device(dev):
+        out = _launch_backward_pdp_vectors(lib, A, B, c, hf, P, K, L, F, pi,
+                                           segments, _stream())
+    LAUNCHES["backward_pdp_vectors_lanes"] += 1
+    return out
+
+
 # --------------------------------------------------- per-instance (lanes)
 
 def _join_terminal(ws, xN, nu):
@@ -580,6 +856,177 @@ def solve_lanes(problem, it, x0, sigma: float, *, storage_dtype=None):
     ``storage_dtype``: see prepare_lanes."""
     return solve_prepared(prepare_lanes(problem, it, x0, sigma,
                                         storage_dtype))
+
+
+# --------------------------------------------- packed streams (K11, K12)
+
+def _packed_nx(rows, nu):
+    """nx from the rows of a packed Sd: nx (nx + nu + 1) = rows."""
+    nx = (-(nu + 1) + math.isqrt((nu + 1) ** 2 + 4 * rows)) // 2
+    if nx * (nx + nu + 1) != rows:
+        raise ValueError(f"Sd rows {rows} are not nx (nx + nu + 1) for nu={nu}")
+    return nx
+
+
+def _unpack_dynamics(Sd, nu):
+    """Views A (N,nx,nx,B), B (N,nx,nu,B), c (N,nx,B) of Sd = (A | B | c)."""
+    N, rows, Bt = Sd.shape
+    nx = _packed_nx(rows, nu)
+    return (Sd[:, :nx * nx].reshape(N, nx, nx, Bt),
+            Sd[:, nx * nx:nx * (nx + nu)].reshape(N, nx, nu, Bt),
+            Sd[:, nx * (nx + nu):])
+
+
+def _unpack_cost(Sc, nz, nc):
+    """Views H, h, D, rho, rg of Sc = (H | h | D | rho | rho g)."""
+    N, _, Bt = Sc.shape
+    o = nz * nz + nz
+    return (Sc[:, :nz * nz].reshape(N, nz, nz, Bt), Sc[:, nz * nz:o],
+            Sc[:, o:o + nc * nz].reshape(N, nc, nz, Bt),
+            Sc[:, o + nc * nz:o + nc * nz + nc], Sc[:, o + nc * nz + nc:])
+
+
+def _refuse_narrow(name, stream, dtype):
+    if stream.dtype != dtype:
+        raise NotImplementedError(
+            f"{name}: a {stream.dtype} stream under {dtype} gains is "
+            f"storage_dtype (narrow stage streams, ROADMAP M6), not ported")
+
+
+def backward_packed_reference(Sd, Sc, PN, pN, nu, nc):
+    """Plain PyTorch version of ``backward_packed``: K1's (gains only) on
+    the unpacked views."""
+    A, B, c = _unpack_dynamics(Sd, nu)
+    H, h, D, rho, rg = _unpack_cost(Sc, A.shape[1] + nu, nc)
+    K, d = backward_lanes_reference(A, B, c, H, h, D, rho, rg, PN, pN,
+                                    emit_closed_loop=False)
+    return torch.cat([K.flatten(1, 2), d], dim=1)
+
+
+def backward_packed(Sd, Sc, PN, pN, nu, nc):
+    """Packed-stream (K, d)-only backward sweep: the same math as
+    backward_lanes(emit_closed_loop=False) on one model an instance.
+
+    ``Sd`` (N, nx*nx + nx*nu + nx, B) the row-packed (A | B | c)
+    dynamics; ``Sc`` (N, nz*nz + nz + nc*nz + 2nc, B) the row-packed
+    (H~ | h~ | D | rho | rho*g) cost (nz*nz + nz rows when nc = 0);
+    PN/pN the folded terminal cost-to-go.  Returns the packed gains
+    G (N, nu*nx + nu, B).
+
+    On the card: K1's kernel reading the packed strides (on the TPU the
+    packing saved DMA windows; here it changes only the addresses)."""
+    N, rows, Bt = Sd.shape
+    nx = _packed_nx(rows, nu)
+    nz = nx + nu
+    dt, dev = PN.dtype, PN.device
+    _refuse_narrow("backward_packed", Sd, dt)
+    _refuse_narrow("backward_packed", Sc, dt)
+    for name, x, shape in (
+        ("Sd", Sd, (N, nx * (nx + nu + 1), Bt)),
+        ("Sc", Sc, (N, nz * nz + nz + nc * nz + 2 * nc, Bt)),
+        ("PN", PN, (nx, nx, Bt)), ("pN", pN, (nx, Bt)),
+    ):
+        _check(name, x, shape, dt, dev)
+    if dev.type == "cpu":
+        return backward_packed_reference(Sd, Sc, PN, pN, nu, nc)
+    if dev.type != "cuda":
+        raise ValueError(f"backward_packed: no kernel for device {dev}")
+    lib = _library(dt, nx, nu, nc)
+    with torch.cuda.device(dev):
+        G = _launch_backward_packed(lib, Sd, Sc, PN, pN, nu, _stream())
+    LAUNCHES["backward_packed"] += 1
+    return G
+
+
+def _launch_backward_packed(lib, Sd, Sc, PN, pN, nu, stream):
+    """Allocate K11's output and launch it (no argument checks)."""
+    N, rows, Bt = Sd.shape
+    nx = _packed_nx(rows, nu)
+    G = torch.empty((N, nu * nx + nu, Bt), dtype=PN.dtype, device=PN.device)
+    status = lib.riccati_backward_packed(
+        N, Bt, _matrix_threads(nx, nu), stream,
+        *(x.data_ptr() for x in (Sd, Sc, PN, pN, G)))
+    _check_status("backward_packed", status)
+    return G
+
+
+def forward_packed_reference(Sd, G, x0, nu):
+    """Plain PyTorch version of ``forward_packed``: K7's on the unpacked
+    views."""
+    A, B, c = _unpack_dynamics(Sd, nu)
+    N, nx, Bt = A.shape[0], A.shape[1], G.shape[-1]
+    return forward_rollout_lanes_reference(
+        A, B, c, G[:, :nu * nx].reshape(N, nu, nx, Bt), G[:, nu * nx:], x0)
+
+
+def forward_packed(Sd, G, x0, nu):
+    """Packed-stream rollout from the raw dynamics: ``Sd`` as in
+    backward_packed, ``G`` its packed gains, x0 (nx, B).  Returns
+    (ws (N, nz, B), xN (nx, B)).  A narrow Sd (the JAX function's
+    ``storage_dtype``) is not ported and raises.
+
+    On the card: K7's kernel reading the packed strides."""
+    N, rows, Bt = Sd.shape
+    nx = _packed_nx(rows, nu)
+    dt, dev = G.dtype, G.device
+    _refuse_narrow("forward_packed", Sd, dt)
+    for name, x, shape in (
+        ("Sd", Sd, (N, nx * (nx + nu + 1), Bt)),
+        ("G", G, (N, nu * nx + nu, Bt)), ("x0", x0, (nx, Bt)),
+    ):
+        _check(name, x, shape, dt, dev)
+    if dev.type == "cpu":
+        return forward_packed_reference(Sd, G, x0, nu)
+    if dev.type != "cuda":
+        raise ValueError(f"forward_packed: no kernel for device {dev}")
+    lib = _library(dt, nx, nu)
+    with torch.cuda.device(dev):
+        out = _launch_forward_packed(lib, Sd, G, x0, _stream())
+    LAUNCHES["forward_packed"] += 1
+    return out
+
+
+def _launch_forward_packed(lib, Sd, G, x0, stream):
+    """Allocate K12's outputs and launch it (no argument checks)."""
+    N, Bt = Sd.shape[0], Sd.shape[-1]
+    nx = x0.shape[0]
+    nz = nx + (G.shape[1] // (nx + 1))
+    ws = torch.empty((N, nz, Bt), dtype=G.dtype, device=G.device)
+    xN = torch.empty((nx, Bt), dtype=G.dtype, device=G.device)
+    status = lib.riccati_forward_packed(
+        N, Bt, stream, *(x.data_ptr() for x in (Sd, G, x0, ws, xN)))
+    _check_status("forward_packed", status)
+    return ws, xN
+
+
+def prepare_packed(problem, it, x0, sigma: float, storage_dtype=None):
+    """Packed-stream preparation: the prepare_lanes layout with the stage
+    streams row-concatenated into Sd = (A | B | c) and Sc = (H~ | h~ | D |
+    rho | rho*g).  Returns the argument tuple for solve_packed_prepared,
+    (Sd, Sc, PN, pN, x0, nu, nc).  ``storage_dtype``: see prepare_lanes
+    (not ported; raises)."""
+    A, B, c, H, h, D, rho, rg, PN, pN, x0_l, nu = prepare_lanes(
+        problem, it, x0, sigma, storage_dtype)
+    N, Bt, nc = A.shape[0], A.shape[-1], D.shape[1]
+    flat = lambda x: x.reshape(N, -1, Bt)
+    Sd = torch.cat([flat(A), flat(B), c], dim=1)
+    Sc = torch.cat([flat(H), h] + ([flat(D), rho, rg] if nc else []), dim=1)
+    return (Sd, Sc, PN, pN, x0_l, nu, nc)
+
+
+def solve_packed_prepared(prep):
+    """Run the packed-stream kernel pair -> ws (B, N+1, nz)."""
+    Sd, Sc, PN, pN, x0_l, nu, nc = prep
+    G = backward_packed(Sd, Sc, PN, pN, nu, nc)
+    ws, xN = forward_packed(Sd, G, x0_l, nu)
+    return _join_terminal(ws, xN, nu)
+
+
+def solve_packed(problem, it, x0, sigma: float, *, storage_dtype=None):
+    """Batched solve through the packed-stream kernels: the contract of
+    solve_lanes (the same function, the streams packed)."""
+    return solve_packed_prepared(prepare_packed(problem, it, x0, sigma,
+                                                storage_dtype))
 
 
 # ------------------------------------------------- shared-stage (broadcast)

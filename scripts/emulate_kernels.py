@@ -12,7 +12,8 @@ starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
 ``cp.async`` a ``memcpy``), builds it with ``g++ -std=c++20`` into
 ``build/emulate/``, loads it through the wrappers' own ``ctypes`` bindings
 and holds every kernel and mode against its plain PyTorch version at small
-sizes (K1-K8, every form of K5 and of K8).  It proves nothing about what ``nvcc`` accepts, about races between
+sizes (K1-K12, every form of K5 and of K8, K9 in both forms, K3 in
+segments).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
 on them.  About a minute (some twenty small g++ builds); ``--quick`` runs
@@ -206,6 +207,45 @@ def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
     check(f"K7 per-instance [{tag} B={Bw}]",
           cr._launch_forward_rollout(lib, A7, B7, c7, K7, d7, x07, None),
           cr.forward_rollout_lanes_reference(A7, B7, c7, K7, d7, x07), tol)
+
+    # K9 in S segments (both forms) from random carries, K10 on its
+    # factors, K3 in the same segments; K11 and K12 on the packed streams.
+    S = next(n for n in range(2, N + 1) if N % n == 0)
+    eye = torch.eye(nx, dtype=dtype)[None, :, :, None]
+    carries = (
+        (torch.einsum("sijb,sljb->silb", *(T(S, nx, nx, Bt),) * 2)
+         + eye).contiguous(),
+        T(S, nx, Bt), (eye + 0.2 * T(S, nx, nx, Bt)).contiguous(),
+        (torch.einsum("sijb,sljb->silb", *(T(S, nx, nx, Bt),) * 2)
+         + eye).contiguous(),
+        T(S, nx, Bt))
+    for export in (False, True):
+        check(f"K9 [{tag} B={Bt} S={S} export={export}]",
+              cr._launch_backward_pdp(lib1, *k1_in[:8], *carries, export, S,
+                                      None),
+              cr.backward_pdp_lanes_reference(*k1_in[:8], *carries,
+                                              export_factors=export,
+                                              segments=S), tol)
+    K9, d9, M9, v9, _, P9, L9, F9 = cr.backward_pdp_lanes_reference(
+        *k1_in[:8], *carries, export_factors=True, segments=S)[:8]
+    Sd = torch.cat([A.flatten(1, 2), B.flatten(1, 2), c], dim=1)
+    Sc = torch.cat([H.flatten(1, 2), h, D.flatten(1, 2), rho, rg], dim=1)
+    check(f"K11 [{tag} B={Bt}]",
+          [cr._launch_backward_packed(lib1, Sd, Sc, PN, pN, nu, None)],
+          [cr.backward_packed_reference(Sd, Sc, PN, pN, nu, nc)], tol)
+    pi, x0s = T(S, nx, Bt), T(S, nx, Bt)
+    check(f"K10 [{tag} B={Bt} S={S}]",
+          cr._launch_backward_pdp_vectors(lib, A, B, c, hf, P9, K9, L9, F9,
+                                          pi, S, None),
+          cr.backward_pdp_vectors_lanes_reference(A, B, c, hf, P9, K9, L9,
+                                                  F9, pi, segments=S), tol)
+    check(f"K3 segments [{tag} B={Bt} S={S}]",
+          cr._launch_forward(lib, M9, v9, K9, d9, x0s, False, None, S),
+          cr.forward_lanes_reference(M9, v9, K9, d9, x0s, segments=S), tol)
+    G = cr.backward_packed_reference(Sd, Sc, PN, pN, nu, nc)
+    check(f"K12 [{tag} B={Bt}]",
+          cr._launch_forward_packed(lib, Sd, G, x0, None),
+          cr.forward_packed_reference(Sd, G, x0, nu), tol)
 
     one = lambda x: x[..., :1].contiguous()
     A1, B1, P1, K1, L1, M1 = (one(x) for x in (A, B, P, K, L, M))

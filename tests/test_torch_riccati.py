@@ -385,7 +385,10 @@ def test_cpu_path_launches_no_kernel(port_prep):
         t(4, 3, 5), t(4, 1, 5), t(4, 1, 5), one(1, 5), eye(2, 5), t(2, 5),
         t(2, 5), nu=1, cones=(), alpha=1.6, sigma=1e-6, shared=True)
     assert cr.LAUNCHES == {"backward_lanes": 0, "backward_vectors_lanes": 0,
-                           "forward_lanes": 0, "forward_rollout_lanes": 0}
+                           "forward_lanes": 0, "forward_rollout_lanes": 0,
+                           "backward_pdp_lanes": 0,
+                           "backward_pdp_vectors_lanes": 0,
+                           "backward_packed": 0, "forward_packed": 0}
     assert ca.LAUNCHES == {"admm_bwd_vec_prefold_lanes": 0,
                            "admm_bwd_vec_lanes": 0,
                            "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0}
@@ -400,3 +403,115 @@ def test_kernel_defines_and_block_sizes():
         cr.kernel_defines(torch.float16, 12, 4)
     assert cr._matrix_threads(12, 4) == 256
     assert cr._matrix_threads(2, 1) == 32
+
+
+# ------------------------------------------------- packed streams (K11, K12)
+# As tests/test_pallas.py:139 does for the JAX package: quadrotor N=10, B=3,
+# constrained and not, one model a scenario.  One jit runs JAX's packed
+# pipeline step by step for both.
+
+PACKED_N, PACKED_B = 10, 3
+PACKED_NAMES = ("Sd", "Sc", "PN", "pN", "x0", "G", "ws_l", "xN", "ws")
+
+
+@pytest.fixture(scope="module")
+def jax_packed():
+    import jax
+    import jax.numpy as jnp
+
+    from pdp_lqr_tpu import init_iterates
+    from pdp_lqr_tpu.models import quadrotor
+    from pdp_lqr_tpu.ops import pallas_riccati as pr
+
+    cases = {}
+    for constrained in (False, True):
+        rng = np.random.default_rng(0)
+        problem, _ = quadrotor(N=PACKED_N, constrained=constrained)
+        bp = jax.tree.map(
+            lambda x: jnp.broadcast_to(x, (PACKED_B,) + x.shape), problem)
+        bp = dataclasses.replace(
+            bp, c=bp.c + jnp.asarray(rng.normal(size=bp.c.shape) * 0.01))
+        its = jax.vmap(lambda p: init_iterates(p, rho=0.01))(bp)
+        x0 = jnp.asarray(rng.normal(size=(PACKED_B, problem.nx)) * 0.1)
+        cases[constrained] = (bp, its, x0)
+
+    @jax.jit
+    def run(cases):
+        out = {}
+        for constrained, (bp, its, x0) in cases.items():
+            Sd, Sc, PN, pN, x0_l, nu, nc = pr.prepare_packed(bp, its, x0,
+                                                             SIGMA)
+            G = pr.backward_packed(Sd, Sc, PN, pN, nu, nc, interpret=True)
+            ws_l, xN = pr.forward_packed(Sd, G, x0_l, nu, interpret=True)
+            wN = jnp.concatenate([jnp.zeros((PACKED_B, nu)), xN.T], axis=-1)
+            ws = jnp.concatenate([pr.from_lanes(ws_l), wN[:, None]], axis=1)
+            out[constrained] = (Sd, Sc, PN, pN, x0_l, G, ws_l, xN, ws)
+        return out
+
+    out = run({False: cases[False], True: cases[True]})
+    return {c: {"inputs": tuple(_asdict_np(x) for x in cases[c][:2])
+                + (np.asarray(cases[c][2]),),
+                **dict(zip(PACKED_NAMES, map(np.asarray, out[c])))}
+            for c in (False, True)}
+
+
+def _packed_widths(jax_packed, constrained):
+    """(nu, nc) of the case's problem."""
+    prob = jax_packed[constrained]["inputs"][0]
+    return prob["B"].shape[-1], prob["D"].shape[-2]
+
+
+def _packed_inputs(jax_packed, constrained):
+    prob, it, x0 = jax_packed[constrained]["inputs"]
+    return (convert.problem_from_numpy(prob, device="cpu"),
+            convert.iterates_from_numpy(it, device="cpu"), _t(x0))
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+def test_prepare_packed_matches_jax(jax_packed, constrained):
+    prep = cr.prepare_packed(*_packed_inputs(jax_packed, constrained), SIGMA)
+    for name, got in zip(PACKED_NAMES[:5], prep[:5]):
+        np.testing.assert_allclose(got.numpy(), jax_packed[constrained][name],
+                                   atol=ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+def test_backward_packed_plain_version_matches_jax(jax_packed, constrained):
+    ref = jax_packed[constrained]
+    G = cr.backward_packed(_t(ref["Sd"]), _t(ref["Sc"]), _t(ref["PN"]),
+                           _t(ref["pN"]), *_packed_widths(jax_packed,
+                                                          constrained))
+    np.testing.assert_allclose(G.numpy(), ref["G"], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("out", ["ws_l", "xN"])
+def test_forward_packed_plain_version_matches_jax(jax_packed, constrained,
+                                                  out):
+    ref = jax_packed[constrained]
+    nu, _ = _packed_widths(jax_packed, constrained)
+    got = cr.forward_packed(_t(ref["Sd"]), _t(ref["G"]), _t(ref["x0"]), nu)
+    np.testing.assert_allclose(got[("ws_l", "xN").index(out)].numpy(),
+                               ref[out], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+def test_solve_packed_matches_jax_and_solve_lanes(jax_packed, constrained):
+    args = _packed_inputs(jax_packed, constrained)
+    ws = cr.solve_packed(*args, SIGMA)
+    np.testing.assert_allclose(ws.numpy(), jax_packed[constrained]["ws"],
+                               atol=1e-12, rtol=0)
+    np.testing.assert_allclose(ws.numpy(), cr.solve_lanes(*args, SIGMA).numpy(),
+                               atol=1e-12, rtol=0)
+
+
+def test_packed_refuses_narrow_streams(jax_packed):
+    ref = jax_packed[True]
+    Sd, G, x0 = _t(ref["Sd"]), _t(ref["G"]), _t(ref["x0"])
+    with pytest.raises(NotImplementedError, match="storage_dtype"):
+        cr.forward_packed(Sd.float(), G, x0, 4)
+    with pytest.raises(NotImplementedError, match="storage_dtype"):
+        cr.solve_packed(*_packed_inputs(jax_packed, True), SIGMA,
+                        storage_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not nx"):
+        cr.forward_packed(Sd[:, :-1], G, x0, 4)
