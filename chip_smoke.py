@@ -60,6 +60,7 @@ NX, NU, NC = 12, 4, 16          # quadrotor, constrained=True
 N_MAIN, B_MAIN = 512, 4096      # the serving workload
 N_SMALL, B_SMALL = 64, 256      # kernel-vs-plain comparison shape
 B_RAGGED = 250                  # not a multiple of a block's 32 scenarios
+B_ODD = 249                     # odd: K8's bfloat16 rows at odd offsets
 REQUESTS = 3                    # requests of the counted main-path run
 TIMED_REQUESTS = 20
 ADMM_TIMED_REQUESTS = 10
@@ -115,6 +116,10 @@ N_LAT, B_LAT, S_LAT = 1024, 128, 32
 S_SMALL = 4
 # K8's modes held against its plain version: name -> (nc, cones, shift).
 K8_MODES = {"box": (NC, (), False), "cone+shift": (NC_CONE, THRUST_CONE, True)}
+# K8 at odd widths on an odd batch (a bfloat16 stage block of odd length,
+# and on an odd batch a row of scenarios, starts at an odd element, which
+# the kernel's aligned pair copies must cover): nx, nu, nc, cones, shift.
+K8_ODD = (3, 2, 5, ((1, 3, "soc"),), True)
 # Kernel B's modes held against the plain version: (name, nc, cones,
 # diagonal stage cost, shift).
 K5_MODES = (
@@ -652,6 +657,34 @@ def timed(request, reps, batch):
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
+ALLOC_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+
+def request_probe(request, admm):
+    """What one request does beside its kernels: the caching allocator's
+    events (``torch.cuda.memory_stats`` deltas: retries after a failed
+    ``cudaMalloc``, device allocations and frees), the host reads, and the
+    allocator's reserved and allocated bytes after it."""
+    torch.cuda.synchronize()
+    admm.reset_host_reads()
+    before = torch.cuda.memory_stats()
+    request()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    return {**{k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_STATS},
+            "host_reads": dict(admm.HOST_READS),
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "allocated_bytes": torch.cuda.memory_allocated()}
+
+
+def in_turns(requests, reps):
+    """Median ms of each named request, timed in turns (a, b, b, a)."""
+    times = {name: [] for name in requests}
+    for name in list(requests) + list(requests)[::-1]:
+        times[name].append(cuda_ms(requests[name], reps, warmup=1))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -712,6 +745,9 @@ def main():
         for nc, cones, shift in K8_MODES.values():
             jobs.append((ca.SOURCE, ca.kernel_defines(
                 dt, NX, NU, nc, cones=cones, has_shift=shift, single=True)))
+        jobs.append((ca.SOURCE, ca.kernel_defines(
+            dt, *K8_ODD[:3], cones=K8_ODD[3], has_shift=K8_ODD[4],
+            single=True)))
     # K8 at the rocket's widths (two cones), float32.
     jobs.append((ca.SOURCE, ca.kernel_defines(
         torch.float32, 6, 3, 7, cones=((1, 3, "soc"), (4, 3, "soc")),
@@ -793,6 +829,9 @@ def main():
         compare("forward_lanes[per-instance]", K3_OUT,
                 cr.forward_lanes(Mw, v, Kw, d, x0),
                 cr.forward_lanes_reference(Mw, v, Kw, d, x0))
+        k3_r = tuple(cut(x) for x in (Mw, v, Kw, d, x0))
+        compare(f"forward_lanes[per-instance,B={B_RAGGED}]", K3_OUT,
+                cr.forward_lanes(*k3_r), cr.forward_lanes_reference(*k3_r))
 
         # The split ADMM iteration's pair around the same shared model:
         # kernel A once per batch size, kernel B in each of its modes.
@@ -879,6 +918,24 @@ def main():
                                     ca.admm_iter_lanes(*a, shared=shared, **kw),
                                     ca.admm_iter_lanes_reference(*a, **kw))
                             k8_cases += 1
+        # Every form at odd widths on an odd batch.
+        nx_o, nu_o, nc_o, cones_o, shift_o = K8_ODD
+        for shared in (False, True):
+            args = random_iter_inputs(rng, N_SMALL, nx_o, nu_o, nc_o, B_ODD,
+                                      cones_o, shared, shift_o, dt, dev)
+            for factors in (None, iter_factors(args, shared)):
+                for narrow in (False, True):
+                    a = narrow_storage(args) if narrow else args
+                    kw = dict(nu=nu_o, cones=cones_o, alpha=ALPHA, sigma=SIGMA,
+                              factors=factors)
+                    form = (("shared" if shared else "batched")
+                            + (",cached" if factors else "")
+                            + (",bf16" if narrow else ""))
+                    compare(f"admm_iter_lanes[{form},nx={nx_o},nu={nu_o},"
+                            f"B={B_ODD}]", K8_OUT,
+                            ca.admm_iter_lanes(*a, shared=shared, **kw),
+                            ca.admm_iter_lanes_reference(*a, **kw))
+                    k8_cases += 1
 
         # K9 (both forms) in S_SMALL segments from random carries, K10 on
         # its factors, K3 in the same segments, on a full and a ragged
@@ -921,7 +978,7 @@ def main():
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
         require(launched == {"backward_lanes": 5, "backward_vectors_lanes": 4,
-                             "forward_lanes": 5, "forward_rollout_lanes": 2,
+                             "forward_lanes": 6, "forward_rollout_lanes": 2,
                              "backward_pdp_lanes": 4,
                              "backward_pdp_vectors_lanes": 2,
                              "backward_packed": 2, "forward_packed": 2},
@@ -1331,7 +1388,7 @@ def main():
     cached_requests = {
         "float32": lambda: server.solve_admm(x0a_t, (), st_sc, c=ca_t,
                                              split=False),
-        "bfloat16": lambda: plt_.solve_fused(
+        "bfloat16": lambda model_c=model_c: plt_.solve_fused(
             model_c, x0a_t, (), st_sc, single_kernel=True,
             storage_dtype=torch.bfloat16)}
     cpu_c = dataclasses.replace(cpu_model, c=torch.as_tensor(
@@ -1361,6 +1418,12 @@ def main():
     # What the bfloat16 rounding of the data moves, the whole batch.
     rounding = admm_errors(admm_outputs(*sc["bfloat16"]["out"]),
                            admm_outputs(*sc["float32"]["out"]))
+    # Both requests timed here in turns, before the PDP phases fill the
+    # card, with what one request of each makes the allocator do and reads
+    # on the host.
+    sc_early = {"turns_ms": in_turns({n: r["request"] for n, r in sc.items()},
+                                     3),
+                **{n: request_probe(r["request"], admm) for n, r in sc.items()}}
     # Cross-check: K8 on cached factors against the split pair (full Hs),
     # N=64, B=256, float64, rho adapting: the same function.
     m64c = dataclasses.replace(m64, c=c_v)
@@ -1380,7 +1443,7 @@ def main():
          **{name: {k: v for k, v in r.items()
                    if k not in ("request", "out", "args")}
             for name, r in sc.items()},
-         atol=SINGLE_ATOL, bf16_vs_f32_storage=rounding,
+         atol=SINGLE_ATOL, bf16_vs_f32_storage=rounding, early=sc_early,
          vs_split_f64={"N": N_SMALL, "B": B_SMALL, "settings": CROSS_SETTINGS,
                        "launches": x_launches, "rho_end": float(x_k8[1].rho[0]),
                        "max_abs_err": errs_x, "atol": SINGLE_CROSS_ATOL})
@@ -1581,8 +1644,9 @@ def main():
     # K3 every iteration); solve_fused's "auto" (K8) on the same data.
     # Then the same loop against the replicated loop in float64 on the
     # card (N=64, B=256, S=4, rho adapting every 10th iteration).
-    model_c, cones_c = quadrotor(N=N_MAIN, constrained=True, thrust_cone=True,
-                                 dtype=torch.float32, device=dev)
+    model_cone, cones_c = quadrotor(N=N_MAIN, constrained=True,
+                                    thrust_cone=True, dtype=torch.float32,
+                                    device=dev)
     shift_c = np.zeros((N_MAIN + 1, NC_CONE), np.float32)
     shift_c[:, NC] = THRUST_SHIFT
     rng = np.random.default_rng(SEED + 3)
@@ -1590,7 +1654,7 @@ def main():
         device=dev, dtype=torch.float32)
     x0_pa = torch.as_tensor(rng.normal(size=(B_PDP, NX)) * 0.05).to(
         device=dev, dtype=torch.float32)
-    bp_pa = batched(model_c, B_PDP, c_pa)
+    bp_pa = batched(model_cone, B_PDP, c_pa)
     mesh_pa = make_mesh(time=S_PDP, device=dev)
     pa = {}
     for cached in (False, True):
@@ -1947,6 +2011,14 @@ def main():
     lanes_t = timed(lanes_request, TIMED_REQUESTS, B_MAIN)
     sc_t = {name: timed(r["request"], ADMM_TIMED_REQUESTS, B_MAIN)
             for name, r in sc.items()}
+    # The requests timed here must be the ones counted in their own phase:
+    # a later phase that rebound a name a request reads would time another
+    # problem.
+    shapes = lambda call: [tuple(x.shape) for x in call[0] if x is not None]
+    for name, r in sc.items():
+        with recorded_calls(ca, [K8]) as rec:
+            r["request"]()
+        require(shapes(rec[K8]) == shapes(r["args"][K8]), name, "changed")
     sb_t = {name: timed(r["request"], ADMM_TIMED_REQUESTS, B_REP)
             for name, r in sb.items()}
     # single_kernel="auto" on a batched problem: K8 against the replicated

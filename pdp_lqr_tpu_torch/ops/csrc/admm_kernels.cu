@@ -895,80 +895,258 @@ fwd_update_kernel(
 //   projection, dual update and the four residual maxima, with the full
 //   sigma-folded Hs in the dual residual.
 //
-// What bounds it on this card: with per-scenario matrices (a batched
-// problem, or per-scenario rho on one model) each scenario carries its own
-// P (nx^2) and folded H (nz^2) through a chain of N dependent stages, and
-// the bytes of a batched problem's stage data.  The design gives a
-// scenario one warp: the carry and the stage's data and products live in
-// the warp's slice of shared memory, each product's entries are dealt over
-// the 32 lanes, and only __syncwarp orders the steps (no block barrier).
-// Every stage's data is read from device memory when it is needed; on a
-// shared model all warps read the same addresses, which the L1 cache
-// serves.  The TPU kept the gains in its on-chip memory; here they make a
-// round trip through device memory (mostly the L2 cache).  Templates:
-// SHARED (the model's streams, factors included, have trailing size 1),
-// CACHED (phase 1 on exported factors), S the storage type of the stage
-// data A, B, c, Hs, h, D (the compute type, or bf16: upcast at load).
+// What bounds it on this card: each scenario carries its own P (nx^2)
+// and, uncached, its folded H (nz^2) through a chain of N dependent
+// stages, so a scenario is one warp: the carry and the stage's products
+// live in the warp's slice of shared memory, each product's entries are
+// dealt over the 32 lanes, and __syncwarp orders the steps.  What the
+// warps can share is the stage DATA.  A warp that loads every stage's
+// data itself spends most of its issue slots and memory latency on it: on
+// one model every warp of an SM copies the same words, and on a batched
+// problem each of a warp's loads touches 32 sectors for 4 bytes of each.
+// So a block of WB warps (WB consecutive scenarios) stages each stage's
+// data ONCE: its threads together fill a ring of K8_SLOTS shared-memory
+// slots with cp.async, K8_PF stages ahead of use, one __syncthreads a
+// stage.  A shared model's streams (trailing size 1) are one copy in the
+// slot, which every warp reads as broadcasts; a per-scenario stream (c,
+// w, z, y, the spilled gains, and every stream of a batched problem) is
+// held as rows of the block's WB scenarios, scenario index fastest, so a
+// copy instruction reads whole sectors and a warp reads its own column.
+// Every matrix row in a slot has an odd length and a row of scenarios an
+// odd stride in words, so the lanes of a warp fall on distinct banks
+// whether they walk along a row or down a column, and the inner products
+// unroll over compile-time offsets; a warp's own vectors, which all its
+// lanes read alike, are read 16 bytes a load.  bf16 stage data travels as
+// aligned pairs of 4 bytes into a staging area of the slot, and the block
+// converts it to the compute type one stage ahead of use: the products
+// never see the storage type.  A warp past the batch computes the last
+// scenario's numbers and stores nothing: it stays in the loop for the
+// block's barriers.  The gains make a round trip through device memory
+// (mostly the L2 cache) between the phases, a scenario's stages
+// contiguous.  The copy loops stay rolled: unrolled, they made the kernel
+// 8-17 thousand instructions and every stage slower (instruction fetch;
+// on an H100, quadrotor f32: cached N=512 5.3 ms against 4.2 rolled).
+// What is left (-DADMM_PROFILE on an H100, quadrotor f32, cached N=512):
+// issuing the next stages' copies and the products share a stage's
+// cycles; registers (128 a thread, capped so that two blocks of 8 warps
+// fit an SM), not shared-memory bandwidth or the barrier (50 cycles a
+// stage), limit the warps in flight.
+// Templates: SHARED (the model's streams, factors included, have trailing
+// size 1), CACHED (phase 1 on exported factors), S the storage type of
+// the stage data A, B, c, Hs, h, D (the compute type, or bf16).  WB
+// (K8Fit) is 8 on one model and 4 on a batched problem, whose serving
+// batches are smaller (the rocket's 512 scenarios in 128 blocks), fewer
+// where a form's stage does not fit a block's shared memory (float64 at
+// wide models).
 
-constexpr int K8_WARPS = 4;                   // scenarios a block
-constexpr int K8_THREADS = 32 * K8_WARPS;
+// Diagnostic build (-DADMM_PROFILE): thread 0 of block 0 sums the SM
+// cycles it spends in each marked section of a stage (K8_SECTIONS, both
+// phases); admm_read_prof copies the sums out.
+constexpr int K8_SECTIONS = 12;
+#ifdef ADMM_PROFILE
+__device__ long long admm_prof[K8_SECTIONS];
+#define K8_PROF_INIT                                                         \
+    const bool prof_on = (threadIdx.x == 0 && blockIdx.x == 0);             \
+    long long prof_acc[K8_SECTIONS] = {};                                    \
+    long long prof_t = clock64();
+#define K8_MARK(i)                                                           \
+    do {                                                                     \
+        const long long t_ = clock64();                                      \
+        prof_acc[i] += t_ - prof_t;                                          \
+        prof_t = t_;                                                         \
+    } while (0)
+#define K8_PROF_DONE                                                         \
+    if (prof_on)                                                             \
+        for (int i_ = 0; i_ < K8_SECTIONS; ++i_) admm_prof[i_] = prof_acc[i_];
+#else
+#define K8_PROF_INIT
+#define K8_MARK(i)
+#define K8_PROF_DONE
+#endif
+
 constexpr int K8_RC = (NC + 31) / 32;         // constraint rows a lane
-// A warp's slice of shared memory (words): the stage's data ...
-constexpr int W_A = 0;
-constexpr int W_B = W_A + NX * NX;
-constexpr int W_C = W_B + NX * NU;
-constexpr int W_H = W_C + NX;                 // Hs, folded in phase 1
-constexpr int W_HV = W_H + NZ * NZ;           // h, folded in phase 1
-constexpr int W_D = W_HV + NZ;
-constexpr int W_M = W_D + NC * NZ;            // rho scale
-constexpr int W_LB = W_M + NC;
-constexpr int W_UB = W_LB + NC;
-constexpr int W_SH = W_UB + NC;
-constexpr int W_W = W_SH + NC;
-constexpr int W_Z = W_W + NZ;
-constexpr int W_Y = W_Z + NC;
-constexpr int W_FP = W_Y + NC;                // cached P_{k+1}
-constexpr int W_FL = W_FP + NX * NX;          // cached chol(Huu)
-constexpr int W_K = W_FL + NU * NU;           // K (either form)
-constexpr int W_DV = W_K + NU * NX;           // d
-// ... phase 1's carry and products ...
-constexpr int W_P = W_DV + NU;
-constexpr int W_PV = W_P + NX * NX;
-constexpr int W_PA = W_PV + NX;
-constexpr int W_PB = W_PA + NX * NX;
-constexpr int W_PCP = W_PB + NX * NU;
-constexpr int W_G = W_PCP + NX;
-constexpr int W_RB = W_G + NU * NX;
-constexpr int W_HUU = W_RB + NU;
-// ... phase 2's: x (x2), w~, w+, w - w~, the shifted v, zt, y+, and the
-// closing reduction's 4 x 32.
-constexpr int W_X = W_HUU + NU * NU;
-constexpr int W_WT = W_X + 2 * NX;
-constexpr int W_WN = W_WT + NZ;
-constexpr int W_DW = W_WN + NZ;
-constexpr int W_VX = W_DW + NZ;
-constexpr int W_ZT = W_VX + NC;
-constexpr int W_YN = W_ZT + NC;
-constexpr int W_RED = W_YN + NC;
-constexpr int W_WORDS = W_RED + 4 * 32;
-constexpr int K8_SMEM_WORDS = K8_WARPS * W_WORDS;
+constexpr int K8_SMEM_MAX = 227 * 1024;       // a block's shared memory
+constexpr int K8_RED = 4 * 32;                // the closing reduction
+constexpr int K8_PF = 2;                      // stages in flight
+constexpr int K8_SLOTS = K8_PF + 1;
 
-__device__ __forceinline__ scalar up(scalar v) { return v; }
+// A matrix row's length in a slot: odd.
+constexpr int k8_pad(int c) { return c | 1; }
+// Words of an R x C stream in a slot, a row of scenarios rs words apart.
+constexpr int k8_words(int r, int c, int rs) { return r * k8_pad(c) * rs; }
+// Staging bytes of a narrow stream of n entries (kind 1: one copy, the
+// pair cover and one pair more; kind 2: rows of rb entries; 0: none),
+// 4-byte aligned.
+constexpr int k8_staged(int n, int kind, int rb)
+{
+    return kind == 0 ? 0 : kind == 1 ? ((n + 2) * 2 + 3) / 4 * 4 : n * rb * 2;
+}
+
+// A warp's own words: phase 1's carry and products (P, K and the
+// products of P only uncached) ...  Every vector starts on 16 bytes, so a
+// lane reads four (float64: two) entries a load.
+constexpr int K8_VEC = 16 / (int)sizeof(scalar);   // scalars in 16 bytes
+constexpr int k8_up(int n) { return (n + K8_VEC - 1) / K8_VEC * K8_VEC; }
+template <bool CACHED> struct K8Warp {
+    static constexpr int U = CACHED ? 0 : 1;
+    static constexpr int P = 0;                          // P
+    static constexpr int PV = P + U * k8_up(NX * NX);    // p
+    static constexpr int HF = PV + k8_up(NX);            // folded H
+    static constexpr int HV = HF + U * k8_up(NZ * NZ);   // folded h
+    static constexpr int RG = HV + k8_up(NZ);            // rho m z - y
+    static constexpr int RMD = RG + k8_up(NC);           // rho m D
+    static constexpr int PA = RMD + U * k8_up(NC * NZ);
+    static constexpr int PB = PA + U * k8_up(NX * NX);
+    static constexpr int PCP = PB + U * k8_up(NX * NU);
+    static constexpr int G = PCP + k8_up(NX);
+    static constexpr int RB = G + U * k8_up(NU * NX);    // rbar
+    static constexpr int HUU = RB + k8_up(NU);
+    static constexpr int K = HUU + U * k8_up(NU * NU);
+    static constexpr int END1 = K + U * k8_up(NU * NX);
+    // ... and phase 2's over them: x (x2), w~, w+, w - w~, the shifted
+    // v, zt, y+ and the closing reduction.
+    static constexpr int XS = k8_up(NX);
+    static constexpr int X = 0;
+    static constexpr int WT = X + 2 * XS;
+    static constexpr int WN = WT + k8_up(NZ);
+    static constexpr int DW = WN + k8_up(NZ);
+    static constexpr int VX = DW + k8_up(NZ);
+    static constexpr int ZT = VX + k8_up(NC);
+    static constexpr int YN = ZT + k8_up(NC);
+    static constexpr int RED = YN + k8_up(NC);
+    static constexpr int END2 = RED + K8_RED;
+    static constexpr int WORDS = END1 > END2 ? END1 : END2;
+};
+
+// A ring slot, one layout a phase: words of the compute type, then (bf16
+// stage data) the staging bytes of the narrow streams.  A stream of R x C
+// entries a stage (a vector: C = 1) is one copy (entry (r, c) at
+// r * pad(C) + c) or rows of the block's scenarios (entry (r, c) of
+// scenario j at (r * pad(C) + c) * RF + j).  The model's streams are one
+// copy when SHARED; c, w, z, y are rows; the spilled gains are the
+// scenarios' runs one after another.  A narrow stream's staging holds
+// the aligned pair cover of its block (one copy: one entry and one pair
+// more; rows: RB entries a row).
+template <class S, bool SHARED, bool CACHED, int WB>
+struct K8Slot {
+    static constexpr bool NARROW = sizeof(S) != sizeof(scalar);
+    static constexpr int RF = WB | 1;             // row stride (words)
+    static constexpr int RM = SHARED ? 1 : RF;    // the model's streams
+    static constexpr int RB = 2 * ((WB + 2) / 2); // a staged bf16 row
+    static constexpr int SPW = CACHED ? NU : NU * (NX + 1);
+    static constexpr int ST = !NARROW ? 0 : SHARED ? 1 : 2;   // staging kind
+    // Phase 1: A, B, h, D, the rho scale, Hs (uncached) or P, L, K
+    // (cached); c, w, z, y.
+    static constexpr int A1 = 0;
+    static constexpr int B1 = A1 + k8_words(NX, NX, RM);
+    static constexpr int H1 = B1 + k8_words(NX, NU, RM);
+    static constexpr int D1 = H1 + k8_words(NZ, 1, RM);
+    static constexpr int M1 = D1 + k8_words(NC, NZ, RM);
+    static constexpr int HS1 = M1 + k8_words(NC, 1, RM);
+    static constexpr int PF1 = HS1;
+    static constexpr int LF1 = PF1 + k8_words(NX, NX, RM);
+    static constexpr int KF1 = LF1 + k8_words(NU, NU, RM);
+    static constexpr int C1 =
+        CACHED ? KF1 + k8_words(NU, NX, RM) : HS1 + k8_words(NZ, NZ, RM);
+    static constexpr int W1 = C1 + k8_words(NX, 1, RF);
+    static constexpr int Z1 = W1 + k8_words(NZ, 1, RF);
+    static constexpr int Y1 = Z1 + k8_words(NC, 1, RF);
+    static constexpr int END1 = Y1 + k8_words(NC, 1, RF);
+    // Phase 2: A, B, Hs, D, the rho scale, lb, ub, shift, K (cached);
+    // c, w, z, y; the gains.
+    static constexpr int A2 = 0;
+    static constexpr int B2 = A2 + k8_words(NX, NX, RM);
+    static constexpr int HS2 = B2 + k8_words(NX, NU, RM);
+    static constexpr int D2 = HS2 + k8_words(NZ, NZ, RM);
+    static constexpr int M2 = D2 + k8_words(NC, NZ, RM);
+    static constexpr int LB2 = M2 + k8_words(NC, 1, RM);
+    static constexpr int UB2 = LB2 + k8_words(NC, 1, RM);
+    static constexpr int SH2 = UB2 + k8_words(NC, 1, RM);
+    static constexpr int KF2 = SH2 + (HAS_SHIFT ? k8_words(NC, 1, RM) : 0);
+    static constexpr int C2 = KF2 + (CACHED ? k8_words(NU, NX, RM) : 0);
+    static constexpr int W2 = C2 + k8_words(NX, 1, RF);
+    static constexpr int Z2 = W2 + k8_words(NZ, 1, RF);
+    static constexpr int Y2 = Z2 + k8_words(NC, 1, RF);
+    static constexpr int SP2 = Y2 + k8_words(NC, 1, RF);
+    static constexpr int END2 = SP2 + WB * SPW;
+    static constexpr int WORDS0 = ((END1 > END2 ? END1 : END2) + 3) / 4 * 4;
+    // The staging (bytes from the end of the words): phase 1 A, B, h, D,
+    // Hs (uncached), c; phase 2 A, B, Hs, D, c.
+    static constexpr int SA1 = 0;
+    static constexpr int SB1 = SA1 + k8_staged(NX * NX, ST, RB);
+    static constexpr int SH1 = SB1 + k8_staged(NX * NU, ST, RB);
+    static constexpr int SD1 = SH1 + k8_staged(NZ, ST, RB);
+    static constexpr int SHS1 = SD1 + k8_staged(NC * NZ, ST, RB);
+    static constexpr int SC1 = SHS1 + (CACHED ? 0 : k8_staged(NZ * NZ, ST, RB));
+    static constexpr int SEND1 = SC1 + (NARROW ? k8_staged(NX, 2, RB) : 0);
+    static constexpr int SA2 = 0;
+    static constexpr int SB2 = SA2 + k8_staged(NX * NX, ST, RB);
+    static constexpr int SHS2 = SB2 + k8_staged(NX * NU, ST, RB);
+    static constexpr int SD2 = SHS2 + k8_staged(NZ * NZ, ST, RB);
+    static constexpr int SC2 = SD2 + k8_staged(NC * NZ, ST, RB);
+    static constexpr int SEND2 = SC2 + (NARROW ? k8_staged(NX, 2, RB) : 0);
+    static constexpr int STAGE = SEND1 > SEND2 ? SEND1 : SEND2;
+    static constexpr int BYTES =
+        (WORDS0 * (int)sizeof(scalar) + STAGE + 15) / 16 * 16;
+};
+
+template <class S, bool SHARED, bool CACHED, int WB>
+constexpr int k8_bytes()
+{
+    return K8_SLOTS * K8Slot<S, SHARED, CACHED, WB>::BYTES
+        + WB * K8Warp<CACHED>::WORDS * (int)sizeof(scalar);
+}
+
+// A form's block: 8 warps on one model, 4 on a batched problem, fewer
+// where that does not fit.  OK is false only where one scenario alone
+// does not fit.
+template <class S, bool SHARED, bool CACHED> struct K8Fit {
+    static constexpr int W0 = SHARED ? 8 : 4;
+    static constexpr int WB =
+        k8_bytes<S, SHARED, CACHED, W0>() <= K8_SMEM_MAX ? W0
+        : k8_bytes<S, SHARED, CACHED, 4>() <= K8_SMEM_MAX ? 4
+        : k8_bytes<S, SHARED, CACHED, 2>() <= K8_SMEM_MAX ? 2 : 1;
+    static constexpr bool OK = k8_bytes<S, SHARED, CACHED, WB>() <= K8_SMEM_MAX;
+    // Blocks an SM the registers must allow (float32): 2 of 8 warps on
+    // one model (128 registers: fewer spill), 3 of 4 on a batched problem
+    // (where shared memory allows no more).
+    static constexpr int MINB = sizeof(scalar) > 4 ? 1 : SHARED ? 2 : 3;
+    static constexpr int BYTES = k8_bytes<S, SHARED, CACHED, WB>();
+};
+
 __device__ __forceinline__ scalar up(__nv_bfloat16 v)
 {
     return (scalar)__bfloat162float(v);
 }
 
-// n entries of one stage block into the warp's slice, entry e at src[e*st].
-template <class T>
-__device__ __forceinline__ void load(scalar* dst, const T* src, int n,
-                                     size_t st, int lane)
+// A warp's own vector of L entries (16-byte aligned) into registers,
+// 16 bytes a load: what all lanes read alike costs a quarter (float64: a
+// half) of the shared-memory loads it would one entry a load.
+template <int L>
+__device__ __forceinline__ void k8_vec(scalar (&v)[L], const scalar* p)
 {
-    for (int e = lane; e < n; e += 32) dst[e] = up(src[e * st]);
+    constexpr int L4 = L / K8_VEC * K8_VEC;
+#pragma unroll
+    for (int i = 0; i < L4; i += K8_VEC) {
+        if constexpr (sizeof(scalar) == 4) {
+            const float4 q = *reinterpret_cast<const float4*>(p + i);
+            v[i] = q.x;
+            v[i + 1] = q.y;
+            v[i + 2] = q.z;
+            v[i + 3] = q.w;
+        } else {
+            const double2 q = *reinterpret_cast<const double2*>(p + i);
+            v[i] = q.x;
+            v[i + 1] = q.y;
+        }
+    }
+#pragma unroll
+    for (int i = L4; i < L; ++i) v[i] = p[i];
 }
 
 template <class S, bool SHARED, bool CACHED>
-__global__ void __launch_bounds__(K8_THREADS)
+__global__ void __launch_bounds__((32 * K8Fit<S, SHARED, CACHED>::WB),
+                                  (K8Fit<S, SHARED, CACHED>::MINB))
 iter_kernel(
     int N, int Bt, double alpha_d, double sigma_d,
     const scalar* __restrict__ rho, const scalar* __restrict__ PN,
@@ -986,60 +1164,233 @@ iter_kernel(
     scalar* __restrict__ y_new, scalar* __restrict__ xN,
     scalar* __restrict__ res)
 {
+    constexpr int WB = K8Fit<S, SHARED, CACHED>::WB;
+    constexpr int NT = 32 * WB;
+    using L = K8Slot<S, SHARED, CACHED, WB>;
+    using Wp = K8Warp<CACHED>;
+    constexpr bool NARROW = L::NARROW;
+    constexpr int RF = L::RF, RM = L::RM, SPW = L::SPW;
+    constexpr int XP = NX | 1, UP = NU | 1, ZP = NZ | 1;   // k8_pad
+
     extern __shared__ double smem_aligned[];
-    const int lane = threadIdx.x % 32;
-    const int warp = threadIdx.x / 32;
-    const size_t Bs = (size_t)Bt;
-    const size_t b = (size_t)blockIdx.x * K8_WARPS + warp;
-    if (b >= Bs) return;                     // the whole warp: no barrier waits
-    scalar* sm = reinterpret_cast<scalar*>(smem_aligned) + warp * W_WORDS;
-    scalar *sA = sm + W_A, *sB = sm + W_B, *sc = sm + W_C, *sH = sm + W_H,
-           *sh = sm + W_HV, *sD = sm + W_D, *sM = sm + W_M, *sw = sm + W_W,
-           *sz = sm + W_Z, *sy = sm + W_Y, *sK = sm + W_K, *sd = sm + W_DV;
+    char* ring = reinterpret_cast<char*>(smem_aligned);
+    const int tid = threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+    const size_t Bs = (size_t)Bt, Ns = (size_t)N;
+    const size_t b0 = (size_t)blockIdx.x * WB;
+    const size_t b = b0 + warp;
+    const bool valid = b < Bs;
+    const size_t bc = valid ? b : Bs - 1;       // whose numbers this warp computes
+    scalar* sm = reinterpret_cast<scalar*>(ring + K8_SLOTS * L::BYTES)
+        + warp * Wp::WORDS;
 
     const scalar alpha = (scalar)alpha_d;
     const scalar oma = (scalar)(1.0 - alpha_d);
     const scalar amo = (scalar)(alpha_d - 1.0);
     const scalar sigma = (scalar)sigma_d;
     const scalar asig = (scalar)(alpha_d * sigma_d);
-    const scalar rho_b = rho[b];
-    // The model's streams: entry e of a stage block at e*ms + mo.
-    const size_t ms = SHARED ? 1 : Bs, mo = SHARED ? 0 : b;
-    constexpr int SPW = CACHED ? NU : NU * (NX + 1);   // spill words a stage
-    scalar* spill_b = spill + b * (size_t)N * SPW;
-    // One stage's vectors of this scenario: w, z, y, and c.
-    auto load_vectors = [&](size_t ks) {
-        load(sc, c + ks * NX * Bs + b, NX, Bs, lane);
-        load(sw, w + ks * NZ * Bs + b, NZ, Bs, lane);
-        load(sz, z + ks * NC * Bs + b, NC, Bs, lane);
-        load(sy, y + ks * NC * Bs + b, NC, Bs, lane);
+    const scalar rho_b = rho[bc];
+    scalar* spill_b = spill + bc * Ns * SPW;
+
+    auto words = [&](int n) {                    // slot n % K8_SLOTS
+        return reinterpret_cast<scalar*>(ring + (n % K8_SLOTS) * L::BYTES);
+    };
+    auto staging = [&](int n) {
+        return ring + (n % K8_SLOTS) * L::BYTES
+            + L::WORDS0 * (int)sizeof(scalar);
+    };
+    // Stage k's block of an R x C stream (a model stream when `one` is
+    // SHARED, else per scenario) into a slot: entry e of scenario b at
+    // src[(k R C + e) * bs + b] (bs = 1 for one copy).  Compute-type data
+    // goes straight to its place, a word a copy; a narrow stream to the
+    // staging as aligned pairs (an odd last element of the stream, which
+    // has no pair, plainly).  With bf16 stage data the streams of a step
+    // share out their copies round the block: a stream's first copy goes
+    // to the thread after the one that took the last copy of the stream
+    // before it (`turn`).  Measured on an H100: without that the bf16
+    // forms spill registers and run slower; with it the f32 forms do.
+    int turn = 0;
+    auto stage = [&](bool one, scalar* dst, char* stg, const auto* src,
+                     int R, int C, int k) {
+        using T = typename std::remove_cv<
+            typename std::remove_pointer<decltype(src)>::type>::type;
+        const int n = R * C, cp = C | 1;             // k8_pad
+        const size_t g0 = (size_t)k * n;
+        const int q0 = NARROW ? (tid + NT - turn) % NT : tid;   // first copy
+        const int copies = sizeof(T) == sizeof(scalar) ? (one ? n : n * WB)
+            : one ? (int)((g0 + n - (g0 & ~(size_t)1) + 1) / 2)
+                  : n * (L::RB / 2);
+        if (NARROW) turn = (turn + copies) % NT;
+        if constexpr (sizeof(T) == sizeof(scalar)) {
+            if (one) {
+                #pragma unroll 1
+                for (int q = q0; q < n; q += NT)
+                    __pipeline_memcpy_async(dst + (q / C) * cp + q % C,
+                                            src + g0 + q, sizeof(scalar));
+            } else {
+                #pragma unroll 1
+                for (int q = q0; q < n * WB; q += NT) {
+                    const int e = q / WB, j = q % WB;
+                    const size_t bj = b0 + j < Bs ? b0 + j : Bs - 1;
+                    __pipeline_memcpy_async(
+                        dst + ((e / C) * cp + e % C) * RF + j,
+                        src + (g0 + e) * Bs + bj, sizeof(scalar));
+                }
+            }
+        } else {
+            T* d = reinterpret_cast<T*>(stg);
+            if (one) {
+                const size_t a0 = g0 & ~(size_t)1, total = Ns * n;
+                const int np = (int)((g0 + n - a0 + 1) / 2);
+                #pragma unroll 1
+                for (int q = q0; q < np; q += NT) {
+                    const size_t gi = a0 + 2 * (size_t)q;
+                    if (gi + 1 < total)
+                        __pipeline_memcpy_async(d + 2 * q, src + gi, 4);
+                    else if (gi < total)
+                        d[2 * q] = src[gi];
+                }
+            } else {
+                constexpr int NP = L::RB / 2;
+                const size_t total = Ns * n * Bs;
+                #pragma unroll 1
+                for (int q = q0; q < n * NP; q += NT) {
+                    const int e = q / NP, p = q % NP;
+                    const size_t gi =
+                        (((g0 + e) * Bs + b0) & ~(size_t)1) + 2 * p;
+                    if (gi + 1 < total)
+                        __pipeline_memcpy_async(d + e * L::RB + 2 * p,
+                                                src + gi, 4);
+                    else if (gi < total)
+                        d[e * L::RB + 2 * p] = src[gi];
+                }
+            }
+        }
+    };
+    // A narrow stream's staged block of stage k into its place, upcast.
+    auto convert = [&](bool one, scalar* dst, const char* stg, int R, int C,
+                       int k) {
+        const __nv_bfloat16* s = reinterpret_cast<const __nv_bfloat16*>(stg);
+        const int n = R * C, cp = C | 1;             // k8_pad
+        const size_t g0 = (size_t)k * n;
+        if (one) {
+            const int o = (int)(g0 & 1);
+            #pragma unroll 1
+            for (int q = tid; q < n; q += NT)
+                dst[(q / C) * cp + q % C] = up(s[o + q]);
+        } else {
+            #pragma unroll 1
+            for (int q = tid; q < n * WB; q += NT) {
+                const int e = q / WB, j = q % WB;
+                const int o = (int)(((g0 + e) * Bs + b0) & 1);
+                dst[((e / C) * cp + e % C) * RF + j] = up(s[e * L::RB + o + j]);
+            }
+        }
     };
 
     // ------------------------------------------------------ phase 1
-    scalar* P = sm + W_P;
-    scalar* p = sm + W_PV;
-    scalar* Pcp = sm + W_PCP;
-    scalar* rbar = sm + W_RB;
-    for (int e = lane; e < NX; e += 32) p[e] = pN[e * Bs + b];
-    if (!CACHED)
-        for (int e = lane; e < NX * NX; e += 32) P[e] = PN[e * Bs + b];
-    __syncwarp();
-    for (int k = N - 1; k >= 0; --k) {
-        const size_t ks = (size_t)k;
-        load(sA, A + ks * NX * NX * ms + mo, NX * NX, ms, lane);
-        load(sB, B + ks * NX * NU * ms + mo, NX * NU, ms, lane);
-        load(sh, h + ks * NZ * ms + mo, NZ, ms, lane);
-        load(sD, D + ks * NC * NZ * ms + mo, NC * NZ, ms, lane);
-        load(sM, mask + ks * NC * ms + mo, NC, ms, lane);
-        load_vectors(ks);
-        if (CACHED) {
-            load(sm + W_FP, Pf + ks * NX * NX * ms + mo, NX * NX, ms, lane);
-            load(sm + W_FL, Lf + ks * NU * NU * ms + mo, NU * NU, ms, lane);
-            load(sK, Kf + ks * NU * NX * ms + mo, NU * NX, ms, lane);
-        } else {
-            load(sH, Hs + ks * NZ * NZ * ms + mo, NZ * NZ, ms, lane);
+    // Step n of the sweep is stage k = N-1-n.  One copy group a step
+    // (empty past the end), so groups and steps stay in step.
+    auto prefetch1 = [&](int n) {
+        if (n < N) {
+            const int k = N - 1 - n;
+            scalar* s = words(n);
+            char* g = staging(n);
+            stage(SHARED, s + L::A1, g + L::SA1, A, NX, NX, k);
+            stage(SHARED, s + L::B1, g + L::SB1, B, NX, NU, k);
+            stage(SHARED, s + L::H1, g + L::SH1, h, NZ, 1, k);
+            stage(SHARED, s + L::D1, g + L::SD1, D, NC, NZ, k);
+            stage(SHARED, s + L::M1, g, mask, NC, 1, k);
+            if constexpr (CACHED) {
+                stage(SHARED, s + L::PF1, g, Pf, NX, NX, k);
+                stage(SHARED, s + L::LF1, g, Lf, NU, NU, k);
+                stage(SHARED, s + L::KF1, g, Kf, NU, NX, k);
+            } else {
+                stage(SHARED, s + L::HS1, g + L::SHS1, Hs, NZ, NZ, k);
+            }
+            stage(false, s + L::C1, g + L::SC1, c, NX, 1, k);
+            stage(false, s + L::W1, g, w, NZ, 1, k);
+            stage(false, s + L::Z1, g, z, NC, 1, k);
+            stage(false, s + L::Y1, g, y, NC, 1, k);
         }
+        __pipeline_commit();
+    };
+    auto convert1 = [&](int n) {
+        if (NARROW && n < N) {
+            const int k = N - 1 - n;
+            scalar* s = words(n);
+            const char* g = staging(n);
+            convert(SHARED, s + L::A1, g + L::SA1, NX, NX, k);
+            convert(SHARED, s + L::B1, g + L::SB1, NX, NU, k);
+            convert(SHARED, s + L::H1, g + L::SH1, NZ, 1, k);
+            convert(SHARED, s + L::D1, g + L::SD1, NC, NZ, k);
+            if (!CACHED) convert(SHARED, s + L::HS1, g + L::SHS1, NZ, NZ, k);
+            convert(false, s + L::C1, g + L::SC1, NX, 1, k);
+        }
+    };
+    // At the top of step n: step n's data in its place (converted, when
+    // narrow, during step n-1), published by one barrier that also frees
+    // the slot of step n-1 for step n+K8_PF.
+    auto wait = [&]() {
+        if constexpr (NARROW)
+            __pipeline_wait_prior(K8_PF - 2);    // steps n and n+1 landed
+        else
+            __pipeline_wait_prior(K8_PF - 1);    // step n landed (my copies)
+        __syncthreads();
+    };
+
+    scalar* P = sm + Wp::P;
+    scalar* p = sm + Wp::PV;
+    scalar* Hf = sm + Wp::HF;
+    scalar* hf = sm + Wp::HV;
+    scalar* rg = sm + Wp::RG;
+    scalar* rmD = sm + Wp::RMD;
+    scalar* Pcp = sm + Wp::PCP;
+    scalar* rbar = sm + Wp::RB;
+    for (int e = lane; e < NX; e += 32) p[e] = pN[e * Bs + bc];
+    if (!CACHED)
+        for (int e = lane; e < NX * NX; e += 32) P[e] = PN[e * Bs + bc];
+    for (int n = 0; n < K8_PF; ++n) prefetch1(n);
+    if (NARROW) {
+        __pipeline_wait_prior(K8_PF - 1);
+        __syncthreads();
+        convert1(0);
+    }
+    K8_PROF_INIT
+    for (int n = 0; n < N; ++n) {
+        const int k = N - 1 - n;
+        const size_t ks = (size_t)k;
+        wait();
+        K8_MARK(0);
+        prefetch1(n + K8_PF);
+        convert1(n + 1);
+        K8_MARK(1);
+        // This step's slot: the model's streams (M) and this scenario's
+        // (V); entry (r, c) of an R x C stream at [OFF + (r pad(C) + c) R*].
+        const scalar* Ms = words(n) + (SHARED ? 0 : warp);
+        const scalar* Vs = words(n) + warp;
+        auto mA = [&](int r, int q) { return Ms[L::A1 + (r * XP + q) * RM]; };
+        auto mB = [&](int r, int q) { return Ms[L::B1 + (r * UP + q) * RM]; };
+        auto mD = [&](int r, int q) { return Ms[L::D1 + (r * ZP + q) * RM]; };
+        auto mHs = [&](int r, int q) { return Ms[L::HS1 + (r * ZP + q) * RM]; };
+        auto mP = [&](int r, int q) { return Ms[L::PF1 + (r * XP + q) * RM]; };
+        auto mL = [&](int r, int q) { return Ms[L::LF1 + (r * UP + q) * RM]; };
+        auto mK = [&](int r, int q) { return Ms[L::KF1 + (r * XP + q) * RM]; };
+        auto vh = [&](int e) { return Ms[L::H1 + e * RM]; };
+        auto vM = [&](int e) { return Ms[L::M1 + e * RM]; };
+        auto vc = [&](int e) { return Vs[L::C1 + e * RF]; };
+        auto vw = [&](int e) { return Vs[L::W1 + e * RF]; };
+        auto vz = [&](int e) { return Vs[L::Z1 + e * RF]; };
+        auto vy = [&](int e) { return Vs[L::Y1 + e * RF]; };
+
+        // rho m z - y a row, and (uncached) rho m D.
+        for (int e = lane; e < NC; e += 32) rg[e] = rho_b * vM(e) * vz(e) - vy(e);
+        if (!CACHED)
+            for (int e = lane; e < NC * NZ; e += 32)
+                rmD[e] = (rho_b * vM(e / NZ)) * mD(e / NZ, e % NZ);
         __syncwarp();
+        K8_MARK(2);
         // The penalty fold (uncached: H and h; cached: h), and in the
         // cached form Pcp = P_{k+1} c + p beside it.
         const int nfold = CACHED ? NZ + NX : NZ * NZ + NZ;
@@ -1047,102 +1398,132 @@ iter_kernel(
             const int r = CACHED ? e : e - NZ * NZ;
             if (!CACHED && e < NZ * NZ) {
                 const int i = e / NZ, q = e % NZ;
-                scalar acc = sH[e];
+                scalar acc = mHs(i, q);
+#pragma unroll
                 for (int ci = 0; ci < NC; ++ci)
-                    acc += sD[ci * NZ + i] * ((rho_b * sM[ci]) * sD[ci * NZ + q]);
-                sH[e] = acc;
+                    acc += mD(ci, i) * rmD[ci * NZ + q];
+                Hf[e] = acc;
             } else if (r < NZ) {
-                scalar acc = sh[r] - sigma * sw[r];
-                for (int ci = 0; ci < NC; ++ci)
-                    acc -= (rho_b * sM[ci] * sz[ci] - sy[ci]) * sD[ci * NZ + r];
-                sh[r] = acc;
+                scalar rgv[NC];
+                k8_vec(rgv, rg);
+                scalar acc = vh(r) - sigma * vw(r);
+#pragma unroll
+                for (int ci = 0; ci < NC; ++ci) acc -= rgv[ci] * mD(ci, r);
+                hf[r] = acc;
             } else {
                 const int i = r - NZ;
-                const scalar* sP = sm + W_FP;
-                scalar acc = sP[i * NX] * sc[0];
-                for (int t = 1; t < NX; ++t) acc += sP[i * NX + t] * sc[t];
+                scalar acc = mP(i, 0) * vc(0);
+#pragma unroll
+                for (int t = 1; t < NX; ++t) acc += mP(i, t) * vc(t);
                 Pcp[i] = acc + p[i];
             }
         }
         __syncwarp();
-        if (CACHED) {
+        K8_MARK(3);
+        if constexpr (CACHED) {
             // rbar = h_u + B^T Pcp; d = -(L L^T)^-1 rbar (every lane);
             // p = h_x + A^T Pcp + K^T rbar.
             for (int j = lane; j < NU; j += 32) {
-                scalar acc = sh[j];
-                for (int t = 0; t < NX; ++t) acc += sB[t * NU + j] * Pcp[t];
+                scalar pv[NX];
+                k8_vec(pv, Pcp);
+                scalar acc = hf[j];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += mB(t, j) * pv[t];
                 rbar[j] = acc;
             }
             __syncwarp();
-            const scalar* sL = sm + W_FL;
-            scalar dv[NU];
+            scalar dv[NU], inv[NU], rb[NU];
+            k8_vec(rb, rbar);
+#pragma unroll
+            for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / mL(i, i);
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
-                scalar acc = rbar[i];
+                scalar acc = rb[i];
 #pragma unroll
-                for (int t = 0; t < i; ++t) acc -= sL[i * NU + t] * dv[t];
-                dv[i] = acc / sL[i * NU + i];
+                for (int t = 0; t < i; ++t) acc -= mL(i, t) * dv[t];
+                dv[i] = acc * inv[i];
             }
 #pragma unroll
             for (int i = NU - 1; i >= 0; --i) {
                 scalar acc = dv[i];
 #pragma unroll
-                for (int t = i + 1; t < NU; ++t) acc -= sL[t * NU + i] * dv[t];
-                dv[i] = acc / sL[i * NU + i];
+                for (int t = i + 1; t < NU; ++t) acc -= mL(t, i) * dv[t];
+                dv[i] = acc * inv[i];
             }
 #pragma unroll
             for (int i = 0; i < NU; ++i)
-                if (i == lane) spill_b[ks * SPW + i] = -dv[i];
+                if (i == lane && valid) spill_b[ks * SPW + i] = -dv[i];
             for (int i = lane; i < NX; i += 32) {
-                scalar acc = sh[NU + i];
-                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * Pcp[t];
-                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rbar[t];
+                scalar pv[NX];
+                k8_vec(pv, Pcp);
+                scalar acc = hf[NU + i];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += mA(t, i) * pv[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += mK(t, i) * rb[t];
                 p[i] = acc;
             }
             __syncwarp();
+            K8_MARK(4);
             continue;
         }
         // PA = P A, PB = P B, Pcp = P c + p.
-        scalar* PA = sm + W_PA;
-        scalar* PB = sm + W_PB;
+        scalar* PA = sm + Wp::PA;
+        scalar* PB = sm + Wp::PB;
         for (int e = lane; e < NX * NX + NX * NU + NX; e += 32) {
+            const int i = e < NX * NX ? e / NX
+                : e < NX * NX + NX * NU ? (e - NX * NX) / NU
+                                        : e - NX * NX - NX * NU;
+            scalar pr[NX];                       // row i of P
+            if constexpr (NX % K8_VEC == 0)
+                k8_vec(pr, P + i * NX);
+            else
+                for (int t = 0; t < NX; ++t) pr[t] = P[i * NX + t];
             if (e < NX * NX) {
-                const int i = e / NX, j = e % NX;
-                scalar acc = P[i * NX] * sA[j];
-                for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sA[t * NX + j];
+                const int j = e % NX;
+                scalar acc = pr[0] * mA(0, j);
+#pragma unroll
+                for (int t = 1; t < NX; ++t) acc += pr[t] * mA(t, j);
                 PA[e] = acc;
             } else if (e < NX * NX + NX * NU) {
-                const int f = e - NX * NX, i = f / NU, j = f % NU;
-                scalar acc = P[i * NX] * sB[j];
-                for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sB[t * NU + j];
+                const int f = e - NX * NX, j = f % NU;
+                scalar acc = pr[0] * mB(0, j);
+#pragma unroll
+                for (int t = 1; t < NX; ++t) acc += pr[t] * mB(t, j);
                 PB[f] = acc;
             } else {
-                const int i = e - NX * NX - NX * NU;
-                scalar acc = P[i * NX] * sc[0];
-                for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sc[t];
+                scalar acc = pr[0] * vc(0);
+#pragma unroll
+                for (int t = 1; t < NX; ++t) acc += pr[t] * vc(t);
                 Pcp[i] = acc + p[i];
             }
         }
         __syncwarp();
         // G = S + B^T PA, rbar = r + B^T Pcp, lower Huu = R + B^T PB.
-        scalar* G = sm + W_G;
-        scalar* Huu = sm + W_HUU;
+        scalar* G = sm + Wp::G;
+        scalar* Huu = sm + Wp::HUU;
+        scalar* sK = sm + Wp::K;
         for (int e = lane; e < NU * NX + NU + NU * NU; e += 32) {
             if (e < NU * NX) {
                 const int i = e / NX, j = e % NX;
-                scalar acc = sB[i] * PA[j];
-                for (int t = 1; t < NX; ++t) acc += sB[t * NU + i] * PA[t * NX + j];
-                G[e] = sH[i * NZ + NU + j] + acc;
+                scalar acc = mB(0, i) * PA[j];
+#pragma unroll
+                for (int t = 1; t < NX; ++t) acc += mB(t, i) * PA[t * NX + j];
+                G[e] = Hf[i * NZ + NU + j] + acc;
             } else if (e < NU * NX + NU) {
                 const int i = e - NU * NX;
-                scalar acc = sB[i] * Pcp[0];
-                for (int t = 1; t < NX; ++t) acc += sB[t * NU + i] * Pcp[t];
-                rbar[i] = sh[i] + acc;
+                scalar pv[NX];
+                k8_vec(pv, Pcp);
+                scalar acc = mB(0, i) * pv[0];
+#pragma unroll
+                for (int t = 1; t < NX; ++t) acc += mB(t, i) * pv[t];
+                rbar[i] = hf[i] + acc;
             } else {
                 const int f = e - NU * NX - NU, i = f / NU, j = f % NU;
                 if (j <= i) {
-                    scalar acc = sH[i * NZ + j];
-                    for (int t = 0; t < NX; ++t) acc += sB[t * NU + i] * PB[t * NU + j];
+                    scalar acc = Hf[i * NZ + j];
+#pragma unroll
+                    for (int t = 0; t < NX; ++t) acc += mB(t, i) * PB[t * NU + j];
                     Huu[f] = acc;
                 }
             }
@@ -1185,8 +1566,8 @@ iter_kernel(
             for (int i = 0; i < NU; ++i) {
                 if (col < NX) {
                     sK[i * NX + col] = -yv[i];
-                    spill_b[ks * SPW + i * NX + col] = -yv[i];
-                } else {
+                    if (valid) spill_b[ks * SPW + i * NX + col] = -yv[i];
+                } else if (valid) {
                     spill_b[ks * SPW + NU * NX + i] = -yv[i];
                 }
             }
@@ -1198,141 +1579,244 @@ iter_kernel(
             if (e < NX * NX) {
                 const int i = e / NX, j = e % NX;
                 if (j >= i) {
-                    scalar acc = sH[(NU + i) * NZ + NU + j];
-                    for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * PA[t * NX + j];
+                    scalar acc = Hf[(NU + i) * NZ + NU + j];
+#pragma unroll
+                    for (int t = 0; t < NX; ++t) acc += mA(t, i) * PA[t * NX + j];
+#pragma unroll
                     for (int t = 0; t < NU; ++t) acc += G[t * NX + i] * sK[t * NX + j];
                     P[i * NX + j] = acc;
                     P[j * NX + i] = acc;
                 }
             } else {
                 const int i = e - NX * NX;
-                scalar acc = sh[NU + i];
-                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * Pcp[t];
-                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rbar[t];
+                scalar pv[NX], rb[NU];
+                k8_vec(pv, Pcp);
+                k8_vec(rb, rbar);
+                scalar acc = hf[NU + i];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += mA(t, i) * pv[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rb[t];
                 p[i] = acc;
             }
         }
         __syncwarp();
+        K8_MARK(4);
     }
 
     // ------------------------------------------------------ phase 2
-    scalar *wt = sm + W_WT, *wn = sm + W_WN, *dw = sm + W_DW, *vx = sm + W_VX,
-           *ztt = sm + W_ZT, *yn = sm + W_YN, *slb = sm + W_LB,
-           *sub = sm + W_UB, *ssh = sm + W_SH;
-    for (int e = lane; e < NX; e += 32) sm[W_X + e] = x0[e * Bs + b];
+    // Every warp's gains are in device memory and the ring is free.
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    auto prefetch2 = [&](int k) {
+        if (k < N) {
+            scalar* s = words(k);
+            char* g = staging(k);
+            stage(SHARED, s + L::A2, g + L::SA2, A, NX, NX, k);
+            stage(SHARED, s + L::B2, g + L::SB2, B, NX, NU, k);
+            stage(SHARED, s + L::HS2, g + L::SHS2, Hs, NZ, NZ, k);
+            stage(SHARED, s + L::D2, g + L::SD2, D, NC, NZ, k);
+            stage(SHARED, s + L::M2, g, mask, NC, 1, k);
+            stage(SHARED, s + L::LB2, g, lb, NC, 1, k);
+            stage(SHARED, s + L::UB2, g, ub, NC, 1, k);
+            if (HAS_SHIFT) stage(SHARED, s + L::SH2, g, shift, NC, 1, k);
+            if (CACHED) stage(SHARED, s + L::KF2, g, Kf, NU, NX, k);
+            stage(false, s + L::C2, g + L::SC2, c, NX, 1, k);
+            stage(false, s + L::W2, g, w, NZ, 1, k);
+            stage(false, s + L::Z2, g, z, NC, 1, k);
+            stage(false, s + L::Y2, g, y, NC, 1, k);
+            // The WB scenarios' gains of stage k, one run each.
+            scalar* d = s + L::SP2;
+#pragma unroll 1
+            for (int q = NARROW ? (tid + NT - turn) % NT : tid; q < WB * SPW;
+                 q += NT) {
+                const int j = q / SPW, e = q % SPW;
+                const size_t bj = b0 + j < Bs ? b0 + j : Bs - 1;
+                __pipeline_memcpy_async(d + q, spill + (bj * Ns + k) * SPW + e,
+                                        sizeof(scalar));
+            }
+        }
+        __pipeline_commit();
+    };
+    auto convert2 = [&](int k) {
+        if (NARROW && k < N) {
+            scalar* s = words(k);
+            const char* g = staging(k);
+            convert(SHARED, s + L::A2, g + L::SA2, NX, NX, k);
+            convert(SHARED, s + L::B2, g + L::SB2, NX, NU, k);
+            convert(SHARED, s + L::HS2, g + L::SHS2, NZ, NZ, k);
+            convert(SHARED, s + L::D2, g + L::SD2, NC, NZ, k);
+            convert(false, s + L::C2, g + L::SC2, NX, 1, k);
+        }
+    };
+    scalar *wt = sm + Wp::WT, *wn = sm + Wp::WN, *dw = sm + Wp::DW,
+           *vx = sm + Wp::VX, *ztt = sm + Wp::ZT, *yn = sm + Wp::YN;
+    for (int e = lane; e < NX; e += 32) sm[Wp::X + e] = x0[e * Bs + bc];
+    for (int k = 0; k < K8_PF; ++k) prefetch2(k);
+    if (NARROW) {
+        __pipeline_wait_prior(K8_PF - 1);
+        __syncthreads();
+        convert2(0);
+    }
     scalar rp = (scalar)0, rd = (scalar)0, ps = (scalar)0, ds = (scalar)0;
     for (int k = 0; k < N; ++k) {
         const size_t ks = (size_t)k;
-        const scalar* x = sm + W_X + (k & 1) * NX;
-        scalar* xn = sm + W_X + ((k + 1) & 1) * NX;
-        load(sA, A + ks * NX * NX * ms + mo, NX * NX, ms, lane);
-        load(sB, B + ks * NX * NU * ms + mo, NX * NU, ms, lane);
-        load(sH, Hs + ks * NZ * NZ * ms + mo, NZ * NZ, ms, lane);
-        load(sD, D + ks * NC * NZ * ms + mo, NC * NZ, ms, lane);
-        load(sM, mask + ks * NC * ms + mo, NC, ms, lane);
-        load(slb, lb + ks * NC * ms + mo, NC, ms, lane);
-        load(sub, ub + ks * NC * ms + mo, NC, ms, lane);
-        if (HAS_SHIFT) load(ssh, shift + ks * NC * ms + mo, NC, ms, lane);
-        load_vectors(ks);
-        if (CACHED) {
-            load(sK, Kf + ks * NU * NX * ms + mo, NU * NX, ms, lane);
-            load(sd, spill_b + ks * SPW, NU, 1, lane);
-        } else {
-            load(sK, spill_b + ks * SPW, NU * NX, 1, lane);
-            load(sd, spill_b + ks * SPW + NU * NX, NU, 1, lane);
-        }
-        __syncwarp();
+        K8_MARK(11);
+        wait();
+        K8_MARK(5);
+        prefetch2(k + K8_PF);
+        convert2(k + 1);
+        K8_MARK(6);
+        const scalar* Ms = words(k) + (SHARED ? 0 : warp);
+        const scalar* Vs = words(k) + warp;
+        auto mA = [&](int r, int q) { return Ms[L::A2 + (r * XP + q) * RM]; };
+        auto mB = [&](int r, int q) { return Ms[L::B2 + (r * UP + q) * RM]; };
+        auto mHs = [&](int r, int q) { return Ms[L::HS2 + (r * ZP + q) * RM]; };
+        auto mD = [&](int r, int q) { return Ms[L::D2 + (r * ZP + q) * RM]; };
+        auto mK = [&](int r, int q) { return Ms[L::KF2 + (r * XP + q) * RM]; };
+        auto vM = [&](int e) { return Ms[L::M2 + e * RM]; };
+        auto vlb = [&](int e) { return Ms[L::LB2 + e * RM]; };
+        auto vub = [&](int e) { return Ms[L::UB2 + e * RM]; };
+        auto vsh = [&](int e) { return Ms[L::SH2 + e * RM]; };
+        auto vc = [&](int e) { return Vs[L::C2 + e * RF]; };
+        auto vw = [&](int e) { return Vs[L::W2 + e * RF]; };
+        auto vz = [&](int e) { return Vs[L::Z2 + e * RF]; };
+        auto vy = [&](int e) { return Vs[L::Y2 + e * RF]; };
+        // This warp's gains: K and d (uncached), d (cached; K is the
+        // model's).
+        const scalar* gk = words(k) + L::SP2 + warp * SPW;
+        const scalar* gd = gk + (CACHED ? 0 : NU * NX);
+        const scalar* x = sm + Wp::X + (k & 1) * Wp::XS;
+        scalar* xn = sm + Wp::X + ((k + 1) & 1) * Wp::XS;
         // w~ = [K x + d; x].
         for (int e = lane; e < NZ; e += 32) {
             if (e < NU) {
-                scalar acc = sd[e];
-                for (int t = 0; t < NX; ++t) acc += sK[e * NX + t] * x[t];
+                scalar xv[NX];
+                k8_vec(xv, x);
+                scalar acc = gd[e];
+#pragma unroll
+                for (int t = 0; t < NX; ++t)
+                    acc += (CACHED ? mK(e, t) : gk[e * NX + t]) * xv[t];
                 wt[e] = acc;
             } else {
                 wt[e] = x[e - NU];
             }
         }
         __syncwarp();
+        K8_MARK(7);
         // x+ = A x + B u + c; w+ = alpha w~ + (1-alpha) w; w - w~.
         for (int e = lane; e < NX + NZ; e += 32) {
             if (e < NX) {
-                scalar acc = sc[e];
-                for (int t = 0; t < NX; ++t) acc += sA[e * NX + t] * x[t];
-                for (int t = 0; t < NU; ++t) acc += sB[e * NU + t] * wt[t];
+                scalar xv[NX], uv[NU];
+                k8_vec(xv, x);
+                k8_vec(uv, wt);
+                scalar acc = vc(e);
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += mA(e, t) * xv[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += mB(e, t) * uv[t];
                 xn[e] = acc;
             } else {
                 const int f = e - NX;
-                wn[f] = alpha * wt[f] + oma * sw[f];
-                dw[f] = sw[f] - wt[f];
+                wn[f] = alpha * wt[f] + oma * vw(f);
+                dw[f] = vw(f) - wt[f];
             }
         }
         __syncwarp();
+        K8_MARK(8);
         // This lane's constraint rows, up to the value to project.
         scalar zt[K8_RC], Dwn[K8_RC], relax[K8_RC], vv[K8_RC], rho_m[K8_RC];
 #pragma unroll
         for (int r = 0; r < K8_RC; ++r) {
             const int ci = lane + 32 * r;
             if (ci < NC) {
+                scalar wtv[NZ], wnv[NZ];
+                k8_vec(wtv, wt);
+                k8_vec(wnv, wn);
                 scalar a = (scalar)0, an = (scalar)0;
-                for (int e = 0; e < NZ; ++e) {
-                    a += sD[ci * NZ + e] * wt[e];
-                    an += sD[ci * NZ + e] * wn[e];
+#pragma unroll
+                for (int f = 0; f < NZ; ++f) {
+                    const scalar dv = mD(ci, f);
+                    a += dv * wtv[f];
+                    an += dv * wnv[f];
                 }
                 zt[r] = a;
                 Dwn[r] = an;
-                rho_m[r] = rho_b * sM[ci];
-                vv[r] = value_to_project(a, sz[ci], sy[ci], sM[ci], rho_m[r],
+                rho_m[r] = rho_b * vM(ci);
+                vv[r] = value_to_project(a, vz(ci), vy(ci), vM(ci), rho_m[r],
                                          alpha, oma, relax[r]);
-                vx[ci] = vv[r] + (HAS_SHIFT ? ssh[ci] : (scalar)0);
+                vx[ci] = vv[r] + (HAS_SHIFT ? vsh(ci) : (scalar)0);
             }
         }
         __syncwarp();
+        K8_MARK(9);
         // Projection, dual update, stores, and the terms the rows of w need.
 #pragma unroll
         for (int r = 0; r < K8_RC; ++r) {
             const int ci = lane + 32 * r;
             if (ci < NC) {
                 const scalar zp = project_row(
-                    vx, 1, ci, vv[r], slb[ci], sub[ci],
-                    HAS_SHIFT ? ssh[ci] : (scalar)0);
-                const scalar zn = zp * (sM[ci] > (scalar)0 ? (scalar)1 : (scalar)0);
-                const scalar yv = sy[ci] + rho_m[r] * (relax[r] - zn);
-                z_new[(ks * NC + ci) * Bs + b] = zn;
-                y_new[(ks * NC + ci) * Bs + b] = yv;
-                ztt[ci] = rho_m[r] * (amo * (zt[r] - sz[ci]) + (sz[ci] - zn));
+                    vx, 1, ci, vv[r], vlb(ci), vub(ci),
+                    HAS_SHIFT ? vsh(ci) : (scalar)0);
+                const scalar zn = zp * (vM(ci) > (scalar)0 ? (scalar)1 : (scalar)0);
+                const scalar yv = vy(ci) + rho_m[r] * (relax[r] - zn);
+                if (valid) {
+                    z_new[(ks * NC + ci) * Bs + b] = zn;
+                    y_new[(ks * NC + ci) * Bs + b] = yv;
+                }
+                ztt[ci] = rho_m[r] * (amo * (zt[r] - vz(ci)) + (vz(ci) - zn));
                 yn[ci] = yv;
                 rp = fmax(rp, fabs(Dwn[r] - zn));
                 ps = fmax(ps, fmax(fabs(Dwn[r]), fabs(zn)));
             }
         }
         __syncwarp();
+        K8_MARK(10);
         // Rows of w: w+ out, and the dual residual's terms.
         for (int e = lane; e < NZ; e += 32) {
             scalar dT = (scalar)0, dty = (scalar)0, Hdw = (scalar)0,
                    Hwn = (scalar)0;
-            for (int ci = 0; ci < NC; ++ci) {
-                dT += ztt[ci] * sD[ci * NZ + e];
-                dty += yn[ci] * sD[ci * NZ + e];
+            {
+                scalar zv[NC], yv[NC];
+                k8_vec(zv, ztt);
+                k8_vec(yv, yn);
+#pragma unroll
+                for (int ci = 0; ci < NC; ++ci) {
+                    const scalar dv = mD(ci, e);
+                    dT += zv[ci] * dv;
+                    dty += yv[ci] * dv;
+                }
             }
-            for (int f = 0; f < NZ; ++f) {
-                Hdw += sH[e * NZ + f] * dw[f];
-                Hwn += sH[e * NZ + f] * wn[f];
+            {
+                scalar dwv[NZ], wnv[NZ];
+                k8_vec(dwv, dw);
+                k8_vec(wnv, wn);
+#pragma unroll
+                for (int f = 0; f < NZ; ++f) {
+                    const scalar hv = mHs(e, f);
+                    Hdw += hv * dwv[f];
+                    Hwn += hv * wnv[f];
+                }
             }
             dual_row(Hdw, Hwn, dT, dty, dw[e], wn[e], oma, asig, sigma, rd, ds);
-            w_new[(ks * NZ + e) * Bs + b] = wn[e];
+            if (valid) w_new[(ks * NZ + e) * Bs + b] = wn[e];
         }
         __syncwarp();
     }
-    const scalar* xf = sm + W_X + (N & 1) * NX;
-    for (int e = lane; e < NX; e += 32) xN[e * Bs + b] = xf[e];
+    K8_MARK(11);
+    K8_PROF_DONE
+    __pipeline_wait_prior(0);
+    const scalar* xf = sm + Wp::X + (N & 1) * Wp::XS;
+    for (int e = lane; e < NX; e += 32)
+        if (valid) xN[e * Bs + b] = xf[e];
     // The lanes join their maxima.
-    scalar* red = sm + W_RED;
+    scalar* red = sm + Wp::RED;
     red[lane] = rp;
     red[32 + lane] = rd;
     red[64 + lane] = ps;
     red[96 + lane] = ds;
     __syncwarp();
-    if (lane < 4) {
+    if (lane < 4 && valid) {
         scalar m = red[lane * 32];
         for (int g = 1; g < 32; ++g) m = fmax(m, red[lane * 32 + g]);
         res[lane * Bs + b] = m;
@@ -1343,14 +1827,16 @@ template <class S, bool SHARED, bool CACHED>
 int launch_iter(int N, int Bt, double alpha, double sigma, cudaStream_t st,
                 const void* const* in, void* const* out)
 {
-    const size_t smem = (size_t)K8_SMEM_WORDS * sizeof(scalar);
+    using Fit = K8Fit<S, SHARED, CACHED>;
+    if (!Fit::OK) return (int)cudaErrorInvalidValue;   // one scenario does not fit
+    const size_t smem = (size_t)Fit::BYTES;
     int e = set_smem(iter_kernel<S, SHARED, CACHED>, smem);
     if (e) return e;
-    const int blocks = (Bt + K8_WARPS - 1) / K8_WARPS;
+    const int blocks = (Bt + Fit::WB - 1) / Fit::WB;
     const scalar* const* f = reinterpret_cast<const scalar* const*>(in);
     const S* const* s = reinterpret_cast<const S* const*>(in);
     scalar* const* o = reinterpret_cast<scalar* const*>(out);
-    iter_kernel<S, SHARED, CACHED><<<blocks, K8_THREADS, smem, st>>>(
+    iter_kernel<S, SHARED, CACHED><<<blocks, 32 * Fit::WB, smem, st>>>(
         N, Bt, alpha, sigma, f[0], f[1], f[2], f[3], s[4], s[5], s[6], s[7],
         s[8], s[9], f[10], f[11], f[12], f[13], f[14], f[15], f[16], f[17],
         f[18], f[19], o[0], o[1], o[2], o[3], o[4], o[5]);
@@ -1446,6 +1932,12 @@ int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
     return (int)cudaGetLastError();
 }
 #else  // K8
+#ifdef ADMM_PROFILE
+int admm_read_prof(long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, admm_prof, sizeof(admm_prof));
+}
+#endif
 // in:  rho, PN, pN, x0, A, B, c, Hs, h, D, lb, ub, mask, shift, P, L, K, w,
 //      z, y (A .. D of the storage type, bf16 when `narrow`);
 // out: spill, w_new, z_new, y_new, xN, res.

@@ -510,14 +510,15 @@ int launch_backward(const BackwardArgs& a)
 
 #else  // !NC
 // ------------------------------------------- K2 / K3, per-instance mode
-// One matrix set per scenario (every tensor has trailing size Bt).  One
-// thread per scenario: the carry and the stage temporaries live in
-// registers, and every stream, matrices included, is batch-last, so a
-// warp reads and writes whole lines.  PC_MODE: the P argument holds the
-// pre-folded Pc = P_{k+1} c_k.  These are kernels of their own, not the
-// shared-model ones below with another stride: there a block stages ONE
-// matrix set per stage in shared memory for all its scenarios, and 32
-// sets a stage would not fit.
+// One matrix set per scenario (every tensor has trailing size Bt).  K2
+// (and K10) give a scenario one thread: the carry and the stage
+// temporaries live in registers, and every stream, matrices included, is
+// batch-last, so a warp reads and writes whole lines.  PC_MODE: the P
+// argument holds the pre-folded Pc = P_{k+1} c_k.  These are kernels of
+// their own, not the shared-model ones below with another stride: there a
+// block stages ONE matrix set per stage in shared memory for all its
+// scenarios, and 32 sets a stage would not fit.  K3 stages the sets of 8
+// scenarios a block (see there).
 
 constexpr int PI_THREADS = 64;               // scenarios per block
 
@@ -771,20 +772,89 @@ __global__ void backward_pdp_vectors_kernel(
 // segment's boundary state comes from the condensed solve).  S = 1 is the
 // whole horizon.  The streams are shifted to the segment's first stage
 // before the loop, so the loop is the one-segment rollout's.
-__global__ void forward_kernel(
+//
+// What bounds it on this card is bytes: 208 words a scenario and stage
+// in (M, K, v, d; quadrotor widths), 16 out.  A thread a scenario that
+// loads its own stage with __ldg waits out device-memory latency several
+// times a stage (its registers cannot hold the stage), and a batch of
+// 1,024 is 16 blocks on 16 SMs.  Here a scenario has K3I_G threads, each
+// owning every K3I_G-th row of x+ and of u, and a block serves K3I_WS
+// consecutive scenarios: B=1024 is 128 blocks a segment.  The block copies
+// each stage's M, K, v, d of its scenarios with cp.async into a ring of
+// K3I_SLOTS shared-memory slots, K3I_PF stages ahead of use (16-byte
+// copies where the batch and the pointers allow, whole sectors either
+// way), so the per-stage chain holds only shared-memory reads, FMAs and
+// one barrier, for the exchange of x.  A slot holds each entry as a row of
+// the K3I_WS scenarios, scenario index fastest, and the rows of M and K
+// padded to an odd length: the four threads of a scenario read rows g,
+// g+4, ... on distinct banks.  A scenario past the batch reads the last
+// one's data and stores nothing.
+constexpr int K3I_G = 4;                      // threads a scenario
+constexpr int K3I_WS = 8;                     // scenarios a block
+constexpr int K3I_THREADS = K3I_G * K3I_WS;
+constexpr int K3I_RX = (NX + K3I_G - 1) / K3I_G;   // x+ rows a thread
+constexpr int K3I_RU = (NU + K3I_G - 1) / K3I_G;   // u rows a thread
+constexpr int K3I_PF = 4;                     // stages in flight
+constexpr int K3I_SLOTS = K3I_PF + 1;
+constexpr int K3I_MP = NX | 1;                // a slot's row of M or K
+// Slot (entries; each entry a row of K3I_WS words): M, K, v, d.
+constexpr int K3I_M = 0;
+constexpr int K3I_K = K3I_M + NX * K3I_MP;
+constexpr int K3I_V = K3I_K + NU * K3I_MP;
+constexpr int K3I_D = K3I_V + NX;
+constexpr int K3I_SLOT = (K3I_D + NU) * K3I_WS;           // words
+constexpr int K3I_SMEM_WORDS = K3I_SLOTS * K3I_SLOT + 2 * NX * K3I_WS;
+
+// n entries of a stage block (entry e of scenario b at src[e*Bt + b]),
+// source rows of C entries padded to CP in the slot, for the block's
+// scenarios b0.. : 16-byte copies when `vec` (the block's scenarios lie
+// whole and aligned in every row), else one word a copy.
+template <int C, int CP>
+__device__ __forceinline__ void k3_stage(scalar* dst, const scalar* src,
+                                         int n, size_t Bt, size_t b0,
+                                         bool vec, int tid)
+{
+    if (vec) {
+        constexpr int CH = 16 / (int)sizeof(scalar);      // words a copy
+        constexpr int NCH = K3I_WS / CH;
+#pragma unroll 1
+        for (int q = tid; q < n * NCH; q += K3I_THREADS) {
+            const int e = q / NCH, hh = q % NCH;
+            const int de = (e / C) * CP + e % C;
+            __pipeline_memcpy_async(dst + de * K3I_WS + hh * CH,
+                                    src + e * Bt + b0 + hh * CH, 16);
+        }
+    } else {
+#pragma unroll 1
+        for (int q = tid; q < n * K3I_WS; q += K3I_THREADS) {
+            const int e = q / K3I_WS, j = q % K3I_WS;
+            const size_t b = b0 + j < Bt ? b0 + j : Bt - 1;
+            const int de = (e / C) * CP + e % C;
+            copy_word(dst + de * K3I_WS + j, src + e * Bt + b);
+        }
+    }
+}
+
+__global__ void __launch_bounds__(K3I_THREADS)
+forward_kernel(
     int N, int Bt, int S,
     const scalar* __restrict__ M, const scalar* __restrict__ v,
     const scalar* __restrict__ K, const scalar* __restrict__ d,
     const scalar* __restrict__ x0,
     scalar* __restrict__ ws, scalar* __restrict__ xN)
 {
-    const unsigned bps = (Bt + PI_THREADS - 1) / PI_THREADS;   // blocks a segment
+    extern __shared__ double smem_aligned[];
+    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    scalar* xs = ring + K3I_SLOTS * K3I_SLOT;               // x exchange, x2
+    const int tid = threadIdx.x;
+    const int j = tid % K3I_WS;                  // scenario in the block
+    const int g = tid / K3I_WS;                  // thread of the scenario
+    const unsigned bps = (Bt + K3I_WS - 1) / K3I_WS;        // blocks a segment
     const size_t seg = blockIdx.x / bps;
-    const size_t b = (size_t)(blockIdx.x % bps) * blockDim.x + threadIdx.x;
-    if (b >= (size_t)Bt) return;
     const size_t Bs = (size_t)Bt;
-    const size_t mb = Bs;
-    const size_t mo = b;
+    const size_t b0 = (size_t)(blockIdx.x % bps) * K3I_WS;
+    const size_t b = b0 + j;
+    const bool valid = b < Bs;
     const int Nl = N / S;
     const size_t s0 = seg * (size_t)Nl;         // the segment's first stage
     M += s0 * NX * NX * Bs;
@@ -794,39 +864,77 @@ __global__ void forward_kernel(
     ws += s0 * NZ * Bs;
     x0 += seg * NX * Bs;
     xN += seg * NX * Bs;
+    constexpr size_t CH = 16 / sizeof(scalar);
+    const bool vec = Bs % CH == 0 && b0 + K3I_WS <= Bs
+        && (((size_t)M | (size_t)K | (size_t)v | (size_t)d) & 15) == 0;
 
-    scalar x[NX];
+    auto prefetch = [&](int k) {
+        if (k < Nl) {
+            const size_t ks = (size_t)k;
+            scalar* sl = ring + (k % K3I_SLOTS) * K3I_SLOT;
+            k3_stage<NX, K3I_MP>(sl + K3I_M * K3I_WS, M + ks * NX * NX * Bs,
+                                 NX * NX, Bs, b0, vec, tid);
+            k3_stage<NX, K3I_MP>(sl + K3I_K * K3I_WS, K + ks * NU * NX * Bs,
+                                 NU * NX, Bs, b0, vec, tid);
+            k3_stage<NX, NX>(sl + K3I_V * K3I_WS, v + ks * NX * Bs, NX, Bs,
+                             b0, vec, tid);
+            k3_stage<NU, NU>(sl + K3I_D * K3I_WS, d + ks * NU * Bs, NU, Bs,
+                             b0, vec, tid);
+        }
+        __pipeline_commit();
+    };
+
+    const size_t bc = valid ? b : Bs - 1;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x0[i * Bs + b];
+    for (int r = 0; r < K3I_RX; ++r) {
+        const int i = g + K3I_G * r;
+        if (i < NX) xs[i * K3I_WS + j] = x0[i * Bs + bc];
+    }
+    for (int k = 0; k < K3I_PF; ++k) prefetch(k);
 
     for (int k = 0; k < Nl; ++k) {
         const size_t ks = (size_t)k;
-        const scalar* Mk = M + ks * NX * NX * mb + mo;
-        const scalar* Kk = K + ks * NU * NX * mb + mo;
-        scalar u[NU], xn[NX];
+        __pipeline_wait_prior(K3I_PF - 1);       // stage k landed (my copies)
+        __syncthreads();                         // ... everyone's, and x_k
+        prefetch(k + K3I_PF);                    // into the slot of stage k-1
+        const scalar* sl = ring + (k % K3I_SLOTS) * K3I_SLOT;
+        const scalar* xin = xs + (k & 1) * NX * K3I_WS;
+        scalar* xout = xs + ((k + 1) & 1) * NX * K3I_WS;
+        scalar x[NX];
 #pragma unroll
-        for (int i = 0; i < NU; ++i) u[i] = d[(ks * NU + i) * Bs + b];
+        for (int t = 0; t < NX; ++t) x[t] = xin[t * K3I_WS + j];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) xn[i] = v[(ks * NX + i) * Bs + b];
+        for (int r = 0; r < K3I_RU; ++r) {
+            const int i = g + K3I_G * r;
+            if (i < NU) {
+                scalar acc = sl[(K3I_D + i) * K3I_WS + j];
 #pragma unroll
-        for (int i = 0; i < NU; ++i) {
-#pragma unroll
-            for (int j = 0; j < NX; ++j)
-                u[i] += __ldg(Kk + (i * NX + j) * mb) * x[j];
-            ws[(ks * NZ + i) * Bs + b] = u[i];
+                for (int t = 0; t < NX; ++t)
+                    acc += sl[(K3I_K + i * K3I_MP + t) * K3I_WS + j] * x[t];
+                if (valid) ws[(ks * NZ + i) * Bs + b] = acc;
+            }
         }
 #pragma unroll
-        for (int i = 0; i < NX; ++i) {
-            ws[(ks * NZ + NU + i) * Bs + b] = x[i];
+        for (int r = 0; r < K3I_RX; ++r) {
+            const int i = g + K3I_G * r;
+            if (i < NX) {
+                if (valid) ws[(ks * NZ + NU + i) * Bs + b] = x[i];
+                scalar acc = sl[(K3I_V + i) * K3I_WS + j];
 #pragma unroll
-            for (int j = 0; j < NX; ++j)
-                xn[i] += __ldg(Mk + (i * NX + j) * mb) * x[j];
+                for (int t = 0; t < NX; ++t)
+                    acc += sl[(K3I_M + i * K3I_MP + t) * K3I_WS + j] * x[t];
+                xout[i * K3I_WS + j] = acc;
+            }
         }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    const scalar* xfin = xs + (Nl & 1) * NX * K3I_WS;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) xN[i * Bs + b] = x[i];
+    for (int r = 0; r < K3I_RX; ++r) {
+        const int i = g + K3I_G * r;
+        if (i < NX && valid) xN[i * Bs + b] = xfin[i * K3I_WS + j];
+    }
 }
 
 // --------------------------------------------- K2 / K3, shared-model mode
@@ -1405,8 +1513,11 @@ int riccati_forward(int N, int Bt, int shared, int S, void* stream,
             N, Bt, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     } else {
-        const int blocks = S * ((Bt + PI_THREADS - 1) / PI_THREADS);
-        forward_kernel<<<blocks, PI_THREADS, 0, st>>>(
+        const int blocks = S * ((Bt + K3I_WS - 1) / K3I_WS);
+        const size_t smem = K3I_SMEM_WORDS * sizeof(scalar);
+        int e = set_smem(forward_kernel, smem);
+        if (e) return e;
+        forward_kernel<<<blocks, K3I_THREADS, smem, st>>>(
             N, Bt, S, (const scalar*)M, (const scalar*)v, (const scalar*)K,
             (const scalar*)d, (const scalar*)x0, (scalar*)ws, (scalar*)xN);
     }

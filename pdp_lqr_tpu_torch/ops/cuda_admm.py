@@ -637,9 +637,14 @@ def admm_iter_lanes(A, B, c, Hs, h, D, lb, ub, mask, shift, w, z, y, rho,
     r_dual, prim_scale, dual_scale], maxima over stages 0..N-1 (the
     caller folds in the terminal stage).
 
-    On the card: one warp a scenario, its carry and the stage's data in
-    the warp's slice of shared memory; the gains make a round trip
-    through a scratch buffer in device memory.  See the kernel source.
+    On the card: one warp a scenario, its carry and products in the
+    warp's slice of shared memory; a block of warps (8 on one model, 4
+    on a batched problem) stages each stage's data once into a ring of
+    shared-memory slots with asynchronous copies (a shared model's streams
+    one copy, per-scenario streams as rows of the block's scenarios), and
+    the gains make a round trip through a scratch buffer in device memory.
+    bfloat16 stage data is copied in aligned pairs, so its tensors must
+    start at a 4-byte boundary.  See the kernel source.
     """
     cones = tuple(cones)
     N, nx = A.shape[0], A.shape[1]
@@ -680,6 +685,13 @@ def admm_iter_lanes(A, B, c, Hs, h, D, lb, ub, mask, shift, w, z, y, rho,
             nu=nu, cones=cones, alpha=alpha, sigma=sigma, factors=factors)
     if dev.type != "cuda":
         raise ValueError(f"admm_iter_lanes: no kernel for device {dev}")
+    if st == torch.bfloat16:
+        for name, x in (("A", A), ("B", B), ("c", c), ("Hs", Hs), ("h", h),
+                        ("D", D)):
+            if x.data_ptr() % 4:
+                raise ValueError(f"{name}: bfloat16 stage data must start at "
+                                 f"a 4-byte boundary (the kernel copies "
+                                 f"pairs)")
     lib = _library(dt, nx, nu, nc, cones=cones, has_shift=shift is not None,
                    single=True)
     with torch.cuda.device(dev):

@@ -498,9 +498,12 @@ def forward_lanes(M, v, K, d, x0, *, shared=False, segments=None):
     (S,nx,B) holds each segment's end state.  ``None``: one segment, x0
     and xN (nx,B).
 
-    On the card: the two modes are laid out as in
-    backward_vectors_lanes; see the notes in the kernel source.  The
-    segments of the per-instance kernel run side by side in one launch.
+    On the card: the shared mode is laid out as in
+    backward_vectors_lanes; per instance, a scenario has 4 threads and a
+    block 8 scenarios, whose stage data the block copies a few stages
+    ahead into a ring of shared-memory slots.  See the notes in the
+    kernel source.  The segments of the per-instance kernel run side by
+    side in one launch.
     """
     N, nx = M.shape[0], M.shape[1]
     nu = K.shape[1]

@@ -13,10 +13,11 @@ starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
 ``build/emulate/``, loads it through the wrappers' own ``ctypes`` bindings
 and holds every kernel and mode against its plain PyTorch version at small
 sizes (K1-K12, every form of K5 and of K8, K9 in both forms, K3 in
-segments).  It proves nothing about what ``nvcc`` accepts, about races between
+segments; K8 and per-instance K3 across several blocks with a ragged
+last one).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
-on them.  About a minute (some twenty small g++ builds); ``--quick`` runs
+on them.  About two minutes (some thirty small g++ builds); ``--quick`` runs
 the cases that ``tests/test_torch_emulate.py`` keeps alive.
 """
 
@@ -49,7 +50,7 @@ HEADERS = {
 inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::memcpy(d, s, n); }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 """,
     "cuda_runtime.h": """#pragma once
 #include <barrier>
@@ -69,6 +70,8 @@ static thread_local double* emu_smem;
 // block passes the same sequence of them).
 #define __syncwarp() emu_bar->arrive_and_wait()
 template <class T> inline T __ldg(const T* p) { return *p; }
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -352,6 +355,23 @@ def run_iter(dtype, nx, nu, nc, N, Bs, cones, has_shift, tol):
                           factors=factors), tol)
 
 
+def run_k3(dtype, nx, nu, N, Bt, S, tol):
+    """Per-instance K3 (one matrix set a scenario) in S segments of N/S
+    stages, ``Bt`` scenarios: blocks of the kernel's 8 scenarios, the last
+    one ragged where Bt is no multiple of 8."""
+    rng = np.random.default_rng(5)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    M, K = T(N, nx, nx, Bt) * 0.3, T(N, nu, nx, Bt) * 0.3
+    v, d = T(N, nx, Bt), T(N, nu, Bt)
+    x0 = T(S, nx, Bt) if S > 1 else T(nx, Bt)
+    check(f"K3 per-instance [{str(dtype).split('.')[-1]} nx={nx} nu={nu} "
+          f"N={N} B={Bt} S={S}]",
+          cr._launch_forward(library(dtype, nx, nu), M, v, K, d, x0, False,
+                             None, S),
+          cr.forward_lanes_reference(M, v, K, d, x0,
+                                     segments=S if S > 1 else None), tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -391,13 +411,31 @@ ITER_CASES = [
     (torch.float32, 12, 4, 16, 4, 8, (), False, 1e-3),
     (torch.float64, 6, 3, 7, 4, 5, ((1, 3, "soc"), (4, 3, "soc")), False, 1e-10),
     (torch.float64, 3, 2, 9, 5, 7, ((0, 4, "rsoc"),), True, 1e-10),
+    # Across blocks: B = 2 * 8 + 3 (K8's blocks of 8 warps, the last
+    # ragged; odd B puts bf16 rows at odd offsets), at the quadrotor's
+    # widths and at odd ones (odd bf16 stage blocks).
+    (torch.float32, 12, 4, 19, 4, 19, ((16, 3, "soc"),), True, 1e-3),
+    (torch.float64, 12, 4, 16, 3, 19, (), False, 1e-10),
+    (torch.float64, 3, 2, 5, 5, 19, ((1, 3, "soc"),), True, 1e-10),
+    (torch.float32, 3, 2, 5, 4, 19, (), False, 1e-3),
+]
+# (dtype, nx, nu, N, Bt, S, tol): per-instance K3 across its blocks of 8
+# scenarios, the last ragged (19), at S=1 and in 4 segments; batches of
+# 20 (float32: 16-byte copies in the whole blocks, a word a copy in the
+# last) and 16 (float64, whole blocks), and odd widths.
+K3_CASES = [
+    (torch.float64, 12, 4, 8, 19, 4, 1e-10),
+    (torch.float64, 12, 4, 8, 19, 1, 1e-10),
+    (torch.float32, 12, 4, 8, 20, 4, 1e-4),
+    (torch.float64, 12, 4, 6, 16, 1, 1e-10),
+    (torch.float64, 3, 2, 6, 19, 2, 1e-10),
 ]
 QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:1], LADDER_CASES[:1]
-ITER_QUICK = ITER_CASES[:1]
+ITER_QUICK, K3_QUICK = ITER_CASES[:1], K3_CASES[:1]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
-         iter_cases=ITER_CASES):
+         iter_cases=ITER_CASES, k3_cases=K3_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -409,11 +447,13 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_ladder(*case)
     for case in iter_cases:
         run_iter(*case)
+    for case in k3_cases:
+        run_k3(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
 
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
-    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK) if quick
-             else main())
+    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK)
+             if quick else main())

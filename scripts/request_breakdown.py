@@ -3,7 +3,8 @@
 
     python3 scripts/request_breakdown.py [--admm | --ladder |
                                           --replicated [--cached] |
-                                          --single [--cached] [--batched] |
+                                          --single [--cached] [--batched]
+                                          [--bf16] |
                                           --pdp [--admm] [--cached]]
                                          [--requests 20]
 
@@ -16,7 +17,9 @@ ladder, scenario b starting on rung b mod 4, ``--replicated``
 ``--cached`` with cached factors), ``--single`` the single-kernel
 iteration (K8): ``solve_admm``'s default path at N=64, B=4096
 (per-scenario rho), with ``--cached`` on cached factors at a uniform rho at
-N=512, B=4096, with ``--batched`` on a batched problem at N=64, B=1024;
+N=512, B=4096 (``--bf16``: the stage data stored as bfloat16, through
+``solve_fused(storage_dtype=torch.bfloat16)``), with ``--batched`` on a
+batched problem at N=64, B=1024;
 ``--pdp`` the segment-parallel solve (``parallel.pdp_sharded_fused``, N=512,
 B=1024, the horizon in S=8 segments), with ``--admm`` the conic
 ADMM loop on it (``parallel.admm_sharded``, the thrust-cone model with a
@@ -26,7 +29,9 @@ It prints as JSON lines:
   * the request's time by CUDA events, the host's time to enqueue it (host
     clock around the call, no synchronise) and the host's time with a
     synchronise at the end: where the first is close to the second, the
-    host and not the card sets the request time;
+    host and not the card sets the request time; and what one request
+    makes the caching allocator do (retries, device allocations and frees)
+    and reads on the host;
   * from ``torch.profiler`` over the same requests: device time by kernel
     name (per request), the device's busy time and its idle share; for an
     ADMM request also the kernels launched per ADMM iteration;
@@ -38,6 +43,7 @@ It prints as JSON lines:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -52,10 +58,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     ADMM_ITERS, ADMM_SETTINGS, B_PDP, B_REP, LADDER, LADDER_SETTINGS, NC,
     N_SINGLE, REP_SETTINGS, S_PDP, SINGLE_SETTINGS, THRUST_SHIFT, batched,
-    profiled, zero_state,
+    profiled, request_probe, zero_state,
 )
 from pdp_lqr_tpu_torch import ADMMSettings, ScenarioServer, solve_fused  # noqa: E402
 from pdp_lqr_tpu_torch.models import quadrotor  # noqa: E402
+from pdp_lqr_tpu_torch.solvers import admm  # noqa: E402
 
 N, B, SIGMA, RHO = 512, 4096, 1e-6, 0.01
 
@@ -103,9 +110,13 @@ def main():
                          "cached factors")
     ap.add_argument("--batched", action="store_true",
                     help="with --single: a batched problem (B=1024, N=64)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --single --cached: bfloat16 stage data")
     args = ap.parse_args()
     if args.admm and (args.ladder or args.replicated or args.single):
         ap.error("--admm combines with --pdp only")
+    if args.bf16 and not (args.single and args.cached and not args.batched):
+        ap.error("--bf16 combines with --single --cached only")
     iterative = args.admm or args.ladder or args.replicated or args.single
     if not torch.cuda.is_available():
         print("request_breakdown: needs a CUDA device", file=sys.stderr)
@@ -173,11 +184,17 @@ def main():
             bp = batched(model, B_REP, c[:B_REP])
             request = lambda: solve_fused(bp, x0[:B_REP], (), settings,
                                           single_kernel=True)
+        elif args.bf16:
+            mc = dataclasses.replace(model, c=c)
+            request = lambda: solve_fused(mc, x0, (), settings,
+                                          single_kernel=True,
+                                          storage_dtype=torch.bfloat16)
         else:
             request = lambda: server.solve_admm(x0, (), settings, c=c,
                                                 split=False)
         entry = ("solve_fused, batched" if args.batched else "solve_admm") \
-            + ", single kernel" + (", cached" if args.cached else "")
+            + ", single kernel" + (", cached" if args.cached else "") \
+            + (", bf16 stage data" if args.bf16 else "")
     else:
         entry = "solve"
         x0 = torch.as_tensor(rng.normal(size=(B, model.nx)).astype(np.float32)
@@ -218,7 +235,8 @@ def main():
         "requests": args.requests, "entry_point": entry,
         "request_ms_cuda_events": med(event_ms),
         "host_enqueue_ms": med(enqueue_ms),
-        "host_with_synchronise_ms": med(synced_ms)}), flush=True)
+        "host_with_synchronise_ms": med(synced_ms),
+        "one_request": request_probe(request, admm)}), flush=True)
 
     rows, busy_ms, window_ms = profiled(request, args.requests)
     per_request = sum(r["calls_per_request"] for r in rows)
