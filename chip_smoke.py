@@ -778,7 +778,7 @@ def main():
         fac = cr.backward_lanes(*one, export_factors=True)
         compare("backward_lanes[batch=1,export]", K1_ALL, fac,
                 cr.backward_lanes_reference(*one, export_factors=True))
-        # K1 per instance (one block each), gains only.
+        # K1 per instance, gains only.
         few = random_stage_data(rng, N_SMALL, NX, NU, NC, 5, dt, dev)
         compare("backward_lanes[batch=5,gains]", K1_GAINS,
                 cr.backward_lanes(*few, emit_closed_loop=False),
@@ -878,7 +878,7 @@ def main():
                         k5_call(ca, k5r, cones, K=k6_in[9], rung=rung),
                         k5_plain(ca, k5r, cones, K=k6_in[9], rung=rung))
 
-        # K7 and the per-instance K1 (one block an instance) with closed-loop
+        # K7 and the per-instance K1 with closed-loop
         # maps and factor export, and with export alone.
         k7_in = (Aw, Bw, c, Kw, d, x0)
         compare("forward_rollout_lanes", K3_OUT, cr.forward_rollout_lanes(*k7_in),
@@ -975,11 +975,44 @@ def main():
                     cr.forward_packed(Sd, G_p, x0_p, NU),
                     cr.forward_packed_reference(Sd, G_p, x0_p, NU))
 
+        # The matrix sweep, K1 with every output and K9 exporting its
+        # factors: at Bt = 1, G-1 and G+1 (few (segment, instance) pairs: a
+        # block an instance), then across its groups of G instances a block,
+        # past the pairs where groups take over, with a ragged last group:
+        # Bt = 3 mod G (stores a word at a time) and VW mod G (16-byte
+        # stores: the batch a multiple of the 16-byte width VW).
+        # G, and the pairs where groups take over, are the library's own
+        # (riccati_sweep_group), for each kernel.
+        VW = 16 // (4 if dt == torch.float32 else 8)
+
+        def sweep_batches(S, pdp):
+            group = lambda Bt: cr.sweep_group(dt, NX, NU, NC, S * Bt,
+                                              export_factors=True, pdp=pdp)
+            G = group(1 << 30)
+            past = G
+            while group(past) == 0:
+                past += G
+            return (1, G - 1, G + 1, past + 3, past + VW)
+
+        for Bt, Bt9 in zip(sweep_batches(1, False), sweep_batches(S_SMALL, True)):
+            k1_in = random_stage_data(rng, N_SMALL, NX, NU, NC, Bt, dt, dev)
+            compare(f"backward_lanes[group,B={Bt},export]", K1_ALL,
+                    cr.backward_lanes(*k1_in, export_factors=True),
+                    cr.backward_lanes_reference(*k1_in, export_factors=True))
+            if Bt9 != Bt:
+                k1_in = random_stage_data(rng, N_SMALL, NX, NU, NC, Bt9, dt, dev)
+            k9_in = k1_in[:8] + random_carries(rng, S_SMALL, NX, Bt9, dt, dev)
+            compare(f"backward_pdp_lanes[group,S={S_SMALL},B={Bt9},export]",
+                    K9_ALL, cr.backward_pdp_lanes(*k9_in, export_factors=True,
+                                                  segments=S_SMALL),
+                    cr.backward_pdp_lanes_reference(
+                        *k9_in, export_factors=True, segments=S_SMALL))
+
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
-        require(launched == {"backward_lanes": 5, "backward_vectors_lanes": 4,
+        require(launched == {"backward_lanes": 10, "backward_vectors_lanes": 4,
                              "forward_lanes": 6, "forward_rollout_lanes": 2,
-                             "backward_pdp_lanes": 4,
+                             "backward_pdp_lanes": 9,
                              "backward_pdp_vectors_lanes": 2,
                              "backward_packed": 2, "forward_packed": 2},
                 launched)

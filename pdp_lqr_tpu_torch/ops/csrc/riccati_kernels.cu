@@ -73,60 +73,89 @@ __device__ long long riccati_prof[8];
 
 #ifdef NC
 // ------------------------------------------------------- K1, K9, K11
-// Matrix sweep.  What bounds it on this card: neither bytes nor
-// operations (one instance moves a few megabytes and does a few tens of
-// kFLOP per stage) but the chain of N dependent stages, each a chain of
-// dependent phases.  So the design spends one thread block per instance,
-// keeps the stage data and the (P, p) carry in shared memory, lets
-// threads own matrix entries inside each phase, and runs the loop over
-// stages inside the block: no launch, no grid step and no device-memory
-// round trip sits between two stages.  Off the chain are moved: the load
-// of a stage's data (copied asynchronously into a second buffer while
-// the stage before it runs) and its penalty fold, which does not depend
-// on the carry (done by the warps that idle while one warp runs the
-// Cholesky and the solves).  The serving path runs the kernel on ONE
-// instance (the shared model); per-instance batches give one block each.
+// Matrix sweep.  What bounds it on this card: a chain of N dependent
+// stages an instance, each a chain of dependent products (some ten
+// thousand FMAs an instance and stage), and where many instances run at
+// once the shared-memory reads of those products and the copies of 3 kB
+// an instance and stage (float32).  The design:
+//
+//   * A warp an instance, a block of G consecutive instances (for K9, of
+//     one segment: block = segment * ceil(Bt/G) + group).  A stage's
+//     products are dealt over the warp's lanes as tiles of 2 x 4 outputs,
+//     whose operand rows a lane reads 16 bytes a load, a few steps of the
+//     sum ahead; __syncwarp orders the steps.  Where the (segment,
+//     instance) pairs are no more than the SMs (Bt = 1: the shared model;
+//     a few long horizons), an instance gets a block of ONE_WARPS
+//     warps instead, the steps ordered by __syncthreads, and the products
+//     with the carry an output a thread (its chain is the whole stage):
+//     the same body.
+//   * The Cholesky factor's diagonal comes from rsqrt (L_jj = s rsqrt(s),
+//     its inverse rsqrt(s)): no division and no square root on the chain.
+//   * The block copies each stage of its G instances into a ring of SLOTS
+//     shared-memory slots, SLOTS - 1 stages ahead (cp.async, a word a
+//     copy; consecutive threads take consecutive instances of one entry,
+//     so a warp's copies read whole sectors; a thread's copies of a stage
+//     are unrolled, their addresses independent of each other).  The
+//     outputs go out a stage later from a double-buffered out slot, 16
+//     bytes a store (four instances' words of one entry) where the batch is
+//     a multiple of the vector width and the pointers are aligned, a word
+//     a store otherwise.  One __syncthreads a stage hands the slots over.
+//     A slot holds each instance's stage as a run of its own padded rows,
+//     so a lane reads its operand rows 16 bytes a load; 16-byte copies
+//     would need the instances side by side, where a warp's reads of one
+//     instance fall on few banks.
+//   * G and SLOTS follow from the widths and the dtype (SweepFit): as many
+//     instances as make a 32-byte sector (8 in float32, 4 in float64) and 3
+//     slots where 227 KB hold them, fewer where they do not.
+//
+// A stage, on the carry (P, p) = (P_{k+1}, p_{k+1}) (K9: also F, C, f):
+//   A  Dr = [diag(rho) D | -rg];  [PA Pcp PB] = P [A c B] + [0 p 0]
+//      (K9: [FA Fc FB] = F [A c B], the same product on F's rows)
+//   B  the penalty fold [H h] += D^T Dr (lqr_kernel.hpp:106-112) on the
+//      entries that are read: Huu and the cross block, Q's upper triangle
+//      and h, each entry's sum in the order c = 0 .. nc-1;
+//      S = B^T [PA Pcp PB]
+//   C  G = Hux + S_x, rbar = h_u + S_c, Huu = Huu + S_u; a lane a column
+//      factors Huu in registers (cheaper than a barrier) and solves
+//      [K (Gp) d] = -Huu^{-1} [G ((F+ B)^T) rbar]
+//   D  [P+ p+] = [Q q] + A^T [PA Pcp] + G^T [K d] (P+'s upper triangle,
+//      mirrored: exactly symmetric; K^T rbar = G^T d), [M v] = [A c] +
+//      B [K d] (K9: C = C+ - (F+ B) Gp, mirrored, so the condensed
+//      Cholesky sees what JAX's does; [F f] = [FA Fc] + (F+ B) [K d] +
+//      [0 f+])
+// and the carries are updated in place (no step reads what it writes).
 //
 // PDP (K9, the segment reduction of the reference's parallel solver):
-// one block per (segment, instance), S*Bt blocks, each sweeping its own
-// N/S stages from its own initial carry, so the chain a block runs is
-// S times shorter.  On top of K1's stage it carries the segment's
-// closed-loop transition F, its offset f and the Gram C of the boundary
-// dual, and solves [K Gp d] = -Huu^{-1} [G (F+ B)^T rbar] with 2nx+1
-// right-hand sides:
-//     Gp = -Huu^{-1} B^T F+^T,   F = F+ (A + B K) = F+ A + (F+ B) K,
-//     f  = F+ (B d + c) + f+ = F+ c + (F+ B) d + f+,
-//     C  = C+ - (F+ B) Gp       (upper triangle, mirrored: exactly symmetric,
-//                                so the condensed Cholesky sees what JAX's does).
-// F+ A, F+ B and F+ c are formed beside P A in phase 1, so F, f and C need
-// no extra barrier.  After the segment's first stage the block writes the
-// carry it hands its left neighbour, (P0, p0, F0, C0, f0).
+// each (segment, instance) sweeps its own N/S stages from its own carry
+// and solves [K Gp d] with 2nx+1 right-hand sides:
+//     Gp = -Huu^{-1} B^T F+^T,   F = F+ A + (F+ B) K,
+//     f  = F+ c + (F+ B) d + f+,  C = C+ - (F+ B) Gp.
+// After the segment's first stage the block writes the carry it hands its
+// left neighbour, (P0, p0, F0, C0, f0).
 //
 // PACKED (K11): the stage data come row-packed, Sd = (A | B | c) and
 // Sc = (H | h | D | rho | rho g), and the gains go out as G = (K | d): only
 // the strides of the streams change (the entry point offsets the pointers).
 
-// Stage buffer layout (words).
-constexpr int S_A = 0;
-constexpr int S_B = S_A + NX * NX;
-constexpr int S_C = S_B + NX * NU;
-constexpr int S_H = S_C + NX;
-constexpr int S_HV = S_H + NZ * NZ;
-constexpr int S_D = S_HV + NZ;
-constexpr int S_RHO = S_D + NC * NZ;
-constexpr int S_RG = S_RHO + NC;
-constexpr int S_WORDS = S_RG + NC;
-
-constexpr int K1_WORDS =
-    2 * S_WORDS                                                // stage data (x2)
-    + 2 * NX * NX + 2 * NX                                     // P, p (x2)
-    + NX * NX + NX * NU + NX                                   // PA PB Pcp
-    + NU * NX + NU + NU * NU + NU * NX + NU;                   // G rbar Huu K d
-constexpr int K9_WORDS =
-    K1_WORDS
-    + 4 * NX * NX + 2 * NX                                     // F, C, f (x2)
-    + NX * NX + NX * NU + NX                                   // FA FB Fc
-    + NU * NX;                                                 // Gp
+constexpr int VW = 16 / (int)sizeof(scalar);         // words a 16-byte access
+// Row widths (words), each a multiple of 4: every row starts 16 bytes
+// aligned (32 in float64), so a lane reads four entries a load.
+constexpr int X4 = (NX + 3) / 4 * 4;                 // P, F, C, Gp
+constexpr int WAB = (NX + 1 + NU + 3) / 4 * 4;       // [A c B], [PA Pcp PB]
+constexpr int WH = (NZ + 1 + 3) / 4 * 4;             // [H h], Dr
+constexpr int WD = (NZ + 3) / 4 * 4;                 // D
+constexpr int WK = (NX + 1 + 3) / 4 * 4;             // [K d]
+constexpr int NC4 = (NC + 3) / 4 * 4;
+// An instance's stage in a slot.
+constexpr int S_AB = 0;
+constexpr int S_H = S_AB + NX * WAB;
+constexpr int S_D = S_H + NZ * WH;
+constexpr int S_RHO = S_D + NC * WD;
+constexpr int S_RG = S_RHO + NC4;
+constexpr int S_WORDS = S_RG + NC4;
+// Instances lie S_STRIDE words apart (4 mod 8): the words of one entry of
+// neighbouring instances, stored by one warp, fall on distinct banks.
+constexpr int S_STRIDE = (S_WORDS + 7) / 8 * 8 + 4;
 
 // Rows a stage takes in each stream: packed (K11) or one tensor a stream.
 constexpr int SD_ROWS = NX * (NX + NU + 1);                    // A | B | c
@@ -144,8 +173,305 @@ template <bool PACKED> struct K1Rows {
     static constexpr int DV = PACKED ? G_ROWS : NU;
 };
 
-template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED>
-__global__ void backward_kernel(
+// An instance's carry and stage temporaries, and its outputs of one
+// stage (in the order of the output streams), in words.
+template <bool EMIT_MV, bool EXPORT, bool PDP> struct SweepLayout {
+    static constexpr int XR = PDP ? 2 * NX : NX;      // rows of [P; F]
+    static constexpr int P = 0;                       // [P; F] (+1 row: the
+    static constexpr int PAB = P + (XR + 1) * X4;     //  tiles' row pairs)
+    static constexpr int DR = PAB + (XR + 1) * WAB;   // [PA Pcp PB; FA Fc FB]
+    static constexpr int GS = DR + NC * WH;           // [G rbar Huu] sums
+    static constexpr int KD = GS + NU * WAB;          // [K d]
+    static constexpr int GP = KD + NU * WK;
+    static constexpr int PV = GP + (PDP ? NU * X4 : 0);   // p, f
+    static constexpr int C = PV + (PDP ? 2 : 1) * X4;
+    static constexpr int CARRY = C + (PDP ? NX * X4 : 0);
+    static constexpr int OK = 0;
+    static constexpr int OD = OK + NU * NX;
+    static constexpr int OM = OD + NU;
+    static constexpr int OV = OM + (EMIT_MV ? NX * NX : 0);
+    static constexpr int OP = OV + (EMIT_MV ? NX : 0);
+    static constexpr int OL = OP + (EXPORT ? NX * NX : 0);
+    static constexpr int OGP = OL + (EXPORT ? NU * NU : 0);
+    static constexpr int OF = OGP + (PDP ? NU * NX : 0);
+    static constexpr int OUT = (OF + (PDP && EXPORT ? NX * NX : 0)) | 1;
+};
+
+constexpr int SWEEP_SMEM_MAX = 232448;      // 227 KB, the most a block has
+
+template <bool EMIT_MV, bool EXPORT, bool PDP>
+constexpr int sweep_bytes(int g, int slots)
+{
+    using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
+    return (slots * g * S_STRIDE + g * L::CARRY + 2 * g * L::OUT)
+        * (int)sizeof(scalar);
+}
+
+// G * 4 + SLOTS of a form: the widest group from g0 down, 3 slots before
+// 2, that fits (one instance and 2 slots where none does).
+template <bool EMIT_MV, bool EXPORT, bool PDP>
+constexpr int sweep_pick(int g0)
+{
+    for (int g = g0; g >= 1; g /= 2)
+        for (int slots = 3; slots >= 2; --slots)
+            if (sweep_bytes<EMIT_MV, EXPORT, PDP>(g, slots) <= SWEEP_SMEM_MAX)
+                return g * 4 + slots;
+    return 4 + 2;
+}
+
+// Warps of the block of one instance (ONE): on the shared model (Bt = 1)
+// 4 and 8 ran as fast as each other and faster than 1, K9 on few long
+// horizons ran faster with 8 (PERF.md).
+constexpr int ONE_WARPS = 8;
+
+// A form's block: G instances of a warp each (ONE: one instance of
+// ONE_WARPS warps), and its ring.  OK is false only where one instance
+// alone does not fit.
+template <bool EMIT_MV, bool EXPORT, bool PDP, bool ONE> struct SweepFit {
+    static constexpr int PICK = sweep_pick<EMIT_MV, EXPORT, PDP>(
+        ONE ? 1 : 32 / (int)sizeof(scalar));
+    static constexpr int G = PICK / 4;
+    static constexpr int SLOTS = PICK % 4;
+    static constexpr int W = ONE ? ONE_WARPS : 1;
+    static constexpr int THREADS = 32 * W * G;
+    static constexpr int BYTES = sweep_bytes<EMIT_MV, EXPORT, PDP>(G, SLOTS);
+    static constexpr bool OK = BYTES <= SWEEP_SMEM_MAX;
+};
+
+// The tiles of the triangular steps, 2 x 4 outputs: column tile by column
+// tile (columns 4 jt .. 4 jt + 3), each holding the row pairs that have an
+// entry the sweep reads:
+//   FOLD   [H h]: the rows of Huu and the cross block, and Q's rows up to
+//          the tile's last column;
+//   UPPER  P+'s upper triangle (and its column nx, p+: every row);
+//   CUPPER C's upper triangle.
+enum Tri { FOLD, UPPER, CUPPER };
+
+template <int KIND>
+__host__ __device__ constexpr int tri_pairs(int jt)
+{
+    const int last = 4 * jt + 3;                      // the tile's last column
+    const int rows = KIND == FOLD ? NZ : NX;
+    int need = last + 1;                              // rows 0 .. last
+    if (KIND == FOLD && need < NU) need = NU;
+    if (KIND == UPPER && last >= NX) need = NX;       // column nx: p+
+    if (need > rows) need = rows;
+    return (need + 1) / 2;
+}
+
+template <int KIND>
+__host__ __device__ constexpr int tri_tiles()
+{
+    int n = 0;
+    for (int jt = 0; jt < (KIND == FOLD ? WH : KIND == UPPER ? WK : X4) / 4; ++jt)
+        n += tri_pairs<KIND>(jt);
+    return n;
+}
+
+// Threads of whole warps that n items take.
+__host__ __device__ constexpr int warps(int n) { return (n + 31) / 32 * 32; }
+
+// Tile q of a triangle -> its first row r0 and first column j0.
+template <int KIND>
+__device__ __forceinline__ void tri_tile(int q, int& r0, int& j0)
+{
+    int jt = 0;
+    while (q >= tri_pairs<KIND>(jt)) q -= tri_pairs<KIND>(jt++);
+    r0 = 2 * q;
+    j0 = 4 * jt;
+}
+
+// Four consecutive words (16-byte aligned) in and out of registers.
+template <class Sc>
+__device__ __forceinline__ void ld4(Sc (&v)[4], const Sc* p)
+{
+    if constexpr (sizeof(Sc) == 4) {
+        const float4 q = *reinterpret_cast<const float4*>(p);
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else {
+        const double2 a = *reinterpret_cast<const double2*>(p);
+        const double2 b = *reinterpret_cast<const double2*>(p + 2);
+        v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    }
+}
+
+template <class Sc>
+__device__ __forceinline__ void st4(Sc* p, const Sc (&v)[4])
+{
+    if constexpr (sizeof(Sc) == 4) {
+        *reinterpret_cast<float4*>(p) = float4{v[0], v[1], v[2], v[3]};
+    } else {
+        *reinterpret_cast<double2*>(p) = double2{v[0], v[1]};
+        *reinterpret_cast<double2*>(p + 2) = double2{v[2], v[3]};
+    }
+}
+
+// TW consecutive words (16-byte aligned where TW is 4) in and out of
+// registers.
+template <int TW>
+__device__ __forceinline__ void ldw(scalar (&v)[TW], const scalar* p)
+{
+    if constexpr (TW == 4) {
+        ld4(v, p);
+    } else {
+#pragma unroll
+        for (int b = 0; b < TW; ++b) v[b] = p[b];
+    }
+}
+
+template <int TW>
+__device__ __forceinline__ void stw(scalar* p, const scalar (&v)[TW])
+{
+    if constexpr (TW == 4) {
+        st4(p, v);
+    } else {
+#pragma unroll
+        for (int b = 0; b < TW; ++b) p[b] = v[b];
+    }
+}
+
+// acc[r][b] += sum_t x_r[t * XT] * y[t * YT + b], t = 0 .. T-1 in order,
+// for the tile's rows r < R: y's rows read TW words a load, the operands
+// of TC steps loaded before their FMAs.
+template <int R, int TR, int TW, int T, int XT, int YT>
+__device__ __forceinline__ void tile_mac(scalar (&acc)[TR][TW],
+                                         const scalar* const (&x)[TR],
+                                         const scalar* y)
+{
+    constexpr int TC = 4;
+#pragma unroll
+    for (int t0 = 0; t0 < T; t0 += TC) {
+        scalar xv[R][TC], yv[TC][TW];
+#pragma unroll
+        for (int tt = 0; tt < TC; ++tt) {
+            if (t0 + tt < T) {
+                ldw<TW>(yv[tt], y + (t0 + tt) * YT);
+#pragma unroll
+                for (int r = 0; r < R; ++r) xv[r][tt] = x[r][(t0 + tt) * XT];
+            }
+        }
+#pragma unroll
+        for (int tt = 0; tt < TC; ++tt) {
+            if (t0 + tt < T) {
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+#pragma unroll
+                    for (int b = 0; b < TW; ++b) acc[r][b] += xv[r][tt] * yv[tt][b];
+            }
+        }
+    }
+}
+
+// The copies of one stage stream into the G instances' runs of a slot:
+// entry e of instance b0+i at src[e*Bs + b0+i] to row e / COLS, column
+// e % COLS of instance i's run (rows STRIDE apart).  Thread t copies
+// instance t % G (the last one's words past the batch), entries t / G,
+// t / G + NT / G, ...: unrolled, so that no copy waits on another's
+// address arithmetic.
+template <int E, int COLS, int STRIDE, int G, int NT>
+__device__ __forceinline__ void stage_copy(scalar* __restrict__ dst,
+                                           const scalar* __restrict__ src,
+                                           size_t Bs, int tid)
+{
+    constexpr int ES = NT / G;
+#pragma unroll
+    for (int m = 0; m < (E + ES - 1) / ES; ++m) {
+        const int e = tid / G + m * ES;
+        if (e < E)
+            copy_word(dst + (e / COLS) * STRIDE + e % COLS, src + e * Bs);
+    }
+}
+
+// An output stream of the G instances from the out slot (instances OW
+// words apart) to device memory: entry e of instance b0+i to
+// dst[e*Bs + b0+i], VW instances a store where `vec`; unrolled, the
+// shared-memory reads ahead of the stores.
+template <int E, int G, int NT, int OW>
+__device__ __forceinline__ void out_store(scalar* __restrict__ dst,
+                                          const scalar* __restrict__ src,
+                                          size_t Bs, size_t b0, int tid,
+                                          bool vec)
+{
+    constexpr int CV = G / VW, CVD = CV > 0 ? CV : 1;
+    if (CV > 0 && vec) {
+#pragma unroll
+        for (int m = 0; m < (E * CV + NT - 1) / NT; ++m) {
+            const int q = tid + m * NT;
+            const int e = q / CVD, ch = q % CVD;
+            if (q < E * CV && b0 + ch * VW < Bs) {
+                const scalar* s = src + ch * VW * OW + e;
+                scalar* d = dst + e * Bs + b0 + ch * VW;
+                if constexpr (VW == 4) {
+                    const scalar v[4] = {s[0], s[OW], s[2 * OW], s[3 * OW]};
+                    st4(d, v);
+                } else {
+                    *reinterpret_cast<double2*>(d) = double2{s[0], s[OW]};
+                }
+            }
+        }
+    } else {
+#pragma unroll
+        for (int m = 0; m < (E * G + NT - 1) / NT; ++m) {
+            const int q = tid + m * NT;
+            const int e = q / G, i = q % G;
+            if (q < E * G && b0 + i < Bs) dst[e * Bs + b0 + i] = src[i * OW + e];
+        }
+    }
+}
+
+// One instance's output stream of E entries (an entry a thread, NT
+// threads), held in registers between the reads of the out slot and the
+// stores.
+template <int E, int NT>
+struct Held {
+    static constexpr int M = (E + NT - 1) / NT;
+    scalar v[M > 0 ? M : 1];
+
+    __device__ __forceinline__ void load(const scalar* src, int tid)
+    {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+            if (tid + m * NT < E) v[m] = src[tid + m * NT];
+    }
+
+    // Entry e to dst[e * Bs].
+    __device__ __forceinline__ void store(scalar* dst, size_t Bs, int tid) const
+    {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+            if (tid + m * NT < E) dst[(tid + m * NT) * Bs] = v[m];
+    }
+};
+
+// A carry stream of the G instances between device memory and the
+// carries (instances CW words apart), once a block.
+template <int ROWS, int COLS, int STRIDE, int G, int NT, int CW>
+__device__ __forceinline__ void carry_in(scalar* dst, const scalar* src,
+                                         size_t Bs, size_t b0, int tid)
+{
+#pragma unroll 1
+    for (int q = tid; q < ROWS * COLS * G; q += NT) {
+        const int e = q / G, i = q % G;
+        const size_t b = b0 + i < Bs ? b0 + i : Bs - 1;
+        dst[i * CW + (e / COLS) * STRIDE + e % COLS] = src[e * Bs + b];
+    }
+}
+
+template <int ROWS, int COLS, int STRIDE, int G, int NT, int CW>
+__device__ __forceinline__ void carry_out(scalar* dst, const scalar* src,
+                                          size_t Bs, size_t b0, int tid)
+{
+#pragma unroll 1
+    for (int q = tid; q < ROWS * COLS * G; q += NT) {
+        const int e = q / G, i = q % G;
+        if (b0 + i < Bs)
+            dst[e * Bs + b0 + i] = src[i * CW + (e / COLS) * STRIDE + e % COLS];
+    }
+}
+
+template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED, bool ONE>
+__global__ void __launch_bounds__(SweepFit<EMIT_MV, EXPORT, PDP, ONE>::THREADS)
+backward_kernel(
     int N, int Bt, int S,
     const scalar* __restrict__ A, const scalar* __restrict__ B,
     const scalar* __restrict__ c, const scalar* __restrict__ H,
@@ -162,218 +488,246 @@ __global__ void backward_kernel(
     scalar* __restrict__ C0_out, scalar* __restrict__ f0_out)
 {
     using R = K1Rows<PACKED>;
+    using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
+    using Fit = SweepFit<EMIT_MV, EXPORT, PDP, ONE>;
+    constexpr int G = Fit::G, SLOTS = Fit::SLOTS, NT = Fit::THREADS;
+    constexpr int T = 32 * Fit::W;              // threads of one instance
+    // Tiles of TR x TW outputs (few rounds, loads reused); one instance's
+    // many threads take the products with the carry, [P; F] [A c B] and
+    // B^T [PA Pcp PB], an output each (TRA x TWA).
+    constexpr int TR = 2, TW = 4;
+    constexpr int TRA = ONE ? 1 : TR, TWA = ONE ? 1 : TW;
+    constexpr int CW = L::CARRY, OW = L::OUT;
     extern __shared__ double smem_aligned[];
-    scalar* s = reinterpret_cast<scalar*>(smem_aligned);
-    scalar* stage0 = s;        s += S_WORDS;
-    scalar* stage1 = s;        s += S_WORDS;
-    scalar* P = s;             s += NX * NX;
-    scalar* Pn = s;            s += NX * NX;
-    scalar* p = s;             s += NX;
-    scalar* pn = s;            s += NX;
-    scalar* sPA = s;           s += NX * NX;
-    scalar* sPB = s;           s += NX * NU;
-    scalar* sPcp = s;          s += NX;
-    scalar* sG = s;            s += NU * NX;
-    scalar* srbar = s;         s += NU;
-    scalar* sHuu = s;          s += NU * NU;
-    scalar* sK = s;            s += NU * NX;
-    scalar* sd = s;            s += NU;
-    // K9's segment carries and products (past K1's words; unused by K1).
-    scalar* F = s;             s += NX * NX;
-    scalar* Fn = s;            s += NX * NX;
-    scalar* C = s;             s += NX * NX;
-    scalar* Cn = s;            s += NX * NX;
-    scalar* f = s;             s += NX;
-    scalar* fn = s;            s += NX;
-    scalar* sFA = s;           s += NX * NX;
-    scalar* sFB = s;           s += NX * NU;
-    scalar* sFc = s;           s += NX;
-    scalar* sGp = s;           s += NU * NX;
+    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    scalar* carries = ring + SLOTS * G * S_STRIDE;
+    scalar* outs = carries + G * CW;
 
     const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    // Block (segment, instance): the segment's stages are k0 .. k0+Nl-1.
-    const int seg = PDP ? (int)(blockIdx.x / Bt) : 0;
-    const size_t b = PDP ? blockIdx.x % Bt : blockIdx.x;
+    const int lane = tid % T;
+    const int inst = tid / T;                   // the instance in the block
     const size_t Bs = (size_t)Bt;
+    const unsigned groups = (Bt + G - 1) / G;
+    const int seg = PDP ? (int)(blockIdx.x / groups) : 0;
+    const size_t b0 = (size_t)(blockIdx.x % groups) * G;
     const int Nl = PDP ? N / S : N;
     const int k0 = seg * Nl;
-    const size_t cs = (size_t)seg;          // this segment's carry slot
+    const size_t cs = (size_t)seg;              // this segment's carry slot
+    // 16-byte stores: the batch a multiple of the vector width, every
+    // output stream aligned.
+    const bool vec = G % VW == 0 && Bs % VW == 0
+        && (((size_t)K_out | (size_t)d_out | (size_t)M_out | (size_t)v_out
+             | (size_t)P_out | (size_t)L_out | (size_t)Gp_out
+             | (size_t)F_out) & 15) == 0;
+    // This thread's instance of the copies (the last one past the batch).
+    const size_t bc = b0 + tid % G < Bs ? b0 + tid % G : Bs - 1;
+    // This instance's carry.
+    scalar* const cw = carries + inst * CW;
+    scalar* const P = cw + L::P;
+    scalar* const F = P + NX * X4;
+    scalar* const PAB = cw + L::PAB;
+    scalar* const Dr = cw + L::DR;
+    scalar* const GS = cw + L::GS;
+    scalar* const KD = cw + L::KD;
+    scalar* const Gp = cw + L::GP;
+    scalar* const p = cw + L::PV;
+    scalar* const f = p + X4;
+    scalar* const C = cw + L::C;
 
-    // Copy stage k's data into buffer `which`, asynchronously.
-    auto prefetch = [&](int k, int which) {
-        scalar* S = which ? stage1 : stage0;
-        const size_t ks = (size_t)k;
-        if (k >= 0) {
-            for (int i = tid; i < NX * NX; i += nt)
-                copy_word(S + S_A + i, A + (ks * R::A + i) * Bs + b);
-            for (int i = tid; i < NX * NU; i += nt)
-                copy_word(S + S_B + i, B + (ks * R::B + i) * Bs + b);
-            for (int i = tid; i < NX; i += nt)
-                copy_word(S + S_C + i, c + (ks * R::C + i) * Bs + b);
-            for (int i = tid; i < NZ * NZ; i += nt)
-                copy_word(S + S_H + i, H + (ks * R::H + i) * Bs + b);
-            for (int i = tid; i < NZ; i += nt)
-                copy_word(S + S_HV + i, h + (ks * R::HV + i) * Bs + b);
-            for (int i = tid; i < NC * NZ; i += nt)
-                copy_word(S + S_D + i, D + (ks * R::D + i) * Bs + b);
-            for (int i = tid; i < NC; i += nt) {
-                copy_word(S + S_RHO + i, rho + (ks * R::RHO + i) * Bs + b);
-                copy_word(S + S_RG + i, rg + (ks * R::RHO + i) * Bs + b);
-            }
+    // The block's copies of stage n (k = k0 + Nl-1 - n) into its slot.
+    auto prefetch = [&](int n) {
+        if (n < Nl) {
+            const size_t ks = (size_t)(k0 + Nl - 1 - n);
+            scalar* sl = ring + ((n % SLOTS) * G + tid % G) * S_STRIDE;
+            stage_copy<NX * NX, NX, WAB, G, NT>(sl + S_AB, A + ks * R::A * Bs + bc, Bs, tid);
+            stage_copy<NX, 1, WAB, G, NT>(sl + S_AB + NX, c + ks * R::C * Bs + bc, Bs, tid);
+            stage_copy<NX * NU, NU, WAB, G, NT>(sl + S_AB + NX + 1, B + ks * R::B * Bs + bc, Bs, tid);
+            stage_copy<NZ * NZ, NZ, WH, G, NT>(sl + S_H, H + ks * R::H * Bs + bc, Bs, tid);
+            stage_copy<NZ, 1, WH, G, NT>(sl + S_H + NZ, h + ks * R::HV * Bs + bc, Bs, tid);
+            stage_copy<NC * NZ, NZ, WD, G, NT>(sl + S_D, D + ks * R::D * Bs + bc, Bs, tid);
+            stage_copy<NC, 1, 1, G, NT>(sl + S_RHO, rho + ks * R::RHO * Bs + bc, Bs, tid);
+            stage_copy<NC, 1, 1, G, NT>(sl + S_RG, rg + ks * R::RHO * Bs + bc, Bs, tid);
         }
         __pipeline_commit();
     };
 
-    // Penalty fold (lqr_kernel.hpp:106-112), in place in the buffer S, by
-    // the threads first .. nt-1:
-    //   H += sum_c rho_c D_c D_c^T ;  h -= sum_c (rho_c g_c) D_c
-    auto fold = [&](scalar* S, int first) {
-        const scalar* sD = S + S_D;
-        for (int e = tid - first; e >= 0 && e < NZ * NZ + NZ; e += nt - first) {
-            if (e < NZ * NZ) {
-                const int r = e / NZ, q = e % NZ;
-                scalar acc = S[S_H + e];
-                for (int ci = 0; ci < NC; ++ci)
-                    acc += sD[ci * NZ + r] * (S[S_RHO + ci] * sD[ci * NZ + q]);
-                S[S_H + e] = acc;
-            } else {
-                const int r = e - NZ * NZ;
-                scalar acc = S[S_HV + r];
-                for (int ci = 0; ci < NC; ++ci)
-                    acc -= S[S_RG + ci] * sD[ci * NZ + r];
-                S[S_HV + r] = acc;
-            }
+    // The block's stores of stage n's outputs from its out slot (one
+    // instance: every stream read before any is written).
+    auto store = [&](int n) {
+        const size_t ks = (size_t)(k0 + Nl - 1 - n);
+        const scalar* o = outs + (n & 1) * G * OW;
+        if constexpr (ONE) {
+            Held<NU * NX, NT> hK;
+            Held<NU, NT> hd;
+            Held<EMIT_MV ? NX * NX : 0, NT> hM;
+            Held<EMIT_MV ? NX : 0, NT> hv;
+            Held<EXPORT ? NX * NX : 0, NT> hP;
+            Held<EXPORT ? NU * NU : 0, NT> hL;
+            Held<PDP ? NU * NX : 0, NT> hGp;
+            Held<PDP && EXPORT ? NX * NX : 0, NT> hF;
+            hK.load(o + L::OK, tid);
+            hd.load(o + L::OD, tid);
+            hM.load(o + L::OM, tid);
+            hv.load(o + L::OV, tid);
+            hP.load(o + L::OP, tid);
+            hL.load(o + L::OL, tid);
+            hGp.load(o + L::OGP, tid);
+            hF.load(o + L::OF, tid);
+            hK.store(K_out + ks * R::K * Bs + b0, Bs, tid);
+            hd.store(d_out + ks * R::DV * Bs + b0, Bs, tid);
+            hM.store(M_out + ks * NX * NX * Bs + b0, Bs, tid);
+            hv.store(v_out + ks * NX * Bs + b0, Bs, tid);
+            hP.store(P_out + ks * NX * NX * Bs + b0, Bs, tid);
+            hL.store(L_out + ks * NU * NU * Bs + b0, Bs, tid);
+            hGp.store(Gp_out + ks * NU * NX * Bs + b0, Bs, tid);
+            hF.store(F_out + ks * NX * NX * Bs + b0, Bs, tid);
+            return;
         }
+        out_store<NU * NX, G, NT, OW>(K_out + ks * R::K * Bs, o + L::OK, Bs, b0, tid, vec);
+        out_store<NU, G, NT, OW>(d_out + ks * R::DV * Bs, o + L::OD, Bs, b0, tid, vec);
+        if (EMIT_MV) {
+            out_store<NX * NX, G, NT, OW>(M_out + ks * NX * NX * Bs, o + L::OM, Bs, b0, tid, vec);
+            out_store<NX, G, NT, OW>(v_out + ks * NX * Bs, o + L::OV, Bs, b0, tid, vec);
+        }
+        if (EXPORT) {
+            out_store<NX * NX, G, NT, OW>(P_out + ks * NX * NX * Bs, o + L::OP, Bs, b0, tid, vec);
+            out_store<NU * NU, G, NT, OW>(L_out + ks * NU * NU * Bs, o + L::OL, Bs, b0, tid, vec);
+        }
+        if (PDP)
+            out_store<NU * NX, G, NT, OW>(Gp_out + ks * NU * NX * Bs, o + L::OGP, Bs, b0, tid, vec);
+        if (PDP && EXPORT)
+            out_store<NX * NX, G, NT, OW>(F_out + ks * NX * NX * Bs, o + L::OF, Bs, b0, tid, vec);
     };
 
-    // The warps that fold while warp 0 factors and solves; a block of a
-    // single warp folds after it has solved.
-    const int fold_first = nt > 32 ? 32 : 0;
-    // Right-hand sides of the phase-3 solve: [G rbar], or [G (F+ B)^T rbar].
-    constexpr int NCOL = PDP ? 2 * NX + 1 : NX + 1;
+    // The first item of a step's loop that starts after loops of `off`
+    // whole warps' items: the independent loops of a step go to different
+    // warps of the instance (not one after another on its first threads,
+    // nor diverging within one warp).  One warp an instance: no offset.
+    auto first = [&](int off) { return (lane + T - off % T) % T; };
 
-    prefetch(k0 + Nl - 1, 0);
-    for (int i = tid; i < NX * NX; i += nt) P[i] = PN[(cs * NX * NX + i) * Bs + b];
-    for (int i = tid; i < NX; i += nt) p[i] = pN[(cs * NX + i) * Bs + b];
+    auto group_sync = [] {
+        if constexpr (ONE) __syncthreads();
+        else __syncwarp();
+    };
+
+    for (int n = 0; n < SLOTS - 1; ++n) prefetch(n);
+    carry_in<NX, NX, X4, G, NT, CW>(carries + L::P, PN + cs * NX * NX * Bs, Bs, b0, tid);
+    carry_in<1, NX, 0, G, NT, CW>(carries + L::PV, pN + cs * NX * Bs, Bs, b0, tid);
     if (PDP) {
-        for (int i = tid; i < NX * NX; i += nt) {
-            F[i] = Fi[(cs * NX * NX + i) * Bs + b];
-            C[i] = Ci[(cs * NX * NX + i) * Bs + b];
-        }
-        for (int i = tid; i < NX; i += nt) f[i] = fi[(cs * NX + i) * Bs + b];
+        carry_in<NX, NX, X4, G, NT, CW>(carries + L::P + NX * X4, Fi + cs * NX * NX * Bs, Bs, b0, tid);
+        carry_in<NX, NX, X4, G, NT, CW>(carries + L::C, Ci + cs * NX * NX * Bs, Bs, b0, tid);
+        carry_in<1, NX, 0, G, NT, CW>(carries + L::PV + X4, fi + cs * NX * Bs, Bs, b0, tid);
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    fold(stage0, 0);
-    __syncthreads();
     PROF_INIT
 
-    for (int k = k0 + Nl - 1; k >= k0; --k) {
-        const size_t ks = (size_t)k;
-        const int n = k0 + Nl - 1 - k;      // stages done in this block
-        scalar* S = (n & 1) ? stage1 : stage0;
-        scalar* Snext = (n & 1) ? stage0 : stage1;
-        const scalar* sA = S + S_A;
-        const scalar* sB = S + S_B;
-        const scalar* sc = S + S_C;
-        const scalar* sH = S + S_H;       // folded already
-        const scalar* sh = S + S_HV;
-        prefetch(k > k0 ? k - 1 : -1, (n + 1) & 1);
+    for (int n = 0; n < Nl; ++n) {
+        __pipeline_wait_prior(SLOTS - 2);     // stage n landed (my copies)
+        __syncthreads();                      // ... everyone's; the slot
+                                              // and out slot of n-1 free
         PROF_MARK(0);
-
-        // ---- phase 1: products with the carry: PA, PB, Pcp = P c + p
-        // (and with F: FA, FB, Fc).
-        for (int e = tid; e < NX * NX; e += nt) {
-            const int i = e / NX, j = e % NX;
-            scalar acc = P[i * NX] * sA[j];
-            for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sA[t * NX + j];
-            sPA[e] = acc;
-            if (EXPORT) P_out[(ks * NX * NX + e) * Bs + b] = P[e];
-            if (PDP) {
-                scalar fa = F[i * NX] * sA[j];
-                for (int t = 1; t < NX; ++t) fa += F[i * NX + t] * sA[t * NX + j];
-                sFA[e] = fa;
-                if (EXPORT) F_out[(ks * NX * NX + e) * Bs + b] = F[e];
-            }
-        }
-        for (int e = tid; e < NX * NU; e += nt) {
-            const int i = e / NU, j = e % NU;
-            scalar acc = P[i * NX] * sB[j];
-            for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sB[t * NU + j];
-            sPB[e] = acc;
-            if (PDP) {
-                scalar fb = F[i * NX] * sB[j];
-                for (int t = 1; t < NX; ++t) fb += F[i * NX + t] * sB[t * NU + j];
-                sFB[e] = fb;
-            }
-        }
-        for (int i = tid; i < NX; i += nt) {
-            scalar acc = P[i * NX] * sc[0];
-            for (int t = 1; t < NX; ++t) acc += P[i * NX + t] * sc[t];
-            sPcp[i] = acc + p[i];
-            if (PDP) {
-                scalar fc = F[i * NX] * sc[0];
-                for (int t = 1; t < NX; ++t) fc += F[i * NX + t] * sc[t];
-                sFc[i] = fc;
-            }
-        }
+        if (n > 0) store(n - 1);
         PROF_MARK(1);
-        __syncthreads();
+        prefetch(n + SLOTS - 1);              // into the slot of stage n-1
         PROF_MARK(2);
+        scalar* const sl = ring + ((n % SLOTS) * G + inst) * S_STRIDE;
+        const scalar* const sAB = sl + S_AB;
+        scalar* const sH = sl + S_H;
+        const scalar* const sD = sl + S_D;
+        scalar* const o = outs + ((n & 1) * G + inst) * OW;    // outputs
 
-        // ---- phase 2: G = S + B^T PA, rbar = r + B^T Pcp, and the lower
-        // triangle of Huu = R + B^T P B.
-        for (int e = tid; e < NU * NX; e += nt) {
-            const int i = e / NX, j = e % NX;
-            scalar acc = sB[i] * sPA[j];
-            for (int t = 1; t < NX; ++t) acc += sB[t * NU + i] * sPA[t * NX + j];
-            sG[e] = sH[i * NZ + NU + j] + acc;
+        // ---- A: Dr, and [PA Pcp PB] = P [A c B] + [0 p 0] (K9: F's rows
+        // too); the exported carries.
+        for (int e = lane; e < NC * (NZ + 1); e += T) {
+            const int ci = e / (NZ + 1), q = e % (NZ + 1);
+            Dr[ci * WH + q] = q < NZ ? sl[S_RHO + ci] * sD[ci * WD + q]
+                                     : -sl[S_RG + ci];
         }
-        for (int i = tid; i < NU; i += nt) {
-            scalar acc = sB[i] * sPcp[0];
-            for (int t = 1; t < NX; ++t) acc += sB[t * NU + i] * sPcp[t];
-            srbar[i] = sh[i] + acc;
-        }
-        for (int e = tid; e < NU * NU; e += nt) {
-            const int i = e / NU, j = e % NU;
-            if (j <= i) {
-                scalar acc = sH[i * NZ + j];
-                for (int t = 0; t < NX; ++t) acc += sB[t * NU + i] * sPB[t * NU + j];
-                sHuu[e] = acc;
+        for (int q = lane; q < (L::XR + TRA - 1) / TRA * (WAB / TWA); q += T) {
+            const int r0 = q / (WAB / TWA) * TRA, j0 = q % (WAB / TWA) * TWA;
+            scalar acc[TRA][TWA] = {};
+            const scalar* x[TRA];
+#pragma unroll
+            for (int r = 0; r < TRA; ++r) x[r] = P + (r0 + r) * X4;
+            tile_mac<TRA, TRA, TWA, NX, 1, WAB>(acc, x, sAB + j0);
+#pragma unroll
+            for (int r = 0; r < TRA; ++r) {
+#pragma unroll
+                for (int b = 0; b < TWA; ++b)
+                    if (r0 + r < NX && j0 + b == NX) acc[r][b] += p[r0 + r];
+                if (r0 + r < L::XR) stw<TWA>(PAB + (r0 + r) * WAB + j0, acc[r]);
             }
         }
-        __pipeline_wait_prior(0);     // the next stage's data is there
+        if (EXPORT) {
+            for (int e = lane; e < NX * NX; e += T) {
+                o[L::OP + e] = P[e / NX * X4 + e % NX];
+                if (PDP) o[L::OF + e] = F[e / NX * X4 + e % NX];
+            }
+        }
+        group_sync();
         PROF_MARK(3);
-        __syncthreads();
+
+        // ---- B: the fold [H h] += D^T Dr on the entries read, and
+        // S = B^T [PA Pcp PB].
+        for (int q = lane; q < tri_tiles<FOLD>(); q += T) {
+            int r0, j0;
+            tri_tile<FOLD>(q, r0, j0);
+            scalar acc[TR][TW];
+            const scalar* x[TR];
+#pragma unroll
+            for (int r = 0; r < TR; ++r) {
+                ldw<TW>(acc[r], sH + (r0 + r) * WH + j0);   // past NZ: not stored
+                x[r] = sD + r0 + r;
+            }
+            tile_mac<TR, TR, TW, NC, WD, WH>(acc, x, Dr + j0);
+#pragma unroll
+            for (int r = 0; r < TR; ++r)
+                if (r0 + r < NZ) stw<TW>(sH + (r0 + r) * WH + j0, acc[r]);
+        }
+        for (int q = first(warps(tri_tiles<FOLD>())); q < NU * (WAB / TWA);
+             q += T) {
+            const int i = q / (WAB / TWA), j0 = q % (WAB / TWA) * TWA;
+            scalar acc[1][TWA] = {};
+            const scalar* const x[1] = {sAB + NX + 1 + i};
+            tile_mac<1, 1, TWA, NX, WAB, WAB>(acc, x, PAB + j0);
+            stw<TWA>(GS + i * WAB + j0, acc[0]);
+        }
+        group_sync();
         PROF_MARK(4);
 
-        // ---- phase 3: [K (Gp) d] = -Huu^{-1} [G ((F+ B)^T) rbar], one
-        // thread per column: each factors the NU x NU block itself, in
-        // registers (cheaper than a barrier), then substitutes.  Meanwhile
-        // the other warps fold the next stage's penalty.
-        for (int col = tid; col < NCOL; col += nt) {
+        // ---- C: [K (Gp) d] = -Huu^{-1} [G ((F+ B)^T) rbar], a lane a
+        // column; G and rbar go back into S for step D.
+        constexpr int NCOL = PDP ? 2 * NX + 1 : NX + 1;
+        for (int col = lane; col < NCOL; col += T) {
             scalar Lr[NU][NU], inv[NU], y[NU];
 #pragma unroll
-            for (int j = 0; j < NU; ++j) {
-                scalar sjj = sHuu[j * NU + j];
+            for (int jj = 0; jj < NU; ++jj) {
+                scalar sjj = sH[jj * WH + jj] + GS[jj * WAB + NX + 1 + jj];
 #pragma unroll
-                for (int t = 0; t < j; ++t) sjj -= Lr[j][t] * Lr[j][t];
-                Lr[j][j] = sqrt(sjj);
-                inv[j] = (scalar)1 / Lr[j][j];
+                for (int t = 0; t < jj; ++t) sjj -= Lr[jj][t] * Lr[jj][t];
+                if constexpr (sizeof(scalar) == 4) inv[jj] = rsqrtf(sjj);
+                else inv[jj] = rsqrt(sjj);
+                Lr[jj][jj] = sjj * inv[jj];
 #pragma unroll
-                for (int i = j + 1; i < NU; ++i) {
-                    scalar sij = sHuu[i * NU + j];
+                for (int i = jj + 1; i < NU; ++i) {
+                    scalar sij = sH[i * WH + jj] + GS[i * WAB + NX + 1 + jj];
 #pragma unroll
-                    for (int t = 0; t < j; ++t) sij -= Lr[i][t] * Lr[j][t];
-                    Lr[i][j] = sij * inv[j];
+                    for (int t = 0; t < jj; ++t) sij -= Lr[i][t] * Lr[jj][t];
+                    Lr[i][jj] = sij * inv[jj];
                 }
             }
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
-                scalar acc = col < NX ? sG[i * NX + col]
-                           : (PDP && col < 2 * NX) ? sFB[(col - NX) * NU + i]
-                           : srbar[i];
+                scalar acc;
+                if (col < NX) {
+                    acc = sH[i * WH + NU + col] + GS[i * WAB + col];
+                    GS[i * WAB + col] = acc;
+                } else if (PDP && col < 2 * NX) {
+                    // (F+ B)[col-NX][i]: row col of [PA Pcp PB; FA Fc FB].
+                    acc = PAB[col * WAB + NX + 1 + i];
+                } else {
+                    acc = sH[i * WH + NZ] + GS[i * WAB + NX];
+                    GS[i * WAB + NX] = acc;
+                }
 #pragma unroll
                 for (int t = 0; t < i; ++t) acc -= Lr[i][t] * y[t];
                 y[i] = acc * inv[i];
@@ -387,102 +741,147 @@ __global__ void backward_kernel(
             }
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
-                if (col < NX) sK[i * NX + col] = -y[i];
-                else if (PDP && col < 2 * NX) sGp[i * NX + col - NX] = -y[i];
-                else sd[i] = -y[i];
+                if (col < NX) {
+                    KD[i * WK + col] = -y[i];
+                    o[L::OK + i * NX + col] = -y[i];
+                } else if (PDP && col < 2 * NX) {
+                    Gp[i * X4 + col - NX] = -y[i];
+                    o[L::OGP + i * NX + col - NX] = -y[i];
+                } else {
+                    KD[i * WK + NX] = -y[i];
+                    o[L::OD + i] = -y[i];
+                }
             }
             if (EXPORT && col == 0) {     // chol(Huu), zeros above the diagonal
 #pragma unroll
                 for (int i = 0; i < NU; ++i)
 #pragma unroll
-                    for (int j = 0; j < NU; ++j)
-                        L_out[(ks * NU * NU + i * NU + j) * Bs + b] =
-                            (j <= i) ? Lr[i][j] : (scalar)0;
+                    for (int jj = 0; jj < NU; ++jj)
+                        o[L::OL + i * NU + jj] = jj <= i ? Lr[i][jj] : (scalar)0;
             }
         }
-        if (k > k0) fold(Snext, fold_first);
+        group_sync();
         PROF_MARK(5);
-        __syncthreads();
-        PROF_MARK(6);
 
-        // ---- phase 4: P+ = Q + A^T PA + G^T K (upper triangle, mirrored:
-        // exactly symmetric), p+ = q + A^T Pcp + K^T rbar, the closed-loop
-        // maps M = A + B K, v = B d + c, the segment carries, and the stores.
-        for (int e = tid; e < NX * NX; e += nt) {
-            const int i = e / NX, j = e % NX;
-            if (j >= i) {
-                scalar acc = sH[(NU + i) * NZ + NU + j];
-                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * sPA[t * NX + j];
-                for (int t = 0; t < NU; ++t) acc += sG[t * NX + i] * sK[t * NX + j];
-                Pn[i * NX + j] = acc;
-                Pn[j * NX + i] = acc;
-                if (PDP) {
-                    scalar cc = C[e];
-                    for (int t = 0; t < NU; ++t) cc -= sFB[i * NU + t] * sGp[t * NX + j];
-                    Cn[i * NX + j] = cc;
-                    Cn[j * NX + i] = cc;
+        // ---- D: [P+ p+] (P+'s upper triangle, mirrored), [M v] and the
+        // segment carries, in place.
+        for (int q = lane; q < tri_tiles<UPPER>(); q += T) {
+            int r0, j0;
+            tri_tile<UPPER>(q, r0, j0);
+            scalar acc[TR][TW];
+#pragma unroll
+            for (int r = 0; r < TR; ++r)
+#pragma unroll
+                for (int b = 0; b < TW; ++b)
+                    acc[r][b] = r0 + r < NX && j0 + b <= NX
+                        ? sH[(NU + r0 + r) * WH + NU + j0 + b] : (scalar)0;
+            const scalar* xa[TR];
+            const scalar* xg[TR];
+#pragma unroll
+            for (int r = 0; r < TR; ++r) {
+                xa[r] = sAB + r0 + r;
+                xg[r] = GS + r0 + r;
+            }
+            tile_mac<TR, TR, TW, NX, WAB, WAB>(acc, xa, PAB + j0);
+            tile_mac<TR, TR, TW, NU, WAB, WK>(acc, xg, KD + j0);
+#pragma unroll
+            for (int r = 0; r < TR; ++r) {
+                const int i = r0 + r;
+#pragma unroll
+                for (int b = 0; b < TW; ++b) {
+                    const int jj = j0 + b;
+                    if (i < NX && jj >= i && jj < NX) {
+                        P[i * X4 + jj] = acc[r][b];
+                        P[jj * X4 + i] = acc[r][b];
+                    } else if (i < NX && jj == NX) {
+                        p[i] = acc[r][b];
+                    }
                 }
             }
-            if (EMIT_MV) {
-                scalar m = sA[e];
-                for (int t = 0; t < NU; ++t) m += sB[i * NU + t] * sK[t * NX + j];
-                M_out[(ks * NX * NX + e) * Bs + b] = m;
-            }
-            if (PDP) {
-                scalar fm = sFA[e];
-                for (int t = 0; t < NU; ++t) fm += sFB[i * NU + t] * sK[t * NX + j];
-                Fn[e] = fm;
+        }
+        if (PDP) {    // C = C+ - (F+ B) Gp
+            for (int q = first(warps(tri_tiles<UPPER>())); q < tri_tiles<CUPPER>();
+                 q += T) {
+                int r0, j0;
+                tri_tile<CUPPER>(q, r0, j0);
+                scalar acc[TR][TW];
+#pragma unroll
+                for (int r = 0; r < TR; ++r)
+#pragma unroll
+                    for (int b = 0; b < TW; ++b)
+                        acc[r][b] = r0 + r < NX && j0 + b >= r0 + r && j0 + b < NX
+                            ? -C[(r0 + r) * X4 + j0 + b] : (scalar)0;
+                const scalar* x[TR];
+#pragma unroll
+                for (int r = 0; r < TR; ++r) x[r] = PAB + (NX + r0 + r) * WAB + NX + 1;
+                tile_mac<TR, TR, TW, NU, 1, X4>(acc, x, Gp + j0);
+#pragma unroll
+                for (int r = 0; r < TR; ++r) {
+                    const int i = r0 + r;
+#pragma unroll
+                    for (int b = 0; b < TW; ++b) {
+                        const int jj = j0 + b;
+                        if (i < NX && jj >= i && jj < NX) {
+                            C[i * X4 + jj] = -acc[r][b];
+                            C[jj * X4 + i] = -acc[r][b];
+                        }
+                    }
+                }
             }
         }
-        for (int i = tid; i < NX; i += nt) {
-            scalar acc = sh[NU + i];
-            for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * sPcp[t];
-            for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * srbar[t];
-            pn[i] = acc;
-            if (EMIT_MV) {
-                scalar vv = sc[i];
-                for (int t = 0; t < NU; ++t) vv += sB[i * NU + t] * sd[t];
-                v_out[(ks * NX + i) * Bs + b] = vv;
+        PROF_MARK(6);
+        // [M v] = [A c] + B [K d]; K9: [F f] = [FA Fc] + (F+ B) [K d] + [0 f]
+        // (rows nx .. 2nx-1 of the tiles).
+        constexpr int MROWS = (EMIT_MV ? NX : 0) + (PDP ? NX : 0);
+        constexpr int MBASE = EMIT_MV ? 0 : NX;       // first row's index
+        constexpr int MOFF = warps(tri_tiles<UPPER>())
+            + (PDP ? warps(tri_tiles<CUPPER>()) : 0);
+        for (int q = first(MOFF); q < (MROWS + TR - 1) / TR * (WK / TW); q += T) {
+            const int r0 = MBASE + q / (WK / TW) * TR, j0 = q % (WK / TW) * TW;
+            const scalar* row[TR];
+            scalar acc[TR][TW];
+#pragma unroll
+            for (int r = 0; r < TR; ++r) {
+                row[r] = (r0 + r < NX ? sAB : PAB) + (r0 + r) * WAB;
+                ldw<TW>(acc[r], row[r] + j0);
             }
-            if (PDP) {
-                scalar fv = sFc[i];
-                for (int t = 0; t < NU; ++t) fv += sFB[i * NU + t] * sd[t];
-                fn[i] = fv + f[i];
+            const scalar* x[TR];
+#pragma unroll
+            for (int r = 0; r < TR; ++r) x[r] = row[r] + NX + 1;
+            tile_mac<TR, TR, TW, NU, 1, WK>(acc, x, KD + j0);
+#pragma unroll
+            for (int r = 0; r < TR; ++r) {
+                const int i = r0 + r;
+#pragma unroll
+                for (int b = 0; b < TW; ++b) {
+                    const int jj = j0 + b;
+                    if (i < NX) {
+                        if (jj < NX) o[L::OM + i * NX + jj] = acc[r][b];
+                        else if (jj == NX) o[L::OV + i] = acc[r][b];
+                    } else if (i < MBASE + MROWS) {
+                        if (jj < NX) F[(i - NX) * X4 + jj] = acc[r][b];
+                        else if (jj == NX) f[i - NX] = acc[r][b] + f[i - NX];
+                    }
+                }
             }
         }
-        for (int e = tid; e < NU * NX; e += nt) {
-            K_out[(ks * R::K + e) * Bs + b] = sK[e];
-            if (PDP) Gp_out[(ks * NU * NX + e) * Bs + b] = sGp[e];
-        }
-        for (int i = tid; i < NU; i += nt)
-            d_out[(ks * R::DV + i) * Bs + b] = sd[i];
-        __syncthreads();
         PROF_MARK(7);
-
-        scalar* t0 = P; P = Pn; Pn = t0;
-        scalar* t1 = p; p = pn; pn = t1;
-        if (PDP) {
-            scalar* t2 = F; F = Fn; Fn = t2;
-            scalar* t3 = C; C = Cn; Cn = t3;
-            scalar* t4 = f; f = fn; fn = t4;
-        }
     }
     PROF_DONE
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    store(Nl - 1);
     if (PDP) {      // the carry after the segment's first stage
-        for (int i = tid; i < NX * NX; i += nt) {
-            P0_out[(cs * NX * NX + i) * Bs + b] = P[i];
-            F0_out[(cs * NX * NX + i) * Bs + b] = F[i];
-            C0_out[(cs * NX * NX + i) * Bs + b] = C[i];
-        }
-        for (int i = tid; i < NX; i += nt) {
-            p0_out[(cs * NX + i) * Bs + b] = p[i];
-            f0_out[(cs * NX + i) * Bs + b] = f[i];
-        }
+        carry_out<NX, NX, X4, G, NT, CW>(P0_out + cs * NX * NX * Bs, carries + L::P, Bs, b0, tid);
+        carry_out<NX, NX, X4, G, NT, CW>(F0_out + cs * NX * NX * Bs, carries + L::P + NX * X4, Bs, b0, tid);
+        carry_out<NX, NX, X4, G, NT, CW>(C0_out + cs * NX * NX * Bs, carries + L::C, Bs, b0, tid);
+        carry_out<1, NX, 0, G, NT, CW>(p0_out + cs * NX * Bs, carries + L::PV, Bs, b0, tid);
+        carry_out<1, NX, 0, G, NT, CW>(f0_out + cs * NX * Bs, carries + L::PV + X4, Bs, b0, tid);
     }
 }
 
 struct BackwardArgs {
-    int N, Bt, S, threads;
+    int N, Bt, S;
     cudaStream_t stream;
     const scalar *A, *B, *c, *H, *h, *D, *rho, *rg, *PN, *pN;
     scalar *K, *d, *M, *v, *P, *L;
@@ -490,22 +889,49 @@ struct BackwardArgs {
     scalar *Gp, *F, *P0, *p0, *F0, *C0, *f0;
 };
 
-template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED>
-int launch_backward(const BackwardArgs& a)
+template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED, bool ONE>
+int launch_sweep(const BackwardArgs& a)
 {
-    const size_t words = PDP ? K9_WORDS : K1_WORDS;
-    const size_t smem = (words * sizeof(scalar) + 15) / 16 * 16;
-    auto kernel = backward_kernel<EMIT_MV, EXPORT, PDP, PACKED>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    kernel<<<a.S * a.Bt, a.threads, smem, a.stream>>>(
+    using Fit = SweepFit<EMIT_MV, EXPORT, PDP, ONE>;
+    if (!Fit::OK) return (int)cudaErrorInvalidValue;   // one instance does not fit
+    const size_t smem = (size_t)Fit::BYTES;
+    auto kernel = backward_kernel<EMIT_MV, EXPORT, PDP, PACKED, ONE>;
+    int e = set_smem(kernel, smem);
+    if (e) return e;
+    const int blocks = a.S * ((a.Bt + Fit::G - 1) / Fit::G);
+    kernel<<<blocks, Fit::THREADS, smem, a.stream>>>(
         a.N, a.Bt, a.S, a.A, a.B, a.c, a.H, a.h, a.D, a.rho, a.rg, a.PN,
         a.pN, a.K, a.d, a.M, a.v, a.P, a.L, a.Fi, a.Ci, a.fi, a.Gp, a.F,
         a.P0, a.p0, a.F0, a.C0, a.f0);
     return (int)cudaGetLastError();
+}
+
+// The card's SMs (the current device's, read once).
+inline int sm_count()
+{
+    static int n = 0;
+    if (n == 0) {
+        int dev = 0, sms = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        n = sms > 0 ? sms : 1;
+    }
+    return n;
+}
+
+// Where the (segment, instance) pairs are few, groups of G would leave
+// SMs idle and a warp's chain would set the time: each instance gets the
+// block of one instance (the shared model's, Bt = 1).  Up to four pairs
+// an SM that block was faster than groups, and as fast at 512 pairs on
+// 132 SMs (K9, N=1024; PERF.md).
+inline bool one_block(long long pairs) { return pairs <= 4LL * sm_count(); }
+
+template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED>
+int launch_backward(const BackwardArgs& a)
+{
+    if (one_block((long long)a.S * a.Bt))
+        return launch_sweep<EMIT_MV, EXPORT, PDP, PACKED, true>(a);
+    return launch_sweep<EMIT_MV, EXPORT, PDP, PACKED, false>(a);
 }
 
 #else  // !NC
@@ -1362,7 +1788,7 @@ int riccati_read_prof(long long* out)
 
 #ifdef NC
 int riccati_backward(int N, int Bt, int emit_mv, int export_factors,
-                     int threads, void* stream,
+                     void* stream,
                      const void* A, const void* B, const void* c,
                      const void* H, const void* h, const void* D,
                      const void* rho, const void* rg, const void* PN,
@@ -1371,7 +1797,7 @@ int riccati_backward(int N, int Bt, int emit_mv, int export_factors,
 {
     if (N <= 0 || Bt <= 0) return 0;
     BackwardArgs a{};
-    a.N = N; a.Bt = Bt; a.S = 1; a.threads = threads;
+    a.N = N; a.Bt = Bt; a.S = 1;
     a.stream = (cudaStream_t)stream;
     a.A = (const scalar*)A; a.B = (const scalar*)B; a.c = (const scalar*)c;
     a.H = (const scalar*)H; a.h = (const scalar*)h; a.D = (const scalar*)D;
@@ -1385,12 +1811,12 @@ int riccati_backward(int N, int Bt, int emit_mv, int export_factors,
     return launch_backward<false, false, false, false>(a);
 }
 
-// K9: S segments of N/S stages, one block per (segment, instance).  The
+// K9: S segments of N/S stages, a block a (segment, group of instances).  The
 // initial carries (Pi, pi, Fi, Ci, fi) and the boundary outputs (P0, p0,
 // F0, C0, f0) are (S, nx[, nx], Bt); with export_factors also P, L, F per
 // stage.
 int riccati_backward_pdp(int N, int Bt, int S, int export_factors,
-                         int threads, void* stream,
+                         void* stream,
                          const void* A, const void* B, const void* c,
                          const void* H, const void* h, const void* D,
                          const void* rho, const void* rg, const void* Pi,
@@ -1402,7 +1828,7 @@ int riccati_backward_pdp(int N, int Bt, int S, int export_factors,
     if (N <= 0 || Bt <= 0) return 0;
     if (S <= 0 || N % S != 0) return (int)cudaErrorInvalidValue;
     BackwardArgs a{};
-    a.N = N; a.Bt = Bt; a.S = S; a.threads = threads;
+    a.N = N; a.Bt = Bt; a.S = S;
     a.stream = (cudaStream_t)stream;
     a.A = (const scalar*)A; a.B = (const scalar*)B; a.c = (const scalar*)c;
     a.H = (const scalar*)H; a.h = (const scalar*)h; a.D = (const scalar*)D;
@@ -1417,9 +1843,27 @@ int riccati_backward_pdp(int N, int Bt, int S, int export_factors,
     return launch_backward<true, false, true, false>(a);
 }
 
+// The instances a block of K1 (emit_mv, export_factors), K9 (pdp:
+// export_factors) or K11 (neither) serves on `pairs` (segment, instance)
+// pairs: G of the batch form (a compile-time consequence of the widths and
+// the dtype: SweepFit), or 0 where each instance takes a block of its own.
+int riccati_sweep_group(int emit_mv, int export_factors, int pdp,
+                        long long pairs)
+{
+    if (one_block(pairs)) return 0;
+    if (pdp)
+        return export_factors ? SweepFit<true, true, true, false>::G
+                              : SweepFit<true, false, true, false>::G;
+    if (emit_mv)
+        return export_factors ? SweepFit<true, true, false, false>::G
+                              : SweepFit<true, false, false, false>::G;
+    return export_factors ? SweepFit<false, true, false, false>::G
+                          : SweepFit<false, false, false, false>::G;
+}
+
 // K11: K1 for the gains only, on row-packed Sd (N, nx(nx+nu+1), Bt) and
 // Sc (N, nz^2+nz+nc*nz+2nc, Bt); the gains go out as G (N, nu*nx+nu, Bt).
-int riccati_backward_packed(int N, int Bt, int threads, void* stream,
+int riccati_backward_packed(int N, int Bt, void* stream,
                             const void* Sd, const void* Sc, const void* PN,
                             const void* pN, void* G)
 {
@@ -1428,7 +1872,7 @@ int riccati_backward_packed(int N, int Bt, int threads, void* stream,
     const scalar* sc = (const scalar*)Sc;
     const size_t Bs = (size_t)Bt;
     BackwardArgs a{};
-    a.N = N; a.Bt = Bt; a.S = 1; a.threads = threads;
+    a.N = N; a.Bt = Bt; a.S = 1;
     a.stream = (cudaStream_t)stream;
     a.A = sd;
     a.B = sd + (size_t)(NX * NX) * Bs;

@@ -91,9 +91,9 @@ def bind_library(lib, *, with_matrix_sweep: bool):
     """Declare the C entry points' argument types (pointers and the stream
     as ``c_void_p``: ctypes would cut them to 32 bits otherwise)."""
     if with_matrix_sweep:
-        entries = {"riccati_backward": [_INT] * 5 + [_PTR] * 17,
-                   "riccati_backward_pdp": [_INT] * 5 + [_PTR] * 27,
-                   "riccati_backward_packed": [_INT] * 3 + [_PTR] * 6}
+        entries = {"riccati_backward": [_INT] * 4 + [_PTR] * 17,
+                   "riccati_backward_pdp": [_INT] * 4 + [_PTR] * 27,
+                   "riccati_backward_packed": [_INT] * 2 + [_PTR] * 6}
     else:
         entries = {
             "riccati_backward_vectors": [_INT] * 3 + [_PTR] * 11,
@@ -108,6 +108,20 @@ def bind_library(lib, *, with_matrix_sweep: bool):
         fn.argtypes = argtypes
         fn.restype = _INT
     lib._riccati_bound = True
+
+
+def sweep_group(dtype, nx: int, nu: int, nc: int, pairs: int, *,
+                emit_closed_loop=True, export_factors=False, pdp=False) -> int:
+    """The instances a block of the matrix sweep serves on ``pairs``
+    (segment, instance) pairs (K1, or K9 with ``pdp``; K11 is K1 with
+    neither output): G of its batch form, the kernel's own compile-time
+    choice from the widths and the dtype, or 0 where each instance takes
+    a block of its own.  Builds the library (on a machine with ``nvcc``)."""
+    lib = _library(dtype, nx, nu, nc)
+    lib.riccati_sweep_group.argtypes = [_INT] * 3 + [ctypes.c_longlong]
+    lib.riccati_sweep_group.restype = _INT
+    return lib.riccati_sweep_group(int(emit_closed_loop), int(export_factors),
+                                   int(pdp), pairs)
 
 
 def _check(name, x, shape, dtype, device):
@@ -132,13 +146,6 @@ def _check_status(name, status):
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
-
-
-def _matrix_threads(nx: int, nu: int) -> int:
-    """Threads of the one-block-per-instance matrix sweep: one per entry
-    of the largest per-phase product, rounded up to warps, at most 256."""
-    nz = nx + nu
-    return min(256, max(32, -(-(nz * nz) // 32) * 32))
 
 
 # ----------------------------------------------------------- layout helpers
@@ -262,8 +269,7 @@ def _launch_backward(lib, A, B, c, H, h, D, rho, rg, PN, pN,
         P, L = new(N, nx, nx, Bt), new(N, nu, nu, Bt)
     ptr = lambda x: None if x is None else x.data_ptr()
     status = lib.riccati_backward(
-        N, Bt, int(emit_closed_loop), int(export_factors),
-        _matrix_threads(nx, nu), stream,
+        N, Bt, int(emit_closed_loop), int(export_factors), stream,
         *(ptr(x) for x in (A, B, c, H, h, D, rho, rg, PN, pN, K, d, M, v, P, L)),
     )
     _check_status("backward_lanes", status)
@@ -290,8 +296,9 @@ def backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN, *,
     backward_vectors_lanes while rho is unchanged.
     ``emit_closed_loop=False`` returns only (K, d)[, P, L].
 
-    On the card: one thread block per instance (B of them), the stage
-    loop inside the block; see the note in the kernel source.
+    On the card: a warp an instance, a block of several consecutive
+    instances that stage their data together (where the instances do not
+    outnumber the SMs: a block each); see the note in the kernel source.
     """
     N, nx, _, Bt = A.shape
     nu = B.shape[2]
@@ -649,9 +656,9 @@ def _launch_backward_pdp(lib, A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi,
     bnd = tuple(new(*x.shape) for x in (Pi, pi, Fi, Ci, fi))
     ptr = lambda x: None if x is None else x.data_ptr()
     status = lib.riccati_backward_pdp(
-        N, Bt, segments or 1, int(export_factors), _matrix_threads(nx, nu),
-        stream, *(ptr(x) for x in (A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci,
-                                   fi, K, d, M, v, Gp, P, L, F) + bnd))
+        N, Bt, segments or 1, int(export_factors), stream,
+        *(ptr(x) for x in (A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi, K, d,
+                           M, v, Gp, P, L, F) + bnd))
     _check_status("backward_pdp_lanes", status)
     out = (K, d, M, v, Gp)
     if export_factors:
@@ -680,8 +687,9 @@ def backward_pdp_lanes(A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi, *,
     leading segment axis, (S,nx,nx,B) / (S,nx,B).  ``None``: one segment,
     carries (nx,nx,B) / (nx,B), the JAX function's layout.
 
-    On the card: one thread block per (segment, instance); see the note
-    at K1 in the kernel source.
+    On the card: a warp a (segment, instance), a block of several
+    instances of one segment (where the pairs do not outnumber the SMs: a
+    block each); see the note at K1 in the kernel source.
     """
     N, nx, _, Bt = A.shape
     nu = B.shape[2]
@@ -947,8 +955,7 @@ def _launch_backward_packed(lib, Sd, Sc, PN, pN, nu, stream):
     nx = _packed_nx(rows, nu)
     G = torch.empty((N, nu * nx + nu, Bt), dtype=PN.dtype, device=PN.device)
     status = lib.riccati_backward_packed(
-        N, Bt, _matrix_threads(nx, nu), stream,
-        *(x.data_ptr() for x in (Sd, Sc, PN, pN, G)))
+        N, Bt, stream, *(x.data_ptr() for x in (Sd, Sc, PN, pN, G)))
     _check_status("backward_packed", status)
     return G
 

@@ -903,7 +903,7 @@ def _solve_replicated(problem, x0, cones, settings, state, soc_shift,
     """``solve_fused`` on a batched problem: the replicated two-kernel
     iteration (``iteration`` of the JAX function), per-instance rho.
 
-    Per iteration: the matrix sweep K1 on every instance (one block an
+    Per iteration: the matrix sweep K1 on every instance (a warp an
     instance), or, with ``cached_factors`` while rho is unchanged, the
     per-instance vector sweep K2 on the exported factors; then the
     per-instance rollout K3.  The relaxation, projection, dual update and

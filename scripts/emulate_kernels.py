@@ -13,8 +13,8 @@ starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
 ``build/emulate/``, loads it through the wrappers' own ``ctypes`` bindings
 and holds every kernel and mode against its plain PyTorch version at small
 sizes (K1-K12, every form of K5 and of K8, K9 in both forms, K3 in
-segments; K8 and per-instance K3 across several blocks with a ragged
-last one).  It proves nothing about what ``nvcc`` accepts, about races between
+segments; K8, per-instance K3 and the matrix sweep K1 / K9 / K11 across
+several blocks with a ragged last one).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
 on them.  About two minutes (some thirty small g++ builds); ``--quick`` runs
@@ -64,12 +64,15 @@ static thread_local std::barrier<>* emu_bar;
 static thread_local double* emu_smem;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __syncthreads() emu_bar->arrive_and_wait()
 // A warp's barrier: the whole block's here (stronger, and every warp of a
 // block passes the same sequence of them).
 #define __syncwarp() emu_bar->arrive_and_wait()
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) double2 { double x, y; };
 typedef int cudaError_t;
@@ -77,6 +80,12 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+// The SMs the host code sees (1: every batch of more than one instance
+// takes the batch form; a case sets it to reach the one-instance block).
+extern "C" { int emu_sms = 1; }
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 template <class F>
 void emu_launch(int grid, int block, size_t smem, void*, F f) {
@@ -122,8 +131,19 @@ def host_source(source: str) -> str:
     return src
 
 
+_HOST_LIBS: dict = {}
+
+
 def build_host(source: str, defines: dict) -> ctypes.CDLL:
-    """One specialisation of one kernel source as a host library."""
+    """One specialisation of one kernel source as a host library (built
+    once a process)."""
+    key = (source, tuple(sorted(defines.items())))
+    if key not in _HOST_LIBS:
+        _HOST_LIBS[key] = _build_host(source, defines)
+    return _HOST_LIBS[key]
+
+
+def _build_host(source: str, defines: dict) -> ctypes.CDLL:
     tag = Path(source).stem + "_" + "_".join(
         f"{k}{v}" for k, v in sorted(defines.items()))
     cpp, so = OUT / f"{tag}.cpp", OUT / f"{tag}.so"
@@ -161,13 +181,9 @@ def check(what, outs, refs, tol):
         raise RuntimeError(f"{what}: {err} > {tol}")
 
 
-def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
-    """All modes of the three kernels at one size: ``Bt`` instances for the
-    per-instance modes, ``Bs`` scenarios on instance 0 for the shared ones."""
-    rng = np.random.default_rng(1)
-    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+def sweep_inputs(T, rng, dtype, nx, nu, nc, N, Bt):
+    """Random inputs of the matrix sweep (H and PN positive definite)."""
     nz = nx + nu
-    tag = f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N}"
     A, B, c = T(N, nx, nx, Bt) * 0.3, T(N, nx, nu, Bt) * 0.5, T(N, nx, Bt) * 0.1
     G = T(N, nz, nz, Bt) * 0.3
     H = (torch.einsum("kijb,kljb->kilb", G, G)
@@ -179,7 +195,30 @@ def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
     PN = (torch.einsum("ijb,ljb->ilb", GN, GN)
           + torch.eye(nx, dtype=dtype)[:, :, None]).contiguous()
     pN = T(nx, Bt)
-    k1_in = (A, B, c, H, h, D, rho, rg, PN, pN)
+    return A, B, c, H, h, D, rho, rg, PN, pN
+
+
+def pdp_carries(T, dtype, nx, S, Bt):
+    """Random per-segment carries (P, p, F, C, f) of K9."""
+    eye = torch.eye(nx, dtype=dtype)[None, :, :, None]
+    return (
+        (torch.einsum("sijb,sljb->silb", *(T(S, nx, nx, Bt),) * 2)
+         + eye).contiguous(),
+        T(S, nx, Bt), (eye + 0.2 * T(S, nx, nx, Bt)).contiguous(),
+        (torch.einsum("sijb,sljb->silb", *(T(S, nx, nx, Bt),) * 2)
+         + eye).contiguous(),
+        T(S, nx, Bt))
+
+
+def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
+    """All modes of the three kernels at one size: ``Bt`` instances for the
+    per-instance modes, ``Bs`` scenarios on instance 0 for the shared ones."""
+    rng = np.random.default_rng(1)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    nz = nx + nu
+    tag = f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N}"
+    k1_in = sweep_inputs(T, rng, dtype, nx, nu, nc, N, Bt)
+    A, B, c, H, h, D, rho, rg, PN, pN = k1_in
 
     lib1 = library(dtype, nx, nu, nc)
     for export in (True, False):
@@ -214,14 +253,7 @@ def run(dtype, nx, nu, nc, N, Bt, Bs, tol):
     # K9 in S segments (both forms) from random carries, K10 on its
     # factors, K3 in the same segments; K11 and K12 on the packed streams.
     S = next(n for n in range(2, N + 1) if N % n == 0)
-    eye = torch.eye(nx, dtype=dtype)[None, :, :, None]
-    carries = (
-        (torch.einsum("sijb,sljb->silb", *(T(S, nx, nx, Bt),) * 2)
-         + eye).contiguous(),
-        T(S, nx, Bt), (eye + 0.2 * T(S, nx, nx, Bt)).contiguous(),
-        (torch.einsum("sijb,sljb->silb", *(T(S, nx, nx, Bt),) * 2)
-         + eye).contiguous(),
-        T(S, nx, Bt))
+    carries = pdp_carries(T, dtype, nx, S, Bt)
     for export in (False, True):
         check(f"K9 [{tag} B={Bt} S={S} export={export}]",
               cr._launch_backward_pdp(lib1, *k1_in[:8], *carries, export, S,
@@ -372,6 +404,51 @@ def run_k3(dtype, nx, nu, N, Bt, S, tol):
                                      segments=S if S > 1 else None), tol)
 
 
+def run_sweep(dtype, nx, nu, nc, N, Bt, S, tol, one=False):
+    """The matrix sweep on ``Bt`` instances, across its blocks of G
+    instances (8 in float32, 4 in float64; the last ragged where Bt is no
+    multiple of G): K1 in its four forms, K9 in both forms in S segments,
+    K11.  ``one``: as on a card with more SMs than (segment, instance)
+    pairs, a block an instance."""
+    rng = np.random.default_rng(6)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} "
+           f"B={Bt}" + (" a block an instance" if one else ""))
+    k1_in = sweep_inputs(T, rng, dtype, nx, nu, nc, N, Bt)
+    # The host code reads the SM count once a library: a library of its own.
+    defines = {**cr.kernel_defines(dtype, nx, nu, nc), **({"EMU_SMS": 1 << 20} if one else {})}
+    lib = build_host(cr.SOURCE, defines)
+    cr.bind_library(lib, with_matrix_sweep=True)
+    ctypes.c_int.in_dll(lib, "emu_sms").value = defines.get("EMU_SMS", 1)
+    lib.riccati_sweep_group.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    for pdp, pairs in ((False, Bt), (True, S * Bt)):
+        G = lib.riccati_sweep_group(1, 1, int(pdp), pairs)
+        if (G == 0) != one or not one and (Bt <= 2 * G or Bt % G == 0):
+            raise AssertionError(f"{tag}: B={Bt} takes G={G}, not "
+                                 + ("a block an instance" if one else
+                                    "groups with a ragged third one"))
+    for export in (True, False):
+        for closed in (True, False):
+            check(f"K1 [{tag} export={export} closed_loop={closed}]",
+                  cr._launch_backward(lib, *k1_in, export, closed, None),
+                  cr.backward_lanes_reference(*k1_in, export_factors=export,
+                                              emit_closed_loop=closed), tol)
+    carries = pdp_carries(T, dtype, nx, S, Bt)
+    for export in (False, True):
+        check(f"K9 [{tag} S={S} export={export}]",
+              cr._launch_backward_pdp(lib, *k1_in[:8], *carries, export, S,
+                                      None),
+              cr.backward_pdp_lanes_reference(*k1_in[:8], *carries,
+                                              export_factors=export,
+                                              segments=S), tol)
+    A, B, c, H, h, D, rho, rg, PN, pN = k1_in
+    Sd = torch.cat([A.flatten(1, 2), B.flatten(1, 2), c], dim=1)
+    Sc = torch.cat([H.flatten(1, 2), h, D.flatten(1, 2), rho, rg], dim=1)
+    check(f"K11 [{tag}]",
+          [cr._launch_backward_packed(lib, Sd, Sc, PN, pN, nu, None)],
+          [cr.backward_packed_reference(Sd, Sc, PN, pN, nu, nc)], tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -430,12 +507,27 @@ K3_CASES = [
     (torch.float64, 12, 4, 6, 16, 1, 1e-10),
     (torch.float64, 3, 2, 6, 19, 2, 1e-10),
 ]
+# (dtype, nx, nu, nc, N, Bt, S, tol[, one]): the matrix sweep across its
+# groups of G instances (G = 4 in float64, 8 in float32), the last group
+# ragged: Bt = 2G + 2 (a multiple of the 16-byte width: 16-byte stores, the
+# last group half empty) and 2G + 3 (a word a store) at the quadrotor's
+# widths, and odd widths; then a block an instance (few pairs, many SMs).
+SWEEP_CASES = [
+    (torch.float64, 12, 4, 16, 4, 10, 2, 1e-10),
+    (torch.float64, 12, 4, 16, 4, 11, 2, 1e-10),
+    (torch.float32, 12, 4, 16, 4, 20, 2, 1e-4),
+    (torch.float32, 12, 4, 16, 4, 19, 2, 1e-4),
+    (torch.float64, 3, 2, 5, 6, 11, 3, 1e-10),
+    (torch.float32, 3, 2, 5, 4, 19, 4, 1e-4),
+    (torch.float64, 12, 4, 16, 4, 5, 2, 1e-10, True),
+    (torch.float32, 3, 2, 5, 4, 3, 4, 1e-4, True),
+]
 QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:1], LADDER_CASES[:1]
-ITER_QUICK, K3_QUICK = ITER_CASES[:1], K3_CASES[:1]
+ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
-         iter_cases=ITER_CASES, k3_cases=K3_CASES):
+         iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -449,11 +541,13 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_iter(*case)
     for case in k3_cases:
         run_k3(*case)
+    for case in sweep_cases:
+        run_sweep(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
 
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
-    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK)
-             if quick else main())
+    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
+                  SWEEP_QUICK) if quick else main())

@@ -1,14 +1,30 @@
 #!/usr/bin/env python3
-"""Time K8 (``admm_iter_lanes``) in each of its forms and per-instance K3
-(``forward_lanes``) at the shapes their paths give them, on the card.
+"""Time the matrix sweep (K1, K9, K11), K8 in each of its forms and
+per-instance K3 at the shapes their paths give them, on the card.
 
-    python3 scripts/kernel_bench.py [--root DIR] [--reps 20] [--profile]
+    python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
+                                    [--kernels sweep k8 k3] [--profile]
 
-The inputs are synthetic (``chip_smoke.py``'s generators, seed 0) at the
-quadrotor's widths, float32: K8 on one model at N=64 and, on cached
-factors, N=512 (B=4096; the cached form also with bfloat16 stage data), on
-a batched problem at N=64 (B=1024: uncached, cached, cached with bfloat16)
-and at N=512 with the thrust cone and a shift (B=1024, the PDP cell's
+The matrix sweep runs on the tensors its paths hand it (each path run
+once with the kernels' calls recorded, as ``chip_smoke.py`` does; the
+quadrotor at N=512, float32): K1 on the one shared model (``solve``,
+Bt=1), K1 per instance with the closed-loop maps (the
+replicated loop, B=1024) and gains only (``solve_lanes``, B=4096), K9 in
+S=8 segments (``pdp_sharded_fused.solve``, B=1024) and exporting its
+factors (the cached ``admm_sharded`` loop, thrust cone, B=1024), and K11
+(``solve_packed``, B=4096).  ``latency``, the block of one instance and
+where it gives way to groups: K1 on the shared model (as in ``sweep``),
+and K9 in one segment at N=1024 on B = 128, 160, 256 and 512 instances
+(``pdp_sharded_fused.solve``: the long-horizon case of ``chip_smoke.py``'s
+``pdp_latency``, then batches past the card's 132 SMs).  K9's F0 there,
+the product of 1,024 closed-loop maps, is about 1e-63 and underflows in
+float32: its error is taken against the scale of the carry it starts
+from (the identity), not against its own.  K8's and K3's inputs are synthetic
+(``chip_smoke.py``'s generators, seed 0) at the quadrotor's widths,
+float32: K8 on one model at N=64 and, on cached factors, N=512 (B=4096;
+the cached form also with bfloat16 stage data), on a batched problem at
+N=64 (B=1024: uncached, cached, cached with bfloat16) and at N=512 with
+the thrust cone and a shift (B=1024, the PDP cell's
 ``solve_fused(auto)``), and at the rocket's widths (N=48, B=512, two
 cones); K3 per instance at N=512, B=1024 in one segment and in 8.  Each
 form is held against its plain version first.  ``--root DIR`` imports
@@ -48,12 +64,121 @@ SECTIONS = ["p1_wait_barrier", "p1_prefetch", "p1_rho_terms", "p1_fold",
             "p1_sweep", "p2_wait_barrier", "p2_prefetch", "p2_w~", "p2_x+",
             "p2_constraint_rows", "p2_projection", "p2_rows_of_w"]
 
+# K9's long-horizon shapes (``latency``): N, and the batches in one segment.
+N_LAT, B_LAT = 1024, (128, 160, 256, 512)
+
+
+def sweep_runs(sm, dev, shared_only=False):
+    """Run each path of the matrix sweep once at its serving shape with
+    the kernels' calls recorded: name -> (launcher, args, kwargs, output
+    names, operations)."""
+    import dataclasses
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+    from pdp_lqr_tpu_torch.parallel import admm_sharded, make_mesh
+    from pdp_lqr_tpu_torch.parallel import pdp_sharded_fused as psf
+    from pdp_lqr_tpu_torch.solvers import admm
+
+    N, NX, NU, NC, f32 = sm.N_MAIN, sm.NX, sm.NU, sm.NC, torch.float32
+    model, _ = quadrotor(N=N, constrained=True, dtype=f32, device=dev)
+    it = plt_.init_iterates(model, rho=sm.RHO)
+    rng = np.random.default_rng(sm.SEED)
+    c = torch.as_tensor(rng.normal(size=(sm.B_MAIN, N, NX)) * 0.01).to(
+        device=dev, dtype=f32)
+    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(sm.B_MAIN, NX))).to(
+        device=dev, dtype=f32)
+    wide = lambda n, x: x[None].expand((n,) + x.shape)
+    it_b = lambda n: plt_.ADMMIterates(**{
+        f.name: wide(n, getattr(it, f.name)) for f in dataclasses.fields(it)})
+    one_step = admm.ADMMSettings(**{**sm.REP_SETTINGS, "max_iter": 1})
+    runs = {}
+
+    def record(name, counter, call, names, flops):
+        with sm.recorded_calls(cr, [counter]) as rec:
+            call()
+        torch.cuda.synchronize()
+        runs[name] = (getattr(cr, counter), *rec[counter], names, flops)
+
+    prep = cr.prepare_shared(dataclasses.replace(model, c=c), it, x0, sm.SIGMA)
+    record("backward_lanes[shared]", "backward_lanes",
+           lambda: cr.shared_factors(prep), sm.K1_ALL,
+           sm.k1_flops(N, NX, NU, NC, 1))
+    if shared_only:
+        return runs
+    B = sm.B_REP
+    record("backward_lanes[per-instance]", "backward_lanes",
+           lambda: plt_.solve_fused(sm.batched(model, B, c[:B]), x0[:B], (),
+                                    one_step, single_kernel=False),
+           sm.K1_CLOSED, sm.k1_flops(N, NX, NU, NC, B))
+    lanes = sm.batched(model, sm.B_MAIN, c)
+    record("backward_lanes[per-instance,gains]", "backward_lanes",
+           lambda: cr.solve_lanes(lanes, it_b(sm.B_MAIN), x0, sm.SIGMA),
+           sm.K1_GAINS, sm.k1_flops(N, NX, NU, NC, sm.B_MAIN))
+    B = sm.B_PDP
+    record("backward_pdp_lanes", "backward_pdp_lanes",
+           lambda: psf.solve(make_mesh(time=sm.S_PDP, device=dev),
+                             sm.batched(model, B, c[:B]), it_b(B), x0[:B],
+                             sm.SIGMA),
+           sm.K9_OUT, sm.k9_flops(N, NX, NU, NC, B))
+    cone, cones = quadrotor(N=N, constrained=True, thrust_cone=True,
+                            dtype=f32, device=dev)
+    shift = np.zeros((N + 1, sm.NC_CONE), np.float32)
+    shift[:, NC] = sm.THRUST_SHIFT
+    record("backward_pdp_lanes[export]", "backward_pdp_lanes",
+           lambda: admm_sharded.solve(
+               make_mesh(time=sm.S_PDP, device=dev),
+               sm.batched(cone, B, c[:B]), x0[:B], cones,
+               dataclasses.replace(one_step, cached_factors=True),
+               soc_shift=shift),
+           sm.K9_ALL, sm.k9_flops(N, NX, NU, sm.NC_CONE, B))
+    record("backward_packed", "backward_packed",
+           lambda: cr.solve_packed(lanes, it_b(sm.B_MAIN), x0, sm.SIGMA),
+           ("G",), sm.k1_flops(N, NX, NU, NC, sm.B_MAIN))
+    return runs
+
+
+def latency_runs(sm, dev):
+    """K1 on the shared model, and K9 in one segment on few long
+    horizons, as ``sweep_runs``."""
+    import dataclasses
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+    from pdp_lqr_tpu_torch.parallel import make_mesh
+    from pdp_lqr_tpu_torch.parallel import pdp_sharded_fused as psf
+
+    NX, NU, NC, f32 = sm.NX, sm.NU, sm.NC, torch.float32
+    model, _ = quadrotor(N=N_LAT, constrained=True, dtype=f32, device=dev)
+    it = plt_.init_iterates(model, rho=sm.RHO)
+    rng = np.random.default_rng(sm.SEED + 2)
+    runs = {"backward_lanes[shared]": sweep_runs(sm, dev, shared_only=True)[
+        "backward_lanes[shared]"]}
+    for B in B_LAT:
+        c = torch.as_tensor(rng.normal(size=(B, N_LAT, NX)) * 0.01).to(
+            device=dev, dtype=f32)
+        x0 = torch.as_tensor(rng.normal(size=(B, NX)) * 0.1).to(
+            device=dev, dtype=f32)
+        it_b = plt_.ADMMIterates(**{f.name: getattr(it, f.name)[None].expand(
+            (B,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
+        with sm.recorded_calls(cr, ["backward_pdp_lanes"]) as rec:
+            psf.solve(make_mesh(time=1, device=dev),
+                      sm.batched(model, B, c), it_b, x0, sm.SIGMA)
+        torch.cuda.synchronize()
+        runs[f"backward_pdp_lanes[N={N_LAT},S=1,B={B}]"] = (
+            cr.backward_pdp_lanes, *rec["backward_pdp_lanes"], sm.K9_OUT,
+            sm.k9_flops(N_LAT, NX, NU, NC, B))
+    return runs
+
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
                     help="import pdp_lqr_tpu_torch from this checkout")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", nargs="*",
+                    choices=("sweep", "latency", "k8", "k3"),
+                    default=["sweep", "k8", "k3"])
     ap.add_argument("--profile", action="store_true",
                     help="K8's diagnostic build: cycles a stage by section")
     args = ap.parse_args()
@@ -81,27 +206,54 @@ def main():
 
     # Every library, built at once.
     jobs = [(cr.SOURCE, cr.kernel_defines(f32, NX, NU))]
+    if "sweep" in args.kernels:
+        jobs += [(cr.SOURCE, cr.kernel_defines(f32, NX, NU, nc))
+                 for nc in (NC, sm.NC_CONE)]
+    elif "latency" in args.kernels:
+        jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))
     for nx, nu, nc, cones, shift in ((NX, NU, NC, (), False),
                                      (NX, NU, NC + 3, THRUST, True),
-                                     ROCKET + (False,)):
+                                     ROCKET + (False,)) * ("k8" in args.kernels):
         jobs.append((ca.SOURCE, ca.kernel_defines(
             f32, nx, nu, nc, cones=cones, has_shift=shift, single=True)))
     paths = _build.build_many(jobs)
-    regs = sm.registers_by_kernel(
-        [(job[1], _build.build_logs.get(p, "")) for job, p in zip(jobs, paths)])
+    regs = {}
+    for job, p in zip(jobs, paths):
+        regs.update(sm.registers_by_kernel(
+            [(job[1], _build.build_logs.get(p, ""))]))
     regs = {k: v for k, v in regs.items()
-            if k.startswith(("iter_kernel", "forward_kernel"))}
+            if k.startswith(("iter_kernel", "forward_kernel", "backward_kernel"))}
     print(json.dumps({"ptxas": regs}), flush=True)
 
     def report(name, call, plain, names, moved, flops, extra=lambda: {}):
         out = call()
-        _, rel = sm.rel_err(names, out, plain())
+        ref = plain()
+        _, rel = sm.rel_err(names, out, ref)
+        if "N=1024" in name:             # F0 against its carry's scale, 1
+            i = names.index("F0")
+            rel["F0"] = float((out[i] - ref[i]).abs().max()) / max(
+                1.0, float(ref[i].abs().max()))
         ms = sm.cuda_ms(call, args.reps)
         bound_ms, by = sm.bound(moved + sm.nbytes(*out), flops)
         print(json.dumps({"kernel": name, "ms": ms, "bound_ms": bound_ms,
                           "bound_by": by, "max_rel_err": max(rel.values()),
                           **extra()}), flush=True)
         sm.require(max(rel.values()) <= sm.TOL[f32], name, rel)
+
+    plain_of = {cr.backward_lanes: cr.backward_lanes_reference,
+                cr.backward_pdp_lanes: cr.backward_pdp_lanes_reference,
+                cr.backward_packed: cr.backward_packed_reference}
+    for mode, make in (("sweep", sweep_runs), ("latency", latency_runs)):
+        if mode not in args.kernels:
+            continue
+        runs = make(sm, dev)
+        for name, (fn, a, kw, names, flops) in runs.items():
+            listed = (lambda r: [r]) if name == "backward_packed" else tuple
+            report(name, lambda: listed(fn(*a, **kw)),
+                   lambda: listed(plain_of[fn](*a, **kw)), names,
+                   sm.nbytes(*(a[:4] if name == "backward_packed" else a)),
+                   flops)
+        del runs
 
     rng = np.random.default_rng(sm.SEED)
     forms = [
@@ -128,7 +280,8 @@ def main():
         sm.require(lib.admm_read_prof(out) == 0, "admm_read_prof")
         return {"cycles_per_stage": {k: v / N for k, v in zip(SECTIONS, out)}}
 
-    for tag, N, Bt, shared, cached, narrow, (nx, nu, nc, cones, shift) in forms:
+    for tag, N, Bt, shared, cached, narrow, (nx, nu, nc, cones, shift) in (
+            forms if "k8" in args.kernels else ()):
         a = sm.random_iter_inputs(rng, N, nx, nu, nc, Bt, cones, shared, shift,
                                   f32, dev)
         factors = sm.iter_factors(a, shared) if cached else None
@@ -146,6 +299,8 @@ def main():
                else (lambda: {}))
         del a, factors
 
+    if "k3" not in args.kernels:
+        return 0
     N, Bt = 512, B_BATCHED
     T = lambda *s, scale: torch.as_tensor(rng.normal(size=s) * scale).to(
         device=dev, dtype=f32).contiguous()

@@ -10,7 +10,9 @@ The CUDA kernels themselves are held against these plain versions on
 the card by ``chip_smoke.py``.
 """
 
+import ctypes
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -401,8 +403,16 @@ def test_kernel_defines_and_block_sizes():
         "SCALAR": "double", "NX": 12, "NU": 4}
     with pytest.raises(TypeError):
         cr.kernel_defines(torch.float16, 12, 4)
-    assert cr._matrix_threads(12, 4) == 256
-    assert cr._matrix_threads(2, 1) == 32
+    # The matrix sweep's block is the kernel's own (compile-time, from the
+    # widths and the dtype): its entry points take the sizes and the
+    # switches as ints, and no thread count.
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
+        "riccati_backward", "riccati_backward_pdp", "riccati_backward_packed")})
+    cr.bind_library(lib, with_matrix_sweep=True)
+    ints = lambda fn: [t for t in fn.argtypes if t is ctypes.c_int]
+    assert len(ints(lib.riccati_backward)) == 4      # N, Bt, emit_mv, export
+    assert len(ints(lib.riccati_backward_pdp)) == 4  # N, Bt, S, export
+    assert len(ints(lib.riccati_backward_packed)) == 2
 
 
 # ------------------------------------------------- packed streams (K11, K12)
