@@ -819,6 +819,11 @@ def main():
         compare(f"forward_lanes[shared,B={B_RAGGED}]", K3_OUT,
                 cr.forward_lanes(M, dv_r[1], K, dv_r[0], x0_r, shared=True),
                 cr.forward_lanes_reference(M, dv_r[1], K, dv_r[0], x0_r))
+        compare(f"backward_vectors_lanes[shared,P,B={B_RAGGED}]", K2_OUT,
+                cr.backward_vectors_lanes(A, Bm, c_r, hf_r, P, K, L, pN_r,
+                                          shared=True),
+                cr.backward_vectors_lanes_reference(A, Bm, c_r, hf_r, P, K, L,
+                                                    pN_r))
 
         # K2 / K3, one matrix set per scenario (trailing batch = B).
         wide = lambda x: x.expand(x.shape[:-1] + (B_SMALL,)).contiguous()
@@ -826,6 +831,28 @@ def main():
         compare("backward_vectors_lanes[per-instance,P]", K2_OUT,
                 cr.backward_vectors_lanes(Aw, Bw, c, hf, Pw, Kw, Lw, pN),
                 cr.backward_vectors_lanes_reference(Aw, Bw, c, hf, Pw, Kw, Lw, pN))
+        # Per-instance K2 on a matrix set a scenario (the shared one
+        # perturbed, L below its diagonal), both modes, on a full and a
+        # ragged batch (blocks of 8 scenarios, the last one partly idle);
+        # its own generator, so the cases after it see the same data.
+        rng_k2 = np.random.default_rng(SEED + 2)
+        jit = lambda x, keep=None: (x + 0.01 * torch.as_tensor(
+            rng_k2.normal(size=x.shape)).to(device=dev, dtype=dt)
+            * (1 if keep is None else keep)).contiguous()
+        low = torch.tril(torch.ones(NU, NU, dtype=dt, device=dev),
+                         diagonal=-1)[None, :, :, None]
+        k2_sets = (jit(Aw), jit(Bw), jit(Pw), jit(Kw), jit(Lw, low))
+        for Bt in (B_SMALL, B_RAGGED):
+            Ai, Bi, Pi, Ki, Li = (x[..., :Bt].contiguous() for x in k2_sets)
+            ci, hfi, pNi = (x[..., :Bt].contiguous() for x in (c, hf, pN))
+            Pci = torch.einsum("kijb,kjb->kib", Pi, ci).contiguous()
+            for pc in (None, Pci):
+                compare(f"backward_vectors_lanes[per-instance,"
+                        f"{'P' if pc is None else 'Pc'},B={Bt},sets]", K2_OUT,
+                        cr.backward_vectors_lanes(Ai, Bi, ci, hfi, Pi, Ki, Li,
+                                                  pNi, Pc=pc),
+                        cr.backward_vectors_lanes_reference(
+                            Ai, Bi, ci, hfi, Pi, Ki, Li, pNi, Pc=pc))
         compare("forward_lanes[per-instance]", K3_OUT,
                 cr.forward_lanes(Mw, v, Kw, d, x0),
                 cr.forward_lanes_reference(Mw, v, Kw, d, x0))
@@ -846,6 +873,10 @@ def main():
                             [ca.admm_bwd_vec_prefold_lanes_reference(*k4_in, nu=NU)])
                 compare(f"admm_fwd_update_lanes[{mode},B={Bt}]", K5_OUT,
                         k5_call(ca, k5_in, cones), k5_plain(ca, k5_in, cones))
+                no_hf = k5_in[:8] + (None,)      # packed, without hf-emit
+                compare(f"admm_fwd_update_lanes[{mode},B={Bt},hf=0]",
+                        K5_RUNG_OUT, k5_call(ca, no_hf, cones),
+                        k5_plain(ca, no_hf, cones))
 
         # The rho ladder's pair: K6 on 1, 3 and 4 rungs (and its Pc form),
         # K5's rung form on 4 rungs with and without hf-emit, box rows and
@@ -1010,7 +1041,7 @@ def main():
 
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
-        require(launched == {"backward_lanes": 10, "backward_vectors_lanes": 4,
+        require(launched == {"backward_lanes": 10, "backward_vectors_lanes": 9,
                              "forward_lanes": 6, "forward_rollout_lanes": 2,
                              "backward_pdp_lanes": 9,
                              "backward_pdp_vectors_lanes": 2,
@@ -1019,7 +1050,7 @@ def main():
         launched = {k: ca.LAUNCHES[k] - before_admm[k] for k in ca.LAUNCHES}
         require(launched == {"admm_bwd_vec_prefold_lanes": 2,
                              "admm_bwd_vec_lanes": 6,
-                             "admm_fwd_update_lanes": 2 * len(K5_MODES) + 5,
+                             "admm_fwd_update_lanes": 4 * len(K5_MODES) + 5,
                              "admm_iter_lanes": k8_cases},
                 launched)
     emit("kernels", card=card, shape={"N": N_SMALL, "B": B_SMALL, "nx": NX,

@@ -36,17 +36,19 @@
 //
 // What bounds K4-K6 on this card is bytes (the per-scenario streams; the
 // shared ones are kilobytes), and what a plain loop runs into first is
-// latency: N dependent stages, a few thousand scenarios.  They take the
-// geometry of the shared-model sweeps in riccati_kernels.cu
-// (lanes_common.cuh): a block serves 32 scenarios with 4 threads each
-// (K4, K6) or 8 (K5), a
+// latency: N dependent stages, a few thousand scenarios.  K4 and K6 take
+// the geometry of the shared-model sweeps in riccati_kernels.cu
+// (lanes_common.cuh): a block serves 32 scenarios with 4 threads each, a
 // thread owns a slice of the rows of each per-scenario vector, what the
 // others need is exchanged through shared memory, and every stage's inputs
 // — the shared matrices and the 32 scenarios' vectors — are copied
 // asynchronously into a ring of shared-memory slots 4 stages ahead of
-// their use.  The whole horizon runs inside one launch; the per-scenario
-// carry (p; x and the four residual maxima) never leaves the block.  K8
-// carries per-scenario matrices and has a design of its own (see there).
+// their use.  K5 gives its warps roles instead (a producer, the chain
+// x+ = M x + v, and tail warps that take whole stages behind it, handed on
+// by shared-memory barriers: hopper_sync.cuh; see there).  The whole
+// horizon runs inside one launch; the per-scenario carry (p; x and the
+// four residual maxima) never leaves the block.  K8 carries per-scenario
+// matrices and has a design of its own (see there).
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -66,19 +68,8 @@
 #define NRUNG 1
 #endif
 
-// K5 runs eight threads a scenario, not the four of the other
-// shared-model kernels: its stage is three times theirs.  With four its
-// float32 instantiations took 142-168 registers a thread and a launch at
-// N=512, B=4096 took 1.96 ms on an H100 (700 W); with eight they take
-// 115-128 and the launch 1.40 ms (chip_smoke.py; PERF.md).  K4, like
-// the two sweeps it is modelled on, was no faster with eight at that batch
-// and slower at four times that batch, so it keeps four, and K6, its
-// recursion with the fold in front, does the same.
-#if defined(NC) && !defined(FOLD)
-#define VS_GROUPS_N 8
-#endif
-
 #include "lanes_common.cuh"
+#include "hopper_sync.cuh"
 
 namespace {
 
@@ -597,16 +588,39 @@ __device__ __forceinline__ void dual_row(
 //   |(1-alpha) Hs (w - w~) + alpha sigma (w - w~)
 //      + D^T rho m ((alpha-1)(z~ - z) + (z - z+))|,
 //   max(|D w+|, |z+|),  max(|Hs w+ - sigma w+|, |D^T y+|).
-// A thread holds all of w~ and w+ (each thread computes u itself: nu
-// short dot products cost less than a barrier) and owns its share of the
-// constraint rows and of the rows of w.  Two exchanges through
-// shared memory a stage: the (shifted) v of the constraint rows, so that
-// a thread can take the norm over a cone whose rows lie with other
-// threads (only when there are cones), and rg = rho m z+ - y+, the dual
-// residual's row term and y+, which every row of hf+ and of the residual
-// sums needs in full.  M and K come as two streams with a stage stride
-// each: the packed MK = [M; K] of one rung is both at once (stride nz*nx,
-// K nx*nx words in), the rung form R rungs of each stacked on rows.
+// M and K come as two streams with a stage stride each: the packed
+// MK = [M; K] of one rung is both at once (stride nz*nx, K nx*nx words
+// in), the rung form R rungs of each stacked on rows.
+//
+// What bounds it on this card is bytes: 64 words a scenario and stage in
+// (dv, wzy; quadrotor widths, box rows) and 64 out (wzy+, hf+), the
+// shared matrices a few kilobytes a stage.  The only carry is x+ = M x + v:
+// everything else of stage k needs x_k and stage k's data alone.  So the
+// warps of a block take roles, on 32 consecutive scenarios (a lane each):
+//   * warp 0, the producer, copies each stage into a ring of K5_SLOTS
+//     shared-memory slots: the scenarios' rows (dv, wzy) as two boxes of
+//     the copy engine (TMA, one instruction each, lane 0) where the row
+//     stride allows, else by cp.async a word a copy; the shared matrices
+//     by cp.async as contiguous runs, 16 bytes a copy where they allow;
+//   * warp 1, the chain, runs x+ = M x + v with x in registers and M read
+//     as a broadcast, and leaves x_k in the stage's slot;
+//   * warps 2 .. K5_TAILS+1, the tail, take whole stages (tail warp t the
+//     stages t, t + K5_TAILS, ...): a lane computes its scenario's u, w~,
+//     w+, z~, the projection (a cone's rows lie with one lane: no
+//     exchange), y+, hf+, the stores (a warp's store is one line) and its
+//     running maxima, several stages in flight at once behind the chain.
+// Three shared-memory barriers (mbarrier) a slot hand a stage on: `full`
+// (the producer's copies landed), `ready` (the chain is done with the
+// slot and x_k is in it) and `empty` (the tail is done with it); no
+// block-wide barrier a stage.  The maxima of the tail warps are joined
+// once at the end.  A lane past the batch reads the last scenario's data
+// and stores nothing (where the copy engine takes the rows, a lane past
+// the batch reads zeros).  Measured on an H100 (PERF.md): with the rows by
+// cp.async the producer bounded the kernel (about 2,100 cycles a stage);
+// with them as boxes the tail does, and 8 tail warps beat 6 by 10-15 % in
+// the float32 diagonal-cost forms (with cp.async they did not); the row
+// loop unrolled by 2, more slots, and 1-D bulk copies (a run or a 128-byte
+// row an instruction) were no faster or slower.
 
 #ifndef DIAG_COST
 #error "kernel B: build with -DDIAG_COST as well"
@@ -615,27 +629,93 @@ __device__ __forceinline__ void dual_row(
 constexpr int NB = 3 + HAS_SHIFT;             // bnd rows: lb, ub, mask[, shift]
 constexpr int NW = NZ + 2 * NC;               // wzy rows: w, z, y
 constexpr int HS_WORDS = DIAG_COST ? NZ : NZ * NZ;
-constexpr int VS_RZ = (NZ + VS_GROUPS - 1) / VS_GROUPS;   // w rows/thread
-constexpr int VS_RC = (NC + VS_GROUPS - 1) / VS_GROUPS;   // constraint rows/thread
+constexpr int K5_W = 32;                      // scenarios a block, a lane each
+// Shared rows read 16 bytes a load where the widths allow (M and K rows
+// of nx words from 16-byte boundaries, D rows of nz).
+constexpr int K5_VW = 16 / (int)sizeof(scalar);
+constexpr bool K5_VR = NX % K5_VW == 0;
+constexpr bool K5_VD = NZ % K5_VW == 0;
+// Tail warps, where slots allow: 8 in the float32 forms with a diagonal
+// stage cost (the served ones), 6 in the others.  Ten warps a block cap a
+// thread at 168 registers (registers go to 4 warps at a time: 384
+// threads' worth); the float64 and full-Hs forms spill there, at 8 warps
+// they keep 255.
+constexpr int K5_TAILS_MAX = sizeof(scalar) == 4 && DIAG_COST ? 8 : 6;
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
-// Slot layout (words): the shared matrices (all R rungs of M and K), then
-// dv and wzy rows.
+// Slot (words): the shared runs, each from a 16-byte boundary (all R
+// rungs of M and K), then x_k, the dv rows and the wzy rows (32 words a
+// row, one a scenario).
 constexpr int K5_M = 0;
-constexpr int K5_K = K5_M + NRUNG * NX * NX;
-constexpr int K5_HS = K5_K + NRUNG * NU * NX;
-constexpr int K5_D = K5_HS + HS_WORDS;
-constexpr int K5_BND = K5_D + NC * NZ;
-constexpr int K5_H = K5_BND + NB * NC;
-constexpr int K5_VEC = K5_H + NZ;
-constexpr int K5_SLOT_WORDS = K5_VEC + (NZ + NW) * VS_LANES;
-// After the ring: x (x2), the cone stage's v, then rg / zt / y+ (which the
-// closing reduction of the residual maxima reuses).
-constexpr int K5_EX_ROWS = 3 * NC > 4 * VS_GROUPS ? 3 * NC : 4 * VS_GROUPS;
-constexpr int K5_SMEM_WORDS =
-    VS_SLOTS * K5_SLOT_WORDS + (2 * NX + NC + K5_EX_ROWS) * VS_LANES;
+constexpr int K5_K = K5_M + round4(NRUNG * NX * NX);
+constexpr int K5_HS = K5_K + round4(NRUNG * NU * NX);
+constexpr int K5_D = K5_HS + round4(HS_WORDS);
+constexpr int K5_BND = K5_D + round4(NC * NZ);
+constexpr int K5_H = K5_BND + round4(NB * NC);
+// x_k and the rows from a 128-byte boundary (the copy engine's boxes).
+constexpr int K5_X = (K5_H + round4(NZ) + 31) / 32 * 32;
+constexpr int K5_DV = K5_X + NX * K5_W;
+constexpr int K5_WZY = K5_DV + NZ * K5_W;
+constexpr int K5_SLOT = K5_WZY + NW * K5_W;
+// After the slots: each tail warp's shifted cone values (NC rows of a
+// lane each) and the closing join of the maxima; then the barriers.
+constexpr int K5_VX = NCONES > 0 ? NC * K5_W : 0;
+constexpr int K5_FIXED = K5_TAILS_MAX * K5_VX + 4 * K5_TAILS_MAX * K5_W;
+constexpr int K5_SMEM_MAX = 232448;           // 227 KB, the most a block has
+constexpr int K5_SLOT_BYTES = K5_SLOT * (int)sizeof(scalar) + 3 * 8;
+constexpr int K5_FIT =
+    (K5_SMEM_MAX - K5_FIXED * (int)sizeof(scalar) - 8 - 128) / K5_SLOT_BYTES;
+// Stages in flight: one a tail warp, and the chain and the producer ahead.
+constexpr int K5_SLOTS = K5_FIT < K5_TAILS_MAX + 3 ? K5_FIT : K5_TAILS_MAX + 3;
+// No more tail warps than slots: a waiter names only the parity of the
+// phase it waits for, so two tail warps must never wait on one slot's
+// barrier for two different stages (with fewer slots than tail warps,
+// the later stage's wait would pass on the earlier stage's phase).
+constexpr int K5_TAILS = K5_SLOTS < K5_TAILS_MAX ? K5_SLOTS : K5_TAILS_MAX;
+constexpr int K5_THREADS = 32 * (2 + K5_TAILS);
+static_assert(K5_SLOTS >= 2, "kernel B: two stages do not fit a block");
+constexpr int K5_BAR_OFF =
+    ((K5_SLOTS * K5_SLOT + K5_FIXED) * (int)sizeof(scalar) + 7) / 8 * 8;
+constexpr int K5_SMEM = K5_BAR_OFF + 3 * 8 * K5_SLOTS + 128;   // + alignment
+
+// Diagnostic build (-DADMM_PROFILE): lane 0 of each role in block 0 sums
+// the SM cycles of its sections (K5_SECTIONS; the tail's per stage that
+// warp took); admm_read_prof copies the sums out.
+constexpr int K5_SECTIONS = 8;
+#ifdef ADMM_PROFILE
+__device__ long long admm_prof[K5_SECTIONS];
+#define K5_PROF_INIT                                                         \
+    long long prof_acc[K5_SECTIONS] = {};                                    \
+    long long prof_t = clock64();
+#define K5_MARK(i)                                                           \
+    do {                                                                     \
+        const long long t_ = clock64();                                      \
+        prof_acc[i] += t_ - prof_t;                                          \
+        prof_t = t_;                                                         \
+    } while (0)
+#define K5_PROF_DONE(lo, hi, mul, div)                                       \
+    if (blockIdx.x == 0 && lane == 0)                                        \
+        for (int i_ = lo; i_ < hi; ++i_)                                     \
+            admm_prof[i_] = prof_acc[i_] * (mul) / (div);
+#else
+#define K5_PROF_INIT
+#define K5_MARK(i)
+#define K5_PROF_DONE(lo, hi, mul, div)
+#endif
+
+// Whether constraint row ci lies in a cone (constant after unrolling).
+__device__ __forceinline__ bool in_cone(int ci)
+{
+    bool in = false;
+#pragma unroll
+    for (int q = 0; q < NCONES; ++q)
+        in = in || (ci >= cone_field(q, 0)
+                    && ci < cone_field(q, 0) + cone_field(q, 1));
+    return in;
+}
 
 template <bool EMIT_HF>
-__global__ void __launch_bounds__(VS_THREADS)
+__global__ void __launch_bounds__(K5_THREADS, 1)
 fwd_update_kernel(
     int N, int Bt, double alpha_d, double sigma_d, int m_stride, int k_stride,
     const scalar* __restrict__ rho, const scalar* __restrict__ x0,
@@ -645,231 +725,275 @@ fwd_update_kernel(
     const scalar* __restrict__ h, const int* __restrict__ rung,
     const scalar* __restrict__ dv, const scalar* __restrict__ wzy,
     scalar* __restrict__ wzy_new, scalar* __restrict__ hf_new,
-    scalar* __restrict__ xN, scalar* __restrict__ res)
+    scalar* __restrict__ xN, scalar* __restrict__ res,
+    const __grid_constant__ CUtensorMap dv_map,
+    const __grid_constant__ CUtensorMap wzy_map, int tma)
 {
     extern __shared__ double smem_aligned[];
-    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
-    scalar* xs = ring + VS_SLOTS * K5_SLOT_WORDS;           // x exchange, x2
-    scalar* vx = xs + 2 * NX * VS_LANES;                    // shifted v (cones)
-    scalar* ex = vx + NC * VS_LANES;                        // rg | zt | y+
+    char* base = reinterpret_cast<char*>(
+        (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
+    scalar* ring = reinterpret_cast<scalar*>(base);
+    scalar* vx_all = ring + K5_SLOTS * K5_SLOT;
+    scalar* join = vx_all + K5_TAILS_MAX * K5_VX;
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + K5_BAR_OFF);
+    mbar_t* ready = full + K5_SLOTS;
+    mbar_t* empty = ready + K5_SLOTS;
 
-    const int tid = threadIdx.x;
-    const int lane = tid % VS_LANES;
-    const int grp = tid / VS_LANES;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
     const size_t Bs = (size_t)Bt;
-    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const size_t b0 = (size_t)blockIdx.x * K5_W;
+    const size_t b = b0 + lane;
     const bool valid = b < Bs;
-
-    const scalar alpha = (scalar)alpha_d;
-    const scalar oma = (scalar)(1.0 - alpha_d);
-    const scalar amo = (scalar)(alpha_d - 1.0);
-    const scalar sigma = (scalar)sigma_d;
-    const scalar asig = (scalar)(alpha_d * sigma_d);
-    const scalar rho_b = valid ? rho[b] : (scalar)1;
     // This scenario's rung: where its M and K lie in a slot.
     const int r_ix = (NRUNG > 1 && valid) ? rung[b] : 0;
-    // The packed MK of one rung: one copy a stage fills both.
-    const bool packed = NRUNG == 1 && K == M + NX * NX && k_stride == m_stride;
-    const int oM = K5_M + r_ix * NX * NX;
-    const int oK = K5_K + r_ix * NU * NX;
 
-    auto prefetch = [&](int k) {
-        if (k < N) {
-            const size_t ks = (size_t)k;
-            scalar* S = ring + (k % VS_SLOTS) * K5_SLOT_WORDS;
-            if (packed) {            // [M; K] is one run, as the slot holds it
-                copy_matrix(S + K5_M, M + ks * m_stride, NZ * NX);
-            } else {
-                copy_matrix(S + K5_M, M + ks * m_stride, NRUNG * NX * NX);
-                copy_matrix(S + K5_K, K + ks * k_stride, NRUNG * NU * NX);
-            }
-            copy_matrix(S + K5_HS, Hs + ks * HS_WORDS, HS_WORDS);
-            copy_matrix(S + K5_D, D + ks * NC * NZ, NC * NZ);
-            copy_matrix(S + K5_BND, bnd + ks * NB * NC, NB * NC);
-            if (EMIT_HF) copy_matrix(S + K5_H, h + ks * NZ, NZ);
-            if (valid) {
-                copy_rows<NZ>(S + K5_VEC, dv + ks * NZ * Bs + b, Bs, lane, grp);
-                copy_rows<NW>(S + K5_VEC + NZ * VS_LANES,
-                              wzy + ks * NW * Bs + b, Bs, lane, grp);
-            }
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < K5_SLOTS; ++s) {
+            mbar_init(&full[s], 33);             // the producer's lanes, and
+                                                 // lane 0's box bytes
+            mbar_init(&ready[s], 32);            // the chain's
+            mbar_init(&empty[s], 32);            // the stage's tail warp's
         }
-        __pipeline_commit();
-    };
-
-#pragma unroll
-    for (int r = 0; r < VS_RX; ++r) {
-        const int i = grp * VS_RX + r;
-        if (i < NX) xs[i * VS_LANES + lane] = valid ? x0[i * Bs + b] : (scalar)0;
     }
-    for (int k = 0; k < VS_PF; ++k) prefetch(k);
-    // Running maxima of this thread's rows: r_prim, r_dual, prim / dual scale.
-    scalar rp = (scalar)0, rd = (scalar)0, ps = (scalar)0, ds = (scalar)0;
+    __syncthreads();
 
-    for (int k = 0; k < N; ++k) {
-        const size_t ks = (size_t)k;
-        const scalar* S = ring + (k % VS_SLOTS) * K5_SLOT_WORDS;
-        const scalar* sM = S + oM;                   // M[i][t] at i*NX + t
-        const scalar* sK = S + oK;                   // K[j][t] at j*NX + t
-        const scalar* sHs = S + K5_HS;
-        const scalar* sD = S + K5_D;                 // D[c][e] at c*NZ + e
-        const scalar* sbnd = S + K5_BND;             // lb | ub | m [| shift]
-        const scalar* sh = S + K5_H;
-        const scalar* dvv = S + K5_VEC;              // d rows, then v rows
-        const scalar* wv = dvv + NZ * VS_LANES;      // w rows, z rows, y rows
-        __pipeline_wait_prior(VS_PF - 1);    // stage k landed (my copies)
-        __syncthreads();                     // ... everyone's, and x_k
-
-        const scalar* xin = xs + (k & 1) * NX * VS_LANES;
-        scalar* xout = xs + ((k + 1) & 1) * NX * VS_LANES;
-        scalar x[NX], w_t[NZ], w_new[NZ], dw[NZ];
-#pragma unroll
-        for (int t = 0; t < NX; ++t) x[t] = xin[t * VS_LANES + lane];
-#pragma unroll
-        for (int j = 0; j < NU; ++j) {
-            scalar acc = dvv[j * VS_LANES + lane];
-#pragma unroll
-            for (int t = 0; t < NX; ++t) acc += sK[j * NX + t] * x[t];
-            w_t[j] = acc;
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) w_t[NU + i] = x[i];
-#pragma unroll
-        for (int e = 0; e < NZ; ++e) {
-            const scalar w = wv[e * VS_LANES + lane];
-            w_new[e] = alpha * w_t[e] + oma * w;
-            dw[e] = w - w_t[e];
-        }
-        // Own rows of the rollout: x+ = M x + v.
-#pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) {
-                scalar acc = dvv[(NU + i) * VS_LANES + lane];
-#pragma unroll
-                for (int t = 0; t < NX; ++t) acc += sM[i * NX + t] * x[t];
-                xout[i * VS_LANES + lane] = acc;
+    if (warp == 0) {
+        // ---- producer: stage k into slot k % K5_SLOTS, once the tail of
+        // stage k - K5_SLOTS has let go of it.
+        constexpr size_t VW = 16 / sizeof(scalar);
+        const bool vec = Bs % VW == 0 && b0 + K5_W <= Bs
+            && (((size_t)dv | (size_t)wzy) & 15) == 0;
+        K5_PROF_INIT
+#pragma unroll 1
+        for (int k = 0; k < N; ++k) {
+            const int s = k % K5_SLOTS;
+            if (k >= K5_SLOTS) mbar_wait(&empty[s], (k / K5_SLOTS - 1) & 1);
+            K5_MARK(0);
+            const size_t ks = (size_t)k;
+            scalar* S = ring + s * K5_SLOT;
+            warp_copy_run(S + K5_M, M + ks * m_stride, NRUNG * NX * NX, lane);
+            warp_copy_run(S + K5_K, K + ks * k_stride, NRUNG * NU * NX, lane);
+            warp_copy_run(S + K5_HS, Hs + ks * HS_WORDS, HS_WORDS, lane);
+            warp_copy_run(S + K5_D, D + ks * NC * NZ, NC * NZ, lane);
+            warp_copy_run(S + K5_BND, bnd + ks * NB * NC, NB * NC, lane);
+            if (EMIT_HF) warp_copy_run(S + K5_H, h + ks * NZ, NZ, lane);
+            if (tma) {
+                // The scenarios' rows as two boxes of the copy engine.
+                if (lane == 0) {
+                    mbar_arrive_expect_tx(
+                        &full[s], (NZ + NW) * K5_W * (int)sizeof(scalar));
+                    tma_box(S + K5_DV, &dv_map, (int)b0, k * NZ, &full[s]);
+                    tma_box(S + K5_WZY, &wzy_map, (int)b0, k * NW, &full[s]);
+                }
+            } else {
+                warp_copy_rows<K5_W>(S + K5_DV, dv + ks * NZ * Bs, NZ, Bs, b0,
+                                     vec, lane);
+                warp_copy_rows<K5_W>(S + K5_WZY, wzy + ks * NW * Bs, NW, Bs,
+                                     b0, vec, lane);
+                if (lane == 0) mbar_arrive(&full[s]);
             }
+            mbar_arrive_on_copies(&full[s]);
+            K5_MARK(1);
         }
-
-        // Own constraint rows, up to the value to project.
-        scalar zt[VS_RC], zo[VS_RC], yo[VS_RC], vv[VS_RC], relax[VS_RC],
-            Dwn[VS_RC], rho_m[VS_RC];
+        K5_PROF_DONE(0, 2, 1, 1)
+    } else if (warp == 1) {
+        // ---- chain: x+ = M x + v, x_k left in the slot for the tail.
+        scalar x[NX];
 #pragma unroll
-        for (int r = 0; r < VS_RC; ++r) {
-            const int ci = grp * VS_RC + r;
-            if (ci < NC) {
-                scalar a = (scalar)0, an = (scalar)0;
+        for (int i = 0; i < NX; ++i) x[i] = valid ? x0[i * Bs + b] : (scalar)0;
+        K5_PROF_INIT
+#pragma unroll 1
+        for (int k = 0; k < N; ++k) {
+            const int s = k % K5_SLOTS;
+            mbar_wait(&full[s], (k / K5_SLOTS) & 1);
+            K5_MARK(2);
+            scalar* S = ring + s * K5_SLOT;
+            const scalar* sM = S + K5_M + r_ix * NX * NX;   // M[i][t] at i*NX + t
+            const scalar* vv = S + K5_DV + NU * K5_W + lane;
+            scalar xn[NX];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
+                scalar row[NX];
+                ld_row<NX, K5_VR>(row, sM + i * NX);
+                scalar acc = vv[i * K5_W];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += row[t] * x[t];
+                xn[i] = acc;
+            }
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
+                S[K5_X + i * K5_W + lane] = x[i];
+                x[i] = xn[i];
+            }
+            mbar_arrive(&ready[s]);
+            K5_MARK(3);
+        }
+        if (valid) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i) xN[i * Bs + b] = x[i];
+        }
+        K5_PROF_DONE(2, 4, 1, 1)
+    } else {
+        // ---- tail warp t: stages t, t + K5_TAILS, ...
+        const int t = warp - 2;
+        const scalar alpha = (scalar)alpha_d;
+        const scalar oma = (scalar)(1.0 - alpha_d);
+        const scalar amo = (scalar)(alpha_d - 1.0);
+        const scalar sigma = (scalar)sigma_d;
+        const scalar asig = (scalar)(alpha_d * sigma_d);
+        const scalar rho_b = valid ? rho[b] : (scalar)1;
+        scalar* vx = vx_all + t * K5_VX + lane;     // row ci at vx[ci * K5_W]
+        // Running maxima of this lane's stages: r_prim, r_dual, prim /
+        // dual scale.
+        scalar rp = (scalar)0, rd = (scalar)0, ps = (scalar)0, ds = (scalar)0;
+        K5_PROF_INIT
+#pragma unroll 1
+        for (int k = t; k < N; k += K5_TAILS) {
+            const int s = k % K5_SLOTS;
+            mbar_wait(&ready[s], (k / K5_SLOTS) & 1);
+            K5_MARK(4);
+            const size_t ks = (size_t)k;
+            const scalar* S = ring + s * K5_SLOT;
+            const scalar* sK = S + K5_K + r_ix * NU * NX;   // K[j][t] at j*NX + t
+            const scalar* sHs = S + K5_HS;
+            const scalar* sD = S + K5_D;                 // D[c][e] at c*NZ + e
+            const scalar* sbnd = S + K5_BND;             // lb | ub | m [| shift]
+            const scalar* sh = S + K5_H;
+            const scalar* xv = S + K5_X + lane;
+            const scalar* dvv = S + K5_DV + lane;        // d rows, then v rows
+            const scalar* wv = S + K5_WZY + lane;        // w rows, z rows, y rows
+
+            scalar w_t[NZ], w_new[NZ];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) w_t[NU + i] = xv[i * K5_W];
+#pragma unroll
+            for (int j = 0; j < NU; ++j) {
+                scalar row[NX];
+                ld_row<NX, K5_VR>(row, sK + j * NX);
+                scalar acc = dvv[j * K5_W];
+#pragma unroll
+                for (int q = 0; q < NX; ++q) acc += row[q] * w_t[NU + q];
+                w_t[j] = acc;
+            }
+#pragma unroll
+            for (int e = 0; e < NZ; ++e)
+                w_new[e] = alpha * w_t[e] + oma * wv[e * K5_W];
+            // A cone's rows: the shifted values to project, all of them
+            // before any row is projected.
+#pragma unroll
+            for (int ci = 0; ci < NC; ++ci) {
+                if (NCONES > 0 && in_cone(ci)) {
+                    scalar zt = (scalar)0;
+#pragma unroll
+                    for (int e = 0; e < NZ; ++e) zt += sD[ci * NZ + e] * w_t[e];
+                    const scalar m = sbnd[2 * NC + ci];
+                    scalar relax;
+                    const scalar v = value_to_project(
+                        zt, wv[(NZ + ci) * K5_W], wv[(NZ + NC + ci) * K5_W], m,
+                        rho_b * m, alpha, oma, relax);
+                    vx[ci * K5_W] = v + (HAS_SHIFT ? sbnd[3 * NC + ci] : (scalar)0);
+                }
+            }
+            K5_MARK(5);
+
+            // Constraint rows: projection, dual update, their stores, and
+            // their terms of hf+ and of the dual residual (D^T products as
+            // sums over the rows, c = 0 .. nc-1).
+            scalar hfn[NZ], dT[NZ], dty[NZ];
+#pragma unroll
+            for (int e = 0; e < NZ; ++e) {
+                hfn[e] = EMIT_HF ? sh[e] - sigma * w_new[e] : (scalar)0;
+                dT[e] = (scalar)0;
+                dty[e] = (scalar)0;
+            }
+            // The row loop stays rolled: unrolled, the tail's code outgrew
+            // the instruction cache that its warps, at different rows,
+            // share (a stage took 4x its issue time on an H100).
+#pragma unroll 1
+            for (int ci = 0; ci < NC; ++ci) {
+                scalar Dr[NZ];
+                ld_row<NZ, K5_VD>(Dr, sD + ci * NZ);
+                scalar zt = (scalar)0, Dwn = (scalar)0;
 #pragma unroll
                 for (int e = 0; e < NZ; ++e) {
-                    a += sD[ci * NZ + e] * w_t[e];
-                    an += sD[ci * NZ + e] * w_new[e];
+                    zt += Dr[e] * w_t[e];
+                    Dwn += Dr[e] * w_new[e];
                 }
-                zt[r] = a;
-                Dwn[r] = an;
-                zo[r] = wv[(NZ + ci) * VS_LANES + lane];
-                yo[r] = wv[(NZ + NC + ci) * VS_LANES + lane];
+                const scalar zo = wv[(NZ + ci) * K5_W];
+                const scalar yo = wv[(NZ + NC + ci) * K5_W];
                 const scalar m = sbnd[2 * NC + ci];
-                rho_m[r] = rho_b * m;
-                vv[r] = value_to_project(zt[r], zo[r], yo[r], m, rho_m[r],
-                                         alpha, oma, relax[r]);
-                if (NCONES > 0)
-                    vx[ci * VS_LANES + lane] =
-                        vv[r] + (HAS_SHIFT ? sbnd[3 * NC + ci] : (scalar)0);
-            }
-        }
-        if (NCONES > 0) __syncthreads();
-
-        // Projection, dual update, stores, and this row's exchange terms.
-#pragma unroll
-        for (int r = 0; r < VS_RC; ++r) {
-            const int ci = grp * VS_RC + r;
-            if (ci < NC) {
-                const scalar m = sbnd[2 * NC + ci];
+                const scalar rho_m = rho_b * m;
+                scalar relax;
+                const scalar v = value_to_project(zt, zo, yo, m, rho_m, alpha,
+                                                  oma, relax);
                 const scalar zp = project_row(
-                    vx + lane, VS_LANES, ci, vv[r], sbnd[ci], sbnd[NC + ci],
+                    vx, K5_W, ci, v, sbnd[ci], sbnd[NC + ci],
                     HAS_SHIFT ? sbnd[3 * NC + ci] : (scalar)0);
                 const scalar z_new = zp * (m > (scalar)0 ? (scalar)1 : (scalar)0);
-                const scalar y_new = yo[r] + rho_m[r] * (relax[r] - z_new);
+                const scalar y_new = yo + rho_m * (relax - z_new);
                 if (valid) {
                     wzy_new[(ks * NW + NZ + ci) * Bs + b] = z_new;
                     wzy_new[(ks * NW + NZ + NC + ci) * Bs + b] = y_new;
                 }
-                if (EMIT_HF) ex[ci * VS_LANES + lane] = rho_m[r] * z_new - y_new;
-                ex[(NC + ci) * VS_LANES + lane] =
-                    rho_m[r] * (amo * (zt[r] - zo[r]) + (zo[r] - z_new));
-                ex[(2 * NC + ci) * VS_LANES + lane] = y_new;
-                rp = fmax(rp, fabs(Dwn[r] - z_new));
-                ps = fmax(ps, fmax(fabs(Dwn[r]), fabs(z_new)));
+                rp = fmax(rp, fabs(Dwn - z_new));
+                ps = fmax(ps, fmax(fabs(Dwn), fabs(z_new)));
+                const scalar rg = rho_m * z_new - y_new;
+                const scalar ztt = rho_m * (amo * (zt - zo) + (zo - z_new));
+#pragma unroll
+                for (int e = 0; e < NZ; ++e) {
+                    if (EMIT_HF) hfn[e] -= rg * Dr[e];
+                    dT[e] += ztt * Dr[e];
+                    dty[e] += y_new * Dr[e];
+                }
             }
-        }
-        __syncthreads();
+            K5_MARK(6);
 
-        // Own rows of w: w+, the next iteration's hf, the dual residual.
+            // Rows of w: w+, the next iteration's hf, the dual residual.
 #pragma unroll
-        for (int r = 0; r < VS_RZ; ++r) {
-            const int e = grp * VS_RZ + r;
-            if (e < NZ) {
-                const scalar wo = wv[e * VS_LANES + lane];
-                scalar wt_e;
-                if (e < NU) {
-                    wt_e = dvv[e * VS_LANES + lane];
-#pragma unroll
-                    for (int t = 0; t < NX; ++t) wt_e += sK[e * NX + t] * x[t];
-                } else {
-                    wt_e = xin[(e - NU) * VS_LANES + lane];
-                }
-                const scalar wn_e = alpha * wt_e + oma * wo;
-                const scalar dw_e = wo - wt_e;
-                scalar hfn = EMIT_HF ? sh[e] - sigma * wn_e : (scalar)0;
-                scalar dT = (scalar)0, dty = (scalar)0;
-#pragma unroll
-                for (int ci = 0; ci < NC; ++ci) {
-                    const scalar Dce = sD[ci * NZ + e];
-                    if (EMIT_HF) hfn -= ex[ci * VS_LANES + lane] * Dce;
-                    dT += ex[(NC + ci) * VS_LANES + lane] * Dce;
-                    dty += ex[(2 * NC + ci) * VS_LANES + lane] * Dce;
-                }
+            for (int e = 0; e < NZ; ++e) {
+                const scalar dw_e = wv[e * K5_W] - w_t[e];
                 scalar Hdw, Hwn;
                 if (DIAG_COST) {
                     Hdw = sHs[e] * dw_e;
-                    Hwn = sHs[e] * wn_e;
+                    Hwn = sHs[e] * w_new[e];
                 } else {
                     Hdw = (scalar)0;
                     Hwn = (scalar)0;
 #pragma unroll
                     for (int f = 0; f < NZ; ++f) {
-                        Hdw += sHs[e * NZ + f] * dw[f];
+                        Hdw += sHs[e * NZ + f] * (wv[f * K5_W] - w_t[f]);
                         Hwn += sHs[e * NZ + f] * w_new[f];
                     }
                 }
-                dual_row(Hdw, Hwn, dT, dty, dw_e, wn_e, oma, asig, sigma, rd, ds);
+                dual_row(Hdw, Hwn, dT[e], dty[e], dw_e, w_new[e], oma, asig,
+                         sigma, rd, ds);
                 if (valid) {
-                    wzy_new[(ks * NW + e) * Bs + b] = wn_e;
-                    if (EMIT_HF) hf_new[(ks * NZ + e) * Bs + b] = hfn;
+                    wzy_new[(ks * NW + e) * Bs + b] = w_new[e];
+                    if (EMIT_HF) hf_new[(ks * NZ + e) * Bs + b] = hfn[e];
                 }
             }
+            mbar_arrive(&empty[s]);
+            K5_MARK(7);
         }
-        prefetch(k + VS_PF);
+        join[(t * 4 + 0) * K5_W + lane] = rp;
+        join[(t * 4 + 1) * K5_W + lane] = rd;
+        join[(t * 4 + 2) * K5_W + lane] = ps;
+        join[(t * 4 + 3) * K5_W + lane] = ds;
+        if (t == 0) {
+            K5_PROF_DONE(4, 8, N, (N + K5_TAILS - 1) / K5_TAILS)
+        }
     }
-    __pipeline_wait_prior(0);
+    // The tail warps join their maxima.
     __syncthreads();
-    const scalar* xfin = xs + (N & 1) * NX * VS_LANES;
+    if (warp == 0 && valid) {
 #pragma unroll
-    for (int r = 0; r < VS_RX; ++r) {
-        const int i = grp * VS_RX + r;
-        if (i < NX && valid) xN[i * Bs + b] = xfin[i * VS_LANES + lane];
-    }
-    // The threads of a scenario join their maxima.
-    ex[(grp * 4 + 0) * VS_LANES + lane] = rp;
-    ex[(grp * 4 + 1) * VS_LANES + lane] = rd;
-    ex[(grp * 4 + 2) * VS_LANES + lane] = ps;
-    ex[(grp * 4 + 3) * VS_LANES + lane] = ds;
-    __syncthreads();
-    for (int q = grp; q < 4; q += VS_GROUPS) {
-        scalar m = ex[q * VS_LANES + lane];
-        for (int g = 1; g < VS_GROUPS; ++g)
-            m = fmax(m, ex[(g * 4 + q) * VS_LANES + lane]);
-        if (valid) res[q * Bs + b] = m;
+        for (int q = 0; q < 4; ++q) {
+            scalar m = join[q * K5_W + lane];
+            for (int u = 1; u < K5_TAILS; ++u)
+                m = fmax(m, join[(u * 4 + q) * K5_W + lane]);
+            res[q * Bs + b] = m;
+        }
     }
 }
 
@@ -1900,6 +2024,12 @@ int admm_bwd_vec(int N, int Bt, double sigma, int pc_mode, void* stream,
     return (int)cudaGetLastError();
 }
 #elif !defined(ITER)  // K5
+#ifdef ADMM_PROFILE
+int admm_read_prof(long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, admm_prof, sizeof(admm_prof));
+}
+#endif
 int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
                     int k_stride, int emit_hf, void* stream,
                     const void* rho, const void* x0, const void* M,
@@ -1910,23 +2040,35 @@ int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
-    const size_t smem = K5_SMEM_WORDS * sizeof(scalar);
+    const int blocks = (Bt + K5_W - 1) / K5_W;
+    const size_t smem = K5_SMEM;
 #define ADMM_FU_ARGS                                                         \
     N, Bt, alpha, sigma, m_stride, k_stride, (const scalar*)rho,             \
         (const scalar*)x0, (const scalar*)M, (const scalar*)K,               \
         (const scalar*)Hs, (const scalar*)D, (const scalar*)bnd,             \
         (const scalar*)h, (const int*)rung, (const scalar*)dv,               \
         (const scalar*)wzy, (scalar*)wzy_new, (scalar*)hf_new, (scalar*)xN,  \
-        (scalar*)res
+        (scalar*)res, maps[0], maps[1], tma
+    // The scenarios' rows go by the copy engine where its maps can take
+    // them (the row stride a multiple of 16 bytes, aligned streams).
+    constexpr int SZ = (int)sizeof(scalar);
+    CUtensorMap maps[2] = {};
+    const int tma = (size_t)Bt * SZ % 16 == 0
+        && (((size_t)dv | (size_t)wzy) & 15) == 0;
+    if (tma) {
+        int e = make_rows_map(&maps[0], dv, (size_t)N * NZ, Bt, NZ, K5_W, SZ);
+        if (e) return e;
+        e = make_rows_map(&maps[1], wzy, (size_t)N * NW, Bt, NW, K5_W, SZ);
+        if (e) return e;
+    }
     if (emit_hf) {
         int e = set_smem(fwd_update_kernel<true>, smem);
         if (e) return e;
-        fwd_update_kernel<true><<<blocks, VS_THREADS, smem, st>>>(ADMM_FU_ARGS);
+        fwd_update_kernel<true><<<blocks, K5_THREADS, smem, st>>>(ADMM_FU_ARGS);
     } else {
         int e = set_smem(fwd_update_kernel<false>, smem);
         if (e) return e;
-        fwd_update_kernel<false><<<blocks, VS_THREADS, smem, st>>>(ADMM_FU_ARGS);
+        fwd_update_kernel<false><<<blocks, K5_THREADS, smem, st>>>(ADMM_FU_ARGS);
     }
 #undef ADMM_FU_ARGS
     return (int)cudaGetLastError();

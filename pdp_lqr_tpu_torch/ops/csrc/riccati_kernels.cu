@@ -43,17 +43,19 @@
 #endif
 
 #include "lanes_common.cuh"
+#include "hopper_sync.cuh"
 
 namespace {
 
-// Diagnostic build (-DRICCATI_PROFILE): thread 0 of block 0 sums the SM
-// cycles it spends in each marked section of a stage; riccati_read_prof
+// Diagnostic build (-DRICCATI_PROFILE): thread 0 of block 0 (or lane 0 of
+// a role's warp in block 0) sums the SM cycles it spends in each marked
+// section of a stage; riccati_read_prof
 // copies the sums out: a view inside a kernel for where the vendor's
 // profilers cannot run.
 #ifdef RICCATI_PROFILE
 __device__ long long riccati_prof[8];
-#define PROF_INIT                                                            \
-    const bool prof_on = (threadIdx.x == 0 && blockIdx.x == 0);             \
+#define PROF_INIT_AT(cond)                                                   \
+    const bool prof_on = (cond);                                             \
     long long prof_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};                        \
     long long prof_t = clock64();
 #define PROF_MARK(i)                                                         \
@@ -62,14 +64,20 @@ __device__ long long riccati_prof[8];
         prof_acc[i] += t_ - prof_t;                                          \
         prof_t = t_;                                                         \
     } while (0)
-#define PROF_DONE                                                            \
+// Sections lo .. hi-1 out, scaled by mul / div (a tail warp's sums: per
+// stage it took, where the others' are per stage of the sweep).
+#define PROF_DONE_SCALED(lo, hi, mul, div)                                   \
     if (prof_on)                                                             \
-        for (int i_ = 0; i_ < 8; ++i_) riccati_prof[i_] = prof_acc[i_];
+        for (int i_ = lo; i_ < hi; ++i_)                                     \
+            riccati_prof[i_] = prof_acc[i_] * (mul) / (div);
 #else
-#define PROF_INIT
+#define PROF_INIT_AT(cond)
 #define PROF_MARK(i)
-#define PROF_DONE
+#define PROF_DONE_SCALED(lo, hi, mul, div)
 #endif
+#define PROF_INIT PROF_INIT_AT(threadIdx.x == 0 && blockIdx.x == 0)
+#define PROF_DONE_RANGE(lo, hi) PROF_DONE_SCALED(lo, hi, 1, 1)
+#define PROF_DONE PROF_DONE_RANGE(0, 8)
 
 #ifdef NC
 // ------------------------------------------------------- K1, K9, K11
@@ -935,130 +943,16 @@ int launch_backward(const BackwardArgs& a)
 }
 
 #else  // !NC
-// ------------------------------------------- K2 / K3, per-instance mode
-// One matrix set per scenario (every tensor has trailing size Bt).  K2
-// (and K10) give a scenario one thread: the carry and the stage
-// temporaries live in registers, and every stream, matrices included, is
-// batch-last, so a warp reads and writes whole lines.  PC_MODE: the P
-// argument holds the pre-folded Pc = P_{k+1} c_k.  These are kernels of
-// their own, not the shared-model ones below with another stride: there a
-// block stages ONE matrix set per stage in shared memory for all its
-// scenarios, and 32 sets a stage would not fit.  K3 stages the sets of 8
-// scenarios a block (see there).
+// ------------------------------------------ K2, K3, K10, per-instance mode
+// One matrix set per scenario (every tensor has trailing size Bt).  These
+// are kernels of their own, not the shared-model ones below with another
+// stride: there a block stages ONE matrix set per stage in shared memory
+// for all its scenarios.  K10 gives a (segment, scenario) one thread: the
+// carries and the stage temporaries live in registers, and every stream,
+// matrices included, is batch-last, so a warp reads and writes whole
+// lines.  K3 and K2 stage the sets of 8 scenarios a block (see there).
 
-constexpr int PI_THREADS = 64;               // scenarios per block
-
-template <bool PC_MODE>
-__global__ void backward_vectors_kernel(
-    int N, int Bt,
-    const scalar* __restrict__ A, const scalar* __restrict__ B,
-    const scalar* __restrict__ c, const scalar* __restrict__ hf,
-    const scalar* __restrict__ P, const scalar* __restrict__ K,
-    const scalar* __restrict__ L, const scalar* __restrict__ pN,
-    scalar* __restrict__ d_out, scalar* __restrict__ v_out)
-{
-    const size_t b = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= (size_t)Bt) return;
-    const size_t Bs = (size_t)Bt;
-    const size_t mb = Bs;                  // matrix trailing size
-    const size_t mo = b;                   // this thread's matrix lane
-
-    scalar p[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) p[i] = pN[i * Bs + b];
-
-    for (int k = N - 1; k >= 0; --k) {
-        const size_t ks = (size_t)k;
-        const scalar* Ak = A + ks * NX * NX * mb + mo;
-        const scalar* Bk = B + ks * NX * NU * mb + mo;
-        const scalar* Kk = K + ks * NU * NX * mb + mo;
-        const scalar* Lk = L + ks * NU * NU * mb + mo;
-
-        scalar cv[NX], Pcp[NX], rbar[NU], hx[NX], dv[NU], inv[NU];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) cv[i] = c[(ks * NX + i) * Bs + b];
-#pragma unroll
-        for (int i = 0; i < NU; ++i) rbar[i] = hf[(ks * NZ + i) * Bs + b];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) hx[i] = hf[(ks * NZ + NU + i) * Bs + b];
-
-        if (PC_MODE) {
-#pragma unroll
-            for (int i = 0; i < NX; ++i)
-                Pcp[i] = P[(ks * NX + i) * Bs + b] + p[i];
-        } else {
-            const scalar* Pk = P + ks * NX * NX * mb + mo;
-#pragma unroll
-            for (int i = 0; i < NX; ++i) {
-                scalar acc = __ldg(Pk + (i * NX) * mb) * cv[0];
-#pragma unroll
-                for (int t = 1; t < NX; ++t)
-                    acc += __ldg(Pk + (i * NX + t) * mb) * cv[t];
-                Pcp[i] = acc + p[i];
-            }
-        }
-
-        // rbar = hf_u + B^T Pcp
-#pragma unroll
-        for (int t = 0; t < NX; ++t) {
-#pragma unroll
-            for (int i = 0; i < NU; ++i)
-                rbar[i] += __ldg(Bk + (t * NU + i) * mb) * Pcp[t];
-        }
-
-        // d = -(L L^T)^{-1} rbar
-#pragma unroll
-        for (int i = 0; i < NU; ++i)
-            inv[i] = (scalar)1 / __ldg(Lk + (i * NU + i) * mb);
-#pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            scalar acc = rbar[i];
-#pragma unroll
-            for (int t = 0; t < i; ++t)
-                acc -= __ldg(Lk + (i * NU + t) * mb) * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = NU - 1; i >= 0; --i) {
-            scalar acc = dv[i];
-#pragma unroll
-            for (int t = i + 1; t < NU; ++t)
-                acc -= __ldg(Lk + (t * NU + i) * mb) * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            dv[i] = -dv[i];
-            d_out[(ks * NU + i) * Bs + b] = dv[i];
-        }
-
-        // v = B d + c
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-            scalar acc = cv[i];
-#pragma unroll
-            for (int t = 0; t < NU; ++t)
-                acc += __ldg(Bk + (i * NU + t) * mb) * dv[t];
-            v_out[(ks * NX + i) * Bs + b] = acc;
-        }
-
-        // p = hf_x + A^T Pcp + K^T rbar
-#pragma unroll
-        for (int t = 0; t < NX; ++t) {
-#pragma unroll
-            for (int i = 0; i < NX; ++i)
-                hx[i] += __ldg(Ak + (t * NX + i) * mb) * Pcp[t];
-        }
-#pragma unroll
-        for (int t = 0; t < NU; ++t) {
-#pragma unroll
-            for (int i = 0; i < NX; ++i)
-                hx[i] += __ldg(Kk + (t * NX + i) * mb) * rbar[t];
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) p[i] = hx[i];
-    }
-}
+constexpr int PI_THREADS = 64;               // K10: threads per block
 
 // ---- K10, the cached-factor vector sweep of the segment reduction (K9's
 // export_factors outputs P_{k+1}, K, chol(Huu), F_{k+1} per stage): K2's
@@ -1232,31 +1126,31 @@ constexpr int K3I_SLOT = (K3I_D + NU) * K3I_WS;           // words
 constexpr int K3I_SMEM_WORDS = K3I_SLOTS * K3I_SLOT + 2 * NX * K3I_WS;
 
 // n entries of a stage block (entry e of scenario b at src[e*Bt + b]),
-// source rows of C entries padded to CP in the slot, for the block's
-// scenarios b0.. : 16-byte copies when `vec` (the block's scenarios lie
-// whole and aligned in every row), else one word a copy.
-template <int C, int CP>
+// source rows of C entries padded to CP in the slot, for the block's WS
+// scenarios b0.. over NT threads: 16-byte copies when `vec` (the block's
+// scenarios lie whole and aligned in every row), else one word a copy.
+template <int C, int CP, int WS = K3I_WS, int NT = K3I_THREADS>
 __device__ __forceinline__ void k3_stage(scalar* dst, const scalar* src,
                                          int n, size_t Bt, size_t b0,
                                          bool vec, int tid)
 {
     if (vec) {
         constexpr int CH = 16 / (int)sizeof(scalar);      // words a copy
-        constexpr int NCH = K3I_WS / CH;
+        constexpr int NCH = WS / CH;
 #pragma unroll 1
-        for (int q = tid; q < n * NCH; q += K3I_THREADS) {
+        for (int q = tid; q < n * NCH; q += NT) {
             const int e = q / NCH, hh = q % NCH;
             const int de = (e / C) * CP + e % C;
-            __pipeline_memcpy_async(dst + de * K3I_WS + hh * CH,
+            __pipeline_memcpy_async(dst + de * WS + hh * CH,
                                     src + e * Bt + b0 + hh * CH, 16);
         }
     } else {
 #pragma unroll 1
-        for (int q = tid; q < n * K3I_WS; q += K3I_THREADS) {
-            const int e = q / K3I_WS, j = q % K3I_WS;
+        for (int q = tid; q < n * WS; q += NT) {
+            const int e = q / WS, j = q % WS;
             const size_t b = b0 + j < Bt ? b0 + j : Bt - 1;
             const int de = (e / C) * CP + e % C;
-            copy_word(dst + de * K3I_WS + j, src + e * Bt + b);
+            copy_word(dst + de * WS + j, src + e * Bt + b);
         }
     }
 }
@@ -1363,13 +1257,257 @@ forward_kernel(
     }
 }
 
+// ---- K2, per instance (plain-P or Pc mode).  Backwards from p = pN:
+//   Pcp  = P_{k+1} c + p (Pc + p)   rbar = hf[:nu] + B^T Pcp
+//   d    = -(L L^T)^{-1} rbar        v    = B d + c
+//   p    = hf[nu:] + A^T Pcp + K^T rbar                    (the carry)
+//
+// What bounds it on this card is bytes: 428 words a scenario and stage in
+// (A, B, K, L, P, c, hf; quadrotor widths, plain-P mode), 16 out.  A
+// thread a scenario that loads its own stage (the first design) waits out
+// device-memory latency on every entry of the chain, and a batch of 1,024
+// is 16 blocks on 16 SMs.  Here a block serves K2I_WS consecutive
+// scenarios with warps in roles:
+//   * K2I_PW producer warps copy each stage of the block's scenarios
+//     into a ring of K2I_SLOTS shared-memory slots (cp.async: consecutive
+//     lanes on consecutive scenarios of one entry, 16 bytes a copy where
+//     the batch and the pointers allow, a word otherwise; K3's slot
+//     layout, the rows of P and B that a lane reads by rows padded to an
+//     odd length so that a scenario's lanes read on distinct banks);
+//   * one warp computes: K2I_G lanes a scenario, each owning a block of
+//     K2I_RX rows of p.  The chain a stage is only Pcp = Pc + p (its rows
+//     gathered by __shfl_sync within the scenario's lanes), rbar and p;
+//     P_{k+1} c_k of the next stage is formed ahead of it and d, v and
+//     their stores behind it, where they fill the chain's latency.
+// A shared-memory barrier a slot (`full`: the producer's copies landed;
+// `empty`: the compute warp is done with it) hands the stages on.  A
+// scenario past the batch reads the last one's data and stores nothing.
+constexpr int K2I_G = 4;                      // lanes a scenario
+constexpr int K2I_WS = 32 / K2I_G;            // scenarios a block
+// Producer warps: two copy a stage in 0.57 ms at B=1024 against 0.82 for
+// one; three and four were no faster (an H100, PERF.md).
+constexpr int K2I_PW = 2;
+constexpr int K2I_THREADS = 32 * (K2I_PW + 1);
+constexpr int K2I_RX = (NX + K2I_G - 1) / K2I_G;   // rows of p a lane
+constexpr int K2I_SLOTS = 4;                  // stages in flight + 1
+constexpr int K2I_XP = NX | 1;                // a slot's row of P
+constexpr int K2I_UP = NU | 1;                // a slot's row of B
+// Slot (entries, each a row of K2I_WS words): A, B, K, L, then P (plain-P
+// mode) or Pc, c, hf.
+template <bool PC_MODE> struct K2ILayout {
+    static constexpr int A = 0;
+    static constexpr int B = A + NX * NX;
+    static constexpr int K = B + NX * K2I_UP;
+    static constexpr int L = K + NU * NX;
+    static constexpr int P = L + NU * NU;
+    static constexpr int C = P + (PC_MODE ? NX : NX * K2I_XP);
+    static constexpr int HF = C + NX;
+    static constexpr int SLOT = (HF + NZ) * K2I_WS;             // words
+    static constexpr int SMEM = K2I_SLOTS * SLOT * (int)sizeof(scalar)
+        + 2 * 8 * K2I_SLOTS;                                     // bytes
+};
+
+template <bool PC_MODE>
+__global__ void __launch_bounds__(K2I_THREADS)
+backward_vectors_kernel(
+    int N, int Bt,
+    const scalar* __restrict__ A, const scalar* __restrict__ B,
+    const scalar* __restrict__ c, const scalar* __restrict__ hf,
+    const scalar* __restrict__ P, const scalar* __restrict__ K,
+    const scalar* __restrict__ L, const scalar* __restrict__ pN,
+    scalar* __restrict__ d_out, scalar* __restrict__ v_out)
+{
+    using Lay = K2ILayout<PC_MODE>;
+    extern __shared__ double smem_aligned[];
+    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    mbar_t* full = reinterpret_cast<mbar_t*>(ring + K2I_SLOTS * Lay::SLOT);
+    mbar_t* empty = full + K2I_SLOTS;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const size_t Bs = (size_t)Bt;
+    const size_t b0 = (size_t)blockIdx.x * K2I_WS;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < K2I_SLOTS; ++s) {
+            mbar_init(&full[s], 32 * K2I_PW);    // the producers' lanes
+            mbar_init(&empty[s], 32);            // the compute warp's
+        }
+    }
+    __syncthreads();
+
+    // Stage n of the sweep is model stage k = N-1-n, in slot n % K2I_SLOTS.
+    if (warp < K2I_PW) {
+        const int tp = threadIdx.x;              // thread of the producers
+        constexpr size_t CH = 16 / sizeof(scalar);
+        const bool vec = Bs % CH == 0 && b0 + K2I_WS <= Bs
+            && (((size_t)A | (size_t)B | (size_t)c | (size_t)hf | (size_t)P
+                 | (size_t)K | (size_t)L) & 15) == 0;
+        PROF_INIT_AT(blockIdx.x == 0 && tp == 0)
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % K2I_SLOTS;
+            if (n >= K2I_SLOTS) mbar_wait(&empty[s], (n / K2I_SLOTS - 1) & 1);
+            PROF_MARK(4);
+            const size_t ks = (size_t)(N - 1 - n);
+            scalar* S = ring + s * Lay::SLOT;
+            constexpr int WS = K2I_WS, NT = 32 * K2I_PW;
+            k3_stage<NX, NX, WS, NT>(S + Lay::A * WS, A + ks * NX * NX * Bs,
+                                     NX * NX, Bs, b0, vec, tp);
+            k3_stage<NU, K2I_UP, WS, NT>(S + Lay::B * WS,
+                                         B + ks * NX * NU * Bs, NX * NU, Bs,
+                                         b0, vec, tp);
+            k3_stage<NX, NX, WS, NT>(S + Lay::K * WS, K + ks * NU * NX * Bs,
+                                     NU * NX, Bs, b0, vec, tp);
+            k3_stage<NU, NU, WS, NT>(S + Lay::L * WS, L + ks * NU * NU * Bs,
+                                     NU * NU, Bs, b0, vec, tp);
+            if (PC_MODE)
+                k3_stage<NX, NX, WS, NT>(S + Lay::P * WS, P + ks * NX * Bs,
+                                         NX, Bs, b0, vec, tp);
+            else
+                k3_stage<NX, K2I_XP, WS, NT>(S + Lay::P * WS,
+                                             P + ks * NX * NX * Bs, NX * NX,
+                                             Bs, b0, vec, tp);
+            k3_stage<NX, NX, WS, NT>(S + Lay::C * WS, c + ks * NX * Bs, NX,
+                                     Bs, b0, vec, tp);
+            k3_stage<NZ, NZ, WS, NT>(S + Lay::HF * WS, hf + ks * NZ * Bs, NZ,
+                                     Bs, b0, vec, tp);
+            mbar_arrive_on_copies(&full[s]);
+            PROF_MARK(5);
+        }
+        PROF_DONE_RANGE(4, 6)
+        return;
+    }
+
+    const int j = lane / K2I_G;                  // scenario in the block
+    const int g = lane % K2I_G;                  // lane of the scenario
+    const size_t b = b0 + j;
+    const bool valid = b < Bs;
+    const size_t bc = valid ? b : Bs - 1;
+    // Entry e of this scenario in slot S.
+    auto at = [&](const scalar* S, int e) { return S[e * K2I_WS + j]; };
+    // This lane's rows i = g*K2I_RX + r of Pc, for the stage in slot S.
+    auto fold = [&](const scalar* S, scalar (&out)[K2I_RX]) {
+#pragma unroll
+        for (int r = 0; r < K2I_RX; ++r) {
+            const int i = g * K2I_RX + r;
+            if (i < NX) {
+                if (PC_MODE) {
+                    out[r] = at(S, Lay::P + i);
+                } else {
+                    scalar acc = at(S, Lay::P + i * K2I_XP) * at(S, Lay::C);
+#pragma unroll
+                    for (int t = 1; t < NX; ++t)
+                        acc += at(S, Lay::P + i * K2I_XP + t) * at(S, Lay::C + t);
+                    out[r] = acc;
+                }
+            }
+        }
+    };
+
+    scalar p[K2I_RX], pc[K2I_RX];
+#pragma unroll
+    for (int r = 0; r < K2I_RX; ++r) {
+        const int i = g * K2I_RX + r;
+        p[r] = i < NX ? pN[i * Bs + bc] : (scalar)0;
+        pc[r] = (scalar)0;
+    }
+    mbar_wait(&full[0], 0);
+    fold(ring, pc);
+    PROF_INIT_AT(blockIdx.x == 0 && threadIdx.x == 32 * K2I_PW)
+#pragma unroll 1
+    for (int n = 0; n < N; ++n) {
+        const size_t ks = (size_t)(N - 1 - n);
+        const int s = n % K2I_SLOTS;
+        const scalar* S = ring + s * Lay::SLOT;
+        const scalar* S1 = ring + ((n + 1) % K2I_SLOTS) * Lay::SLOT;
+        if (n + 1 < N) mbar_wait(&full[(n + 1) % K2I_SLOTS],
+                                 ((n + 1) / K2I_SLOTS) & 1);
+        PROF_MARK(0);
+
+        // The chain: Pcp (gathered over the scenario's lanes), rbar, p.
+        scalar own[K2I_RX], x[NX], rbar[NU];
+#pragma unroll
+        for (int r = 0; r < K2I_RX; ++r) own[r] = pc[r] + p[r];
+#pragma unroll
+        for (int r = 0; r < K2I_RX; ++r) {
+#pragma unroll
+            for (int q = 0; q < K2I_G; ++q) {
+                const int t = q * K2I_RX + r;
+                const scalar y = __shfl_sync(0xffffffffu, own[r], q, K2I_G);
+                if (t < NX) x[t] = y;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+            scalar acc = at(S, Lay::HF + u);
+#pragma unroll
+            for (int t = 0; t < NX; ++t)
+                acc += at(S, Lay::B + t * K2I_UP + u) * x[t];
+            rbar[u] = acc;
+        }
+#pragma unroll
+        for (int r = 0; r < K2I_RX; ++r) {
+            const int i = g * K2I_RX + r;
+            if (i < NX) {
+                scalar acc = at(S, Lay::HF + NU + i);
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += at(S, Lay::A + t * NX + i) * x[t];
+#pragma unroll
+                for (int u = 0; u < NU; ++u) acc += at(S, Lay::K + u * NX + i) * rbar[u];
+                p[r] = acc;
+            }
+        }
+        PROF_MARK(1);
+        // Ahead of the chain: the next stage's Pc.
+        if (n + 1 < N) fold(S1, pc);
+        PROF_MARK(2);
+
+        // Behind it: d = -(L L^T)^{-1} rbar (every lane), v on own rows.
+        scalar dv[NU], inv[NU];
+#pragma unroll
+        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / at(S, Lay::L + i * NU + i);
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+            scalar acc = rbar[i];
+#pragma unroll
+            for (int t = 0; t < i; ++t) acc -= at(S, Lay::L + i * NU + t) * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = NU - 1; i >= 0; --i) {
+            scalar acc = dv[i];
+#pragma unroll
+            for (int t = i + 1; t < NU; ++t) acc -= at(S, Lay::L + t * NU + i) * dv[t];
+            dv[i] = acc * inv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+            dv[i] = -dv[i];
+            if (i % K2I_G == g && valid) d_out[(ks * NU + i) * Bs + b] = dv[i];
+        }
+#pragma unroll
+        for (int r = 0; r < K2I_RX; ++r) {
+            const int i = g * K2I_RX + r;
+            if (i < NX) {
+                scalar acc = at(S, Lay::C + i);
+#pragma unroll
+                for (int t = 0; t < NU; ++t) acc += at(S, Lay::B + i * K2I_UP + t) * dv[t];
+                if (valid) v_out[(ks * NX + i) * Bs + b] = acc;
+            }
+        }
+        mbar_arrive(&empty[s]);
+        PROF_MARK(3);
+    }
+    PROF_DONE_RANGE(0, 4)
+}
+
 // --------------------------------------------- K2 / K3, shared-model mode
 // One model, Bt scenarios: the matrices carry trailing size 1.  What
 // bounds both kernels on this card is bytes (the per-scenario streams),
 // but what a plain one-thread-per-scenario loop runs into first is
 // latency: a serving batch of a few thousand scenarios is a few thousand
 // threads, one warp per SM, and every stage waits for its own loads.
-// The design here:
+// K3's design (K7 takes its geometry):
 //   * a block serves 32 scenarios with 4 threads each (4 warps): a thread
 //     owns a quarter of the rows of the per-scenario state, so the dot
 //     products of a stage are split four ways and exchanged through
@@ -1382,27 +1520,49 @@ forward_kernel(
 //     copies its own scenario's entry of every VS_GROUPS-th vector row;
 //   * the matrices lie in the slot so that each thread's reads are
 //     contiguous rows at one address per warp (a broadcast).
+// K2 splits its stage between warps in roles instead (below).
 
-// ---- K2.  The wrapper packs each stage's matrices into one run, laid out
-// for the reads below: A^T [i][t], B^T [j][t], B [i][t], K^T [i][t],
-// L [i][t], then (plain-P mode) P [i][j].
+// ---- K2, shared model.  The wrapper packs each stage's matrices into one
+// run, laid out for the reads below: A^T [i][t], B^T [j][t], B [i][t],
+// K^T [i][t], L [i][t], then (plain-P mode) P [i][j].
+//
+// The carry p needs only Pcp, rbar and p; d, v and their stores hang off
+// it.  So the warps take roles on 32 scenarios a block (a lane each), as
+// K5 does (admm_kernels.cu): warp 0, the producer, copies the pack (16
+// bytes a copy where it allows) and the scenarios' rows (whole lines)
+// into a ring of K2S_SLOTS slots; warp 1, the chain, carries p in
+// registers (no exchange: a lane holds its scenario's whole stage), reads
+// A^T, B^T and K^T as broadcasts and leaves rbar in the slot; the
+// K2S_TAILS tail warps take whole stages behind it, solve d, form v and
+// store both (a warp's store is one line).  Shared-memory barriers hand
+// the slots on (full, ready, empty: hopper_sync.cuh); no block-wide
+// barrier a stage.
 constexpr int K2_AT = 0;
 constexpr int K2_BT = K2_AT + NX * NX;
 constexpr int K2_B = K2_BT + NU * NX;
 constexpr int K2_KT = K2_B + NX * NU;
 constexpr int K2_L = K2_KT + NX * NU;
 constexpr int K2_P = K2_L + NU * NU;
-template <bool PC_MODE> struct K2Layout {
+constexpr int K2S_W = 32;                     // scenarios a block, a lane each
+constexpr int K2S_TAILS = 2;                  // tail warps
+constexpr int K2S_THREADS = 32 * (2 + K2S_TAILS);
+constexpr int K2S_SLOTS = K2S_TAILS + 4;      // >= K2S_TAILS: see K5's note
+                                              // (admm_kernels.cu)
+template <bool PC_MODE> struct K2SLayout {
     static constexpr int PACK = K2_P + (PC_MODE ? 0 : NX * NX);
-    // Per-scenario rows after the pack: c, hf, then (Pc mode) Pc.
-    static constexpr int VEC_ROWS = NX + NZ + (PC_MODE ? NX : 0);
-    static constexpr int SLOT_WORDS = PACK + VEC_ROWS * VS_LANES;
-    static constexpr int SMEM_WORDS =
-        VS_SLOTS * SLOT_WORDS + 2 * NX * VS_LANES;
+    // Slot (words): the pack (from a 16-byte boundary), then rows of K2S_W
+    // words: c, hf, (Pc mode) Pc, and the chain's rbar.
+    static constexpr int C = (PACK + 3) / 4 * 4;
+    static constexpr int HF = C + NX * K2S_W;
+    static constexpr int PC = HF + NZ * K2S_W;
+    static constexpr int RB = PC + (PC_MODE ? NX * K2S_W : 0);
+    static constexpr int SLOT = RB + NU * K2S_W;
+    static constexpr int SMEM = K2S_SLOTS * SLOT * (int)sizeof(scalar)
+        + 3 * 8 * K2S_SLOTS;                                     // bytes
 };
 
 template <bool PC_MODE>
-__global__ void __launch_bounds__(VS_THREADS)
+__global__ void __launch_bounds__(K2S_THREADS)
 backward_vectors_shared_kernel(
     int N, int Bt,
     const scalar* __restrict__ pack, const scalar* __restrict__ c,
@@ -1410,148 +1570,161 @@ backward_vectors_shared_kernel(
     const scalar* __restrict__ pN,
     scalar* __restrict__ d_out, scalar* __restrict__ v_out)
 {
-    using Lay = K2Layout<PC_MODE>;
+    using Lay = K2SLayout<PC_MODE>;
     extern __shared__ double smem_aligned[];
     scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
-    scalar* xs = ring + VS_SLOTS * Lay::SLOT_WORDS;          // Pcp exchange, x2
+    mbar_t* full = reinterpret_cast<mbar_t*>(ring + K2S_SLOTS * Lay::SLOT);
+    mbar_t* ready = full + K2S_SLOTS;
+    mbar_t* empty = ready + K2S_SLOTS;
 
-    const int tid = threadIdx.x;
-    const int lane = tid % VS_LANES;
-    const int grp = tid / VS_LANES;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
     const size_t Bs = (size_t)Bt;
-    const size_t b0 = (size_t)blockIdx.x * VS_LANES;
+    const size_t b0 = (size_t)blockIdx.x * K2S_W;
     const size_t b = b0 + lane;
     const bool valid = b < Bs;
 
-    // Stage n of the sweep is model stage k = N-1-n.  One copy group per
-    // call (empty past the end), so groups and stages stay in step.
-    auto prefetch = [&](int n) {
-        if (n < N) {
-            const size_t ks = (size_t)(N - 1 - n);
-            scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
-            scalar* V = S + Lay::PACK;
-            copy_matrix(S, pack + ks * Lay::PACK, Lay::PACK);
-            if (valid) {
-                copy_rows<NX>(V, c + ks * NX * Bs + b, Bs, lane, grp);
-                copy_rows<NZ>(V + NX * VS_LANES, hf + ks * NZ * Bs + b, Bs,
-                              lane, grp);
-                if (PC_MODE)
-                    copy_rows<NX>(V + (NX + NZ) * VS_LANES,
-                                  Pc + ks * NX * Bs + b, Bs, lane, grp);
-            }
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < K2S_SLOTS; ++s) {
+            mbar_init(&full[s], 32);             // the producer's lanes
+            mbar_init(&ready[s], 32);            // the chain's
+            mbar_init(&empty[s], 32);            // the stage's tail warp's
         }
-        __pipeline_commit();
-    };
+    }
+    __syncthreads();
 
-    // Pcp rows this thread owns, for the stage held in slot S.
-    scalar p[VS_RX];
-    auto put_Pcp = [&](const scalar* S, scalar* dst) {
-        const scalar* cv = S + Lay::PACK;
+    // Stage n of the sweep is model stage k = N-1-n, in slot n % K2S_SLOTS.
+    if (warp == 0) {
+        constexpr size_t VW = 16 / sizeof(scalar);
+        const bool vec = Bs % VW == 0 && b0 + K2S_W <= Bs
+            && (((size_t)c | (size_t)hf | (size_t)Pc) & 15) == 0;
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % K2S_SLOTS;
+            if (n >= K2S_SLOTS) mbar_wait(&empty[s], (n / K2S_SLOTS - 1) & 1);
+            PROF_MARK(0);
+            const size_t ks = (size_t)(N - 1 - n);
+            scalar* S = ring + s * Lay::SLOT;
+            warp_copy_run(S, pack + ks * Lay::PACK, Lay::PACK, lane);
+            warp_copy_rows<K2S_W>(S + Lay::C, c + ks * NX * Bs, NX, Bs, b0,
+                                  vec, lane);
+            warp_copy_rows<K2S_W>(S + Lay::HF, hf + ks * NZ * Bs, NZ, Bs, b0,
+                                  vec, lane);
+            if (PC_MODE)
+                warp_copy_rows<K2S_W>(S + Lay::PC, Pc + ks * NX * Bs, NX, Bs,
+                                      b0, vec, lane);
+            mbar_arrive_on_copies(&full[s]);
+            PROF_MARK(1);
+        }
+        PROF_DONE_RANGE(0, 2)
+    } else if (warp == 1) {
+        // ---- chain: p, rbar left in the slot.
+        const size_t bc = valid ? b : Bs - 1;
+        scalar p[NX];
 #pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) {
+        for (int i = 0; i < NX; ++i) p[i] = pN[i * Bs + bc];
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % K2S_SLOTS;
+            mbar_wait(&full[s], (n / K2S_SLOTS) & 1);
+            PROF_MARK(2);
+            scalar* S = ring + s * Lay::SLOT;
+            const scalar* cv = S + Lay::C + lane;
+            const scalar* hv = S + Lay::HF + lane;
+            // Rows of the pack read 16 bytes a load where the widths allow.
+            constexpr int VW = 16 / (int)sizeof(scalar);
+            constexpr bool VR = NX % VW == 0 && NU % VW == 0;
+            scalar Pcp[NX], rbar[NU];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
                 scalar acc;
                 if (PC_MODE) {
-                    acc = cv[(NX + NZ + i) * VS_LANES + lane];
+                    acc = S[Lay::PC + i * K2S_W + lane];
                 } else {
+                    scalar row[NX];
+                    ld_row<NX, VR>(row, S + K2_P + i * NX);
                     acc = (scalar)0;
 #pragma unroll
-                    for (int t = 0; t < NX; ++t)
-                        acc += S[K2_P + i * NX + t] * cv[t * VS_LANES + lane];
+                    for (int t = 0; t < NX; ++t) acc += row[t] * cv[t * K2S_W];
                 }
-                dst[i * VS_LANES + lane] = acc + p[r];
+                Pcp[i] = acc + p[i];
             }
+#pragma unroll
+            for (int u = 0; u < NU; ++u) {
+                scalar row[NX];
+                ld_row<NX, VR>(row, S + K2_BT + u * NX);
+                scalar acc = hv[u * K2S_W];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += row[t] * Pcp[t];
+                rbar[u] = acc;
+            }
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
+                scalar ra[NX], rk[NU];
+                ld_row<NX, VR>(ra, S + K2_AT + i * NX);
+                ld_row<NU, VR>(rk, S + K2_KT + i * NU);
+                scalar acc = hv[(NU + i) * K2S_W];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) acc += ra[t] * Pcp[t];
+#pragma unroll
+                for (int u = 0; u < NU; ++u) acc += rk[u] * rbar[u];
+                p[i] = acc;
+            }
+            // rbar into the slot last: a store there before the loads of
+            // the p rows would hold them behind it (they might alias).
+#pragma unroll
+            for (int u = 0; u < NU; ++u) S[Lay::RB + u * K2S_W + lane] = rbar[u];
+            mbar_arrive(&ready[s]);
+            PROF_MARK(3);
         }
-    };
-
+        PROF_DONE_RANGE(2, 4)
+    } else {
+        // ---- tail warp t: stages t, t + K2S_TAILS, ...: d and v.
+        const int t = warp - 2;
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0 && t == 0)
+#pragma unroll 1
+        for (int n = t; n < N; n += K2S_TAILS) {
+            const int s = n % K2S_SLOTS;
+            mbar_wait(&ready[s], (n / K2S_SLOTS) & 1);
+            PROF_MARK(4);
+            const size_t ks = (size_t)(N - 1 - n);
+            const scalar* S = ring + s * Lay::SLOT;
+            scalar dv[NU], inv[NU];
 #pragma unroll
-    for (int r = 0; r < VS_RX; ++r) {
-        const int i = grp * VS_RX + r;
-        p[r] = (valid && i < NX) ? pN[i * Bs + b] : (scalar)0;
-    }
-    for (int n = 0; n < VS_PF; ++n) prefetch(n);
-    __pipeline_wait_prior(VS_PF - 1);        // stage 0 landed (my copies)
-    __syncthreads();                         // ... and everyone's
-    put_Pcp(ring, xs);
-    PROF_INIT
-
-    for (int n = 0; n < N; ++n) {
-        const size_t ks = (size_t)(N - 1 - n);
-        const scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
-        const scalar* cv = S + Lay::PACK;
-        const scalar* hv = cv + NX * VS_LANES;
-        // Stage n+1 has landed too (it is read at the end of this stage),
-        // and the barrier publishes it and this stage's Pcp.
-        __pipeline_wait_prior(VS_PF - 2);
-        PROF_MARK(0);
-        __syncthreads();
-        PROF_MARK(1);
-
-        scalar Pcp[NX], rbar[NU], dv[NU], inv[NU];
-        const scalar* xin = xs + (n & 1) * NX * VS_LANES;
+            for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / S[K2_L + i * NU + i];
 #pragma unroll
-        for (int t = 0; t < NX; ++t) Pcp[t] = xin[t * VS_LANES + lane];
-
-        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar (every thread: the
-        // whole of both is needed by each of the four).
+            for (int i = 0; i < NU; ++i) {
+                scalar acc = S[Lay::RB + i * K2S_W + lane];
 #pragma unroll
-        for (int j = 0; j < NU; ++j) {
-            scalar acc = hv[j * VS_LANES + lane];
+                for (int q = 0; q < i; ++q) acc -= S[K2_L + i * NU + q] * dv[q];
+                dv[i] = acc * inv[i];
+            }
 #pragma unroll
-            for (int t = 0; t < NX; ++t) acc += S[K2_BT + j * NX + t] * Pcp[t];
-            rbar[j] = acc;
-        }
+            for (int i = NU - 1; i >= 0; --i) {
+                scalar acc = dv[i];
 #pragma unroll
-        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / S[K2_L + i * NU + i];
+                for (int q = i + 1; q < NU; ++q) acc -= S[K2_L + q * NU + i] * dv[q];
+                dv[i] = acc * inv[i];
+            }
 #pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            scalar acc = rbar[i];
+            for (int i = 0; i < NU; ++i) {
+                dv[i] = -dv[i];
+                if (valid) d_out[(ks * NU + i) * Bs + b] = dv[i];
+            }
 #pragma unroll
-            for (int t = 0; t < i; ++t) acc -= S[K2_L + i * NU + t] * dv[t];
-            dv[i] = acc * inv[i];
-        }
+            for (int i = 0; i < NX; ++i) {
+                scalar vv = S[Lay::C + i * K2S_W + lane];
 #pragma unroll
-        for (int i = NU - 1; i >= 0; --i) {
-            scalar acc = dv[i];
-#pragma unroll
-            for (int t = i + 1; t < NU; ++t) acc -= S[K2_L + t * NU + i] * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) dv[i] = -dv[i];
-
-#pragma unroll
-        for (int j = 0; j < NU; ++j)     // each input row stored by one group
-            if (j / VS_RU == grp && valid) d_out[(ks * NU + j) * Bs + b] = dv[j];
-        PROF_MARK(2);
-        // Own rows: v = B d + c ; p = hf_x + A^T Pcp + K^T rbar.
-#pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) {
-                scalar vv = cv[i * VS_LANES + lane];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) vv += S[K2_B + i * NU + t] * dv[t];
+                for (int q = 0; q < NU; ++q) vv += S[K2_B + i * NU + q] * dv[q];
                 if (valid) v_out[(ks * NX + i) * Bs + b] = vv;
-                scalar acc = hv[(NU + i) * VS_LANES + lane];
-#pragma unroll
-                for (int t = 0; t < NX; ++t) acc += S[K2_AT + i * NX + t] * Pcp[t];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) acc += S[K2_KT + i * NU + t] * rbar[t];
-                p[r] = acc;
             }
+            mbar_arrive(&empty[s]);
+            PROF_MARK(5);
         }
-        PROF_MARK(3);
-        if (n + 1 < N)
-            put_Pcp(ring + ((n + 1) % VS_SLOTS) * Lay::SLOT_WORDS,
-                    xs + ((n + 1) & 1) * NX * VS_LANES);
-        PROF_MARK(4);
-        prefetch(n + VS_PF);
-        PROF_MARK(5);
+        PROF_DONE_SCALED(4, 6, N, (N + K2S_TAILS - 1) / K2S_TAILS)
     }
-    __pipeline_wait_prior(0);
-    PROF_DONE
 }
 
 // ---- K3 slot layout (words): [K; M] row-major, then d and v rows.
@@ -1897,15 +2070,22 @@ int riccati_backward_vectors(int N, int Bt, int pc_mode, void* stream,
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + PI_THREADS - 1) / PI_THREADS;
+    const int blocks = (Bt + K2I_WS - 1) / K2I_WS;
 #define RICCATI_BV_ARGS                                                      \
     N, Bt, (const scalar*)A, (const scalar*)B, (const scalar*)c,             \
         (const scalar*)hf, (const scalar*)P, (const scalar*)K,               \
         (const scalar*)L, (const scalar*)pN, (scalar*)d, (scalar*)v
-    if (pc_mode)
-        backward_vectors_kernel<true><<<blocks, PI_THREADS, 0, st>>>(RICCATI_BV_ARGS);
-    else
-        backward_vectors_kernel<false><<<blocks, PI_THREADS, 0, st>>>(RICCATI_BV_ARGS);
+    if (pc_mode) {
+        const size_t smem = K2ILayout<true>::SMEM;
+        int e = set_smem(backward_vectors_kernel<true>, smem);
+        if (e) return e;
+        backward_vectors_kernel<true><<<blocks, K2I_THREADS, smem, st>>>(RICCATI_BV_ARGS);
+    } else {
+        const size_t smem = K2ILayout<false>::SMEM;
+        int e = set_smem(backward_vectors_kernel<false>, smem);
+        if (e) return e;
+        backward_vectors_kernel<false><<<blocks, K2I_THREADS, smem, st>>>(RICCATI_BV_ARGS);
+    }
 #undef RICCATI_BV_ARGS
     return (int)cudaGetLastError();
 }
@@ -1919,20 +2099,20 @@ int riccati_backward_vectors_shared(int N, int Bt, int pc_mode, void* stream,
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+    const int blocks = (Bt + K2S_W - 1) / K2S_W;
 #define RICCATI_BV_ARGS                                                      \
     N, Bt, (const scalar*)pack, (const scalar*)c, (const scalar*)hf,   \
         (const scalar*)Pc, (const scalar*)pN, (scalar*)d, (scalar*)v
     if (pc_mode) {
-        const size_t smem = K2Layout<true>::SMEM_WORDS * sizeof(scalar);
+        const size_t smem = K2SLayout<true>::SMEM;
         int e = set_smem(backward_vectors_shared_kernel<true>, smem);
         if (e) return e;
-        backward_vectors_shared_kernel<true><<<blocks, VS_THREADS, smem, st>>>(RICCATI_BV_ARGS);
+        backward_vectors_shared_kernel<true><<<blocks, K2S_THREADS, smem, st>>>(RICCATI_BV_ARGS);
     } else {
-        const size_t smem = K2Layout<false>::SMEM_WORDS * sizeof(scalar);
+        const size_t smem = K2SLayout<false>::SMEM;
         int e = set_smem(backward_vectors_shared_kernel<false>, smem);
         if (e) return e;
-        backward_vectors_shared_kernel<false><<<blocks, VS_THREADS, smem, st>>>(RICCATI_BV_ARGS);
+        backward_vectors_shared_kernel<false><<<blocks, K2S_THREADS, smem, st>>>(RICCATI_BV_ARGS);
     }
 #undef RICCATI_BV_ARGS
     return (int)cudaGetLastError();

@@ -481,10 +481,12 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
     res rows [r_prim, r_dual, prim_scale, dual_scale] maxima over the
     stages; the caller folds the terminal stage.
 
-    On the card: a block serves 32 scenarios with 8 threads each, every
-    stage's inputs (all R rungs of M and K) ride a shared-memory ring; a
-    thread reads its scenario's rung at an offset in the slot.  See the
-    kernel source.
+    On the card: a block serves 32 scenarios, a lane each, with warps in
+    roles: a producer copies every stage's inputs (all R rungs of M and K)
+    into a shared-memory ring, a chain warp runs x+ = M x + v, and tail
+    warps take whole stages behind it (the projection, the dual update,
+    the stores and the maxima); a lane reads its scenario's rung at an
+    offset in the slot.  See the kernel source.
     """
     cones = tuple(cones)
     nx = M.shape[2]

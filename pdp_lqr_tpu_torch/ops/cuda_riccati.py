@@ -410,9 +410,12 @@ def backward_vectors_lanes(A, B, c, hf, P, K, L, pN, *, shared=False,
     pre-folded per-scenario ``P_{k+1} c_k`` and ``P`` is then not read
     (it may be None).
 
-    On the card: shared mode gives a scenario four threads and stages
-    each stage's inputs through shared memory; per-instance mode is one
-    thread per scenario, the carry in registers.  See the notes in the
+    On the card the warps of a block take roles: a producer warp copies
+    the stages into a ring of shared-memory slots, and the carry's chain
+    runs apart from d, v and their stores.  Shared mode: 32 scenarios a
+    block, a lane each; a chain warp carries p and tail warps form d and
+    v behind it.  Per-instance mode: 8 scenarios a block, 4 lanes each in
+    one compute warp that gathers Pcp by shuffles.  See the notes in the
     kernel source.
     """
     N, nx = A.shape[0], A.shape[1]

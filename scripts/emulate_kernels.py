@@ -8,16 +8,20 @@ layout and the order of its barriers can still be rehearsed without one:
 this script rewrites ``ops/csrc/riccati_kernels.cu`` and
 ``ops/csrc/admm_kernels.cu`` into host C++ (each
 ``<<<grid, block, smem, stream>>>`` launch becomes a loop over blocks that
-starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``,
-``cp.async`` a ``memcpy``), builds it with ``g++ -std=c++20`` into
-``build/emulate/``, loads it through the wrappers' own ``ctypes`` bindings
-and holds every kernel and mode against its plain PyTorch version at small
-sizes (K1-K12, every form of K5 and of K8, K9 in both forms, K3 in
-segments; K8, per-instance K3 and the matrix sweep K1 / K9 / K11 across
-several blocks with a ragged last one).  It proves nothing about what ``nvcc`` accepts, about races between
+starts one OS thread per CUDA thread, ``__syncthreads`` a ``std::barrier``
+of the block and ``__syncwarp`` and ``__shfl_sync`` one of the warp,
+``cp.async`` a ``memcpy``, the shared-memory barrier objects of
+``hopper_sync.cuh`` an atomic word with their phases and transaction
+counts, a box of the copy engine a strided copy), builds it with
+``g++ -std=c++20`` into ``build/emulate/``, loads it through the wrappers'
+own ``ctypes`` bindings and holds every kernel and mode against its plain
+PyTorch version at small sizes (K1-K12, every form of K5 and of K8, K9 in
+both forms, K3 in segments; K8, per-instance K3, both forms of K2 and the
+matrix sweep K1 / K9 / K11 across several blocks with a ragged last one;
+K2 and K5 past their rings' slots).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
-on them.  About two minutes (some thirty small g++ builds); ``--quick`` runs
+on them.  About three minutes (some thirty small g++ builds); ``--quick`` runs
 the cases that ``tests/test_torch_emulate.py`` keeps alive.
 """
 
@@ -56,20 +60,39 @@ inline void __pipeline_wait_prior(int) {}
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 struct emu_dim3 { unsigned x, y, z; };
 static thread_local emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 static thread_local std::barrier<>* emu_bar;
+static thread_local std::barrier<>* emu_warp_bar;
+static thread_local unsigned long long* emu_shfl;
 static thread_local double* emu_smem;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __grid_constant__
 #define __syncthreads() emu_bar->arrive_and_wait()
-// A warp's barrier: the whole block's here (stronger, and every warp of a
-// block passes the same sequence of them).
-#define __syncwarp() emu_bar->arrive_and_wait()
+// A warp's barrier: the 32 threads of the caller's warp only.
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_bar->arrive_and_wait(); }
+// A shuffle: every lane of the warp posts its value, then reads its source
+// lane's (within sections of `width` lanes).
+template <class T> T emu_shuffle(T v, unsigned src) {
+    const unsigned lane = threadIdx.x % 32;
+    std::memcpy(&emu_shfl[lane], &v, sizeof(T));
+    emu_warp_bar->arrive_and_wait();
+    T r;
+    std::memcpy(&r, &emu_shfl[src % 32], sizeof(T));
+    emu_warp_bar->arrive_and_wait();
+    return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
+    const unsigned lane = threadIdx.x % 32;
+    return emu_shuffle(v, lane / width * width + (unsigned)src % width);
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
@@ -87,22 +110,108 @@ enum { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
 template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+// A block: one OS thread a CUDA thread, a std::barrier for the block and
+// one for each warp (threads that return drop out of both).
 template <class F>
 void emu_launch(int grid, int block, size_t smem, void*, F f) {
+    const int warps = (block + 31) / 32;
     for (int g = 0; g < grid; ++g) {
         std::vector<double> sm(smem / 8 + 2);
+        std::vector<unsigned long long> shfl(32 * warps);
         std::barrier<> bar(block);
+        std::vector<std::unique_ptr<std::barrier<>>> wbar;
+        for (int w = 0; w < warps; ++w)
+            wbar.emplace_back(new std::barrier<>(std::min(32, block - 32 * w)));
         std::vector<std::thread> th;
         for (int t = 0; t < block; ++t)
             th.emplace_back([&, t, g] {
                 threadIdx = {(unsigned)t, 0, 0}; blockIdx = {(unsigned)g, 0, 0};
                 blockDim = {(unsigned)block, 1, 1}; gridDim = {(unsigned)grid, 1, 1};
                 emu_bar = &bar; emu_smem = sm.data();
+                emu_warp_bar = wbar[t / 32].get(); emu_shfl = &shfl[t / 32 * 32];
                 f();
+                emu_warp_bar->arrive_and_drop();
                 bar.arrive_and_drop();
             });
         for (auto& x : th) x.join();
     }
+}
+""",
+    # The shared-memory barrier objects (mbarrier), with their phases: a
+    # 64-bit word in the block's shared memory holds the arrivals still
+    # missing (bits 0-15), the count a phase (16-31), the transaction
+    # count (bytes still to land by the copy engine, signed, 32-62) and the
+    # phase bit (63), updated atomically; a phase completes when no
+    # arrival and no byte is missing; a waiter sleeps until the phase of
+    # the parity it names has completed.  cp.async and the copy engine's
+    # boxes are copied at once here, so an arrival on a thread's copies is
+    # an arrival at once and a box's bytes land as it is issued (out of the
+    # tensor: zeros).
+    "hopper_sync.cuh": """#pragma once
+#include <atomic>
+#include <cstdlib>
+#include <cstring>
+typedef unsigned long long mbar_t;
+inline void mbar_init(mbar_t* bar, unsigned count) {
+    *bar = ((unsigned long long)count << 16) | count;
+}
+// `arrivals` arrivals and `tx` more expected bytes (negative: landed).
+inline void emu_mbar_update(mbar_t* bar, unsigned arrivals, long long tx) {
+    std::atomic_ref<unsigned long long> a(*bar);
+    unsigned long long old = a.load(), nw;
+    do {
+        const unsigned long long pending = old & 0xffffULL;
+        const unsigned long long count = (old >> 16) & 0xffffULL;
+        long long t = (long long)((old >> 32) & 0x7fffffffULL);
+        if (t >= (1LL << 30)) t -= 1LL << 31;
+        if (pending < arrivals) std::abort();
+        const unsigned long long p = pending - arrivals;
+        t += tx;
+        if (t <= -(1LL << 30) || t >= (1LL << 30)) std::abort();
+        const unsigned long long phase = old >> 63;
+        nw = p == 0 && t == 0
+            ? ((phase ^ 1ULL) << 63) | (count << 16) | count
+            : (phase << 63) | (((unsigned long long)t & 0x7fffffffULL) << 32)
+              | (count << 16) | p;
+    } while (!a.compare_exchange_weak(old, nw));
+    a.notify_all();
+}
+inline void mbar_arrive(mbar_t* bar) { emu_mbar_update(bar, 1, 0); }
+inline void mbar_arrive_on_copies(mbar_t* bar) { emu_mbar_update(bar, 1, 0); }
+inline void mbar_arrive_expect_tx(mbar_t* bar, unsigned bytes) {
+    emu_mbar_update(bar, 1, (long long)bytes);
+}
+inline void mbar_wait(mbar_t* bar, unsigned parity) {
+    std::atomic_ref<unsigned long long> a(*bar);
+    for (unsigned long long v = a.load(); (unsigned)(v >> 63) == parity;
+         v = a.load())
+        a.wait(v);
+}
+struct CUtensorMap {
+    const char* base; unsigned long long rows, cols;
+    unsigned box_rows, box_cols; int word;
+};
+inline int make_rows_map(CUtensorMap* map, const void* base,
+                         unsigned long long rows, unsigned long long cols,
+                         unsigned box_rows, unsigned box_cols, int word) {
+    if (((size_t)base & 15) || cols * word % 16) return 1;
+    *map = {(const char*)base, rows, cols, box_rows, box_cols, word};
+    return 0;
+}
+inline void tma_box(void* dst, const CUtensorMap* m, int col, int row,
+                    mbar_t* bar) {
+    if ((size_t)dst & 127) std::abort();
+    char* d = (char*)dst;
+    for (unsigned r = 0; r < m->box_rows; ++r)
+        for (unsigned c = 0; c < m->box_cols; ++c, d += m->word) {
+            const unsigned long long gr = row + r, gc = col + c;
+            if (gr < m->rows && gc < m->cols)
+                std::memcpy(d, m->base + (gr * m->cols + gc) * m->word, m->word);
+            else
+                std::memset(d, 0, m->word);
+        }
+    emu_mbar_update(bar, 0,
+                    -(long long)m->box_rows * m->box_cols * m->word);
 }
 """,
     "cuda_bf16.h": """#pragma once
@@ -318,12 +427,13 @@ def run_admm(dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol):
     rho, x0, MK, Hs, D, bnd, dv, wzy, h = k5_in
     lib = admm_library(dtype, nx, nu, nc, cones=cones, diag_cost=diag_cost,
                        has_shift=has_shift)
-    check(f"K5 [{tag}]",
-          ca._launch_fwd_update(lib, rho, x0, MK, None, Hs, D, bnd, dv, wzy,
-                                h, None, 1.6, 1e-6, None),
-          ca.admm_fwd_update_lanes_reference(
-              rho, x0, MK, None, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones,
-              alpha=1.6, sigma=1e-6), tol)
+    for hh in (h, None):
+        check(f"K5 [{tag} hf-emit={hh is not None}]",
+              ca._launch_fwd_update(lib, rho, x0, MK, None, Hs, D, bnd, dv,
+                                    wzy, hh, None, 1.6, 1e-6, None),
+              ca.admm_fwd_update_lanes_reference(
+                  rho, x0, MK, None, Hs, D, bnd, dv, wzy, hh, nu=nu,
+                  cones=cones, alpha=1.6, sigma=1e-6), tol)
 
 
 def run_ladder(dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol):
@@ -449,6 +559,33 @@ def run_sweep(dtype, nx, nu, nc, N, Bt, S, tol, one=False):
           [cr.backward_packed_reference(Sd, Sc, PN, pN, nu, nc)], tol)
 
 
+def run_k2(dtype, nx, nu, N, Bt, Bs, tol):
+    """K2 in both modes (plain P and Pc) across its blocks, the last one
+    ragged: per instance on ``Bt`` scenarios (8 a block) with a matrix set
+    each, and on one shared model with ``Bs`` scenarios (32 a block); N
+    past the rings' slots, so every slot's barriers go through several
+    phases."""
+    rng = np.random.default_rng(7)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} N={N}"
+    lib = library(dtype, nx, nu)
+    L = torch.tril(T(N, nu, nu, Bt) * 0.2, diagonal=-1) + torch.diag_embed(
+        1.0 + T(N, nu, Bt).abs().transpose(1, 2)).permute(0, 2, 3, 1)
+    A, B, K, P = T(N, nx, nx, Bt) * 0.3, T(N, nx, nu, Bt) * 0.5, \
+        T(N, nu, nx, Bt) * 0.3, T(N, nx, nx, Bt) * 0.3
+    for Bn, one in ((Bt, False), (Bs, True)):
+        pick = (lambda x: x[..., :1].contiguous()) if one else (lambda x: x)
+        Am, Bm, Km, Pm, Lm = (pick(x) for x in (A, B, K, P, L.contiguous()))
+        c, hf, pN = T(N, nx, Bn) * 0.1, T(N, nx + nu, Bn), T(nx, Bn)
+        Pc = torch.einsum("kijb,kjb->kib", Pm.expand(N, nx, nx, Bn), c).contiguous()
+        for pc in (False, True):
+            check(f"K2 {'shared' if one else 'per-instance'} [{tag} B={Bn} Pc={pc}]",
+                  cr._launch_backward_vectors(lib, Am, Bm, c, hf, Pc if pc else Pm,
+                                              Km, Lm, pN, one, pc, None),
+                  cr.backward_vectors_lanes_reference(
+                      Am, Bm, c, hf, Pm, Km, Lm, pN, Pc=Pc if pc else None), tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -459,11 +596,20 @@ CASES = [
     (torch.float64, 12, 4, 0, 5, 2, 70, 1e-10),
     (torch.float64, 2, 1, 1, 4, 1, 5, 1e-10),
 ]
+# (dtype, nx, nu, N, Bt, Bs, tol): K2 per instance across blocks of 8
+# scenarios, the last ragged (19: a word a copy; 20 in float32: 16-byte
+# copies in the whole blocks), and shared across blocks of 32 (69, 64),
+# N past the slots of both rings; odd widths.
+K2_CASES = [
+    (torch.float64, 12, 4, 11, 19, 69, 1e-10),
+    (torch.float32, 12, 4, 10, 20, 64, 1e-4),
+    (torch.float64, 3, 2, 9, 17, 33, 1e-10),
+]
 # (dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol): the
 # quadrotor's box rows with a diagonal and a full stage cost, its thrust
 # cone with a shift, a rotated cone and two cones on odd small shapes.
 ADMM_CASES = [
-    (torch.float64, 12, 4, 19, 6, 70, ((16, 3, "soc"),), True, True, 1e-10),
+    (torch.float64, 12, 4, 19, 21, 70, ((16, 3, "soc"),), True, True, 1e-10),
     (torch.float64, 12, 4, 16, 5, 33, (), True, False, 1e-10),
     (torch.float32, 12, 4, 16, 7, 64, (), False, False, 1e-3),
     (torch.float64, 5, 2, 7, 6, 40, ((1, 4, "rsoc"),), False, False, 1e-10),
@@ -475,7 +621,7 @@ ADMM_CASES = [
 # quadrotor's box rows on four rungs, its thrust cone with a shift on
 # three, one rung (with K6's Pc form) and an odd small shape.
 LADDER_CASES = [
-    (torch.float64, 12, 4, 16, 5, 40, 4, (), True, False, 1e-10),
+    (torch.float64, 12, 4, 16, 20, 40, 4, (), True, False, 1e-10),
     (torch.float32, 12, 4, 19, 4, 33, 3, ((16, 3, "soc"),), True, True, 1e-3),
     (torch.float64, 12, 4, 16, 4, 33, 1, (), False, False, 1e-10),
     (torch.float64, 3, 2, 6, 5, 35, 2, ((3, 3, "soc"),), False, True, 1e-10),
@@ -522,12 +668,16 @@ SWEEP_CASES = [
     (torch.float64, 12, 4, 16, 4, 5, 2, 1e-10, True),
     (torch.float32, 3, 2, 5, 4, 3, 4, 1e-4, True),
 ]
-QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:1], LADDER_CASES[:1]
+# K5 on a batch whose rows the copy engine takes (70 in float64) and on one
+# it does not (33: a word a copy).
+QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:2], LADDER_CASES[:1]
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
+K2_QUICK = K2_CASES[:1]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
-         iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES):
+         iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES,
+         k2_cases=K2_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -543,6 +693,8 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_k3(*case)
     for case in sweep_cases:
         run_sweep(*case)
+    for case in k2_cases:
+        run_k2(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
@@ -550,4 +702,4 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
     sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
-                  SWEEP_QUICK) if quick else main())
+                  SWEEP_QUICK, K2_QUICK) if quick else main())

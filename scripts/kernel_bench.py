@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time the matrix sweep (K1, K9, K11), K8 in each of its forms and
-per-instance K3 at the shapes their paths give them, on the card.
+"""Time the matrix sweep (K1, K9, K11), K8 in each of its forms,
+per-instance K3, K2 and K5 at the shapes their paths give them, on the
+card.
 
     python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
-                                    [--kernels sweep k8 k3] [--profile]
+                                    [--kernels sweep latency k8 k3 k2 k5]
+                                    [--profile]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
 once with the kernels' calls recorded, as ``chip_smoke.py`` does; the
@@ -26,8 +28,12 @@ the cached form also with bfloat16 stage data), on a batched problem at
 N=64 (B=1024: uncached, cached, cached with bfloat16) and at N=512 with
 the thrust cone and a shift (B=1024, the PDP cell's
 ``solve_fused(auto)``), and at the rocket's widths (N=48, B=512, two
-cones); K3 per instance at N=512, B=1024 in one segment and in 8.  Each
-form is held against its plain version first.  ``--root DIR`` imports
+cones); K3 per instance at N=512, B=1024 in one segment and in 8.  ``k2``
+and ``k5`` take the tensors their paths hand them (each path run once with
+the calls recorded): K2 on the shared model in both modes (``solve``,
+B=4096) and per instance (the replicated cached loop, B=1024); K5 packed
+with and without hf-emit (``solve_admm``, B=4096) and its rung form (the
+four-rung ladder).  Each form is held against its plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
 card by running this script once for each, in turns.
@@ -36,10 +42,11 @@ Prints one JSON line a form: the median time of ``--reps`` launches by CUDA
 events, the bound (the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s), the error against the plain version, and
 the registers and spills ``ptxas`` reported for the library's kernels.
-``--profile`` builds K8 with its diagnostic ``-DADMM_PROFILE`` (thread 0
-of block 0 sums the SM cycles of each section of a stage) and adds the
-cycles a stage of each section to K8's lines; that build's times and
-registers are not the kernel's own.
+``--profile`` builds K8 and K5 with their diagnostic ``-DADMM_PROFILE``
+and K2 with ``-DRICCATI_PROFILE`` (thread 0 of block 0, or lane 0 of each
+role's warp, sums the SM cycles of each section of a stage; a tail warp's
+per stage it took) and adds the cycles a stage of each section to their
+lines; that build's times and registers are not the kernel's own.
 """
 
 from __future__ import annotations
@@ -66,6 +73,20 @@ SECTIONS = ["p1_wait_barrier", "p1_prefetch", "p1_rho_terms", "p1_fold",
 
 # K9's long-horizon shapes (``latency``): N, and the batches in one segment.
 N_LAT, B_LAT = 1024, (128, 160, 256, 512)
+# K2's and K5's sections under -DRICCATI_PROFILE / -DADMM_PROFILE (lane 0
+# of each role's warp in block 0; a tail warp's per stage it took).
+K2_SECTIONS = {
+    "per-instance": ["compute: wait full", "compute: Pcp rbar p (chain)",
+                     "compute: next Pc", "compute: d v stores",
+                     "producer: wait empty", "producer: copies"],
+    "shared": ["producer: wait empty", "producer: copies",
+               "chain: wait full", "chain: Pcp rbar p",
+               "tail: wait ready", "tail: d v stores"],
+}
+K5_SECTIONS = ["producer: wait empty", "producer: copies",
+               "chain: wait full", "chain: x+", "tail: wait ready",
+               "tail: u w~ w+ cone values", "tail: constraint rows",
+               "tail: rows of w"]
 
 
 def sweep_runs(sm, dev, shared_only=False):
@@ -171,16 +192,94 @@ def latency_runs(sm, dev):
     return runs
 
 
+def k2_k5_runs(sm, dev):
+    """K2 (shared, both modes; per instance) and K5 (packed with and
+    without hf-emit; the rung form) on the tensors their paths hand them,
+    each path run once with the kernels' calls recorded: name -> (kernel
+    call, plain call, output names, bytes read, operations, profile
+    sections)."""
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
+    from pdp_lqr_tpu_torch.solvers import admm
+
+    N, NX, NU, NC, f32 = sm.N_MAIN, sm.NX, sm.NU, sm.NC, torch.float32
+    model, _ = quadrotor(N=N, constrained=True, dtype=f32, device=dev)
+    server = plt_.ScenarioServer(model, rho=sm.RHO, sigma=sm.SIGMA, device=dev)
+    rng = np.random.default_rng(sm.SEED)
+    c = torch.as_tensor(rng.normal(size=(sm.B_MAIN, N, NX)) * 0.01).to(
+        device=dev, dtype=f32)
+    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(sm.B_MAIN, NX))).to(
+        device=dev, dtype=f32)
+    runs = {}
+    with sm.recorded_calls(cr, ["backward_vectors_lanes"]) as rec:
+        server.solve(x0, c)
+    a, kw = rec["backward_vectors_lanes"]
+    flops = sm.k2_flops(N, NX, NU, sm.B_MAIN)
+    Pc = kw["Pc"]
+    runs["backward_vectors_lanes[shared,Pc]"] = (
+        lambda: cr.backward_vectors_lanes(*a, shared=True, Pc=Pc),
+        lambda: cr.backward_vectors_lanes_reference(*a, Pc=Pc), sm.K2_OUT,
+        sm.nbytes(*a[:4], Pc, *a[5:]), flops, K2_SECTIONS["shared"])
+    runs["backward_vectors_lanes[shared,P]"] = (
+        lambda: cr.backward_vectors_lanes(*a, shared=True),
+        lambda: cr.backward_vectors_lanes_reference(*a), sm.K2_OUT,
+        sm.nbytes(*a), flops + sm.N_MAIN * sm.B_MAIN * 2 * NX * NX,
+        K2_SECTIONS["shared"])
+    B = sm.B_REP
+    st = admm.ADMMSettings(**sm.REP_SETTINGS, cached_factors=True)
+    with sm.recorded_calls(cr, ["backward_vectors_lanes"]) as rec:
+        plt_.solve_fused(sm.batched(model, B, c[:B]), x0[:B], (), st,
+                         single_kernel=False)
+    r2, _ = rec["backward_vectors_lanes"]
+    runs["backward_vectors_lanes[per-instance]"] = (
+        lambda: cr.backward_vectors_lanes(*r2),
+        lambda: cr.backward_vectors_lanes_reference(*r2), sm.K2_OUT,
+        sm.nbytes(*r2), sm.k2_flops(N, NX, NU, B) + N * B * 2 * NX * NX,
+        K2_SECTIONS["per-instance"])
+    with sm.recorded_calls(ca, ["admm_fwd_update_lanes"]) as rec:
+        server.solve_admm(x0, (), admm.ADMMSettings(**sm.ADMM_SETTINGS), c=c)
+    a5, kw5 = rec["admm_fwd_update_lanes"]
+    k5_in = (a5[0], a5[1], a5[2], a5[4], a5[5], a5[6], a5[10], a5[11],
+             kw5["h"])
+    for tag, inp in (("[packed]", k5_in), ("[packed,no hf]", k5_in[:8] + (None,))):
+        runs["admm_fwd_update_lanes" + tag] = (
+            lambda inp=inp: sm.k5_call(ca, inp, ()),
+            lambda inp=inp: sm.k5_plain(ca, inp, ()),
+            sm.K5_OUT if inp[8] is not None else sm.K5_RUNG_OUT,
+            sm.nbytes(*(x for x in inp if x is not None)),
+            sm.k5_flops(N, NX, NU, NC, sm.B_MAIN, True,
+                        emit_hf=inp[8] is not None), K5_SECTIONS)
+    rung0 = torch.tensor([sm.LADDER[b % len(sm.LADDER)]
+                          for b in range(sm.B_MAIN)], dtype=torch.float64)
+    state = sm.zero_state(sm.B_MAIN, N, NC, f32, dev, rung0)
+    with sm.recorded_calls(ca, ["admm_fwd_update_lanes"]) as rec:
+        server.solve_admm(x0, (), admm.ADMMSettings(**sm.LADDER_SETTINGS),
+                          state=state, c=c)
+    l5, lkw = rec["admm_fwd_update_lanes"]
+    k5r = (l5[0], l5[1], l5[2], l5[4], l5[5], l5[6], l5[10], l5[11], None)
+    K5r, rung = l5[3], lkw["rung"]
+    runs["admm_fwd_update_lanes[rung,R=4]"] = (
+        lambda: sm.k5_call(ca, k5r, (), K=K5r, rung=rung),
+        lambda: sm.k5_plain(ca, k5r, (), K=K5r, rung=rung), sm.K5_RUNG_OUT,
+        sm.nbytes(*k5r[:8], K5r, rung),
+        sm.k5_flops(N, NX, NU, NC, sm.B_MAIN, True, emit_hf=False),
+        K5_SECTIONS)
+    torch.cuda.synchronize()
+    return runs
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
                     help="import pdp_lqr_tpu_torch from this checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", nargs="*",
-                    choices=("sweep", "latency", "k8", "k3"),
+                    choices=("sweep", "latency", "k8", "k3", "k2", "k5"),
                     default=["sweep", "k8", "k3"])
     ap.add_argument("--profile", action="store_true",
-                    help="K8's diagnostic build: cycles a stage by section")
+                    help="K8's, K2's and K5's diagnostic builds: cycles a "
+                         "stage by section")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA device", file=sys.stderr)
@@ -193,8 +292,14 @@ def main():
     from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr
     if args.profile:
         load = _build.load
-        _build.load = lambda source, defines: load(source, {
-            **defines, **({"ADMM_PROFILE": 1} if "ITER" in defines else {})})
+        def profiled(source, defines):
+            extra = {}
+            if source == ca.SOURCE and "NC" in defines and "FOLD" not in defines:
+                extra = {"ADMM_PROFILE": 1}          # K8, K5
+            elif source == cr.SOURCE and "NC" not in defines:
+                extra = {"RICCATI_PROFILE": 1}       # K2 (and K3, K7, K10)
+            return load(source, {**defines, **extra})
+        _build.load = profiled
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -216,13 +321,22 @@ def main():
                                      ROCKET + (False,)) * ("k8" in args.kernels):
         jobs.append((ca.SOURCE, ca.kernel_defines(
             f32, nx, nu, nc, cones=cones, has_shift=shift, single=True)))
+    if "k5" in args.kernels:
+        jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, diag_cost=True,
+                                               rungs=R)) for R in (1, 4)]
+        jobs.append((ca.SOURCE, ca.kernel_defines(f32, NX, NU)))     # K4
+        jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, fold=True,
+                                               rungs=4))]            # K6
+    if "k2" in args.kernels or "k5" in args.kernels:
+        jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))   # K1
     paths = _build.build_many(jobs)
     regs = {}
     for job, p in zip(jobs, paths):
         regs.update(sm.registers_by_kernel(
             [(job[1], _build.build_logs.get(p, ""))]))
     regs = {k: v for k, v in regs.items()
-            if k.startswith(("iter_kernel", "forward_kernel", "backward_kernel"))}
+            if k.startswith(("iter_kernel", "forward_kernel", "backward_kernel",
+                             "backward_vectors", "fwd_update_kernel"))}
     print(json.dumps({"ptxas": regs}), flush=True)
 
     def report(name, call, plain, names, moved, flops, extra=lambda: {}):
@@ -298,6 +412,34 @@ def main():
                (lambda: sections(N, nx, nu, nc, cones, shift)) if args.profile
                else (lambda: {}))
         del a, factors
+
+    def read_sections(lib, entry, names, N):
+        out = (ctypes.c_longlong * 8)()
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p]
+        sm.require(fn(out) == 0, entry)
+        return {"cycles_per_stage": {k: v / N for k, v in zip(names, out)}}
+
+    if "k2" in args.kernels or "k5" in args.kernels:
+        runs = k2_k5_runs(sm, dev)
+        for name, (call, plain, names, moved, flops, sec) in runs.items():
+            k5 = name.startswith("admm_fwd_update_lanes")
+            if ("k5" if k5 else "k2") not in args.kernels:
+                continue
+            if args.profile:
+                call()
+                torch.cuda.synchronize()
+                lib = ca._library(f32, NX, NU, NC, diag_cost=True,
+                                  rungs=4 if "rung" in name else 1) if k5 \
+                    else cr._library(f32, NX, NU)
+                entry = "admm_read_prof" if k5 else "riccati_read_prof"
+                extra = (lambda lib=lib, entry=entry, sec=sec:
+                         read_sections(lib, entry, sec, sm.N_MAIN))
+            else:
+                extra = lambda: {}
+            report(name, lambda call=call: tuple(call()),
+                   lambda plain=plain: tuple(plain()), names, moved, flops, extra)
+        del runs
 
     if "k3" not in args.kernels:
         return 0

@@ -40,8 +40,10 @@ SECTIONS = {
     "backward_lanes": ["wait+barrier", "stores", "copies",
                        "A: Dr and [P;F][A c B]", "B: fold and B^T[PA Pcp PB]",
                        "C: chol and solves", "D: P+ p+ C", "D: M v F f"],
-    "backward_vectors_lanes": ["wait", "barrier", "rbar_solve_d", "own_rows_v_p",
-                               "next_Pcp", "prefetch"],
+    # K2 shared: lane 0 of each role's warp (the tail's per stage it took).
+    "backward_vectors_lanes": ["producer: wait empty", "producer: copies",
+                               "chain: wait full", "chain: Pcp rbar p",
+                               "tail: wait ready", "tail: d v stores"],
     "forward_lanes": ["wait", "barrier", "compute", "prefetch"],
 }
 

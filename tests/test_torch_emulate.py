@@ -3,8 +3,9 @@
 ``scripts/emulate_kernels.py`` rewrites ``riccati_kernels.cu`` and
 ``admm_kernels.cu`` into host C++ (one OS thread per CUDA thread) and holds
 every kernel and mode against its plain PyTorch version.  Running one case
-of each kernel here (K8 in its eight forms, per-instance K3 and the matrix
-sweep across their blocks) keeps
+of each kernel here (K8 in its eight forms, per-instance K3, both forms of
+K2 and the matrix sweep across their blocks, K5 packed with a cone and a
+shift and in its rung form past their rings' slots) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
@@ -24,4 +25,5 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
     emu = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(emu)
     assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK,
-                    emu.ITER_QUICK, emu.K3_QUICK, emu.SWEEP_QUICK) == 0
+                    emu.ITER_QUICK, emu.K3_QUICK, emu.SWEEP_QUICK,
+                    emu.K2_QUICK) == 0
