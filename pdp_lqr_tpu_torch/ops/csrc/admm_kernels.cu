@@ -30,22 +30,19 @@
 // offset * 1000000 + dim * 1000 + kind, kind 0 a second-order cone, 1 a
 // rotated one) are compile-time too.  NRUNG (default 1) is the number of
 // rho-ladder rungs whose factors K6 and K5 read, stacked on the rows of
-// their shared streams: a scenario's rung is an int32 index, and a thread
+// their shared streams: a scenario's rung is an int32 index, and a lane
 // reads that rung's matrices at an offset in the ring slot, which holds
 // all of them (the TPU kernels blend all rungs with one-hot weights).
 //
 // What bounds K4-K6 on this card is bytes (the per-scenario streams; the
 // shared ones are kilobytes), and what a plain loop runs into first is
-// latency: N dependent stages, a few thousand scenarios.  K4 and K6 take
-// the geometry of the shared-model sweeps in riccati_kernels.cu
-// (lanes_common.cuh): a block serves 32 scenarios with 4 threads each, a
-// thread owns a slice of the rows of each per-scenario vector, what the
-// others need is exchanged through shared memory, and every stage's inputs
-// — the shared matrices and the 32 scenarios' vectors — are copied
-// asynchronously into a ring of shared-memory slots 4 stages ahead of
-// their use.  K5 gives its warps roles instead (a producer, the chain
-// x+ = M x + v, and tail warps that take whole stages behind it, handed on
-// by shared-memory barriers: hopper_sync.cuh; see there).  The whole
+// latency: N dependent stages, a few thousand scenarios.  So K4, K5 and K6
+// give the warps of a block roles on 32 scenarios, a lane each: a producer
+// copies every stage into a ring of shared-memory slots, one warp runs the
+// carry's chain (p backwards in K4 and K6, x+ = M x + v forwards in K5),
+// and the rest of a stage runs on other warps that take whole stages
+// ahead of it (K6's fold) or behind it (the tails), handed on by
+// shared-memory barriers (hopper_sync.cuh); see each kernel.  The whole
 // horizon runs inside one launch; the per-scenario carry (p; x and the
 // four residual maxima) never leaves the block.  K8 carries per-scenario
 // matrices and has a design of its own (see there).
@@ -73,158 +70,335 @@
 
 namespace {
 
-#ifndef NC
-// ------------------------------------------------------------- kernel A
+#if !defined(NC) || defined(FOLD)
+// ------------------------------------------------ kernels A: K4 and K6
 // The cached-factor vector recursion, backwards from p = pN:
 //   Pcp  = Pc + p                 rbar = hf[:nu] + B^T Pcp
 //   d    = -(L L^T)^{-1} rbar     v    = B d + c
 //   p    = hf[nu:] + A^T Pcp + K^T rbar
-// on the packed shared streams AK = [A; K] (nz x nx a stage) and
-// BL = [B; L] (nz x nu), read as they are: the slot holds both row-major
-// and a thread's reads of them are one address per warp (a broadcast).
-// It writes dv = [d | v].  Every thread solves the nu x nu system (each
-// needs the whole of d); the rows of v and p are split over the
-// scenario's threads.
+// written as dv = [d | v].  K4 reads hf and Pc as given; K6 folds them from
+// the iterates first (see there).  What bounds both on this card is bytes
+// (the scenarios' rows; the shared matrices are a few kilobytes a stage),
+// and what a plain loop runs into first is the carry's chain: N dependent
+// stages.  But the carry p needs only Pcp, rbar and p; the fold, d, v and
+// their stores hang off it.  So the warps of a block take roles on 32
+// consecutive scenarios (a lane each), as K5 and shared K2 do:
+//   * producers copy each stage into a ring of slots: the shared runs
+//     (K4: by cp.async, 16 bytes a copy where they allow; K6: see there),
+//     the scenarios' rows as 2-D boxes of the copy engine (TMA) where the
+//     row stride allows, else by cp.async a word a copy;
+//   * the chain warp carries p in registers (a lane holds its scenario's
+//     whole stage: no exchange), reads the rows of A, B and K as
+//     broadcasts in axpy order (acc[i] += A[t][i] Pcp[t] over A's
+//     contiguous rows, so the packed streams are read as they lie) and
+//     leaves rbar in the slot (va_chain);
+//   * (K6) fold warps take whole stages ahead of the chain;
+//   * tail warps take whole stages behind it (tail t: stages t, t + T,
+//     ...): d, v and the dv stores, a warp's store of a row one line
+//     (va_tail).
+// Shared-memory barriers hand a slot on (hopper_sync.cuh): `full` (the
+// copies landed), `folded` (K6: hf and Pc are in the slot), `ready` (rbar
+// is) and `empty` (the tail is done with it); no block-wide barrier a
+// stage.  A waiter names only the parity of the phase it waits for, so no
+// role has more warps than the ring has slots (see K5).  Per-stage loops
+// that several warps run at different points stay rolled (K5's lesson:
+// the instruction cache).  A lane past the batch computes on the last
+// scenario's rows (zeros where the copy engine takes them) and stores
+// nothing.
+
+constexpr int VA_W = 32;                      // scenarios a block, a lane each
+constexpr int VA_VW = 16 / (int)sizeof(scalar);
+// Rows of nx, nu and nz words read 16 bytes a load where the widths allow.
+constexpr bool VA_VX = NX % VA_VW == 0;
+constexpr bool VA_VU = NU % VA_VW == 0;
+constexpr bool VA_VZ = NZ % VA_VW == 0;
+constexpr int VA_SMEM_MAX = 232448;           // 227 KB, the most a block has
+constexpr int VA_TAILS_MAX = 3;
+
+// A shared run's words in a slot: whole 16-byte pieces.
+__host__ __device__ constexpr int va_run(int words)
+{
+    return (words + VA_VW - 1) / VA_VW * VA_VW;
+}
+// A rung's stride in a slot: an odd number of 16-byte pieces, so that the
+// lanes of a ladder block, on different rungs, read different banks.
+__host__ __device__ constexpr int va_rung(int words)
+{
+    return va_run(words) / VA_VW % 2 ? va_run(words) : va_run(words) + VA_VW;
+}
+// The scenarios' rows start on a 128-byte boundary (the copy engine's boxes).
+__host__ __device__ constexpr int va_rows(int words)
+{
+    return (words + 31) / 32 * 32;
+}
+__host__ __device__ constexpr int va_min(int a, int b) { return a < b ? a : b; }
+// Slots of `slot` words (and four barriers each) in a block.
+__host__ __device__ constexpr int va_fit(int slot)
+{
+    return (VA_SMEM_MAX - 128) / (slot * (int)sizeof(scalar) + 4 * 8);
+}
+
+// One stage of the chain for the lane's scenario:
+//   Pcp = Pc + p,  rbar = hf_u + B^T Pcp,  p <- hf_x + A^T Pcp + K^T rbar,
+// rbar left at rb.  sA: A[t][i] at t*NX + i; sB: B[t][j] at t*NU + j; sK:
+// K[u][i] at u*NX + i; pc, hv, rb: the lane's column of rows VA_W words
+// apart.  The sums run in the plain version's order.
+__device__ __forceinline__ void va_chain(scalar (&p)[NX], const scalar* sA,
+                                         const scalar* sB, const scalar* sK,
+                                         const scalar* pc, const scalar* hv,
+                                         scalar* rb)
+{
+    scalar Pcp[NX], rbar[NU], acc[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) Pcp[i] = pc[i * VA_W] + p[i];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) rbar[j] = hv[j * VA_W];
+#pragma unroll
+    for (int t = 0; t < NX; ++t) {
+        scalar row[NU];
+        ld_row<NU, VA_VU>(row, sB + t * NU);
+#pragma unroll
+        for (int j = 0; j < NU; ++j) rbar[j] += row[j] * Pcp[t];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) acc[i] = hv[(NU + i) * VA_W];
+#pragma unroll
+    for (int t = 0; t < NX; ++t) {
+        scalar row[NX];
+        ld_row<NX, VA_VX>(row, sA + t * NX);
+#pragma unroll
+        for (int i = 0; i < NX; ++i) acc[i] += row[i] * Pcp[t];
+    }
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+        scalar row[NX];
+        ld_row<NX, VA_VX>(row, sK + u * NX);
+#pragma unroll
+        for (int i = 0; i < NX; ++i) acc[i] += row[i] * rbar[u];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) p[i] = acc[i];
+    // rbar into the slot last: a store before the loads above would hold
+    // them behind it (they might alias).
+#pragma unroll
+    for (int u = 0; u < NU; ++u) rb[u * VA_W] = rbar[u];
+}
+
+// One stage of a tail warp for the lane's scenario: d = -(L L^T)^{-1} rbar
+// and v = B d + c, stored at out[j * Bs] (d, j < NU) and out[(NU + i) *
+// Bs] (v); a lane past the batch stores nothing.  sL: L[i][j] at i*NU + j;
+// sB as in va_chain; cv, rb: the lane's column of rows VA_W words apart.
+__device__ __forceinline__ void va_tail(const scalar* sL, const scalar* sB,
+                                        const scalar* cv, const scalar* rb,
+                                        scalar* out, size_t Bs, bool valid)
+{
+    scalar dv[NU], inv[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[i * NU + i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+        scalar acc = rb[i * VA_W];
+#pragma unroll
+        for (int t = 0; t < i; ++t) acc -= sL[i * NU + t] * dv[t];
+        dv[i] = acc * inv[i];
+    }
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+        scalar acc = dv[i];
+#pragma unroll
+        for (int t = i + 1; t < NU; ++t) acc -= sL[t * NU + i] * dv[t];
+        dv[i] = acc * inv[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+        dv[i] = -dv[i];
+        if (valid) out[i * Bs] = dv[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+        scalar row[NU];
+        ld_row<NU, VA_VU>(row, sB + i * NU);
+        scalar vv = cv[i * VA_W];
+#pragma unroll
+        for (int t = 0; t < NU; ++t) vv += row[t] * dv[t];
+        if (valid) out[(NU + i) * Bs] = vv;
+    }
+}
+
+// Whether the scenarios' rows can go by the copy engine: the row stride a
+// multiple of 16 bytes, the streams 16-byte aligned, a box's rows within
+// its limit of 256.
+inline bool va_boxes(int Bt, int rows, const void* a, const void* b,
+                     const void* c)
+{
+    return (size_t)Bt * sizeof(scalar) % 16 == 0 && rows <= 256
+        && (((size_t)a | (size_t)b | (size_t)c) & 15) == 0;
+}
+
+// Diagnostic build (-DADMM_PROFILE): lane 0 of each role's first warp in
+// block 0 sums the SM cycles of its sections (a fold or tail warp's per
+// stage it took); admm_read_prof copies the sums out.  Sections: producer
+// waiting, copying; fold waiting, folding; chain waiting, computing; tail
+// waiting, computing and storing.
+constexpr int VA_SECTIONS = 8;
+#ifdef ADMM_PROFILE
+__device__ long long admm_prof[VA_SECTIONS];
+#define VA_PROF_INIT                                                         \
+    long long prof_acc[VA_SECTIONS] = {};                                    \
+    long long prof_t = clock64();
+#define VA_MARK(i)                                                           \
+    do {                                                                     \
+        const long long t_ = clock64();                                      \
+        prof_acc[i] += t_ - prof_t;                                          \
+        prof_t = t_;                                                         \
+    } while (0)
+#define VA_PROF_DONE(lo, hi, mul, div)                                       \
+    if (blockIdx.x == 0 && lane == 0)                                        \
+        for (int i_ = lo; i_ < hi; ++i_)                                     \
+            admm_prof[i_] = prof_acc[i_] * (mul) / (div);
+#else
+#define VA_PROF_INIT
+#define VA_MARK(i)
+#define VA_PROF_DONE(lo, hi, mul, div)
+#endif
+#endif  // K4, K6
+
+#ifndef NC
+// ------------------------------------------------------------------- K4
+// Kernel A on the emitted hf: the packed shared streams AK = [A; K] (nz x
+// nx a stage) and BL = [B; L] (nz x nu) ride the slot as they lie (the
+// chain walks the rows of A and K, so nothing repacks the factors per
+// call), with the scenarios' rows of c, hf and the pre-folded Pc.  Warps:
+// the producer (warp 0: two runs and three boxes a stage), the chain
+// (warp 1), K4_TAILS tail warps.  Measured on an H100 (PERF.md):
+// the chain bounds it (about 830 cycles a stage).
 
 constexpr int K4_AK = 0;
-constexpr int K4_BL = K4_AK + NZ * NX;
-constexpr int K4_PACK = K4_BL + NZ * NU;
-// Per-scenario rows after the matrices: c, hf, Pc.
-constexpr int K4_SLOT_WORDS = K4_PACK + (NX + NZ + NX) * VS_LANES;
-constexpr int K4_SMEM_WORDS = VS_SLOTS * K4_SLOT_WORDS + 2 * NX * VS_LANES;
+constexpr int K4_BL = K4_AK + va_run(NZ * NX);
+constexpr int K4_C = va_rows(K4_BL + va_run(NZ * NU));
+constexpr int K4_HF = K4_C + NX * VA_W;
+constexpr int K4_PC = K4_HF + NZ * VA_W;
+constexpr int K4_RB = K4_PC + NX * VA_W;       // the chain's rbar
+constexpr int K4_SLOT = K4_RB + NU * VA_W;
+// Stages in flight: one a tail warp, the chain and the producer ahead.
+constexpr int K4_SLOTS = va_min(va_fit(K4_SLOT), VA_TAILS_MAX + 5);
+constexpr int K4_TAILS = va_min(K4_SLOTS, VA_TAILS_MAX);
+constexpr int K4_THREADS = 32 * (2 + K4_TAILS);
+static_assert(K4_SLOTS >= 2, "K4: two stages do not fit a block");
+constexpr int K4_BAR = K4_SLOTS * K4_SLOT * (int)sizeof(scalar);
+constexpr int K4_SMEM = K4_BAR + 3 * 8 * K4_SLOTS + 128;   // + alignment
 
-__global__ void __launch_bounds__(VS_THREADS)
+__global__ void __launch_bounds__(K4_THREADS, 1)
 bwd_vec_prefold_kernel(
     int N, int Bt,
     const scalar* __restrict__ pN, const scalar* __restrict__ AK,
     const scalar* __restrict__ BL, const scalar* __restrict__ c,
     const scalar* __restrict__ Pc, const scalar* __restrict__ hf,
-    scalar* __restrict__ dv_out)
+    scalar* __restrict__ dv_out,
+    const __grid_constant__ CUtensorMap c_map,
+    const __grid_constant__ CUtensorMap hf_map,
+    const __grid_constant__ CUtensorMap pc_map, int tma)
 {
     extern __shared__ double smem_aligned[];
-    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
-    scalar* xs = ring + VS_SLOTS * K4_SLOT_WORDS;            // Pcp exchange, x2
+    char* base = reinterpret_cast<char*>(
+        (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
+    scalar* ring = reinterpret_cast<scalar*>(base);
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + K4_BAR);
+    mbar_t* ready = full + K4_SLOTS;
+    mbar_t* empty = ready + K4_SLOTS;
 
-    const int tid = threadIdx.x;
-    const int lane = tid % VS_LANES;
-    const int grp = tid / VS_LANES;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
     const size_t Bs = (size_t)Bt;
-    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const size_t b0 = (size_t)blockIdx.x * VA_W;
+    const size_t b = b0 + lane;
     const bool valid = b < Bs;
 
-    // Stage n of the sweep is model stage k = N-1-n.  One copy group per
-    // call (empty past the end), so groups and stages stay in step.
-    auto prefetch = [&](int n) {
-        if (n < N) {
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < K4_SLOTS; ++s) {
+            mbar_init(&full[s], 33);             // the producer's lanes, and
+                                                 // lane 0's boxes or arrival
+            mbar_init(&ready[s], 32);            // the chain's
+            mbar_init(&empty[s], 32);            // the stage's tail warp's
+        }
+    }
+    __syncthreads();
+
+    // Stage n of the sweep is model stage k = N-1-n, in slot n % K4_SLOTS.
+    if (warp == 0) {
+        // ---- producer.
+        const bool vec = Bs % VA_VW == 0 && b0 + VA_W <= Bs
+            && (((size_t)c | (size_t)hf | (size_t)Pc) & 15) == 0;
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % K4_SLOTS;
+            if (n >= K4_SLOTS) mbar_wait(&empty[s], (n / K4_SLOTS - 1) & 1);
+            VA_MARK(0);
             const size_t ks = (size_t)(N - 1 - n);
-            scalar* S = ring + (n % VS_SLOTS) * K4_SLOT_WORDS;
-            scalar* V = S + K4_PACK;
-            copy_matrix(S + K4_AK, AK + ks * NZ * NX, NZ * NX);
-            copy_matrix(S + K4_BL, BL + ks * NZ * NU, NZ * NU);
-            if (valid) {
-                copy_rows<NX>(V, c + ks * NX * Bs + b, Bs, lane, grp);
-                copy_rows<NZ>(V + NX * VS_LANES, hf + ks * NZ * Bs + b, Bs,
-                              lane, grp);
-                copy_rows<NX>(V + (NX + NZ) * VS_LANES, Pc + ks * NX * Bs + b,
-                              Bs, lane, grp);
+            scalar* S = ring + s * K4_SLOT;
+            warp_copy_run(S + K4_AK, AK + ks * NZ * NX, NZ * NX, lane);
+            warp_copy_run(S + K4_BL, BL + ks * NZ * NU, NZ * NU, lane);
+            if (tma) {
+                if (lane == 0) {
+                    mbar_arrive_expect_tx(
+                        &full[s], (2 * NX + NZ) * VA_W * (int)sizeof(scalar));
+                    tma_box(S + K4_C, &c_map, (int)b0, (int)ks * NX, &full[s]);
+                    tma_box(S + K4_HF, &hf_map, (int)b0, (int)ks * NZ, &full[s]);
+                    tma_box(S + K4_PC, &pc_map, (int)b0, (int)ks * NX, &full[s]);
+                }
+            } else {
+                warp_copy_rows<VA_W>(S + K4_C, c + ks * NX * Bs, NX, Bs, b0,
+                                     vec, lane);
+                warp_copy_rows<VA_W>(S + K4_HF, hf + ks * NZ * Bs, NZ, Bs, b0,
+                                     vec, lane);
+                warp_copy_rows<VA_W>(S + K4_PC, Pc + ks * NX * Bs, NX, Bs, b0,
+                                     vec, lane);
+                if (lane == 0) mbar_arrive(&full[s]);
             }
+            mbar_arrive_on_copies(&full[s]);
+            VA_MARK(1);
         }
-        __pipeline_commit();
-    };
-
-    // Pcp rows this thread owns, for the stage held in slot S.
-    scalar p[VS_RX];
-    auto put_Pcp = [&](const scalar* S, scalar* dst) {
-        const scalar* pc = S + K4_PACK + (NX + NZ) * VS_LANES;
+        VA_PROF_DONE(0, 2, 1, 1)
+    } else if (warp == 1) {
+        // ---- chain: p, rbar left in the slot.
+        const size_t bc = valid ? b : Bs - 1;
+        scalar p[NX];
 #pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) dst[i * VS_LANES + lane] = pc[i * VS_LANES + lane] + p[r];
+        for (int i = 0; i < NX; ++i) p[i] = pN[i * Bs + bc];
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % K4_SLOTS;
+            mbar_wait(&full[s], (n / K4_SLOTS) & 1);
+            VA_MARK(4);
+            scalar* S = ring + s * K4_SLOT;
+            va_chain(p, S + K4_AK, S + K4_BL, S + K4_AK + NX * NX,
+                     S + K4_PC + lane, S + K4_HF + lane, S + K4_RB + lane);
+            mbar_arrive(&ready[s]);
+            VA_MARK(5);
         }
-    };
-
-#pragma unroll
-    for (int r = 0; r < VS_RX; ++r) {
-        const int i = grp * VS_RX + r;
-        p[r] = (valid && i < NX) ? pN[i * Bs + b] : (scalar)0;
+        VA_PROF_DONE(4, 6, 1, 1)
+    } else {
+        // ---- tail warp t: stages t, t + K4_TAILS, ...: d, v, the stores.
+        const int t = warp - 2;
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = t; n < N; n += K4_TAILS) {
+            const int s = n % K4_SLOTS;
+            mbar_wait(&ready[s], (n / K4_SLOTS) & 1);
+            VA_MARK(6);
+            const size_t ks = (size_t)(N - 1 - n);
+            const scalar* S = ring + s * K4_SLOT;
+            va_tail(S + K4_BL + NX * NU, S + K4_BL, S + K4_C + lane,
+                    S + K4_RB + lane, dv_out + ks * NZ * Bs + b, Bs, valid);
+            mbar_arrive(&empty[s]);
+            VA_MARK(7);
+        }
+        if (t == 0) {
+            VA_PROF_DONE(6, 8, N, (N + K4_TAILS - 1) / K4_TAILS)
+        }
     }
-    for (int n = 0; n < VS_PF; ++n) prefetch(n);
-    __pipeline_wait_prior(VS_PF - 1);        // stage 0 landed (my copies)
-    __syncthreads();                         // ... and everyone's
-    put_Pcp(ring, xs);
-
-    for (int n = 0; n < N; ++n) {
-        const size_t ks = (size_t)(N - 1 - n);
-        const scalar* S = ring + (n % VS_SLOTS) * K4_SLOT_WORDS;
-        const scalar* sA = S + K4_AK;                // A[i][j] at i*NX + j
-        const scalar* sK = sA + NX * NX;             // K[t][i] at t*NX + i
-        const scalar* sB = S + K4_BL;                // B[i][j] at i*NU + j
-        const scalar* sL = sB + NX * NU;             // L[i][j] at i*NU + j
-        const scalar* cv = S + K4_PACK;
-        const scalar* hv = cv + NX * VS_LANES;
-        // Stage n+1 has landed too (it is read at the end of this stage),
-        // and the barrier publishes it and this stage's Pcp.
-        __pipeline_wait_prior(VS_PF - 2);
-        __syncthreads();
-
-        scalar Pcp[NX], rbar[NU], dv[NU], inv[NU];
-        const scalar* xin = xs + (n & 1) * NX * VS_LANES;
-#pragma unroll
-        for (int t = 0; t < NX; ++t) Pcp[t] = xin[t * VS_LANES + lane];
-
-        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar.
-#pragma unroll
-        for (int j = 0; j < NU; ++j) rbar[j] = hv[j * VS_LANES + lane];
-#pragma unroll
-        for (int t = 0; t < NX; ++t) {
-#pragma unroll
-            for (int j = 0; j < NU; ++j) rbar[j] += sB[t * NU + j] * Pcp[t];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[i * NU + i];
-#pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            scalar acc = rbar[i];
-#pragma unroll
-            for (int t = 0; t < i; ++t) acc -= sL[i * NU + t] * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = NU - 1; i >= 0; --i) {
-            scalar acc = dv[i];
-#pragma unroll
-            for (int t = i + 1; t < NU; ++t) acc -= sL[t * NU + i] * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) dv[i] = -dv[i];
-
-#pragma unroll
-        for (int j = 0; j < NU; ++j)     // each input row stored by one group
-            if (j / VS_RU == grp && valid) dv_out[(ks * NZ + j) * Bs + b] = dv[j];
-        // Own rows: v = B d + c ; p = hf_x + A^T Pcp + K^T rbar.
-#pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) {
-                scalar vv = cv[i * VS_LANES + lane];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) vv += sB[i * NU + t] * dv[t];
-                if (valid) dv_out[(ks * NZ + NU + i) * Bs + b] = vv;
-                scalar acc = hv[(NU + i) * VS_LANES + lane];
-#pragma unroll
-                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * Pcp[t];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rbar[t];
-                p[r] = acc;
-            }
-        }
-        if (n + 1 < N)
-            put_Pcp(ring + ((n + 1) % VS_SLOTS) * K4_SLOT_WORDS,
-                    xs + ((n + 1) & 1) * NX * VS_LANES);
-        prefetch(n + VS_PF);
-    }
-    __pipeline_wait_prior(0);
 }
 
 #elif defined(FOLD)
@@ -232,36 +406,119 @@ bwd_vec_prefold_kernel(
 // K4's recursion with the iterate fold in front of it, on the scenario's
 // own rung of R stacked factor sets.  Per stage, backwards from p = pN:
 //   rg   = rho m z - y             hf = h - sigma w - D^T rg
-//   Pcp  = P c + p  (or Pc + p)    rbar = hf[:nu] + B^T Pcp
-//   d    = -(L L^T)^{-1} rbar      v    = B d + c
-//   p    = hf[nu:] + A^T Pcp + K^T rbar
-// A thread folds every constraint row itself (nc products of one
-// multiply-add each: cheaper than a barrier) and then the rows of hf it
-// needs: all nu input rows (each thread solves the nu x nu system) and
-// its own state rows.  PC_MODE: the per-scenario Pc = P_{k+1} c_k rides
-// the ring instead of the P stream (one rung only).
+//   Pc   = P c  (or Pc as given)   then K4's recursion on hf, Pc
+// None of the fold waits for p, so it has warps of its own: K6_FOLDS fold
+// warps take whole stages ahead of the chain (fold f: stages f, f +
+// K6_FOLDS, ...), a lane a scenario: rg and all nz rows of hf (D's rows in
+// axpy order), and, with the P stream, Pc = P_r c on the scenario's rung;
+// they leave hf and Pc in the slot.  Its stage brings five times K4's
+// shared bytes: A, B, h, D, the rho scale m, and the R rungs of P, L and
+// K (each rung at an odd number of 16-byte pieces in the slot, so that
+// lanes on different rungs read different banks), besides the scenarios'
+// rows of c, wzy = [w | z | y] and (Pc mode) Pc.  One producer warp took
+// 2,300-2,900 cycles a stage to start them, by cp.async or by the copy
+// engine alike (an H100, PERF.md), so K6_PRODUCERS warps deal a
+// stage's copies: the shared runs as bulk copies of the copy engine (the
+// rung streams as one box each, its padding landing as zeros), the rows
+// as boxes on a warp of their own.  Warps: the chain (warp 0), the folds,
+// the tails, the producers.  PC_MODE: the per-scenario Pc = P_{k+1} c_k
+// rides the ring instead of the P stream (one rung only).
 
 constexpr int K6_NW = NZ + 2 * NC;            // wzy rows: w, z, y
-constexpr int K6_A = 0;
-constexpr int K6_B = K6_A + NX * NX;
-constexpr int K6_H = K6_B + NX * NU;
-constexpr int K6_D = K6_H + NZ;
-constexpr int K6_MASK = K6_D + NC * NZ;
+constexpr int K6_FOLDS_MAX = 3;
+// Producer warps: a stage's copies are dealt over them (see above).
+constexpr int K6_PRODUCERS = 4;
+// A stage's copies ("jobs"): the shared runs, each a stage's block of
+// `rows` rows of `cols` words (the rung streams a row a rung) laid in the
+// slot at a stride of `box` words a row (a rung's: va_rung), then the
+// scenarios' rows.  A run goes as one bulk copy where its rows lie back to
+// back in the slot and are whole 16-byte pieces, as one box of the copy
+// engine where it pads them (the padding lands as zeros past the tensor's
+// edge), else by cp.async.
+enum { K6_A, K6_B, K6_H, K6_D, K6_MASK, K6_P, K6_L, K6_K, K6_ROWS,
+       K6_JOBS };
+struct K6Run { int rows, cols, box; };
+__host__ __device__ constexpr K6Run k6_run(int q)
+{
+    return q == K6_A ? K6Run{NX, NX, NX}
+        : q == K6_B ? K6Run{NX, NU, NU}
+        : q == K6_H ? K6Run{1, NZ, NZ}
+        : q == K6_D ? K6Run{NC, NZ, NZ}
+        : q == K6_MASK ? K6Run{1, NC, NC}
+        : q == K6_P ? K6Run{NRUNG, NX * NX, va_rung(NX * NX)}
+        : q == K6_L ? K6Run{NRUNG, NU * NU, va_rung(NU * NU)}
+        : K6Run{NRUNG, NU * NX, va_rung(NU * NX)};
+}
+__host__ __device__ constexpr bool k6_bulk(int q)
+{
+    return k6_run(q).box == k6_run(q).cols
+        && k6_run(q).cols * (int)sizeof(scalar) % 16 == 0;
+}
+__host__ __device__ constexpr bool k6_boxed(int q)
+{
+    return k6_run(q).box != k6_run(q).cols
+        && k6_run(q).cols * (int)sizeof(scalar) % 16 == 0
+        && k6_run(q).box * (int)sizeof(scalar) % 16 == 0
+        && k6_run(q).box <= 256 && k6_run(q).rows <= 256;
+}
+// The producer warp of job q: the rows on the last, the runs dealt over
+// the others.
+__host__ __device__ constexpr int k6_owner(int q)
+{
+    return K6_PRODUCERS == 1 ? 0
+        : q == K6_ROWS ? K6_PRODUCERS - 1 : q % (K6_PRODUCERS - 1);
+}
 template <bool PC_MODE> struct K6Layout {
-    // The R rungs of P (not in Pc mode), L and K, rung r at r * rows*cols.
-    static constexpr int P = K6_MASK + NC;
-    static constexpr int L = P + (PC_MODE ? 0 : NRUNG * NX * NX);
-    static constexpr int K = L + NRUNG * NU * NU;
-    // Per-scenario rows after the matrices: c, wzy, then (Pc mode) Pc.
-    static constexpr int VEC = K + NRUNG * NU * NX;
-    static constexpr int SLOT_WORDS =
-        VEC + (NX + K6_NW + (PC_MODE ? NX : 0)) * VS_LANES;
-    static constexpr int SMEM_WORDS =
-        VS_SLOTS * SLOT_WORDS + 2 * NX * VS_LANES;
+    // Each shared run from a 128-byte boundary: A, B, h, D, the rho scale
+    // m, then the R rungs of P (not in Pc mode), L and K, rung r at r times
+    // its stride.
+    static constexpr int PR = k6_run(K6_P).box;
+    static constexpr int LR = k6_run(K6_L).box;
+    static constexpr int KR = k6_run(K6_K).box;
+    static constexpr int A = 0;
+    static constexpr int B = A + va_rows(NX * NX);
+    static constexpr int H = B + va_rows(NX * NU);
+    static constexpr int D = H + va_rows(NZ);
+    static constexpr int MASK = D + va_rows(NC * NZ);
+    static constexpr int P = MASK + va_rows(NC);
+    static constexpr int L = P + (PC_MODE ? 0 : va_rows(NRUNG * PR));
+    static constexpr int K = L + va_rows(NRUNG * LR);
+    // The scenarios' rows: c, wzy, Pc (copied in Pc mode, else the folds'),
+    // the folds' hf, the chain's rbar.
+    static constexpr int C = K + va_rows(NRUNG * KR);
+    static constexpr int WZY = C + NX * VA_W;
+    static constexpr int PC = WZY + K6_NW * VA_W;
+    static constexpr int HF = PC + NX * VA_W;
+    static constexpr int RB = HF + NZ * VA_W;
+    static constexpr int SLOT = RB + NU * VA_W;
+    static constexpr int ROW_BYTES =
+        (NX + K6_NW + (PC_MODE ? NX : 0)) * VA_W * (int)sizeof(scalar);
+    static __host__ __device__ constexpr int off(int q)
+    {
+        return q == K6_A ? A : q == K6_B ? B : q == K6_H ? H : q == K6_D ? D
+            : q == K6_MASK ? MASK : q == K6_P ? P : q == K6_L ? L : K;
+    }
+    // Stages in flight: one a fold and a tail warp, and the chain and the
+    // producers ahead.
+    static constexpr int SLOTS =
+        va_min(va_fit(SLOT), K6_FOLDS_MAX + VA_TAILS_MAX + 4);
+    static constexpr int BAR = SLOTS * SLOT * (int)sizeof(scalar);
+    static constexpr int SMEM = BAR + 4 * 8 * SLOTS + 128;   // + alignment
 };
+// No role has more warps than slots (the P-stream form has the fewer).
+constexpr int K6_FOLDS = va_min(K6Layout<false>::SLOTS, K6_FOLDS_MAX);
+constexpr int K6_TAILS = va_min(K6Layout<false>::SLOTS, VA_TAILS_MAX);
+// Warps: the chain, the folds, the tails, the producers.
+constexpr int K6_PROD0 = 1 + K6_FOLDS + K6_TAILS;
+constexpr int K6_THREADS = 32 * (K6_PROD0 + K6_PRODUCERS);
+static_assert(K6Layout<false>::SLOTS >= 2, "K6: two stages do not fit a block");
+// The copy engine's maps: the scenarios' rows of c, wzy and Pc, then the
+// rung streams P, L and K.
+enum { K6_MC, K6_MWZY, K6_MPC, K6_MP, K6_ML, K6_MK, K6_MAPS };
+struct K6Maps { CUtensorMap m[K6_MAPS]; };
 
 template <bool PC_MODE>
-__global__ void __launch_bounds__(VS_THREADS)
+__global__ void __launch_bounds__(K6_THREADS, 1)
 bwd_vec_kernel(
     int N, int Bt, double sigma_d,
     const scalar* __restrict__ rho, const scalar* __restrict__ pN,
@@ -271,174 +528,208 @@ bwd_vec_kernel(
     const scalar* __restrict__ L, const scalar* __restrict__ K,
     const scalar* __restrict__ c, const scalar* __restrict__ Pc,
     const scalar* __restrict__ wzy, const int* __restrict__ rung,
-    scalar* __restrict__ dv_out)
+    scalar* __restrict__ dv_out, const __grid_constant__ K6Maps maps,
+    int row_boxes, int run_copies)
 {
     using Lay = K6Layout<PC_MODE>;
+    constexpr int SLOTS = Lay::SLOTS;
     extern __shared__ double smem_aligned[];
-    scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
-    scalar* xs = ring + VS_SLOTS * Lay::SLOT_WORDS;          // Pcp exchange, x2
+    char* base = reinterpret_cast<char*>(
+        (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
+    scalar* ring = reinterpret_cast<scalar*>(base);
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + Lay::BAR);
+    mbar_t* folded = full + SLOTS;
+    mbar_t* ready = folded + SLOTS;
+    mbar_t* empty = ready + SLOTS;
 
-    const int tid = threadIdx.x;
-    const int lane = tid % VS_LANES;
-    const int grp = tid / VS_LANES;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
     const size_t Bs = (size_t)Bt;
-    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
+    const size_t b0 = (size_t)blockIdx.x * VA_W;
+    const size_t b = b0 + lane;
     const bool valid = b < Bs;
-    const scalar sigma = (scalar)sigma_d;
-    const scalar rho_b = valid ? rho[b] : (scalar)0;
-    // This scenario's rung: where its matrices lie in a slot.
-    const int r_ix = (NRUNG > 1 && valid) ? rung[b] : 0;
-    const int oP = Lay::P + r_ix * NX * NX;
-    const int oL = Lay::L + r_ix * NU * NU;
-    const int oK = Lay::K + r_ix * NU * NX;
+    const size_t bc = valid ? b : Bs - 1;
+    // This scenario's rung: where its P, L and K lie in a slot.
+    const int r_ix = NRUNG > 1 ? rung[bc] : 0;
 
-    // Stage n of the sweep is model stage k = N-1-n.  One copy group per
-    // call (empty past the end), so groups and stages stay in step.
-    auto prefetch = [&](int n) {
-        if (n < N) {
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < SLOTS; ++s) {
+            mbar_init(&full[s], 33 * K6_PRODUCERS);   // each producer's
+                                                 // lanes, and its lane 0's
+                                                 // with the bytes it expects
+            mbar_init(&folded[s], 32);           // the stage's fold warp's
+            mbar_init(&ready[s], 32);            // the chain's
+            mbar_init(&empty[s], 32);            // the stage's tail warp's
+        }
+    }
+    __syncthreads();
+
+    // Stage n of the sweep is model stage k = N-1-n, in slot n % SLOTS.
+    if (warp >= K6_PROD0) {
+        // ---- producer warp pw: its jobs of each stage.
+        const int pw = warp - K6_PROD0;
+        constexpr int SZ = (int)sizeof(scalar);
+        const scalar* src[K6_ROWS] = {A, B, h, D, mask, P, L, K};
+        auto skip = [](int q) { return PC_MODE && q == K6_P; };
+        // The bytes this warp's bulk copies and boxes bring a stage.
+        int tx = 0;
+        for (int q = 0; q < K6_JOBS; ++q) {
+            if (k6_owner(q) != pw || skip(q)) continue;
+            if (q == K6_ROWS)
+                tx += row_boxes ? Lay::ROW_BYTES : 0;
+            else if (run_copies && (k6_bulk(q) || k6_boxed(q)))
+                tx += k6_run(q).rows * k6_run(q).box * SZ;
+        }
+        const bool vec = Bs % VA_VW == 0 && b0 + VA_W <= Bs
+            && (((size_t)c | (size_t)wzy | (size_t)Pc) & 15) == 0;
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % SLOTS;
+            if (n >= SLOTS) mbar_wait(&empty[s], (n / SLOTS - 1) & 1);
+            VA_MARK(0);
             const size_t ks = (size_t)(N - 1 - n);
-            scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
-            scalar* V = S + Lay::VEC;
-            copy_matrix(S + K6_A, A + ks * NX * NX, NX * NX);
-            copy_matrix(S + K6_B, B + ks * NX * NU, NX * NU);
-            copy_matrix(S + K6_H, h + ks * NZ, NZ);
-            copy_matrix(S + K6_D, D + ks * NC * NZ, NC * NZ);
-            copy_matrix(S + K6_MASK, mask + ks * NC, NC);
-            if (!PC_MODE)
-                copy_matrix(S + Lay::P, P + ks * NRUNG * NX * NX,
-                            NRUNG * NX * NX);
-            copy_matrix(S + Lay::L, L + ks * NRUNG * NU * NU, NRUNG * NU * NU);
-            copy_matrix(S + Lay::K, K + ks * NRUNG * NU * NX, NRUNG * NU * NX);
-            if (valid) {
-                copy_rows<NX>(V, c + ks * NX * Bs + b, Bs, lane, grp);
-                copy_rows<K6_NW>(V + NX * VS_LANES, wzy + ks * K6_NW * Bs + b,
-                                 Bs, lane, grp);
-                if (PC_MODE)
-                    copy_rows<NX>(V + (NX + K6_NW) * VS_LANES,
-                                  Pc + ks * NX * Bs + b, Bs, lane, grp);
-            }
-        }
-        __pipeline_commit();
-    };
-
-    // Pcp rows this thread owns, for the stage held in slot S.
-    scalar p[VS_RX];
-    auto put_Pcp = [&](const scalar* S, scalar* dst) {
-        const scalar* cv = S + Lay::VEC;
+            scalar* S = ring + s * Lay::SLOT;
+            if (lane == 0) mbar_arrive_expect_tx(&full[s], tx);
+            __syncwarp();
 #pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) {
-                scalar acc;
-                if (PC_MODE) {
-                    acc = cv[(NX + K6_NW + i) * VS_LANES + lane];
+            for (int q = 0; q < K6_ROWS; ++q) {
+                if (k6_owner(q) != pw || skip(q)) continue;
+                const K6Run r = k6_run(q);
+                scalar* dst = S + Lay::off(q);
+                const scalar* from = src[q] + ks * r.rows * r.cols;
+                if (run_copies && k6_bulk(q)) {
+                    if (lane == 0)
+                        bulk_copy(dst, from, r.rows * r.cols * SZ, &full[s]);
+                } else if (run_copies && k6_boxed(q)) {
+                    if (lane == 0)
+                        tma_box(dst, &maps.m[K6_MP + q - K6_P], 0,
+                                (int)ks * r.rows, &full[s]);
+                } else if (r.box == r.cols) {
+                    warp_copy_run(dst, from, r.rows * r.cols, lane);
                 } else {
-                    acc = (scalar)0;
-#pragma unroll
-                    for (int t = 0; t < NX; ++t)
-                        acc += S[oP + i * NX + t] * cv[t * VS_LANES + lane];
+#pragma unroll 1
+                    for (int i = 0; i < r.rows; ++i)
+                        warp_copy_run(dst + i * r.box, from + i * r.cols,
+                                      r.cols, lane);
                 }
-                dst[i * VS_LANES + lane] = acc + p[r];
             }
-        }
-    };
-
-#pragma unroll
-    for (int r = 0; r < VS_RX; ++r) {
-        const int i = grp * VS_RX + r;
-        p[r] = (valid && i < NX) ? pN[i * Bs + b] : (scalar)0;
-    }
-    for (int n = 0; n < VS_PF; ++n) prefetch(n);
-    __pipeline_wait_prior(VS_PF - 1);        // stage 0 landed (my copies)
-    __syncthreads();                         // ... and everyone's
-    put_Pcp(ring, xs);
-
-    for (int n = 0; n < N; ++n) {
-        const size_t ks = (size_t)(N - 1 - n);
-        const scalar* S = ring + (n % VS_SLOTS) * Lay::SLOT_WORDS;
-        const scalar* sA = S + K6_A;                 // A[i][j] at i*NX + j
-        const scalar* sB = S + K6_B;                 // B[i][j] at i*NU + j
-        const scalar* sh = S + K6_H;
-        const scalar* sD = S + K6_D;                 // D[c][e] at c*NZ + e
-        const scalar* sm = S + K6_MASK;
-        const scalar* sL = S + oL;                   // L[i][j] at i*NU + j
-        const scalar* sK = S + oK;                   // K[t][i] at t*NX + i
-        const scalar* cv = S + Lay::VEC;
-        const scalar* wv = cv + NX * VS_LANES;       // w rows, z rows, y rows
-        // Stage n+1 has landed too (it is read at the end of this stage),
-        // and the barrier publishes it and this stage's Pcp.
-        __pipeline_wait_prior(VS_PF - 2);
-        __syncthreads();
-
-        scalar Pcp[NX], rg[NC], rbar[NU], dv[NU], inv[NU];
-        const scalar* xin = xs + (n & 1) * NX * VS_LANES;
-#pragma unroll
-        for (int t = 0; t < NX; ++t) Pcp[t] = xin[t * VS_LANES + lane];
-#pragma unroll
-        for (int ci = 0; ci < NC; ++ci)
-            rg[ci] = rho_b * sm[ci] * wv[(NZ + ci) * VS_LANES + lane]
-                - wv[(NZ + NC + ci) * VS_LANES + lane];
-        // Row e of the folded cost hf.
-        auto hf_row = [&](int e) {
-            scalar acc = sh[e] - sigma * wv[e * VS_LANES + lane];
-#pragma unroll
-            for (int ci = 0; ci < NC; ++ci) acc -= rg[ci] * sD[ci * NZ + e];
-            return acc;
-        };
-
-        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar.
-#pragma unroll
-        for (int j = 0; j < NU; ++j) {
-            scalar acc = hf_row(j);
-#pragma unroll
-            for (int t = 0; t < NX; ++t) acc += sB[t * NU + j] * Pcp[t];
-            rbar[j] = acc;
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[i * NU + i];
-#pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            scalar acc = rbar[i];
-#pragma unroll
-            for (int t = 0; t < i; ++t) acc -= sL[i * NU + t] * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = NU - 1; i >= 0; --i) {
-            scalar acc = dv[i];
-#pragma unroll
-            for (int t = i + 1; t < NU; ++t) acc -= sL[t * NU + i] * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) dv[i] = -dv[i];
-
-#pragma unroll
-        for (int j = 0; j < NU; ++j)     // each input row stored by one group
-            if (j / VS_RU == grp && valid) dv_out[(ks * NZ + j) * Bs + b] = dv[j];
-        // Own rows: v = B d + c ; p = hf_x + A^T Pcp + K^T rbar.
-#pragma unroll
-        for (int r = 0; r < VS_RX; ++r) {
-            const int i = grp * VS_RX + r;
-            if (i < NX) {
-                scalar vv = cv[i * VS_LANES + lane];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) vv += sB[i * NU + t] * dv[t];
-                if (valid) dv_out[(ks * NZ + NU + i) * Bs + b] = vv;
-                scalar acc = hf_row(NU + i);
-#pragma unroll
-                for (int t = 0; t < NX; ++t) acc += sA[t * NX + i] * Pcp[t];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) acc += sK[t * NX + i] * rbar[t];
-                p[r] = acc;
+            if (k6_owner(K6_ROWS) == pw) {
+                if (row_boxes) {
+                    if (lane == 0)
+                        tma_box(S + Lay::C, &maps.m[K6_MC], (int)b0,
+                                (int)ks * NX, &full[s]);
+                    if (lane == 1)
+                        tma_box(S + Lay::WZY, &maps.m[K6_MWZY], (int)b0,
+                                (int)ks * K6_NW, &full[s]);
+                    if (PC_MODE && lane == 2)
+                        tma_box(S + Lay::PC, &maps.m[K6_MPC], (int)b0,
+                                (int)ks * NX, &full[s]);
+                } else {
+                    warp_copy_rows<VA_W>(S + Lay::C, c + ks * NX * Bs, NX, Bs,
+                                         b0, vec, lane);
+                    warp_copy_rows<VA_W>(S + Lay::WZY, wzy + ks * K6_NW * Bs,
+                                         K6_NW, Bs, b0, vec, lane);
+                    if (PC_MODE)
+                        warp_copy_rows<VA_W>(S + Lay::PC, Pc + ks * NX * Bs,
+                                             NX, Bs, b0, vec, lane);
+                }
             }
+            mbar_arrive_on_copies(&full[s]);
+            VA_MARK(1);
         }
-        if (n + 1 < N)
-            put_Pcp(ring + ((n + 1) % VS_SLOTS) * Lay::SLOT_WORDS,
-                    xs + ((n + 1) & 1) * NX * VS_LANES);
-        prefetch(n + VS_PF);
+        if (pw == 0) {
+            VA_PROF_DONE(0, 2, 1, 1)
+        }
+    } else if (warp == 0) {
+        // ---- chain: p, rbar left in the slot.
+        scalar p[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) p[i] = pN[i * Bs + bc];
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % SLOTS;
+            mbar_wait(&folded[s], (n / SLOTS) & 1);
+            VA_MARK(4);
+            scalar* S = ring + s * Lay::SLOT;
+            va_chain(p, S + Lay::A, S + Lay::B, S + Lay::K + r_ix * Lay::KR,
+                     S + Lay::PC + lane, S + Lay::HF + lane, S + Lay::RB + lane);
+            mbar_arrive(&ready[s]);
+            VA_MARK(5);
+        }
+        VA_PROF_DONE(4, 6, 1, 1)
+    } else if (warp <= K6_FOLDS) {
+        // ---- fold warp f: stages f, f + K6_FOLDS, ...: hf and Pc.
+        const int f = warp - 1;
+        const scalar sigma = (scalar)sigma_d;
+        const scalar rho_b = rho[bc];
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = f; n < N; n += K6_FOLDS) {
+            const int s = n % SLOTS;
+            mbar_wait(&full[s], (n / SLOTS) & 1);
+            VA_MARK(2);
+            scalar* S = ring + s * Lay::SLOT;
+            const scalar* wv = S + Lay::WZY + lane;      // w rows, z rows, y rows
+            // hf = h - sigma w - D^T rg, D^T rg as a sum over D's rows.
+            scalar hfv[NZ];
+            ld_row<NZ, VA_VZ>(hfv, S + Lay::H);
+#pragma unroll
+            for (int e = 0; e < NZ; ++e) hfv[e] -= sigma * wv[e * VA_W];
+#pragma unroll 4
+            for (int ci = 0; ci < NC; ++ci) {
+                const scalar rg = rho_b * S[Lay::MASK + ci] * wv[(NZ + ci) * VA_W]
+                    - wv[(NZ + NC + ci) * VA_W];
+                scalar Dr[NZ];
+                ld_row<NZ, VA_VZ>(Dr, S + Lay::D + ci * NZ);
+#pragma unroll
+                for (int e = 0; e < NZ; ++e) hfv[e] -= rg * Dr[e];
+            }
+#pragma unroll
+            for (int e = 0; e < NZ; ++e) S[Lay::HF + e * VA_W + lane] = hfv[e];
+            if (!PC_MODE) {
+                // Pc = P_r c on the scenario's rung.
+                const scalar* sP = S + Lay::P + r_ix * Lay::PR;
+                scalar cv[NX];
+#pragma unroll
+                for (int t = 0; t < NX; ++t) cv[t] = S[Lay::C + t * VA_W + lane];
+#pragma unroll
+                for (int i = 0; i < NX; ++i) {
+                    scalar row[NX];
+                    ld_row<NX, VA_VX>(row, sP + i * NX);
+                    scalar acc = (scalar)0;
+#pragma unroll
+                    for (int t = 0; t < NX; ++t) acc += row[t] * cv[t];
+                    S[Lay::PC + i * VA_W + lane] = acc;
+                }
+            }
+            mbar_arrive(&folded[s]);
+            VA_MARK(3);
+        }
+        if (f == 0) {
+            VA_PROF_DONE(2, 4, N, (N + K6_FOLDS - 1) / K6_FOLDS)
+        }
+    } else {
+        // ---- tail warp t: stages t, t + K6_TAILS, ...: d, v, the stores.
+        const int t = warp - 1 - K6_FOLDS;
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = t; n < N; n += K6_TAILS) {
+            const int s = n % SLOTS;
+            mbar_wait(&ready[s], (n / SLOTS) & 1);
+            VA_MARK(6);
+            const size_t ks = (size_t)(N - 1 - n);
+            const scalar* S = ring + s * Lay::SLOT;
+            va_tail(S + Lay::L + r_ix * Lay::LR, S + Lay::B, S + Lay::C + lane,
+                    S + Lay::RB + lane, dv_out + ks * NZ * Bs + b, Bs, valid);
+            mbar_arrive(&empty[s]);
+            VA_MARK(7);
+        }
+        if (t == 0) {
+            VA_PROF_DONE(6, 8, N, (N + K6_TAILS - 1) / K6_TAILS)
+        }
     }
-    __pipeline_wait_prior(0);
 }
 
 #else  // K5, K8
@@ -1974,6 +2265,14 @@ int launch_iter(int N, int Bt, double alpha, double sigma, cudaStream_t st,
 
 extern "C" {
 
+#if !defined(NC) || defined(FOLD)
+#ifdef ADMM_PROFILE
+int admm_read_prof(long long* out)
+{
+    return (int)cudaMemcpyFromSymbol(out, admm_prof, sizeof(admm_prof));
+}
+#endif
+#endif
 #ifndef NC
 int admm_bwd_vec_prefold(int N, int Bt, void* stream,
                          const void* pN, const void* AK, const void* BL,
@@ -1982,13 +2281,24 @@ int admm_bwd_vec_prefold(int N, int Bt, void* stream,
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
-    const size_t smem = K4_SMEM_WORDS * sizeof(scalar);
-    int e = set_smem(bwd_vec_prefold_kernel, smem);
+    const int blocks = (Bt + VA_W - 1) / VA_W;
+    // The scenarios' rows go by the copy engine where its maps can take
+    // them.
+    constexpr int SZ = (int)sizeof(scalar);
+    CUtensorMap maps[3] = {};
+    const int tma = va_boxes(Bt, NZ, c, hf, Pc);
+    if (tma) {
+        int e = make_rows_map(&maps[0], c, (size_t)N * NX, Bt, NX, VA_W, SZ);
+        if (!e) e = make_rows_map(&maps[1], hf, (size_t)N * NZ, Bt, NZ, VA_W, SZ);
+        if (!e) e = make_rows_map(&maps[2], Pc, (size_t)N * NX, Bt, NX, VA_W, SZ);
+        if (e) return e;
+    }
+    int e = set_smem(bwd_vec_prefold_kernel, K4_SMEM);
     if (e) return e;
-    bwd_vec_prefold_kernel<<<blocks, VS_THREADS, smem, st>>>(
+    bwd_vec_prefold_kernel<<<blocks, K4_THREADS, K4_SMEM, st>>>(
         N, Bt, (const scalar*)pN, (const scalar*)AK, (const scalar*)BL,
-        (const scalar*)c, (const scalar*)Pc, (const scalar*)hf, (scalar*)dv);
+        (const scalar*)c, (const scalar*)Pc, (const scalar*)hf, (scalar*)dv,
+        maps[0], maps[1], maps[2], tma);
     return (int)cudaGetLastError();
 }
 #elif defined(FOLD)
@@ -2002,23 +2312,50 @@ int admm_bwd_vec(int N, int Bt, double sigma, int pc_mode, void* stream,
     if (N <= 0 || Bt <= 0) return 0;
     if (pc_mode && NRUNG != 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
+    const int blocks = (Bt + VA_W - 1) / VA_W;
+    // The copy engine takes the scenarios' rows where its maps can, and
+    // the shared runs where they are aligned.
+    constexpr int SZ = (int)sizeof(scalar);
+    K6Maps maps = {};
+    const int row_boxes = va_boxes(Bt, K6_NW, c, wzy, pc_mode ? Pc : nullptr);
+    if (row_boxes) {
+        int e = make_rows_map(&maps.m[K6_MC], c, (size_t)N * NX, Bt, NX, VA_W,
+                              SZ);
+        if (!e) e = make_rows_map(&maps.m[K6_MWZY], wzy, (size_t)N * K6_NW, Bt,
+                                  K6_NW, VA_W, SZ);
+        if (!e && pc_mode)
+            e = make_rows_map(&maps.m[K6_MPC], Pc, (size_t)N * NX, Bt, NX,
+                              VA_W, SZ);
+        if (e) return e;
+    }
+    const void* runs[K6_ROWS] = {A, B, h, D, mask, pc_mode ? nullptr : P, L, K};
+    size_t any = 0;
+    for (const void* r : runs) any |= (size_t)r;
+    const int run_copies = (any & 15) == 0;
+    for (int q = K6_P; q <= K6_K && run_copies; ++q) {
+        const K6Run r = k6_run(q);
+        if (!k6_boxed(q) || runs[q] == nullptr) continue;
+        int e = make_rows_map(&maps.m[K6_MP + q - K6_P], runs[q],
+                              (size_t)N * r.rows, r.cols, r.rows, r.box, SZ);
+        if (e) return e;
+    }
 #define ADMM_BV_ARGS                                                         \
     N, Bt, sigma, (const scalar*)rho, (const scalar*)pN, (const scalar*)A,   \
         (const scalar*)B, (const scalar*)h, (const scalar*)D,                \
         (const scalar*)mask, (const scalar*)P, (const scalar*)L,             \
         (const scalar*)K, (const scalar*)c, (const scalar*)Pc,               \
-        (const scalar*)wzy, (const int*)rung, (scalar*)dv
+        (const scalar*)wzy, (const int*)rung, (scalar*)dv, maps, row_boxes,  \
+        run_copies
     if (pc_mode) {
-        const size_t smem = K6Layout<true>::SMEM_WORDS * sizeof(scalar);
+        constexpr size_t smem = K6Layout<true>::SMEM;
         int e = set_smem(bwd_vec_kernel<true>, smem);
         if (e) return e;
-        bwd_vec_kernel<true><<<blocks, VS_THREADS, smem, st>>>(ADMM_BV_ARGS);
+        bwd_vec_kernel<true><<<blocks, K6_THREADS, smem, st>>>(ADMM_BV_ARGS);
     } else {
-        const size_t smem = K6Layout<false>::SMEM_WORDS * sizeof(scalar);
+        constexpr size_t smem = K6Layout<false>::SMEM;
         int e = set_smem(bwd_vec_kernel<false>, smem);
         if (e) return e;
-        bwd_vec_kernel<false><<<blocks, VS_THREADS, smem, st>>>(ADMM_BV_ARGS);
+        bwd_vec_kernel<false><<<blocks, K6_THREADS, smem, st>>>(ADMM_BV_ARGS);
     }
 #undef ADMM_BV_ARGS
     return (int)cudaGetLastError();

@@ -71,6 +71,19 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
         : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16; both ends 16-byte aligned)
+// copied by the copy engine into shared memory as one bulk copy, counted
+// off the barrier's transaction count as they land.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, mbar_t* bar)
+{
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
 // Host: the copy engine's map of a row-major tensor of `rows` rows of
 // `cols` elements of `word` bytes at `base` (the row stride a multiple of
 // 16 bytes, `base` 16-byte aligned), in boxes of box_rows x box_cols.

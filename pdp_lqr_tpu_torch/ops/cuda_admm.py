@@ -201,9 +201,11 @@ def admm_bwd_vec_prefold_lanes(pN, AK, BL, c, Pc, hf, *, nu):
 
     Returns dv (N, nz, B) = [d | v].
 
-    On the card: a block serves 32 scenarios with 4 threads each and
-    copies every stage's inputs into a shared-memory ring ahead of their
-    use, reading the packed streams as they are; see the kernel source.
+    On the card: a block serves 32 scenarios, a lane each, and its warps
+    take roles: a producer copies each stage (the packed streams as they
+    lie, the scenarios' rows) into a shared-memory ring, one warp carries
+    p through the stages, and tail warps compute d and v and store them
+    behind it; see the kernel source.
     """
     N, nz, nx = AK.shape[0], AK.shape[1], AK.shape[2]
     if nz != nx + nu:
@@ -292,10 +294,10 @@ def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
     ((N,nx,B), one rung only) is the pre-folded ``P_{k+1} c_k``; ``P``
     is then not read (it may be None).
 
-    On the card: a block serves 32 scenarios with 4 threads each and
-    copies every stage's inputs, all R rungs' factors included, into a
-    shared-memory ring ahead of their use; a thread reads its scenario's
-    rung at an offset in the slot.  See the kernel source.
+    On the card: as ``admm_bwd_vec_prefold_lanes``, with fold warps that
+    compute hf (and P c) of whole stages ahead of the warp that carries p;
+    the ring's slots hold all R rungs' factors, and a lane reads its
+    scenario's rung at an offset in the slot.  See the kernel source.
     """
     N, nx = A.shape[0], A.shape[1]
     nz, nc = nx + nu, D.shape[1]

@@ -144,9 +144,10 @@ void emu_launch(int grid, int block, size_t smem, void*, F f) {
     # phase bit (63), updated atomically; a phase completes when no
     # arrival and no byte is missing; a waiter sleeps until the phase of
     # the parity it names has completed.  cp.async and the copy engine's
-    # boxes are copied at once here, so an arrival on a thread's copies is
-    # an arrival at once and a box's bytes land as it is issued (out of the
-    # tensor: zeros).
+    # boxes and bulk copies are copied at once here, so an arrival on a
+    # thread's copies is an arrival at once and a box's bytes land as it is
+    # started (out of the tensor: zeros); a bulk copy checks its 16-byte
+    # alignment and length.
     "hopper_sync.cuh": """#pragma once
 #include <atomic>
 #include <cstdlib>
@@ -186,6 +187,11 @@ inline void mbar_wait(mbar_t* bar, unsigned parity) {
     for (unsigned long long v = a.load(); (unsigned)(v >> 63) == parity;
          v = a.load())
         a.wait(v);
+}
+inline void bulk_copy(void* dst, const void* src, unsigned bytes, mbar_t* bar) {
+    if (((size_t)dst & 15) || ((size_t)src & 15) || (bytes & 15)) std::abort();
+    std::memcpy(dst, src, bytes);
+    emu_mbar_update(bar, 0, -(long long)bytes);
 }
 struct CUtensorMap {
     const char* base; unsigned long long rows, cols;
@@ -586,6 +592,43 @@ def run_k2(dtype, nx, nu, N, Bt, Bs, tol):
                       Am, Bm, c, hf, Pm, Km, Lm, pN, Pc=Pc if pc else None), tol)
 
 
+def run_k46(dtype, nx, nu, nc, N, Bs, R, tol):
+    """Kernel A in both its forms across blocks of 32 scenarios, the last
+    ragged where Bs is no multiple of 32, N past the rings' slots: K4 on
+    its packed streams, and K6 on R rungs (scenario b on rung b mod R:
+    every block mixes them), with its Pc form at one rung."""
+    rng = np.random.default_rng(8)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} B={Bs} "
+           f"R={R}")
+    A, Bm = T(N, nx, nx, 1) * 0.3, T(N, nx, nu, 1) * 0.5
+    K = T(N, nu, nx, 1) * 0.3
+    L = torch.tril(T(N, nu, nu) * 0.2, diagonal=-1) + torch.diag_embed(
+        1.0 + T(N, nu).abs())
+    AK = torch.cat([A, K], dim=1).contiguous()
+    BL = torch.cat([Bm, L.unsqueeze(-1)], dim=1).contiguous()
+    k4_in = (T(nx, Bs), AK, BL, T(N, nx, Bs) * 0.1, T(N, nx, Bs),
+             T(N, nx + nu, Bs))
+    check(f"K4 across blocks [{tag}]",
+          [ca._launch_bwd_vec_prefold(admm_library(dtype, nx, nu), *k4_in,
+                                      None)],
+          [ca.admm_bwd_vec_prefold_lanes_reference(*k4_in, nu=nu)], tol)
+    k6_in, _, rung, Pc = random_ladder_inputs(rng, A, Bm, R, nc, Bs, (), True,
+                                              False)
+    rung = rung if R > 1 else None
+    lib6 = admm_library(dtype, nx, nu, nc, fold=True, rungs=R)
+    check(f"K6 across blocks [{tag}]",
+          [ca._launch_bwd_vec(lib6, *k6_in, rung, None, 1e-6, None)],
+          [ca.admm_bwd_vec_lanes_reference(*k6_in, nu=nu, sigma=1e-6,
+                                           rung=rung)], tol)
+    if R == 1:
+        pc_in = k6_in[:7] + (None,) + k6_in[8:]
+        check(f"K6 Pc form across blocks [{tag}]",
+              [ca._launch_bwd_vec(lib6, *pc_in, None, Pc, 1e-6, None)],
+              [ca.admm_bwd_vec_lanes_reference(*pc_in, nu=nu, sigma=1e-6,
+                                               Pc=Pc)], tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -616,6 +659,19 @@ ADMM_CASES = [
     (torch.float32, 3, 2, 9, 5, 33, ((0, 3, "soc"), (4, 5, "rsoc")), True,
      True, 1e-3),
     (torch.float64, 2, 1, 1, 4, 5, (), False, False, 1e-10),
+]
+# (dtype, nx, nu, nc, N, Bs, R, tol): kernel A (K4, and K6 on R rungs)
+# across blocks of 32 scenarios, N past the rings' slots (at most 10): the
+# rows by the copy engine (70 in float64, 96 in float32: the row stride a
+# multiple of 16 bytes) and a word a copy (67, 65: it is not), a ragged
+# last block (70, 67, 65, 37), K6 at R = 4, 3, 1 (with its Pc form) and
+# at odd widths.
+K46_CASES = [
+    (torch.float64, 12, 4, 16, 23, 70, 4, 1e-10),
+    (torch.float32, 12, 4, 19, 13, 67, 3, 1e-4),
+    (torch.float64, 12, 4, 16, 12, 65, 1, 1e-10),
+    (torch.float32, 12, 4, 16, 12, 96, 1, 1e-4),
+    (torch.float64, 3, 2, 5, 12, 37, 2, 1e-10),
 ]
 # (dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol): the
 # quadrotor's box rows on four rungs, its thrust cone with a shift on
@@ -672,12 +728,12 @@ SWEEP_CASES = [
 # it does not (33: a word a copy).
 QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:2], LADDER_CASES[:1]
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
-K2_QUICK = K2_CASES[:1]
+K2_QUICK, K46_QUICK = K2_CASES[:1], K46_CASES[:1]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
          iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES,
-         k2_cases=K2_CASES):
+         k2_cases=K2_CASES, k46_cases=K46_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -695,6 +751,8 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_sweep(*case)
     for case in k2_cases:
         run_k2(*case)
+    for case in k46_cases:
+        run_k46(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
@@ -702,4 +760,4 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
     sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
-                  SWEEP_QUICK, K2_QUICK) if quick else main())
+                  SWEEP_QUICK, K2_QUICK, K46_QUICK) if quick else main())

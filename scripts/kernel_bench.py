@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the matrix sweep (K1, K9, K11), K8 in each of its forms,
-per-instance K3, K2 and K5 at the shapes their paths give them, on the
-card.
+per-instance K3, K2, K5, K4 and K6 at the shapes their paths give them, on
+the card.
 
     python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
-                                    [--kernels sweep latency k8 k3 k2 k5]
+                                    [--kernels sweep latency k8 k3 k2 k5
+                                               k4 k6]
                                     [--profile]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
@@ -33,7 +34,10 @@ and ``k5`` take the tensors their paths hand them (each path run once with
 the calls recorded): K2 on the shared model in both modes (``solve``,
 B=4096) and per instance (the replicated cached loop, B=1024); K5 packed
 with and without hf-emit (``solve_admm``, B=4096) and its rung form (the
-four-rung ladder).  Each form is held against its plain version first.  ``--root DIR`` imports
+four-rung ladder).  ``k4`` and ``k6``: kernel A on the tensors of the
+last iteration of the 20-iteration ``solve_admm`` request (K4) and of the
+four-rung ladder request (K6, R=4), B=4096.  Each form is held against its
+plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
 card by running this script once for each, in turns.
@@ -42,11 +46,12 @@ Prints one JSON line a form: the median time of ``--reps`` launches by CUDA
 events, the bound (the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s), the error against the plain version, and
 the registers and spills ``ptxas`` reported for the library's kernels.
-``--profile`` builds K8 and K5 with their diagnostic ``-DADMM_PROFILE``
-and K2 with ``-DRICCATI_PROFILE`` (thread 0 of block 0, or lane 0 of each
-role's warp, sums the SM cycles of each section of a stage; a tail warp's
-per stage it took) and adds the cycles a stage of each section to their
-lines; that build's times and registers are not the kernel's own.
+``--profile`` builds K8, K5, K4 and K6 with their diagnostic
+``-DADMM_PROFILE`` and K2 with ``-DRICCATI_PROFILE`` (thread 0 of block 0,
+or lane 0 of each role's first warp, sums the SM cycles of each section of
+a stage; a fold or tail warp's per stage it took) and adds the cycles a
+stage of each section to their lines (where the tree's kernel has them);
+that build's times and registers are not the kernel's own.
 """
 
 from __future__ import annotations
@@ -87,6 +92,10 @@ K5_SECTIONS = ["producer: wait empty", "producer: copies",
                "chain: wait full", "chain: x+", "tail: wait ready",
                "tail: u w~ w+ cone values", "tail: constraint rows",
                "tail: rows of w"]
+# K4's and K6's (kernel A; K4 has no fold warps).
+KA_SECTIONS = ["producer: wait empty", "producer: copies",
+               "fold: wait full", "fold: rg hf Pc", "chain: wait",
+               "chain: Pcp rbar p", "tail: wait ready", "tail: d v stores"]
 
 
 def sweep_runs(sm, dev, shared_only=False):
@@ -269,17 +278,62 @@ def k2_k5_runs(sm, dev):
     return runs
 
 
+def k4_k6_runs(sm, dev):
+    """K4 and K6 (R=4) on the tensors of the last iteration of
+    ``solve_admm``'s and the ladder's 20-iteration requests (B=4096):
+    name -> (kernel call, plain call, output names, bytes read,
+    operations, profile sections)."""
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca
+    from pdp_lqr_tpu_torch.solvers import admm
+
+    N, NX, NU, NC, f32 = sm.N_MAIN, sm.NX, sm.NU, sm.NC, torch.float32
+    model, _ = quadrotor(N=N, constrained=True, dtype=f32, device=dev)
+    server = plt_.ScenarioServer(model, rho=sm.RHO, sigma=sm.SIGMA, device=dev)
+    rng = np.random.default_rng(sm.SEED)
+    c = torch.as_tensor(rng.normal(size=(sm.B_MAIN, N, NX)) * 0.01).to(
+        device=dev, dtype=f32)
+    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(sm.B_MAIN, NX))).to(
+        device=dev, dtype=f32)
+    K4, K6 = "admm_bwd_vec_prefold_lanes", "admm_bwd_vec_lanes"
+    with sm.recorded_calls(ca, [K4]) as rec:
+        server.solve_admm(x0, (), admm.ADMMSettings(**sm.ADMM_SETTINGS), c=c)
+    a4, kw4 = rec[K4]
+    rung0 = torch.tensor([sm.LADDER[b % len(sm.LADDER)]
+                          for b in range(sm.B_MAIN)], dtype=torch.float64)
+    state = sm.zero_state(sm.B_MAIN, N, NC, f32, dev, rung0)
+    with sm.recorded_calls(ca, [K6]) as rec:
+        server.solve_admm(x0, (), admm.ADMMSettings(**sm.LADDER_SETTINGS),
+                          state=state, c=c)
+    a6, kw6 = rec[K6]
+    torch.cuda.synchronize()
+    return {
+        K4: (lambda: [ca.admm_bwd_vec_prefold_lanes(*a4, **kw4)],
+             lambda: [ca.admm_bwd_vec_prefold_lanes_reference(*a4, **kw4)],
+             sm.K4_OUT, sm.nbytes(*a4), sm.k2_flops(N, NX, NU, sm.B_MAIN),
+             (f32, NX, NU, None, {})),
+        K6 + "[R=4]": (
+            lambda: [ca.admm_bwd_vec_lanes(*a6, **kw6)],
+            lambda: [ca.admm_bwd_vec_lanes_reference(*a6, **kw6)],
+            sm.K6_OUT, sm.nbytes(*a6, kw6.get("rung")),
+            sm.k6_flops(N, NX, NU, NC, sm.B_MAIN),
+            (f32, NX, NU, NC, {"fold": True, "rungs": 4})),
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
                     help="import pdp_lqr_tpu_torch from this checkout")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", nargs="*",
-                    choices=("sweep", "latency", "k8", "k3", "k2", "k5"),
+                    choices=("sweep", "latency", "k8", "k3", "k2", "k5",
+                             "k4", "k6"),
                     default=["sweep", "k8", "k3"])
     ap.add_argument("--profile", action="store_true",
-                    help="K8's, K2's and K5's diagnostic builds: cycles a "
-                         "stage by section")
+                    help="K8's, K2's, K5's, K4's and K6's diagnostic "
+                         "builds: cycles a stage by section")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA device", file=sys.stderr)
@@ -294,8 +348,8 @@ def main():
         load = _build.load
         def profiled(source, defines):
             extra = {}
-            if source == ca.SOURCE and "NC" in defines and "FOLD" not in defines:
-                extra = {"ADMM_PROFILE": 1}          # K8, K5
+            if source == ca.SOURCE:
+                extra = {"ADMM_PROFILE": 1}          # K8, K5, K4, K6
             elif source == cr.SOURCE and "NC" not in defines:
                 extra = {"RICCATI_PROFILE": 1}       # K2 (and K3, K7, K10)
             return load(source, {**defines, **extra})
@@ -321,13 +375,13 @@ def main():
                                      ROCKET + (False,)) * ("k8" in args.kernels):
         jobs.append((ca.SOURCE, ca.kernel_defines(
             f32, nx, nu, nc, cones=cones, has_shift=shift, single=True)))
-    if "k5" in args.kernels:
+    if {"k5", "k4", "k6"} & set(args.kernels):
         jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, diag_cost=True,
                                                rungs=R)) for R in (1, 4)]
         jobs.append((ca.SOURCE, ca.kernel_defines(f32, NX, NU)))     # K4
         jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, fold=True,
                                                rungs=4))]            # K6
-    if "k2" in args.kernels or "k5" in args.kernels:
+    if {"k2", "k5", "k4", "k6"} & set(args.kernels):
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))   # K1
     paths = _build.build_many(jobs)
     regs = {}
@@ -336,7 +390,8 @@ def main():
             [(job[1], _build.build_logs.get(p, ""))]))
     regs = {k: v for k, v in regs.items()
             if k.startswith(("iter_kernel", "forward_kernel", "backward_kernel",
-                             "backward_vectors", "fwd_update_kernel"))}
+                             "backward_vectors", "fwd_update_kernel",
+                             "bwd_vec"))}
     print(json.dumps({"ptxas": regs}), flush=True)
 
     def report(name, call, plain, names, moved, flops, extra=lambda: {}):
@@ -437,6 +492,24 @@ def main():
                          read_sections(lib, entry, sec, sm.N_MAIN))
             else:
                 extra = lambda: {}
+            report(name, lambda call=call: tuple(call()),
+                   lambda plain=plain: tuple(plain()), names, moved, flops, extra)
+        del runs
+
+    if {"k4", "k6"} & set(args.kernels):
+        runs = k4_k6_runs(sm, dev)
+        for name, (call, plain, names, moved, flops, lib_of) in runs.items():
+            if ("k6" if "[R=4]" in name else "k4") not in args.kernels:
+                continue
+            extra = lambda: {}
+            if args.profile:
+                call()
+                torch.cuda.synchronize()
+                dt, nx, nu, nc, modes = lib_of
+                lib = ca._library(dt, nx, nu, nc, **modes)
+                if hasattr(lib, "admm_read_prof"):
+                    extra = (lambda lib=lib: read_sections(
+                        lib, "admm_read_prof", KA_SECTIONS, sm.N_MAIN))
             report(name, lambda call=call: tuple(call()),
                    lambda plain=plain: tuple(plain()), names, moved, flops, extra)
         del runs
