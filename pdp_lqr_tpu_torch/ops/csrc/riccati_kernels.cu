@@ -1507,7 +1507,7 @@ backward_vectors_kernel(
 // but what a plain one-thread-per-scenario loop runs into first is
 // latency: a serving batch of a few thousand scenarios is a few thousand
 // threads, one warp per SM, and every stage waits for its own loads.
-// K3's design (K7 takes its geometry):
+// K3's design:
 //   * a block serves 32 scenarios with 4 threads each (4 warps): a thread
 //     owns a quarter of the rows of the per-scenario state, so the dot
 //     products of a stage are split four ways and exchanged through
@@ -1832,118 +1832,314 @@ forward_shared_kernel(
 }
 
 // ---- K7, per-instance rollout from the raw dynamics: u = K x + d,
-// x+ = A x + B u + c, every matrix per scenario (trailing size Bt).  What
-// bounds it is bytes: 272 words a scenario and stage in (A, B, c, K, d)
-// and out (ws).  One thread a scenario leaves a batch of 4,096 at 128 warps
-// for 132 SMs, each stage waiting on its own loads (the first K2/K3 measured
-// so).  Here a block serves 32 scenarios with RO_GROUPS threads each (a
-// warp is one group, so a warp's loads of one matrix entry are 32
-// neighbouring words): a thread computes all of u itself (nu short dot
-// products on K rows that the scenario's threads share through L1) and
-// owns a slice of the rows of x+; x goes round through shared memory, one
-// barrier a stage.  Each stage's loads are issued before that barrier, so
-// they are in flight while the block waits on it.
+// ws_k = [u; x], x+ = A x + B u + c, every matrix per scenario (trailing
+// size Bt).  What bounds it on this card is bytes: 256 words a scenario
+// and stage in at the quadrotor's widths (A 144, B 48, c 12, K 48, d 4)
+// and 16 out, 0.68 ms at N=512, B=4096 in float32; its arithmetic (240
+// FMAs a scenario and stage) is far below that.  So it is a streaming
+// problem, and what a loop that loads each stage when it reaches it runs
+// into is latency: one stage in flight, each paying a loaded DRAM
+// latency.  The warps of a block take roles on W consecutive scenarios
+// (a lane each; W = 32 where the ring holds three slots of them, fewer at
+// wide models: RoFit):
+//   * RO_PRODUCERS producer warps put whole stages into a ring of
+//     RoFit::SLOTS slots ahead of the chain: each stream a (rows, W) box
+//     of the copy engine (TMA; a stream taller than a box's 256 rows in
+//     several), the streams dealt over the warps (a copy-engine
+//     instruction costs its warp 140-460 cycles, and they queue behind
+//     each other on one warp: PERF.md).  Where the rows are not
+//     whole 16-byte pieces (or a stream is not 16-byte aligned) the copy
+//     engine refuses them, and the producers copy a word a copy
+//     (cp.async);
+//   * the chain warp keeps x in registers, reads K, d, A, B and c from the
+//     slot (row r of a stage at r*W + lane: a warp reads W consecutive
+//     words, no bank conflict), computes u, then x+ (the rows' sums
+//     independent of each other), frees the slot and writes [u; x] into
+//     a small out-ring;
+//   * the store warp writes the out-ring to ws, a row a store (a line in
+//     float32).  The chain itself stores only xN, after the last stage.
+// Shared-memory barriers hand the slots on (full, empty; the out-ring's
+// ofull, oempty: hopper_sync.cuh); no block-wide barrier a stage.  A lane
+// past the batch computes on zeros (the copy engine's) or the last
+// scenario's rows and stores nothing.  Measured on an H100 (PERF.md):
+// 80-84 % of the byte bound, held by the copies (every slot in flight, the
+// chain waiting on `full`).
 //
-// PACKED (K12): A, B, c are row blocks of one packed Sd = (A | B | c) and
-// K, d of G = (K | d), K11's output; only the strides change (the entry
-// point offsets the pointers).
-constexpr int RO_GROUPS = 8;                 // threads per scenario
-constexpr int RO_THREADS = VS_LANES * RO_GROUPS;
-constexpr int RO_RX = (NX + RO_GROUPS - 1) / RO_GROUPS;   // x rows/thread
-constexpr int RO_RU = (NU + RO_GROUPS - 1) / RO_GROUPS;   // u rows stored/thread
+// PACKED (K12): A, B, c are the row blocks of one packed stream Sd = (A |
+// B | c), and K, d of G = (K | d), K11's output: two streams a stage
+// instead of five, lying in the slot where K7's do; only the producers'
+// boxes differ.
+constexpr int RO_PRODUCERS = 2;
+constexpr int RO_THREADS = 32 * (2 + RO_PRODUCERS);   // chain, store, producers
+constexpr int RO_OSLOTS = 4;                 // the out-ring's slots
+constexpr int RO_SLOTS_MAX = 8;
+constexpr int RO_SMEM_MAX = 232448;          // 227 KB, the most a block has
+constexpr int RO_BOX_MAX = 256;              // the copy engine's rows a box
+
+// The streams of a stage and their rows: K7's A, B, c, K, d; K12's Sd, G.
+__host__ __device__ constexpr int ro_streams(bool packed)
+{
+    return packed ? 2 : 5;
+}
+__host__ __device__ constexpr int ro_rows(bool packed, int q)
+{
+    return packed ? (q == 0 ? NX * (NX + NU + 1) : NU * NX + NU)
+        : q == 0 ? NX * NX : q == 1 ? NX * NU : q == 2 ? NX
+        : q == 3 ? NU * NX : NU;
+}
+// Rows of w words rounded up to whole 128-byte pieces (a box lands on a
+// 128-byte boundary).
+__host__ __device__ constexpr int ro_up(int rows, int w)
+{
+    const int a = 128 / (w * (int)sizeof(scalar));
+    return a > 1 ? (rows + a - 1) / a * a : rows;
+}
+// A stream of `rows` rows a stage goes as ro_boxes boxes of ro_box rows
+// of w words, each whole 128-byte pieces (the last may reach past the
+// stream's rows: its slot keeps ro_span).
+__host__ __device__ constexpr int ro_boxes(int rows)
+{
+    return (rows + RO_BOX_MAX - 1) / RO_BOX_MAX;
+}
+__host__ __device__ constexpr int ro_box(int rows, int w)
+{
+    return ro_up((rows + ro_boxes(rows) - 1) / ro_boxes(rows), w);
+}
+__host__ __device__ constexpr int ro_span(int rows, int w)
+{
+    return ro_boxes(rows) * ro_box(rows, w);
+}
+// The first row of stream q in a slot (q = ro_streams: a slot's rows).
+__host__ __device__ constexpr int ro_off(bool packed, int q, int w)
+{
+    int off = 0;
+    for (int i = 0; i < q; ++i)
+        off = ro_up(off + ro_span(ro_rows(packed, i), w), w);
+    return off;
+}
+// Slots of w scenarios (and two barriers each) beside the out-ring.
+__host__ __device__ constexpr int ro_fit(bool packed, int w)
+{
+    return (RO_SMEM_MAX - 128
+            - RO_OSLOTS * (ro_up(NZ, w) * w * (int)sizeof(scalar) + 16))
+        / (ro_off(packed, ro_streams(packed), w) * w * (int)sizeof(scalar)
+           + 16);
+}
+// W: the widest of 32, 16, 8 and 4 scenarios whose ring holds 3 slots,
+// else 2.
+__host__ __device__ constexpr int ro_pick(bool packed)
+{
+    for (int least = 3; least >= 2; --least)
+        for (int w = 32; w >= 4; w /= 2)
+            if (ro_fit(packed, w) >= least) return w;
+    return 4;
+}
+template <bool PACKED> struct RoFit {
+    static constexpr int NS = ro_streams(PACKED);
+    static constexpr int W = ro_pick(PACKED);
+    static constexpr int SLOTS = ro_fit(PACKED, W) < RO_SLOTS_MAX
+        ? ro_fit(PACKED, W) : RO_SLOTS_MAX;
+    static constexpr int SLOT = ro_off(PACKED, NS, W) * W;    // words
+    static constexpr int OSLOT = ro_up(NZ, W) * W;
+    // The rows of A, B, c, K and d in a slot.
+    static constexpr int A = 0;
+    static constexpr int B = PACKED ? NX * NX : ro_off(false, 1, W);
+    static constexpr int C = PACKED ? NX * NX + NX * NU : ro_off(false, 2, W);
+    static constexpr int K = ro_off(PACKED, PACKED ? 1 : 3, W);
+    static constexpr int D = PACKED ? K + NU * NX : ro_off(false, 4, W);
+    static constexpr int OUT = SLOTS * SLOT;   // the out-ring (words)
+    static constexpr int BAR = (OUT + RO_OSLOTS * OSLOT) * (int)sizeof(scalar);
+    static constexpr int SMEM = BAR + 8 * 2 * (SLOTS + RO_OSLOTS) + 128;
+    static_assert(SLOTS >= 2, "K7/K12: two stages of 4 scenarios do not fit");
+    static_assert(W * sizeof(scalar) % 16 == 0, "K7/K12: a box row");
+};
+// The streams (the cp.async path) and the copy engine's maps of them.
+template <bool PACKED> struct RoSrc { const scalar* p[ro_streams(PACKED)]; };
+template <bool PACKED> struct RoMaps { CUtensorMap m[ro_streams(PACKED)]; };
+// The producer warp of stream q.
+__host__ __device__ constexpr int ro_owner(int q) { return q % RO_PRODUCERS; }
 
 template <bool PACKED>
-__global__ void __launch_bounds__(RO_THREADS)
+__global__ void __launch_bounds__(RO_THREADS, 1)
 forward_rollout_kernel(
-    int N, int Bt,
-    const scalar* __restrict__ A, const scalar* __restrict__ B,
-    const scalar* __restrict__ c, const scalar* __restrict__ K,
-    const scalar* __restrict__ d, const scalar* __restrict__ x0,
-    scalar* __restrict__ ws, scalar* __restrict__ xN)
+    int N, int Bt, const RoSrc<PACKED> src, const scalar* __restrict__ x0,
+    scalar* __restrict__ ws, scalar* __restrict__ xN,
+    const __grid_constant__ RoMaps<PACKED> maps, int tma)
 {
+    using Fit = RoFit<PACKED>;
+    constexpr int W = Fit::W, SLOTS = Fit::SLOTS;
     extern __shared__ double smem_aligned[];
-    scalar* xs = reinterpret_cast<scalar*>(smem_aligned);   // x exchange, x2
+    char* base = reinterpret_cast<char*>(
+        (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
+    scalar* ring = reinterpret_cast<scalar*>(base);
+    scalar* oring = ring + Fit::OUT;
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + Fit::BAR);
+    mbar_t* empty = full + SLOTS;
+    mbar_t* ofull = empty + SLOTS;
+    mbar_t* oempty = ofull + RO_OSLOTS;
 
-    const int tid = threadIdx.x;
-    const int lane = tid % VS_LANES;
-    const int grp = tid / VS_LANES;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int col = lane < W ? lane : W - 1;     // lanes past W shadow the last
     const size_t Bs = (size_t)Bt;
-    const size_t b = (size_t)blockIdx.x * VS_LANES + lane;
-    const bool valid = b < Bs;
-    const size_t bb = valid ? b : 0;         // an idle lane reads scenario 0
-    // Rows a stage takes in each stream.
-    constexpr int RA = PACKED ? NX * (NX + NU + 1) : NX * NX;
-    constexpr int RB = PACKED ? NX * (NX + NU + 1) : NX * NU;
-    constexpr int RC = PACKED ? NX * (NX + NU + 1) : NX;
-    constexpr int RK = PACKED ? NU * NX + NU : NU * NX;
-    constexpr int RD = PACKED ? NU * NX + NU : NU;
+    const size_t b0 = (size_t)blockIdx.x * W;
+    const size_t b = b0 + col;
+    const bool mine = lane < W && b < Bs;        // stores its scenario's rows
 
-#pragma unroll
-    for (int r = 0; r < RO_RX; ++r) {
-        const int i = grp * RO_RX + r;
-        if (i < NX) xs[i * VS_LANES + lane] = x0[i * Bs + bb];
-    }
-
-    for (int k = 0; k < N; ++k) {
-        const size_t ks = (size_t)k;
-        scalar Kr[NU][NX], dr[NU], Ar[RO_RX][NX], Br[RO_RX][NU], cr[RO_RX];
-#pragma unroll
-        for (int j = 0; j < NU; ++j) {
-            dr[j] = __ldg(d + (ks * RD + j) * Bs + bb);
-#pragma unroll
-            for (int t = 0; t < NX; ++t)
-                Kr[j][t] = __ldg(K + (ks * RK + j * NX + t) * Bs + bb);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < SLOTS; ++s) {
+            mbar_init(&full[s], 33 * RO_PRODUCERS);   // each producer's
+                                                 // lanes, and its lane 0's
+                                                 // with the bytes it expects
+            mbar_init(&empty[s], 32);            // the chain's
         }
-#pragma unroll
-        for (int r = 0; r < RO_RX; ++r) {
-            const int i = grp * RO_RX + r < NX ? grp * RO_RX + r : NX - 1;
-            cr[r] = __ldg(c + (ks * RC + i) * Bs + bb);
-#pragma unroll
-            for (int t = 0; t < NX; ++t)
-                Ar[r][t] = __ldg(A + (ks * RA + i * NX + t) * Bs + bb);
-#pragma unroll
-            for (int t = 0; t < NU; ++t)
-                Br[r][t] = __ldg(B + (ks * RB + i * NU + t) * Bs + bb);
-        }
-        __syncthreads();                     // x_k published
-
-        const scalar* xin = xs + (k & 1) * NX * VS_LANES;
-        scalar* xout = xs + ((k + 1) & 1) * NX * VS_LANES;
-        scalar x[NX], u[NU];
-#pragma unroll
-        for (int t = 0; t < NX; ++t) x[t] = xin[t * VS_LANES + lane];
-#pragma unroll
-        for (int j = 0; j < NU; ++j) {
-            scalar acc = dr[j];
-#pragma unroll
-            for (int t = 0; t < NX; ++t) acc += Kr[j][t] * x[t];
-            u[j] = acc;
-        }
-#pragma unroll
-        for (int r = 0; r < RO_RU; ++r) {
-            const int j = grp * RO_RU + r;
-            if (j < NU && valid) ws[(ks * NZ + j) * Bs + b] = u[j];
-        }
-#pragma unroll
-        for (int r = 0; r < RO_RX; ++r) {
-            const int i = grp * RO_RX + r;
-            if (i < NX) {
-                if (valid) ws[(ks * NZ + NU + i) * Bs + b] = x[i];
-                scalar acc = cr[r];
-#pragma unroll
-                for (int t = 0; t < NX; ++t) acc += Ar[r][t] * x[t];
-#pragma unroll
-                for (int t = 0; t < NU; ++t) acc += Br[r][t] * u[t];
-                xout[i * VS_LANES + lane] = acc;
-            }
+        for (int o = 0; o < RO_OSLOTS; ++o) {
+            mbar_init(&ofull[o], 32);            // the chain's
+            mbar_init(&oempty[o], 32);           // the store warp's
         }
     }
     __syncthreads();
+
+    // Stage n in slot n % SLOTS and out slot n % RO_OSLOTS.
+    if (warp >= 2) {
+        // ---- producer warp pw: its streams of each stage.
+        const int pw = warp - 2;
+        int tx = 0;                              // the bytes of its boxes
 #pragma unroll
-    for (int r = 0; r < RO_RX; ++r) {
-        const int i = grp * RO_RX + r;
-        if (i < NX && valid) xN[i * Bs + b] = xs[((N & 1) * NX + i) * VS_LANES + lane];
+        for (int q = 0; q < Fit::NS; ++q)
+            if (ro_owner(q) == pw)
+                tx += ro_span(ro_rows(PACKED, q), W) * W * (int)sizeof(scalar);
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0 && pw == 0)
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % SLOTS;
+            if (n >= SLOTS) mbar_wait(&empty[s], (n / SLOTS - 1) & 1);
+            PROF_MARK(0);
+            scalar* S = ring + s * Fit::SLOT;
+            if (lane == 0) mbar_arrive_expect_tx(&full[s], tma ? tx : 0);
+#pragma unroll
+            for (int q = 0; q < Fit::NS; ++q) {
+                if (ro_owner(q) != pw) continue;
+                const int rows = ro_rows(PACKED, q);
+                scalar* dst = S + ro_off(PACKED, q, W) * W;
+                if (tma) {
+                    if (lane == 0)
+                        for (int i = 0; i < ro_boxes(rows); ++i)
+                            tma_box(dst + i * ro_box(rows, W) * W,
+                                    &maps.m[q], (int)b0,
+                                    n * rows + i * ro_box(rows, W), &full[s]);
+                } else {
+                    warp_copy_rows<W>(dst, src.p[q] + (size_t)n * rows * Bs,
+                                      rows, Bs, b0, false, lane);
+                }
+            }
+            mbar_arrive_on_copies(&full[s]);
+            PROF_MARK(1);
+        }
+        PROF_DONE_RANGE(0, 2)
+    } else if (warp == 0) {
+        // ---- chain: x in registers, [u; x] into the out-ring.
+        const size_t bc = b < Bs ? b : Bs - 1;
+        scalar x[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) x[i] = x0[i * Bs + bc];
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % SLOTS;
+            mbar_wait(&full[s], (n / SLOTS) & 1);
+            PROF_MARK(2);
+            const scalar* S = ring + s * Fit::SLOT + col;
+            scalar u[NU], xn[NX];
+#pragma unroll
+            for (int j = 0; j < NU; ++j) {
+                scalar acc = S[(Fit::D + j) * W];
+#pragma unroll
+                for (int t = 0; t < NX; ++t)
+                    acc += S[(Fit::K + j * NX + t) * W] * x[t];
+                u[j] = acc;
+            }
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
+                scalar acc = S[(Fit::C + i) * W];
+#pragma unroll
+                for (int t = 0; t < NX; ++t)
+                    acc += S[(Fit::A + i * NX + t) * W] * x[t];
+#pragma unroll
+                for (int t = 0; t < NU; ++t)
+                    acc += S[(Fit::B + i * NU + t) * W] * u[t];
+                xn[i] = acc;
+            }
+            mbar_arrive(&empty[s]);
+            PROF_MARK(3);
+            const int o = n % RO_OSLOTS;
+            if (n >= RO_OSLOTS) mbar_wait(&oempty[o], (n / RO_OSLOTS - 1) & 1);
+            PROF_MARK(4);
+            if (lane < W) {
+                scalar* O = oring + o * Fit::OSLOT + lane;
+#pragma unroll
+                for (int j = 0; j < NU; ++j) O[j * W] = u[j];
+#pragma unroll
+                for (int i = 0; i < NX; ++i) O[(NU + i) * W] = x[i];
+            }
+            mbar_arrive(&ofull[o]);
+#pragma unroll
+            for (int i = 0; i < NX; ++i) x[i] = xn[i];
+            PROF_MARK(5);
+        }
+        PROF_DONE_RANGE(2, 6)
+        if (mine) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i) xN[i * Bs + b] = x[i];
+        }
+    } else {
+        // ---- store warp: the out-ring to ws, a row a store.
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int o = n % RO_OSLOTS;
+            mbar_wait(&ofull[o], (n / RO_OSLOTS) & 1);
+            PROF_MARK(6);
+            const scalar* O = oring + o * Fit::OSLOT + col;
+            scalar* out = ws + (size_t)n * NZ * Bs + b;
+            if (mine) {
+#pragma unroll
+                for (int r = 0; r < NZ; ++r) out[r * Bs] = O[r * W];
+            }
+            mbar_arrive(&oempty[o]);
+            PROF_MARK(7);
+        }
+        PROF_DONE_RANGE(6, 8)
     }
+}
+
+// K7 on its five streams, K12 on its two.  The streams go by the copy
+// engine where its maps can take them (the row stride a multiple of 16
+// bytes, each stream 16-byte aligned); a map that cannot be made is an
+// error.
+template <bool PACKED>
+int launch_rollout(int N, int Bt, cudaStream_t st, const RoSrc<PACKED>& src,
+                   const void* x0, void* ws, void* xN)
+{
+    using Fit = RoFit<PACKED>;
+    constexpr int SZ = (int)sizeof(scalar);
+    bool tma = (size_t)Bt * SZ % 16 == 0;
+    for (int q = 0; q < Fit::NS; ++q)
+        tma = tma && ((size_t)src.p[q] & 15) == 0;
+    RoMaps<PACKED> maps = {};
+    for (int q = 0; tma && q < Fit::NS; ++q) {
+        const int rows = ro_rows(PACKED, q);
+        const int e = make_rows_map(&maps.m[q], src.p[q], (size_t)N * rows,
+                                    Bt, ro_box(rows, Fit::W), Fit::W, SZ);
+        if (e) return e;
+    }
+    const int e = set_smem(forward_rollout_kernel<PACKED>, Fit::SMEM);
+    if (e) return e;
+    const int blocks = (Bt + Fit::W - 1) / Fit::W;
+    forward_rollout_kernel<PACKED><<<blocks, RO_THREADS, Fit::SMEM, st>>>(
+        N, Bt, src, (const scalar*)x0, (scalar*)ws, (scalar*)xN, maps,
+        (int)tma);
+    return (int)cudaGetLastError();
 }
 
 #endif  // NC
@@ -2173,14 +2369,10 @@ int riccati_forward_rollout(int N, int Bt, void* stream,
                             void* ws, void* xN)
 {
     if (N <= 0 || Bt <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
-    const size_t smem = 2 * NX * VS_LANES * sizeof(scalar);
-    forward_rollout_kernel<false><<<blocks, RO_THREADS, smem, st>>>(
-        N, Bt, (const scalar*)A, (const scalar*)B, (const scalar*)c,
-        (const scalar*)K, (const scalar*)d, (const scalar*)x0, (scalar*)ws,
-        (scalar*)xN);
-    return (int)cudaGetLastError();
+    const RoSrc<false> src = {{(const scalar*)A, (const scalar*)B,
+                               (const scalar*)c, (const scalar*)K,
+                               (const scalar*)d}};
+    return launch_rollout<false>(N, Bt, (cudaStream_t)stream, src, x0, ws, xN);
 }
 
 // K12: K7 on row-packed Sd (N, nx(nx+nu+1), Bt) and G (N, nu*nx+nu, Bt).
@@ -2188,17 +2380,8 @@ int riccati_forward_packed(int N, int Bt, void* stream, const void* Sd,
                            const void* G, const void* x0, void* ws, void* xN)
 {
     if (N <= 0 || Bt <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    const scalar* sd = (const scalar*)Sd;
-    const scalar* g = (const scalar*)G;
-    const size_t Bs = (size_t)Bt;
-    const int blocks = (Bt + VS_LANES - 1) / VS_LANES;
-    const size_t smem = 2 * NX * VS_LANES * sizeof(scalar);
-    forward_rollout_kernel<true><<<blocks, RO_THREADS, smem, st>>>(
-        N, Bt, sd, sd + (size_t)(NX * NX) * Bs,
-        sd + (size_t)(NX * NX + NX * NU) * Bs, g, g + (size_t)(NU * NX) * Bs,
-        (const scalar*)x0, (scalar*)ws, (scalar*)xN);
-    return (int)cudaGetLastError();
+    const RoSrc<true> src = {{(const scalar*)Sd, (const scalar*)G}};
+    return launch_rollout<true>(N, Bt, (cudaStream_t)stream, src, x0, ws, xN);
 }
 
 #endif  // NC

@@ -578,8 +578,9 @@ def forward_rollout_lanes(A, B, c, K, d, x0):
     B d + c), without forming them (backward_lanes(emit_closed_loop=
     False) skips computing and writing them).
 
-    On the card: a block serves 32 scenarios with 8 threads each; see
-    the note in the kernel source.
+    On the card: a block's warps take roles on 32 scenarios (producers
+    staging whole stages through a ring of shared-memory slots, a chain
+    lane a scenario, a store warp); see the note in the kernel source.
     """
     N, nx, _, Bt = A.shape
     nu = K.shape[1]

@@ -17,8 +17,8 @@ counts, a box of the copy engine a strided copy), builds it with
 own ``ctypes`` bindings and holds every kernel and mode against its plain
 PyTorch version at small sizes (K1-K12, every form of K5 and of K8, K9 in
 both forms, K3 in segments; K8, per-instance K3, both forms of K2 and the
-matrix sweep K1 / K9 / K11 across several blocks with a ragged last one;
-K2 and K5 past their rings' slots).  It proves nothing about what ``nvcc`` accepts, about races between
+matrix sweep K1 / K9 / K11, K7 and K12 across several blocks with a
+ragged last one; K2, K5, K7 and K12 past their rings' slots).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
 indices, layouts and missing barriers before a run on the card is spent
 on them.  About three minutes (some thirty small g++ builds); ``--quick`` runs
@@ -629,6 +629,30 @@ def run_k46(dtype, nx, nu, nc, N, Bs, R, tol):
                                                Pc=Pc)], tol)
 
 
+def run_k7(dtype, nx, nu, N, Bt, tol):
+    """The rollout from the raw dynamics on ``Bt`` scenarios across the
+    kernel's blocks of W (32 at these widths), the last ragged, N past
+    its ring's slots: K7 on its five streams and K12 on the packed two.
+    The streams go as boxes of the copy engine where their rows are whole
+    16-byte pieces (Bt a multiple of 4 in float32, of 2 in float64), a
+    word a copy otherwise."""
+    rng = np.random.default_rng(9)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} N={N} B={Bt}"
+    A, B, K = T(N, nx, nx, Bt) * 0.2, T(N, nx, nu, Bt) * 0.3, \
+        T(N, nu, nx, Bt) * 0.2
+    c, d, x0 = T(N, nx, Bt) * 0.1, T(N, nu, Bt), T(nx, Bt)
+    lib = library(dtype, nx, nu)
+    check(f"K7 across blocks [{tag}]",
+          cr._launch_forward_rollout(lib, A, B, c, K, d, x0, None),
+          cr.forward_rollout_lanes_reference(A, B, c, K, d, x0), tol)
+    Sd = torch.cat([A.flatten(1, 2), B.flatten(1, 2), c], dim=1).contiguous()
+    G = torch.cat([K.flatten(1, 2), d], dim=1).contiguous()
+    check(f"K12 across blocks [{tag}]",
+          cr._launch_forward_packed(lib, Sd, G, x0, None),
+          cr.forward_packed_reference(Sd, G, x0, nu), tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -724,16 +748,36 @@ SWEEP_CASES = [
     (torch.float64, 12, 4, 16, 4, 5, 2, 1e-10, True),
     (torch.float32, 3, 2, 5, 4, 3, 4, 1e-4, True),
 ]
+# (dtype, nx, nu, N, Bt, tol): K7 and K12 across three blocks of 32
+# scenarios, the last ragged, N three times the ring's slots or more (3 in
+# float64, 6 in float32 at the quadrotor's widths; 8 at odd small ones):
+# the copy engine's boxes (70 in float64, 68 and 72 in float32) and a word
+# a copy (67 in both, 69), at the quadrotor's widths and odd small ones;
+# then at the mass-spring chain's widths (nx=40, nu=10), where a block
+# takes W = 4 scenarios (float32: 5 slots, float64: 2) and A seven boxes a
+# stage: boxes (12 in float32; 10 in float64, the last block ragged) and
+# a word a copy (10 in float32).
+K7_CASES = [
+    (torch.float64, 12, 4, 10, 70, 1e-10),
+    (torch.float32, 12, 4, 19, 67, 1e-4),
+    (torch.float32, 12, 4, 19, 68, 1e-4),
+    (torch.float64, 12, 4, 10, 67, 1e-10),
+    (torch.float64, 3, 2, 25, 69, 1e-10),
+    (torch.float32, 3, 2, 25, 72, 1e-4),
+    (torch.float32, 40, 10, 16, 12, 1e-4),
+    (torch.float32, 40, 10, 16, 10, 1e-4),
+    (torch.float64, 40, 10, 7, 10, 1e-10),
+]
 # K5 on a batch whose rows the copy engine takes (70 in float64) and on one
 # it does not (33: a word a copy).
 QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:2], LADDER_CASES[:1]
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
-K2_QUICK, K46_QUICK = K2_CASES[:1], K46_CASES[:1]
+K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
          iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES,
-         k2_cases=K2_CASES, k46_cases=K46_CASES):
+         k2_cases=K2_CASES, k46_cases=K46_CASES, k7_cases=K7_CASES):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -753,6 +797,8 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_k2(*case)
     for case in k46_cases:
         run_k46(*case)
+    for case in k7_cases:
+        run_k7(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
@@ -760,4 +806,5 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
 if __name__ == "__main__":
     quick = "--quick" in sys.argv[1:]
     sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
-                  SWEEP_QUICK, K2_QUICK, K46_QUICK) if quick else main())
+                  SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK) if quick
+             else main())

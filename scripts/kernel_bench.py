@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the matrix sweep (K1, K9, K11), K8 in each of its forms,
-per-instance K3, K2, K5, K4 and K6 at the shapes their paths give them, on
-the card.
+per-instance K3, K2, K5, K4, K6, K7 and K12 at the shapes their paths give
+them, on the card.
 
     python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
                                     [--kernels sweep latency k8 k3 k2 k5
-                                               k4 k6]
+                                               k4 k6 k7]
                                     [--profile]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
@@ -36,7 +36,9 @@ B=4096) and per instance (the replicated cached loop, B=1024); K5 packed
 with and without hf-emit (``solve_admm``, B=4096) and its rung form (the
 four-rung ladder).  ``k4`` and ``k6``: kernel A on the tensors of the
 last iteration of the 20-iteration ``solve_admm`` request (K4) and of the
-four-rung ladder request (K6, R=4), B=4096.  Each form is held against its
+four-rung ladder request (K6, R=4), B=4096.  ``k7``: the rollout from
+the raw dynamics on the tensors ``solve_lanes`` hands K7 and
+``solve_packed`` hands K12 (B=4096).  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
@@ -47,7 +49,7 @@ events, the bound (the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s), the error against the plain version, and
 the registers and spills ``ptxas`` reported for the library's kernels.
 ``--profile`` builds K8, K5, K4 and K6 with their diagnostic
-``-DADMM_PROFILE`` and K2 with ``-DRICCATI_PROFILE`` (thread 0 of block 0,
+``-DADMM_PROFILE`` and K2, K7 and K12 with ``-DRICCATI_PROFILE`` (thread 0 of block 0,
 or lane 0 of each role's first warp, sums the SM cycles of each section of
 a stage; a fold or tail warp's per stage it took) and adds the cycles a
 stage of each section to their lines (where the tree's kernel has them);
@@ -96,6 +98,10 @@ K5_SECTIONS = ["producer: wait empty", "producer: copies",
 KA_SECTIONS = ["producer: wait empty", "producer: copies",
                "fold: wait full", "fold: rg hf Pc", "chain: wait",
                "chain: Pcp rbar p", "tail: wait ready", "tail: d v stores"]
+# K7's and K12's (producer 0 of 2, the chain, the store warp).
+K7_SECTIONS = ["producer: wait empty", "producer: copies",
+               "chain: wait full", "chain: u x+", "chain: wait out slot",
+               "chain: out rows", "store: wait full", "store: ws rows"]
 
 
 def sweep_runs(sm, dev, shared_only=False):
@@ -322,6 +328,44 @@ def k4_k6_runs(sm, dev):
     }
 
 
+def k7_runs(sm, dev):
+    """K7 and K12 on the tensors ``solve_lanes`` and ``solve_packed`` hand
+    them (quadrotor, N=512, B=4096, float32), each path run once with the
+    kernels' calls recorded: name -> (kernel call, plain call, output
+    names, bytes read, operations)."""
+    import dataclasses
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+
+    N, NX, NU, B, f32 = sm.N_MAIN, sm.NX, sm.NU, sm.B_MAIN, torch.float32
+    model, _ = quadrotor(N=N, constrained=True, dtype=f32, device=dev)
+    it = plt_.init_iterates(model, rho=sm.RHO)
+    rng = np.random.default_rng(sm.SEED)
+    c = torch.as_tensor(rng.normal(size=(B, N, NX)) * 0.01).to(
+        device=dev, dtype=f32)
+    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(B, NX))).to(
+        device=dev, dtype=f32)
+    it_b = plt_.ADMMIterates(**{f.name: getattr(it, f.name)[None].expand(
+        (B,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
+    lanes = sm.batched(model, B, c)
+    K7, K12 = "forward_rollout_lanes", "forward_packed"
+    with sm.recorded_calls(cr, [K7, K12]) as rec:
+        cr.solve_lanes(lanes, it_b, x0, sm.SIGMA)
+        cr.solve_packed(lanes, it_b, x0, sm.SIGMA)
+    torch.cuda.synchronize()
+    a7, a12 = rec[K7][0], rec[K12][0]
+    flops = sm.k7_flops(N, NX, NU, B)
+    return {
+        K7: (lambda: cr.forward_rollout_lanes(*a7),
+             lambda: cr.forward_rollout_lanes_reference(*a7), sm.K3_OUT,
+             sm.nbytes(*a7), flops),
+        K12: (lambda: cr.forward_packed(*a12),
+              lambda: cr.forward_packed_reference(*a12), sm.K3_OUT,
+              sm.nbytes(*a12[:3]), flops),
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
@@ -329,11 +373,11 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", nargs="*",
                     choices=("sweep", "latency", "k8", "k3", "k2", "k5",
-                             "k4", "k6"),
+                             "k4", "k6", "k7"),
                     default=["sweep", "k8", "k3"])
     ap.add_argument("--profile", action="store_true",
-                    help="K8's, K2's, K5's, K4's and K6's diagnostic "
-                         "builds: cycles a stage by section")
+                    help="K8's, K2's, K5's, K4's, K6's, K7's and K12's "
+                         "diagnostic builds: cycles a stage by section")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA device", file=sys.stderr)
@@ -351,7 +395,7 @@ def main():
             if source == ca.SOURCE:
                 extra = {"ADMM_PROFILE": 1}          # K8, K5, K4, K6
             elif source == cr.SOURCE and "NC" not in defines:
-                extra = {"RICCATI_PROFILE": 1}       # K2 (and K3, K7, K10)
+                extra = {"RICCATI_PROFILE": 1}       # K2, K7, K12 (K3, K10)
             return load(source, {**defines, **extra})
         _build.load = profiled
     card = subprocess.run(
@@ -381,7 +425,7 @@ def main():
         jobs.append((ca.SOURCE, ca.kernel_defines(f32, NX, NU)))     # K4
         jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, fold=True,
                                                rungs=4))]            # K6
-    if {"k2", "k5", "k4", "k6"} & set(args.kernels):
+    if {"k2", "k5", "k4", "k6", "k7"} & set(args.kernels):
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))   # K1
     paths = _build.build_many(jobs)
     regs = {}
@@ -391,7 +435,7 @@ def main():
     regs = {k: v for k, v in regs.items()
             if k.startswith(("iter_kernel", "forward_kernel", "backward_kernel",
                              "backward_vectors", "fwd_update_kernel",
-                             "bwd_vec"))}
+                             "bwd_vec", "forward_rollout"))}
     print(json.dumps({"ptxas": regs}), flush=True)
 
     def report(name, call, plain, names, moved, flops, extra=lambda: {}):
@@ -512,6 +556,22 @@ def main():
                         lib, "admm_read_prof", KA_SECTIONS, sm.N_MAIN))
             report(name, lambda call=call: tuple(call()),
                    lambda plain=plain: tuple(plain()), names, moved, flops, extra)
+        del runs
+
+    if "k7" in args.kernels:
+        runs = k7_runs(sm, dev)
+        lib = cr._library(f32, NX, NU)
+
+        def rollout_sections():
+            # An older tree's K7 and K12 mark no sections: all zeros.
+            got = read_sections(lib, "riccati_read_prof", K7_SECTIONS,
+                                sm.N_MAIN)
+            return got if any(got["cycles_per_stage"].values()) else {}
+
+        for name, (call, plain, names, moved, flops) in runs.items():
+            report(name, lambda call=call: tuple(call()),
+                   lambda plain=plain: tuple(plain()), names, moved, flops,
+                   rollout_sections if args.profile else (lambda: {}))
         del runs
 
     if "k3" not in args.kernels:

@@ -6,7 +6,8 @@ every kernel and mode against its plain PyTorch version.  Running one case
 of each kernel here (K8 in its eight forms, per-instance K3, both forms of
 K2 and the matrix sweep across their blocks, K5 packed with a cone and a
 shift and in its rung form past their rings' slots, K4 and K6 on four
-rungs across their blocks of 32 scenarios, the last ragged) keeps
+rungs across their blocks of 32 scenarios, the last ragged, K7 and K12
+across their blocks and past their ring's slots) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
@@ -27,4 +28,4 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
     spec.loader.exec_module(emu)
     assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK,
                     emu.ITER_QUICK, emu.K3_QUICK, emu.SWEEP_QUICK,
-                    emu.K2_QUICK, emu.K46_QUICK) == 0
+                    emu.K2_QUICK, emu.K46_QUICK, emu.K7_QUICK) == 0
