@@ -196,6 +196,62 @@ PDP_ADMM_CROSS_ATOL = 3e-12
 # other strides (float32 at full size, float64 at N=64); measured equal.
 PACKED_ATOL = {torch.float32: 1e-12, torch.float64: 1e-12}
 
+# The two widest models of the JAX package (BASELINE.md configs #2 and #5),
+# their widths, constraint rows and cones: name -> (nx, nu, nc, cones,
+# rows of the ADMM kernels).  The mass-spring chain has no constraint rows;
+# the ADMM kernels (K4-K6, K8), which need rows, take a box on each of its
+# 10 forces.  Every kernel is held against its plain version at both (N=64,
+# B=256 and an odd B, whose rows are no 16-byte pieces: the word-copy
+# paths), in float64 and float32.
+WIDE = {"mass_spring": (40, 10, 0, (), 10),
+        "centroidal": (24, 6, 6, ((0, 3, "soc"), (3, 3, "soc")), 6)}
+B_WIDE = (B_SMALL, B_ODD)
+# The JAX bench's requests at these widths (bench.py:575-612: float32,
+# drift c = c_model + 0.001 N(0,1), x0 = 0.1 N(0,1), seed 0):
+# ``ScenarioServer.solve`` on mass_spring_chain(n_masses=20, N=512) at
+# B=2048 and on centroidal(N=1024) at B=4096; ``solve_admm`` on
+# centroidal(N=1024) with its friction cones at B=2048, 20 iterations, in
+# the split settings (ADMM_SETTINGS: K1 + K4 + K5) and in the default
+# iteration (SINGLE_SETTINGS: K8, per-scenario rho, no cached factors).
+N_MS, B_MS = 512, 2048
+N_CEN, B_CEN, B_CEN_ADMM = 1024, 4096, 2048
+C_SCALE_WIDE = 1e-3
+WIDE_TIMED_REQUESTS = 5
+# The wide requests against their float64 witnesses on 8 scenarios:
+# ``solve`` against the sequential solver on the card, the ADMM requests
+# against the same solve_admm on the plain versions on the CPU; each
+# quantity's largest error against its own largest magnitude where that
+# exceeds 1 (the centroidal model's contact forces run to about 500 N, and
+# its float32 recursion, with R = 1e-4 I against forces of hundreds of
+# newtons, carries far more rounding than the quadrotor's).  Each limit is
+# 10x what was measured on an H100 (PERF.md): mass-spring 1.58e-6,
+# centroidal 5.34e-5; the ADMM requests a limit a quantity, 10x the larger
+# of the split and single-kernel requests' measurements (ws 2.23e-4, z
+# 2.35e-4, y 3.54e-5, r_prim 5.88e-3 of its 3.75, r_dual 1.03e-3 absolute).
+WIDE_RTOL = {"mass_spring_solve": 1.6e-5, "centroidal_solve": 5.4e-4}
+WIDE_ADMM_RTOL = {"ws": 2.3e-3, "w": 2.3e-3, "z": 2.4e-3, "y": 3.6e-4,
+                  "r_prim": 5.9e-2, "r_dual": 1.1e-2}
+# The ``kernels`` line's entries at the wide requests' own tensors, kernel
+# against plain version in float32: 10x the largest measured, K2 on the
+# centroidal solve's tensors (2.50e-4 relative; every other entry at most
+# 3.8e-5).  At N=64 (phase kernels_wide) every kernel stays within TOL.
+WIDE_KERNEL_RTOL = 2.5e-3
+# The reference-shaped solvers on the card: the quadrotor with the thrust
+# cone, N=512, float64, a batched model of B=64 (S_API segments for the
+# parallel solver).  The classes against the sequential witness (the KKT
+# class is regularized by its rho_dyn = 1e-6 on the dynamics rows, so it
+# is held to that, not to rounding); ``admm.solve_batched`` on each
+# backend against the same call on the CPU.  Each limit is 10x what was
+# measured on an H100 (PERF.md).
+N_API, B_API, S_API = 512, 64, 8
+# Measured: the classes against the sequential solver 1.32e-14, the KKT
+# class 2.86e-4, solve_batched against the CPU 3.11e-14.
+API_ATOL = 1.4e-13
+API_KKT_ATOL = 2.9e-3
+API_ADMM_ATOL = 3.2e-13
+API_ADMM_SETTINGS = dict(max_iter=10, rho_update_interval=5, rho=0.1,
+                         num_segments=S_API)
+
 
 def require(ok, *what):
     """A failed check ends the run (also under ``python -O``)."""
@@ -203,8 +259,13 @@ def require(ok, *what):
         raise RuntimeError("chip_smoke check failed: " + " ".join(map(str, what)))
 
 
+T_START = time.time()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line a phase; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.time() - T_START, 1)}), flush=True)
 
 
 def card_line():
@@ -510,8 +571,9 @@ def random_iter_inputs(rng, N, nx, nu, nc, Bt, cones, shared, has_shift,
     lb[:, ::3] = -float("inf")
     ub[:, 1::4] = float("inf")
     mask = torch.ones((N, nc, mb), dtype=dtype, device=device)
-    mask[:, nc - 1 if not cones else 0] = 0.0
-    mask[N // 2:, nc // 2] = 1e3
+    if nc:
+        mask[:, nc - 1 if not cones else 0] = 0.0
+        mask[N // 2:, nc // 2] = 1e3
     for off, dim, _ in cones:
         mask[:, off:off + dim] = 1.0
     rho = torch.as_tensor(rng.uniform(0.05, 2.0, size=(1, Bt))).to(
@@ -544,20 +606,20 @@ def narrow_storage(args):
     return tuple(x.to(torch.bfloat16) if i < 6 else x for i, x in enumerate(args))
 
 
-def k5_call(ca, k5_in, cones, K=None, rung=None):
+def k5_call(ca, k5_in, cones, K=None, rung=None, nu=NU):
     """Kernel B's wrapper on the packed argument tuple (``K`` None) or on
     the rung form's (M, K, ...) with the packed bound stream."""
     rho, x0, M, Hs, D, bnd, dv, wzy, h = k5_in
     return ca.admm_fwd_update_lanes(
-        rho, x0, M, K, Hs, D, bnd, None, None, None, dv, wzy, nu=NU,
+        rho, x0, M, K, Hs, D, bnd, None, None, None, dv, wzy, nu=nu,
         cones=cones, alpha=ALPHA, sigma=SIGMA, h=h, rung=rung)
 
 
-def k5_plain(ca, k5_in, cones, K=None, rung=None):
+def k5_plain(ca, k5_in, cones, K=None, rung=None, nu=NU):
     """Kernel B's plain version on the same arguments."""
     rho, x0, M, Hs, D, bnd, dv, wzy, h = k5_in
     return ca.admm_fwd_update_lanes_reference(
-        rho, x0, M, K, Hs, D, bnd, dv, wzy, h, nu=NU, cones=cones, alpha=ALPHA,
+        rho, x0, M, K, Hs, D, bnd, dv, wzy, h, nu=nu, cones=cones, alpha=ALPHA,
         sigma=SIGMA, rung=rung)
 
 
@@ -691,6 +753,532 @@ def bound(bytes_moved, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def wide_build_jobs(ca, cr, dtypes=(torch.float32, torch.float64)):
+    """The specialisations of every kernel at the two wide widths, in
+    ``dtypes``: the matrix sweeps (K1, K9, K11), the per-scenario kernels
+    (K2, K3, K7, K10, K12), K4, K5 (the cones, diagonal cost), K6 (one
+    rung) and K8 (the cones)."""
+    jobs = []
+    for dt in dtypes:
+        for nx, nu, nc, cones, nca in WIDE.values():
+            jobs += [
+                (cr.SOURCE, cr.kernel_defines(dt, nx, nu, nc)),
+                (cr.SOURCE, cr.kernel_defines(dt, nx, nu)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, cones=cones,
+                                              diag_cost=True)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, fold=True)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, cones=cones,
+                                              single=True)),
+            ]
+    return jobs
+
+
+def kernels_wide(ca, cr, dev):
+    """Every kernel against its plain version at the two wide widths
+    (WIDE), float64 and float32, N=64, B in B_WIDE.  On the float32 B=256
+    tensors each kernel is also timed (and its plain version, once) for
+    the ``kernels`` line.  Returns (the cases, {width: {kernel: entry}},
+    an entry a dict of the line's fields)."""
+    N, S = N_SMALL, S_SMALL
+    cases, timing = [], {}
+    for width, (nx, nu, nc, cones, nca) in WIDE.items():
+        nz = nx + nu
+        for dt in (torch.float64, torch.float32):
+            rng = np.random.default_rng(SEED)
+            T = _normal(rng, dt, dev)
+
+            def compare(name, names, outs, refs):
+                abs_err, rel = rel_err(names, outs, refs)
+                cases.append({"kernel": name, "dtype": str(dt).split(".")[-1],
+                              "max_abs_err": abs_err, "rel_err": rel,
+                              "tol_rel": TOL[dt]})
+                require(max(rel.values()) <= TOL[dt], (name, dt, abs_err, rel))
+
+            def one_batch(Bt):
+                # A function a batch: the calls kept for the timing hold
+                # this batch's tensors.
+                tag = f"{width},B={Bt}"
+                spec = {}
+
+                def check(name, counter, names, call, plain, flops, inputs,
+                          replaces):
+                    out = call()
+                    compare(f"{name}[{tag}]", names, out, plain())
+                    if dt != torch.float32 or Bt != B_SMALL:
+                        return
+                    abs_err, rel = rel_err(names, out, plain())
+                    moved = nbytes(*(x for x in inputs
+                                     if isinstance(x, torch.Tensor)), *out)
+                    spec[name] = {
+                        "counter": counter, "replaces": replaces,
+                        "max_abs_err": abs_err, "rel_err": rel,
+                        "ms": cuda_ms(call, WIDE_TIMED_REQUESTS),
+                        "plain_ms": cuda_ms(plain, 1, warmup=0),
+                        "bytes": moved, "flops": flops}
+
+                data = random_stage_data(rng, N, nx, nu, nc, Bt, dt, dev)
+                one = tuple(x[..., :1].contiguous() for x in data)
+                # K1: one shared model and per instance, every output.
+                check("backward_lanes[shared]", "backward_lanes", K1_ALL,
+                      lambda: cr.backward_lanes(*one, export_factors=True),
+                      lambda: cr.backward_lanes_reference(
+                          *one, export_factors=True),
+                      k1_flops(N, nx, nu, nc, 1), one, "pallas_riccati.py:778")
+                check("backward_lanes[per-instance]", "backward_lanes", K1_ALL,
+                      lambda: cr.backward_lanes(*data, export_factors=True),
+                      lambda: cr.backward_lanes_reference(
+                          *data, export_factors=True),
+                      k1_flops(N, nx, nu, nc, Bt), data, "pallas_riccati.py:778")
+                K, d, M, v, P, L = cr.backward_lanes_reference(
+                    *one, export_factors=True)
+                Kp, dp, Mp, vp, Pp, Lp = cr.backward_lanes_reference(
+                    *data, export_factors=True)
+                A1, B1 = one[0], one[1]
+                A, Bm = data[0], data[1]
+                c, hf = T(N, nx, Bt, scale=0.1), T(N, nz, Bt)
+                pN, x0 = T(nx, Bt), T(nx, Bt)
+                # K2 and K3 on the shared model's factors, B scenarios.
+                Pc = cr.fold_Pc(P, c).contiguous()
+                k2s = (A1, B1, c, hf, P, K, L, pN)
+                check("backward_vectors_lanes[shared,Pc]",
+                      "backward_vectors_lanes", K2_OUT,
+                      lambda: cr.backward_vectors_lanes(*k2s, shared=True,
+                                                        Pc=Pc),
+                      lambda: cr.backward_vectors_lanes_reference(*k2s, Pc=Pc),
+                      k2_flops(N, nx, nu, Bt), k2s[:4] + (Pc, K, L, pN),
+                      "pallas_riccati.py:1023")
+                compare(f"backward_vectors_lanes[shared,P][{tag}]", K2_OUT,
+                        cr.backward_vectors_lanes(*k2s, shared=True),
+                        cr.backward_vectors_lanes_reference(*k2s))
+                d2, v2 = cr.backward_vectors_lanes_reference(*k2s, Pc=Pc)
+                k3s = (M, v2, K, d2, x0)
+                check("forward_lanes[shared]", "forward_lanes", K3_OUT,
+                      lambda: cr.forward_lanes(*k3s, shared=True),
+                      lambda: cr.forward_lanes_reference(*k3s),
+                      k3_flops(N, nx, nu, Bt), k3s, "pallas_riccati.py:1201")
+                # K2, K3 and K7 per instance, on the per-instance factors.
+                Pcp = torch.einsum("kijb,kjb->kib", Pp, c).contiguous()
+                k2p = (A, Bm, c, hf, Pp, Kp, Lp, pN)
+                check("backward_vectors_lanes[per-instance]",
+                      "backward_vectors_lanes", K2_OUT,
+                      lambda: cr.backward_vectors_lanes(*k2p),
+                      lambda: cr.backward_vectors_lanes_reference(*k2p),
+                      k2_flops(N, nx, nu, Bt), k2p, "pallas_riccati.py:1023")
+                compare(f"backward_vectors_lanes[per-instance,Pc][{tag}]",
+                        K2_OUT, cr.backward_vectors_lanes(*k2p, Pc=Pcp),
+                        cr.backward_vectors_lanes_reference(*k2p, Pc=Pcp))
+                k3p = (Mp, vp, Kp, dp, x0)
+                check("forward_lanes[per-instance]", "forward_lanes", K3_OUT,
+                      lambda: cr.forward_lanes(*k3p),
+                      lambda: cr.forward_lanes_reference(*k3p),
+                      k3_flops(N, nx, nu, Bt), k3p, "pallas_riccati.py:1201")
+                k7 = (A, Bm, data[2], Kp, dp, x0)
+                check("forward_rollout_lanes", "forward_rollout_lanes", K3_OUT,
+                      lambda: cr.forward_rollout_lanes(*k7),
+                      lambda: cr.forward_rollout_lanes_reference(*k7),
+                      k7_flops(N, nx, nu, Bt), k7, "pallas_riccati.py:1319")
+                # K9 (both forms) in S segments, K10 on its factors, K3 in
+                # the same segments; K11 and K12 on the packed streams.
+                k9 = data[:8] + random_carries(rng, S, nx, Bt, dt, dev)
+                check("backward_pdp_lanes", "backward_pdp_lanes", K9_OUT,
+                      lambda: cr.backward_pdp_lanes(*k9, segments=S),
+                      lambda: cr.backward_pdp_lanes_reference(*k9,
+                                                              segments=S),
+                      k9_flops(N, nx, nu, nc, Bt), k9, "pallas_riccati.py:481")
+                compare(f"backward_pdp_lanes[export][{tag}]", K9_ALL,
+                        cr.backward_pdp_lanes(*k9, export_factors=True,
+                                              segments=S),
+                        cr.backward_pdp_lanes_reference(
+                            *k9, export_factors=True, segments=S))
+                K9f, d9, M9, v9, _, P9, L9, F9 = \
+                    cr.backward_pdp_lanes_reference(
+                        *k9, export_factors=True, segments=S)[:8]
+                k10 = (A, Bm, data[2], hf, P9, K9f, L9, F9, T(S, nx, Bt))
+                check("backward_pdp_vectors_lanes",
+                      "backward_pdp_vectors_lanes", K10_OUT,
+                      lambda: cr.backward_pdp_vectors_lanes(*k10, segments=S),
+                      lambda: cr.backward_pdp_vectors_lanes_reference(
+                          *k10, segments=S),
+                      k10_flops(N, nx, nu, Bt), k10, "pallas_riccati.py:644")
+                k3g = (M9, v9, K9f, d9, T(S, nx, Bt))
+                check("forward_lanes[segments]", "forward_lanes", K3_OUT,
+                      lambda: cr.forward_lanes(*k3g, segments=S),
+                      lambda: cr.forward_lanes_reference(*k3g, segments=S),
+                      k3_flops(N, nx, nu, Bt), k3g, "pallas_riccati.py:1201")
+                Sd, Sc = pack_streams(*data[:8])
+                k11 = (Sd, Sc, data[8], data[9], nu, nc)
+                check("backward_packed", "backward_packed", ("G",),
+                      lambda: [cr.backward_packed(*k11)],
+                      lambda: [cr.backward_packed_reference(*k11)],
+                      k1_flops(N, nx, nu, nc, Bt), k11[:4],
+                      "pallas_riccati.py:1485")
+                G = cr.backward_packed_reference(*k11)
+                k12 = (Sd, G, x0, nu)
+                check("forward_packed", "forward_packed", K3_OUT,
+                      lambda: cr.forward_packed(*k12),
+                      lambda: cr.forward_packed_reference(*k12),
+                      k7_flops(N, nx, nu, Bt), k12[:3],
+                      "pallas_riccati.py:1543")
+                # The split pair around the shared model's factors: K4, K5
+                # (the model's cones, diagonal cost) with and without
+                # hf-emit; K6 on one rung, both forms.
+                k4, k5 = random_admm_inputs(rng, A1, B1, K, M, L, nca, Bt,
+                                            cones, True, False)
+                check("admm_bwd_vec_prefold_lanes",
+                      "admm_bwd_vec_prefold_lanes", K4_OUT,
+                      lambda: [ca.admm_bwd_vec_prefold_lanes(*k4, nu=nu)],
+                      lambda: [ca.admm_bwd_vec_prefold_lanes_reference(
+                          *k4, nu=nu)],
+                      k2_flops(N, nx, nu, Bt), k4, "pallas_admm.py:526")
+                check("admm_fwd_update_lanes", "admm_fwd_update_lanes", K5_OUT,
+                      lambda: k5_call(ca, k5, cones, nu=nu),
+                      lambda: k5_plain(ca, k5, cones, nu=nu),
+                      k5_flops(N, nx, nu, nca, Bt, True), k5,
+                      "pallas_admm.py:867")
+                k5n = k5[:8] + (None,)
+                compare(f"admm_fwd_update_lanes[hf=0][{tag}]", K5_RUNG_OUT,
+                        k5_call(ca, k5n, cones, nu=nu),
+                        k5_plain(ca, k5n, cones, nu=nu))
+                k6, _, _, Pc6 = random_ladder_inputs(rng, A1, B1, 1, nca, Bt,
+                                                     cones, True, False)
+                check("admm_bwd_vec_lanes", "admm_bwd_vec_lanes", K6_OUT,
+                      lambda: [ca.admm_bwd_vec_lanes(*k6, nu=nu, sigma=SIGMA)],
+                      lambda: [ca.admm_bwd_vec_lanes_reference(
+                          *k6, nu=nu, sigma=SIGMA)],
+                      k6_flops(N, nx, nu, nca, Bt), k6, "pallas_admm.py:766")
+                pc6 = k6[:7] + (None,) + k6[8:]
+                compare(f"admm_bwd_vec_lanes[Pc][{tag}]", K6_OUT,
+                        [ca.admm_bwd_vec_lanes(*pc6, nu=nu, sigma=SIGMA,
+                                               Pc=Pc6)],
+                        [ca.admm_bwd_vec_lanes_reference(*pc6, nu=nu,
+                                                         sigma=SIGMA, Pc=Pc6)])
+                # K8 in its eight forms: shared or batched, cached or not,
+                # the stage data in the compute type or bfloat16.
+                for shared in (True, False):
+                    args = random_iter_inputs(rng, N, nx, nu, nca, Bt, cones,
+                                              shared, False, dt, dev)
+                    for factors in (None, iter_factors(args, shared)):
+                        for narrow in (False, True):
+                            a = narrow_storage(args) if narrow else args
+                            kw = dict(nu=nu, cones=cones, alpha=ALPHA,
+                                      sigma=SIGMA, factors=factors)
+                            form = ("shared" if shared else "batched") \
+                                + (",cached" if factors else "") \
+                                + (",bf16" if narrow else "")
+                            check(f"admm_iter_lanes[{form}]", "admm_iter_lanes",
+                                  K8_OUT,
+                                  lambda a=a, kw=kw, sh=shared:
+                                      ca.admm_iter_lanes(*a, shared=sh, **kw),
+                                  lambda a=a, kw=kw:
+                                      ca.admm_iter_lanes_reference(*a, **kw),
+                                  k8_flops(N, nx, nu, nca, Bt,
+                                           factors is not None),
+                                  tuple(x for i, x in enumerate(a)
+                                        if not (factors and i == 14))
+                                  + tuple(factors or ()),
+                                  "pallas_admm.py:1069")
+                return spec
+
+            for Bt in B_WIDE:
+                spec = one_batch(Bt)
+                if dt == torch.float32 and Bt == B_SMALL:
+                    timing[width] = spec
+    return cases, timing
+
+
+def wide_requests(plt_, admm, sequential, ca, cr, dev, card, check=True):
+    """The four requests of the two wide models (see N_MS, N_CEN): each
+    warmed up, counted once with the tensors it hands its kernels
+    recorded, held against its float64 witness on 8 scenarios, timed.
+    Emits a phase a request; returns {phase: (launches, recorded calls,
+    (N, nx, nu, nc, B), cones)}.  ``check=False`` only runs and records
+    them (``scripts/kernel_bench.py --kernels wide``)."""
+    from pdp_lqr_tpu_torch.models import centroidal, mass_spring_chain
+    n_ref, out = 8, {}
+
+    def data(model, Bb):
+        rng = np.random.default_rng(SEED)
+        c = model.c.cpu().numpy()[None] + rng.normal(
+            size=(Bb,) + tuple(model.c.shape)) * C_SCALE_WIDE
+        x0 = rng.normal(size=(Bb, model.nx)) * 0.1
+        return c.astype(np.float32), x0.astype(np.float32)
+
+    def counted(request):
+        cr.reset_launch_counts()
+        ca.reset_launch_counts()
+        admm.reset_host_reads()
+        with recorded_calls(cr, list(cr.LAUNCHES)) as rc, \
+                recorded_calls(ca, list(ca.LAUNCHES)) as ra:
+            result = request()
+        torch.cuda.synchronize()
+        return result, {**cr.LAUNCHES, **ca.LAUNCHES}, {**rc, **ra}
+
+    def solve_phase(name, model, Bb, label):
+        server = plt_.ScenarioServer(model, rho=RHO, sigma=SIGMA, device=dev)
+        c, x0 = data(model, Bb)
+        c_t, x0_t = (torch.as_tensor(x).to(dev) for x in (c, x0))
+        request = lambda: server.solve(x0_t, c_t)
+        request()                                # builds nothing new; warms up
+        torch.cuda.synchronize()
+        ws, launches, args = counted(request)
+        require(launches == {**zero_counts(), "backward_lanes": 1,
+                             "backward_vectors_lanes": 1, "forward_lanes": 1},
+                name, launches)
+        out[name] = (launches, args, (model.N, model.nx, model.nu, model.nc,
+                                      Bb), ())
+        if not check:
+            return
+        require(ws.shape == (Bb, model.N + 1, model.nz), ws.shape)
+        require(ws.dtype == torch.float32 and ws.device.type == "cuda")
+        require(bool(torch.isfinite(ws).all()), f"{name}: non-finite output")
+        # The sequential square-root Riccati solver, float64, on the card.
+        m64 = model.to(dtype=torch.float64)
+        it64 = plt_.init_iterates(m64, rho=RHO)
+        tile = lambda x: x.expand((n_ref,) + x.shape)
+        bm = plt_.LQRProblem(**{f.name: tile(getattr(m64, f.name))
+                                for f in dataclasses.fields(m64)})
+        bm = dataclasses.replace(bm, c=c_t[:n_ref].double())
+        bit = plt_.ADMMIterates(**{f.name: tile(getattr(it64, f.name))
+                                   for f in dataclasses.fields(it64)})
+        ws_ref, _ = sequential.solve_batched(bm, bit, x0_t[:n_ref].double(),
+                                             SIGMA)
+        err = float((ws[:n_ref].double() - ws_ref).abs().max())
+        scale = float(ws_ref.abs().max())
+        rel = err / max(1.0, scale)
+        t = timed(request, WIDE_TIMED_REQUESTS, Bb)
+        emit(name, card=card, model=label, N=model.N, B=Bb, dtype="float32",
+             launches=launches, out_shape=list(ws.shape),
+             max_abs_err_vs_sequential_f64=err, ref_max_magnitude=scale,
+             rel_err=rel, rtol=WIDE_RTOL[name], **t)
+        require(rel <= WIDE_RTOL[name], name, rel)
+
+    def admm_phase(name, settings, expect):
+        model, cones = centroidal(N=N_CEN, dtype=torch.float32, device=dev)
+        cones = tuple(cones)
+        server = plt_.ScenarioServer(model, rho=RHO, sigma=SIGMA, device=dev)
+        c, x0 = data(model, B_CEN_ADMM)
+        c_t, x0_t = (torch.as_tensor(x).to(dev) for x in (c, x0))
+        st = admm.ADMMSettings(**settings)
+        request = lambda: server.solve_admm(x0_t, cones, st, c=c_t)
+        request()
+        torch.cuda.synchronize()
+        (ws, state, info), launches, args = counted(request)
+        reads = dict(admm.HOST_READS)
+        require(launches == {**zero_counts(), **expect}, name, launches)
+        out[name] = (launches, args, (N_CEN, model.nx, model.nu, model.nc,
+                                      B_CEN_ADMM), cones)
+        if not check:
+            return
+        require(ws.shape == (B_CEN_ADMM, N_CEN + 1, model.nz), ws.shape)
+        for x in (ws, state.z, state.y, state.rho, info.r_prim):
+            require(x.dtype == torch.float32 and x.device.type == "cuda")
+        require(bool((info.iterations == ADMM_ITERS).all()))
+        # The same request on the kernels' plain versions, float64, CPU.
+        cpu = plt_.ScenarioServer(model.to(device="cpu", dtype=torch.float64),
+                                  rho=RHO, sigma=SIGMA, device="cpu")
+        ref = admm_outputs(*cpu.solve_admm(
+            x0[:n_ref].astype(np.float64), cones, st,
+            c=c[:n_ref].astype(np.float64)))
+        errs = admm_errors(admm_outputs(ws, state, info, n_ref), ref)
+        scale = {k: float(v.abs().max()) for k, v in ref.items()}
+        rel = {k: e / max(1.0, scale[k]) for k, e in errs.items()}
+        t = timed(request, WIDE_TIMED_REQUESTS, B_CEN_ADMM)
+        emit(name, card=card, model="centroidal, friction cones", N=N_CEN,
+             B=B_CEN_ADMM, dtype="float32", settings=settings,
+             launches=launches, host_reads=reads, max_abs_err_vs_plain_f64=errs,
+             ref_max_magnitude=scale, rel_err=rel,
+             rtol=WIDE_ADMM_RTOL, iterations=ADMM_ITERS,
+             iterations_per_s=ADMM_ITERS / (t["request_ms"] * 1e-3),
+             r_prim_max=float(info.r_prim.max()),
+             r_dual_max=float(info.r_dual.max()), **t)
+        require(all(rel[k] <= WIDE_ADMM_RTOL[k] for k in rel), name, rel)
+
+    model = mass_spring_chain(n_masses=20, N=N_MS, dtype=torch.float32,
+                              device=dev)
+    require((model.nx, model.nu, model.nc) == (40, 10, 0))
+    solve_phase("mass_spring_solve", model, B_MS, "mass_spring_chain")
+    model, _ = centroidal(N=N_CEN, dtype=torch.float32, device=dev)
+    require((model.nx, model.nu, model.nc) == (24, 6, 6))
+    solve_phase("centroidal_solve", model, B_CEN, "centroidal")
+    admm_phase("centroidal_admm_split", ADMM_SETTINGS,
+               {"backward_lanes": 1, "admm_bwd_vec_prefold_lanes": ADMM_ITERS,
+                "admm_fwd_update_lanes": ADMM_ITERS})
+    admm_phase("centroidal_admm_single", SINGLE_SETTINGS,
+               {"admm_iter_lanes": ADMM_ITERS})
+    return out
+
+
+def wide_kernel_specs(ca, cr, requests):
+    """The ``kernels`` line's entries of the wide requests' kernels, on the
+    tensors of each request's counted run: name -> (counter, phase, call,
+    plain, output names, flops, inputs, TPU kernel)."""
+    spec = {}
+    for phase, (_, args, (N, nx, nu, nc, Bb), cones) in requests.items():
+        tag = {"mass_spring_solve": "mass_spring",
+               "centroidal_solve": "centroidal",
+               "centroidal_admm_split": "centroidal,split",
+               "centroidal_admm_single": "centroidal,single"}[phase]
+        if "backward_lanes" in args:
+            a, kw = args["backward_lanes"]
+            spec[f"backward_lanes[{tag}]"] = (
+                "backward_lanes", phase,
+                lambda a=a, kw=kw: cr.backward_lanes(*a, **kw),
+                lambda a=a, kw=kw: cr.backward_lanes_reference(*a, **kw),
+                K1_ALL if kw.get("export_factors") else K1_CLOSED,
+                k1_flops(N, nx, nu, nc, 1), a, "pallas_riccati.py:778")
+        if "backward_vectors_lanes" in args:
+            a, kw = args["backward_vectors_lanes"]
+            plain_kw = {k: v for k, v in kw.items() if k != "shared"}
+            spec[f"backward_vectors_lanes[{tag}]"] = (
+                "backward_vectors_lanes", phase,
+                lambda a=a, kw=kw: cr.backward_vectors_lanes(*a, **kw),
+                lambda a=a, kw=plain_kw: cr.backward_vectors_lanes_reference(
+                    *a, **kw),
+                K2_OUT, k2_flops(N, nx, nu, Bb),
+                a[:4] + (kw["Pc"],) + a[5:],     # P is not read in Pc mode
+                "pallas_riccati.py:1023")
+        if "forward_lanes" in args:
+            a, kw = args["forward_lanes"]
+            plain_kw = {k: v for k, v in kw.items() if k != "shared"}
+            spec[f"forward_lanes[{tag}]"] = (
+                "forward_lanes", phase,
+                lambda a=a, kw=kw: cr.forward_lanes(*a, **kw),
+                lambda a=a, kw=plain_kw: cr.forward_lanes_reference(*a, **kw),
+                K3_OUT, k3_flops(N, nx, nu, Bb), a, "pallas_riccati.py:1201")
+        if "admm_bwd_vec_prefold_lanes" in args:
+            a, kw = args["admm_bwd_vec_prefold_lanes"]
+            spec[f"admm_bwd_vec_prefold_lanes[{tag}]"] = (
+                "admm_bwd_vec_prefold_lanes", phase,
+                lambda a=a, kw=kw: [ca.admm_bwd_vec_prefold_lanes(*a, **kw)],
+                lambda a=a, kw=kw: [ca.admm_bwd_vec_prefold_lanes_reference(
+                    *a, **kw)],
+                K4_OUT, k2_flops(N, nx, nu, Bb), a, "pallas_admm.py:526")
+        if "admm_fwd_update_lanes" in args:
+            a, kw = args["admm_fwd_update_lanes"]
+            require(kw["alpha"] == ALPHA and kw["sigma"] == SIGMA
+                    and len(kw["cones"]) == len(cones))
+            k5 = (a[0], a[1], a[2], a[4], a[5], a[6], a[10], a[11], kw["h"])
+            spec[f"admm_fwd_update_lanes[{tag}]"] = (
+                "admm_fwd_update_lanes", phase,
+                lambda k5=k5, c=kw["cones"]: k5_call(ca, k5, c, nu=nu),
+                lambda k5=k5, c=kw["cones"]: k5_plain(ca, k5, c, nu=nu),
+                K5_OUT,
+                k5_flops(N, nx, nu, nc, Bb, ADMM_SETTINGS["diag_cost"]), k5,
+                "pallas_admm.py:867")
+        if "admm_iter_lanes" in args:
+            a, kw = args["admm_iter_lanes"]
+            plain_kw = {k: v for k, v in kw.items() if k != "shared"}
+            cached = kw["factors"] is not None
+            spec[f"admm_iter_lanes[{tag}]"] = (
+                "admm_iter_lanes", phase,
+                lambda a=a, kw=kw: ca.admm_iter_lanes(*a, **kw),
+                lambda a=a, kw=plain_kw: ca.admm_iter_lanes_reference(*a, **kw),
+                K8_OUT, k8_flops(N, nx, nu, nc, Bb, cached),
+                tuple(x for i, x in enumerate(a) if not (cached and i == 14))
+                + tuple(kw["factors"] or ()), "pallas_admm.py:1069")
+    return spec
+
+
+def reference_api(plt_, admm, sequential, dev, card):
+    """The reference-shaped solvers on the card (quadrotor N=512, float64,
+    a batched model of B=64): the four classes through the lifecycle, held
+    against each other and the sequential witness, each step timed; then
+    ``admm.solve_batched`` on each of the five backends with the thrust
+    cone and its shift, against the same call on the CPU."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    dt = torch.float64
+    model, cones = quadrotor(N=N_API, constrained=True, thrust_cone=True,
+                             dtype=dt, device=dev)
+    cones = tuple(cones)
+    rng = np.random.default_rng(SEED)
+    c = torch.as_tensor(rng.normal(size=(B_API, N_API, NX)) * 0.01).to(dev, dt)
+    bp = batched(model, B_API, c)
+    it = plt_.init_iterates(model, rho=RHO)
+    tile = lambda x: x.expand((B_API,) + x.shape)
+    w2 = torch.as_tensor(rng.normal(size=(B_API,) + tuple(it.w.shape))
+                         * 0.1).to(dev, dt)
+    vecs = (tile(it.w), tile(it.y), tile(it.z), tile(it.rho))
+    vecs2 = (w2,) + vecs[1:]
+    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(B_API, NX))).to(dev, dt)
+
+    # The witness: the sequential solver's functions on the same data.
+    ref1, _ = sequential.solve_batched(bp, plt_.ADMMIterates(*vecs), x0, SIGMA)
+    ref2, _ = sequential.solve_batched(bp, plt_.ADMMIterates(*vecs2), x0,
+                                       SIGMA)
+    classes = {
+        "LQRSolver": lambda: plt_.LQRSolver(bp, device=dev),
+        "LQRParallelSolver": lambda: plt_.LQRParallelSolver(
+            bp, num_segments=S_API, device=dev),
+        "QDLDLSolver": lambda: plt_.QDLDLSolver(bp, device=dev),
+        "AssociativeScanSolver": lambda: plt_.AssociativeScanSolver(
+            bp, device=dev),
+    }
+    lifecycle, outs = {}, {}
+    for name, make in classes.items():
+        s = make()
+        steps = {
+            "update_problem_data": lambda: s.update_problem_data(*vecs, SIGMA),
+            "backward": s.backward,
+            "forward": lambda: s.forward(x0),
+            "update_problem_data_2": lambda: s.update_problem_data(*vecs2,
+                                                                   SIGMA),
+            "backward_without_factorization": s.backward_without_factorization,
+            "forward_2": lambda: s.forward(x0),
+        }
+        times, got = {}, {}
+        for step, call in steps.items():
+            got[step] = call()
+            times[step + "_ms"] = cuda_ms(call, 3, warmup=1)
+        ws1, ws2 = got["forward"], got["forward_2"]
+        require(ws1.shape == (B_API, N_API + 1, NX + NU) and ws1.device.type
+                == "cuda" and bool(torch.isfinite(ws2).all()), name)
+        s.clear_workspace()
+        try:
+            s.forward(x0)
+            require(False, name, "forward ran on a cleared workspace")
+        except RuntimeError:
+            pass
+        errs = {"vs_sequential": max(float((ws1 - ref1).abs().max()),
+                                     float((ws2 - ref2).abs().max()))}
+        outs[name] = (ws1, ws2)
+        lifecycle[name] = {**times, **errs}
+    for name, (ws1, ws2) in outs.items():
+        lifecycle[name]["vs_classes"] = max(
+            max(float((ws1 - o1).abs().max()), float((ws2 - o2).abs().max()))
+            for other, (o1, o2) in outs.items()
+            if other != name and other != "QDLDLSolver")
+    for name, row in lifecycle.items():
+        lim = API_KKT_ATOL if name == "QDLDLSolver" else API_ATOL
+        require(row["vs_sequential"] <= lim, name, row)
+
+    # admm.solve_batched on each backend, card against CPU.
+    shift = torch.zeros((N_API + 1, NC_CONE), dtype=dt, device=dev)
+    shift[:, NC] = THRUST_SHIFT
+    cpu = lambda x: x.to(device="cpu")
+    bp_cpu = plt_.LQRProblem(**{f.name: cpu(getattr(bp, f.name))
+                                for f in dataclasses.fields(bp)})
+    solves = {}
+    for backend in ("seq", "assoc", "dense", "kkt", "pdp"):
+        st = admm.ADMMSettings(**API_ADMM_SETTINGS, backend=backend)
+        call = lambda st=st: admm.solve_batched(bp, x0, cones, st,
+                                                soc_shift=shift)
+        got = admm_outputs(*call())
+        ms = cuda_ms(call, 1, warmup=0)
+        ref = admm_outputs(*admm.solve_batched(bp_cpu, cpu(x0), cones, st,
+                                               soc_shift=cpu(shift)))
+        errs = admm_errors(got, ref)
+        solves[backend] = {"request_ms": ms, "max_abs_err_vs_cpu": errs,
+                           "r_prim_max": float(got["r_prim"].max())}
+        require(max(errs.values()) <= API_ADMM_ATOL, backend, errs)
+    emit("reference_api", card=card, model="quadrotor constrained + thrust "
+         "cone, batched", N=N_API, B=B_API, dtype="float64",
+         segments=S_API, lifecycle=lifecycle,
+         atol={"classes": API_ATOL, "kkt": API_KKT_ATOL,
+               "admm_vs_cpu": API_ADMM_ATOL},
+         admm_settings=API_ADMM_SETTINGS, admm_solve_batched=solves)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -752,6 +1340,8 @@ def main():
     jobs.append((ca.SOURCE, ca.kernel_defines(
         torch.float32, 6, 3, 7, cones=((1, 3, "soc"), (4, 3, "soc")),
         single=True)))
+    # Every kernel at the two wide widths (mass-spring, centroidal).
+    jobs += wide_build_jobs(ca, cr)
     paths = _build.build_many(jobs)
     regs = registers_by_kernel(
         [(job[1], _build.build_logs.get(path, "")) for job, path in zip(jobs, paths)])
@@ -1055,6 +1645,25 @@ def main():
                 launched)
     emit("kernels", card=card, shape={"N": N_SMALL, "B": B_SMALL, "nx": NX,
                                       "nu": NU, "nc": NC}, cases=cases)
+
+    # --------------------------------------------------- 3b: kernels_wide
+    # Every kernel against its plain version at the mass-spring and
+    # centroidal widths, float64 and float32, N=64, B=256 and 249.
+    t0 = time.time()
+    before = zero_counts() | {**cr.LAUNCHES, **ca.LAUNCHES}
+    wide_cases, wide_timing = kernels_wide(ca, cr, dev)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in {**cr.LAUNCHES, **ca.LAUNCHES}.items()}
+    require(all(n > 0 for n in launched.values()), launched)
+    worst = {}
+    for case in wide_cases:
+        key = f"{case['kernel'].split('[')[0]}/{case['dtype']}"
+        worst[key] = max(worst.get(key, 0.0), max(case["rel_err"].values()))
+    emit("kernels_wide", card=card, widths={k: v[:4] for k, v in WIDE.items()},
+         N=N_SMALL, B=list(B_WIDE), n_cases=len(wide_cases),
+         worst_rel_err=worst, tol_rel={"float64": TOL[torch.float64],
+                                       "float32": TOL[torch.float32]},
+         launches=launched, seconds=round(time.time() - t0, 1))
 
     # ------------------------------------------------------ 4: main path
     model, _ = quadrotor(N=N_MAIN, constrained=True, dtype=torch.float32,
@@ -1820,6 +2429,12 @@ def main():
          atol={k: PACKED_ATOL[v] for k, v in (("float32", torch.float32),
                                               ("float64", torch.float64))})
 
+    # ---------------------- 20b: the mass-spring and centroidal requests
+    wide_req = wide_requests(plt_, admm, sequential, ca, cr, dev, card)
+
+    # ------------------------------------- 20c: the reference-shaped API
+    reference_api(plt_, admm, sequential, dev, card)
+
     # ---------------------------------------------------------- 21: timing
     # Peak device memory of a path: the largest allocation while its
     # requests are timed, the tensors that earlier phases still hold included.
@@ -2058,6 +2673,52 @@ def main():
             # No single PyTorch call computes a stage recurrence.
             "library_ms": None,
             "bytes": moved, "flops": flops,
+        })
+    # The wide models' kernels: on the tensors of the four wide requests
+    # (launches from each request's counted run), then every kernel at
+    # both widths on the kernels_wide phase's float32 tensors (N=64,
+    # B=256, timed in that phase; on no path of the wide requests:
+    # launched no time there).
+    wide_spec = {name: (counter, (phase,), call, plain, names, flops, inputs,
+                        replaces)
+                 for name, (counter, phase, call, plain, names, flops, inputs,
+                            replaces) in wide_kernel_specs(
+                     ca, cr, wide_req).items()}
+    for width, wspec in wide_timing.items():
+        for name, e in wspec.items():
+            bound_ms, bound_by = bound(e["bytes"], e["flops"])
+            kernels.append({
+                "name": f"{name}[{width},N={N_SMALL},B={B_SMALL}]",
+                "route": "cuda", "source": "pdp_lqr_tpu_torch/ops/csrc/" + (
+                    ca.SOURCE if e["counter"] in ca.LAUNCHES else cr.SOURCE),
+                "replaces": "pdp_lqr_tpu/ops/" + e["replaces"],
+                "launches": 0, "launches_by_path": {},
+                "max_abs_err": e["max_abs_err"], "rel_err": e["rel_err"],
+                "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None, "bytes": e["bytes"],
+                "flops": e["flops"]})
+    for name, (counter, phases, kernel, plain, names, flops, inputs,
+               replaces) in wide_spec.items():
+        out = kernel()
+        ms = cuda_ms(kernel, WIDE_TIMED_REQUESTS)
+        plain_ms = cuda_ms(plain, 1, warmup=0)
+        abs_err, rel = rel_err(names, out, plain())
+        require(max(rel.values()) <= WIDE_KERNEL_RTOL, (name, abs_err, rel))
+        moved = nbytes(*(x for x in inputs if isinstance(x, torch.Tensor)),
+                       *out)
+        bound_ms, bound_by = bound(moved, flops)
+        by_path = {p: wide_req[p][0][counter] for p in phases}
+        if phases:
+            require(sum(by_path.values()) > 0, name, by_path)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pdp_lqr_tpu_torch/ops/csrc/" + (
+                ca.SOURCE if counter in ca.LAUNCHES else cr.SOURCE),
+            "replaces": "pdp_lqr_tpu/ops/" + replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": abs_err, "rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "bytes": moved, "flops": flops,
         })
     fold_ms = cuda_ms(lambda: cr.fold_Pc(P, c_l), TIMED_REQUESTS)
     prep_ms = cuda_ms(lambda: cr.prepare_shared(

@@ -10,15 +10,22 @@ Ported so far:
 
 - ``config``, ``problem``, ``convert`` — constants, the stage-stacked
   problem model, and the numpy hand-over from the JAX package.
-- ``models`` — quadrotor, double integrator, random LQ.
+- ``models`` — quadrotor, mass-spring chain, centroidal, rocket, double
+  integrator, random LQ.
 - ``ops.riccati`` / ``solvers.sequential`` — plain-torch sequential
-  Riccati, the port's independent witness.
+  Riccati, the port's independent witness; ``ops.linalg`` — the small
+  factorizations and triangular solves of the torch-ops backends.
+- the torch-ops backends of ``admm.solve``: ``solvers.dense`` (P-form
+  Riccati, ``ops.riccati_dense``), ``solvers.assoc`` (log-depth
+  associative scans, ``ops.riccati_assoc``), ``solvers.pdp`` (segmented
+  parallel Riccati, ``ops.riccati_pdp``, either condensed factorization)
+  and ``solvers.kkt`` (block-tridiagonal KKT, ``ops.kkt_block``).
 - ``ops.cuda_riccati`` — the inner solve on four kernels (matrix sweep,
   cached-factor vector sweep, closed-loop rollout, rollout from the raw
   dynamics): one shared model (``solve_shared``) or one model a scenario
   (``solve_lanes``, and ``solve_packed`` on row-packed streams); and the
   segment reduction of the parallel solver and its cached vector sweep.
-- ``ops.condensed`` — the condensed boundary system (Cholesky variant).
+- ``ops.condensed`` — the condensed boundary system (Cholesky and LU).
 - ``parallel`` — the segment-parallel PDP solve
   (``pdp_sharded_fused.solve``) and the conic ADMM loop on it
   (``admm_sharded.solve``), the horizon in S segments on one card.
@@ -27,12 +34,17 @@ Ported so far:
   (prefold vector sweep; vector sweep with the iterate fold on R ladder
   rungs; rollout + projection + dual + residuals).
 - ``solvers.admm`` — ``ADMMSettings`` / ``ADMMState`` / ``ADMMInfo``,
-  ``suggest_rho_ladder`` and ``solve_fused`` in shared split mode (cached
-  factors with a uniform rho, or a rho ladder) and on batched problems (the
-  replicated per-instance loop).
+  ``solve`` / ``solve_batched`` (the conic loop on one of the five
+  torch-ops backends, ``settings.backend``), ``suggest_rho_ladder`` and
+  ``solve_fused`` in shared split mode (cached factors with a uniform rho,
+  or a rho ladder) and on batched problems (the replicated per-instance
+  loop).
 - ``mpc.shift_state`` — the one-stage shift of a warm start.
-- ``api.ScenarioServer`` — one model serving B scenarios: ``solve`` (inner
-  LQ solves) and ``solve_admm`` (the conic ADMM loop).
+- ``api`` — the reference-shaped classes ``LQRSolver``,
+  ``LQRParallelSolver``, ``QDLDLSolver`` and ``AssociativeScanSolver``
+  (update_problem_data / backward / backward_without_factorization /
+  forward), and ``ScenarioServer``: one model serving B scenarios,
+  ``solve`` (inner LQ solves) and ``solve_admm`` (the conic ADMM loop).
 
 Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run
 the kernels' plain PyTorch versions.
@@ -51,10 +63,18 @@ from pdp_lqr_tpu_torch.solvers.admm import (
     ADMMSettings,
     ADMMState,
     ADMMInfo,
+    solve,
+    solve_batched,
     solve_fused,
     init_state,
 )
-from pdp_lqr_tpu_torch.api import ScenarioServer
+from pdp_lqr_tpu_torch.api import (
+    LQRSolver,
+    LQRParallelSolver,
+    QDLDLSolver,
+    AssociativeScanSolver,
+    ScenarioServer,
+)
 from pdp_lqr_tpu_torch import mpc
 
 __all__ = [
@@ -70,8 +90,14 @@ __all__ = [
     "ADMMSettings",
     "ADMMState",
     "ADMMInfo",
+    "solve",
+    "solve_batched",
     "solve_fused",
     "init_state",
+    "LQRSolver",
+    "LQRParallelSolver",
+    "QDLDLSolver",
+    "AssociativeScanSolver",
     "ScenarioServer",
     "mpc",
 ]

@@ -1,10 +1,11 @@
 """Condensed inter-segment boundary system — PyTorch port of
-``pdp_lqr_tpu/ops/condensed.py`` (its Cholesky variant).
+``pdp_lqr_tpu/ops/condensed.py``.
 
 Reference counterpart: include/clqr/lqr/condensed_system.hpp — the
 block-tridiagonal system over segment-boundary states produced by the
-PDP reduction (condensed_system.hpp:151-299, the Cholesky variant, the
-default).  Each segment i contributes (P_i, A_i, C_i, p_i, c_i):
+PDP reduction, with LU (condensed_system.hpp:32-147) and Cholesky
+(:151-299, the default) variants.  Each segment i contributes
+(P_i, A_i, C_i, p_i, c_i):
 
   P_i       cost-to-go Hessian at the segment start,
   A_i = F_i closed-loop transition across segment i,
@@ -13,8 +14,8 @@ default).  Each segment i contributes (P_i, A_i, C_i, p_i, c_i):
 
 via update_segment_data (condensed_system.hpp:183-201).
 
-``cholesky_backward`` returns a factor cache, ``cholesky_forward``
-consumes it and returns the boundary states ``xhat`` and duals ``uhat``.
+``*_backward`` returns a factor cache, ``*_forward`` consumes it and
+returns the boundary states ``xhat`` and duals ``uhat``.
 The number of segments S is small, so the recursions are Python loops of
 batched (..., nx, nx) operations in full float32 (``full_f32_matmul``).
 
@@ -22,8 +23,7 @@ Failure signalling: the reference's Cholesky variant returns false on a
 non-SPD pivot (condensed_system.hpp:217-226).  Here, as in the JAX
 package, a non-SPD pivot makes that instance's factor NaN, which
 propagates to its output without a host read (``cholesky_ex`` reports
-per instance; the other instances are untouched).  The LU variant
-(condensed.py:141-212 of the JAX package) waits for its callers.
+per instance; the other instances are untouched).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import dataclasses
 import torch
 
 from pdp_lqr_tpu_torch.config import full_f32_matmul
+from pdp_lqr_tpu_torch.ops.linalg import chol_solve, cholesky
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,21 +52,6 @@ class CholeskyCondensedFactors:
     Pinv: torch.Tensor     # (..., S, nx, nx)
     Asolved: torch.Tensor  # (..., S, nx, nx)
     A: torch.Tensor        # (..., S, nx, nx) original segment transitions
-
-
-def cholesky(M):
-    """Lower Cholesky factor of the symmetric part of M (as
-    ``jnp.linalg.cholesky``); a batch instance that is not positive
-    definite gets NaN on and below the diagonal, the others are exact."""
-    L, info = torch.linalg.cholesky_ex(0.5 * (M + M.mT))
-    return torch.where((info == 0)[..., None, None], L,
-                       torch.full_like(L, float("nan")).tril())
-
-
-def chol_solve(L, b):
-    """Solve (L L^T) y = b given the Cholesky factor L."""
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def _mv(M, v):
@@ -140,5 +126,78 @@ def cholesky_forward(fac: CholeskyCondensedFactors, p, c, x0):
                     cw[i] + _mv(fac.A[..., i, :, :], xhat[i]))
             uhat[i] = u
             xhat[i + 1] = -pw[i + 1] + _mv(fac.Pinv[..., i + 1, :, :], u)
+
+    return torch.stack(xhat, dim=-2), torch.stack(uhat, dim=-2)
+
+
+@dataclasses.dataclass(frozen=True)
+class LUCondensedFactors:
+    """Factor cache of the LU condensed backward pass.
+
+    PClu/PCpiv: LU factors of PC_i = C_i P_{i+1} + I (i <= S-2), as
+    ``torch.linalg.lu_factor`` returns them; D[i] = PC_i^{-1} A_i;
+    Pupd[i] = updated P_i.
+    """
+
+    PClu: torch.Tensor     # (..., S, nx, nx)
+    PCpiv: torch.Tensor    # (..., S, nx) int32
+    D: torch.Tensor        # (..., S, nx, nx)
+    Pupd: torch.Tensor     # (..., S, nx, nx)
+    A: torch.Tensor        # (..., S, nx, nx)
+    C: torch.Tensor        # (..., S, nx, nx)
+
+
+def lu_backward(P, A, C) -> LUCondensedFactors:
+    """Reference: CondensedSystemLUSolver::backward
+    (condensed_system.hpp:82-103):
+      PC = C_i P_{i+1} + I ; PA = P_{i+1} A_i
+      D = PC^{-1} A_i ; P_i += D^T PA
+    """
+    S, nx = P.shape[-3], P.shape[-1]
+    Pw = [P[..., i, :, :] for i in range(S)]
+    Aw = [A[..., i, :, :] for i in range(S)]
+    Cw = [C[..., i, :, :] for i in range(S)]
+    eye = torch.eye(nx, dtype=P.dtype, device=P.device)
+    lus = [torch.zeros_like(Pw[0]) + eye] * S
+    pivs = [torch.ones(Pw[0].shape[:-1], dtype=torch.int32,
+                       device=P.device)] * S
+    Ds = [torch.zeros_like(Pw[0])] * S
+
+    with full_f32_matmul():
+        for i in range(S - 2, -1, -1):
+            PC = Cw[i] @ Pw[i + 1] + eye
+            PA = Pw[i + 1] @ Aw[i]
+            lu, piv, _ = torch.linalg.lu_factor_ex(PC)
+            Di = torch.linalg.lu_solve(lu, piv, Aw[i])
+            Pw[i] = Pw[i] + Di.mT @ PA
+            lus[i], pivs[i], Ds[i] = lu, piv, Di
+
+    stack = lambda xs, ax=-3: torch.stack(xs, dim=ax)
+    return LUCondensedFactors(
+        PClu=stack(lus), PCpiv=stack(pivs, -2), D=stack(Ds),
+        Pupd=stack(Pw), A=A, C=C)
+
+
+def lu_forward(fac: LUCondensedFactors, p, c, x0):
+    """Reference: CondensedSystemLUSolver::forward
+    (condensed_system.hpp:105-138).  Returns (xhat, uhat), each (..., S, nx)."""
+    S = fac.A.shape[-3]
+    pw = [p[..., i, :] for i in range(S)]
+    cw = [c[..., i, :] for i in range(S)]
+
+    with full_f32_matmul():
+        for i in range(S - 2, -1, -1):
+            c_bar = pw[i + 1] + _mv(fac.Pupd[..., i + 1, :, :], cw[i])
+            pw[i] = pw[i] + _mv(fac.D[..., i, :, :].mT, c_bar)
+
+        xhat = [x0] + [None] * (S - 1)
+        uhat = [torch.zeros_like(pw[0])] * S
+        for i in range(S - 1):
+            ci = (cw[i] + _mv(fac.A[..., i, :, :], xhat[i])
+                  - _mv(fac.C[..., i, :, :], pw[i + 1]))
+            xn = torch.linalg.lu_solve(fac.PClu[..., i, :, :],
+                                       fac.PCpiv[..., i, :], ci[..., None])[..., 0]
+            xhat[i + 1] = xn
+            uhat[i] = pw[i + 1] + _mv(fac.Pupd[..., i + 1, :, :], xn)
 
     return torch.stack(xhat, dim=-2), torch.stack(uhat, dim=-2)

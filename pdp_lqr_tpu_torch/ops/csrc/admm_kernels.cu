@@ -1332,7 +1332,7 @@ fwd_update_kernel(
 // whether they walk along a row or down a column, and the inner products
 // unroll over compile-time offsets; a warp's own vectors, which all its
 // lanes read alike, are read 16 bytes a load.  bf16 stage data travels as
-// aligned pairs of 4 bytes into a staging area of the slot, and the block
+// aligned pairs of 4 bytes into a staging area, and the block
 // converts it to the compute type one stage ahead of use: the products
 // never see the storage type.  A warp past the batch computes the last
 // scenario's numbers and stores nothing: it stays in the loop for the
@@ -1398,16 +1398,19 @@ constexpr int k8_staged(int n, int kind, int rb)
 }
 
 // A warp's own words: phase 1's carry and products (P, K and the
-// products of P only uncached) ...  Every vector starts on 16 bytes, so a
-// lane reads four (float64: two) entries a load.
+// products of P only uncached; the folded H only uncached and not
+// INPLACE: a compact form's warp on a batched problem folds its own
+// column of the slot's Hs in place) ...  Every vector starts on 16 bytes,
+// so a lane reads four (float64: two) entries a load.
 constexpr int K8_VEC = 16 / (int)sizeof(scalar);   // scalars in 16 bytes
 constexpr int k8_up(int n) { return (n + K8_VEC - 1) / K8_VEC * K8_VEC; }
-template <bool CACHED> struct K8Warp {
+template <bool CACHED, bool INPLACE> struct K8Warp {
     static constexpr int U = CACHED ? 0 : 1;
+    static constexpr int UH = INPLACE ? 0 : U;
     static constexpr int P = 0;                          // P
     static constexpr int PV = P + U * k8_up(NX * NX);    // p
     static constexpr int HF = PV + k8_up(NX);            // folded H
-    static constexpr int HV = HF + U * k8_up(NZ * NZ);   // folded h
+    static constexpr int HV = HF + UH * k8_up(NZ * NZ);  // folded h
     static constexpr int RG = HV + k8_up(NZ);            // rho m z - y
     static constexpr int RMD = RG + k8_up(NC);           // rho m D
     static constexpr int PA = RMD + U * k8_up(NC * NZ);
@@ -1441,8 +1444,12 @@ template <bool CACHED> struct K8Warp {
 // copy when SHARED; c, w, z, y are rows; the spilled gains are the
 // scenarios' runs one after another.  A narrow stream's staging holds
 // the aligned pair cover of its block (one copy: one entry and one pair
-// more; rows: RB entries a row).
-template <class S, bool SHARED, bool CACHED, int WB>
+// more; rows: RB entries a row).  COMPACT (the forms that do not fit
+// otherwise: float64 bf16 stage data at nz=50) keeps the staging apart
+// from the slots, in two areas, not one a slot: a step's staged bytes
+// are converted during the step before it, so only steps n+1 (being
+// converted) and n+2 (in flight) hold staging at step n.
+template <class S, bool SHARED, bool CACHED, int WB, bool COMPACT>
 struct K8Slot {
     static constexpr bool NARROW = sizeof(S) != sizeof(scalar);
     static constexpr int RF = WB | 1;             // row stride (words)
@@ -1501,32 +1508,48 @@ struct K8Slot {
     static constexpr int SC2 = SD2 + k8_staged(NC * NZ, ST, RB);
     static constexpr int SEND2 = SC2 + (NARROW ? k8_staged(NX, 2, RB) : 0);
     static constexpr int STAGE = SEND1 > SEND2 ? SEND1 : SEND2;
-    static constexpr int BYTES =
+    static constexpr int BYTES =                    // a slot: words, staging
         (WORDS0 * (int)sizeof(scalar) + STAGE + 15) / 16 * 16;
+    static constexpr int WBYTES = (WORDS0 * (int)sizeof(scalar) + 15) / 16 * 16;
+    static constexpr int SBYTES = (STAGE + 15) / 16 * 16;
+    static constexpr int RING = COMPACT
+        ? K8_SLOTS * WBYTES + (NARROW ? 2 * SBYTES : 0) : K8_SLOTS * BYTES;
 };
 
-template <class S, bool SHARED, bool CACHED, int WB>
+template <class S, bool SHARED, bool CACHED, int WB, bool COMPACT>
 constexpr int k8_bytes()
 {
-    return K8_SLOTS * K8Slot<S, SHARED, CACHED, WB>::BYTES
-        + WB * K8Warp<CACHED>::WORDS * (int)sizeof(scalar);
+    return K8Slot<S, SHARED, CACHED, WB, COMPACT>::RING
+        + WB * K8Warp<CACHED, COMPACT && !SHARED>::WORDS * (int)sizeof(scalar);
+}
+
+// The widest block of 8 (one model) or 4, then 2 or 1 warps that a
+// layout fits; 0 where none does.
+template <class S, bool SHARED, bool CACHED, bool COMPACT>
+constexpr int k8_fit()
+{
+    constexpr int W0 = SHARED ? 8 : 4;
+    return k8_bytes<S, SHARED, CACHED, W0, COMPACT>() <= K8_SMEM_MAX ? W0
+        : k8_bytes<S, SHARED, CACHED, 4, COMPACT>() <= K8_SMEM_MAX ? 4
+        : k8_bytes<S, SHARED, CACHED, 2, COMPACT>() <= K8_SMEM_MAX ? 2
+        : k8_bytes<S, SHARED, CACHED, 1, COMPACT>() <= K8_SMEM_MAX ? 1 : 0;
 }
 
 // A form's block: 8 warps on one model, 4 on a batched problem, fewer
-// where that does not fit.  OK is false only where one scenario alone
-// does not fit.
+// where that does not fit; the COMPACT layout only where one scenario
+// alone does not fit otherwise (it changes how many blocks share an SM,
+// and on the quadrotor's batched bf16 and uncached forms that cost 30 %:
+// PERF.md).  OK is false only where one scenario does not fit compact.
 template <class S, bool SHARED, bool CACHED> struct K8Fit {
-    static constexpr int W0 = SHARED ? 8 : 4;
-    static constexpr int WB =
-        k8_bytes<S, SHARED, CACHED, W0>() <= K8_SMEM_MAX ? W0
-        : k8_bytes<S, SHARED, CACHED, 4>() <= K8_SMEM_MAX ? 4
-        : k8_bytes<S, SHARED, CACHED, 2>() <= K8_SMEM_MAX ? 2 : 1;
-    static constexpr bool OK = k8_bytes<S, SHARED, CACHED, WB>() <= K8_SMEM_MAX;
+    static constexpr bool COMPACT = k8_fit<S, SHARED, CACHED, false>() == 0;
+    static constexpr int FIT = k8_fit<S, SHARED, CACHED, COMPACT>();
+    static constexpr int WB = FIT > 0 ? FIT : 1;
+    static constexpr bool OK = FIT > 0;
     // Blocks an SM the registers must allow (float32): 2 of 8 warps on
     // one model (128 registers: fewer spill), 3 of 4 on a batched problem
     // (where shared memory allows no more).
     static constexpr int MINB = sizeof(scalar) > 4 ? 1 : SHARED ? 2 : 3;
-    static constexpr int BYTES = k8_bytes<S, SHARED, CACHED, WB>();
+    static constexpr int BYTES = k8_bytes<S, SHARED, CACHED, WB, COMPACT>();
 };
 
 __device__ __forceinline__ scalar up(__nv_bfloat16 v)
@@ -1580,9 +1603,11 @@ iter_kernel(
     scalar* __restrict__ res)
 {
     constexpr int WB = K8Fit<S, SHARED, CACHED>::WB;
+    constexpr bool COMPACT = K8Fit<S, SHARED, CACHED>::COMPACT;
+    constexpr bool INPLACE = COMPACT && !SHARED;    // the fold into the slot
     constexpr int NT = 32 * WB;
-    using L = K8Slot<S, SHARED, CACHED, WB>;
-    using Wp = K8Warp<CACHED>;
+    using L = K8Slot<S, SHARED, CACHED, WB, COMPACT>;
+    using Wp = K8Warp<CACHED, INPLACE>;
     constexpr bool NARROW = L::NARROW;
     constexpr int RF = L::RF, RM = L::RM, SPW = L::SPW;
     constexpr int XP = NX | 1, UP = NU | 1, ZP = NZ | 1;   // k8_pad
@@ -1597,7 +1622,7 @@ iter_kernel(
     const size_t b = b0 + warp;
     const bool valid = b < Bs;
     const size_t bc = valid ? b : Bs - 1;       // whose numbers this warp computes
-    scalar* sm = reinterpret_cast<scalar*>(ring + K8_SLOTS * L::BYTES)
+    scalar* sm = reinterpret_cast<scalar*>(ring + L::RING)
         + warp * Wp::WORDS;
 
     const scalar alpha = (scalar)alpha_d;
@@ -1609,11 +1634,15 @@ iter_kernel(
     scalar* spill_b = spill + bc * Ns * SPW;
 
     auto words = [&](int n) {                    // slot n % K8_SLOTS
-        return reinterpret_cast<scalar*>(ring + (n % K8_SLOTS) * L::BYTES);
+        return reinterpret_cast<scalar*>(
+            ring + (n % K8_SLOTS) * (COMPACT ? L::WBYTES : L::BYTES));
     };
-    auto staging = [&](int n) {
-        return ring + (n % K8_SLOTS) * L::BYTES
-            + L::WORDS0 * (int)sizeof(scalar);
+    auto staging = [&](int n) {                  // COMPACT: area n % 2
+        if constexpr (COMPACT)
+            return ring + K8_SLOTS * L::WBYTES + (n % 2) * L::SBYTES;
+        else
+            return ring + (n % K8_SLOTS) * L::BYTES
+                + L::WORDS0 * (int)sizeof(scalar);
     };
     // Stage k's block of an R x C stream (a model stream when `one` is
     // SHARED, else per scenario) into a slot: entry e of scenario b at
@@ -1757,7 +1786,7 @@ iter_kernel(
 
     scalar* P = sm + Wp::P;
     scalar* p = sm + Wp::PV;
-    scalar* Hf = sm + Wp::HF;
+    scalar* const HfW = sm + Wp::HF;
     scalar* hf = sm + Wp::HV;
     scalar* rg = sm + Wp::RG;
     scalar* rmD = sm + Wp::RMD;
@@ -1798,6 +1827,13 @@ iter_kernel(
         auto vw = [&](int e) { return Vs[L::W1 + e * RF]; };
         auto vz = [&](int e) { return Vs[L::Z1 + e * RF]; };
         auto vy = [&](int e) { return Vs[L::Y1 + e * RF]; };
+        // The folded H, entry (r, q): the warp's own words, or (INPLACE)
+        // its column of the slot's Hs, folded in place.
+        scalar* const Hcol = words(n) + warp + L::HS1;
+        auto Hf = [&](int r, int q) -> scalar& {
+            if constexpr (INPLACE) return Hcol[(r * ZP + q) * RF];
+            else return HfW[r * NZ + q];
+        };
 
         // rho m z - y a row, and (uncached) rho m D.
         for (int e = lane; e < NC; e += 32) rg[e] = rho_b * vM(e) * vz(e) - vy(e);
@@ -1817,7 +1853,7 @@ iter_kernel(
 #pragma unroll
                 for (int ci = 0; ci < NC; ++ci)
                     acc += mD(ci, i) * rmD[ci * NZ + q];
-                Hf[e] = acc;
+                Hf(i, q) = acc;
             } else if (r < NZ) {
                 scalar rgv[NC];
                 k8_vec(rgv, rg);
@@ -1924,7 +1960,7 @@ iter_kernel(
                 scalar acc = mB(0, i) * PA[j];
 #pragma unroll
                 for (int t = 1; t < NX; ++t) acc += mB(t, i) * PA[t * NX + j];
-                G[e] = Hf[i * NZ + NU + j] + acc;
+                G[e] = Hf(i, NU + j) + acc;
             } else if (e < NU * NX + NU) {
                 const int i = e - NU * NX;
                 scalar pv[NX];
@@ -1936,7 +1972,7 @@ iter_kernel(
             } else {
                 const int f = e - NU * NX - NU, i = f / NU, j = f % NU;
                 if (j <= i) {
-                    scalar acc = Hf[i * NZ + j];
+                    scalar acc = Hf(i, j);
 #pragma unroll
                     for (int t = 0; t < NX; ++t) acc += mB(t, i) * PB[t * NU + j];
                     Huu[f] = acc;
@@ -1994,7 +2030,7 @@ iter_kernel(
             if (e < NX * NX) {
                 const int i = e / NX, j = e % NX;
                 if (j >= i) {
-                    scalar acc = Hf[(NU + i) * NZ + NU + j];
+                    scalar acc = Hf(NU + i, NU + j);
 #pragma unroll
                     for (int t = 0; t < NX; ++t) acc += mA(t, i) * PA[t * NX + j];
 #pragma unroll

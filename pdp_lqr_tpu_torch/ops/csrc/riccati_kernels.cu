@@ -107,7 +107,8 @@ __device__ long long riccati_prof[8];
 //     outputs go out a stage later from a double-buffered out slot, 16
 //     bytes a store (four instances' words of one entry) where the batch is
 //     a multiple of the vector width and the pointers are aligned, a word
-//     a store otherwise.  One __syncthreads a stage hands the slots over.
+//     a store otherwise.  One __syncthreads a stage hands the slots over
+//     (two where the out slot is single: SweepFit::OUTS).
 //     A slot holds each instance's stage as a run of its own padded rows,
 //     so a lane reads its operand rows 16 bytes a load; 16-byte copies
 //     would need the instances side by side, where a warp's reads of one
@@ -208,23 +209,28 @@ template <bool EMIT_MV, bool EXPORT, bool PDP> struct SweepLayout {
 constexpr int SWEEP_SMEM_MAX = 232448;      // 227 KB, the most a block has
 
 template <bool EMIT_MV, bool EXPORT, bool PDP>
-constexpr int sweep_bytes(int g, int slots)
+constexpr int sweep_bytes(int g, int slots, int outs)
 {
     using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
-    return (slots * g * S_STRIDE + g * L::CARRY + 2 * g * L::OUT)
+    return (slots * g * S_STRIDE + g * L::CARRY + outs * g * L::OUT)
         * (int)sizeof(scalar);
 }
 
-// G * 4 + SLOTS of a form: the widest group from g0 down, 3 slots before
-// 2, that fits (one instance and 2 slots where none does).
+// G * 8 + (OUTS - 1) * 4 + SLOTS of a form: the widest group from g0
+// down, 3 slots before 2, that fits with a double-buffered out slot; where
+// none does, the same with one out slot (K9 exporting its factors at
+// nz=50 in float64: its out slot is 46 KB); one instance, 2 slots and one
+// out slot where nothing fits.
 template <bool EMIT_MV, bool EXPORT, bool PDP>
 constexpr int sweep_pick(int g0)
 {
-    for (int g = g0; g >= 1; g /= 2)
-        for (int slots = 3; slots >= 2; --slots)
-            if (sweep_bytes<EMIT_MV, EXPORT, PDP>(g, slots) <= SWEEP_SMEM_MAX)
-                return g * 4 + slots;
-    return 4 + 2;
+    for (int outs = 2; outs >= 1; --outs)
+        for (int g = g0; g >= 1; g /= 2)
+            for (int slots = 3; slots >= 2; --slots)
+                if (sweep_bytes<EMIT_MV, EXPORT, PDP>(g, slots, outs)
+                    <= SWEEP_SMEM_MAX)
+                    return g * 8 + (outs - 1) * 4 + slots;
+    return 8 + 2;
 }
 
 // Warps of the block of one instance (ONE): on the shared model (Bt = 1)
@@ -238,11 +244,12 @@ constexpr int ONE_WARPS = 8;
 template <bool EMIT_MV, bool EXPORT, bool PDP, bool ONE> struct SweepFit {
     static constexpr int PICK = sweep_pick<EMIT_MV, EXPORT, PDP>(
         ONE ? 1 : 32 / (int)sizeof(scalar));
-    static constexpr int G = PICK / 4;
+    static constexpr int G = PICK / 8;
     static constexpr int SLOTS = PICK % 4;
+    static constexpr int OUTS = PICK / 4 % 2 + 1;   // out slots
     static constexpr int W = ONE ? ONE_WARPS : 1;
     static constexpr int THREADS = 32 * W * G;
-    static constexpr int BYTES = sweep_bytes<EMIT_MV, EXPORT, PDP>(G, SLOTS);
+    static constexpr int BYTES = sweep_bytes<EMIT_MV, EXPORT, PDP>(G, SLOTS, OUTS);
     static constexpr bool OK = BYTES <= SWEEP_SMEM_MAX;
 };
 
@@ -499,6 +506,7 @@ backward_kernel(
     using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
     using Fit = SweepFit<EMIT_MV, EXPORT, PDP, ONE>;
     constexpr int G = Fit::G, SLOTS = Fit::SLOTS, NT = Fit::THREADS;
+    constexpr int OUTS = Fit::OUTS;
     constexpr int T = 32 * Fit::W;              // threads of one instance
     // Tiles of TR x TW outputs (few rounds, loads reused); one instance's
     // many threads take the products with the carry, [P; F] [A c B] and
@@ -563,7 +571,7 @@ backward_kernel(
     // instance: every stream read before any is written).
     auto store = [&](int n) {
         const size_t ks = (size_t)(k0 + Nl - 1 - n);
-        const scalar* o = outs + (n & 1) * G * OW;
+        const scalar* o = outs + (n % OUTS) * G * OW;
         if constexpr (ONE) {
             Held<NU * NX, NT> hK;
             Held<NU, NT> hd;
@@ -634,6 +642,7 @@ backward_kernel(
                                               // and out slot of n-1 free
         PROF_MARK(0);
         if (n > 0) store(n - 1);
+        if constexpr (OUTS == 1) __syncthreads();   // stored before rewritten
         PROF_MARK(1);
         prefetch(n + SLOTS - 1);              // into the slot of stage n-1
         PROF_MARK(2);
@@ -641,7 +650,7 @@ backward_kernel(
         const scalar* const sAB = sl + S_AB;
         scalar* const sH = sl + S_H;
         const scalar* const sD = sl + S_D;
-        scalar* const o = outs + ((n & 1) * G + inst) * OW;    // outputs
+        scalar* const o = outs + ((n % OUTS) * G + inst) * OW; // outputs
 
         // ---- A: Dr, and [PA Pcp PB] = P [A c B] + [0 p 0] (K9: F's rows
         // too); the exported carries.
@@ -1109,14 +1118,30 @@ __global__ void backward_pdp_vectors_kernel(
 // padded to an odd length: the four threads of a scenario read rows g,
 // g+4, ... on distinct banks.  A scenario past the batch reads the last
 // one's data and stores nothing.
-constexpr int K3I_G = 4;                      // threads a scenario
-constexpr int K3I_WS = 8;                     // scenarios a block
+constexpr int K3I_MP = NX | 1;                // a slot's row of M or K
+constexpr int K3I_ROW = (NX + NU) * K3I_MP + NX + NU;   // a scenario's stage
+constexpr int K3I_SMEM_MAX = 232448;          // 227 KB, the most a block has
+// WS * 8 + PF: the most scenarios a block (8, 4, 2, 1) with 2 to 4 stages
+// in flight that 227 KB hold, else with 1.  8 and 4 at the quadrotor's
+// widths; at nx=40, nu=10 a scenario's stage is 8-17 KB: 8 scenarios a
+// block in float32 and 4 in float64, 2 stages in flight.
+__host__ __device__ constexpr int k3i_pick()
+{
+    for (int pmin = 2; pmin >= 1; --pmin)
+        for (int ws = 8; ws >= 1; ws /= 2)
+            for (int pf = 4; pf >= pmin; --pf)
+                if (((pf + 1) * K3I_ROW + 2 * NX) * ws * (int)sizeof(scalar)
+                    <= K3I_SMEM_MAX)
+                    return ws * 8 + pf;
+    return 8 + 1;
+}
+constexpr int K3I_WS = k3i_pick() / 8;        // scenarios a block
+constexpr int K3I_G = 32 / K3I_WS;            // threads a scenario: a warp
 constexpr int K3I_THREADS = K3I_G * K3I_WS;
 constexpr int K3I_RX = (NX + K3I_G - 1) / K3I_G;   // x+ rows a thread
 constexpr int K3I_RU = (NU + K3I_G - 1) / K3I_G;   // u rows a thread
-constexpr int K3I_PF = 4;                     // stages in flight
+constexpr int K3I_PF = k3i_pick() % 8;        // stages in flight
 constexpr int K3I_SLOTS = K3I_PF + 1;
-constexpr int K3I_MP = NX | 1;                // a slot's row of M or K
 // Slot (entries; each entry a row of K3I_WS words): M, K, v, d.
 constexpr int K3I_M = 0;
 constexpr int K3I_K = K3I_M + NX * K3I_MP;
@@ -1185,7 +1210,7 @@ forward_kernel(
     x0 += seg * NX * Bs;
     xN += seg * NX * Bs;
     constexpr size_t CH = 16 / sizeof(scalar);
-    const bool vec = Bs % CH == 0 && b0 + K3I_WS <= Bs
+    const bool vec = K3I_WS % CH == 0 && Bs % CH == 0 && b0 + K3I_WS <= Bs
         && (((size_t)M | (size_t)K | (size_t)v | (size_t)d) & 15) == 0;
 
     auto prefetch = [&](int k) {
@@ -1266,10 +1291,10 @@ forward_kernel(
 // (A, B, K, L, P, c, hf; quadrotor widths, plain-P mode), 16 out.  A
 // thread a scenario that loads its own stage (the first design) waits out
 // device-memory latency on every entry of the chain, and a batch of 1,024
-// is 16 blocks on 16 SMs.  Here a block serves K2I_WS consecutive
+// is 16 blocks on 16 SMs.  Here a block serves WS consecutive
 // scenarios with warps in roles:
 //   * K2I_PW producer warps copy each stage of the block's scenarios
-//     into a ring of K2I_SLOTS shared-memory slots (cp.async: consecutive
+//     into a ring of SLOTS shared-memory slots (cp.async: consecutive
 //     lanes on consecutive scenarios of one entry, 16 bytes a copy where
 //     the batch and the pointers allow, a word otherwise; K3's slot
 //     layout, the rows of P and B that a lane reads by rows padded to an
@@ -1283,16 +1308,30 @@ forward_kernel(
 // `empty`: the compute warp is done with it) hands the stages on.  A
 // scenario past the batch reads the last one's data and stores nothing.
 constexpr int K2I_G = 4;                      // lanes a scenario
-constexpr int K2I_WS = 32 / K2I_G;            // scenarios a block
+constexpr int K2I_WS_MAX = 32 / K2I_G;        // scenarios a block, at most
 // Producer warps: two copy a stage in 0.57 ms at B=1024 against 0.82 for
 // one; three and four were no faster (an H100, PERF.md).
 constexpr int K2I_PW = 2;
 constexpr int K2I_THREADS = 32 * (K2I_PW + 1);
 constexpr int K2I_RX = (NX + K2I_G - 1) / K2I_G;   // rows of p a lane
-constexpr int K2I_SLOTS = 4;                  // stages in flight + 1
+constexpr int K2I_SLOTS_MAX = 4;              // stages in flight + 1
+constexpr int K2I_SMEM_MAX = 232448;          // 227 KB, the most a block has
+// WS * 8 + SLOTS for a scenario's stage of `row` words: the most scenarios
+// a block (8, 4, 2, 1) with 3 or 4 slots that 227 KB hold, else with 2.
+// At nx=40, nu=10 a scenario's stage is 21-34 KB in float64: two scenarios
+// a block (the lanes of the other six idle); four in float32.
+__host__ __device__ constexpr int k2i_pick(int row)
+{
+    for (int smin = 3; smin >= 2; --smin)
+        for (int ws = K2I_WS_MAX; ws >= 1; ws /= 2)
+            for (int slots = K2I_SLOTS_MAX; slots >= smin; --slots)
+                if (slots * (row * ws * (int)sizeof(scalar) + 16) <= K2I_SMEM_MAX)
+                    return ws * 8 + slots;
+    return 8 + 2;
+}
 constexpr int K2I_XP = NX | 1;                // a slot's row of P
 constexpr int K2I_UP = NU | 1;                // a slot's row of B
-// Slot (entries, each a row of K2I_WS words): A, B, K, L, then P (plain-P
+// Slot (entries, each a row of WS words): A, B, K, L, then P (plain-P
 // mode) or Pc, c, hf.
 template <bool PC_MODE> struct K2ILayout {
     static constexpr int A = 0;
@@ -1302,9 +1341,12 @@ template <bool PC_MODE> struct K2ILayout {
     static constexpr int P = L + NU * NU;
     static constexpr int C = P + (PC_MODE ? NX : NX * K2I_XP);
     static constexpr int HF = C + NX;
-    static constexpr int SLOT = (HF + NZ) * K2I_WS;             // words
-    static constexpr int SMEM = K2I_SLOTS * SLOT * (int)sizeof(scalar)
-        + 2 * 8 * K2I_SLOTS;                                     // bytes
+    static constexpr int PICK = k2i_pick(HF + NZ);
+    static constexpr int WS = PICK / 8;                         // scenarios
+    static constexpr int SLOTS = PICK % 8;
+    static constexpr int SLOT = (HF + NZ) * WS;                 // words
+    static constexpr int SMEM = SLOTS * SLOT * (int)sizeof(scalar)
+        + 2 * 8 * SLOTS;                                         // bytes
 };
 
 template <bool PC_MODE>
@@ -1318,6 +1360,7 @@ backward_vectors_kernel(
     scalar* __restrict__ d_out, scalar* __restrict__ v_out)
 {
     using Lay = K2ILayout<PC_MODE>;
+    constexpr int K2I_WS = Lay::WS, K2I_SLOTS = Lay::SLOTS;
     extern __shared__ double smem_aligned[];
     scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
     mbar_t* full = reinterpret_cast<mbar_t*>(ring + K2I_SLOTS * Lay::SLOT);
@@ -1339,7 +1382,7 @@ backward_vectors_kernel(
     if (warp < K2I_PW) {
         const int tp = threadIdx.x;              // thread of the producers
         constexpr size_t CH = 16 / sizeof(scalar);
-        const bool vec = Bs % CH == 0 && b0 + K2I_WS <= Bs
+        const bool vec = K2I_WS % CH == 0 && Bs % CH == 0 && b0 + K2I_WS <= Bs
             && (((size_t)A | (size_t)B | (size_t)c | (size_t)hf | (size_t)P
                  | (size_t)K | (size_t)L) & 15) == 0;
         PROF_INIT_AT(blockIdx.x == 0 && tp == 0)
@@ -1378,11 +1421,13 @@ backward_vectors_kernel(
         return;
     }
 
-    const int j = lane / K2I_G;                  // scenario in the block
+    // A group of lanes past the block's WS scenarios (a wide model's
+    // block) computes the last one's numbers and stores nothing.
+    const int j = lane / K2I_G < K2I_WS ? lane / K2I_G : K2I_WS - 1;
     const int g = lane % K2I_G;                  // lane of the scenario
     const size_t b = b0 + j;
-    const bool valid = b < Bs;
-    const size_t bc = valid ? b : Bs - 1;
+    const bool valid = b < Bs && lane / K2I_G < K2I_WS;
+    const size_t bc = b < Bs ? b : Bs - 1;
     // Entry e of this scenario in slot S.
     auto at = [&](const scalar* S, int e) { return S[e * K2I_WS + j]; };
     // This lane's rows i = g*K2I_RX + r of Pc, for the stage in slot S.
@@ -1546,7 +1591,8 @@ constexpr int K2_P = K2_L + NU * NU;
 constexpr int K2S_W = 32;                     // scenarios a block, a lane each
 constexpr int K2S_TAILS = 2;                  // tail warps
 constexpr int K2S_THREADS = 32 * (2 + K2S_TAILS);
-constexpr int K2S_SLOTS = K2S_TAILS + 4;      // >= K2S_TAILS: see K5's note
+constexpr int K2S_SLOTS_MAX = K2S_TAILS + 4;
+constexpr int K2S_SMEM_MAX = 232448;          // 227 KB, the most a block has
                                               // (admm_kernels.cu)
 template <bool PC_MODE> struct K2SLayout {
     static constexpr int PACK = K2_P + (PC_MODE ? 0 : NX * NX);
@@ -1557,8 +1603,14 @@ template <bool PC_MODE> struct K2SLayout {
     static constexpr int PC = HF + NZ * K2S_W;
     static constexpr int RB = PC + (PC_MODE ? NX * K2S_W : 0);
     static constexpr int SLOT = RB + NU * K2S_W;
-    static constexpr int SMEM = K2S_SLOTS * SLOT * (int)sizeof(scalar)
-        + 3 * 8 * K2S_SLOTS;                                     // bytes
+    // As many slots as 227 KB hold, up to K2S_SLOTS_MAX: at nx=40, nu=10
+    // in float64 a slot is 59-72 KB and three fit.  No fewer than the tail
+    // warps (see K5's note: a parity wait two phases ahead passes at once).
+    static constexpr int FIT = (K2S_SMEM_MAX - 128) / (SLOT * (int)sizeof(scalar) + 3 * 8);
+    static constexpr int SLOTS = FIT < K2S_SLOTS_MAX ? FIT : K2S_SLOTS_MAX;
+    static_assert(SLOTS >= K2S_TAILS, "K2 shared: a slot per tail warp does not fit");
+    static constexpr int SMEM = SLOTS * SLOT * (int)sizeof(scalar)
+        + 3 * 8 * SLOTS;                                         // bytes
 };
 
 template <bool PC_MODE>
@@ -1573,6 +1625,7 @@ backward_vectors_shared_kernel(
     using Lay = K2SLayout<PC_MODE>;
     extern __shared__ double smem_aligned[];
     scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
+    constexpr int K2S_SLOTS = Lay::SLOTS;
     mbar_t* full = reinterpret_cast<mbar_t*>(ring + K2S_SLOTS * Lay::SLOT);
     mbar_t* ready = full + K2S_SLOTS;
     mbar_t* empty = ready + K2S_SLOTS;
@@ -2266,7 +2319,9 @@ int riccati_backward_vectors(int N, int Bt, int pc_mode, void* stream,
 {
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = (Bt + K2I_WS - 1) / K2I_WS;
+    const int blocks = pc_mode
+        ? (Bt + K2ILayout<true>::WS - 1) / K2ILayout<true>::WS
+        : (Bt + K2ILayout<false>::WS - 1) / K2ILayout<false>::WS;
 #define RICCATI_BV_ARGS                                                      \
     N, Bt, (const scalar*)A, (const scalar*)B, (const scalar*)c,             \
         (const scalar*)hf, (const scalar*)P, (const scalar*)K,               \

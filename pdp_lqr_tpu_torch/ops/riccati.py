@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from pdp_lqr_tpu_torch.config import full_f32_matmul
+from pdp_lqr_tpu_torch.ops import linalg
 from pdp_lqr_tpu_torch.problem import LQRProblem, StageParams, _TensorRecord
 
 
@@ -91,6 +92,63 @@ def penalty_fold_vec(h, D, rho, g):
     if D.shape[-2] == 0:
         return h
     return h - torch.einsum("...ci,...c->...i", D, rho * g)
+
+
+def terminal_step_raw(Hxx, hx, Dx, rho_N, g):
+    """Terminal backward step on raw terminal blocks.
+
+    Reference: LQRKernel::terminal_step_with_factorization
+    (lqr_kernel.hpp:79-91): fold penalty, Lxx = chol(H~), p = h~.
+    """
+    with full_f32_matmul():
+        Hxx, hx = penalty_fold(Hxx, hx, Dx, rho_N, g)
+        return linalg.cholesky(Hxx), hx
+
+
+def terminal_step(params: StageParams, problem: LQRProblem, rho_N):
+    """Terminal backward step with factorization (record front-end)."""
+    nu = problem.nu
+    return terminal_step_raw(
+        params.H[..., -1, nu:, nu:], params.h[..., -1, nu:],
+        problem.D[..., -1, :, nu:], rho_N, params.g[..., -1, :])
+
+
+def backward_step(carry, stage):
+    """One backward Riccati stage (with factorization).
+
+    Reference: LQRKernel::step_with_factorization (lqr_kernel.hpp:103-147):
+      fold penalty -> V = E^T Lxx+ -> M = H + V V^T -> L = chol(M)
+      Pb = Lxx+ Lxx+^T c + p+ -> lp = h + E^T Pb
+      lu = Luu^{-1} lp_u ;  p = lp_x - Lxu lu
+    ``stage`` = (A, B, c, H, h, D, rho, g); returns ((Lxx, p), (L, lp)).
+    """
+    A, B, c, H, h, D, rho, g = stage
+    with full_f32_matmul():
+        H, h = penalty_fold(H, h, D, rho, g)
+    return backward_step_folded(carry, (A, B, c, H, h))
+
+
+def backward_step_folded(carry, stage):
+    """One backward Riccati stage on penalty-folded data (the JAX
+    package's scan body; here a function of batched tensors, any leading
+    axes).  ``carry`` = (Lxx_{k+1}, p_{k+1}), ``stage`` = (A, B, c, H, h);
+    returns ((Lxx_k, p_k), (L_k, lp_k)).
+
+    Reference math: LQRKernel::step_with_factorization
+    (lqr_kernel.hpp:121-146) minus the fold.
+    """
+    Lxx_next, p_next = carry
+    A, B, c, H, h = stage
+    nu = B.shape[-1]
+    with full_f32_matmul():
+        E = torch.cat([B, A], dim=-1)                 # (nx, nz), E = [B A]
+        V = E.mT @ Lxx_next                           # (nz, nx)
+        L = linalg.cholesky(H + V @ V.mT)
+        Pb = _mv(Lxx_next, _mv(Lxx_next.mT, c)) + p_next
+        lp = h + _mv(E.mT, Pb)
+        lu = linalg.solve_lower(L[..., :nu, :nu], lp[..., :nu])
+        p = lp[..., nu:] - _mv(L[..., nu:, :nu], lu)
+    return (L[..., nu:, nu:], p), (L, torch.cat([lu, p], dim=-1))
 
 
 def _vector_step(A, B, c, h, L, Lxx_next, p_next, nu):

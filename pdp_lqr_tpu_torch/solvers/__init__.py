@@ -2,7 +2,12 @@
 
   sequential — plain-torch Riccati recursion (reference LQRSolver), the
                port's independent witness
-  admm       — the conic ADMM outer loop; ``solve_fused`` in shared split
+  dense      — P-form Riccati with a solve-free rollout
+  assoc      — log-depth associative-scan Riccati
+  pdp        — segmented parallel Riccati (reference LQRParallelSolver)
+  kkt        — block-tridiagonal KKT factorization (reference QDLDLSolver)
+  admm       — the conic ADMM outer loop: ``solve`` on one of the five
+               backends above (torch ops); ``solve_fused`` in shared split
                mode on the kernels of ops.cuda_admm, and on batched
                problems on the per-instance kernels of ops.cuda_riccati
   (cuda)     — ops.cuda_riccati: the kernels behind

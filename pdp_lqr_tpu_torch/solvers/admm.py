@@ -177,13 +177,216 @@ def _con_mask(problem: LQRProblem, cones: Sequence = ()):
 
 
 def init_state(problem: LQRProblem, settings: ADMMSettings) -> ADMMState:
+    """Zero iterates at ``settings.rho`` (one rho an instance of a batched
+    problem)."""
     return ADMMState(
         w=torch.zeros_like(problem.h),
         z=torch.zeros_like(problem.e_lb),
         y=torch.zeros_like(problem.e_lb),
-        rho=torch.tensor(settings.rho, dtype=problem.H.dtype,
-                         device=problem.H.device),
+        rho=torch.full(problem.A.shape[:-3], settings.rho,
+                       dtype=problem.H.dtype, device=problem.H.device),
     )
+
+
+def _backend(settings: ADMMSettings):
+    """(solve, resolve) of the inner solver ``settings.backend`` names:
+    seq | assoc | dense | kkt | pdp, the torch-ops backends of
+    ``solvers``.  Each takes a problem with any leading batch axes."""
+    name = settings.backend
+    if name == "seq":
+        from pdp_lqr_tpu_torch.solvers import sequential as be
+        return be.solve, be.resolve
+    if name == "assoc":
+        from pdp_lqr_tpu_torch.solvers import assoc as be
+        return be.solve, be.resolve
+    if name == "dense":
+        from pdp_lqr_tpu_torch.solvers import dense as be
+        return be.solve, be.resolve
+    if name == "kkt":
+        from pdp_lqr_tpu_torch.solvers import kkt as be
+
+        def solve(problem, it, x0, sigma):
+            return be.solve(problem, it, x0, sigma, settings.rho_dyn)
+
+        return solve, be.resolve
+    if name == "pdp":
+        from pdp_lqr_tpu_torch.config import CondensedSolverType
+        from pdp_lqr_tpu_torch.solvers import pdp as be
+
+        def solve(problem, it, x0, sigma):
+            return be.solve(problem, it, x0, sigma, settings.num_segments,
+                            CondensedSolverType.CHOLESKY)
+
+        return solve, be.resolve
+    raise ValueError(f"unknown backend {name!r}")
+
+
+def solve(
+    problem: LQRProblem,
+    x0,
+    cones: Sequence[projections.ConeSpec] = (),
+    settings: ADMMSettings = ADMMSettings(),
+    state: Optional[ADMMState] = None,
+    soc_shift=None,
+    residual_weights=None,
+):
+    """Solve the constrained conic LQ problem on the inner solver
+    ``settings.backend`` (torch ops, no hand-written kernel).
+
+    Returns (ws, state, info): ws is the (N+1, nz) trajectory (dynamics
+    exactly feasible; constraint feasibility to tolerance), state warm-
+    starts the next solve (receding-horizon MPC), info carries residuals.
+    A problem with leading batch axes on every field (and ``x0``, and
+    ``state``) solves each instance on its own: every residual maximum
+    and every rho update is per instance, so a batch equals a loop over
+    its instances to rounding (``solve_batched``).
+
+    ``cones`` is a static sequence of (row_offset, dim) SOC specs into
+    the per-stage constraint block; remaining rows are boxes.
+    ``soc_shift`` ((N+1, nc) or None) adds an affine offset to cone rows:
+    D_k w_k + shift_k in SOC (see projections.project_constraints).
+    ``residual_weights`` ((N+1, nc) prim, (N+1, nz) dual) reweight the
+    residual inf-norms (termination on the unscaled residuals of an
+    equilibrated problem, OSQP 5.2).
+
+    The loop runs exactly ``max_iter`` iterations (no early exit), in
+    chunks of ``rho_update_interval``: each chunk one refactoring inner
+    solve (rho may have changed) then cached-factor ones, the adaptive rho
+    rule between chunks — the JAX function's fixed cadence, with nothing
+    read back to the host.
+    """
+    cones = tuple(cones)
+    dt, dev = problem.H.dtype, problem.H.device
+    x0 = torch.as_tensor(x0).to(device=dev, dtype=dt)
+    be_solve, be_resolve = _backend(settings)
+    if problem.nc == 0:
+        zc = torch.zeros_like(problem.e_lb)
+        it = ADMMIterates(w=torch.zeros_like(problem.h), y=zc, z=zc, rho=zc)
+        ws, _ = be_solve(problem, it, x0, settings.sigma)
+        batch = problem.A.shape[:-3]
+        zero = torch.zeros(batch, dtype=dt, device=dev)
+        one = torch.ones(batch, dtype=torch.int64, device=dev)
+        info = ADMMInfo(iterations=one, r_prim=zero, r_dual=zero,
+                        converged=torch.ones(batch, dtype=torch.bool,
+                                             device=dev),
+                        iter_converged=one)
+        return ws, state or init_state(problem, settings), info
+
+    sigma, alpha = settings.sigma, settings.alpha
+    mask = _con_mask(problem, cones).to(dt)
+    # Per-row rho (the reference's rho_vecs interface,
+    # lqr_solver.hpp:15-22): equality rows run at rho * rho_eq_boost.
+    eq = torch.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub)
+    rscale = mask * torch.where(eq, settings.rho_eq_boost, 1.0).to(dt)
+    pw, dwt = (None, None) if residual_weights is None else residual_weights
+    wp_ = (lambda x: x * pw) if pw is not None else (lambda x: x)
+    wd_ = (lambda x: x * dwt) if dwt is not None else (lambda x: x)
+    if state is None:
+        state = init_state(problem, settings)
+    amax = lambda t: t.abs().amax(dim=(-2, -1))          # per instance
+    per_row = lambda r: r[..., None, None]
+
+    with full_f32_matmul():
+        Dw = lambda w: torch.einsum("...kcz,...kz->...kc", problem.D, w)
+        DTv = lambda v: torch.einsum("...kcz,...kc->...kz", problem.D, v)
+        Hv = lambda v: torch.einsum("...kij,...kj->...ki", problem.H, v)
+
+        def iteration(carry, factors):
+            w, z, y, rho, stats = carry
+            rho_vec = per_row(rho) * rscale
+            it = ADMMIterates(w=w, y=y, z=z, rho=rho_vec)
+            if factors is None:
+                w_t, factors = be_solve(problem, it, x0, sigma)
+            else:
+                w_t, factors = be_resolve(problem, it, x0, sigma, factors)
+            z_t = Dw(w_t)
+            w_new = alpha * w_t + (1.0 - alpha) * w
+            inv_rho = torch.where(rscale > 0, 1.0 / rho_vec.clamp(min=1e-30),
+                                  torch.zeros_like(rho_vec))
+            relaxed = alpha * z_t + (1.0 - alpha) * z
+            z_new = projections.project_constraints(
+                relaxed + inv_rho * y, problem.e_lb, problem.e_ub, cones,
+                soc_shift) * mask    # inactive (padded) rows stay zero
+            y_new = y + rho_vec * (relaxed - z_new)
+
+            # Residuals (OSQP sec. 3.4): primal on the updated pair.
+            Dw_new = Dw(w_new)
+            r_prim = amax(wp_((Dw_new - z_new) * mask))
+            if settings.exact_dual:
+                # The exact dual residual at the inner solve's dynamics
+                # dual, through the x-update's stationarity (the JAX
+                # function's derivation):
+                #   r_d = (1-a) H (w - w~) + s (w - w~)
+                #         + D^T rho [ (a-1)(z~ - z) + (z - z+) ]
+                dw = w - w_t
+                zt_term = rho_vec * ((alpha - 1.0) * (z_t - z) + (z - z_new))
+                dvec = (1.0 - alpha) * Hv(dw) + sigma * dw + DTv(zt_term)
+                r_dual = amax(wd_(dvec))
+                dual_scale = torch.maximum(
+                    amax(wd_(Hv(w_new))),
+                    torch.maximum(amax(wd_(DTv(y_new))), amax(wd_(problem.h))))
+            else:
+                r_dual = rho * amax(wd_(DTv((z_new - z) * mask)))
+                dual_scale = amax(wd_(DTv(y_new)))
+            prim_scale = torch.maximum(amax(wp_(Dw_new * mask)),
+                                       amax(wp_(z_new)))
+            conv = (r_prim <= settings.eps_abs + settings.eps_rel * prim_scale) \
+                & (r_dual <= settings.eps_abs + settings.eps_rel * dual_scale)
+            # Scale-normalized residuals drive the adaptive-rho rule
+            # (OSQP 5.2 uses relative, not absolute, imbalance).
+            rp_rel = r_prim / prim_scale.clamp(min=1e-20)
+            rd_rel = r_dual / dual_scale.clamp(min=1e-20)
+            k, iter_conv = stats[0] + 1, stats[1]
+            iter_conv = torch.where(conv & (iter_conv < 0), k, iter_conv)
+            stats = (k, iter_conv, r_prim, r_dual, conv, rp_rel, rd_rel)
+            return (w_new, z_new, y_new, rho, stats), factors
+
+        def update_rho(carry):
+            """OSQP 5.2: rho <- rho sqrt(rel_prim / rel_dual), applied
+            only on a >5x relative (scale-normalized) imbalance."""
+            w, z, y, rho, stats = carry
+            rp_rel, rd_rel = stats[5], stats[6]
+            ratio = torch.sqrt(rp_rel.clamp(min=1e-12) / rd_rel.clamp(min=1e-12))
+            rho_new = (rho * ratio).clamp(settings.rho_min, settings.rho_max)
+            update = (ratio > 5.0) | (ratio < 0.2)
+            return (w, z, y, torch.where(update, rho_new, rho), stats)
+
+        batch = problem.A.shape[:-3]
+        inf = torch.full(batch, float("inf"), dtype=dt, device=dev)
+        stats = (0, torch.full(batch, -1, dtype=torch.int64, device=dev),
+                 inf, inf, torch.zeros(batch, dtype=torch.bool, device=dev),
+                 inf, inf)
+        rho0 = torch.as_tensor(state.rho).to(device=dev, dtype=dt)
+        carry = (state.w, state.z, state.y, rho0.expand(batch).clone(), stats)
+        interval = max(1, settings.rho_update_interval)
+        n_chunks = -(-settings.max_iter // interval)
+        for chunk in range(n_chunks):
+            if chunk > 0 and settings.adaptive_rho:
+                carry = update_rho(carry)
+            n_iter = min(interval, settings.max_iter - chunk * interval)
+            # One refactoring iteration (rho may have changed since the
+            # factors were built), then the cached-factor iterations.
+            carry, factors = iteration(carry, None)
+            for _ in range(n_iter - 1):
+                carry, factors = iteration(carry, factors)
+
+    w, z, y, rho, stats = carry
+    k, iter_conv, r_prim, r_dual, conv = stats[:5]
+    iters = torch.full(batch, k, dtype=torch.int64, device=dev)
+    info = ADMMInfo(iterations=iters, r_prim=r_prim, r_dual=r_dual,
+                    converged=conv,
+                    iter_converged=torch.where(iter_conv < 0, iters, iter_conv))
+    return w, ADMMState(w=w, z=z, y=y, rho=rho), info
+
+
+def solve_batched(problem: LQRProblem, x0, cones=(), settings=ADMMSettings(),
+                  state=None, soc_shift=None):
+    """``solve`` over a leading batch axis of (problem, x0[, state]): each
+    instance's own residuals and rho, as the JAX package's ``vmap``.
+    ``soc_shift`` is unbatched (shared across instances) when given."""
+    if problem.A.ndim != 4:
+        raise ValueError("solve_batched takes a batched problem (B, N, ...)")
+    return solve(problem, x0, cones, settings, state, soc_shift)
 
 
 def _batch_state(problem, Bb, settings) -> ADMMState:

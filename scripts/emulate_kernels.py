@@ -109,7 +109,12 @@ extern "C" { int emu_sms = 1; }
 enum { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 inline int cudaDeviceGetAttribute(int* v, int, int) { *v = emu_sms; return 0; }
-template <class F> inline int cudaFuncSetAttribute(F, int, int) { return 0; }
+// The card's limit on a block's shared memory (227 KB): a kernel asking
+// for more fails there, and here.
+template <class F> inline int cudaFuncSetAttribute(F, int attr, int v) {
+    return attr == cudaFuncAttributeMaxDynamicSharedMemorySize && v > 232448
+        ? cudaErrorInvalidValue : 0;
+}
 // A block: one OS thread a CUDA thread, a std::barrier for the block and
 // one for each warp (threads that return drop out of both).
 template <class F>
@@ -539,7 +544,8 @@ def run_sweep(dtype, nx, nu, nc, N, Bt, S, tol, one=False):
     lib.riccati_sweep_group.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
     for pdp, pairs in ((False, Bt), (True, S * Bt)):
         G = lib.riccati_sweep_group(1, 1, int(pdp), pairs)
-        if (G == 0) != one or not one and (Bt <= 2 * G or Bt % G == 0):
+        if (G == 0) != one or not one and (Bt <= 2 * G
+                                           or G > 1 and Bt % G == 0):
             raise AssertionError(f"{tag}: B={Bt} takes G={G}, not "
                                  + ("a block an instance" if one else
                                     "groups with a ragged third one"))
@@ -768,9 +774,67 @@ K7_CASES = [
     (torch.float32, 40, 10, 16, 10, 1e-4),
     (torch.float64, 40, 10, 7, 10, 1e-10),
 ]
+# The two widest models, in both dtypes: the mass-spring chain (nx=40,
+# nu=10, no constraint rows; the ADMM kernels, which need rows, with a box
+# on each of its 10 forces) and the centroidal model (nx=24, nu=6, its two
+# friction cones of 3 rows).  Every kernel that the wide requests run and
+# every other, in the forms of the cases above: ``run`` (K1-K3, K7, K9-K12,
+# shared and per instance), the split pair K4 + K5 (both hf forms), K4 and
+# K6 across blocks, K8 in its eight forms, K2 in both forms across blocks,
+# the matrix sweep across groups (G = 1 at nz=50 in float64, 2 in float32;
+# 2 / 4 at nz=30; enough instances for more than one block on the
+# emulator's one SM) and a block an instance, K7 and K12 at nz=30.
+CENTROIDAL_CONES = ((0, 3, "soc"), (3, 3, "soc"))
+WIDE_CASES = [
+    (torch.float64, 40, 10, 0, 4, 2, 35, 1e-10),
+    (torch.float32, 40, 10, 0, 4, 3, 33, 1e-3),
+    (torch.float64, 24, 6, 6, 6, 3, 35, 1e-10),
+    (torch.float32, 24, 6, 6, 5, 2, 33, 1e-3),
+]
+WIDE_ADMM_CASES = [
+    (torch.float64, 24, 6, 6, 6, 35, CENTROIDAL_CONES, True, False, 1e-10),
+    (torch.float32, 24, 6, 6, 5, 64, CENTROIDAL_CONES, True, False, 1e-3),
+    (torch.float64, 40, 10, 10, 4, 33, (), True, False, 1e-10),
+    (torch.float32, 40, 10, 10, 4, 36, (), False, False, 1e-3),
+]
+WIDE_K46_CASES = [
+    (torch.float64, 24, 6, 6, 12, 70, 2, 1e-10),
+    (torch.float32, 24, 6, 6, 12, 67, 1, 1e-4),
+    (torch.float64, 40, 10, 10, 9, 37, 1, 1e-10),
+    (torch.float32, 40, 10, 10, 9, 36, 2, 1e-4),
+]
+WIDE_ITER_CASES = [
+    (torch.float64, 24, 6, 6, 4, 9, CENTROIDAL_CONES, False, 1e-10),
+    (torch.float32, 24, 6, 6, 3, 9, CENTROIDAL_CONES, False, 1e-3),
+    (torch.float64, 40, 10, 10, 3, 5, (), False, 1e-10),
+    (torch.float32, 40, 10, 10, 3, 5, (), False, 1e-3),
+]
+WIDE_K2_CASES = [
+    (torch.float64, 40, 10, 9, 19, 35, 1e-10),
+    (torch.float32, 24, 6, 10, 20, 64, 1e-4),
+    (torch.float64, 24, 6, 9, 17, 33, 1e-10),
+]
+WIDE_SWEEP_CASES = [
+    (torch.float64, 40, 10, 0, 4, 5, 2, 1e-10),
+    (torch.float32, 40, 10, 0, 4, 7, 2, 1e-4),
+    (torch.float64, 24, 6, 6, 4, 7, 2, 1e-10),
+    (torch.float32, 24, 6, 6, 4, 11, 2, 1e-4),
+    (torch.float64, 40, 10, 0, 4, 2, 2, 1e-10, True),
+    (torch.float32, 24, 6, 6, 4, 2, 2, 1e-4, True),
+]
+WIDE_K7_CASES = [
+    (torch.float64, 24, 6, 10, 70, 1e-10),
+    (torch.float32, 24, 6, 12, 67, 1e-4),
+]
+WIDE = (WIDE_CASES, WIDE_ADMM_CASES, [], WIDE_ITER_CASES, [],
+        WIDE_SWEEP_CASES, WIDE_K2_CASES, WIDE_K46_CASES, WIDE_K7_CASES)
+
 # K5 on a batch whose rows the copy engine takes (70 in float64) and on one
-# it does not (33: a word a copy).
-QUICK, ADMM_QUICK, LADDER_QUICK = CASES[:1], ADMM_CASES[:2], LADDER_CASES[:1]
+# it does not (33: a word a copy); every kernel of ``run`` at the
+# mass-spring chain's widths in float64 (the shared-memory fits of K2 and K3
+# in both forms and of K9's single out slot).
+QUICK, ADMM_QUICK, LADDER_QUICK = (CASES[:1] + WIDE_CASES[:1], ADMM_CASES[:2],
+                                   LADDER_CASES[:1])
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
 K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
 
@@ -804,7 +868,11 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
 
 
 if __name__ == "__main__":
-    quick = "--quick" in sys.argv[1:]
-    sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
-                  SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK) if quick
-             else main())
+    args = sys.argv[1:]
+    if "--quick" in args:
+        sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
+                      SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK))
+    if "--wide" in args:
+        sys.exit(main(*WIDE))
+    main()
+    sys.exit(main(*WIDE))

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time the matrix sweep (K1, K9, K11), K8 in each of its forms,
 per-instance K3, K2, K5, K4, K6, K7 and K12 at the shapes their paths give
-them, on the card.
+them, and K1-K5 and K8 at the widest models' requests, on the card.
 
     python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
                                     [--kernels sweep latency k8 k3 k2 k5
-                                               k4 k6 k7]
+                                               k4 k6 k7 wide]
                                     [--profile]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
@@ -38,7 +38,13 @@ four-rung ladder).  ``k4`` and ``k6``: kernel A on the tensors of the
 last iteration of the 20-iteration ``solve_admm`` request (K4) and of the
 four-rung ladder request (K6, R=4), B=4096.  ``k7``: the rollout from
 the raw dynamics on the tensors ``solve_lanes`` hands K7 and
-``solve_packed`` hands K12 (B=4096).  Each form is held against its
+``solve_packed`` hands K12 (B=4096).  ``wide``: K1-K5 and K8 on the
+tensors the four requests of the two widest models hand them (each run
+once with the calls recorded, as ``chip_smoke.py``'s phases
+``mass_spring_solve``, ``centroidal_solve``, ``centroidal_admm_split`` and
+``centroidal_admm_single`` run them: float32, mass-spring N=512, B=2048;
+centroidal N=1024, B=4096 and, in the ADMM loop, B=2048); a tree without
+those models cannot run it.  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
@@ -373,7 +379,7 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", nargs="*",
                     choices=("sweep", "latency", "k8", "k3", "k2", "k5",
-                             "k4", "k6", "k7"),
+                             "k4", "k6", "k7", "wide"),
                     default=["sweep", "k8", "k3"])
     ap.add_argument("--profile", action="store_true",
                     help="K8's, K2's, K5's, K4's, K6's, K7's and K12's "
@@ -427,6 +433,8 @@ def main():
                                                rungs=4))]            # K6
     if {"k2", "k5", "k4", "k6", "k7"} & set(args.kernels):
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))   # K1
+    if "wide" in args.kernels:
+        jobs += sm.wide_build_jobs(ca, cr, dtypes=(f32,))
     paths = _build.build_many(jobs)
     regs = {}
     for job, p in zip(jobs, paths):
@@ -438,7 +446,8 @@ def main():
                              "bwd_vec", "forward_rollout"))}
     print(json.dumps({"ptxas": regs}), flush=True)
 
-    def report(name, call, plain, names, moved, flops, extra=lambda: {}):
+    def report(name, call, plain, names, moved, flops, extra=lambda: {},
+               tol=sm.TOL[f32]):
         out = call()
         ref = plain()
         _, rel = sm.rel_err(names, out, ref)
@@ -451,7 +460,7 @@ def main():
         print(json.dumps({"kernel": name, "ms": ms, "bound_ms": bound_ms,
                           "bound_by": by, "max_rel_err": max(rel.values()),
                           **extra()}), flush=True)
-        sm.require(max(rel.values()) <= sm.TOL[f32], name, rel)
+        sm.require(max(rel.values()) <= tol, name, rel)
 
     plain_of = {cr.backward_lanes: cr.backward_lanes_reference,
                 cr.backward_pdp_lanes: cr.backward_pdp_lanes_reference,
@@ -573,6 +582,21 @@ def main():
                    lambda plain=plain: tuple(plain()), names, moved, flops,
                    rollout_sections if args.profile else (lambda: {}))
         del runs
+
+    if "wide" in args.kernels:
+        import pdp_lqr_tpu_torch as plt_
+        from pdp_lqr_tpu_torch.solvers import admm, sequential
+        requests = sm.wide_requests(plt_, admm, sequential, ca, cr, dev, card,
+                                    check=False)
+        for name, (_, phase, call, plain, names, flops, inputs,
+                   _) in sm.wide_kernel_specs(ca, cr, requests).items():
+            report(name, lambda call=call: tuple(call()),
+                   lambda plain=plain: tuple(plain()), names,
+                   sm.nbytes(*(x for x in inputs
+                               if isinstance(x, torch.Tensor))), flops,
+                   lambda phase=phase: {"path": phase},
+                   tol=sm.WIDE_KERNEL_RTOL)
+        del requests
 
     if "k3" not in args.kernels:
         return 0

@@ -7,7 +7,8 @@ of each kernel here (K8 in its eight forms, per-instance K3, both forms of
 K2 and the matrix sweep across their blocks, K5 packed with a cone and a
 shift and in its rung form past their rings' slots, K4 and K6 on four
 rungs across their blocks of 32 scenarios, the last ragged, K7 and K12
-across their blocks and past their ring's slots) keeps
+across their blocks and past their ring's slots; K1-K3, K7 and K9-K12 at
+the mass-spring chain's widths, nx=40, nu=10, in float64) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
