@@ -29,8 +29,18 @@ in S segments, B=1024, S=8 and a sweep of S, checked against
 case (N=1024, B=128, S=1 and 32), the conic ADMM loop on it
 (``parallel.admm_sharded.solve``, uncached and cached, thrust cone with a
 shift, checked at N=64 in float64 against the replicated loop) and
-``solve_packed`` (K11 + K12, against ``solve_lanes``).  It times the paths
-and their kernels with CUDA events.
+``solve_packed`` (K11 + K12, against ``solve_lanes``); every kernel at the
+mass-spring and centroidal widths and those models' requests; the
+reference-shaped solvers on torch ops; the realtime operators (the
+quadrotor's dense map at N=64: a cold replan and warm ticks of a closed
+loop against the 1 ms budget, eager and as a CUDA graph an iteration,
+checked against float64, ``admm.solve`` and the condensed map; the
+centroidal model's condensed map at N=1024 in float32 and bfloat16 and a
+four-rung ladder; ``solve_batch`` on a scenario batch of B=4096, checked
+against ``solve_fused``), the MPC loops (``simulate_realtime`` over 200
+ticks, against ``simulate``), ``solve_with_recovery`` over ``solve_lanes``
+with indefinite instances, and ``solve_equilibrated`` on rows scaled
+across 1e6.  It times the paths and their kernels with CUDA events.
 Each phase prints one JSON line; any failed check raises, so the exit
 code is non-zero and no result line appears.  It needs one CUDA device
 and imports nothing of JAX.
@@ -128,11 +138,6 @@ K5_MODES = (
     ("soc+shift", NC_CONE, THRUST_CONE, True, True),
     ("rsoc", NC, ((4, 5, "rsoc"),), True, False),
 )
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# rate and the float32 rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
 
 # Kernel (CUDA) against plain version (PyTorch ops), same inputs, each
 # output relative to its own largest magnitude.  float64: both are exact
@@ -251,6 +256,91 @@ API_KKT_ATOL = 2.9e-3
 API_ADMM_ATOL = 3.2e-13
 API_ADMM_SETTINGS = dict(max_iter=10, rho_update_interval=5, rho=0.1,
                          num_segments=S_API)
+
+# The realtime operators and the MPC loops (solvers/realtime.py, mpc.py):
+# torch ops, no hand-written kernel (the JAX package computes them outside
+# any Pallas kernel too).  The quadrotor's dense map at N=64, float32
+# (examples/latency_mpc.py's horizon and tolerances, rho = 1): a cold
+# replan, then RT_TICKS warm ticks of a closed loop on the stage-0 plant,
+# each tick timed by CUDA events against the 1 ms replan budget; the
+# marginal cost of an iteration by latency_mpc's delta method (K and 2K
+# iterations, no early exit).  The centroidal model (config #5, N=1024) on
+# its segment-factored map at latency_mpc's automatic S (16), float32 and
+# bfloat16 storage, and a four-rung ladder over RT_TICKS ticks.
+RT_N = 64
+RT_TICKS = 50
+RT_DELTA_K = 20
+RT_BUDGET_MS = 1.0
+RT_SETTINGS = dict(rho=1.0, max_iter=200, rho_update_interval=200,
+                   adaptive_rho=False, eps_abs=1e-4, eps_rel=1e-4)
+RT_X0 = 0.05                    # every state of the quadrotor's start
+RT_S_CHECK = 4                  # condensed against dense, float64
+CEN_LADDER = (0.01, 0.1, 1.0, 10.0)
+# bfloat16 against float32 storage at the JAX suite's serving tolerances
+# (tests/test_realtime.py:274): converged replans of the quadrotor's dense
+# map within 2e-2 relative (measured 3.8e-3 on an H100).  The bound does
+# not carry over to the centroidal model's condensed map at N=1024: there
+# the bfloat16 map is off by 0.22 on a random hf and the converged replan
+# by 3.8 (relative; the JAX package's cast_operator gives the same
+# semantics, PERF.md), so that phase records both and holds the mechanism
+# instead: the bfloat16 map's products equal float32 products of its
+# rounded entries (float32 accumulation), and the replan converges (on the
+# rho = 0.01 rung, where both storages do).
+BF16_SETTINGS = dict(RT_SETTINGS, eps_abs=1e-3, eps_rel=1e-3)
+BF16_RTOL = 2e-2
+CEN_BF16_SETTINGS = dict(RT_SETTINGS, rho=CEN_LADDER[0], max_iter=400,
+                         rho_update_interval=400)
+CEN_BF16_SEMANTICS_RTOL = 1e-6
+# Checks, each a largest error relative to the reference's largest
+# magnitude unless named: the float32 replan against the same replan in
+# float64 (the same iterations; a TF32 product would move it by ~1e-3);
+# the float64 replan against admm.solve (sequential inner solver, rho
+# fixed: the same iteration count, absolute); the condensed map against the
+# dense one in float64 (a map, then a whole replan, absolute).
+# Measured on an H100 (PERF.md): 7.05e-6 and 3.88e-5 (float32 against
+# float64), 3.1e-14, 2.6e-16 and 1.6e-14; the float32 limits are 10x.
+RT_F32_RTOL = 7.1e-5
+# The replan through ``replan_fn`` (a CUDA graph an iteration) against
+# ``realtime.solve`` (eager): the same kernels in the same order.
+RT_GRAPH_RTOL = 1e-6
+CEN_F32_RTOL = 3.9e-4
+RT_ADMM_ATOL = 1e-9
+RT_COND_RTOL = 1e-9
+RT_COND_SOLVE_ATOL = 1e-7
+# The scenario batch: realtime.solve_batch on the quadrotor, N=64, B=4096,
+# 15 iterations (examples/scenario_mpc.py's defaults: rho = 0.1, no
+# adaptation, drift c + 0.002 N(0,1) a scenario), x0 = 0.1 N(0,1); held in
+# float64 at N=16, B=64 against solve_fused on the same batched problem
+# (K8, a uniform rho: the JAX suite's check, rho = 0.5, 25 iterations).
+B_SB = 4096
+SB_SETTINGS = dict(max_iter=15, rho_update_interval=15, adaptive_rho=False,
+                   eps_abs=1e-4, eps_rel=1e-4, rho=0.1)
+N_SB_CHECK, B_SB_CHECK = 16, 64
+SB_CHECK_SETTINGS = dict(rho=0.5, max_iter=25, rho_update_interval=25,
+                         adaptive_rho=False, eps_abs=1e-5, eps_rel=1e-4)
+SB_ATOL = 1e-9
+# The closed loops: simulate_realtime over MPC_TICKS ticks (float32), and
+# the two loops against each other in float64 over MPC_TRACK_TICKS ticks
+# (simulate runs admm.solve a tick: launch-bound), the JAX suite's
+# settings and bound (tests/test_mpc.py:58).
+MPC_TICKS = 200
+MPC_TRACK_TICKS = 3
+MPC_TRACK_SETTINGS = dict(rho=1.0, max_iter=60, rho_update_interval=60,
+                          adaptive_rho=False, eps_abs=1e-6, eps_rel=1e-5)
+MPC_TRACK_ATOL = 2e-3
+# Recovery over solve_lanes (K1 + K7) on the main path's batch, with
+# RECOVERY_SICK instances made indefinite (R - 5 I: K1's reciprocal square
+# root of a negative pivot is NaN), one retry with a bump of 10.
+RECOVERY_SICK = 8
+RECOVERY_BUMP = 10.0
+# The Ruiz-equilibrated solve on the quadrotor (N=64, float64) with its
+# rows scaled across 1e6 and its cost by 1e4 (tests/test_scaling.py), on
+# the torch-ops backend EQ_BACKEND: within 3x the well-scaled run's
+# iterations, the same solution to 2e-3.
+EQ_N = 64
+EQ_BACKEND = "assoc"
+EQ_SETTINGS = dict(max_iter=400, eps_abs=1e-4, eps_rel=1e-4)
+EQ_ATOL = 2e-3
 
 
 def require(ok, *what):
@@ -748,6 +838,11 @@ def in_turns(requests, reps):
 
 
 def bound(bytes_moved, flops):
+    """The least time of a call, ms: bytes over the card's memory rate or
+    operations over its float32 rate (utils.profiling: one H100 SXM's
+    published peaks), the larger, and which of the two it is."""
+    from pdp_lqr_tpu_torch.utils.profiling import (
+        PEAK_BYTES_PER_S, PEAK_F32_FLOPS)
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1279,6 +1374,555 @@ def reference_api(plt_, admm, sequential, dev, card):
          admm_settings=API_ADMM_SETTINGS, admm_solve_batched=solves)
 
 
+def event_ms(fn):
+    """(fn(), its time in ms by CUDA events on the current stream)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def no_kernel_launches():
+    """Kernel launch counts since the last reset: every one must be 0 on
+    the torch-ops paths (the realtime operators, the MPC loops)."""
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
+    counts = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(not any(counts.values()), counts)
+    return counts
+
+
+def reset_kernel_counts():
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
+    cr.reset_launch_counts()
+    ca.reset_launch_counts()
+
+
+def tick_stats(times, iters, reads):
+    t = np.asarray(times)
+    return {"ticks": len(times), "p50_ms": float(np.percentile(t, 50)),
+            "p99_ms": float(np.percentile(t, 99)), "mean_ms": float(t.mean()),
+            "max_ms": float(t.max()),
+            "within_budget_share": float((t <= RT_BUDGET_MS).mean()),
+            "iterations_p50": float(np.median(iters)),
+            "iterations_max": int(max(iters)),
+            "host_reads_per_tick_p50": float(np.median(reads))}
+
+
+def warm_ticks(tick, problem, x, ws, state, n, admm, mpc):
+    """``n`` ticks of a closed loop on the stage-0 plant after a replan
+    (ws, state) at x: apply u0, step, shift the warm state, replan.
+    ``tick(x, state) -> (ws, state, info, ...)``.  Each tick timed by CUDA
+    events; returns (stats, per-tick extras, last x)."""
+    A0, B0, c0 = problem.A[0], problem.B[0], problem.c[0]
+    times, iters, reads, extras = [], [], [], []
+    for _ in range(n):
+        x = A0 @ x + B0 @ ws[0, :problem.nu] + c0
+        state = mpc.shift_state(state, problem)
+        admm.reset_host_reads()
+        out, ms = event_ms(lambda: tick(x, state))
+        ws, state, info = out[:3]
+        times.append(ms)
+        iters.append(int(info.iterations))
+        reads.append(sum(admm.HOST_READS.values()))
+        extras.append(out[3:])
+    require(bool(torch.isfinite(ws).all()), "closed loop: non-finite")
+    return tick_stats(times, iters, reads), extras, x
+
+
+def per_iteration(admm, realtime, problem, x, op, cones):
+    """latency_mpc's delta method on both forms of a replan: medians of
+    RT_DELTA_K- and 2 RT_DELTA_K-iteration replans (no early exit) by
+    ``realtime.solve`` (eager: every operation a launch) and by
+    ``realtime.replan_fn`` (a CUDA graph an iteration).  Returns
+    {form: {"us_per_iteration", "fixed_ms"}}."""
+    out = {}
+    for form in ("eager", "graph"):
+        t = {}
+        for k in (RT_DELTA_K, 2 * RT_DELTA_K):
+            st = fixed_settings(admm, RT_SETTINGS, k)
+            if form == "eager":
+                call = lambda st=st: realtime.solve(problem, x, op, cones, st)
+            else:
+                call = lambda fn=realtime.replan_fn(problem, op, cones, st): \
+                    fn(x, None)
+            t[k] = cuda_ms(call, 5)
+        per = (t[2 * RT_DELTA_K] - t[RT_DELTA_K]) / RT_DELTA_K
+        out[form] = {"us_per_iteration": per * 1e3,
+                     "fixed_ms": t[RT_DELTA_K] - per * RT_DELTA_K}
+    return out
+
+
+def fixed_settings(admm, base, iters):
+    """``base`` with no early exit: exactly ``iters`` iterations."""
+    return admm.ADMMSettings(**{**base, "eps_abs": 0.0, "eps_rel": 0.0,
+                                "max_iter": iters,
+                                "rho_update_interval": iters})
+
+
+def rel_diff(a, ref):
+    return float((a.double() - ref.double()).abs().max()) / float(
+        ref.double().abs().max())
+
+
+def realtime_dense(admm, mpc, realtime, dev, card):
+    """The 1 kHz replan path on the quadrotor's dense map (N=RT_N)."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    f32, f64 = torch.float32, torch.float64
+    st = admm.ADMMSettings(**RT_SETTINGS)
+    model, _ = quadrotor(N=RT_N, constrained=True, dtype=f32, device=dev)
+    m64 = model.to(dtype=f64)
+    M = (RT_N + 1) * (NX + NU)
+    reset_kernel_counts()
+    op = realtime.build_operator(model, st.rho, st)
+    require(op.T.shape == (M, M) and op.T.dtype == f32, op.T.shape)
+    build_ms = cuda_ms(lambda: realtime.build_operator(model, st.rho, st), 3,
+                       warmup=0)
+    fn = realtime.replan_fn(model, op, (), st)
+    x = torch.full((NX,), RT_X0, dtype=f32, device=dev)
+    t0 = time.perf_counter()
+    fn(x, admm.init_state(model, st))           # captures the graph
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    admm.reset_host_reads()
+    (ws, state, info), cold_ms = event_ms(
+        lambda: fn(x, admm.init_state(model, st)))
+    cold = {"ms": cold_ms, "iterations": int(info.iterations),
+            "host_reads": sum(admm.HOST_READS.values()),
+            "converged": bool(info.converged), "first_call_s": capture_s}
+    require(cold["converged"], "realtime_dense: cold replan", cold)
+    # The graph replays the eager iteration: the same count and iterates.
+    ws_e, _, info_e = realtime.solve(model, x, op, (), st)
+    graph_err = rel_diff(ws, ws_e)
+    require(int(info_e.iterations) == cold["iterations"]
+            and graph_err <= RT_GRAPH_RTOL, "realtime_dense graph",
+            graph_err, int(info_e.iterations))
+    ticks, _, _ = warm_ticks(fn, model, x, ws, state, RT_TICKS, admm, mpc)
+    delta = per_iteration(admm, realtime, model, x, op, ())
+    op_bytes = nbytes(op.T)
+    launches = no_kernel_launches()
+
+    # float32 against float64: the cold replan's iterations, both maps.
+    op64 = realtime.build_operator(m64, st.rho, st)
+    x64 = x.double()
+    ws64, _, _ = realtime.solve(m64, x64, op64, (), fixed_settings(
+        admm, RT_SETTINGS, cold["iterations"]))
+    f32_err = rel_diff(ws, ws64)
+    # float64 against admm.solve (sequential inner solver, one chunk: rho
+    # fixed): it converges on the same iteration with the same iterates.
+    ws64c, st64c, info64c = realtime.solve(m64, x64, op64, (), st)
+    k64 = int(info64c.iterations)
+    wsA, stA, infoA = admm.solve(m64, x64, (), admm.ADMMSettings(**{
+        **RT_SETTINGS, "max_iter": k64, "rho_update_interval": k64,
+        "backend": "seq"}))
+    admm_err = max(float((wsA - ws64c).abs().max()),
+                   float((stA.y - st64c.y).abs().max()))
+    counts = {"realtime": k64, "admm_solve_iter_converged":
+              int(infoA.iter_converged)}
+    # The condensed map (S = RT_S_CHECK) against the dense one, float64.
+    cop64 = realtime.build_condensed_operator(m64, st.rho, RT_S_CHECK, st)
+    rng = np.random.default_rng(SEED)
+    hf = torch.as_tensor(rng.normal(size=M) * 0.3, device=dev)
+    xr = torch.as_tensor(rng.normal(size=NX) * 0.2, device=dev)
+    cond_err = rel_diff(cop64.apply_flat(hf, cop64.prepare(xr)),
+                        op64.apply_flat(hf, op64.prepare(xr)))
+    wsC, _, infoC = realtime.solve(m64, x64, cop64, (), st)
+    cond_solve_err = float((wsC - ws64c).abs().max())
+    # bfloat16 storage against float32: the JAX suite's case (the
+    # quadrotor's map, converged replans at serving tolerances).
+    sb = admm.ADMMSettings(**BF16_SETTINGS)
+    ws_a, _, info_a = realtime.solve(model, x, op, (), sb)
+    ws_b, _, info_b = realtime.solve(
+        model, x, realtime.cast_operator(op, torch.bfloat16), (), sb)
+    bf16_err = rel_diff(ws_b, ws_a)
+    checks = {"graph_vs_eager_rel": graph_err,
+              "f32_vs_f64_rel": f32_err, "f64_vs_admm_solve": admm_err,
+              "iterations": counts, "condensed_vs_dense_map_rel": cond_err,
+              "condensed_vs_dense_replan": cond_solve_err,
+              "condensed_iterations": int(infoC.iterations),
+              "bf16_vs_f32_replan_rel": bf16_err,
+              "bf16_iterations": [int(info_a.iterations),
+                                  int(info_b.iterations)]}
+    require(f32_err <= RT_F32_RTOL, "realtime_dense f32", checks)
+    require(bool(info64c.converged) and bool(infoA.converged)
+            and counts["admm_solve_iter_converged"] == k64
+            and admm_err <= RT_ADMM_ATOL, "realtime_dense vs admm", checks)
+    require(cond_err <= RT_COND_RTOL and cond_solve_err <= RT_COND_SOLVE_ATOL
+            and int(infoC.iterations) == k64, "realtime_dense condensed",
+            checks)
+    require(bool(info_a.converged) and bool(info_b.converged)
+            and bf16_err <= BF16_RTOL, "realtime_dense bf16", checks)
+    emit("realtime_dense", card=card, model="quadrotor constrained", N=RT_N,
+         B=1, dtype="float32", M=M, settings=RT_SETTINGS, x0=RT_X0,
+         operator_bytes=op_bytes, build_ms=build_ms, cold_replan=cold,
+         warm_ticks=ticks, budget_ms=RT_BUDGET_MS,
+         delta={"K": RT_DELTA_K, **delta,
+                "bound_us_per_iteration": bound(op_bytes, 0)[0] * 1e3},
+         checks=checks, tolerances={
+             "graph_vs_eager_rel": RT_GRAPH_RTOL,
+             "f32_vs_f64_rel": RT_F32_RTOL, "f64_vs_admm_solve": RT_ADMM_ATOL,
+             "condensed_map_rel": RT_COND_RTOL,
+             "condensed_replan": RT_COND_SOLVE_ATOL,
+             "bf16_vs_f32_replan_rel": BF16_RTOL},
+         launches=launches)
+
+
+def latency_segments(problem):
+    """examples/latency_mpc.py's automatic S: the largest divisor of N
+    (from 2) at most sqrt(M / 2 nx)."""
+    N = problem.N
+    M = (N + 1) * problem.nz
+    target = max(2, int(round((M / (2 * problem.nx)) ** 0.5)))
+    return max(s for s in range(2, N + 1) if N % s == 0 and s <= target)
+
+
+def realtime_condensed(admm, mpc, realtime, dev, card):
+    """The long-horizon replan on the centroidal model's condensed map:
+    float32, bfloat16 storage, a four-rung ladder."""
+    from pdp_lqr_tpu_torch.models import centroidal
+    f32 = torch.float32
+    st = admm.ADMMSettings(**RT_SETTINGS)
+    model, cones = centroidal(N=N_CEN, dtype=f32, device=dev)
+    cones = tuple(cones)
+    S = latency_segments(model)
+    build = lambda m, rho: realtime.build_condensed_operator(m, rho, S, st,
+                                                            cones)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    op = build(model, st.rho)
+    torch.cuda.synchronize()
+    first_build_s = time.perf_counter() - t0
+    build_ms = cuda_ms(lambda: build(model, st.rho), 1, warmup=0)
+    op_bytes = {f.name: nbytes(getattr(op, f.name))
+                for f in dataclasses.fields(op)}
+    op16 = realtime.cast_operator(op, torch.bfloat16)
+    x = torch.zeros(model.nx, dtype=f32, device=dev)   # latency_mpc's
+    delta = {}
+    for name, o in (("float32", op), ("bfloat16", op16)):
+        streamed = sum(nbytes(getattr(o, f)) for f in ("U", "X", "Z", "E_x",
+                                                       "E_p"))
+        delta[name] = {**per_iteration(admm, realtime, model, x, o, cones),
+                       "streamed_bytes": streamed,
+                       "bound_us_per_iteration": bound(streamed, 0)[0] * 1e3}
+    # float32 against float64 of the same operator: RT_DELTA_K iterations.
+    m64 = model.to(dtype=torch.float64)
+    op64 = build(m64, st.rho)
+    fixed = fixed_settings(admm, RT_SETTINGS, RT_DELTA_K)
+    ws32, _, _ = realtime.solve(model, x, op, cones, fixed)
+    ws64, _, _ = realtime.solve(m64, x.double(), op64, cones, fixed)
+    f32_err = rel_diff(ws32, ws64)
+    del op64
+    # The ladder: R rungs built one after the other, then RT_TICKS ticks
+    # of a closed loop from the rung at rho = 1.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ladder = realtime.build_ladder(model, CEN_LADDER, st, cones,
+                                   num_segments=S)
+    torch.cuda.synchronize()
+    ladder_build_s = time.perf_counter() - t0
+    fn = realtime.replan_ladder_fn(model, ladder, cones, st)
+    idx0 = CEN_LADDER.index(st.rho)
+    admm.reset_host_reads()
+    (ws, state, info, idx), cold_ms = event_ms(
+        lambda: fn(x, admm.init_state(model, st), idx0))
+    picks, idx_ = [idx], [idx]
+
+    def tick(x_, s_):
+        out = fn(x_, s_, idx_[0])
+        idx_[0] = out[3]
+        picks.append(out[3])
+        return out
+
+    ticks, _, _ = warm_ticks(tick, model, x, ws, state, RT_TICKS, admm, mpc)
+    # bfloat16 against float32 storage on the lowest rung's map (where
+    # this model's replan converges): the map on a random hf, then
+    # converged replans.
+    lo = ladder.select(0)
+    lo16 = realtime.cast_operator(lo, torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    hf = torch.as_tensor(rng.normal(size=(N_CEN + 1) * model.nz) * 0.3,
+                         dtype=f32, device=dev)
+    w16 = lo16.apply_flat(hf, lo16.prepare(x))
+    # The bfloat16 map's products are float32 products of the rounded map
+    # (the JAX package's semantics): the same as on its float32 copy.
+    wide = realtime.cast_operator(lo16, f32)
+    semantics_err = rel_diff(w16, wide.apply_flat(hf, wide.prepare(x)))
+    map_err = rel_diff(w16, lo.apply_flat(hf, lo.prepare(x)))
+    sb = admm.ADMMSettings(**CEN_BF16_SETTINGS)
+    ws_a, _, info_a = realtime.solve(model, x, lo, cones, sb)
+    ws_b, _, info_b = realtime.solve(model, x, lo16, cones, sb)
+    bf16_err = rel_diff(ws_b, ws_a)
+    launches = no_kernel_launches()
+    checks = {"f32_vs_f64_rel": f32_err,
+              "bf16_vs_widened_copy_rel": semantics_err,
+              "bf16_vs_f32_map_rel": map_err,
+              "bf16_vs_f32_replan_rel": bf16_err,
+              "converged_f32_bf16": [bool(info_a.converged),
+                                     bool(info_b.converged)],
+              "iterations_f32_bf16": [int(info_a.iterations),
+                                      int(info_b.iterations)]}
+    require(f32_err <= CEN_F32_RTOL, "realtime_condensed f32", checks)
+    require(semantics_err <= CEN_BF16_SEMANTICS_RTOL
+            and bool(info_a.converged) and bool(info_b.converged)
+            and bool(torch.isfinite(ws_b).all()),
+            "realtime_condensed bf16", checks)
+    emit("realtime_condensed", card=card, model="centroidal (config #5), "
+         "two friction cones", N=N_CEN, nx=model.nx, nu=model.nu, S=S, B=1,
+         settings=RT_SETTINGS, operator_bytes=op_bytes,
+         first_build_s=first_build_s, build_ms=build_ms, delta=delta,
+         checks=checks, bf16_settings=CEN_BF16_SETTINGS,
+         tolerances={"f32_vs_f64_rel": CEN_F32_RTOL,
+                     "bf16_vs_widened_copy_rel": CEN_BF16_SEMANTICS_RTOL},
+         ladder={"rhos": CEN_LADDER, "build_s": ladder_build_s,
+                 "build_ms_per_rung": ladder_build_s * 1e3 / len(CEN_LADDER),
+                 "cold_tick_ms": cold_ms, "warm_ticks": ticks,
+                 "rung_picked": picks},
+         budget_ms=RT_BUDGET_MS, launches=launches)
+
+
+def scenario_batch(admm, realtime, dev, card):
+    """Operator-mode scenario batch: one (B, M) @ (M, M) product an
+    iteration for B_SB scenarios of the quadrotor sharing (A, B, H, D)."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    f32, f64 = torch.float32, torch.float64
+    st = admm.ADMMSettings(**SB_SETTINGS)
+    model, _ = quadrotor(N=RT_N, constrained=True, dtype=f32, device=dev)
+    rng = np.random.default_rng(SEED)
+    c = model.c[None] + torch.as_tensor(
+        rng.normal(size=(B_SB, RT_N, NX)) * 0.002, dtype=f32, device=dev)
+    x0 = torch.as_tensor(rng.normal(size=(B_SB, NX)) * 0.1, dtype=f32,
+                         device=dev)
+    bp = batched(model, B_SB, c)
+    reset_kernel_counts()
+    op = realtime.build_batch_operator(model, st.rho, st)
+    build_ms = cuda_ms(lambda: realtime.build_batch_operator(
+        model, st.rho, st), 3, warmup=0)
+    request = lambda: realtime.solve_batch(bp, x0, op, (), st)
+    ws, state, info = request()
+    require(ws.shape == (B_SB, RT_N + 1, NX + NU)
+            and bool(torch.isfinite(ws).all()), "scenario_batch output")
+    t = timed(request, 5, B_SB)
+    launches = no_kernel_launches()
+    # float64 at N=16 against solve_fused (K8) on the same batch.
+    m16, _ = quadrotor(N=N_SB_CHECK, constrained=True, dtype=f64, device=dev)
+    sc = admm.ADMMSettings(**SB_CHECK_SETTINGS)
+    c16 = m16.c[None] + torch.as_tensor(
+        rng.normal(size=(B_SB_CHECK, N_SB_CHECK, NX)) * 0.02, device=dev)
+    x16 = torch.as_tensor(rng.normal(size=(B_SB_CHECK, NX)) * 0.05,
+                          device=dev)
+    bp16 = batched(m16, B_SB_CHECK, c16)
+    op16 = realtime.build_batch_operator(m16, sc.rho, sc)
+    ws_o, st_o, info_o = realtime.solve_batch(bp16, x16, op16, (), sc)
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
+    reset_kernel_counts()
+    ws_f, st_f, info_f = admm.solve_fused(bp16, x16, (), sc)
+    check_launches = {k: v for k, v in {**cr.LAUNCHES, **ca.LAUNCHES}.items()
+                      if v}
+    errs = {"ws": float((ws_o - ws_f).abs().max()),
+            "y": float((st_o.y - st_f.y).abs().max()),
+            "r_prim_rel": rel_diff(info_o.r_prim, info_f.r_prim)}
+    require(max(errs.values()) <= SB_ATOL, "scenario_batch vs solve_fused",
+            errs)
+    emit("scenario_batch", card=card, model="quadrotor constrained, shared "
+         "(A, B, H, D), a c and x0 a scenario", N=RT_N, B=B_SB,
+         dtype="float32", iterations=SB_SETTINGS["max_iter"],
+         settings=SB_SETTINGS, build_ms=build_ms, **t,
+         converged_share=float(info.converged.float().mean()),
+         operator_bytes=nbytes(op.T, op.Tc, op.J),
+         # The product of an iteration: T, the batch's hf in, w~ out.
+         product_bound_ms=bound(nbytes(op.T) + 2 * nbytes(ws),
+                                2.0 * B_SB * op.T.numel()),
+         check={"N": N_SB_CHECK, "B": B_SB_CHECK, "dtype": "float64",
+                "settings": SB_CHECK_SETTINGS, "vs_solve_fused": errs,
+                "atol": SB_ATOL, "solve_fused_launches": check_launches},
+         launches=launches)
+
+
+def mpc_loop(admm, mpc, realtime, dev, card):
+    """The closed loops: simulate_realtime over MPC_TICKS ticks (each
+    replan timed by CUDA events), and simulate (admm.solve a tick) against
+    it in float64."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    st = admm.ADMMSettings(**RT_SETTINGS)
+    model, _ = quadrotor(N=RT_N, constrained=True, dtype=torch.float32,
+                         device=dev)
+    x0 = torch.full((NX,), RT_X0, dtype=torch.float32, device=dev)
+    replan_fn, times = realtime.replan_fn, []
+
+    def timed_replan_fn(*args, **kwargs):
+        fn = replan_fn(*args, **kwargs)
+
+        def tick(x, state):
+            out, ms = event_ms(lambda: fn(x, state))
+            times.append(ms)
+            return out
+
+        return tick
+
+    reset_kernel_counts()
+    admm.reset_host_reads()
+    t0 = time.perf_counter()
+    realtime.replan_fn = timed_replan_fn     # each tick timed on the card
+    try:
+        xs, us, infos = mpc.simulate_realtime(model, x0, MPC_TICKS, (), st)
+    finally:
+        realtime.replan_fn = replan_fn
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    reads = admm.HOST_READS["early_exit"]
+    launches = no_kernel_launches()
+    require(xs.shape == (MPC_TICKS + 1, NX) and bool(torch.isfinite(xs).all())
+            and bool(torch.isfinite(us).all()), "simulate_realtime output")
+    iters = infos.iterations.cpu().numpy()
+    warm = tick_stats(times[1:], iters[1:], [0])
+    warm.pop("host_reads_per_tick_p50")
+    # The two loops against each other, float64 (the JAX suite's check).
+    m64 = model.to(dtype=torch.float64)
+    s64 = admm.ADMMSettings(**MPC_TRACK_SETTINGS)
+    x64 = torch.full((NX,), 0.08, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    xs_rt, _, _ = mpc.simulate_realtime(m64, x64, MPC_TRACK_TICKS, (), s64)
+    torch.cuda.synchronize()
+    rt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xs_a, us_a, infos_a = mpc.simulate(m64, x64, MPC_TRACK_TICKS, (), s64)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    track = float((xs_rt - xs_a).abs().max())
+    require(track <= MPC_TRACK_ATOL and bool(torch.isfinite(us_a).all()),
+            "simulate_realtime vs simulate", track)
+    emit("mpc_loop", card=card, model="quadrotor constrained", N=RT_N,
+         dtype="float32", settings=RT_SETTINGS, x0=RT_X0,
+         simulate_realtime={"ticks": MPC_TICKS, "loop_s": loop_s,
+                            "cold_tick_ms": times[0],
+                            "warm_ticks": warm,
+                            "host_reads_per_tick": reads / MPC_TICKS,
+                            "x_final": xs[-1].tolist()},
+         budget_ms=RT_BUDGET_MS,
+         track={"dtype": "float64", "ticks": MPC_TRACK_TICKS,
+                "settings": MPC_TRACK_SETTINGS,
+                "simulate_realtime_s_per_tick": rt_s / MPC_TRACK_TICKS,
+                "simulate_s_per_tick": sim_s / MPC_TRACK_TICKS,
+                "simulate_iterations": infos_a.iterations.tolist(),
+                "max_abs_x_difference": track, "atol": MPC_TRACK_ATOL},
+         launches=launches)
+
+
+def recovery_phase(plt_, recovery, sequential, ca, cr, model, c_t, x0_t,
+                   it32, dev, card):
+    """solve_with_recovery over solve_lanes (K1 + K7) on the main path's
+    batch with RECOVERY_SICK instances made indefinite.  Returns the
+    launches of the counted recovered request."""
+    from pdp_lqr_tpu_torch.utils.profiling import failure_mask
+    rng = np.random.default_rng(SEED)
+    sick = torch.as_tensor(np.sort(rng.choice(B_MAIN, RECOVERY_SICK,
+                                              replace=False)), device=dev)
+    H = model.H.expand((B_MAIN,) + tuple(model.H.shape)).clone()
+    H[sick, :, :NU, :NU] -= 5.0 * torch.eye(NU, dtype=H.dtype, device=dev)
+    bp = dataclasses.replace(batched(model, B_MAIN, c_t), H=H)
+    it_b = plt_.ADMMIterates(**{f.name: getattr(it32, f.name)[None].expand(
+        (B_MAIN,) + getattr(it32, f.name).shape)
+        for f in dataclasses.fields(it32)})
+    plain_request = lambda: cr.solve_lanes(bp, it_b, x0_t, SIGMA)
+    request = lambda: recovery.solve_with_recovery(
+        cr.solve_lanes, bp, it_b, x0_t, SIGMA, sigma_bump=RECOVERY_BUMP,
+        retries=1)
+    plain = plain_request()
+    want = torch.zeros(B_MAIN, dtype=torch.bool, device=dev)
+    want[sick] = True
+    # The negative pivot shows as NaN on exactly the sick lanes.
+    require(torch.equal(failure_mask(plain), want), "recovery: plain mask")
+    request()
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    ws, info = request()
+    torch.cuda.synchronize()
+    launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(launches["backward_lanes"] == 2
+            and launches["forward_rollout_lanes"] == 2, launches)
+    healthy = ~want
+    checks = {"failed_equals_sick": torch.equal(info.failed, want),
+              "recovered_equals_sick": torch.equal(info.recovered, want),
+              "still_failed": int(info.still_failed.sum()),
+              "healthy_bit_identical": torch.equal(ws[healthy], plain[healthy]),
+              "sick_finite": bool(torch.isfinite(ws[sick]).all())}
+    # The recovered lanes against the sequential solver in float64 on the
+    # bumped instances.
+    m64 = lambda x: x[sick].double()
+    bump = RECOVERY_BUMP * torch.eye(NX + NU, dtype=torch.float64, device=dev)
+    p64 = plt_.LQRProblem(**{f.name: m64(getattr(bp, f.name))
+                             for f in dataclasses.fields(bp)})
+    p64 = dataclasses.replace(p64, H=p64.H + bump)
+    it64 = plt_.ADMMIterates(**{f.name: m64(getattr(it_b, f.name))
+                                for f in dataclasses.fields(it_b)})
+    ref, _ = sequential.solve_batched(p64, it64, m64(x0_t), SIGMA)
+    checks["sick_vs_sequential_f64"] = float((ws[sick].double() - ref).abs()
+                                             .max())
+    require(checks["failed_equals_sick"] and checks["recovered_equals_sick"]
+            and checks["still_failed"] == 0 and checks["healthy_bit_identical"]
+            and checks["sick_finite"]
+            and checks["sick_vs_sequential_f64"] <= MAIN_PATH_ATOL,
+            "recovery", checks)
+    ms = cuda_ms(request, 3, warmup=1)
+    plain_ms = cuda_ms(plain_request, 3, warmup=1)
+    emit("recovery", card=card, model="quadrotor constrained, batched",
+         N=N_MAIN, B=B_MAIN, dtype="float32", sick=sick.tolist(),
+         sigma_bump=RECOVERY_BUMP, checks=checks,
+         atol_vs_sequential=MAIN_PATH_ATOL, launches=launches,
+         recovered_request_ms=ms, solve_lanes_ms=plain_ms)
+    return launches
+
+
+def badly_scaled(problem, row_span=1e6, cost_scale=1e4):
+    """The same feasible set and argmin, constraint row i scaled by
+    row_span^(i/(nc-1) - 1/2) (bounds too), the cost by cost_scale
+    (tests/test_scaling.py's construction)."""
+    nc = problem.nc
+    rs = torch.as_tensor(row_span ** (np.arange(nc) / max(nc - 1, 1) - 0.5),
+                         dtype=problem.D.dtype, device=problem.D.device)
+    return dataclasses.replace(
+        problem, D=problem.D * rs[None, :, None], e_lb=problem.e_lb * rs,
+        e_ub=problem.e_ub * rs, H=problem.H * cost_scale,
+        h=problem.h * cost_scale)
+
+
+def equilibrated(admm, dev, card):
+    """solve_equilibrated on the badly scaled quadrotor against the
+    well-scaled solve (float64, torch ops, EQ_BACKEND)."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    model, _ = quadrotor(N=EQ_N, constrained=True, dtype=torch.float64,
+                         device=dev)
+    st = admm.ADMMSettings(**EQ_SETTINGS, backend=EQ_BACKEND)
+    x0 = torch.full((NX,), 0.05, dtype=torch.float64, device=dev)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    ws_well, _, info_well = admm.solve(model, x0, (), st)
+    torch.cuda.synchronize()
+    well_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws_eq, _, info_eq = admm.solve_equilibrated(badly_scaled(model), x0, (),
+                                                st)
+    torch.cuda.synchronize()
+    eq_s = time.perf_counter() - t0
+    launches = no_kernel_launches()
+    it_well, it_eq = int(info_well.iter_converged), int(info_eq.iter_converged)
+    err = float((ws_eq - ws_well).abs().max())
+    checks = {"well_converged": bool(info_well.converged),
+              "equilibrated_converged": bool(info_eq.converged),
+              "iterations_well": it_well, "iterations_equilibrated": it_eq,
+              "max_abs_ws_difference": err}
+    require(checks["well_converged"] and checks["equilibrated_converged"]
+            and it_eq <= 3 * max(it_well, 10) and err <= EQ_ATOL,
+            "equilibrated", checks)
+    emit("equilibrated", card=card, model="quadrotor constrained, rows "
+         "scaled across 1e6, cost by 1e4", N=EQ_N, dtype="float64",
+         backend=EQ_BACKEND, settings=EQ_SETTINGS, checks=checks,
+         atol=EQ_ATOL, well_scaled_s=well_s, equilibrated_s=eq_s,
+         launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1290,7 +1934,7 @@ def main():
     from pdp_lqr_tpu_torch import mpc
     from pdp_lqr_tpu_torch.models import quadrotor, rocket, rocket_x0
     from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr
-    from pdp_lqr_tpu_torch.solvers import admm, sequential
+    from pdp_lqr_tpu_torch.solvers import admm, realtime, recovery, sequential
 
     require("jax" not in sys.modules and "pdp_lqr_tpu" not in sys.modules)
     require(torch.backends.cuda.matmul.allow_tf32 is False)
@@ -2435,6 +3079,15 @@ def main():
     # ------------------------------------- 20c: the reference-shaped API
     reference_api(plt_, admm, sequential, dev, card)
 
+    # ------------- 20d: the realtime operators, MPC loops, recovery, scaling
+    realtime_dense(admm, mpc, realtime, dev, card)
+    realtime_condensed(admm, mpc, realtime, dev, card)
+    scenario_batch(admm, realtime, dev, card)
+    mpc_loop(admm, mpc, realtime, dev, card)
+    recovery_launches = recovery_phase(plt_, recovery, sequential, ca, cr,
+                                       model, c_t, x0_t, it32, dev, card)
+    equilibrated(admm, dev, card)
+
     # ---------------------------------------------------------- 21: timing
     # Peak device memory of a path: the largest allocation while its
     # requests are timed, the tensors that earlier phases still hold included.
@@ -2534,7 +3187,8 @@ def main():
             K5_RUNG_OUT,
             k5_flops(N_MAIN, NX, NU, NC, B_MAIN, True, emit_hf=False),
             "pallas_admm.py:867"),
-        K7: (K7, ("lanes_solve",), lambda: cr.forward_rollout_lanes(*k7_args),
+        K7: (K7, ("lanes_solve", "recovery"),
+             lambda: cr.forward_rollout_lanes(*k7_args),
              lambda: cr.forward_rollout_lanes_reference(*k7_args), K3_OUT,
              k7_flops(N_MAIN, NX, NU, B_MAIN), "pallas_riccati.py:1319"),
         "backward_lanes[per-instance]": (
@@ -2546,7 +3200,7 @@ def main():
             K1_CLOSED, k1_flops(N_MAIN, NX, NU, NC, B_REP),
             "pallas_riccati.py:778"),
         "backward_lanes[per-instance,gains]": (
-            "backward_lanes", ("lanes_solve",),
+            "backward_lanes", ("lanes_solve", "recovery"),
             lambda: cr.backward_lanes(*g1_args, **g1_kw),
             lambda: cr.backward_lanes_reference(*g1_args, **g1_kw),
             K1_GAINS, k1_flops(N_MAIN, NX, NU, NC, B_MAIN),
@@ -2640,6 +3294,7 @@ def main():
                      "admm_replicated": rep[False]["launches"],
                      "admm_replicated_cached": rep[True]["launches"],
                      "lanes_solve": lanes_launches,
+                     "recovery": recovery_launches,
                      "admm_single_shared": single_launches,
                      "admm_single_cached": sc["float32"]["launches"],
                      "admm_single_cached_bf16": sc["bfloat16"]["launches"],

@@ -39,7 +39,20 @@ Ported so far:
   ``solve_fused`` in shared split mode (cached factors with a uniform rho,
   or a rho ladder) and on batched problems (the replicated per-instance
   loop).
-- ``mpc.shift_state`` — the one-stage shift of a warm start.
+- ``solvers.realtime`` — the 1 kHz replan path: the cached-factor inner
+  solve materialized as a dense map (``build_operator``) or its
+  segment-factored form (``build_condensed_operator``), early-exit
+  replans (``solve``, ``replan_fn``), the scenario-batch map
+  (``build_batch_operator``, ``solve_batch``), bfloat16 storage
+  (``cast_operator``) and a rho ladder of maps (``build_ladder``,
+  ``replan_ladder_fn``); ``solvers.recovery`` — bump-and-retry of failed
+  lanes over any batched solve; ``admm.solve_equilibrated`` — the Ruiz-
+  scaled solve (``utils.scaling``).
+- ``mpc`` — ``shift_state``, ``replan`` / ``simulate`` on ``admm.solve``
+  and ``replan_realtime`` / ``simulate_realtime`` on the operator path.
+- ``utils`` — ``profiling`` (CUDA-event timing, traces, the H100
+  roofline, ``failure_mask``), ``scaling``, ``quality``, ``checkpoint``,
+  ``oracle`` (numpy witnesses).
 - ``api`` — the reference-shaped classes ``LQRSolver``,
   ``LQRParallelSolver``, ``QDLDLSolver`` and ``AssociativeScanSolver``
   (update_problem_data / backward / backward_without_factorization /
@@ -66,6 +79,7 @@ from pdp_lqr_tpu_torch.solvers.admm import (
     solve,
     solve_batched,
     solve_fused,
+    solve_equilibrated,
     init_state,
 )
 from pdp_lqr_tpu_torch.api import (
@@ -76,6 +90,7 @@ from pdp_lqr_tpu_torch.api import (
     ScenarioServer,
 )
 from pdp_lqr_tpu_torch import mpc
+from pdp_lqr_tpu_torch.solvers import realtime, recovery
 
 __all__ = [
     "SolverConfig",
@@ -93,6 +108,7 @@ __all__ = [
     "solve",
     "solve_batched",
     "solve_fused",
+    "solve_equilibrated",
     "init_state",
     "LQRSolver",
     "LQRParallelSolver",
@@ -100,6 +116,8 @@ __all__ = [
     "AssociativeScanSolver",
     "ScenarioServer",
     "mpc",
+    "realtime",
+    "recovery",
 ]
 
 __version__ = "0.1.0"

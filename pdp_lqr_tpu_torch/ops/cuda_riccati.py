@@ -46,7 +46,7 @@ import math
 import torch
 
 from pdp_lqr_tpu_torch.config import full_f32_matmul
-from pdp_lqr_tpu_torch.ops import _build
+from pdp_lqr_tpu_torch.ops import _build, linalg
 from pdp_lqr_tpu_torch.problem import guarded_inverse, make_stage_params
 
 SOURCE = "riccati_kernels.cu"
@@ -207,9 +207,11 @@ def _sweep_stage(P, p, Ak, Bk, ck, Hk, hk, extra=None):
     G = S + torch.einsum("tib,tjb->ijb", Bk, PA)
     rbar = r + _mtv(Bk, Pcp)
     Huu = R + torch.einsum("tib,tjb->ijb", Bk, PB)
-    # Only the lower triangle of Huu is read, as in the kernel.
+    # Only the lower triangle of Huu is read, as in the kernel; an
+    # instance whose Huu is not positive definite gets NaN, as the
+    # kernel's reciprocal square root of a negative pivot gives it.
     L = torch.movedim(
-        torch.linalg.cholesky(torch.movedim(Huu, -1, 0).tril()), 0, -1)
+        linalg.cholesky_unrolled(torch.movedim(Huu, -1, 0).tril()), 0, -1)
     rhs = [G] + ([] if extra is None else [extra]) + [rbar[:, None, :]]
     sol = -_chol_solve_lanes(L, torch.cat(rhs, dim=1))
     K, d = sol[:, :nx], sol[:, -1]

@@ -170,12 +170,14 @@ def backward(problem: LQRProblem, params: StageParams, rho) -> RiccatiFactors:
     LQRKernel::step_with_factorization (lqr_kernel.hpp:103-147): the
     penalty fold runs once over all stages, then the terminal step and
     the reverse loop V = E^T Lxx+, M = H + V V^T, L = chol(M).
-    ``rho`` is the stacked (N+1, nc) penalty vector.
+    ``rho`` is the stacked (N+1, nc) penalty vector.  An instance whose
+    stage matrix is not positive definite gets NaN from that stage on (as
+    the JAX package's Cholesky gives it); nothing raises.
     """
     with full_f32_matmul():
         Hf, hf = penalty_fold(params.H, params.h, problem.D, rho, params.g)
         nu = problem.nu
-        LxxN = torch.linalg.cholesky(Hf[..., -1, nu:, nu:])
+        LxxN = linalg.cholesky(Hf[..., -1, nu:, nu:])
         pN = hf[..., -1, nu:]
         Lxx, p = LxxN, pN
         Ls, lps = [], []
@@ -183,7 +185,7 @@ def backward(problem: LQRProblem, params: StageParams, rho) -> RiccatiFactors:
             A, B = problem.A[..., k, :, :], problem.B[..., k, :, :]
             E = torch.cat([B, A], dim=-1)
             V = E.transpose(-1, -2) @ Lxx
-            L = torch.linalg.cholesky(Hf[..., k, :, :] + V @ V.transpose(-1, -2))
+            L = linalg.cholesky(Hf[..., k, :, :] + V @ V.transpose(-1, -2))
             p, lp = _vector_step(A, B, problem.c[..., k, :], hf[..., k, :],
                                  L, Lxx, p, nu)
             Lxx = L[..., nu:, nu:]

@@ -35,7 +35,9 @@ replicated one, ``_terminal_pN`` / ``_terminal_tail``):
                         tensor code.
 
 ``storage_dtype`` on the split and ladder iterations raises
-``NotImplementedError``.
+``NotImplementedError``.  ``solve`` / ``solve_batched`` run the loop on the
+torch-ops backends; ``solve_equilibrated`` wraps ``solve`` in Ruiz scaling
+(utils/scaling).
 
 PyTorch runs eagerly, so what the JAX loop decides on the device
 (``lax.cond`` on a changed rho, the ``while_loop`` of ``early_exit``)
@@ -1297,3 +1299,39 @@ def suggest_rho_ladder(problem, x0, cones: Sequence = (),
         if not out or np.log(r) - np.log(out[-1]) > 0.1:
             out.append(float(r))
     return tuple(float(f"{r:.4g}") for r in out)
+
+
+def solve_equilibrated(
+    problem: LQRProblem,
+    x0,
+    cones: Sequence[projections.ConeSpec] = (),
+    settings: ADMMSettings = ADMMSettings(),
+    state: Optional[ADMMState] = None,
+    soc_shift=None,
+    *,
+    ruiz_iters: int = 10,
+):
+    """Ruiz-equilibrated solve (OSQP sec. 5) of an UNBATCHED problem.
+
+    Scales (H, h, D, bounds) by modified Ruiz equilibration + cost
+    normalization (utils/scaling), pushes the variable scaling through
+    the dynamics, solves the scaled problem with ``solve`` terminating on
+    the UNSCALED residuals (``residual_weights``), and returns unscaled
+    (ws, state, info).  A problem whose rows span orders of magnitude
+    converges in roughly the iterations of its well-scaled equivalent.
+
+    ``state`` is in UNSCALED space (as returned by this function).
+    """
+    from pdp_lqr_tpu_torch.utils import scaling as sc
+
+    cones = tuple(cones)
+    x0 = torch.as_tensor(x0, dtype=problem.H.dtype, device=problem.H.device)
+    scal = sc.ruiz_equilibrate(problem, cones, ruiz_iters)
+    sp = sc.scale_problem(problem, scal)
+    sx0 = sc.scale_x0(x0, scal, problem.nu)
+    ssh = sc.scale_soc_shift(soc_shift, scal)
+    weights = sc.residual_weights(scal)
+    sstate = None if state is None else sc.scale_state(state, scal)
+    ws, st, info = solve(sp, sx0, cones, settings, sstate, ssh,
+                         residual_weights=weights)
+    return sc.unscale_ws(ws, scal), sc.unscale_state(st, scal), info
