@@ -22,7 +22,12 @@ path at N=64 (per-scenario rho), cached factors at N=512 (float32 and
 bfloat16 stage data) checked at N=64 in float64 against the split pair, a
 batched problem of B=1024 at N=64 (uncached, cached, cached with bfloat16)
 checked against the replicated loop, and the rocket soft-landing
-dispersion (B=512, N=48, two cones, ``single_kernel="auto"``); the
+dispersion (B=512, N=48, two cones, ``single_kernel="auto"``); bfloat16
+stage streams on the per-scenario inner solve (``solve_lanes`` and
+``solve_packed`` with ``storage_dtype``: phases ``lanes_bf16`` and
+``packed_bf16`` at B=4096, N=512, and ``centroidal_lanes_bf16`` at N=1024,
+B=4096, each beside its float32 request's answer, time and peak memory);
+the
 segment-parallel PDP solve (``parallel.pdp_sharded_fused.solve``, K9 + K3
 in S segments, B=1024, S=8 and a sweep of S, checked against
 ``solve_lanes`` and the f64 sequential solver), the paper's long-horizon
@@ -52,6 +57,7 @@ JSON object describing every kernel, and
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -211,6 +217,10 @@ PACKED_ATOL = {torch.float32: 1e-12, torch.float64: 1e-12}
 WIDE = {"mass_spring": (40, 10, 0, (), 10),
         "centroidal": (24, 6, 6, ((0, 3, "soc"), (3, 3, "soc")), 6)}
 B_WIDE = (B_SMALL, B_ODD)
+# The stages of the narrow batch form's cases at these widths (some 530
+# scenarios: the host's generation of their data is what costs; 8 stages
+# turn the form's ring of two slots four times).
+N_GROUP_WIDE = 8
 # The JAX bench's requests at these widths (bench.py:575-612: float32,
 # drift c = c_model + 0.001 N(0,1), x0 = 0.1 N(0,1), seed 0):
 # ``ScenarioServer.solve`` on mass_spring_chain(n_masses=20, N=512) at
@@ -421,11 +431,21 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def spectral_radius(A):
+    """max |eigenvalue| of each square matrix of A (..., n, n), the stack
+    cut over the host's cores (each matrix's eigenvalues as in one call)."""
+    flat = A.reshape((-1,) + A.shape[-2:])
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        parts = pool.map(lambda a: np.abs(np.linalg.eigvals(a)).max(axis=-1),
+                         np.array_split(flat, 8))
+        return np.concatenate(list(parts)).reshape(A.shape[:-2])
+
+
 def random_stage_data(rng, N, nx, nu, nc, Bt, dtype, device):
     """Well-posed random inputs of the matrix sweep, batch-last."""
     nz = nx + nu
     A = rng.normal(size=(Bt, N, nx, nx))
-    A /= np.abs(np.linalg.eigvals(A)).max(axis=-1)[..., None, None] * 1.1
+    A /= spectral_radius(A)[..., None, None] * 1.1
     Bm = rng.normal(size=(Bt, N, nx, nu)) * 0.5
     c = rng.normal(size=(Bt, N, nx)) * 0.1
     G = rng.normal(size=(Bt, N, nz, nz)) * 0.3
@@ -486,6 +506,8 @@ def registers_by_kernel(logs):
             if m.group(2) == "13__nv_bfloat16":
                 flags = "bf16," + flags
             key = f"{m.group(1)}<{flags}>/{scalar}/nc={log[0].get('NC', '-')}"
+            if "STAGE_BF16" in log[0]:          # a narrow library's form
+                key += ",bf16"
             if "NRUNG" in log[0]:
                 key += f",rungs={log[0]['NRUNG']}"
             if "DIAG_COST" in log[0]:
@@ -696,6 +718,52 @@ def narrow_storage(args):
     return tuple(x.to(torch.bfloat16) if i < 6 else x for i, x in enumerate(args))
 
 
+def narrow_streams(streams):
+    """Stage streams stored as bfloat16 (contiguous, freshly allocated:
+    4-byte aligned, as the narrow forms' pair copies need)."""
+    return tuple(x.to(torch.bfloat16).contiguous() for x in streams)
+
+
+def narrow_group_batches(cr, dt, nx, nu, nc):
+    """Two batches that reach the batch form of K1 / K11 on bfloat16 stage
+    streams (G instances a block, the library's own G): the first multiple
+    of G past the pairs where groups take over (an entry of a group one
+    copy of 2G bytes), and G + 1 past it (4-byte pairs, at odd offsets
+    every other entry where G is even, and a ragged last group)."""
+    group = lambda Bt: cr.sweep_group(dt, nx, nu, nc, Bt,
+                                      emit_closed_loop=False, narrow=True)
+    G = group(1 << 30)
+    past = G
+    while group(past) == 0:
+        past += G
+    return past, past + G + 1
+
+
+def narrow_cases(cr, compare, data, x0, nu, nc, tag):
+    """The four narrow forms (K1 gains only, K11, K7, K12) against their
+    plain versions on ``data`` (random_stage_data's ten tensors; its eight
+    stage streams made bfloat16) in its compute type, each case named with
+    ``tag`` (the batch or width)."""
+    st = narrow_streams(data[:8])
+    PN, pN = data[8:]
+    k1 = st + (PN, pN)
+    compare(f"backward_lanes[bf16,{tag}]", K1_GAINS,
+            cr.backward_lanes(*k1, emit_closed_loop=False),
+            cr.backward_lanes_reference(*k1, emit_closed_loop=False))
+    Sd, Sc = pack_streams(*st)
+    k11 = (Sd, Sc, PN, pN, nu, nc)
+    compare(f"backward_packed[bf16,{tag}]", ("G",), [cr.backward_packed(*k11)],
+            [cr.backward_packed_reference(*k11)])
+    K, d = cr.backward_lanes_reference(*k1, emit_closed_loop=False)
+    k7 = (st[0], st[1], st[2], K, d, x0)
+    compare(f"forward_rollout_lanes[bf16,{tag}]", K3_OUT,
+            cr.forward_rollout_lanes(*k7), cr.forward_rollout_lanes_reference(*k7))
+    G = cr.backward_packed_reference(*k11)
+    k12 = (Sd, G, x0, nu)
+    compare(f"forward_packed[bf16,{tag}]", K3_OUT, cr.forward_packed(*k12),
+            cr.forward_packed_reference(*k12))
+
+
 def k5_call(ca, k5_in, cones, K=None, rung=None, nu=NU):
     """Kernel B's wrapper on the packed argument tuple (``K`` None) or on
     the rung form's (M, K, ...) with the packed bound stream."""
@@ -741,8 +809,11 @@ def zero_counts():
 def recorded_calls(module, names):
     """While active, ``module.<name>`` also keeps the arguments of its
     last call: how the timing phase gets at the very tensors a path hands
-    its kernels."""
-    last, originals = {}, {name: getattr(module, name) for name in names}
+    its kernels.  A name that is no function of the module (a narrow
+    form's launch counter) is skipped: its wrapper's name records it."""
+    last = {}
+    originals = {name: getattr(module, name) for name in names
+                 if callable(getattr(module, name, None))}
 
     def recorder(name):
         def call(*args, **kwargs):
@@ -750,7 +821,7 @@ def recorded_calls(module, names):
             return originals[name](*args, **kwargs)
         return call
 
-    for name in names:
+    for name in originals:
         setattr(module, name, recorder(name))
     try:
         yield last
@@ -851,14 +922,16 @@ def bound(bytes_moved, flops):
 def wide_build_jobs(ca, cr, dtypes=(torch.float32, torch.float64)):
     """The specialisations of every kernel at the two wide widths, in
     ``dtypes``: the matrix sweeps (K1, K9, K11), the per-scenario kernels
-    (K2, K3, K7, K10, K12), K4, K5 (the cones, diagonal cost), K6 (one
-    rung) and K8 (the cones)."""
+    (K2, K3, K7, K10, K12), their narrow forms (bfloat16 stage streams),
+    K4, K5 (the cones, diagonal cost), K6 (one rung) and K8 (the cones)."""
     jobs = []
     for dt in dtypes:
         for nx, nu, nc, cones, nca in WIDE.values():
             jobs += [
                 (cr.SOURCE, cr.kernel_defines(dt, nx, nu, nc)),
                 (cr.SOURCE, cr.kernel_defines(dt, nx, nu)),
+                (cr.SOURCE, cr.kernel_defines(dt, nx, nu, nc, narrow=True)),
+                (cr.SOURCE, cr.kernel_defines(dt, nx, nu, narrow=True)),
                 (ca.SOURCE, ca.kernel_defines(dt, nx, nu)),
                 (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, cones=cones,
                                               diag_cost=True)),
@@ -899,18 +972,18 @@ def kernels_wide(ca, cr, dev):
                 def check(name, counter, names, call, plain, flops, inputs,
                           replaces):
                     out = call()
-                    compare(f"{name}[{tag}]", names, out, plain())
+                    ref, plain_ms = event_ms(plain)
+                    compare(f"{name}[{tag}]", names, out, ref)
                     if dt != torch.float32 or Bt != B_SMALL:
                         return
-                    abs_err, rel = rel_err(names, out, plain())
+                    abs_err, rel = rel_err(names, out, ref)
                     moved = nbytes(*(x for x in inputs
                                      if isinstance(x, torch.Tensor)), *out)
                     spec[name] = {
                         "counter": counter, "replaces": replaces,
                         "max_abs_err": abs_err, "rel_err": rel,
                         "ms": cuda_ms(call, WIDE_TIMED_REQUESTS),
-                        "plain_ms": cuda_ms(plain, 1, warmup=0),
-                        "bytes": moved, "flops": flops}
+                        "plain_ms": plain_ms, "bytes": moved, "flops": flops}
 
                 data = random_stage_data(rng, N, nx, nu, nc, Bt, dt, dev)
                 one = tuple(x[..., :1].contiguous() for x in data)
@@ -1073,12 +1146,59 @@ def kernels_wide(ca, cr, dev):
                                         if not (factors and i == 14))
                                   + tuple(factors or ()),
                                   "pallas_admm.py:1069")
+                # The narrow forms: the stage streams of `data` stored as
+                # bfloat16 (K1 gains only, K11, K7, K12).
+                st = narrow_streams(data[:8])
+                k1n = st + data[8:]
+                check("backward_lanes[bf16]", "backward_lanes[bf16]",
+                      K1_GAINS,
+                      lambda: cr.backward_lanes(*k1n, emit_closed_loop=False),
+                      lambda: cr.backward_lanes_reference(
+                          *k1n, emit_closed_loop=False),
+                      k1_flops(N, nx, nu, nc, Bt), k1n, "pallas_riccati.py:778")
+                Sdn, Scn = pack_streams(*st)
+                k11n = (Sdn, Scn, data[8], data[9], nu, nc)
+                check("backward_packed[bf16]", "backward_packed[bf16]", ("G",),
+                      lambda: [cr.backward_packed(*k11n)],
+                      lambda: [cr.backward_packed_reference(*k11n)],
+                      k1_flops(N, nx, nu, nc, Bt), k11n[:4],
+                      "pallas_riccati.py:1485")
+                Kn, dn = cr.backward_lanes_reference(*k1n,
+                                                     emit_closed_loop=False)
+                k7n = (st[0], st[1], st[2], Kn, dn, x0)
+                check("forward_rollout_lanes[bf16]",
+                      "forward_rollout_lanes[bf16]", K3_OUT,
+                      lambda: cr.forward_rollout_lanes(*k7n),
+                      lambda: cr.forward_rollout_lanes_reference(*k7n),
+                      k7_flops(N, nx, nu, Bt), k7n, "pallas_riccati.py:1319")
+                k12n = (Sdn, cr.backward_packed_reference(*k11n), x0, nu)
+                check("forward_packed[bf16]", "forward_packed[bf16]", K3_OUT,
+                      lambda: cr.forward_packed(*k12n),
+                      lambda: cr.forward_packed_reference(*k12n),
+                      k7_flops(N, nx, nu, Bt), k12n[:3],
+                      "pallas_riccati.py:1543")
                 return spec
 
             for Bt in B_WIDE:
                 spec = one_batch(Bt)
                 if dt == torch.float32 and Bt == B_SMALL:
                     timing[width] = spec
+            # The batch form of the narrow K1 and K11 (B_WIDE's batches
+            # take a block an instance).
+            for Bt in narrow_group_batches(cr, dt, nx, nu, nc):
+                data = random_stage_data(rng, N_GROUP_WIDE, nx, nu, nc, Bt,
+                                         dt, dev)
+                st = narrow_streams(data[:8])
+                k1n = st + data[8:]
+                tag = f"{width},group,N={N_GROUP_WIDE},B={Bt}"
+                compare(f"backward_lanes[bf16][{tag}]", K1_GAINS,
+                        cr.backward_lanes(*k1n, emit_closed_loop=False),
+                        cr.backward_lanes_reference(*k1n,
+                                                    emit_closed_loop=False))
+                k11n = pack_streams(*st) + (data[8], data[9], nu, nc)
+                compare(f"backward_packed[bf16][{tag}]", ("G",),
+                        [cr.backward_packed(*k11n)],
+                        [cr.backward_packed_reference(*k11n)])
     return cases, timing
 
 
@@ -1273,6 +1393,241 @@ def wide_kernel_specs(ca, cr, requests):
                 tuple(x for i, x in enumerate(a) if not (cached and i == 14))
                 + tuple(kw["factors"] or ()), "pallas_admm.py:1069")
     return spec
+
+
+def peak_of(request):
+    """A request's peak device memory: the most allocated while it ran,
+    and that less what was allocated before it (the tensors earlier phases
+    hold)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    request()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_memory_bytes": peak, "request_peak_bytes": peak - base}
+
+
+def narrow_entry(cr, name, counter, phase, launches, call, plain, names,
+                 flops, inputs, replaces, reps, tol):
+    """A ``kernels`` line entry of a narrow form, on the tensors of its
+    phase's counted run, measured now (the phase frees them after)."""
+    out = call()
+    ref, plain_ms = event_ms(plain)              # the plain version, once
+    abs_err, rel = rel_err(names, out, ref)
+    require(max(rel.values()) <= tol, (name, abs_err, rel))
+    moved = nbytes(*(x for x in inputs if isinstance(x, torch.Tensor)), *out)
+    bound_ms, bound_by = bound(moved, flops)
+    return {"name": name, "route": "cuda",
+            "source": "pdp_lqr_tpu_torch/ops/csrc/" + cr.SOURCE,
+            "replaces": "pdp_lqr_tpu/ops/" + replaces,
+            "launches": launches[counter],
+            "launches_by_path": {phase: launches[counter]},
+            "max_abs_err": abs_err, "rel_err": rel,
+            "ms": cuda_ms(call, reps), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bytes": moved, "flops": flops}
+
+
+def small_narrow_check(plt_, cr, model_fn, dev, packed):
+    """The float64 narrow solve on the card's kernels against the same on
+    the plain versions (CPU): N=64, B=B_SMALL (the model's own data: drift
+    0.01 N(0,1), x0 0.1 N(0,1), the iterates' start), each output against
+    its largest magnitude."""
+    rng = np.random.default_rng(SEED + 4)
+    model = model_fn(torch.float64, "cpu")
+    c = model.c[None] + torch.as_tensor(
+        rng.normal(size=(B_SMALL,) + tuple(model.c.shape)) * 0.01)
+    x0 = torch.as_tensor(rng.normal(size=(B_SMALL, model.nx)) * 0.1)
+    it = plt_.init_iterates(model, rho=RHO)
+    it_b = plt_.ADMMIterates(**{f.name: getattr(it, f.name)[None].expand(
+        (B_SMALL,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
+    solve = cr.solve_packed if packed else cr.solve_lanes
+    ref = solve(batched(model, B_SMALL, c), it_b, x0, SIGMA,
+                storage_dtype=torch.bfloat16)
+    on = lambda t: t.to(dev)
+    got = solve(batched(model.to(device=dev), B_SMALL, on(c)),
+                plt_.ADMMIterates(**{f.name: on(getattr(it_b, f.name))
+                                     for f in dataclasses.fields(it_b)}),
+                on(x0), SIGMA, storage_dtype=torch.bfloat16)
+    require(got.dtype == torch.float64 and got.device.type == "cuda")
+    return float((got.cpu() - ref).abs().max() / ref.abs().max())
+
+
+# Requests a turn when a narrow request is timed beside its float32 one
+# (float32, bfloat16, bfloat16, float32).
+NARROW_TURN_REPS = 5
+NARROW_REPLACES = {"backward_lanes": "pallas_riccati.py:778",
+                   "forward_rollout_lanes": "pallas_riccati.py:1319",
+                   "backward_packed": "pallas_riccati.py:1485",
+                   "forward_packed": "pallas_riccati.py:1543"}
+
+
+def narrow_counted(phase, ca, cr, packed, request, dims, reps, tol, label,
+                   entries=True):
+    """A narrow request counted from zero with the tensors it hands its two
+    kernels recorded: (its answer, its launches, and with ``entries`` the
+    kernels line's entries of its two kernels on those tensors, measured
+    now).  ``dims``: the problem's (N, nx, nu, nc, B)."""
+    forms = (("backward_packed", "forward_packed") if packed
+             else ("backward_lanes", "forward_rollout_lanes"))
+    request()                                    # builds nothing new; warms up
+    torch.cuda.synchronize()
+    cr.reset_launch_counts()
+    ca.reset_launch_counts()
+    with recorded_calls(cr, list(forms)) as args:
+        ws = request()
+    torch.cuda.synchronize()
+    launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+    require(launches == {**zero_counts(), forms[0] + "[bf16]": 1,
+                         forms[1] + "[bf16]": 1}, phase, launches)
+    require(ws.dtype == torch.float32 and ws.device.type == "cuda", phase)
+    require(bool(torch.isfinite(ws).all()), phase, "non-finite output")
+    N, nx, nu, nc, Bb = dims
+    out = []
+    for form in forms * entries:
+        a, kw = args[form]
+        gains = form.startswith("backward")
+        if form == "backward_packed":
+            call = lambda a=a: [cr.backward_packed(*a)]
+            plain = lambda a=a: [cr.backward_packed_reference(*a)]
+            inputs, names = a[:4], ("G",)
+        else:
+            call = lambda a=a, kw=kw, f=getattr(cr, form): f(*a, **kw)
+            plain = lambda a=a, kw=kw, f=getattr(cr, form + "_reference"): \
+                f(*a, **kw)
+            inputs = a[:3] if form == "forward_packed" else a
+            names = K1_GAINS if gains else K3_OUT
+        flops = (k1_flops(N, nx, nu, nc, Bb) if gains
+                 else k7_flops(N, nx, nu, Bb))
+        out.append(narrow_entry(
+            cr, f"{form}[bf16{label}]", form + "[bf16]", phase, launches,
+            call, plain, names, flops, inputs, NARROW_REPLACES[form], reps,
+            tol))
+    return ws, launches, out
+
+
+def narrow_phase(phase, plt_, ca, cr, card, packed, problem, it, x0, ws_full,
+                 model_fn, dev, reps, tol, label, counted=True):
+    """A request on bfloat16 stage streams through solve_lanes (K1 gains
+    only + K7) or solve_packed (K11 + K12), float32 compute: counted from
+    zero (``counted``: with its kernels' ``kernels`` line entries), its
+    prepared streams' types, against the full-width request's answer
+    (JAX's 2e-2 on the data's quantization), the float64 narrow solve
+    against the plain versions, both requests' peak memory and times in
+    turns.  Returns (the narrow answer, the entries)."""
+    bf16 = torch.bfloat16
+    solve = cr.solve_packed if packed else cr.solve_lanes
+    prepare = cr.prepare_packed if packed else cr.prepare_lanes
+    request = lambda: solve(problem, it, x0, SIGMA, storage_dtype=bf16)
+    full_request = lambda: solve(problem, it, x0, SIGMA)
+    ws, launches, entries = narrow_counted(
+        phase, ca, cr, packed, request,
+        (problem.N, problem.nx, problem.nu, problem.nc, x0.shape[0]), reps,
+        tol, label, entries=counted)
+    require(ws.shape == ws_full.shape, phase, ws.shape)
+    # What the kernels were handed: bfloat16 stage streams; the terminal
+    # fold and x0 in the compute type.
+    n = 2 if packed else 8
+    prep = prepare(problem, it, x0, SIGMA, storage_dtype=bf16)
+    types = [str(x.dtype).split(".")[-1] for x in prep[:n + 3]]
+    require(types == ["bfloat16"] * n + ["float32"] * 3, phase, types)
+    stream_bytes = nbytes(*prep[:n])
+    del prep
+    quant = float((ws - ws_full).abs().max() / ws_full.abs().max())
+    require(quant <= BF16_RTOL, phase, quant)
+    f64_err = small_narrow_check(plt_, cr, model_fn, dev, packed)
+    require(f64_err <= TOL[torch.float64], phase, f64_err)
+    mem = {"float32": peak_of(full_request), "bfloat16": peak_of(request)}
+    saved = (mem["float32"]["request_peak_bytes"]
+             - mem["bfloat16"]["request_peak_bytes"])
+    require(saved >= 0.4 * 2 * stream_bytes, phase, saved, stream_bytes)
+    t = in_turns({"float32": full_request, "bfloat16": request},
+                 NARROW_TURN_REPS)
+    Bb = x0.shape[0]
+    emit(phase, card=card, model=label.lstrip(",") or "quadrotor constrained",
+         N=problem.N, B=Bb, dtype="float32", storage_dtype="bfloat16",
+         launches=launches, stream_dtypes=types,
+         stream_bytes={"bfloat16": stream_bytes, "float32": 2 * stream_bytes},
+         request_ms=t, solves_per_s={k: Bb / (v * 1e-3) for k, v in t.items()},
+         kernel_ms={e["name"]: e["ms"] for e in entries},
+         kernel_bound_ms={e["name"]: e["bound_ms"] for e in entries},
+         memory=mem, memory_saved_bytes=saved,
+         memory_saved_share_of_f32_streams=saved / (2 * stream_bytes),
+         rel_err_vs_full_width=quant, rtol_vs_full_width=BF16_RTOL,
+         f64_rel_err_vs_plain=f64_err, tol_f64=TOL[torch.float64])
+    return ws, entries
+
+
+def centroidal_lanes_bf16(plt_, ca, cr, dev, card):
+    """The JAX docstring's configuration for narrow streams: the centroidal
+    model at N=1024, B=4096 (bench.py:575-612's data), float32 compute,
+    bfloat16 stage streams through solve_lanes (the JAX package's float32
+    request runs out of a TPU's memory there): counted, its kernels'
+    entries, its peak memory and time beside the float32 request's (or that
+    the float32 one ran out of the card's memory); then float32 beside
+    bfloat16 at B=2048, the checks of narrow_phase.  Returns the kernels
+    line's entries."""
+    from pdp_lqr_tpu_torch.models import centroidal
+    model, _ = centroidal(N=N_CEN, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(SEED)
+    c = model.c[None] + torch.as_tensor(
+        rng.normal(size=(B_CEN,) + tuple(model.c.shape)) * C_SCALE_WIDE,
+        dtype=torch.float32).to(dev)
+    x0 = torch.as_tensor(rng.normal(size=(B_CEN, model.nx)) * 0.1,
+                         dtype=torch.float32).to(dev)
+    it = plt_.init_iterates(model, rho=RHO)
+    its = lambda n: plt_.ADMMIterates(**{
+        f.name: getattr(it, f.name)[None].expand(
+            (n,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
+    bf16 = torch.bfloat16
+    big = (batched(model, B_CEN, c), its(B_CEN), x0)
+    request = lambda: cr.solve_lanes(*big, SIGMA, storage_dtype=bf16)
+    ws, launches, entries = narrow_counted(
+        "centroidal_lanes_bf16", ca, cr, False, request,
+        (N_CEN, model.nx, model.nu, model.nc, B_CEN), WIDE_TIMED_REQUESTS,
+        WIDE_KERNEL_RTOL, ",centroidal")
+    require(ws.shape == (B_CEN, N_CEN + 1, model.nz), ws.shape)
+    del ws
+    mem = {"bfloat16": peak_of(request)}
+    ms = {"bfloat16": cuda_ms(request, WIDE_TIMED_REQUESTS, warmup=1)}
+    full_request = lambda: cr.solve_lanes(*big, SIGMA)
+    try:
+        mem["float32"] = peak_of(full_request)
+        ms["float32"] = cuda_ms(full_request, WIDE_TIMED_REQUESTS, warmup=1)
+    except torch.cuda.OutOfMemoryError:
+        mem["float32"] = ms["float32"] = "out of memory"
+        torch.cuda.empty_cache()
+    # The eight stage streams' bytes in float32, and what bfloat16 saved of
+    # them (at least 40 %, as narrow_phase holds, where float32 fits).
+    nx, nu, nc, nz = model.nx, model.nu, model.nc, model.nz
+    f32_streams = 4 * N_CEN * B_CEN * (nx * nx + nx * nu + nx + nz * nz + nz
+                                       + nc * nz + 2 * nc)
+    saved = None
+    if isinstance(mem["float32"], dict):
+        saved = (mem["float32"]["request_peak_bytes"]
+                 - mem["bfloat16"]["request_peak_bytes"])
+        require(saved >= 0.4 * f32_streams, "centroidal_lanes_bf16", saved,
+                f32_streams)
+    emit("centroidal_lanes_bf16", card=card, model="centroidal", N=N_CEN,
+         B=B_CEN, dtype="float32", storage_dtype="bfloat16", launches=launches,
+         request_ms=ms, solves_per_s=B_CEN / (ms["bfloat16"] * 1e-3),
+         kernel_ms={e["name"]: e["ms"] for e in entries},
+         kernel_bound_ms={e["name"]: e["bound_ms"] for e in entries},
+         memory=mem, card_memory_bytes=torch.cuda.get_device_properties(
+             0).total_memory, stream_bytes={"float32": f32_streams,
+                                            "bfloat16": f32_streams // 2},
+         memory_saved_bytes=saved)
+    del request, full_request, big
+    Bh = B_CEN_ADMM
+    half = (batched(model, Bh, c[:Bh].contiguous()), its(Bh),
+            x0[:Bh].contiguous())
+    ws_full = cr.solve_lanes(*half, SIGMA)
+    cen = lambda dt, device: centroidal(N=N_SMALL, dtype=dt, device=device)[0]
+    narrow_phase("centroidal_lanes_bf16_B2048", plt_, ca, cr, card, False,
+                 *half, ws_full, cen, dev, WIDE_TIMED_REQUESTS,
+                 WIDE_KERNEL_RTOL, ",centroidal", counted=False)
+    return entries
 
 
 def reference_api(plt_, admm, sequential, dev, card):
@@ -1984,6 +2339,12 @@ def main():
     jobs.append((ca.SOURCE, ca.kernel_defines(
         torch.float32, 6, 3, 7, cones=((1, 3, "soc"), (4, 3, "soc")),
         single=True)))
+    # The narrow forms (bfloat16 stage streams: K1 gains only and K11, K7
+    # and K12) at the quadrotor's widths, both compute types.
+    for dt in (torch.float32, torch.float64):
+        for nc in (NC, None):
+            jobs.append((cr.SOURCE, cr.kernel_defines(dt, NX, NU, nc,
+                                                      narrow=True)))
     # Every kernel at the two wide widths (mass-spring, centroidal).
     jobs += wide_build_jobs(ca, cr)
     paths = _build.build_many(jobs)
@@ -2273,13 +2634,35 @@ def main():
                     cr.backward_pdp_lanes_reference(
                         *k9_in, export_factors=True, segments=S_SMALL))
 
+        # The narrow forms on bfloat16 stage streams (K1 gains only, K11,
+        # K7, K12) on a full batch, an odd one (pairs at odd offsets; rows
+        # no copy-engine box takes) and a ragged one (even, no multiple of
+        # 8); their own generator, so the cases above see the same data.
+        rng_n = np.random.default_rng(SEED + 3)
+        for Bt in (B_SMALL, B_ODD, B_RAGGED):
+            data = random_stage_data(rng_n, N_SMALL, NX, NU, NC, Bt, dt, dev)
+            x0_n = torch.as_tensor(rng_n.normal(size=(NX, Bt)) * 0.3).to(
+                device=dev, dtype=dt)
+            narrow_cases(cr, compare, data, x0_n, NU, NC, f"B={Bt}")
+        # ... and on two batches of K1's / K11's batch form (the ones
+        # above take a block an instance).
+        for Bt in narrow_group_batches(cr, dt, NX, NU, NC):
+            data = random_stage_data(rng_n, N_SMALL, NX, NU, NC, Bt, dt, dev)
+            x0_n = torch.as_tensor(rng_n.normal(size=(NX, Bt)) * 0.3).to(
+                device=dev, dtype=dt)
+            narrow_cases(cr, compare, data, x0_n, NU, NC, f"group,B={Bt}")
+
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
         require(launched == {"backward_lanes": 10, "backward_vectors_lanes": 9,
                              "forward_lanes": 6, "forward_rollout_lanes": 2,
                              "backward_pdp_lanes": 9,
                              "backward_pdp_vectors_lanes": 2,
-                             "backward_packed": 2, "forward_packed": 2},
+                             "backward_packed": 2, "forward_packed": 2,
+                             "backward_lanes[bf16]": 5,
+                             "forward_rollout_lanes[bf16]": 5,
+                             "backward_packed[bf16]": 5,
+                             "forward_packed[bf16]": 5},
                 launched)
         launched = {k: ca.LAUNCHES[k] - before_admm[k] for k in ca.LAUNCHES}
         require(launched == {"admm_bwd_vec_prefold_lanes": 2,
@@ -2308,6 +2691,10 @@ def main():
          worst_rel_err=worst, tol_rel={"float64": TOL[torch.float64],
                                        "float32": TOL[torch.float32]},
          launches=launched, seconds=round(time.time() - t0, 1))
+
+    # ------------------------------- 3c: centroidal_lanes_bf16 (early: the
+    # B=4096 request needs some 35 GB, before later phases hold theirs)
+    narrow_entries = centroidal_lanes_bf16(plt_, ca, cr, dev, card)
 
     # ------------------------------------------------------ 4: main path
     model, _ = quadrotor(N=N_MAIN, constrained=True, dtype=torch.float32,
@@ -3073,6 +3460,25 @@ def main():
          atol={k: PACKED_ATOL[v] for k, v in (("float32", torch.float32),
                                               ("float64", torch.float64))})
 
+    # -------------------------------- 20a: lanes_bf16 and packed_bf16
+    # solve_lanes' and solve_packed's workload (``bench.py --bf16``: B=4096,
+    # N=512, float32 compute) on bfloat16 stage streams, each beside its
+    # full-width request; the two narrow pairs agree as the full ones do.
+    quad = lambda dt, device: quadrotor(N=N_SMALL, constrained=True, dtype=dt,
+                                        device=device)[0]
+    ws_lb, entries = narrow_phase(
+        "lanes_bf16", plt_, ca, cr, card, False, bl, it_b, x0_t, ws_lanes,
+        quad, dev, TIMED_REQUESTS, TOL[torch.float32], "")
+    narrow_entries += entries
+    ws_pb, entries = narrow_phase(
+        "packed_bf16", plt_, ca, cr, card, True, bl, it_b, x0_t, ws_pk,
+        quad, dev, TIMED_REQUESTS, TOL[torch.float32], "")
+    narrow_entries += entries
+    # (Reported on the timing line.)
+    narrow_pair_err = float((ws_pb - ws_lb).abs().max())
+    require(narrow_pair_err <= PACKED_ATOL[torch.float32], narrow_pair_err)
+    del ws_lb, ws_pb
+
     # ---------------------- 20b: the mass-spring and centroidal requests
     wide_req = wide_requests(plt_, admm, sequential, ca, cr, dev, card)
 
@@ -3311,8 +3717,8 @@ def main():
     for name, (counter, paths, kernel, plain, names, flops, replaces) in spec.items():
         out = kernel()
         ms = cuda_ms(kernel, TIMED_REQUESTS)
-        plain_ms = cuda_ms(plain, 2, warmup=1)
-        abs_err, rel = rel_err(names, out, plain())
+        ref, plain_ms = event_ms(plain)          # the plain version, once
+        abs_err, rel = rel_err(names, out, ref)
         require(max(rel.values()) <= TOL[torch.float32], (name, abs_err, rel))
         moved = nbytes(*args_of[name], *out)
         bound_ms, bound_by = bound(moved, flops)
@@ -3356,8 +3762,8 @@ def main():
                replaces) in wide_spec.items():
         out = kernel()
         ms = cuda_ms(kernel, WIDE_TIMED_REQUESTS)
-        plain_ms = cuda_ms(plain, 1, warmup=0)
-        abs_err, rel = rel_err(names, out, plain())
+        ref, plain_ms = event_ms(plain)
+        abs_err, rel = rel_err(names, out, ref)
         require(max(rel.values()) <= WIDE_KERNEL_RTOL, (name, abs_err, rel))
         moved = nbytes(*(x for x in inputs if isinstance(x, torch.Tensor)),
                        *out)
@@ -3375,6 +3781,8 @@ def main():
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "bytes": moved, "flops": flops,
         })
+    # The narrow forms: timed in their phases, on those phases' tensors.
+    kernels += narrow_entries
     fold_ms = cuda_ms(lambda: cr.fold_Pc(P, c_l), TIMED_REQUESTS)
     prep_ms = cuda_ms(lambda: cr.prepare_shared(
         dataclasses.replace(model, c=c_t), it32, x0_t, SIGMA), TIMED_REQUESTS)
@@ -3512,6 +3920,7 @@ def main():
                    "uncached": pa_t[False], "cached": pa_t[True],
                    "single_kernel_auto": pa_auto_t},
          packed={"B": B_MAIN, **packed_t, "solve_lanes": lanes_t},
+         lanes_vs_packed_bf16_max_abs_err=narrow_pair_err,
          elapsed_s=time.time() - t_start)
 
     # ------------------------------------------------------------ 22: end

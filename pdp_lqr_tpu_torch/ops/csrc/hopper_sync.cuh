@@ -86,8 +86,9 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // Host: the copy engine's map of a row-major tensor of `rows` rows of
 // `cols` elements of `word` bytes at `base` (the row stride a multiple of
-// 16 bytes, `base` 16-byte aligned), in boxes of box_rows x box_cols.
-// Returns 0, or a CUDA error.
+// 16 bytes, `base` 16-byte aligned), in boxes of box_rows x box_cols;
+// elements of 8, 4 or 2 bytes are float64, float32 or bfloat16.  Returns
+// 0, or a CUDA error.
 inline int make_rows_map(CUtensorMap* map, const void* base,
                          unsigned long long rows, unsigned long long cols,
                          unsigned box_rows, unsigned box_cols, int word)
@@ -113,7 +114,8 @@ inline int make_rows_map(CUtensorMap* map, const void* base,
     const cuuint32_t step[2] = {1, 1};
     const CUresult r = encode(
         map, word == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
-                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             : word == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
         2, const_cast<void*>(base), dims, strides, box, step,
         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
         CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

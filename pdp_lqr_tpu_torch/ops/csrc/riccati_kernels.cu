@@ -32,9 +32,17 @@
 // devices of a mesh axis.  Per-segment carries and boundary values are
 // (S, ..., Bt) tensors.
 //
+// Narrow stage streams (-DSTAGE_BF16=1): the per-scenario stage data (A,
+// B, c, H, h, D, rho, rho g; the JAX package's storage_dtype) stored in
+// bfloat16 while every product runs in SCALAR.  Such a library holds the
+// forms that read them and nothing else: K1 for the gains only and K11
+// (with -DNC), K7 and K12 (without); the kernels widen each entry on the
+// card (see K1 and K7).
+//
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -46,6 +54,19 @@
 #include "hopper_sync.cuh"
 
 namespace {
+
+// The storage type of the stage streams, and its widening to SCALAR.
+#ifdef STAGE_BF16
+typedef __nv_bfloat16 stage_t;
+__device__ __forceinline__ scalar up(stage_t v)
+{
+    return (scalar)__bfloat162float(v);
+}
+#else
+typedef scalar stage_t;
+__device__ __forceinline__ scalar up(stage_t v) { return v; }
+#endif
+constexpr bool NARROW = sizeof(stage_t) != sizeof(scalar);
 
 // Diagnostic build (-DRICCATI_PROFILE): thread 0 of block 0 (or lane 0 of
 // a role's warp in block 0) sums the SM cycles it spends in each marked
@@ -145,7 +166,25 @@ __device__ long long riccati_prof[8];
 // PACKED (K11): the stage data come row-packed, Sd = (A | B | c) and
 // Sc = (H | h | D | rho | rho g), and the gains go out as G = (K | d): only
 // the strides of the streams change (the entry point offsets the pointers).
-
+//
+// NARROW (bfloat16 stage streams, K1 gains only and K11): the block
+// stages a stage's entries into a staging area beside a ring of two slots,
+// 2 bytes an entry and instance, one stage ahead, and each thread widens
+// the very entries it copied into the next slot's compute-type runs: at
+// the end of step n, after its own wait on the copies of stage n+1, it
+// needs no barrier of its own, and the one at the top of step n+1
+// publishes the widened stage (its own items' reads of the staging are
+// done before it copies the next stage there).  The products never see
+// the storage type.  A staging area and two slots (not three) leave room
+// for two blocks an SM at the quadrotor's widths, as the compute-type form
+// has (MINB).  Where the batch is a multiple of G (and the streams
+// aligned), an entry of the G instances is one aligned run of 2G bytes:
+// one copy an entry (16 bytes in float32) where the compute type takes G
+// word copies.  Otherwise no copy moves 2 bytes: the
+// aligned 4-byte pairs of neighbouring scenarios that cover the G
+// instances (G/2 + 1 an entry: the first may sit in a pair's second half,
+// on an odd batch or an odd start) are copied one by one.  The staging
+// costs 4 (G/2 + 1) bytes an entry (SweepFit counts it).
 constexpr int VW = 16 / (int)sizeof(scalar);         // words a 16-byte access
 // Row widths (words), each a multiple of 4: every row starts 16 bytes
 // aligned (32 in float64), so a lane reads four entries a load.
@@ -208,25 +247,39 @@ template <bool EMIT_MV, bool EXPORT, bool PDP> struct SweepLayout {
 
 constexpr int SWEEP_SMEM_MAX = 232448;      // 227 KB, the most a block has
 
+// Narrow stage data: a stage's entries (every stream), the pairs that
+// cover an entry of g instances, and a slot's staging bytes (16-byte
+// aligned; a pair, or 2g bytes a run, an entry), beside 16 bytes of
+// alignment.
+constexpr int STAGE_ENTRIES = SD_ROWS + SC_ROWS;
+__host__ __device__ constexpr int entry_pairs(int g) { return (g + 2) / 2; }
+__host__ __device__ constexpr int staging_bytes(int g)
+{
+    return NARROW ? (STAGE_ENTRIES * entry_pairs(g) * 4 + 15) / 16 * 16 : 0;
+}
+
+// Narrow: one staging area, the copies one stage ahead (a stage of the
+// sweep takes microseconds, a copy's latency one), into a ring of two
+// compute-type slots (stage n, and stage n+1 being widened).
 template <bool EMIT_MV, bool EXPORT, bool PDP>
 constexpr int sweep_bytes(int g, int slots, int outs)
 {
     using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
     return (slots * g * S_STRIDE + g * L::CARRY + outs * g * L::OUT)
-        * (int)sizeof(scalar);
+        * (int)sizeof(scalar) + (NARROW ? staging_bytes(g) + 16 : 0);
 }
 
 // G * 8 + (OUTS - 1) * 4 + SLOTS of a form: the widest group from g0
-// down, 3 slots before 2, that fits with a double-buffered out slot; where
-// none does, the same with one out slot (K9 exporting its factors at
-// nz=50 in float64: its out slot is 46 KB); one instance, 2 slots and one
-// out slot where nothing fits.
+// down, 3 slots before 2 (narrow: 2), that fits with a double-buffered out
+// slot; where none does, the same with one out slot (K9 exporting its
+// factors at nz=50 in float64: its out slot is 46 KB); one instance, 2
+// slots and one out slot where nothing fits.
 template <bool EMIT_MV, bool EXPORT, bool PDP>
 constexpr int sweep_pick(int g0)
 {
     for (int outs = 2; outs >= 1; --outs)
         for (int g = g0; g >= 1; g /= 2)
-            for (int slots = 3; slots >= 2; --slots)
+            for (int slots = NARROW ? 2 : 3; slots >= 2; --slots)
                 if (sweep_bytes<EMIT_MV, EXPORT, PDP>(g, slots, outs)
                     <= SWEEP_SMEM_MAX)
                     return g * 8 + (outs - 1) * 4 + slots;
@@ -251,6 +304,12 @@ template <bool EMIT_MV, bool EXPORT, bool PDP, bool ONE> struct SweepFit {
     static constexpr int THREADS = 32 * W * G;
     static constexpr int BYTES = sweep_bytes<EMIT_MV, EXPORT, PDP>(G, SLOTS, OUTS);
     static constexpr bool OK = BYTES <= SWEEP_SMEM_MAX;
+    // Narrow batch forms: two blocks an SM where their shared memory
+    // allows (228 KB an SM, 1 KB of it a block's own), the registers
+    // capped to match (the compute-type forms take two at the quadrotor's
+    // widths unasked: 128 registers, 111 KB).
+    static constexpr int MINB = NARROW && !ONE && 2 * (BYTES + 1024) <= 233472
+        ? 2 : 1;
 };
 
 // The tiles of the triangular steps, 2 x 4 outputs: column tile by column
@@ -397,6 +456,99 @@ __device__ __forceinline__ void stage_copy(scalar* __restrict__ dst,
     }
 }
 
+// Narrow stage data: the block's copies of one stream's E entries of its
+// G instances (entry e of instance 0 at src[e*Bs]) into the staging bytes
+// `stg` of the stream.  `runs` (the batch a multiple of G, every stream
+// aligned to 2G bytes): entry e's G instances as one copy of 2G bytes, to
+// stg + 2G e.  Otherwise as 4-byte pairs, pair j of entry e at word
+// e * NP + j: the aligned pair that holds instance 2j - o, o = 1 where
+// instance 0 sits in a pair's second half; a pair reaching `end` (past the
+// stream) is read plainly, its missing half zero.  Unrolled like
+// stage_copy.
+template <int E, int G, int NT>
+__device__ __forceinline__ void narrow_copy(char* __restrict__ stg,
+                                            const stage_t* src,
+                                            const stage_t* end, size_t Bs,
+                                            bool runs, int tid)
+{
+    if constexpr (G >= 2) {
+        if (runs) {
+            constexpr int RUN = G * (int)sizeof(stage_t);
+#pragma unroll
+            for (int m = 0; m < (E + NT - 1) / NT; ++m) {
+                const int e = tid + m * NT;
+                if (e < E) __pipeline_memcpy_async(stg + e * RUN, src + e * Bs, RUN);
+            }
+            return;
+        }
+    }
+    constexpr int NP = entry_pairs(G);
+    unsigned* dst = reinterpret_cast<unsigned*>(stg);
+#pragma unroll
+    for (int m = 0; m < (E * NP + NT - 1) / NT; ++m) {
+        const int q = tid + m * NT;
+        if (q < E * NP) {
+            const int e = q / NP, j = q % NP;
+            const stage_t* first = src + e * Bs;
+            const int o = (int)(((size_t)first >> 1) & 1);
+            if (2 * j - o < G) {
+                const stage_t* p = first - o + 2 * j;
+                if (p + 1 < end)
+                    __pipeline_memcpy_async(dst + q, p, 4);
+                else
+                    dst[q] = p < end
+                        ? (unsigned)*reinterpret_cast<const unsigned short*>(p)
+                        : 0u;
+            }
+        }
+    }
+}
+
+// The entries of narrow_copy widened into the G instances' runs of a slot:
+// entry e of instance i to row e / COLS, column e % COLS of its run (rows
+// STRIDE apart), as stage_copy lays it.  A thread widens the entries it
+// copied, so its own wait on its copies is all it needs.
+template <int E, int COLS, int STRIDE, int G, int NT>
+__device__ __forceinline__ void narrow_widen(scalar* __restrict__ dst,
+                                             const char* __restrict__ stg,
+                                             const stage_t* src, size_t Bs,
+                                             bool runs, int tid)
+{
+    if constexpr (G >= 2) {
+        if (runs) {
+            constexpr int RUN = G * (int)sizeof(stage_t);
+#pragma unroll
+            for (int m = 0; m < (E + NT - 1) / NT; ++m) {
+                const int e = tid + m * NT;
+                if (e < E) {
+                    const stage_t* v = reinterpret_cast<const stage_t*>(stg + e * RUN);
+                    scalar* d = dst + (e / COLS) * STRIDE + e % COLS;
+#pragma unroll
+                    for (int i = 0; i < G; ++i) d[i * S_STRIDE] = up(v[i]);
+                }
+            }
+            return;
+        }
+    }
+    constexpr int NP = entry_pairs(G);
+    const unsigned* pairs = reinterpret_cast<const unsigned*>(stg);
+#pragma unroll
+    for (int m = 0; m < (E * NP + NT - 1) / NT; ++m) {
+        const int q = tid + m * NT;
+        if (q < E * NP) {
+            const int e = q / NP, j = q % NP;
+            const int o = (int)(((size_t)(src + e * Bs) >> 1) & 1);
+            const int i = 2 * j - o;             // the pair's first instance
+            if (i < G) {
+                const stage_t* v = reinterpret_cast<const stage_t*>(pairs + q);
+                scalar* d = dst + (e / COLS) * STRIDE + e % COLS;
+                if (i >= 0) d[i * S_STRIDE] = up(v[0]);
+                if (i + 1 < G) d[(i + 1) * S_STRIDE] = up(v[1]);
+            }
+        }
+    }
+}
+
 // An output stream of the G instances from the out slot (instances OW
 // words apart) to device memory: entry e of instance b0+i to
 // dst[e*Bs + b0+i], VW instances a store where `vec`; unrolled, the
@@ -485,13 +637,18 @@ __device__ __forceinline__ void carry_out(scalar* dst, const scalar* src,
 }
 
 template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED, bool ONE>
+#ifdef STAGE_BF16
+__global__ void __launch_bounds__(SweepFit<EMIT_MV, EXPORT, PDP, ONE>::THREADS,
+                                  SweepFit<EMIT_MV, EXPORT, PDP, ONE>::MINB)
+#else
 __global__ void __launch_bounds__(SweepFit<EMIT_MV, EXPORT, PDP, ONE>::THREADS)
+#endif
 backward_kernel(
     int N, int Bt, int S,
-    const scalar* __restrict__ A, const scalar* __restrict__ B,
-    const scalar* __restrict__ c, const scalar* __restrict__ H,
-    const scalar* __restrict__ h, const scalar* __restrict__ D,
-    const scalar* __restrict__ rho, const scalar* __restrict__ rg,
+    const stage_t* __restrict__ A, const stage_t* __restrict__ B,
+    const stage_t* __restrict__ c, const stage_t* __restrict__ H,
+    const stage_t* __restrict__ h, const stage_t* __restrict__ D,
+    const stage_t* __restrict__ rho, const stage_t* __restrict__ rg,
     const scalar* __restrict__ PN, const scalar* __restrict__ pN,
     scalar* __restrict__ K_out, scalar* __restrict__ d_out,
     scalar* __restrict__ M_out, scalar* __restrict__ v_out,
@@ -518,6 +675,12 @@ backward_kernel(
     scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
     scalar* carries = ring + SLOTS * G * S_STRIDE;
     scalar* outs = carries + G * CW;
+    char* staging = reinterpret_cast<char*>(
+        (reinterpret_cast<size_t>(outs + OUTS * G * OW) + 15) / 16 * 16);
+    // Narrow: a stream's first entry in a slot's staging.
+    constexpr int P_A = 0, P_C = P_A + NX * NX, P_B = P_C + NX;
+    constexpr int P_H = P_B + NX * NU, P_HV = P_H + NZ * NZ;
+    constexpr int P_D = P_HV + NZ, P_RHO = P_D + NC * NZ, P_RG = P_RHO + NC;
 
     const int tid = threadIdx.x;
     const int lane = tid % T;
@@ -537,6 +700,13 @@ backward_kernel(
              | (size_t)F_out) & 15) == 0;
     // This thread's instance of the copies (the last one past the batch).
     const size_t bc = b0 + tid % G < Bs ? b0 + tid % G : Bs - 1;
+    // Narrow: an entry of the G instances one aligned run (see the note).
+    const bool runs = NARROW && G >= 2 && Bs % G == 0
+        && (((size_t)A | (size_t)B | (size_t)c | (size_t)H | (size_t)h
+             | (NC > 0 ? (size_t)D | (size_t)rho | (size_t)rg : 0))
+            % (2 * G)) == 0;
+    // Narrow: the bytes an entry takes in the staging.
+    const int step = runs ? 2 * G : 4 * entry_pairs(G);
     // This instance's carry.
     scalar* const cw = carries + inst * CW;
     scalar* const P = cw + L::P;
@@ -550,21 +720,56 @@ backward_kernel(
     scalar* const f = p + X4;
     scalar* const C = cw + L::C;
 
-    // The block's copies of stage n (k = k0 + Nl-1 - n) into its slot.
+    // The block's copies of stage n (k = k0 + Nl-1 - n) into its slot
+    // (narrow: its pairs into the slot's staging words).
     auto prefetch = [&](int n) {
         if (n < Nl) {
             const size_t ks = (size_t)(k0 + Nl - 1 - n);
-            scalar* sl = ring + ((n % SLOTS) * G + tid % G) * S_STRIDE;
-            stage_copy<NX * NX, NX, WAB, G, NT>(sl + S_AB, A + ks * R::A * Bs + bc, Bs, tid);
-            stage_copy<NX, 1, WAB, G, NT>(sl + S_AB + NX, c + ks * R::C * Bs + bc, Bs, tid);
-            stage_copy<NX * NU, NU, WAB, G, NT>(sl + S_AB + NX + 1, B + ks * R::B * Bs + bc, Bs, tid);
-            stage_copy<NZ * NZ, NZ, WH, G, NT>(sl + S_H, H + ks * R::H * Bs + bc, Bs, tid);
-            stage_copy<NZ, 1, WH, G, NT>(sl + S_H + NZ, h + ks * R::HV * Bs + bc, Bs, tid);
-            stage_copy<NC * NZ, NZ, WD, G, NT>(sl + S_D, D + ks * R::D * Bs + bc, Bs, tid);
-            stage_copy<NC, 1, 1, G, NT>(sl + S_RHO, rho + ks * R::RHO * Bs + bc, Bs, tid);
-            stage_copy<NC, 1, 1, G, NT>(sl + S_RG, rg + ks * R::RHO * Bs + bc, Bs, tid);
+            if constexpr (NARROW) {
+                char* sg = staging;
+                // The end of a stream: its last stage's last entry.
+                auto end = [&](const stage_t* x, int rows, int e) {
+                    return x + ((size_t)(N - 1) * rows + e) * Bs;
+                };
+                narrow_copy<NX * NX, G, NT>(sg + P_A * step, A + ks * R::A * Bs + b0, end(A, R::A, NX * NX), Bs, runs, tid);
+                narrow_copy<NX, G, NT>(sg + P_C * step, c + ks * R::C * Bs + b0, end(c, R::C, NX), Bs, runs, tid);
+                narrow_copy<NX * NU, G, NT>(sg + P_B * step, B + ks * R::B * Bs + b0, end(B, R::B, NX * NU), Bs, runs, tid);
+                narrow_copy<NZ * NZ, G, NT>(sg + P_H * step, H + ks * R::H * Bs + b0, end(H, R::H, NZ * NZ), Bs, runs, tid);
+                narrow_copy<NZ, G, NT>(sg + P_HV * step, h + ks * R::HV * Bs + b0, end(h, R::HV, NZ), Bs, runs, tid);
+                narrow_copy<NC * NZ, G, NT>(sg + P_D * step, D + ks * R::D * Bs + b0, end(D, R::D, NC * NZ), Bs, runs, tid);
+                narrow_copy<NC, G, NT>(sg + P_RHO * step, rho + ks * R::RHO * Bs + b0, end(rho, R::RHO, NC), Bs, runs, tid);
+                narrow_copy<NC, G, NT>(sg + P_RG * step, rg + ks * R::RHO * Bs + b0, end(rg, R::RHO, NC), Bs, runs, tid);
+            } else {
+                scalar* sl = ring + ((n % SLOTS) * G + tid % G) * S_STRIDE;
+                stage_copy<NX * NX, NX, WAB, G, NT>(sl + S_AB, A + ks * R::A * Bs + bc, Bs, tid);
+                stage_copy<NX, 1, WAB, G, NT>(sl + S_AB + NX, c + ks * R::C * Bs + bc, Bs, tid);
+                stage_copy<NX * NU, NU, WAB, G, NT>(sl + S_AB + NX + 1, B + ks * R::B * Bs + bc, Bs, tid);
+                stage_copy<NZ * NZ, NZ, WH, G, NT>(sl + S_H, H + ks * R::H * Bs + bc, Bs, tid);
+                stage_copy<NZ, 1, WH, G, NT>(sl + S_H + NZ, h + ks * R::HV * Bs + bc, Bs, tid);
+                stage_copy<NC * NZ, NZ, WD, G, NT>(sl + S_D, D + ks * R::D * Bs + bc, Bs, tid);
+                stage_copy<NC, 1, 1, G, NT>(sl + S_RHO, rho + ks * R::RHO * Bs + bc, Bs, tid);
+                stage_copy<NC, 1, 1, G, NT>(sl + S_RG, rg + ks * R::RHO * Bs + bc, Bs, tid);
+            }
         }
         __pipeline_commit();
+    };
+
+    // Narrow: this thread's pairs of stage n widened into the slot's runs
+    // (after its own wait on their copies).
+    auto widen = [&](int n) {
+        if (NARROW && n < Nl) {
+            const size_t ks = (size_t)(k0 + Nl - 1 - n);
+            scalar* sl = ring + (n % SLOTS) * G * S_STRIDE;     // instance 0's run
+            const char* sg = staging;
+            narrow_widen<NX * NX, NX, WAB, G, NT>(sl + S_AB, sg + P_A * step, A + ks * R::A * Bs + b0, Bs, runs, tid);
+            narrow_widen<NX, 1, WAB, G, NT>(sl + S_AB + NX, sg + P_C * step, c + ks * R::C * Bs + b0, Bs, runs, tid);
+            narrow_widen<NX * NU, NU, WAB, G, NT>(sl + S_AB + NX + 1, sg + P_B * step, B + ks * R::B * Bs + b0, Bs, runs, tid);
+            narrow_widen<NZ * NZ, NZ, WH, G, NT>(sl + S_H, sg + P_H * step, H + ks * R::H * Bs + b0, Bs, runs, tid);
+            narrow_widen<NZ, 1, WH, G, NT>(sl + S_H + NZ, sg + P_HV * step, h + ks * R::HV * Bs + b0, Bs, runs, tid);
+            narrow_widen<NC * NZ, NZ, WD, G, NT>(sl + S_D, sg + P_D * step, D + ks * R::D * Bs + b0, Bs, runs, tid);
+            narrow_widen<NC, 1, 1, G, NT>(sl + S_RHO, sg + P_RHO * step, rho + ks * R::RHO * Bs + b0, Bs, runs, tid);
+            narrow_widen<NC, 1, 1, G, NT>(sl + S_RG, sg + P_RG * step, rg + ks * R::RHO * Bs + b0, Bs, runs, tid);
+        }
     };
 
     // The block's stores of stage n's outputs from its out slot (one
@@ -627,6 +832,10 @@ backward_kernel(
     };
 
     for (int n = 0; n < SLOTS - 1; ++n) prefetch(n);
+    if constexpr (NARROW) {
+        __pipeline_wait_prior(SLOTS - 2);     // stage 0 landed (my copies)
+        widen(0);
+    }
     carry_in<NX, NX, X4, G, NT, CW>(carries + L::P, PN + cs * NX * NX * Bs, Bs, b0, tid);
     carry_in<1, NX, 0, G, NT, CW>(carries + L::PV, pN + cs * NX * Bs, Bs, b0, tid);
     if (PDP) {
@@ -637,9 +846,11 @@ backward_kernel(
     PROF_INIT
 
     for (int n = 0; n < Nl; ++n) {
-        __pipeline_wait_prior(SLOTS - 2);     // stage n landed (my copies)
-        __syncthreads();                      // ... everyone's; the slot
-                                              // and out slot of n-1 free
+        if constexpr (!NARROW)
+            __pipeline_wait_prior(SLOTS - 2); // stage n landed (my copies)
+        __syncthreads();                      // ... everyone's (narrow:
+                                              // widened); the slot and
+                                              // out slot of n-1 free
         PROF_MARK(0);
         if (n > 0) store(n - 1);
         if constexpr (OUTS == 1) __syncthreads();   // stored before rewritten
@@ -883,6 +1094,10 @@ backward_kernel(
             }
         }
         PROF_MARK(7);
+        if constexpr (NARROW) {
+            __pipeline_wait_prior(SLOTS - 2); // stage n+1 landed (my copies)
+            widen(n + 1);                     // into the slot of stage n+1-SLOTS
+        }
     }
     PROF_DONE
     __pipeline_wait_prior(0);
@@ -900,7 +1115,8 @@ backward_kernel(
 struct BackwardArgs {
     int N, Bt, S;
     cudaStream_t stream;
-    const scalar *A, *B, *c, *H, *h, *D, *rho, *rg, *PN, *pN;
+    const stage_t *A, *B, *c, *H, *h, *D, *rho, *rg;
+    const scalar *PN, *pN;
     scalar *K, *d, *M, *v, *P, *L;
     const scalar *Fi, *Ci, *fi;
     scalar *Gp, *F, *P0, *p0, *F0, *C0, *f0;
@@ -960,6 +1176,8 @@ int launch_backward(const BackwardArgs& a)
 // carries and the stage temporaries live in registers, and every stream,
 // matrices included, is batch-last, so a warp reads and writes whole
 // lines.  K3 and K2 stage the sets of 8 scenarios a block (see there).
+// A narrow library (STAGE_BF16) holds K7 and K12 alone.
+#ifndef STAGE_BF16
 
 constexpr int PI_THREADS = 64;               // K10: threads per block
 
@@ -1884,6 +2102,8 @@ forward_shared_kernel(
     }
 }
 
+#endif  // STAGE_BF16
+
 // ---- K7, per-instance rollout from the raw dynamics: u = K x + d,
 // ws_k = [u; x], x+ = A x + B u + c, every matrix per scenario (trailing
 // size Bt).  What bounds it on this card is bytes: 256 words a scenario
@@ -1922,6 +2142,20 @@ forward_shared_kernel(
 // B | c), and K, d of G = (K | d), K11's output: two streams a stage
 // instead of five, lying in the slot where K7's do; only the producers'
 // boxes differ.
+//
+// NARROW (bfloat16 A, B, c or Sd; K, d and G in the compute type): the
+// dynamics' rows stay 2 bytes an entry in the slot (boxes of a bfloat16
+// map, half the bytes a row), so one slot holds two entry sizes, each
+// stream's rows from a 128-byte boundary; the chain widens an entry where
+// it reads it (a lane a scenario: one conversion an entry, no pass of its
+// own).  A box row is then W * 2 bytes: W a multiple of 8 (RoFit).  Where
+// the copy engine does not take the rows (a batch that is no multiple of
+// 8), no copy moves 2 bytes: the kernel's PAIRS form copies the W/2 + 1
+// aligned 4-byte pairs that cover a row's W scenarios into a slot row of
+// W + 2 entries, and the chain reads its scenario at o(r) + lane, o(r) = 1
+// where the row starts in a pair's second half (every other row of an odd
+// batch).  The stream's last entry, where it ends mid-pair, comes by a
+// copy that fills the pair's other half with zero.
 constexpr int RO_PRODUCERS = 2;
 constexpr int RO_THREADS = 32 * (2 + RO_PRODUCERS);   // chain, store, producers
 constexpr int RO_OSLOTS = 4;                 // the out-ring's slots
@@ -1940,92 +2174,144 @@ __host__ __device__ constexpr int ro_rows(bool packed, int q)
         : q == 0 ? NX * NX : q == 1 ? NX * NU : q == 2 ? NX
         : q == 3 ? NU * NX : NU;
 }
-// Rows of w words rounded up to whole 128-byte pieces (a box lands on a
-// 128-byte boundary).
-__host__ __device__ constexpr int ro_up(int rows, int w)
+// Stream q holds stage data (A, B, c; Sd: stage_t) or gains (the compute
+// type), and the bytes of its entries.
+__host__ __device__ constexpr bool ro_stage(bool packed, int q)
 {
-    const int a = 128 / (w * (int)sizeof(scalar));
+    return packed ? q == 0 : q < 3;
+}
+__host__ __device__ constexpr int ro_esz(bool packed, int q)
+{
+    return ro_stage(packed, q) ? (int)sizeof(stage_t) : (int)sizeof(scalar);
+}
+// Rows of w entries of e bytes rounded up to whole 128-byte pieces (a box
+// lands on a 128-byte boundary).  (The PAIRS form: stage rows of w + 2.)
+__host__ __device__ constexpr int ro_up(int rows, int w, int e)
+{
+    const int a = 128 / (w * e);
     return a > 1 ? (rows + a - 1) / a * a : rows;
 }
 // A stream of `rows` rows a stage goes as ro_boxes boxes of ro_box rows
-// of w words, each whole 128-byte pieces (the last may reach past the
+// of w entries, each whole 128-byte pieces (the last may reach past the
 // stream's rows: its slot keeps ro_span).
 __host__ __device__ constexpr int ro_boxes(int rows)
 {
     return (rows + RO_BOX_MAX - 1) / RO_BOX_MAX;
 }
-__host__ __device__ constexpr int ro_box(int rows, int w)
+__host__ __device__ constexpr int ro_box(int rows, int w, int e)
 {
-    return ro_up((rows + ro_boxes(rows) - 1) / ro_boxes(rows), w);
+    return ro_up((rows + ro_boxes(rows) - 1) / ro_boxes(rows), w, e);
 }
-__host__ __device__ constexpr int ro_span(int rows, int w)
+__host__ __device__ constexpr int ro_span(int rows, int w, int e)
 {
-    return ro_boxes(rows) * ro_box(rows, w);
+    return ro_boxes(rows) * ro_box(rows, w, e);
 }
-// The first row of stream q in a slot (q = ro_streams: a slot's rows).
-__host__ __device__ constexpr int ro_off(bool packed, int q, int w)
+// The bytes of stream q's rows of a stage in a slot: boxes of w, or
+// (pairs) stage rows of w + 2 entries.
+__host__ __device__ constexpr int ro_bytes(bool packed, int q, int w,
+                                           bool pairs)
+{
+    const int rows = ro_rows(packed, q), e = ro_esz(packed, q);
+    return pairs && ro_stage(packed, q) ? rows * (w + 2) * e
+                                        : ro_span(rows, w, e) * w * e;
+}
+// The first byte of stream q in a slot (q = ro_streams: a slot's bytes),
+// each stream from a 128-byte boundary.
+__host__ __device__ constexpr int ro_off(bool packed, int q, int w,
+                                         bool pairs)
 {
     int off = 0;
     for (int i = 0; i < q; ++i)
-        off = ro_up(off + ro_span(ro_rows(packed, i), w), w);
+        off = (off + ro_bytes(packed, i, w, pairs) + 127) / 128 * 128;
     return off;
 }
-// Slots of w scenarios (and two barriers each) beside the out-ring.
-__host__ __device__ constexpr int ro_fit(bool packed, int w)
-{
-    return (RO_SMEM_MAX - 128
-            - RO_OSLOTS * (ro_up(NZ, w) * w * (int)sizeof(scalar) + 16))
-        / (ro_off(packed, ro_streams(packed), w) * w * (int)sizeof(scalar)
-           + 16);
-}
-// W: the widest of 32, 16, 8 and 4 scenarios whose ring holds 3 slots,
-// else 2.
-__host__ __device__ constexpr int ro_pick(bool packed)
-{
-    for (int least = 3; least >= 2; --least)
-        for (int w = 32; w >= 4; w /= 2)
-            if (ro_fit(packed, w) >= least) return w;
-    return 4;
-}
-template <bool PACKED> struct RoFit {
-    static constexpr int NS = ro_streams(PACKED);
-    static constexpr int W = ro_pick(PACKED);
-    static constexpr int SLOTS = ro_fit(PACKED, W) < RO_SLOTS_MAX
-        ? ro_fit(PACKED, W) : RO_SLOTS_MAX;
-    static constexpr int SLOT = ro_off(PACKED, NS, W) * W;    // words
-    static constexpr int OSLOT = ro_up(NZ, W) * W;
-    // The rows of A, B, c, K and d in a slot.
-    static constexpr int A = 0;
-    static constexpr int B = PACKED ? NX * NX : ro_off(false, 1, W);
-    static constexpr int C = PACKED ? NX * NX + NX * NU : ro_off(false, 2, W);
-    static constexpr int K = ro_off(PACKED, PACKED ? 1 : 3, W);
-    static constexpr int D = PACKED ? K + NU * NX : ro_off(false, 4, W);
-    static constexpr int OUT = SLOTS * SLOT;   // the out-ring (words)
-    static constexpr int BAR = (OUT + RO_OSLOTS * OSLOT) * (int)sizeof(scalar);
-    static constexpr int SMEM = BAR + 8 * 2 * (SLOTS + RO_OSLOTS) + 128;
-    static_assert(SLOTS >= 2, "K7/K12: two stages of 4 scenarios do not fit");
-    static_assert(W * sizeof(scalar) % 16 == 0, "K7/K12: a box row");
-};
-// The streams (the cp.async path) and the copy engine's maps of them.
-template <bool PACKED> struct RoSrc { const scalar* p[ro_streams(PACKED)]; };
-template <bool PACKED> struct RoMaps { CUtensorMap m[ro_streams(PACKED)]; };
-// The producer warp of stream q.
 __host__ __device__ constexpr int ro_owner(int q) { return q % RO_PRODUCERS; }
+// Slots of w scenarios (and two barriers each) beside the out-ring.
+__host__ __device__ constexpr int ro_fit(bool packed, int w, bool pairs)
+{
+    constexpr int SZ = (int)sizeof(scalar);
+    return (RO_SMEM_MAX - 128 - RO_OSLOTS * (ro_up(NZ, w, SZ) * w * SZ + 16))
+        / (ro_off(packed, ro_streams(packed), w, pairs) + 16);
+}
+// W: the widest of 32, 16, 8 and 4 scenarios (narrow: 8 at least, a box
+// row of 16 bytes) whose ring holds 3 slots, else 2.
+__host__ __device__ constexpr int ro_pick(bool packed, bool pairs)
+{
+    constexpr int least_w = NARROW ? 8 : 4;
+    for (int least = 3; least >= 2; --least)
+        for (int w = 32; w >= least_w; w /= 2)
+            if (ro_fit(packed, w, pairs) >= least) return w;
+    return least_w;
+}
+template <bool PACKED, bool PAIRS> struct RoFit {
+    static constexpr int NS = ro_streams(PACKED);
+    static constexpr int W = ro_pick(PACKED, PAIRS);
+    static constexpr int SLOTS = ro_fit(PACKED, W, PAIRS) < RO_SLOTS_MAX
+        ? ro_fit(PACKED, W, PAIRS) : RO_SLOTS_MAX;
+    static constexpr int SLOT = ro_off(PACKED, NS, W, PAIRS);   // bytes
+    static constexpr int OSLOT = ro_up(NZ, W, (int)sizeof(scalar)) * W;
+    // The entries of a stage row (A, B, c) in a slot.
+    static constexpr int RW = PAIRS ? W + 2 : W;
+    // The bytes of A, B, c (stage_t) and K, d (scalar) in a slot.
+    static constexpr int ES = (int)sizeof(stage_t), SZ = (int)sizeof(scalar);
+    static constexpr int A = 0;
+    static constexpr int B = PACKED ? NX * NX * RW * ES
+                                    : ro_off(false, 1, W, PAIRS);
+    static constexpr int C = PACKED ? (NX * NX + NX * NU) * RW * ES
+                                    : ro_off(false, 2, W, PAIRS);
+    static constexpr int K = ro_off(PACKED, PACKED ? 1 : 3, W, PAIRS);
+    static constexpr int D = PACKED ? K + NU * NX * W * SZ
+                                    : ro_off(false, 4, W, PAIRS);
+    static constexpr int OUT = SLOTS * SLOT;   // the out-ring (bytes)
+    static constexpr int BAR = OUT + RO_OSLOTS * OSLOT * SZ;
+    static constexpr int SMEM = BAR + 8 * 2 * (SLOTS + RO_OSLOTS) + 128;
+    static_assert(SLOTS >= 2, "K7/K12: two stages of the least W do not fit");
+    static_assert(W * ES % 16 == 0 && W * SZ % 16 == 0, "K7/K12: a box row");
+    static_assert(!PAIRS || NARROW, "K7/K12: pairs are of 2-byte entries");
+};
+// The streams (the word-copy path) and the copy engine's maps of them.
+template <bool PACKED> struct RoSrc { const void* p[ro_streams(PACKED)]; };
+template <bool PACKED> struct RoMaps { CUtensorMap m[ro_streams(PACKED)]; };
 
-template <bool PACKED>
+// The PAIRS form, a producer lane's part of one stream's `rows` rows (row
+// r of scenario b0 at src[r*Bt]) into the slot's rows of W + 2 entries
+// (dst): item t = (row t / NP, pair j = t % NP) the aligned pair at
+// scenario 2j - o of the row (o = 1 where the row starts in a pair's
+// second half) into entries 2j, 2j + 1.  A pair at or past `end` (the
+// stream's end) is not read past it: its half there is zero, or the pair
+// is left out (scenarios past the batch, which no lane stores).
+template <int W>
+__device__ __forceinline__ void ro_pairs(stage_t* dst, const stage_t* src,
+                                         const stage_t* end, int rows,
+                                         size_t Bt, int lane)
+{
+    constexpr int NP = W / 2 + 1;
+#pragma unroll 1
+    for (int t = lane; t < rows * NP; t += 32) {
+        const int r = t / NP, j = t % NP;
+        const stage_t* first = src + r * Bt;
+        const stage_t* p = first - (((size_t)first >> 1) & 1) + 2 * j;
+        if (p + 1 < end)
+            __pipeline_memcpy_async(dst + r * (W + 2) + 2 * j, p, 4);
+        else if (p < end)
+            __pipeline_memcpy_async(dst + r * (W + 2) + 2 * j, p, 4, 2);
+    }
+}
+
+template <bool PACKED, bool PAIRS>
 __global__ void __launch_bounds__(RO_THREADS, 1)
 forward_rollout_kernel(
     int N, int Bt, const RoSrc<PACKED> src, const scalar* __restrict__ x0,
     scalar* __restrict__ ws, scalar* __restrict__ xN,
     const __grid_constant__ RoMaps<PACKED> maps, int tma)
 {
-    using Fit = RoFit<PACKED>;
-    constexpr int W = Fit::W, SLOTS = Fit::SLOTS;
+    using Fit = RoFit<PACKED, PAIRS>;
+    constexpr int W = Fit::W, SLOTS = Fit::SLOTS, RW = Fit::RW;
     extern __shared__ double smem_aligned[];
     char* base = reinterpret_cast<char*>(
         (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
-    scalar* ring = reinterpret_cast<scalar*>(base);
-    scalar* oring = ring + Fit::OUT;
+    char* ring = base;
+    scalar* oring = reinterpret_cast<scalar*>(base + Fit::OUT);
     mbar_t* full = reinterpret_cast<mbar_t*>(base + Fit::BAR);
     mbar_t* empty = full + SLOTS;
     mbar_t* ofull = empty + SLOTS;
@@ -2061,29 +2347,37 @@ forward_rollout_kernel(
 #pragma unroll
         for (int q = 0; q < Fit::NS; ++q)
             if (ro_owner(q) == pw)
-                tx += ro_span(ro_rows(PACKED, q), W) * W * (int)sizeof(scalar);
+                tx += ro_span(ro_rows(PACKED, q), W, ro_esz(PACKED, q)) * W
+                    * ro_esz(PACKED, q);
         PROF_INIT_AT(blockIdx.x == 0 && lane == 0 && pw == 0)
 #pragma unroll 1
         for (int n = 0; n < N; ++n) {
             const int s = n % SLOTS;
             if (n >= SLOTS) mbar_wait(&empty[s], (n / SLOTS - 1) & 1);
             PROF_MARK(0);
-            scalar* S = ring + s * Fit::SLOT;
+            char* S = ring + s * Fit::SLOT;
             if (lane == 0) mbar_arrive_expect_tx(&full[s], tma ? tx : 0);
 #pragma unroll
             for (int q = 0; q < Fit::NS; ++q) {
                 if (ro_owner(q) != pw) continue;
-                const int rows = ro_rows(PACKED, q);
-                scalar* dst = S + ro_off(PACKED, q, W) * W;
+                const int rows = ro_rows(PACKED, q), e = ro_esz(PACKED, q);
+                char* dst = S + ro_off(PACKED, q, W, PAIRS);
+                const size_t first = (size_t)n * rows * Bs;   // the stage's
                 if (tma) {
                     if (lane == 0)
                         for (int i = 0; i < ro_boxes(rows); ++i)
-                            tma_box(dst + i * ro_box(rows, W) * W,
+                            tma_box(dst + i * ro_box(rows, W, e) * W * e,
                                     &maps.m[q], (int)b0,
-                                    n * rows + i * ro_box(rows, W), &full[s]);
+                                    n * rows + i * ro_box(rows, W, e), &full[s]);
+                } else if (PAIRS && ro_stage(PACKED, q)) {
+                    const stage_t* x = (const stage_t*)src.p[q];
+                    ro_pairs<W>(reinterpret_cast<stage_t*>(dst),
+                                x + first + b0, x + (size_t)N * rows * Bs,
+                                rows, Bs, lane);
                 } else {
-                    warp_copy_rows<W>(dst, src.p[q] + (size_t)n * rows * Bs,
-                                      rows, Bs, b0, false, lane);
+                    warp_copy_rows<W>(reinterpret_cast<scalar*>(dst),
+                                      (const scalar*)src.p[q] + first, rows,
+                                      Bs, b0, false, lane);
                 }
             }
             mbar_arrive_on_copies(&full[s]);
@@ -2093,6 +2387,10 @@ forward_rollout_kernel(
     } else if (warp == 0) {
         // ---- chain: x in registers, [u; x] into the out-ring.
         const size_t bc = b < Bs ? b : Bs - 1;
+        // PAIRS: a stage row's first scenario at entry o of its slot row,
+        // o = 1 where the row starts in a pair's second half (on an odd
+        // batch, every other row of a stream).
+        const int odd = PAIRS ? (int)(Bs & 1) : 0;
         scalar x[NX];
 #pragma unroll
         for (int i = 0; i < NX; ++i) x[i] = x0[i * Bs + bc];
@@ -2102,25 +2400,44 @@ forward_rollout_kernel(
             const int s = n % SLOTS;
             mbar_wait(&full[s], (n / SLOTS) & 1);
             PROF_MARK(2);
-            const scalar* S = ring + s * Fit::SLOT + col;
+            const char* S = ring + s * Fit::SLOT;
+            // Row r of a block of stage rows starting at row r0 of a stream
+            // of `rows` rows a stage: at at[r & 1][r * RW].
+            auto rows_at = [&](int off, int rows, int r0, const stage_t** at) {
+                const int o = odd & (n * rows + r0);
+                at[0] = reinterpret_cast<const stage_t*>(S + off) + col + o;
+                at[1] = at[0] + (o ^ odd) - o;
+            };
+            const stage_t *sA[2], *sB[2], *sC[2];
+            rows_at(Fit::A, ro_rows(PACKED, 0), 0, sA);
+            rows_at(Fit::B, ro_rows(PACKED, PACKED ? 0 : 1),
+                    PACKED ? NX * NX : 0, sB);
+            rows_at(Fit::C, ro_rows(PACKED, PACKED ? 0 : 2),
+                    PACKED ? NX * NX + NX * NU : 0, sC);
+            const scalar* sK = reinterpret_cast<const scalar*>(S + Fit::K) + col;
+            const scalar* sD = reinterpret_cast<const scalar*>(S + Fit::D) + col;
             scalar u[NU], xn[NX];
 #pragma unroll
             for (int j = 0; j < NU; ++j) {
-                scalar acc = S[(Fit::D + j) * W];
+                scalar acc = sD[j * W];
 #pragma unroll
                 for (int t = 0; t < NX; ++t)
-                    acc += S[(Fit::K + j * NX + t) * W] * x[t];
+                    acc += sK[(j * NX + t) * W] * x[t];
                 u[j] = acc;
             }
 #pragma unroll
             for (int i = 0; i < NX; ++i) {
-                scalar acc = S[(Fit::C + i) * W];
+                scalar acc = up(sC[i & 1][i * RW]);
 #pragma unroll
-                for (int t = 0; t < NX; ++t)
-                    acc += S[(Fit::A + i * NX + t) * W] * x[t];
+                for (int t = 0; t < NX; ++t) {
+                    const int r = i * NX + t;
+                    acc += up(sA[r & 1][r * RW]) * x[t];
+                }
 #pragma unroll
-                for (int t = 0; t < NU; ++t)
-                    acc += S[(Fit::B + i * NU + t) * W] * u[t];
+                for (int t = 0; t < NU; ++t) {
+                    const int r = i * NU + t;
+                    acc += up(sB[r & 1][r * RW]) * u[t];
+                }
                 xn[i] = acc;
             }
             mbar_arrive(&empty[s]);
@@ -2167,32 +2484,46 @@ forward_rollout_kernel(
 }
 
 // K7 on its five streams, K12 on its two.  The streams go by the copy
-// engine where its maps can take them (the row stride a multiple of 16
-// bytes, each stream 16-byte aligned); a map that cannot be made is an
-// error.
+// engine where its maps can take them (every stream's row stride a
+// multiple of 16 bytes, each stream 16-byte aligned); a map that cannot be
+// made is an error.
+template <bool PACKED, bool PAIRS>
+int launch_rollout_form(int N, int Bt, cudaStream_t st,
+                        const RoSrc<PACKED>& src, const RoMaps<PACKED>& maps,
+                        bool tma, const void* x0, void* ws, void* xN)
+{
+    using Fit = RoFit<PACKED, PAIRS>;
+    const int e = set_smem(forward_rollout_kernel<PACKED, PAIRS>, Fit::SMEM);
+    if (e) return e;
+    const int blocks = (Bt + Fit::W - 1) / Fit::W;
+    forward_rollout_kernel<PACKED, PAIRS><<<blocks, RO_THREADS, Fit::SMEM, st>>>(
+        N, Bt, src, (const scalar*)x0, (scalar*)ws, (scalar*)xN, maps,
+        (int)tma);
+    return (int)cudaGetLastError();
+}
+
 template <bool PACKED>
 int launch_rollout(int N, int Bt, cudaStream_t st, const RoSrc<PACKED>& src,
                    const void* x0, void* ws, void* xN)
 {
-    using Fit = RoFit<PACKED>;
-    constexpr int SZ = (int)sizeof(scalar);
-    bool tma = (size_t)Bt * SZ % 16 == 0;
+    using Fit = RoFit<PACKED, false>;
+    bool tma = true;
     for (int q = 0; q < Fit::NS; ++q)
-        tma = tma && ((size_t)src.p[q] & 15) == 0;
+        tma = tma && (size_t)Bt * ro_esz(PACKED, q) % 16 == 0
+            && ((size_t)src.p[q] & 15) == 0;
     RoMaps<PACKED> maps = {};
     for (int q = 0; tma && q < Fit::NS; ++q) {
-        const int rows = ro_rows(PACKED, q);
-        const int e = make_rows_map(&maps.m[q], src.p[q], (size_t)N * rows,
-                                    Bt, ro_box(rows, Fit::W), Fit::W, SZ);
-        if (e) return e;
+        const int rows = ro_rows(PACKED, q), e = ro_esz(PACKED, q);
+        const int err = make_rows_map(&maps.m[q], src.p[q], (size_t)N * rows,
+                                      Bt, ro_box(rows, Fit::W, e), Fit::W, e);
+        if (err) return err;
     }
-    const int e = set_smem(forward_rollout_kernel<PACKED>, Fit::SMEM);
-    if (e) return e;
-    const int blocks = (Bt + Fit::W - 1) / Fit::W;
-    forward_rollout_kernel<PACKED><<<blocks, RO_THREADS, Fit::SMEM, st>>>(
-        N, Bt, src, (const scalar*)x0, (scalar*)ws, (scalar*)xN, maps,
-        (int)tma);
-    return (int)cudaGetLastError();
+    if constexpr (NARROW)
+        if (!tma)        // narrow rows no box takes: the PAIRS form
+            return launch_rollout_form<PACKED, true>(N, Bt, st, src, maps,
+                                                     false, x0, ws, xN);
+    return launch_rollout_form<PACKED, false>(N, Bt, st, src, maps, tma, x0,
+                                              ws, xN);
 }
 
 #endif  // NC
@@ -2221,17 +2552,24 @@ int riccati_backward(int N, int Bt, int emit_mv, int export_factors,
     BackwardArgs a{};
     a.N = N; a.Bt = Bt; a.S = 1;
     a.stream = (cudaStream_t)stream;
-    a.A = (const scalar*)A; a.B = (const scalar*)B; a.c = (const scalar*)c;
-    a.H = (const scalar*)H; a.h = (const scalar*)h; a.D = (const scalar*)D;
-    a.rho = (const scalar*)rho; a.rg = (const scalar*)rg;
+    a.A = (const stage_t*)A; a.B = (const stage_t*)B; a.c = (const stage_t*)c;
+    a.H = (const stage_t*)H; a.h = (const stage_t*)h; a.D = (const stage_t*)D;
+    a.rho = (const stage_t*)rho; a.rg = (const stage_t*)rg;
     a.PN = (const scalar*)PN; a.pN = (const scalar*)pN;
     a.K = (scalar*)K; a.d = (scalar*)d; a.M = (scalar*)M; a.v = (scalar*)v;
     a.P = (scalar*)P; a.L = (scalar*)L;
+#ifdef STAGE_BF16
+    // Narrow stage streams: the gains-only form (solve_lanes') alone.
+    if (emit_mv || export_factors) return (int)cudaErrorInvalidValue;
+#else
     if (emit_mv && export_factors) return launch_backward<true, true, false, false>(a);
     if (emit_mv) return launch_backward<true, false, false, false>(a);
     if (export_factors) return launch_backward<false, true, false, false>(a);
+#endif
     return launch_backward<false, false, false, false>(a);
 }
+
+#ifndef STAGE_BF16
 
 // K9: S segments of N/S stages, a block a (segment, group of instances).  The
 // initial carries (Pi, pi, Fi, Ci, fi) and the boundary outputs (P0, p0,
@@ -2264,15 +2602,18 @@ int riccati_backward_pdp(int N, int Bt, int S, int export_factors,
     if (export_factors) return launch_backward<true, true, true, false>(a);
     return launch_backward<true, false, true, false>(a);
 }
+#endif  // STAGE_BF16
 
 // The instances a block of K1 (emit_mv, export_factors), K9 (pdp:
 // export_factors) or K11 (neither) serves on `pairs` (segment, instance)
 // pairs: G of the batch form (a compile-time consequence of the widths and
 // the dtype: SweepFit), or 0 where each instance takes a block of its own.
+// A narrow library's one form (gains only) whatever the switches.
 int riccati_sweep_group(int emit_mv, int export_factors, int pdp,
                         long long pairs)
 {
     if (one_block(pairs)) return 0;
+    if (NARROW) return SweepFit<false, false, false, false>::G;
     if (pdp)
         return export_factors ? SweepFit<true, true, true, false>::G
                               : SweepFit<true, false, true, false>::G;
@@ -2290,8 +2631,8 @@ int riccati_backward_packed(int N, int Bt, void* stream,
                             const void* pN, void* G)
 {
     if (N <= 0 || Bt <= 0) return 0;
-    const scalar* sd = (const scalar*)Sd;
-    const scalar* sc = (const scalar*)Sc;
+    const stage_t* sd = (const stage_t*)Sd;
+    const stage_t* sc = (const stage_t*)Sc;
     const size_t Bs = (size_t)Bt;
     BackwardArgs a{};
     a.N = N; a.Bt = Bt; a.S = 1;
@@ -2310,6 +2651,7 @@ int riccati_backward_packed(int N, int Bt, void* stream,
     return launch_backward<false, false, false, true>(a);
 }
 #else  // !NC
+#ifndef STAGE_BF16
 
 // Per-instance mode: one matrix set per scenario.
 int riccati_backward_vectors(int N, int Bt, int pc_mode, void* stream,
@@ -2417,6 +2759,7 @@ int riccati_backward_pdp_vectors(int N, int Bt, int S, void* stream,
         (scalar*)v, (scalar*)p0, (scalar*)f0);
     return (int)cudaGetLastError();
 }
+#endif  // STAGE_BF16
 
 int riccati_forward_rollout(int N, int Bt, void* stream,
                             const void* A, const void* B, const void* c,
@@ -2424,9 +2767,7 @@ int riccati_forward_rollout(int N, int Bt, void* stream,
                             void* ws, void* xN)
 {
     if (N <= 0 || Bt <= 0) return 0;
-    const RoSrc<false> src = {{(const scalar*)A, (const scalar*)B,
-                               (const scalar*)c, (const scalar*)K,
-                               (const scalar*)d}};
+    const RoSrc<false> src = {{A, B, c, K, d}};
     return launch_rollout<false>(N, Bt, (cudaStream_t)stream, src, x0, ws, xN);
 }
 
@@ -2435,7 +2776,7 @@ int riccati_forward_packed(int N, int Bt, void* stream, const void* Sd,
                            const void* G, const void* x0, void* ws, void* xN)
 {
     if (N <= 0 || Bt <= 0) return 0;
-    const RoSrc<true> src = {{(const scalar*)Sd, (const scalar*)G}};
+    const RoSrc<true> src = {{Sd, G}};
     return launch_rollout<true>(N, Bt, (cudaStream_t)stream, src, x0, ws, xN);
 }
 

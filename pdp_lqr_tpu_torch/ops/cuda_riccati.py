@@ -24,6 +24,14 @@ Python loop over stages on the same batch-last tensors.  A wrapper takes
 the plain version only for CPU tensors; a CUDA tensor goes to the kernel
 or the call raises.  Each wrapper counts its launches in ``LAUNCHES``.
 
+Narrow stage streams (``storage_dtype=torch.bfloat16`` on ``prepare_lanes``
+/ ``prepare_packed``): the per-scenario stage data A, B, c, H, h, D, rho,
+rho g stored in bfloat16 while the recursion runs in the compute type (the
+dtype of PN, K or G).  K1 (gains only), K7, K11 and K12 have forms that read
+the 2-byte streams and widen them on the card (their launches counted as
+``<name>[bf16]``); the plain versions widen each stage as they load it.  A
+narrow stream that reaches a form without such a kernel raises.
+
 Shared (broadcast) mode: one model serves B scenarios.  The shared matrix
 tensors carry a trailing batch dimension of size 1 — one copy that every
 thread reads — while the per-scenario vectors run the full batch.  The
@@ -56,7 +64,13 @@ SOURCE = "riccati_kernels.cu"
 LAUNCHES = {"backward_lanes": 0, "backward_vectors_lanes": 0,
             "forward_lanes": 0, "forward_rollout_lanes": 0,
             "backward_pdp_lanes": 0, "backward_pdp_vectors_lanes": 0,
-            "backward_packed": 0, "forward_packed": 0}
+            "backward_packed": 0, "forward_packed": 0,
+            "backward_lanes[bf16]": 0, "forward_rollout_lanes[bf16]": 0,
+            "backward_packed[bf16]": 0, "forward_packed[bf16]": 0}
+
+# The one narrow storage type of the stage streams (the JAX package's
+# ``storage_dtype``; its kernels take any, the ports' forms bfloat16).
+NARROW = torch.bfloat16
 
 _SCALARS = {torch.float32: "float", torch.float64: "double"}
 _PTR = ctypes.c_void_p
@@ -68,41 +82,51 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None) -> dict:
+def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
+                   narrow: bool = False) -> dict:
     """The ``-D`` flags of one specialisation of the kernel source: with
     ``nc`` the matrix sweeps (K1, K9, K11), without it the per-scenario
-    kernels (K2, K3, K7, K10, K12), which read no constraint rows."""
+    kernels (K2, K3, K7, K10, K12), which read no constraint rows.
+    ``narrow``: the forms on bfloat16 stage streams (K1 gains only and K11
+    with ``nc``, K7 and K12 without), and nothing else."""
     if dtype not in _SCALARS:
         raise TypeError(f"the kernels take float32 or float64, got {dtype}")
     defines = {"SCALAR": _SCALARS[dtype], "NX": nx, "NU": nu}
     if nc is not None:
         defines["NC"] = nc
+    if narrow:
+        defines["STAGE_BF16"] = 1
     return defines
 
 
-def _library(dtype, nx, nu, nc=None):
-    lib = _build.load(SOURCE, kernel_defines(dtype, nx, nu, nc))
+def _library(dtype, nx, nu, nc=None, narrow=False):
+    lib = _build.load(SOURCE, kernel_defines(dtype, nx, nu, nc, narrow=narrow))
     if not getattr(lib, "_riccati_bound", False):
-        bind_library(lib, with_matrix_sweep=nc is not None)
+        bind_library(lib, with_matrix_sweep=nc is not None, narrow=narrow)
     return lib
 
 
-def bind_library(lib, *, with_matrix_sweep: bool):
+def bind_library(lib, *, with_matrix_sweep: bool, narrow: bool = False):
     """Declare the C entry points' argument types (pointers and the stream
-    as ``c_void_p``: ctypes would cut them to 32 bits otherwise)."""
+    as ``c_void_p``: ctypes would cut them to 32 bits otherwise).  A
+    ``narrow`` library holds only the forms on bfloat16 stage streams."""
     if with_matrix_sweep:
         entries = {"riccati_backward": [_INT] * 4 + [_PTR] * 17,
-                   "riccati_backward_pdp": [_INT] * 4 + [_PTR] * 27,
                    "riccati_backward_packed": [_INT] * 2 + [_PTR] * 6}
+        if not narrow:
+            entries["riccati_backward_pdp"] = [_INT] * 4 + [_PTR] * 27
     else:
         entries = {
-            "riccati_backward_vectors": [_INT] * 3 + [_PTR] * 11,
-            "riccati_backward_vectors_shared": [_INT] * 3 + [_PTR] * 8,
-            "riccati_forward": [_INT] * 4 + [_PTR] * 8,
             "riccati_forward_rollout": [_INT] * 2 + [_PTR] * 9,
-            "riccati_backward_pdp_vectors": [_INT] * 3 + [_PTR] * 14,
             "riccati_forward_packed": [_INT] * 2 + [_PTR] * 6,
         }
+        if not narrow:
+            entries.update({
+                "riccati_backward_vectors": [_INT] * 3 + [_PTR] * 11,
+                "riccati_backward_vectors_shared": [_INT] * 3 + [_PTR] * 8,
+                "riccati_forward": [_INT] * 4 + [_PTR] * 8,
+                "riccati_backward_pdp_vectors": [_INT] * 3 + [_PTR] * 14,
+            })
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -111,13 +135,15 @@ def bind_library(lib, *, with_matrix_sweep: bool):
 
 
 def sweep_group(dtype, nx: int, nu: int, nc: int, pairs: int, *,
-                emit_closed_loop=True, export_factors=False, pdp=False) -> int:
+                emit_closed_loop=True, export_factors=False, pdp=False,
+                narrow=False) -> int:
     """The instances a block of the matrix sweep serves on ``pairs``
     (segment, instance) pairs (K1, or K9 with ``pdp``; K11 is K1 with
-    neither output): G of its batch form, the kernel's own compile-time
-    choice from the widths and the dtype, or 0 where each instance takes
-    a block of its own.  Builds the library (on a machine with ``nvcc``)."""
-    lib = _library(dtype, nx, nu, nc)
+    neither output; ``narrow``: their forms on bfloat16 stage streams): G
+    of its batch form, the kernel's own compile-time choice from the widths
+    and the dtype, or 0 where each instance takes a block of its own.
+    Builds the library (on a machine with ``nvcc``)."""
+    lib = _library(dtype, nx, nu, nc, narrow)
     lib.riccati_sweep_group.argtypes = [_INT] * 3 + [ctypes.c_longlong]
     lib.riccati_sweep_group.restype = _INT
     return lib.riccati_sweep_group(int(emit_closed_loop), int(export_factors),
@@ -137,6 +163,28 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name}: on {x.device}, expected {device}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _storage(name, stream, dt):
+    """The storage type of a kernel's stage streams (its first one's;
+    ``_check`` holds the others to it): the compute type ``dt`` or
+    bfloat16."""
+    if stream.dtype not in (dt, NARROW):
+        raise TypeError(
+            f"{name}: stage streams stored as {stream.dtype} under "
+            f"{dt} compute: the kernels take the compute type or bfloat16 "
+            f"(storage_dtype=torch.bfloat16 only)")
+    return stream.dtype
+
+
+def _check_aligned(name, streams):
+    """bfloat16 stage streams are copied in 4-byte pairs (K1, K11) and
+    by the copy engine (K7, K12): each must start on a 4-byte boundary."""
+    for sname, x in streams:
+        if x.data_ptr() % 4:
+            raise ValueError(f"{name}: {sname}: bfloat16 stage data must "
+                             f"start at a 4-byte boundary (the kernel "
+                             f"copies pairs)")
 
 
 def _check_status(name, status):
@@ -230,17 +278,21 @@ def _closed_loop(Ak, Bk, ck, K, d):
 def backward_lanes_reference(A, B, c, H, h, D, rho, rg, PN, pN, *,
                              export_factors=False, emit_closed_loop=True):
     """Plain PyTorch version of ``backward_lanes`` (same arguments, same
-    returns): a Python loop over the stages, k = N-1 .. 0."""
+    returns): a Python loop over the stages, k = N-1 .. 0, each stage's
+    data widened to the compute type (PN's) as it is loaded."""
     N = A.shape[0]
     P, p = PN, pN
+    up = lambda x: x.to(PN.dtype)
     Ks, ds, Ms, vs, Ps, Ls = [], [], [], [], [], []
     for k in range(N - 1, -1, -1):
-        Hk, hk = _fold_penalty(H[k], h[k], D[k], rho[k], rg[k])
-        K, d, L, _, Pn, pn = _sweep_stage(P, p, A[k], B[k], c[k], Hk, hk)
+        Ak, Bk, ck = up(A[k]), up(B[k]), up(c[k])
+        Hk, hk = _fold_penalty(up(H[k]), up(h[k]), up(D[k]), up(rho[k]),
+                               up(rg[k]))
+        K, d, L, _, Pn, pn = _sweep_stage(P, p, Ak, Bk, ck, Hk, hk)
         Ks.append(K)
         ds.append(d)
         if emit_closed_loop:
-            M, v = _closed_loop(A[k], B[k], c[k], K, d)
+            M, v = _closed_loop(Ak, Bk, ck, K, d)
             Ms.append(M)
             vs.append(v)
         if export_factors:
@@ -262,7 +314,7 @@ def _launch_backward(lib, A, B, c, H, h, D, rho, rg, PN, pN,
     """Allocate K1's outputs and launch it (no argument checks)."""
     N, nx, _, Bt = A.shape
     nu = B.shape[2]
-    new = lambda *shape: torch.empty(shape, dtype=A.dtype, device=A.device)
+    new = lambda *shape: torch.empty(shape, dtype=PN.dtype, device=A.device)
     K, d = new(N, nu, nx, Bt), new(N, nu, Bt)
     M = v = P = L = None
     if emit_closed_loop:
@@ -298,34 +350,51 @@ def backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN, *,
     backward_vectors_lanes while rho is unchanged.
     ``emit_closed_loop=False`` returns only (K, d)[, P, L].
 
+    The compute type is PN's (float32 or float64); the eight stage streams
+    A .. rg may be stored in bfloat16 (``prepare_lanes(storage_dtype=)``),
+    in the gains-only form (``emit_closed_loop=False``, no export).
+
     On the card: a warp an instance, a block of several consecutive
     instances that stage their data together (where the instances do not
     outnumber the SMs: a block each); see the note in the kernel source.
+    bfloat16 streams are staged an entry's scenarios a copy (where B is a
+    multiple of the block's instances; 4-byte pairs otherwise) and widened
+    in shared memory a stage ahead of use.
     """
     N, nx, _, Bt = A.shape
     nu = B.shape[2]
     nz = nx + nu
     nc = D.shape[1]
-    dt, dev = A.dtype, A.device
-    for name, x, shape in (
-        ("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
-        ("c", c, (N, nx, Bt)), ("H", H, (N, nz, nz, Bt)),
-        ("h", h, (N, nz, Bt)), ("D", D, (N, nc, nz, Bt)),
-        ("rho", rho, (N, nc, Bt)), ("rg", rg, (N, nc, Bt)),
-        ("PN", PN, (nx, nx, Bt)), ("pN", pN, (nx, Bt)),
-    ):
-        _check(name, x, shape, dt, dev)
+    dt, dev = PN.dtype, A.device
+    st = _storage("backward_lanes", A, dt)
+    streams = (("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
+               ("c", c, (N, nx, Bt)), ("H", H, (N, nz, nz, Bt)),
+               ("h", h, (N, nz, Bt)), ("D", D, (N, nc, nz, Bt)),
+               ("rho", rho, (N, nc, Bt)), ("rg", rg, (N, nc, Bt)))
+    for name, x, shape in streams:
+        _check(name, x, shape, st, dev)
+    _check("PN", PN, (nx, nx, Bt), dt, dev)
+    _check("pN", pN, (nx, Bt), dt, dev)
+    narrow = st != dt
+    if narrow and (emit_closed_loop or export_factors):
+        raise NotImplementedError(
+            "backward_lanes: bfloat16 stage streams run the gains-only form "
+            "(emit_closed_loop=False, export_factors=False) that solve_lanes "
+            "takes; the closed-loop maps and the factor export read the "
+            "compute type (ROADMAP M6: no path streams narrow data there)")
     if dev.type == "cpu":
         return backward_lanes_reference(
             A, B, c, H, h, D, rho, rg, PN, pN,
             export_factors=export_factors, emit_closed_loop=emit_closed_loop)
     if dev.type != "cuda":
         raise ValueError(f"backward_lanes: no kernel for device {dev}")
-    lib = _library(dt, nx, nu, nc)
+    if narrow:
+        _check_aligned("backward_lanes", [(n, x) for n, x, _ in streams])
+    lib = _library(dt, nx, nu, nc, narrow)
     with torch.cuda.device(dev):
         out = _launch_backward(lib, A, B, c, H, h, D, rho, rg, PN, pN,
                                export_factors, emit_closed_loop, _stream())
-    LAUNCHES["backward_lanes"] += 1
+    LAUNCHES["backward_lanes[bf16]" if narrow else "backward_lanes"] += 1
     return out
 
 
@@ -547,14 +616,16 @@ def forward_lanes(M, v, K, d, x0, *, shared=False, segments=None):
 # ------------------------------------------------------------------- K7
 
 def forward_rollout_lanes_reference(A, B, c, K, d, x0):
-    """Plain PyTorch version of ``forward_rollout_lanes``."""
+    """Plain PyTorch version of ``forward_rollout_lanes`` (A, B, c widened
+    to the compute type, K's, as each stage is loaded)."""
     N = A.shape[0]
+    up = lambda x: x.to(K.dtype)
     x = x0
     rows = []
     for k in range(N):
         u = _mv(K[k], x) + d[k]
         rows.append(torch.cat([u, x], dim=0))
-        x = _mv(A[k], x) + _mv(B[k], u) + c[k]
+        x = _mv(up(A[k]), x) + _mv(up(B[k]), u) + up(c[k])
     return torch.stack(rows, dim=0), x
 
 
@@ -562,8 +633,8 @@ def _launch_forward_rollout(lib, A, B, c, K, d, x0, stream):
     """Allocate K7's outputs and launch it (no argument checks)."""
     N, nx, _, Bt = A.shape
     nu = K.shape[1]
-    ws = torch.empty((N, nx + nu, Bt), dtype=A.dtype, device=A.device)
-    xN = torch.empty((nx, Bt), dtype=A.dtype, device=A.device)
+    ws = torch.empty((N, nx + nu, Bt), dtype=K.dtype, device=A.device)
+    xN = torch.empty((nx, Bt), dtype=K.dtype, device=A.device)
     status = lib.riccati_forward_rollout(
         N, Bt, stream, *(x.data_ptr() for x in (A, B, c, K, d, x0, ws, xN)))
     _check_status("forward_rollout_lanes", status)
@@ -578,29 +649,38 @@ def forward_rollout_lanes(A, B, c, K, d, x0):
     A (N,nx,nx,B), B (N,nx,nu,B), c (N,nx,B), K (N,nu,nx,B), d (N,nu,B),
     x0 (nx,B): the same result as forward_lanes on (M, v) = (A + B K,
     B d + c), without forming them (backward_lanes(emit_closed_loop=
-    False) skips computing and writing them).
+    False) skips computing and writing them).  The compute type is K's;
+    A, B, c may be stored in bfloat16.
 
     On the card: a block's warps take roles on 32 scenarios (producers
     staging whole stages through a ring of shared-memory slots, a chain
     lane a scenario, a store warp); see the note in the kernel source.
+    bfloat16 streams stay 2 bytes an entry in the slots, widened where the
+    chain reads them.
     """
     N, nx, _, Bt = A.shape
     nu = K.shape[1]
-    dt, dev = A.dtype, A.device
-    for name, x, shape in (
-        ("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
-        ("c", c, (N, nx, Bt)), ("K", K, (N, nu, nx, Bt)),
-        ("d", d, (N, nu, Bt)), ("x0", x0, (nx, Bt)),
-    ):
+    dt, dev = K.dtype, A.device
+    st = _storage("forward_rollout_lanes", A, dt)
+    streams = (("A", A, (N, nx, nx, Bt)), ("B", B, (N, nx, nu, Bt)),
+               ("c", c, (N, nx, Bt)))
+    for name, x, shape in streams:
+        _check(name, x, shape, st, dev)
+    for name, x, shape in (("K", K, (N, nu, nx, Bt)), ("d", d, (N, nu, Bt)),
+                           ("x0", x0, (nx, Bt))):
         _check(name, x, shape, dt, dev)
     if dev.type == "cpu":
         return forward_rollout_lanes_reference(A, B, c, K, d, x0)
     if dev.type != "cuda":
         raise ValueError(f"forward_rollout_lanes: no kernel for device {dev}")
-    lib = _library(dt, nx, nu)
+    narrow = st != dt
+    if narrow:
+        _check_aligned("forward_rollout_lanes", [(n, x) for n, x, _ in streams])
+    lib = _library(dt, nx, nu, narrow=narrow)
     with torch.cuda.device(dev):
         out = _launch_forward_rollout(lib, A, B, c, K, d, x0, _stream())
-    LAUNCHES["forward_rollout_lanes"] += 1
+    LAUNCHES["forward_rollout_lanes[bf16]" if narrow
+             else "forward_rollout_lanes"] += 1
     return out
 
 
@@ -824,6 +904,46 @@ def _join_terminal(ws, xN, nu):
     return torch.cat([ws, wN[:, None, :]], dim=1)
 
 
+def _stage_sources(problem, it, sigma, storage_dtype):
+    """The eight stage streams of a batched problem (leading batch axis),
+    at full width: (A, B, c, H~, h~, D, rho, rho g) of the non-terminal
+    stages; the terminal fold (PN, pN) batch-last, at full width from the
+    unrounded data; and the storage type (the compute type, or bfloat16).
+    rho g is the full-width product (rounded after it, as JAX rounds it)."""
+    dt = problem.A.dtype
+    st = dt if storage_dtype is None else storage_dtype
+    if st not in (dt, NARROW):
+        raise TypeError(
+            f"storage_dtype {storage_dtype}: the stage streams are stored in "
+            f"the compute type {dt} or bfloat16 (torch.bfloat16 only)")
+    nu = problem.nu
+    params = make_stage_params(problem, it, sigma)
+    with full_f32_matmul():
+        HN = params.H[:, -1, nu:, nu:]
+        hN = params.h[:, -1, nu:]
+        if problem.nc > 0:
+            DN, rhoN, gN = problem.D[:, -1, :, nu:], it.rho[:, -1], params.g[:, -1]
+            HN = HN + torch.einsum("bci,bc,bcj->bij", DN, rhoN, DN)
+            hN = hN - torch.einsum("bci,bc->bi", DN, rhoN * gN)
+    sources = (problem.A, problem.B, problem.c, params.H[:, :-1],
+               params.h[:, :-1], problem.D[:, :-1], it.rho[:, :-1],
+               it.rho[:, :-1] * params.g[:, :-1])
+    return sources, to_lanes(HN).contiguous(), to_lanes(hN).contiguous(), st
+
+
+def _lanes_into(out, src):
+    """``out`` (batch-last, its storage type) := the batch-leading ``src``:
+    one copy that transposes and rounds together, so a narrow stream makes
+    no full-width transient (rounding first and transposing after would
+    hold the stream twice; transposing first, at full width)."""
+    return out.copy_(to_lanes(src))
+
+
+def _x0_lanes(problem, x0):
+    x0 = torch.as_tensor(x0).to(device=problem.A.device, dtype=problem.A.dtype)
+    return x0.T.contiguous()
+
+
 def prepare_lanes(problem, it, x0, sigma: float, storage_dtype=None):
     """Transpose a batched problem (leading batch axis B on every field)
     and its iterates into the lanes layout: the argument tuple of
@@ -832,28 +952,17 @@ def prepare_lanes(problem, it, x0, sigma: float, storage_dtype=None):
     and contiguous.  The stage matrices are penalty-free: K1 folds
     rho D D^T itself; the terminal stage is folded here.
 
-    ``storage_dtype`` (narrow stage streams) is not ported and raises.
+    ``storage_dtype=torch.bfloat16`` stores the eight stage streams A, B,
+    c, H~, h~, D, rho, rho g narrow (each rounded from its full-width
+    value: half the device memory and traffic of the streams); PN, pN and
+    x0 stay in the compute type, which the kernels keep.  None, or the
+    compute type: full width.
     """
-    if storage_dtype is not None:
-        raise NotImplementedError(
-            "storage_dtype (narrow stage streams, ROADMAP M6) is not "
-            "ported: the kernels read the compute dtype")
-    nu = problem.nu
-    params = make_stage_params(problem, it, sigma)
-    lanes = lambda x: to_lanes(x).contiguous()
-    with full_f32_matmul():
-        HN = params.H[:, -1, nu:, nu:]
-        hN = params.h[:, -1, nu:]
-        if problem.nc > 0:
-            DN, rhoN, gN = problem.D[:, -1, :, nu:], it.rho[:, -1], params.g[:, -1]
-            HN = HN + torch.einsum("bci,bc,bcj->bij", DN, rhoN, DN)
-            hN = hN - torch.einsum("bci,bc->bi", DN, rhoN * gN)
-    x0 = torch.as_tensor(x0).to(device=problem.A.device, dtype=problem.A.dtype)
-    return (lanes(problem.A), lanes(problem.B), lanes(problem.c),
-            lanes(params.H[:, :-1]), lanes(params.h[:, :-1]),
-            lanes(problem.D[:, :-1]), lanes(it.rho[:, :-1]),
-            lanes(it.rho[:, :-1] * params.g[:, :-1]), lanes(HN), lanes(hN),
-            x0.T.contiguous(), nu)
+    sources, PN, pN, st = _stage_sources(problem, it, sigma, storage_dtype)
+    lanes = lambda x: _lanes_into(torch.empty(
+        x.shape[1:] + x.shape[:1], dtype=st, device=x.device), x)
+    return (*(lanes(x) for x in sources), PN, pN, _x0_lanes(problem, x0),
+            problem.nu)
 
 
 def solve_prepared(prep):
@@ -869,8 +978,9 @@ def solve_prepared(prep):
 
 def solve_lanes(problem, it, x0, sigma: float, *, storage_dtype=None):
     """Batched solve, one model a scenario: ``problem`` and ``it`` carry a
-    leading batch axis B, x0 (B, nx).  Returns ws (B, N+1, nz).
-    ``storage_dtype``: see prepare_lanes."""
+    leading batch axis B, x0 (B, nx).  Returns ws (B, N+1, nz) in the
+    compute type.  ``storage_dtype``: see prepare_lanes (bfloat16 stage
+    streams through the narrow forms of K1 and K7)."""
     return solve_prepared(prepare_lanes(problem, it, x0, sigma,
                                         storage_dtype))
 
@@ -903,13 +1013,6 @@ def _unpack_cost(Sc, nz, nc):
             Sc[:, o + nc * nz:o + nc * nz + nc], Sc[:, o + nc * nz + nc:])
 
 
-def _refuse_narrow(name, stream, dtype):
-    if stream.dtype != dtype:
-        raise NotImplementedError(
-            f"{name}: a {stream.dtype} stream under {dtype} gains is "
-            f"storage_dtype (narrow stage streams, ROADMAP M6), not ported")
-
-
 def backward_packed_reference(Sd, Sc, PN, pN, nu, nc):
     """Plain PyTorch version of ``backward_packed``: K1's (gains only) on
     the unpacked views."""
@@ -930,28 +1033,32 @@ def backward_packed(Sd, Sc, PN, pN, nu, nc):
     PN/pN the folded terminal cost-to-go.  Returns the packed gains
     G (N, nu*nx + nu, B).
 
+    The compute type (G's) is PN's; Sd and Sc may be stored in bfloat16.
+
     On the card: K1's kernel reading the packed strides (on the TPU the
     packing saved DMA windows; here it changes only the addresses)."""
     N, rows, Bt = Sd.shape
     nx = _packed_nx(rows, nu)
     nz = nx + nu
     dt, dev = PN.dtype, PN.device
-    _refuse_narrow("backward_packed", Sd, dt)
-    _refuse_narrow("backward_packed", Sc, dt)
-    for name, x, shape in (
-        ("Sd", Sd, (N, nx * (nx + nu + 1), Bt)),
-        ("Sc", Sc, (N, nz * nz + nz + nc * nz + 2 * nc, Bt)),
-        ("PN", PN, (nx, nx, Bt)), ("pN", pN, (nx, Bt)),
-    ):
-        _check(name, x, shape, dt, dev)
+    st = _storage("backward_packed", Sd, dt)
+    streams = (("Sd", Sd, (N, nx * (nx + nu + 1), Bt)),
+               ("Sc", Sc, (N, nz * nz + nz + nc * nz + 2 * nc, Bt)))
+    for name, x, shape in streams:
+        _check(name, x, shape, st, dev)
+    _check("PN", PN, (nx, nx, Bt), dt, dev)
+    _check("pN", pN, (nx, Bt), dt, dev)
     if dev.type == "cpu":
         return backward_packed_reference(Sd, Sc, PN, pN, nu, nc)
     if dev.type != "cuda":
         raise ValueError(f"backward_packed: no kernel for device {dev}")
-    lib = _library(dt, nx, nu, nc)
+    narrow = st != dt
+    if narrow:
+        _check_aligned("backward_packed", [(n, x) for n, x, _ in streams])
+    lib = _library(dt, nx, nu, nc, narrow)
     with torch.cuda.device(dev):
         G = _launch_backward_packed(lib, Sd, Sc, PN, pN, nu, _stream())
-    LAUNCHES["backward_packed"] += 1
+    LAUNCHES["backward_packed[bf16]" if narrow else "backward_packed"] += 1
     return G
 
 
@@ -978,27 +1085,28 @@ def forward_packed_reference(Sd, G, x0, nu):
 def forward_packed(Sd, G, x0, nu):
     """Packed-stream rollout from the raw dynamics: ``Sd`` as in
     backward_packed, ``G`` its packed gains, x0 (nx, B).  Returns
-    (ws (N, nz, B), xN (nx, B)).  A narrow Sd (the JAX function's
-    ``storage_dtype``) is not ported and raises.
+    (ws (N, nz, B), xN (nx, B)) in G's type, the compute type; Sd may be
+    stored in bfloat16 (the JAX function's ``storage_dtype``).
 
     On the card: K7's kernel reading the packed strides."""
     N, rows, Bt = Sd.shape
     nx = _packed_nx(rows, nu)
     dt, dev = G.dtype, G.device
-    _refuse_narrow("forward_packed", Sd, dt)
-    for name, x, shape in (
-        ("Sd", Sd, (N, nx * (nx + nu + 1), Bt)),
-        ("G", G, (N, nu * nx + nu, Bt)), ("x0", x0, (nx, Bt)),
-    ):
-        _check(name, x, shape, dt, dev)
+    st = _storage("forward_packed", Sd, dt)
+    _check("Sd", Sd, (N, nx * (nx + nu + 1), Bt), st, dev)
+    _check("G", G, (N, nu * nx + nu, Bt), dt, dev)
+    _check("x0", x0, (nx, Bt), dt, dev)
     if dev.type == "cpu":
         return forward_packed_reference(Sd, G, x0, nu)
     if dev.type != "cuda":
         raise ValueError(f"forward_packed: no kernel for device {dev}")
-    lib = _library(dt, nx, nu)
+    narrow = st != dt
+    if narrow:
+        _check_aligned("forward_packed", [("Sd", Sd)])
+    lib = _library(dt, nx, nu, narrow=narrow)
     with torch.cuda.device(dev):
         out = _launch_forward_packed(lib, Sd, G, x0, _stream())
-    LAUNCHES["forward_packed"] += 1
+    LAUNCHES["forward_packed[bf16]" if narrow else "forward_packed"] += 1
     return out
 
 
@@ -1020,14 +1128,20 @@ def prepare_packed(problem, it, x0, sigma: float, storage_dtype=None):
     streams row-concatenated into Sd = (A | B | c) and Sc = (H~ | h~ | D |
     rho | rho*g).  Returns the argument tuple for solve_packed_prepared,
     (Sd, Sc, PN, pN, x0, nu, nc).  ``storage_dtype``: see prepare_lanes
-    (not ported; raises)."""
-    A, B, c, H, h, D, rho, rg, PN, pN, x0_l, nu = prepare_lanes(
-        problem, it, x0, sigma, storage_dtype)
-    N, Bt, nc = A.shape[0], A.shape[-1], D.shape[1]
-    flat = lambda x: x.reshape(N, -1, Bt)
-    Sd = torch.cat([flat(A), flat(B), c], dim=1)
-    Sc = torch.cat([flat(H), h] + ([flat(D), rho, rg] if nc else []), dim=1)
-    return (Sd, Sc, PN, pN, x0_l, nu, nc)
+    (Sd and Sc narrow).  Each stream is copied into its rows of Sd or Sc
+    directly (no separate stream tensors)."""
+    sources, PN, pN, st = _stage_sources(problem, it, sigma, storage_dtype)
+    N, nx, Bt = problem.N, problem.nx, problem.A.shape[0]
+    nu, nc = problem.nu, problem.nc
+    nz = nx + nu
+    new = lambda rows: torch.empty((N, rows, Bt), dtype=st,
+                                   device=problem.A.device)
+    Sd = new(nx * (nx + nu + 1))
+    Sc = new(nz * nz + nz + nc * nz + 2 * nc)
+    for out, src in zip(_unpack_dynamics(Sd, nu) + _unpack_cost(Sc, nz, nc),
+                        sources):
+        _lanes_into(out, src)
+    return (Sd, Sc, PN, pN, _x0_lanes(problem, x0), nu, nc)
 
 
 def solve_packed_prepared(prep):

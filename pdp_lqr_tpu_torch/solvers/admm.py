@@ -697,8 +697,9 @@ def solve_fused(
     if storage_dtype is not None and split_mode:
         raise NotImplementedError(
             "storage_dtype on the split and ladder iterations (narrow "
-            "streams into K1, K4-K6) is not ported yet (ROADMAP M6); "
-            "single_kernel=True takes it")
+            "factor and stage streams into K4-K6; K1 builds the split "
+            "factors at full width) is not ported yet (ROADMAP Queue 1, M6 "
+            "split and ladder); single_kernel=True takes it")
 
     if single_kernel:
         return _solve_single_kernel(problem, x0, cones, settings, state,

@@ -40,8 +40,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
-    iter_factors, narrow_storage, random_admm_inputs, random_iter_inputs,
-    random_ladder_inputs,
+    iter_factors, narrow_storage, narrow_streams, pack_streams,
+    random_admm_inputs, random_iter_inputs, random_ladder_inputs,
 )
 from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr  # noqa: E402
 
@@ -51,7 +51,8 @@ HEADERS = {
     "cuda_pipeline.h": """#pragma once
 #include <cstring>
 #include <cstddef>
-inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::memcpy(d, s, n); }
+inline void __pipeline_memcpy_async(void* d, const void* s, size_t n, size_t z = 0)
+{ std::memcpy(d, s, n - z); std::memset((char*)d + n - z, 0, z); }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
 #define __launch_bounds__(...)
@@ -278,9 +279,10 @@ def _build_host(source: str, defines: dict) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
-def library(dtype, nx, nu, nc=None) -> ctypes.CDLL:
-    lib = build_host(cr.SOURCE, cr.kernel_defines(dtype, nx, nu, nc))
-    cr.bind_library(lib, with_matrix_sweep=nc is not None)
+def library(dtype, nx, nu, nc=None, narrow=False) -> ctypes.CDLL:
+    lib = build_host(cr.SOURCE, cr.kernel_defines(dtype, nx, nu, nc,
+                                                  narrow=narrow))
+    cr.bind_library(lib, with_matrix_sweep=nc is not None, narrow=narrow)
     return lib
 
 
@@ -659,6 +661,64 @@ def run_k7(dtype, nx, nu, N, Bt, tol):
           cr.forward_packed_reference(Sd, G, x0, nu), tol)
 
 
+def run_narrow_sweep(dtype, nx, nu, nc, N, Bt, tol, one=False):
+    """The matrix sweep's forms on bfloat16 stage streams (K1 gains only,
+    K11) on ``Bt`` instances, in the compute type ``dtype``: across its
+    groups of G, an entry of a group one copy where Bt is a multiple of G,
+    else pairs (a ragged last group; an odd Bt puts every other entry's
+    first instance in a pair's second half), or (``one``) a block an
+    instance."""
+    rng = np.random.default_rng(10)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} "
+           f"B={Bt} bf16" + (" a block an instance" if one else ""))
+    A, B, c, H, h, D, rho, rg, PN, pN = sweep_inputs(T, rng, dtype, nx, nu,
+                                                     nc, N, Bt)
+    narrow = narrow_streams((A, B, c, H, h, D, rho, rg))
+    defines = {**cr.kernel_defines(dtype, nx, nu, nc, narrow=True),
+               **({"EMU_SMS": 1 << 20} if one else {})}
+    lib = build_host(cr.SOURCE, defines)
+    cr.bind_library(lib, with_matrix_sweep=True, narrow=True)
+    ctypes.c_int.in_dll(lib, "emu_sms").value = defines.get("EMU_SMS", 1)
+    lib.riccati_sweep_group.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    G = lib.riccati_sweep_group(0, 0, 0, Bt)
+    if (G == 0) != one or not one and Bt <= G:
+        raise AssertionError(f"{tag}: B={Bt} takes G={G}")
+    # Copies of one run an entry where Bt is a multiple of G, else pairs.
+    tag += " runs" if G > 1 and Bt % G == 0 else " pairs"
+    check(f"K1 gains [{tag}]",
+          cr._launch_backward(lib, *narrow, PN, pN, False, False, None),
+          cr.backward_lanes_reference(*narrow, PN, pN,
+                                      emit_closed_loop=False), tol)
+    Sd, Sc = pack_streams(*narrow)
+    check(f"K11 [{tag}]",
+          [cr._launch_backward_packed(lib, Sd, Sc, PN, pN, nu, None)],
+          [cr.backward_packed_reference(Sd, Sc, PN, pN, nu, nc)], tol)
+
+
+def run_narrow_k7(dtype, nx, nu, N, Bt, tol):
+    """K7 and K12 on bfloat16 dynamics (A, B, c; Sd) and gains in the
+    compute type, across three blocks of W (the last ragged), N past the
+    ring's slots: boxes of a bfloat16 map where Bt is a multiple of 8, the
+    PAIRS form's aligned 4-byte pairs otherwise (an odd Bt: rows starting
+    mid-pair)."""
+    rng = np.random.default_rng(11)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} N={N} B={Bt} bf16"
+    A, B, c = narrow_streams((T(N, nx, nx, Bt) * 0.2, T(N, nx, nu, Bt) * 0.3,
+                              T(N, nx, Bt) * 0.1))
+    K, d, x0 = T(N, nu, nx, Bt) * 0.2, T(N, nu, Bt), T(nx, Bt)
+    lib = library(dtype, nx, nu, narrow=True)
+    check(f"K7 across blocks [{tag}]",
+          cr._launch_forward_rollout(lib, A, B, c, K, d, x0, None),
+          cr.forward_rollout_lanes_reference(A, B, c, K, d, x0), tol)
+    Sd = torch.cat([A.flatten(1, 2), B.flatten(1, 2), c], dim=1).contiguous()
+    G = torch.cat([K.flatten(1, 2), d], dim=1).contiguous()
+    check(f"K12 across blocks [{tag}]",
+          cr._launch_forward_packed(lib, Sd, G, x0, None),
+          cr.forward_packed_reference(Sd, G, x0, nu), tol)
+
+
 # (dtype, nx, nu, nc, N, Bt, Bs, tol).  Quadrotor widths in both dtypes
 # (one shared instance, as served; a batch of 64 fills its blocks, 70
 # leaves a ragged last block), no constraint rows, two odd small shapes.
@@ -826,6 +886,47 @@ WIDE_K7_CASES = [
     (torch.float64, 24, 6, 10, 70, 1e-10),
     (torch.float32, 24, 6, 12, 67, 1e-4),
 ]
+# (dtype, nx, nu, nc, N, Bt, tol[, one]): the narrow forms of the matrix
+# sweep (K1 gains only, K11 on bfloat16 stage streams) across their groups
+# (G = 4 in float64, 8 in float32 at the quadrotor's widths): Bt = 3G, an
+# entry one copy; the last ragged and Bt odd (2G + 3: pairs at odd
+# offsets; 2G + 2: even), at the widest widths in float64 (nx=40, nu=10:
+# the staging area within 227 KB; nx=24, nu=6, nc=6) and a block an
+# instance.
+NARROW_SWEEP_CASES = [
+    (torch.float64, 12, 4, 16, 4, 11, 1e-10),
+    (torch.float32, 12, 4, 16, 4, 24, 1e-4),
+    (torch.float64, 12, 4, 16, 5, 12, 1e-10),
+    (torch.float32, 24, 6, 6, 3, 12, 1e-4),
+    (torch.float32, 12, 4, 16, 4, 18, 1e-4),
+    (torch.float32, 12, 4, 16, 4, 19, 1e-4),
+    (torch.float64, 3, 2, 5, 6, 11, 1e-10),
+    (torch.float64, 12, 4, 16, 4, 5, 1e-10, True),
+    (torch.float32, 3, 2, 5, 4, 3, 1e-4, True),
+    (torch.float64, 40, 10, 0, 3, 5, 1e-10),
+    (torch.float64, 24, 6, 6, 3, 11, 1e-10),
+    (torch.float32, 40, 10, 0, 3, 7, 1e-4),
+]
+# (dtype, nx, nu, N, Bt, tol): the narrow forms of K7 and K12 across three
+# blocks, the last ragged, N past the slots: boxes of the bfloat16 map (72
+# in float32, 80 in float64: Bt a multiple of 8), pairs (67, 69, 37: odd,
+# 69 with streams that end mid-pair; 70, 250, 20 even but no multiple of
+# 8), at the quadrotor's
+# widths (8 slots), odd small ones, the centroidal model's (float64: W =
+# 16, 5 slots) and the mass-spring chain's (W = 8; 4 slots in float32, 3
+# in float64).
+NARROW_K7_CASES = [
+    (torch.float32, 12, 4, 19, 72, 1e-4),
+    (torch.float32, 12, 4, 19, 67, 1e-4),
+    (torch.float64, 12, 4, 10, 80, 1e-10),
+    (torch.float64, 12, 4, 10, 70, 1e-10),
+    (torch.float64, 3, 2, 25, 69, 1e-10),
+    (torch.float32, 12, 4, 5, 250, 1e-4),
+    (torch.float32, 40, 10, 16, 24, 1e-4),
+    (torch.float64, 40, 10, 7, 20, 1e-10),
+    (torch.float32, 24, 6, 9, 72, 1e-4),
+    (torch.float64, 24, 6, 11, 37, 1e-10),
+]
 WIDE = (WIDE_CASES, WIDE_ADMM_CASES, [], WIDE_ITER_CASES, [],
         WIDE_SWEEP_CASES, WIDE_K2_CASES, WIDE_K46_CASES, WIDE_K7_CASES)
 
@@ -837,11 +938,13 @@ QUICK, ADMM_QUICK, LADDER_QUICK = (CASES[:1] + WIDE_CASES[:1], ADMM_CASES[:2],
                                    LADDER_CASES[:1])
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
 K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
+NARROW_SWEEP_QUICK, NARROW_K7_QUICK = NARROW_SWEEP_CASES[:2], NARROW_K7_CASES[:2]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
          iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES,
-         k2_cases=K2_CASES, k46_cases=K46_CASES, k7_cases=K7_CASES):
+         k2_cases=K2_CASES, k46_cases=K46_CASES, k7_cases=K7_CASES,
+         narrow_sweep_cases=(), narrow_k7_cases=()):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -863,6 +966,10 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_k46(*case)
     for case in k7_cases:
         run_k7(*case)
+    for case in narrow_sweep_cases:
+        run_narrow_sweep(*case)
+    for case in narrow_k7_cases:
+        run_narrow_k7(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
@@ -871,8 +978,13 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     if "--quick" in args:
         sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
-                      SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK))
+                      SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK,
+                      NARROW_SWEEP_QUICK, NARROW_K7_QUICK))
     if "--wide" in args:
         sys.exit(main(*WIDE))
-    main()
+    if "--narrow" in args:
+        sys.exit(main([], [], [], [], [], [], [], [], [], NARROW_SWEEP_CASES,
+                      NARROW_K7_CASES))
+    main(narrow_sweep_cases=NARROW_SWEEP_CASES,
+         narrow_k7_cases=NARROW_K7_CASES)
     sys.exit(main(*WIDE))

@@ -6,7 +6,8 @@ them, and K1-K5 and K8 at the widest models' requests, on the card.
     python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
                                     [--kernels sweep latency k8 k3 k2 k5
                                                k4 k6 k7 wide]
-                                    [--profile]
+                                    [--profile] [--bf16]
+                                    [--batches B ...]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
 once with the kernels' calls recorded, as ``chip_smoke.py`` does; the
@@ -38,13 +39,18 @@ four-rung ladder).  ``k4`` and ``k6``: kernel A on the tensors of the
 last iteration of the 20-iteration ``solve_admm`` request (K4) and of the
 four-rung ladder request (K6, R=4), B=4096.  ``k7``: the rollout from
 the raw dynamics on the tensors ``solve_lanes`` hands K7 and
-``solve_packed`` hands K12 (B=4096).  ``wide``: K1-K5 and K8 on the
+``solve_packed`` hands K12 (B=4096; ``--batches`` others, e.g. 4094 and 4095,
+whose rows no copy-engine box takes).  ``wide``: K1-K5 and K8 on the
 tensors the four requests of the two widest models hand them (each run
 once with the calls recorded, as ``chip_smoke.py``'s phases
 ``mass_spring_solve``, ``centroidal_solve``, ``centroidal_admm_split`` and
 ``centroidal_admm_single`` run them: float32, mass-spring N=512, B=2048;
 centroidal N=1024, B=4096 and, in the ADMM loop, B=2048); a tree without
-those models cannot run it.  Each form is held against its
+those models cannot run it.  ``--bf16`` adds the forms on bfloat16 stage
+streams to ``sweep`` (K1 gains only and K11, on the tensors
+``solve_lanes`` and ``solve_packed`` hand them with
+``storage_dtype=torch.bfloat16``, B=4096) and to ``k7`` (K7 and K12 on
+theirs); a tree without them cannot run it.  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
@@ -110,10 +116,12 @@ K7_SECTIONS = ["producer: wait empty", "producer: copies",
                "chain: out rows", "store: wait full", "store: ws rows"]
 
 
-def sweep_runs(sm, dev, shared_only=False):
+def sweep_runs(sm, dev, shared_only=False, bf16=False, batches=None):
     """Run each path of the matrix sweep once at its serving shape with
     the kernels' calls recorded: name -> (launcher, args, kwargs, output
-    names, operations)."""
+    names, operations).  ``bf16``: also solve_lanes' and solve_packed's
+    on bfloat16 stage streams.  ``batches`` (at most 4096): solve_lanes'
+    K1, full width and (``bf16``) narrow, also at these."""
     import dataclasses
     import pdp_lqr_tpu_torch as plt_
     from pdp_lqr_tpu_torch.models import quadrotor
@@ -177,6 +185,27 @@ def sweep_runs(sm, dev, shared_only=False):
     record("backward_packed", "backward_packed",
            lambda: cr.solve_packed(lanes, it_b(sm.B_MAIN), x0, sm.SIGMA),
            ("G",), sm.k1_flops(N, NX, NU, NC, sm.B_MAIN))
+    if bf16:
+        narrow = dict(storage_dtype=torch.bfloat16)
+        record("backward_lanes[per-instance,gains,bf16]", "backward_lanes",
+               lambda: cr.solve_lanes(lanes, it_b(sm.B_MAIN), x0, sm.SIGMA,
+                                      **narrow),
+               sm.K1_GAINS, sm.k1_flops(N, NX, NU, NC, sm.B_MAIN))
+        record("backward_packed[bf16]", "backward_packed",
+               lambda: cr.solve_packed(lanes, it_b(sm.B_MAIN), x0, sm.SIGMA,
+                                       **narrow),
+               ("G",), sm.k1_flops(N, NX, NU, NC, sm.B_MAIN))
+    for B in batches or ():
+        if B == sm.B_MAIN:
+            continue
+        lanes_b = sm.batched(model, B, c[:B].contiguous())
+        for tag, kw in (("", {}),) + ((("bf16,", dict(
+                storage_dtype=torch.bfloat16)),) if bf16 else ()):
+            record(f"backward_lanes[per-instance,gains,{tag}B={B}]",
+                   "backward_lanes",
+                   lambda kw=kw: cr.solve_lanes(lanes_b, it_b(B), x0[:B],
+                                                sm.SIGMA, **kw),
+                   sm.K1_GAINS, sm.k1_flops(N, NX, NU, NC, B))
     return runs
 
 
@@ -334,9 +363,10 @@ def k4_k6_runs(sm, dev):
     }
 
 
-def k7_runs(sm, dev):
+def k7_runs(sm, dev, bf16=False, batches=None):
     """K7 and K12 on the tensors ``solve_lanes`` and ``solve_packed`` hand
-    them (quadrotor, N=512, B=4096, float32), each path run once with the
+    them (quadrotor, N=512, B=4096 or each of ``batches``, float32;
+    ``bf16``: also on bfloat16 stage streams), each path run once with the
     kernels' calls recorded: name -> (kernel call, plain call, output
     names, bytes read, operations)."""
     import dataclasses
@@ -344,32 +374,41 @@ def k7_runs(sm, dev):
     from pdp_lqr_tpu_torch.models import quadrotor
     from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
 
-    N, NX, NU, B, f32 = sm.N_MAIN, sm.NX, sm.NU, sm.B_MAIN, torch.float32
+    N, NX, NU, f32 = sm.N_MAIN, sm.NX, sm.NU, torch.float32
+    batches = batches or [sm.B_MAIN]
     model, _ = quadrotor(N=N, constrained=True, dtype=f32, device=dev)
     it = plt_.init_iterates(model, rho=sm.RHO)
     rng = np.random.default_rng(sm.SEED)
-    c = torch.as_tensor(rng.normal(size=(B, N, NX)) * 0.01).to(
+    Bmax = max(batches)
+    c = torch.as_tensor(rng.normal(size=(Bmax, N, NX)) * 0.01).to(
         device=dev, dtype=f32)
-    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(B, NX))).to(
+    x0 = torch.as_tensor(0.03 + 0.01 * rng.normal(size=(Bmax, NX))).to(
         device=dev, dtype=f32)
-    it_b = plt_.ADMMIterates(**{f.name: getattr(it, f.name)[None].expand(
-        (B,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
-    lanes = sm.batched(model, B, c)
     K7, K12 = "forward_rollout_lanes", "forward_packed"
-    with sm.recorded_calls(cr, [K7, K12]) as rec:
-        cr.solve_lanes(lanes, it_b, x0, sm.SIGMA)
-        cr.solve_packed(lanes, it_b, x0, sm.SIGMA)
-    torch.cuda.synchronize()
-    a7, a12 = rec[K7][0], rec[K12][0]
-    flops = sm.k7_flops(N, NX, NU, B)
-    return {
-        K7: (lambda: cr.forward_rollout_lanes(*a7),
-             lambda: cr.forward_rollout_lanes_reference(*a7), sm.K3_OUT,
-             sm.nbytes(*a7), flops),
-        K12: (lambda: cr.forward_packed(*a12),
-              lambda: cr.forward_packed_reference(*a12), sm.K3_OUT,
-              sm.nbytes(*a12[:3]), flops),
-    }
+    runs = {}
+    for B in batches:
+        it_b = plt_.ADMMIterates(**{f.name: getattr(it, f.name)[None].expand(
+            (B,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
+        lanes = sm.batched(model, B, c[:B].contiguous())
+        xb = x0[:B].contiguous()
+        flops = sm.k7_flops(N, NX, NU, B)
+        at = "" if B == sm.B_MAIN else f"[B={B}]"
+        for tag, kw in (("", {}),) + ((("[bf16]", dict(
+                storage_dtype=torch.bfloat16)),) if bf16 else ()):
+            with sm.recorded_calls(cr, [K7, K12]) as rec:
+                cr.solve_lanes(lanes, it_b, xb, sm.SIGMA, **kw)
+                cr.solve_packed(lanes, it_b, xb, sm.SIGMA, **kw)
+            torch.cuda.synchronize()
+            a7, a12 = rec[K7][0], rec[K12][0]
+            runs[K7 + tag + at] = (
+                lambda a7=a7: cr.forward_rollout_lanes(*a7),
+                lambda a7=a7: cr.forward_rollout_lanes_reference(*a7),
+                sm.K3_OUT, sm.nbytes(*a7), flops)
+            runs[K12 + tag + at] = (
+                lambda a12=a12: cr.forward_packed(*a12),
+                lambda a12=a12: cr.forward_packed_reference(*a12),
+                sm.K3_OUT, sm.nbytes(*a12[:3]), flops)
+    return runs
 
 
 def main():
@@ -384,6 +423,13 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="K8's, K2's, K5's, K4's, K6's, K7's and K12's "
                          "diagnostic builds: cycles a stage by section")
+    ap.add_argument("--bf16", action="store_true",
+                    help="sweep and k7: also the forms on bfloat16 stage "
+                         "streams")
+    ap.add_argument("--batches", type=int, nargs="*", default=None,
+                    help="k7: the batches to run (default 4096); sweep: "
+                         "solve_lanes' K1 also at these (at most 4096); "
+                         "a batch no multiple of 8 takes the word copies")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA device", file=sys.stderr)
@@ -435,6 +481,11 @@ def main():
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))   # K1
     if "wide" in args.kernels:
         jobs += sm.wide_build_jobs(ca, cr, dtypes=(f32,))
+    if args.bf16 and "sweep" in args.kernels:
+        jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC,
+                                                  narrow=True)))
+    if args.bf16 and "k7" in args.kernels:
+        jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, narrow=True)))
     paths = _build.build_many(jobs)
     regs = {}
     for job, p in zip(jobs, paths):
@@ -468,13 +519,15 @@ def main():
     for mode, make in (("sweep", sweep_runs), ("latency", latency_runs)):
         if mode not in args.kernels:
             continue
-        runs = make(sm, dev)
+        runs = (make(sm, dev, bf16=args.bf16, batches=args.batches)
+                if mode == "sweep"
+                else make(sm, dev))
         for name, (fn, a, kw, names, flops) in runs.items():
-            listed = (lambda r: [r]) if name == "backward_packed" else tuple
+            packed = name.startswith("backward_packed")
+            listed = (lambda r: [r]) if packed else tuple
             report(name, lambda: listed(fn(*a, **kw)),
                    lambda: listed(plain_of[fn](*a, **kw)), names,
-                   sm.nbytes(*(a[:4] if name == "backward_packed" else a)),
-                   flops)
+                   sm.nbytes(*(a[:4] if packed else a)), flops)
         del runs
 
     rng = np.random.default_rng(sm.SEED)
@@ -568,7 +621,7 @@ def main():
         del runs
 
     if "k7" in args.kernels:
-        runs = k7_runs(sm, dev)
+        runs = k7_runs(sm, dev, bf16=args.bf16, batches=args.batches)
         lib = cr._library(f32, NX, NU)
 
         def rollout_sections():
@@ -578,9 +631,11 @@ def main():
             return got if any(got["cycles_per_stage"].values()) else {}
 
         for name, (call, plain, names, moved, flops) in runs.items():
+            # (A narrow form's sections are in its own library's: none.)
             report(name, lambda call=call: tuple(call()),
                    lambda plain=plain: tuple(plain()), names, moved, flops,
-                   rollout_sections if args.profile else (lambda: {}))
+                   rollout_sections if args.profile and "bf16" not in name
+                   else (lambda: {}))
         del runs
 
     if "wide" in args.kernels:

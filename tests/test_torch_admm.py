@@ -392,8 +392,9 @@ def test_batched_ladder_is_a_value_error_as_in_jax(setup):
 BF16 = dict(storage_dtype=torch.bfloat16)
 
 
-# storage_dtype runs on K8 only: the split pair, the ladder's pair and
-# solve_lanes (K1, K4-K7) read the compute type, and K8 takes bfloat16.
+# storage_dtype runs on K8 and on the per-scenario inner solve (K1 gains
+# only + K7, K11 + K12: solve_lanes and solve_packed); the split pair and
+# the ladder's pair (K4-K6) read the compute type.
 @pytest.mark.parametrize("settings,batched,kwargs,match", [
     (FIXED, False, dict(single_kernel=False, **BF16), "split and ladder"),
     (dict(rho_ladder=(0.1, 1.0)), False, BF16, "split and ladder"),
@@ -407,19 +408,27 @@ BF16 = dict(storage_dtype=torch.bfloat16)
 ])
 def test_solve_fused_names_what_is_not_ported(setup, settings, batched, kwargs,
                                               match):
-    with pytest.raises(NotImplementedError, match=match):
-        if settings is None:
-            tp = setup["torch"]
-            it = plt_.init_iterates(tp)
-            batch = lambda x: x[None].expand((B,) + x.shape)
-            cr.solve_lanes(
-                plt_.LQRProblem(**{f.name: batch(getattr(tp, f.name))
+    if settings is None:
+        # Ported: solve_lanes on bfloat16 streams equals solve_packed on
+        # them bit for bit, and tracks the full-width solve within JAX's
+        # bound (tests/test_pallas.py:120); tests/test_torch_narrow_lanes.py
+        # holds both against JAX.
+        tp = setup["torch"]
+        it = plt_.init_iterates(tp)
+        batch = lambda x: x[None].expand((B,) + x.shape)
+        args = (plt_.LQRProblem(**{f.name: batch(getattr(tp, f.name))
                                    for f in dataclasses.fields(tp)}),
                 plt_.ADMMIterates(**{f.name: batch(getattr(it, f.name))
                                      for f in dataclasses.fields(it)}),
-                setup["x0"], 1e-6, **kwargs)
-        else:
-            _refused(setup, settings, batched=batched, **kwargs)
+                setup["x0"], 1e-6)
+        ws = cr.solve_lanes(*args, **kwargs)
+        full = cr.solve_lanes(*args)
+        assert ws.dtype == full.dtype == torch.float64
+        assert torch.equal(ws, cr.solve_packed(*args, **kwargs))
+        assert float((ws - full).abs().max() / full.abs().max()) <= 2e-2
+        return
+    with pytest.raises(NotImplementedError, match=match):
+        _refused(setup, settings, batched=batched, **kwargs)
 
 
 def test_server_split_false_runs_the_single_kernel(setup, monkeypatch):

@@ -8,7 +8,10 @@ K2 and the matrix sweep across their blocks, K5 packed with a cone and a
 shift and in its rung form past their rings' slots, K4 and K6 on four
 rungs across their blocks of 32 scenarios, the last ragged, K7 and K12
 across their blocks and past their ring's slots; K1-K3, K7 and K9-K12 at
-the mass-spring chain's widths, nx=40, nu=10, in float64) keeps
+the mass-spring chain's widths, nx=40, nu=10, in float64; the forms on
+bfloat16 stage streams of the matrix sweep, K1 gains only and K11, across
+their groups on an odd batch, and of K7 and K12 across their blocks on
+bfloat16 boxes and, on an odd batch, in aligned pairs) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
@@ -29,4 +32,5 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
     spec.loader.exec_module(emu)
     assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK,
                     emu.ITER_QUICK, emu.K3_QUICK, emu.SWEEP_QUICK,
-                    emu.K2_QUICK, emu.K46_QUICK, emu.K7_QUICK) == 0
+                    emu.K2_QUICK, emu.K46_QUICK, emu.K7_QUICK,
+                    emu.NARROW_SWEEP_QUICK, emu.NARROW_K7_QUICK) == 0

@@ -390,7 +390,11 @@ def test_cpu_path_launches_no_kernel(port_prep):
                            "forward_lanes": 0, "forward_rollout_lanes": 0,
                            "backward_pdp_lanes": 0,
                            "backward_pdp_vectors_lanes": 0,
-                           "backward_packed": 0, "forward_packed": 0}
+                           "backward_packed": 0, "forward_packed": 0,
+                           "backward_lanes[bf16]": 0,
+                           "forward_rollout_lanes[bf16]": 0,
+                           "backward_packed[bf16]": 0,
+                           "forward_packed[bf16]": 0}
     assert ca.LAUNCHES == {"admm_bwd_vec_prefold_lanes": 0,
                            "admm_bwd_vec_lanes": 0,
                            "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0}
@@ -516,12 +520,15 @@ def test_solve_packed_matches_jax_and_solve_lanes(jax_packed, constrained):
 
 
 def test_packed_refuses_narrow_streams(jax_packed):
+    # Narrow streams are bfloat16 only (tests/test_torch_narrow_lanes.py
+    # holds those against JAX): float32 streams under float64 gains, and
+    # any other storage_dtype, are refused by name.
     ref = jax_packed[True]
     Sd, G, x0 = _t(ref["Sd"]), _t(ref["G"]), _t(ref["x0"])
-    with pytest.raises(NotImplementedError, match="storage_dtype"):
+    with pytest.raises(TypeError, match="storage_dtype=torch.bfloat16 only"):
         cr.forward_packed(Sd.float(), G, x0, 4)
-    with pytest.raises(NotImplementedError, match="storage_dtype"):
+    with pytest.raises(TypeError, match="torch.bfloat16 only"):
         cr.solve_packed(*_packed_inputs(jax_packed, True), SIGMA,
-                        storage_dtype=torch.bfloat16)
+                        storage_dtype=torch.float16)
     with pytest.raises(ValueError, match="not nx"):
         cr.forward_packed(Sd[:, :-1], G, x0, 4)
