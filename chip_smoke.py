@@ -22,8 +22,12 @@ path at N=64 (per-scenario rho), cached factors at N=512 (float32 and
 bfloat16 stage data) checked at N=64 in float64 against the split pair, a
 batched problem of B=1024 at N=64 (uncached, cached, cached with bfloat16)
 checked against the replicated loop, and the rocket soft-landing
-dispersion (B=512, N=48, two cones, ``single_kernel="auto"``); bfloat16
-stage streams on the per-scenario inner solve (``solve_lanes`` and
+dispersion (B=512, N=48, two cones, ``single_kernel="auto"``); the split
+and ladder requests with bfloat16 stage and factor streams (phases
+``admm_split_bf16`` and ``admm_ladder_bf16``: the narrow forms of K4, K5
+and K6, checked in float64 against the plain versions, beside the float32
+requests' answers, times and peak memory, and beside K8's cached bfloat16
+request); bfloat16 stage streams on the per-scenario inner solve (``solve_lanes`` and
 ``solve_packed`` with ``storage_dtype``: phases ``lanes_bf16`` and
 ``packed_bf16`` at B=4096, N=512, and ``centroidal_lanes_bf16`` at N=1024,
 B=4096, each beside its float32 request's answer, time and peak memory);
@@ -724,6 +728,75 @@ def narrow_streams(streams):
     return tuple(x.to(torch.bfloat16).contiguous() for x in streams)
 
 
+# The narrow sets of the split kernels' argument tuples (positions): K4's
+# AK, BL, c; K5's (k5_call's tuple) M or MK, Hs, D, h; K6's A, B, h, D, P,
+# L, K, c.  K5's rung form adds its K, passed apart.
+K4_NARROW, K5_NARROW, K6_NARROW = (1, 2, 3), (2, 3, 4, 8), (2, 3, 4, 5, 7,
+                                                            8, 9, 10)
+
+
+def narrow_args(args, positions):
+    """An argument tuple with the tensors at ``positions`` stored as
+    bfloat16 (contiguous; None stays None)."""
+    return tuple(x.to(torch.bfloat16).contiguous()
+                 if i in positions and x is not None else x
+                 for i, x in enumerate(args))
+
+
+# The narrow split kernels' forms held in ``kernels``: K5 packed with
+# hf-emit in two modes (name, nc, cones, diagonal cost, shift), K6 and K5's
+# rung form on R rungs.
+NARROW_K5_MODES = (("box,diag", NC, (), True, False),
+                   ("soc+shift,full-Hs", NC_CONE, THRUST_CONE, False, True))
+NARROW_RUNGS = (2, len(LADDER))
+
+
+def narrow_split_defines(ca, dt):
+    """The ``-D`` flags of the narrow split kernels' libraries that
+    ``kernels`` and the two narrow phases use, compute type ``dt``."""
+    out = [ca.kernel_defines(dt, NX, NU, narrow=True)]
+    out += [ca.kernel_defines(dt, NX, NU, nc, cones=cones, diag_cost=diag,
+                              has_shift=shift, narrow=True)
+            for _, nc, cones, diag, shift in NARROW_K5_MODES]
+    for R in NARROW_RUNGS:
+        out += [ca.kernel_defines(dt, NX, NU, NC, fold=True, rungs=R,
+                                  narrow=True),
+                ca.kernel_defines(dt, NX, NU, NC, diag_cost=True, rungs=R,
+                                  narrow=True)]
+    return out
+
+
+def narrow_split_cases(ca, compare, rng, A, Bm, K, M, L, Bt):
+    """The narrow split kernels against their plain versions on one shared
+    model's factors (A, Bm, K, M, L; trailing size 1) and ``Bt`` scenarios:
+    K4, K5 packed with hf-emit in NARROW_K5_MODES, K6 and K5's rung form
+    (no hf, the ladder's) on NARROW_RUNGS rungs; the narrow sets bfloat16."""
+    for i, (mode, nc, cones, diag, shift) in enumerate(NARROW_K5_MODES):
+        k4_in, k5_in = random_admm_inputs(rng, A, Bm, K, M, L, nc, Bt, cones,
+                                          diag, shift)
+        k4_in, k5_in = narrow_args(k4_in, K4_NARROW), narrow_args(k5_in,
+                                                                  K5_NARROW)
+        if i == 0:
+            compare(f"admm_bwd_vec_prefold_lanes[bf16,B={Bt}]", K4_OUT,
+                    [ca.admm_bwd_vec_prefold_lanes(*k4_in, nu=NU)],
+                    [ca.admm_bwd_vec_prefold_lanes_reference(*k4_in, nu=NU)])
+        compare(f"admm_fwd_update_lanes[bf16,{mode},B={Bt}]", K5_OUT,
+                k5_call(ca, k5_in, cones), k5_plain(ca, k5_in, cones))
+    for R in NARROW_RUNGS:
+        k6_in, k5_in, rung, _ = random_ladder_inputs(rng, A, Bm, R, NC, Bt,
+                                                     (), True, False)
+        k6_in = narrow_args(k6_in, K6_NARROW)
+        k5_in = narrow_args(k5_in[:8] + (None,), K5_NARROW)
+        tag = f"R={R},B={Bt}"
+        compare(f"admm_bwd_vec_lanes[bf16,{tag}]", K6_OUT,
+                [ca.admm_bwd_vec_lanes(*k6_in, nu=NU, sigma=SIGMA, rung=rung)],
+                [ca.admm_bwd_vec_lanes_reference(*k6_in, nu=NU, sigma=SIGMA,
+                                                 rung=rung)])
+        compare(f"admm_fwd_update_lanes[bf16,rung,{tag},hf=0]", K5_RUNG_OUT,
+                k5_call(ca, k5_in, (), K=k6_in[9], rung=rung),
+                k5_plain(ca, k5_in, (), K=k6_in[9], rung=rung))
+
+
 def narrow_group_batches(cr, dt, nx, nu, nc):
     """Two batches that reach the batch form of K1 / K11 on bfloat16 stage
     streams (G instances a block, the library's own G): the first multiple
@@ -923,7 +996,8 @@ def wide_build_jobs(ca, cr, dtypes=(torch.float32, torch.float64)):
     """The specialisations of every kernel at the two wide widths, in
     ``dtypes``: the matrix sweeps (K1, K9, K11), the per-scenario kernels
     (K2, K3, K7, K10, K12), their narrow forms (bfloat16 stage streams),
-    K4, K5 (the cones, diagonal cost), K6 (one rung) and K8 (the cones)."""
+    K4, K5 (the cones, diagonal cost), K6 (one rung), the narrow forms of
+    those three, and K8 (the cones)."""
     jobs = []
     for dt in dtypes:
         for nx, nu, nc, cones, nca in WIDE.values():
@@ -938,6 +1012,11 @@ def wide_build_jobs(ca, cr, dtypes=(torch.float32, torch.float64)):
                 (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, fold=True)),
                 (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, cones=cones,
                                               single=True)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu, narrow=True)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, cones=cones,
+                                              diag_cost=True, narrow=True)),
+                (ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, fold=True,
+                                              narrow=True)),
             ]
     return jobs
 
@@ -1121,6 +1200,30 @@ def kernels_wide(ca, cr, dev):
                                                Pc=Pc6)],
                         [ca.admm_bwd_vec_lanes_reference(*pc6, nu=nu,
                                                          sigma=SIGMA, Pc=Pc6)])
+                # Their narrow forms: the narrow sets of the same inputs
+                # stored as bfloat16.
+                k4n, k5n, k6n = (narrow_args(k4, K4_NARROW),
+                                 narrow_args(k5, K5_NARROW),
+                                 narrow_args(k6, K6_NARROW))
+                check("admm_bwd_vec_prefold_lanes[bf16]",
+                      "admm_bwd_vec_prefold_lanes[bf16]", K4_OUT,
+                      lambda: [ca.admm_bwd_vec_prefold_lanes(*k4n, nu=nu)],
+                      lambda: [ca.admm_bwd_vec_prefold_lanes_reference(
+                          *k4n, nu=nu)],
+                      k2_flops(N, nx, nu, Bt), k4n, "pallas_admm.py:526")
+                check("admm_fwd_update_lanes[bf16]",
+                      "admm_fwd_update_lanes[bf16]", K5_OUT,
+                      lambda: k5_call(ca, k5n, cones, nu=nu),
+                      lambda: k5_plain(ca, k5n, cones, nu=nu),
+                      k5_flops(N, nx, nu, nca, Bt, True), k5n,
+                      "pallas_admm.py:867")
+                check("admm_bwd_vec_lanes[bf16]", "admm_bwd_vec_lanes[bf16]",
+                      K6_OUT,
+                      lambda: [ca.admm_bwd_vec_lanes(*k6n, nu=nu,
+                                                     sigma=SIGMA)],
+                      lambda: [ca.admm_bwd_vec_lanes_reference(
+                          *k6n, nu=nu, sigma=SIGMA)],
+                      k6_flops(N, nx, nu, nca, Bt), k6n, "pallas_admm.py:766")
                 # K8 in its eight forms: shared or batched, cached or not,
                 # the stage data in the compute type or bfloat16.
                 for shared in (True, False):
@@ -1408,10 +1511,11 @@ def peak_of(request):
     return {"peak_memory_bytes": peak, "request_peak_bytes": peak - base}
 
 
-def narrow_entry(cr, name, counter, phase, launches, call, plain, names,
+def narrow_entry(mod, name, counter, phase, launches, call, plain, names,
                  flops, inputs, replaces, reps, tol):
-    """A ``kernels`` line entry of a narrow form, on the tensors of its
-    phase's counted run, measured now (the phase frees them after)."""
+    """A ``kernels`` line entry of a narrow form of a kernel of ``mod``
+    (cuda_riccati or cuda_admm), on the tensors of its phase's counted run,
+    measured now (the phase frees them after)."""
     out = call()
     ref, plain_ms = event_ms(plain)              # the plain version, once
     abs_err, rel = rel_err(names, out, ref)
@@ -1419,7 +1523,7 @@ def narrow_entry(cr, name, counter, phase, launches, call, plain, names,
     moved = nbytes(*(x for x in inputs if isinstance(x, torch.Tensor)), *out)
     bound_ms, bound_by = bound(moved, flops)
     return {"name": name, "route": "cuda",
-            "source": "pdp_lqr_tpu_torch/ops/csrc/" + cr.SOURCE,
+            "source": "pdp_lqr_tpu_torch/ops/csrc/" + mod.SOURCE,
             "replaces": "pdp_lqr_tpu/ops/" + replaces,
             "launches": launches[counter],
             "launches_by_path": {phase: launches[counter]},
@@ -1627,6 +1731,202 @@ def centroidal_lanes_bf16(plt_, ca, cr, dev, card):
     narrow_phase("centroidal_lanes_bf16_B2048", plt_, ca, cr, card, False,
                  *half, ws_full, cen, dev, WIDE_TIMED_REQUESTS,
                  WIDE_KERNEL_RTOL, ",centroidal", counted=False)
+    return entries
+
+
+def wrapper_dtypes(args):
+    """The floating dtypes of the tensors each recorded wrapper call was
+    handed, by wrapper name."""
+    return {name: sorted({str(x.dtype).split(".")[-1]
+                          for x in list(a) + list(kw.values())
+                          if isinstance(x, torch.Tensor)
+                          and x.is_floating_point()})
+            for name, (a, kw) in args.items()}
+
+
+def factor_steps(got, ref):
+    """How two sets of bfloat16 factors (AK, BL, MK) differ: the share of
+    entries that differ and the largest difference over each stream's
+    largest magnitude."""
+    out = {}
+    for name, a, b in zip(("AK", "BL", "MK"), got, ref):
+        a, b = a.float().cpu(), b.float().cpu()
+        out[name] = {"share_differing": float((a != b).float().mean()),
+                     "max_rel": float((a - b).abs().max() / b.abs().max())}
+    return out
+
+
+def admm_bf16_phases(plt_, admm, ca, cr, card, model, c_t, x0_t, c_np, x0_np,
+                     n_ref, settings, st_lad, ladder_state, full_requests,
+                     k8_bf16):
+    """``admm_split_bf16`` and ``admm_ladder_bf16``: admm_path's and
+    admm_ladder's requests (quadrotor N=512, B=4096, float32 compute) with
+    ``storage_dtype=bfloat16`` through the narrow forms of K4, K5 and K6,
+    each counted from zero with the tensors it hands its kernels recorded,
+    those tensors' types, its kernels' entries of the ``kernels`` line,
+    held against the plain versions in float64, and beside its float32
+    request: the difference (reported, not gated), peak memory and times
+    in turns; the split one also beside K8's cached bfloat16 request (the
+    ``auto`` rule).  Returns the entries."""
+    bf16 = torch.bfloat16
+    model_c = dataclasses.replace(model, c=c_t)
+    cpu = model.to(device="cpu", dtype=torch.float64)
+    cpu_c = dataclasses.replace(cpu, c=torch.as_tensor(c_np[:n_ref]).double())
+    x0_ref = x0_np[:n_ref].astype(np.float64)
+    Bb = x0_t.shape[0]
+    K4, K5, K6 = ("admm_bwd_vec_prefold_lanes", "admm_fwd_update_lanes",
+                  "admm_bwd_vec_lanes")
+    # The ladder's start state made once, as its float32 request's is.
+    lad_state = ladder_state(Bb, torch.float32, x0_t.device)
+    requests = {
+        "admm_split_bf16": lambda: plt_.solve_fused(
+            model_c, x0_t, (), settings, single_kernel=False,
+            storage_dtype=bf16),
+        "admm_ladder_bf16": lambda: plt_.solve_fused(
+            model_c, x0_t, (), st_lad, state=lad_state, single_kernel=False,
+            storage_dtype=bf16)}
+    entries = []
+    for phase, request in requests.items():
+        split = phase == "admm_split_bf16"
+        forms = (K4, K5) if split else (K6, K5)
+        request()                                # builds nothing new; warms up
+        torch.cuda.synchronize()
+        cr.reset_launch_counts()
+        ca.reset_launch_counts()
+        admm.reset_host_reads()
+        with recorded_calls(ca, list(forms)) as args:
+            out = request()
+        torch.cuda.synchronize()
+        launches = {**cr.LAUNCHES, **ca.LAUNCHES}
+        host_reads = dict(admm.HOST_READS)
+        require(launches == {**zero_counts(), "backward_lanes": 1,
+                             forms[0] + "[bf16]": ADMM_ITERS,
+                             forms[1] + "[bf16]": ADMM_ITERS}, phase, launches)
+        ws, state, info = out
+        require(ws.shape == (Bb, N_MAIN + 1, NX + NU), phase, ws.shape)
+        for x in (ws, state.w, state.z, state.y, state.rho, info.r_prim):
+            require(x.dtype == torch.float32 and x.device.type == "cuda", phase)
+        require(bool(torch.isfinite(ws).all()), phase, "non-finite output")
+        # What reached the kernels: the narrow sets in bfloat16, the rest
+        # (iterates, bounds, rho, the pre-folded P c) in float32.
+        types = wrapper_dtypes(args)
+        require(all(t == ["bfloat16", "float32"] for t in types.values()),
+                phase, types)
+        # (K5's M or MK, K, Hs, D; its h by keyword.)
+        narrow_pos = {K4: K4_NARROW, K6: K6_NARROW, K5: (2, 3, 4, 5)}
+        for form in forms:
+            a, kw = args[form]
+            for i in narrow_pos[form]:
+                require(a[i] is None or a[i].dtype == bf16, phase, form, i)
+            require(kw.get("h") is None or kw["h"].dtype == bf16, phase)
+        # Against the plain versions in float64.  The split request: on the
+        # first scenarios from zero iterates and its own bfloat16 factors
+        # (no refactor within 20 iterations), so both read the same
+        # rounded factors: admm_path's limit.  The ladder has no factor
+        # state: the same narrow request in float64 on the card's kernels,
+        # first scenarios, against the plain versions (both build the
+        # factors in float64: the same rounded factors).
+        if split:
+            f = state.factors
+            require([x.dtype for x in f] == [bf16] * 3 + [torch.float32] * 2,
+                    phase, [x.dtype for x in f])
+            rho_f = f[4][:n_ref].double().cpu()
+            own = admm.ADMMState(**{
+                k: torch.zeros((n_ref,) + tuple(getattr(state, k).shape[1:]),
+                               dtype=torch.float64) for k in ("w", "z", "y")},
+                rho=rho_f.clone(), factors=(
+                    f[0].cpu(), f[1].cpu(), f[2].cpu(),
+                    f[3][..., :n_ref].double().cpu(), rho_f))
+            ref = admm_outputs(*plt_.solve_fused(
+                cpu_c, x0_ref, (), settings, state=own, single_kernel=False,
+                storage_dtype=bf16))
+            errs = admm_errors(admm_outputs(ws, state, info, n_ref), ref)
+            atol = ADMM_PATH_ATOL
+            cold = plt_.solve_fused(cpu_c, x0_ref, (), settings,
+                                    single_kernel=False, storage_dtype=bf16)
+            cold_f32_f64 = {
+                "max_abs_err": admm_errors(admm_outputs(ws, state, info,
+                                                        n_ref),
+                                           admm_outputs(*cold)),
+                "factors_vs_f64_build": factor_steps(f, cold[1].factors)}
+        else:
+            dev = x0_t.device
+            got = plt_.solve_fused(
+                cpu_c.to(device=dev), torch.as_tensor(x0_ref).to(dev), (),
+                st_lad, state=ladder_state(n_ref, torch.float64, dev),
+                single_kernel=False, storage_dtype=bf16)
+            ref = admm_outputs(*plt_.solve_fused(
+                cpu_c, x0_ref, (), st_lad,
+                state=ladder_state(n_ref, torch.float64, "cpu"),
+                single_kernel=False, storage_dtype=bf16))
+            errs = admm_errors(admm_outputs(*got), ref)
+            atol = SINGLE_CROSS_ATOL
+            cold_f32_f64 = {"max_abs_err": admm_errors(
+                admm_outputs(ws, state, info, n_ref), ref)}
+        require(max(errs.values()) <= atol, phase, errs)
+        # Beside the float32 request: the rounding's effect (reported),
+        # peak memory, times in turns.
+        full = admm_outputs(*full_requests[phase]())
+        narrow = admm_outputs(ws, state, info)
+        vs_full = {k: float((narrow[k] - full[k]).abs().max()
+                            / max(1e-30, float(full[k].abs().max())))
+                   for k in full}
+        del out, ws, state, info, narrow, full
+        mem = {"float32": peak_of(full_requests[phase]),
+               "bfloat16": peak_of(request)}
+        turns = {"float32": full_requests[phase], "bfloat16": request}
+        if split:
+            turns["k8_cached_bfloat16"] = k8_bf16
+        t = in_turns(turns, NARROW_TURN_REPS)
+        # The kernels line's entries, on the counted run's tensors.
+        ph = []
+        for form in forms:
+            a, kw = args[form]
+            if form == K5:
+                k5_in = (a[0], a[1], a[2], a[4], a[5], a[6], a[10], a[11],
+                         kw.get("h"))
+                call = lambda a=a, kw=kw: ca.admm_fwd_update_lanes(*a, **kw)
+                plain = lambda k5_in=k5_in, a=a, kw=kw: k5_plain(
+                    ca, k5_in, kw["cones"], K=a[3], rung=kw.get("rung"))
+                names = K5_OUT if split else K5_RUNG_OUT
+                flops = k5_flops(N_MAIN, NX, NU, NC, Bb, True, emit_hf=split)
+                inputs = k5_in + (a[3], kw.get("rung"))
+                name = f"{K5}[bf16]" if split else f"{K5}[bf16,rung]"
+                replaces = "pallas_admm.py:867"
+            else:
+                fn, ref_fn = getattr(ca, form), getattr(ca, form + "_reference")
+                call = lambda a=a, kw=kw, fn=fn: [fn(*a, **kw)]
+                plain = lambda a=a, kw=kw, fn=ref_fn: [fn(*a, **kw)]
+                names = K4_OUT
+                flops = (k2_flops(N_MAIN, NX, NU, Bb) if split
+                         else k6_flops(N_MAIN, NX, NU, NC, Bb))
+                inputs = a + ((kw.get("rung"),) if not split else ())
+                name = f"{form}[bf16]"
+                replaces = "pallas_admm.py:526" if split else "pallas_admm.py:766"
+            ph.append(narrow_entry(ca, name, form + "[bf16]", phase, launches,
+                                   call, plain, names, flops, inputs,
+                                   replaces, TIMED_REQUESTS,
+                                   TOL[torch.float32]))
+        entries += ph
+        emit(phase, card=card, model="quadrotor constrained", N=N_MAIN, B=Bb,
+             dtype="float32", storage_dtype="bfloat16",
+             settings=ADMM_SETTINGS if split else LADDER_SETTINGS,
+             launches=launches, host_reads=host_reads, wrapper_dtypes=types,
+             max_abs_err_vs_plain_f64=errs, atol=atol,
+             f64_reference=("the request's first scenarios from its own "
+                            "bfloat16 factors" if split else
+                            "the float64 request on the card's kernels, "
+                            "first scenarios"),
+             f32_request_vs_cold_plain_f64=cold_f32_f64,
+             rel_diff_vs_float32_request=vs_full,
+             request_ms=t, solves_per_s={k: Bb / (v * 1e-3)
+                                         for k, v in t.items()},
+             kernel_ms={e["name"]: e["ms"] for e in ph},
+             kernel_bound_ms={e["name"]: e["bound_ms"] for e in ph},
+             memory=mem, memory_added_bytes=(
+                 mem["bfloat16"]["request_peak_bytes"]
+                 - mem["float32"]["request_peak_bytes"]))
+        del args
     return entries
 
 
@@ -2340,11 +2640,15 @@ def main():
         torch.float32, 6, 3, 7, cones=((1, 3, "soc"), (4, 3, "soc")),
         single=True)))
     # The narrow forms (bfloat16 stage streams: K1 gains only and K11, K7
-    # and K12) at the quadrotor's widths, both compute types.
+    # and K12) at the quadrotor's widths, both compute types; and of the
+    # split kernels (bfloat16 narrow sets): K4, K5 packed (the split path's
+    # box rows with a diagonal cost; the thrust cone with a shift and a full
+    # cost), K6 and K5's rung form on the ladder's rungs and on two.
     for dt in (torch.float32, torch.float64):
         for nc in (NC, None):
             jobs.append((cr.SOURCE, cr.kernel_defines(dt, NX, NU, nc,
                                                       narrow=True)))
+        jobs += [(ca.SOURCE, d) for d in narrow_split_defines(ca, dt)]
     # Every kernel at the two wide widths (mass-spring, centroidal).
     jobs += wide_build_jobs(ca, cr)
     paths = _build.build_many(jobs)
@@ -2651,6 +2955,12 @@ def main():
             x0_n = torch.as_tensor(rng_n.normal(size=(NX, Bt)) * 0.3).to(
                 device=dev, dtype=dt)
             narrow_cases(cr, compare, data, x0_n, NU, NC, f"group,B={Bt}")
+        # The narrow split kernels (K4, K5 both forms, K6) around the shared
+        # model's factors, on a full batch (c by boxes), an odd one and a
+        # ragged even one (2-byte loads); their own generator.
+        rng_s = np.random.default_rng(SEED + 5)
+        for Bt in (B_SMALL, B_ODD, B_RAGGED):
+            narrow_split_cases(ca, compare, rng_s, A, Bm, K, M, L, Bt)
 
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
@@ -2665,10 +2975,17 @@ def main():
                              "forward_packed[bf16]": 5},
                 launched)
         launched = {k: ca.LAUNCHES[k] - before_admm[k] for k in ca.LAUNCHES}
+        n_b = 3                                  # the narrow cases' batches
         require(launched == {"admm_bwd_vec_prefold_lanes": 2,
                              "admm_bwd_vec_lanes": 6,
                              "admm_fwd_update_lanes": 4 * len(K5_MODES) + 5,
-                             "admm_iter_lanes": k8_cases},
+                             "admm_iter_lanes": k8_cases,
+                             "admm_bwd_vec_prefold_lanes[bf16]": n_b,
+                             "admm_bwd_vec_lanes[bf16]":
+                                 n_b * len(NARROW_RUNGS),
+                             "admm_fwd_update_lanes[bf16]":
+                                 n_b * (len(NARROW_K5_MODES)
+                                        + len(NARROW_RUNGS))},
                 launched)
     emit("kernels", card=card, shape={"N": N_SMALL, "B": B_SMALL, "nx": NX,
                                       "nu": NU, "nc": NC}, cases=cases)
@@ -3151,6 +3468,13 @@ def main():
          vs_split_f64={"N": N_SMALL, "B": B_SMALL, "settings": CROSS_SETTINGS,
                        "launches": x_launches, "rho_end": float(x_k8[1].rho[0]),
                        "max_abs_err": errs_x, "atol": SINGLE_CROSS_ATOL})
+
+    # --------------------- 14b: admm_split_bf16 and admm_ladder_bf16
+    narrow_entries += admm_bf16_phases(
+        plt_, admm, ca, cr, card, model, ca_t, x0a_t, c_a, x0_a, n_ref,
+        settings, st_lad, ladder_state,
+        {"admm_split_bf16": admm_request, "admm_ladder_bf16": ladder_request},
+        sc["bfloat16"]["request"])
 
     # ----------------- 15: the single-kernel iteration on a batched problem
     # The N=64 model written out once a scenario (B=1024, per-scenario

@@ -47,19 +47,35 @@
 // four residual maxima) never leaves the block.  K8 carries per-scenario
 // matrices and has a design of its own (see there).
 //
+// Narrow streams (-DSTAGE_BF16=1; K4, K5, K6): the JAX package's narrow
+// set of a kernel's streams (its storage_dtype on the split and ladder
+// iterations) stored in bfloat16 while every product runs in SCALAR: K4's
+// AK, BL and c; K6's A, B, h, D, P, L, K and c; K5's M, K, Hs, D and h.
+// The shared runs among them (a few kilobytes a stage, one copy that every
+// block reads from the L2) are widened into the compute-type slot layout
+// as the producers copy them (wd_load / wd_store: 2-byte loads issued
+// before the slot is free, widening stores after), so the chains, folds
+// and tails read the slots as they do at full width; the per-scenario c
+// stays 2 bytes an entry in the slot (a box of a bfloat16 map, or 2-byte
+// loads where no box takes its rows) and is widened where it is read.
+//
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#ifdef ITER
+#if defined(ITER) || defined(STAGE_BF16)
 #include <cuda_bf16.h>
-
+#endif
+#ifdef ITER
 #include <type_traits>
 #endif
 
 #if !defined(SCALAR) || !defined(NX) || !defined(NU)
 #error "build with -DSCALAR=<float|double> -DNX=<n> -DNU=<n> [-DNC=<n> ...]"
+#endif
+#if defined(ITER) && defined(STAGE_BF16)
+#error "K8's storage type is a template switch: -DSTAGE_BF16 is for K4-K6"
 #endif
 #ifndef NRUNG
 #define NRUNG 1
@@ -69,6 +85,106 @@
 #include "hopper_sync.cuh"
 
 namespace {
+
+#ifndef ITER
+// The storage type of the narrow streams, and its widening to SCALAR.
+#ifdef STAGE_BF16
+typedef __nv_bfloat16 stage_t;
+__device__ __forceinline__ scalar up(stage_t v)
+{
+    return (scalar)__bfloat162float(v);
+}
+#else
+typedef scalar stage_t;
+__device__ __forceinline__ scalar up(stage_t v) { return v; }
+#endif
+constexpr bool NARROW = sizeof(stage_t) != sizeof(scalar);
+
+// The narrow forms' widening of shared runs into a slot.  RUNS lists a
+// stage's runs (NR of them; run q: words(q) entries, rows of cols(q)
+// words laid pitch(q) words apart from slot word dst(q)); of NW producer
+// warps, warp pw takes entries lane + 32 (pw + NW i) of each run.
+// wd_load issues its 2-byte loads into registers (v) before the slot is
+// free, wd_store writes them widened once it is; wd_arrive, the warp's
+// barrier arrival (release) after the stores, hands them on.  A load
+// waits for its data, where a copy of the full-width form does not: every
+// block reaches a stage's runs at about the same time, so each stage
+// would wait out a trip to device memory.  wd_prefetch asks the L2 cache
+// for the runs WD_AHEAD stages ahead, so the loads find them there.
+constexpr int WD_AHEAD = 4;
+template <class RUNS, int NW, int Q = 0>
+__device__ __forceinline__ void wd_prefetch(const stage_t* const* at, int pw,
+                                            int lane)
+{
+    if constexpr (Q < RUNS::NR) {
+        // The lines from the run's first byte on that cover its last.
+        constexpr int LINES = (RUNS::words(Q) * (int)sizeof(stage_t) + 127)
+            / 128;
+#pragma unroll 1
+        for (int j = pw * 32 + lane; j < LINES; j += 32 * NW)
+            prefetch_l2(reinterpret_cast<const char*>(at[Q]) + j * 128);
+        wd_prefetch<RUNS, NW, Q + 1>(at, pw, lane);
+    }
+}
+template <class RUNS, int NW>
+__host__ __device__ constexpr int wd_per(int q)
+{
+    return (RUNS::words(q) + 32 * NW - 1) / (32 * NW);
+}
+template <class RUNS, int NW>
+__host__ __device__ constexpr int wd_base(int q)
+{
+    int b = 0;
+    for (int i = 0; i < q; ++i) b += wd_per<RUNS, NW>(i);
+    return b;
+}
+template <class RUNS, int NW>
+__host__ __device__ constexpr int wd_total()
+{
+    return wd_base<RUNS, NW>(RUNS::NR) > 0 ? wd_base<RUNS, NW>(RUNS::NR) : 1;
+}
+// After a warp's widening stores: one arrival for the warp (the warp's
+// barrier orders its lanes' stores before lane 0's release): one atomic
+// update of the slot's barrier a warp, not one a lane.
+__device__ __forceinline__ void wd_arrive(mbar_t* bar, int lane)
+{
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+}
+
+// at[q]: run q of this stage.
+template <class RUNS, int NW, int Q = 0>
+__device__ __forceinline__ void wd_load(stage_t* v, const stage_t* const* at,
+                                        int pw, int lane)
+{
+    if constexpr (Q < RUNS::NR) {
+        constexpr int PER = wd_per<RUNS, NW>(Q), BASE = wd_base<RUNS, NW>(Q);
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+            const int e = (i * NW + pw) * 32 + lane;
+            if (e < RUNS::words(Q)) v[BASE + i] = at[Q][e];
+        }
+        wd_load<RUNS, NW, Q + 1>(v, at, pw, lane);
+    }
+}
+template <class RUNS, int NW, int Q = 0>
+__device__ __forceinline__ void wd_store(scalar* S, const stage_t* v, int pw,
+                                         int lane)
+{
+    if constexpr (Q < RUNS::NR) {
+        constexpr int PER = wd_per<RUNS, NW>(Q), BASE = wd_base<RUNS, NW>(Q);
+        constexpr int COLS = RUNS::cols(Q) > 0 ? RUNS::cols(Q) : 1;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+            const int e = (i * NW + pw) * 32 + lane;
+            if (e < RUNS::words(Q))
+                S[RUNS::dst(Q) + e / COLS * RUNS::pitch(Q) + e % COLS] =
+                    up(v[BASE + i]);
+        }
+        wd_store<RUNS, NW, Q + 1>(S, v, pw, lane);
+    }
+}
+#endif  // !ITER
 
 #if !defined(NC) || defined(FOLD)
 // ------------------------------------------------ kernels A: K4 and K6
@@ -187,9 +303,10 @@ __device__ __forceinline__ void va_chain(scalar (&p)[NX], const scalar* sA,
 // One stage of a tail warp for the lane's scenario: d = -(L L^T)^{-1} rbar
 // and v = B d + c, stored at out[j * Bs] (d, j < NU) and out[(NU + i) *
 // Bs] (v); a lane past the batch stores nothing.  sL: L[i][j] at i*NU + j;
-// sB as in va_chain; cv, rb: the lane's column of rows VA_W words apart.
+// sB as in va_chain; cv (the storage type, widened here), rb: the lane's
+// column of rows VA_W entries apart.
 __device__ __forceinline__ void va_tail(const scalar* sL, const scalar* sB,
-                                        const scalar* cv, const scalar* rb,
+                                        const stage_t* cv, const scalar* rb,
                                         scalar* out, size_t Bs, bool valid)
 {
     scalar dv[NU], inv[NU];
@@ -218,7 +335,7 @@ __device__ __forceinline__ void va_tail(const scalar* sL, const scalar* sB,
     for (int i = 0; i < NX; ++i) {
         scalar row[NU];
         ld_row<NU, VA_VU>(row, sB + i * NU);
-        scalar vv = cv[i * VA_W];
+        scalar vv = up(cv[i * VA_W]);
 #pragma unroll
         for (int t = 0; t < NU; ++t) vv += row[t] * dv[t];
         if (valid) out[(NU + i) * Bs] = vv;
@@ -226,13 +343,46 @@ __device__ __forceinline__ void va_tail(const scalar* sL, const scalar* sB,
 }
 
 // Whether the scenarios' rows can go by the copy engine: the row stride a
-// multiple of 16 bytes, the streams 16-byte aligned, a box's rows within
-// its limit of 256.
+// multiple of 16 bytes (narrow: of c's 2-byte entries too, B a multiple
+// of 8), the streams 16-byte aligned, a box's rows within its limit of 256.
 inline bool va_boxes(int Bt, int rows, const void* a, const void* b,
                      const void* c)
 {
-    return (size_t)Bt * sizeof(scalar) % 16 == 0 && rows <= 256
+    return (size_t)Bt * sizeof(scalar) % 16 == 0
+        && (size_t)Bt * sizeof(stage_t) % 16 == 0 && rows <= 256
         && (((size_t)a | (size_t)b | (size_t)c) & 15) == 0;
+}
+
+// The narrow forms' c rows where no box takes them: this lane's scenario
+// (bc, the last one's past the batch) of ROWS rows (row r at src[r *
+// Bs]), loaded before the slot is free and stored, still 2 bytes an
+// entry, into the slot's rows of VA_W entries after; rows_prefetch asks
+// the L2 cache for a later stage's rows of the block's scenarios from b0
+// (lane r: row r's first and last entry).
+template <int ROWS>
+__device__ __forceinline__ void rows_prefetch(const stage_t* src, size_t Bs,
+                                              size_t b0, int lane)
+{
+    const size_t last = b0 + VA_W - 1 < Bs ? b0 + VA_W - 1 : Bs - 1;
+    if (lane < ROWS) {
+        prefetch_l2(src + lane * Bs + b0);
+        prefetch_l2(src + lane * Bs + last);
+    }
+}
+template <int ROWS>
+__device__ __forceinline__ void rows_load(stage_t (&v)[ROWS],
+                                          const stage_t* src, size_t Bs,
+                                          size_t bc)
+{
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) v[r] = src[r * Bs + bc];
+}
+template <int ROWS>
+__device__ __forceinline__ void rows_store(stage_t* dst,
+                                           const stage_t (&v)[ROWS], int lane)
+{
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) dst[r * VA_W + lane] = v[r];
 }
 
 // Diagnostic build (-DADMM_PROFILE): lane 0 of each role's first warp in
@@ -271,7 +421,11 @@ __device__ long long admm_prof[VA_SECTIONS];
 // call), with the scenarios' rows of c, hf and the pre-folded Pc.  Warps:
 // the producer (warp 0: two runs and three boxes a stage), the chain
 // (warp 1), K4_TAILS tail warps.  Measured on an H100 (PERF.md):
-// the chain bounds it (about 830 cycles a stage).
+// the chain bounds it (about 830 cycles a stage).  Narrow form: a warp of
+// its own, after the tails, widens AK and BL into their slot runs
+// (K4Runs) and, where no box takes them, copies c's rows; c lands 2 bytes
+// an entry in the first half of its rows (the tails widen it).  Its loads
+// wait for their data, so the producer's boxes are kept off its path.
 
 constexpr int K4_AK = 0;
 constexpr int K4_BL = K4_AK + va_run(NZ * NX);
@@ -283,16 +437,31 @@ constexpr int K4_SLOT = K4_RB + NU * VA_W;
 // Stages in flight: one a tail warp, the chain and the producer ahead.
 constexpr int K4_SLOTS = va_min(va_fit(K4_SLOT), VA_TAILS_MAX + 5);
 constexpr int K4_TAILS = va_min(K4_SLOTS, VA_TAILS_MAX);
-constexpr int K4_THREADS = 32 * (2 + K4_TAILS);
+constexpr int K4_WIDEN = 2 + K4_TAILS;   // the narrow form's widening warp
+constexpr int K4_THREADS = 32 * (K4_WIDEN + NARROW);
 static_assert(K4_SLOTS >= 2, "K4: two stages do not fit a block");
 constexpr int K4_BAR = K4_SLOTS * K4_SLOT * (int)sizeof(scalar);
 constexpr int K4_SMEM = K4_BAR + 3 * 8 * K4_SLOTS + 128;   // + alignment
+// The shared runs of a stage (the narrow form widens them): AK, BL.
+struct K4Runs {
+    static constexpr int NR = 2;
+    static __host__ __device__ constexpr int words(int q)
+    {
+        return q == 0 ? NZ * NX : NZ * NU;
+    }
+    static __host__ __device__ constexpr int cols(int q) { return words(q); }
+    static __host__ __device__ constexpr int pitch(int q) { return words(q); }
+    static __host__ __device__ constexpr int dst(int q)
+    {
+        return q == 0 ? K4_AK : K4_BL;
+    }
+};
 
 __global__ void __launch_bounds__(K4_THREADS, 1)
 bwd_vec_prefold_kernel(
     int N, int Bt,
-    const scalar* __restrict__ pN, const scalar* __restrict__ AK,
-    const scalar* __restrict__ BL, const scalar* __restrict__ c,
+    const scalar* __restrict__ pN, const stage_t* __restrict__ AK,
+    const stage_t* __restrict__ BL, const stage_t* __restrict__ c,
     const scalar* __restrict__ Pc, const scalar* __restrict__ hf,
     scalar* __restrict__ dv_out,
     const __grid_constant__ CUtensorMap c_map,
@@ -316,8 +485,10 @@ bwd_vec_prefold_kernel(
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < K4_SLOTS; ++s) {
-            mbar_init(&full[s], 33);             // the producer's lanes, and
-                                                 // lane 0's boxes or arrival
+            mbar_init(&full[s], NARROW ? 34 : 33);   // the producer's lanes
+                                                 // and lane 0's boxes or
+                                                 // arrival (narrow: and the
+                                                 // widening warp's lane 0)
             mbar_init(&ready[s], 32);            // the chain's
             mbar_init(&empty[s], 32);            // the stage's tail warp's
         }
@@ -325,31 +496,65 @@ bwd_vec_prefold_kernel(
     __syncthreads();
 
     // Stage n of the sweep is model stage k = N-1-n, in slot n % K4_SLOTS.
-    if (warp == 0) {
+    if (warp == K4_WIDEN) {
+        // ---- (narrow form) widening warp: AK, BL; c's rows where no box
+        // takes them.
+        const size_t bc = valid ? b : Bs - 1;
+        stage_t wide[wd_total<K4Runs, 1>()], cv[NX];
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % K4_SLOTS;
+            const size_t ks = (size_t)(N - 1 - n);
+            if (n + WD_AHEAD < N) {
+                const size_t ka = ks - WD_AHEAD;
+                const stage_t* ahead[2] = {AK + ka * NZ * NX,
+                                           BL + ka * NZ * NU};
+                wd_prefetch<K4Runs, 1>(ahead, 0, lane);
+                if (!tma) rows_prefetch<NX>(c + ka * NX * Bs, Bs, b0, lane);
+            }
+            const stage_t* at[2] = {AK + ks * NZ * NX, BL + ks * NZ * NU};
+            wd_load<K4Runs, 1>(wide, at, 0, lane);
+            if (!tma) rows_load<NX>(cv, c + ks * NX * Bs, Bs, bc);
+            if (n >= K4_SLOTS) mbar_wait(&empty[s], (n / K4_SLOTS - 1) & 1);
+            scalar* S = ring + s * K4_SLOT;
+            wd_store<K4Runs, 1>(S, wide, 0, lane);
+            if (!tma)
+                rows_store<NX>(reinterpret_cast<stage_t*>(S + K4_C), cv, lane);
+            wd_arrive(&full[s], lane);
+        }
+    } else if (warp == 0) {
         // ---- producer.
         const bool vec = Bs % VA_VW == 0 && b0 + VA_W <= Bs
             && (((size_t)c | (size_t)hf | (size_t)Pc) & 15) == 0;
+        constexpr int CB = NX * VA_W * (int)sizeof(stage_t);   // c's box
         VA_PROF_INIT
 #pragma unroll 1
         for (int n = 0; n < N; ++n) {
             const int s = n % K4_SLOTS;
+            const size_t ks = (size_t)(N - 1 - n);
             if (n >= K4_SLOTS) mbar_wait(&empty[s], (n / K4_SLOTS - 1) & 1);
             VA_MARK(0);
-            const size_t ks = (size_t)(N - 1 - n);
             scalar* S = ring + s * K4_SLOT;
-            warp_copy_run(S + K4_AK, AK + ks * NZ * NX, NZ * NX, lane);
-            warp_copy_run(S + K4_BL, BL + ks * NZ * NU, NZ * NU, lane);
+            if constexpr (!NARROW) {
+                // (Full width: stage_t is scalar.)
+                warp_copy_run(S + K4_AK, (const scalar*)AK + ks * NZ * NX,
+                              NZ * NX, lane);
+                warp_copy_run(S + K4_BL, (const scalar*)BL + ks * NZ * NU,
+                              NZ * NU, lane);
+            }
             if (tma) {
                 if (lane == 0) {
                     mbar_arrive_expect_tx(
-                        &full[s], (2 * NX + NZ) * VA_W * (int)sizeof(scalar));
+                        &full[s], CB + (NX + NZ) * VA_W * (int)sizeof(scalar));
                     tma_box(S + K4_C, &c_map, (int)b0, (int)ks * NX, &full[s]);
                     tma_box(S + K4_HF, &hf_map, (int)b0, (int)ks * NZ, &full[s]);
                     tma_box(S + K4_PC, &pc_map, (int)b0, (int)ks * NX, &full[s]);
                 }
             } else {
-                warp_copy_rows<VA_W>(S + K4_C, c + ks * NX * Bs, NX, Bs, b0,
-                                     vec, lane);
+                if constexpr (!NARROW)
+                    warp_copy_rows<VA_W>(S + K4_C, (const scalar*)c
+                                         + ks * NX * Bs, NX, Bs, b0, vec,
+                                         lane);
                 warp_copy_rows<VA_W>(S + K4_HF, hf + ks * NZ * Bs, NZ, Bs, b0,
                                      vec, lane);
                 warp_copy_rows<VA_W>(S + K4_PC, Pc + ks * NX * Bs, NX, Bs, b0,
@@ -390,7 +595,8 @@ bwd_vec_prefold_kernel(
             VA_MARK(6);
             const size_t ks = (size_t)(N - 1 - n);
             const scalar* S = ring + s * K4_SLOT;
-            va_tail(S + K4_BL + NX * NU, S + K4_BL, S + K4_C + lane,
+            va_tail(S + K4_BL + NX * NU, S + K4_BL,
+                    reinterpret_cast<const stage_t*>(S + K4_C) + lane,
                     S + K4_RB + lane, dv_out + ks * NZ * Bs + b, Bs, valid);
             mbar_arrive(&empty[s]);
             VA_MARK(7);
@@ -422,7 +628,13 @@ bwd_vec_prefold_kernel(
 // rung streams as one box each, its padding landing as zeros), the rows
 // as boxes on a warp of their own.  Warps: the chain (warp 0), the folds,
 // the tails, the producers.  PC_MODE: the per-scenario Pc = P_{k+1} c_k
-// rides the ring instead of the P stream (one rung only).
+// rides the ring instead of the P stream (one rung only).  Narrow form:
+// the producers of the runs share the widening of every shared run but
+// the rho scale (K6Runs, an entry a lane of those warps in turn) into the
+// slot layout of the full-width form, rung padding included; the rho
+// scale keeps its copy; the warp of the rows keeps to its boxes (its
+// stage waits for no load); c lands 2 bytes an entry (the folds and the
+// tails widen it).
 
 constexpr int K6_NW = NZ + 2 * NC;            // wzy rows: w, z, y
 constexpr int K6_FOLDS_MAX = 3;
@@ -492,7 +704,8 @@ template <bool PC_MODE> struct K6Layout {
     static constexpr int RB = HF + NZ * VA_W;
     static constexpr int SLOT = RB + NU * VA_W;
     static constexpr int ROW_BYTES =
-        (NX + K6_NW + (PC_MODE ? NX : 0)) * VA_W * (int)sizeof(scalar);
+        (NX * (int)sizeof(stage_t)
+         + (K6_NW + (PC_MODE ? NX : 0)) * (int)sizeof(scalar)) * VA_W;
     static __host__ __device__ constexpr int off(int q)
     {
         return q == K6_A ? A : q == K6_B ? B : q == K6_H ? H : q == K6_D ? D
@@ -512,6 +725,31 @@ constexpr int K6_TAILS = va_min(K6Layout<false>::SLOTS, VA_TAILS_MAX);
 constexpr int K6_PROD0 = 1 + K6_FOLDS + K6_TAILS;
 constexpr int K6_THREADS = 32 * (K6_PROD0 + K6_PRODUCERS);
 static_assert(K6Layout<false>::SLOTS >= 2, "K6: two stages do not fit a block");
+// The shared runs the narrow form widens: every run but the rho scale (P
+// none in Pc mode), each in its full-width slot place.
+template <bool PC_MODE> struct K6Runs {
+    static constexpr int NR = K6_ROWS - 1;
+    static __host__ __device__ constexpr int job(int q)
+    {
+        return q < K6_MASK ? q : q + 1;
+    }
+    static __host__ __device__ constexpr int cols(int q)
+    {
+        return k6_run(job(q)).cols;
+    }
+    static __host__ __device__ constexpr int words(int q)
+    {
+        return PC_MODE && job(q) == K6_P ? 0 : k6_run(job(q)).rows * cols(q);
+    }
+    static __host__ __device__ constexpr int pitch(int q)
+    {
+        return k6_run(job(q)).box;
+    }
+    static __host__ __device__ constexpr int dst(int q)
+    {
+        return K6Layout<PC_MODE>::off(job(q));
+    }
+};
 // The copy engine's maps: the scenarios' rows of c, wzy and Pc, then the
 // rung streams P, L and K.
 enum { K6_MC, K6_MWZY, K6_MPC, K6_MP, K6_ML, K6_MK, K6_MAPS };
@@ -522,11 +760,11 @@ __global__ void __launch_bounds__(K6_THREADS, 1)
 bwd_vec_kernel(
     int N, int Bt, double sigma_d,
     const scalar* __restrict__ rho, const scalar* __restrict__ pN,
-    const scalar* __restrict__ A, const scalar* __restrict__ B,
-    const scalar* __restrict__ h, const scalar* __restrict__ D,
-    const scalar* __restrict__ mask, const scalar* __restrict__ P,
-    const scalar* __restrict__ L, const scalar* __restrict__ K,
-    const scalar* __restrict__ c, const scalar* __restrict__ Pc,
+    const stage_t* __restrict__ A, const stage_t* __restrict__ B,
+    const stage_t* __restrict__ h, const stage_t* __restrict__ D,
+    const scalar* __restrict__ mask, const stage_t* __restrict__ P,
+    const stage_t* __restrict__ L, const stage_t* __restrict__ K,
+    const stage_t* __restrict__ c, const scalar* __restrict__ Pc,
     const scalar* __restrict__ wzy, const int* __restrict__ rung,
     scalar* __restrict__ dv_out, const __grid_constant__ K6Maps maps,
     int row_boxes, int run_copies)
@@ -554,9 +792,12 @@ bwd_vec_kernel(
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < SLOTS; ++s) {
-            mbar_init(&full[s], 33 * K6_PRODUCERS);   // each producer's
-                                                 // lanes, and its lane 0's
-                                                 // with the bytes it expects
+            mbar_init(&full[s], (NARROW ? 34 : 33) * K6_PRODUCERS);
+                                                 // each producer's lanes, and
+                                                 // its lane 0's with the bytes
+                                                 // it expects (narrow: and
+                                                 // once after the widening
+                                                 // stores)
             mbar_init(&folded[s], 32);           // the stage's fold warp's
             mbar_init(&ready[s], 32);            // the chain's
             mbar_init(&empty[s], 32);            // the stage's tail warp's
@@ -569,12 +810,23 @@ bwd_vec_kernel(
         // ---- producer warp pw: its jobs of each stage.
         const int pw = warp - K6_PROD0;
         constexpr int SZ = (int)sizeof(scalar);
-        const scalar* src[K6_ROWS] = {A, B, h, D, mask, P, L, K};
-        auto skip = [](int q) { return PC_MODE && q == K6_P; };
+        using Runs = K6Runs<PC_MODE>;
+        // The shared runs in the slot's order: all but the rho scale of
+        // the storage type.
+        const stage_t* narrow_src[Runs::NR] = {A, B, h, D, P, L, K};
+        const scalar* src[K6_ROWS] = {
+            (const scalar*)A, (const scalar*)B, (const scalar*)h,
+            (const scalar*)D, mask, (const scalar*)P, (const scalar*)L,
+            (const scalar*)K};
+        // Copied as they lie: every run at full width, the rho scale alone
+        // in the narrow form.
+        auto skip = [](int q) {
+            return (PC_MODE && q == K6_P) || (NARROW && q != K6_MASK);
+        };
         // The bytes this warp's bulk copies and boxes bring a stage.
         int tx = 0;
         for (int q = 0; q < K6_JOBS; ++q) {
-            if (k6_owner(q) != pw || skip(q)) continue;
+            if (k6_owner(q) != pw || (q != K6_ROWS && skip(q))) continue;
             if (q == K6_ROWS)
                 tx += row_boxes ? Lay::ROW_BYTES : 0;
             else if (run_copies && (k6_bulk(q) || k6_boxed(q)))
@@ -582,16 +834,42 @@ bwd_vec_kernel(
         }
         const bool vec = Bs % VA_VW == 0 && b0 + VA_W <= Bs
             && (((size_t)c | (size_t)wzy | (size_t)Pc) & 15) == 0;
+        const bool rows_here = k6_owner(K6_ROWS) == pw;
+        // The warps that widen the runs: all but the rows' (one producer:
+        // that one).
+        constexpr int NWD = K6_PRODUCERS > 1 ? K6_PRODUCERS - 1 : 1;
+        const bool widens = !rows_here || K6_PRODUCERS == 1;
+        stage_t wide[wd_total<Runs, NWD>()], cv[NX];
         VA_PROF_INIT
 #pragma unroll 1
         for (int n = 0; n < N; ++n) {
             const int s = n % SLOTS;
+            const size_t ks = (size_t)(N - 1 - n);
+            if constexpr (NARROW) {
+                const stage_t* at[Runs::NR];
+                if (n + WD_AHEAD < N) {
+                    const size_t ka = ks - WD_AHEAD;
+#pragma unroll
+                    for (int q = 0; q < Runs::NR; ++q)
+                        at[q] = narrow_src[q] + ka * Runs::words(q);
+                    if (widens) wd_prefetch<Runs, NWD>(at, pw, lane);
+                    if (rows_here && !row_boxes)
+                        rows_prefetch<NX>(c + ka * NX * Bs, Bs, b0, lane);
+                }
+#pragma unroll
+                for (int q = 0; q < Runs::NR; ++q)
+                    at[q] = narrow_src[q] + ks * Runs::words(q);
+                if (widens) wd_load<Runs, NWD>(wide, at, pw, lane);
+                if (rows_here && !row_boxes)
+                    rows_load<NX>(cv, c + ks * NX * Bs, Bs, bc);
+            }
             if (n >= SLOTS) mbar_wait(&empty[s], (n / SLOTS - 1) & 1);
             VA_MARK(0);
-            const size_t ks = (size_t)(N - 1 - n);
             scalar* S = ring + s * Lay::SLOT;
             if (lane == 0) mbar_arrive_expect_tx(&full[s], tx);
             __syncwarp();
+            if constexpr (NARROW)
+                if (widens) wd_store<Runs, NWD>(S, wide, pw, lane);
 #pragma unroll
             for (int q = 0; q < K6_ROWS; ++q) {
                 if (k6_owner(q) != pw || skip(q)) continue;
@@ -614,7 +892,7 @@ bwd_vec_kernel(
                                       r.cols, lane);
                 }
             }
-            if (k6_owner(K6_ROWS) == pw) {
+            if (rows_here) {
                 if (row_boxes) {
                     if (lane == 0)
                         tma_box(S + Lay::C, &maps.m[K6_MC], (int)b0,
@@ -626,8 +904,13 @@ bwd_vec_kernel(
                         tma_box(S + Lay::PC, &maps.m[K6_MPC], (int)b0,
                                 (int)ks * NX, &full[s]);
                 } else {
-                    warp_copy_rows<VA_W>(S + Lay::C, c + ks * NX * Bs, NX, Bs,
-                                         b0, vec, lane);
+                    if constexpr (NARROW)
+                        rows_store<NX>(reinterpret_cast<stage_t*>(S + Lay::C),
+                                       cv, lane);
+                    else
+                        warp_copy_rows<VA_W>(S + Lay::C, (const scalar*)c
+                                             + ks * NX * Bs, NX, Bs, b0, vec,
+                                             lane);
                     warp_copy_rows<VA_W>(S + Lay::WZY, wzy + ks * K6_NW * Bs,
                                          K6_NW, Bs, b0, vec, lane);
                     if (PC_MODE)
@@ -636,6 +919,7 @@ bwd_vec_kernel(
                 }
             }
             mbar_arrive_on_copies(&full[s]);
+            if constexpr (NARROW) wd_arrive(&full[s], lane);
             VA_MARK(1);
         }
         if (pw == 0) {
@@ -691,9 +975,11 @@ bwd_vec_kernel(
             if (!PC_MODE) {
                 // Pc = P_r c on the scenario's rung.
                 const scalar* sP = S + Lay::P + r_ix * Lay::PR;
+                const stage_t* sc =
+                    reinterpret_cast<const stage_t*>(S + Lay::C);
                 scalar cv[NX];
 #pragma unroll
-                for (int t = 0; t < NX; ++t) cv[t] = S[Lay::C + t * VA_W + lane];
+                for (int t = 0; t < NX; ++t) cv[t] = up(sc[t * VA_W + lane]);
 #pragma unroll
                 for (int i = 0; i < NX; ++i) {
                     scalar row[NX];
@@ -721,7 +1007,8 @@ bwd_vec_kernel(
             VA_MARK(6);
             const size_t ks = (size_t)(N - 1 - n);
             const scalar* S = ring + s * Lay::SLOT;
-            va_tail(S + Lay::L + r_ix * Lay::LR, S + Lay::B, S + Lay::C + lane,
+            va_tail(S + Lay::L + r_ix * Lay::LR, S + Lay::B,
+                    reinterpret_cast<const stage_t*>(S + Lay::C) + lane,
                     S + Lay::RB + lane, dv_out + ks * NZ * Bs + b, Bs, valid);
             mbar_arrive(&empty[s]);
             VA_MARK(7);
@@ -911,7 +1198,9 @@ __device__ __forceinline__ void dual_row(
 // with them as boxes the tail does, and 8 tail warps beat 6 by 10-15 % in
 // the float32 diagonal-cost forms (with cp.async they did not); the row
 // loop unrolled by 2, more slots, and 1-D bulk copies (a run or a 128-byte
-// row an instruction) were no faster or slower.
+// row an instruction) were no faster or slower.  Narrow form: the
+// producer widens M, K, Hs, D and h into their slot runs (K5Runs), loading
+// a stage's entries before its slot is free; bnd keeps its copies.
 
 #ifndef DIAG_COST
 #error "kernel B: build with -DDIAG_COST as well"
@@ -969,6 +1258,24 @@ constexpr int K5_BAR_OFF =
     ((K5_SLOTS * K5_SLOT + K5_FIXED) * (int)sizeof(scalar) + 7) / 8 * 8;
 constexpr int K5_SMEM = K5_BAR_OFF + 3 * 8 * K5_SLOTS + 128;   // + alignment
 
+// The shared runs the narrow form widens: M and K (all rungs), Hs, D and
+// (EMIT_HF) h, each at its slot run.
+template <bool EMIT_HF> struct K5Runs {
+    static constexpr int NR = 5;
+    static __host__ __device__ constexpr int words(int q)
+    {
+        return q == 0 ? NRUNG * NX * NX : q == 1 ? NRUNG * NU * NX
+            : q == 2 ? HS_WORDS : q == 3 ? NC * NZ : EMIT_HF ? NZ : 0;
+    }
+    static __host__ __device__ constexpr int cols(int q) { return words(q); }
+    static __host__ __device__ constexpr int pitch(int q) { return words(q); }
+    static __host__ __device__ constexpr int dst(int q)
+    {
+        return q == 0 ? K5_M : q == 1 ? K5_K : q == 2 ? K5_HS
+            : q == 3 ? K5_D : K5_H;
+    }
+};
+
 // Diagnostic build (-DADMM_PROFILE): lane 0 of each role in block 0 sums
 // the SM cycles of its sections (K5_SECTIONS; the tail's per stage that
 // warp took); admm_read_prof copies the sums out.
@@ -1010,10 +1317,10 @@ __global__ void __launch_bounds__(K5_THREADS, 1)
 fwd_update_kernel(
     int N, int Bt, double alpha_d, double sigma_d, int m_stride, int k_stride,
     const scalar* __restrict__ rho, const scalar* __restrict__ x0,
-    const scalar* __restrict__ M, const scalar* __restrict__ K,
-    const scalar* __restrict__ Hs,
-    const scalar* __restrict__ D, const scalar* __restrict__ bnd,
-    const scalar* __restrict__ h, const int* __restrict__ rung,
+    const stage_t* __restrict__ M, const stage_t* __restrict__ K,
+    const stage_t* __restrict__ Hs,
+    const stage_t* __restrict__ D, const scalar* __restrict__ bnd,
+    const stage_t* __restrict__ h, const int* __restrict__ rung,
     const scalar* __restrict__ dv, const scalar* __restrict__ wzy,
     scalar* __restrict__ wzy_new, scalar* __restrict__ hf_new,
     scalar* __restrict__ xN, scalar* __restrict__ res,
@@ -1041,8 +1348,10 @@ fwd_update_kernel(
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < K5_SLOTS; ++s) {
-            mbar_init(&full[s], 33);             // the producer's lanes, and
-                                                 // lane 0's box bytes
+            mbar_init(&full[s], NARROW ? 34 : 33);   // the producer's lanes
+                                                 // and lane 0's box bytes
+                                                 // (narrow: and once after
+                                                 // the widening stores)
             mbar_init(&ready[s], 32);            // the chain's
             mbar_init(&empty[s], 32);            // the stage's tail warp's
         }
@@ -1055,20 +1364,51 @@ fwd_update_kernel(
         constexpr size_t VW = 16 / sizeof(scalar);
         const bool vec = Bs % VW == 0 && b0 + K5_W <= Bs
             && (((size_t)dv | (size_t)wzy) & 15) == 0;
+        using Runs = K5Runs<EMIT_HF>;
+        stage_t wide[wd_total<Runs, 1>()];
         K5_PROF_INIT
 #pragma unroll 1
         for (int k = 0; k < N; ++k) {
             const int s = k % K5_SLOTS;
+            const size_t ks = (size_t)k;
+            if constexpr (NARROW) {
+                // (A stage's runs from stage ka on, WD_AHEAD stages ahead
+                // into the L2 cache, then this stage's into registers.)
+                auto runs_at = [&](size_t ka, const stage_t** at) {
+                    at[0] = M + ka * m_stride;
+                    at[1] = K + ka * k_stride;
+                    at[2] = Hs + ka * HS_WORDS;
+                    at[3] = D + ka * NC * NZ;
+                    at[4] = EMIT_HF ? h + ka * NZ : h;
+                };
+                const stage_t* at[Runs::NR];
+                if (k + WD_AHEAD < N) {
+                    runs_at(ks + WD_AHEAD, at);
+                    wd_prefetch<Runs, 1>(at, 0, lane);
+                }
+                runs_at(ks, at);
+                wd_load<Runs, 1>(wide, at, 0, lane);
+            }
             if (k >= K5_SLOTS) mbar_wait(&empty[s], (k / K5_SLOTS - 1) & 1);
             K5_MARK(0);
-            const size_t ks = (size_t)k;
             scalar* S = ring + s * K5_SLOT;
-            warp_copy_run(S + K5_M, M + ks * m_stride, NRUNG * NX * NX, lane);
-            warp_copy_run(S + K5_K, K + ks * k_stride, NRUNG * NU * NX, lane);
-            warp_copy_run(S + K5_HS, Hs + ks * HS_WORDS, HS_WORDS, lane);
-            warp_copy_run(S + K5_D, D + ks * NC * NZ, NC * NZ, lane);
+            if constexpr (NARROW) {
+                wd_store<Runs, 1>(S, wide, 0, lane);
+            } else {
+                // (Full width: stage_t is scalar.)
+                warp_copy_run(S + K5_M, (const scalar*)M + ks * m_stride,
+                              NRUNG * NX * NX, lane);
+                warp_copy_run(S + K5_K, (const scalar*)K + ks * k_stride,
+                              NRUNG * NU * NX, lane);
+                warp_copy_run(S + K5_HS, (const scalar*)Hs + ks * HS_WORDS,
+                              HS_WORDS, lane);
+                warp_copy_run(S + K5_D, (const scalar*)D + ks * NC * NZ,
+                              NC * NZ, lane);
+                if (EMIT_HF)
+                    warp_copy_run(S + K5_H, (const scalar*)h + ks * NZ, NZ,
+                                  lane);
+            }
             warp_copy_run(S + K5_BND, bnd + ks * NB * NC, NB * NC, lane);
-            if (EMIT_HF) warp_copy_run(S + K5_H, h + ks * NZ, NZ, lane);
             if (tma) {
                 // The scenarios' rows as two boxes of the copy engine.
                 if (lane == 0) {
@@ -1085,6 +1425,7 @@ fwd_update_kernel(
                 if (lane == 0) mbar_arrive(&full[s]);
             }
             mbar_arrive_on_copies(&full[s]);
+            if constexpr (NARROW) wd_arrive(&full[s], lane);
             K5_MARK(1);
         }
         K5_PROF_DONE(0, 2, 1, 1)
@@ -2324,7 +2665,8 @@ int admm_bwd_vec_prefold(int N, int Bt, void* stream,
     CUtensorMap maps[3] = {};
     const int tma = va_boxes(Bt, NZ, c, hf, Pc);
     if (tma) {
-        int e = make_rows_map(&maps[0], c, (size_t)N * NX, Bt, NX, VA_W, SZ);
+        int e = make_rows_map(&maps[0], c, (size_t)N * NX, Bt, NX, VA_W,
+                              (int)sizeof(stage_t));
         if (!e) e = make_rows_map(&maps[1], hf, (size_t)N * NZ, Bt, NZ, VA_W, SZ);
         if (!e) e = make_rows_map(&maps[2], Pc, (size_t)N * NX, Bt, NX, VA_W, SZ);
         if (e) return e;
@@ -2332,8 +2674,8 @@ int admm_bwd_vec_prefold(int N, int Bt, void* stream,
     int e = set_smem(bwd_vec_prefold_kernel, K4_SMEM);
     if (e) return e;
     bwd_vec_prefold_kernel<<<blocks, K4_THREADS, K4_SMEM, st>>>(
-        N, Bt, (const scalar*)pN, (const scalar*)AK, (const scalar*)BL,
-        (const scalar*)c, (const scalar*)Pc, (const scalar*)hf, (scalar*)dv,
+        N, Bt, (const scalar*)pN, (const stage_t*)AK, (const stage_t*)BL,
+        (const stage_t*)c, (const scalar*)Pc, (const scalar*)hf, (scalar*)dv,
         maps[0], maps[1], maps[2], tma);
     return (int)cudaGetLastError();
 }
@@ -2356,7 +2698,7 @@ int admm_bwd_vec(int N, int Bt, double sigma, int pc_mode, void* stream,
     const int row_boxes = va_boxes(Bt, K6_NW, c, wzy, pc_mode ? Pc : nullptr);
     if (row_boxes) {
         int e = make_rows_map(&maps.m[K6_MC], c, (size_t)N * NX, Bt, NX, VA_W,
-                              SZ);
+                              (int)sizeof(stage_t));
         if (!e) e = make_rows_map(&maps.m[K6_MWZY], wzy, (size_t)N * K6_NW, Bt,
                                   K6_NW, VA_W, SZ);
         if (!e && pc_mode)
@@ -2364,11 +2706,13 @@ int admm_bwd_vec(int N, int Bt, double sigma, int pc_mode, void* stream,
                               VA_W, SZ);
         if (e) return e;
     }
+    // (The narrow form copies the rho scale alone as it lies.)
     const void* runs[K6_ROWS] = {A, B, h, D, mask, pc_mode ? nullptr : P, L, K};
     size_t any = 0;
-    for (const void* r : runs) any |= (size_t)r;
+    for (int q = 0; q < K6_ROWS; ++q)
+        if (!NARROW || q == K6_MASK) any |= (size_t)runs[q];
     const int run_copies = (any & 15) == 0;
-    for (int q = K6_P; q <= K6_K && run_copies; ++q) {
+    for (int q = K6_P; q <= K6_K && run_copies && !NARROW; ++q) {
         const K6Run r = k6_run(q);
         if (!k6_boxed(q) || runs[q] == nullptr) continue;
         int e = make_rows_map(&maps.m[K6_MP + q - K6_P], runs[q],
@@ -2376,10 +2720,10 @@ int admm_bwd_vec(int N, int Bt, double sigma, int pc_mode, void* stream,
         if (e) return e;
     }
 #define ADMM_BV_ARGS                                                         \
-    N, Bt, sigma, (const scalar*)rho, (const scalar*)pN, (const scalar*)A,   \
-        (const scalar*)B, (const scalar*)h, (const scalar*)D,                \
-        (const scalar*)mask, (const scalar*)P, (const scalar*)L,             \
-        (const scalar*)K, (const scalar*)c, (const scalar*)Pc,               \
+    N, Bt, sigma, (const scalar*)rho, (const scalar*)pN, (const stage_t*)A,  \
+        (const stage_t*)B, (const stage_t*)h, (const stage_t*)D,             \
+        (const scalar*)mask, (const stage_t*)P, (const stage_t*)L,           \
+        (const stage_t*)K, (const stage_t*)c, (const scalar*)Pc,             \
         (const scalar*)wzy, (const int*)rung, (scalar*)dv, maps, row_boxes,  \
         run_copies
     if (pc_mode) {
@@ -2417,9 +2761,9 @@ int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
     const size_t smem = K5_SMEM;
 #define ADMM_FU_ARGS                                                         \
     N, Bt, alpha, sigma, m_stride, k_stride, (const scalar*)rho,             \
-        (const scalar*)x0, (const scalar*)M, (const scalar*)K,               \
-        (const scalar*)Hs, (const scalar*)D, (const scalar*)bnd,             \
-        (const scalar*)h, (const int*)rung, (const scalar*)dv,               \
+        (const scalar*)x0, (const stage_t*)M, (const stage_t*)K,             \
+        (const stage_t*)Hs, (const stage_t*)D, (const scalar*)bnd,           \
+        (const stage_t*)h, (const int*)rung, (const scalar*)dv,              \
         (const scalar*)wzy, (scalar*)wzy_new, (scalar*)hf_new, (scalar*)xN,  \
         (scalar*)res, maps[0], maps[1], tma
     // The scenarios' rows go by the copy engine where its maps can take

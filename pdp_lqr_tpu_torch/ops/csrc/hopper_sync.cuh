@@ -122,6 +122,13 @@ inline int make_rows_map(CUtensorMap* map, const void* base,
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A hint, no copy: bring the 128-byte line holding `p` from device memory
+// into the L2 cache, for an ordinary load some stages later.
+__device__ __forceinline__ void prefetch_l2(const void* p)
+{
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
 // Wait (acquire) until the phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(mbar_t* bar, unsigned parity)
 {

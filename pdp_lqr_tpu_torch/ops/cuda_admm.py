@@ -30,6 +30,16 @@ Beside each kernel stands a plain PyTorch version (``*_reference``): a
 Python loop over stages on the same tensors.  A wrapper takes the plain
 version only for CPU tensors; a CUDA tensor goes to the kernel or the
 call raises.  Each wrapper counts its launches in ``LAUNCHES``.
+
+Narrow streams (the JAX function's ``storage_dtype`` on the split and
+ladder iterations): K4, K5 and K6 also take the JAX package's narrow set
+of their streams stored in bfloat16 while everything else, and every
+product, stays in the compute type (that of ``hf`` / ``wzy``): K4 AK, BL
+and c; K6 A, B, h, D, P, L, K and c; K5 M (or MK), K, Hs, D and h.  Their
+narrow forms (``-DSTAGE_BF16``) widen each entry on the card; the plain
+versions widen each stream as they load it.  A narrow form's launches
+count as ``LAUNCHES["<wrapper>[bf16]"]``.  A narrow set must be narrow
+as a whole: a mix of widths, or another storage type, raises.
 """
 
 from __future__ import annotations
@@ -48,7 +58,9 @@ SOURCE = "admm_kernels.cu"
 # Launches of each kernel made by this process (a wrapper adds one
 # exactly where it launches its kernel).
 LAUNCHES = {"admm_bwd_vec_prefold_lanes": 0, "admm_bwd_vec_lanes": 0,
-            "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0}
+            "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0,
+            "admm_bwd_vec_prefold_lanes[bf16]": 0,
+            "admm_bwd_vec_lanes[bf16]": 0, "admm_fwd_update_lanes[bf16]": 0}
 
 _DOUBLE = ctypes.c_double
 _CONE_KINDS = {"soc": 0, "rsoc": 1}
@@ -63,7 +75,8 @@ def reset_launch_counts():
 def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
                    cones=(), diag_cost: bool = False,
                    has_shift: bool = False, fold: bool = False,
-                   rungs: int = 1, single: bool = False) -> dict:
+                   rungs: int = 1, single: bool = False,
+                   narrow: bool = False) -> dict:
     """The ``-D`` flags of one specialisation of the kernel source:
     without ``nc`` kernel K4 (it reads no constraint rows); with it and
     ``fold`` kernel K6; with it and ``single`` kernel K8; with it alone
@@ -71,10 +84,16 @@ def kernel_defines(dtype, nx: int, nu: int, nc: int | None = None, *,
     kind)``) and shift presence are compile-time, as is K5's cost form;
     K8's forms (shared or batched, cached or not, the storage type) are
     template switches of one library.  ``rungs`` (K5, K6) is the number
-    of ladder rungs the factor streams stack."""
+    of ladder rungs the factor streams stack.  ``narrow`` (K4, K5, K6):
+    the form on bfloat16 narrow streams (``-DSTAGE_BF16``)."""
     if dtype not in _SCALARS:
         raise TypeError(f"the kernels take float32 or float64, got {dtype}")
+    if narrow and single:
+        raise ValueError("K8's storage type is a template switch of its "
+                         "library: narrow is for K4, K5 and K6")
     defines = {"SCALAR": _SCALARS[dtype], "NX": nx, "NU": nu}
+    if narrow:
+        defines["STAGE_BF16"] = 1
     if nc is None:
         return defines
     defines["NC"] = nc
@@ -130,6 +149,31 @@ def _library(dtype, nx, nu, nc=None, **modes):
     return lib
 
 
+def _narrow(name, streams, dt):
+    """Whether a kernel's narrow set ``streams`` ((name, tensor or None)
+    pairs; None: not read) is stored in bfloat16 (True) or in the compute
+    type ``dt`` (False).  A mix of the two, or another type, raises."""
+    types = {x.dtype for _, x in streams if x is not None}
+    if not types <= {dt, cuda_riccati.NARROW}:
+        raise TypeError(
+            f"{name}: {', '.join(n for n, _ in streams)} stored as "
+            f"{sorted(map(str, types))} under {dt} compute: the kernels "
+            f"take the compute type or bfloat16 (storage_dtype="
+            f"torch.bfloat16 only)")
+    if len(types) > 1:
+        raise TypeError(
+            f"{name}: {', '.join(n for n, _ in streams)} are one narrow "
+            f"set, all in bfloat16 or all in {dt}: got "
+            + ", ".join(f"{n} {x.dtype}" for n, x in streams
+                        if x is not None))
+    return types == {cuda_riccati.NARROW} and dt != cuda_riccati.NARROW
+
+
+def _wide(dt, *streams):
+    """The plain versions' load of narrow streams: widened to ``dt``."""
+    return tuple(None if x is None else x.to(dt) for x in streams)
+
+
 def _rungs(stacked, rows, R, rung, ladder_oh, Bt, device):
     """The per-scenario rung index (int32, (B,)) of R stacked rungs, from
     ``rung`` or from the one-hot ``ladder_oh`` (R, B); None for one rung."""
@@ -165,7 +209,9 @@ def admm_bwd_vec_prefold_lanes_reference(pN, AK, BL, c, Pc, hf, *, nu):
     """Plain PyTorch version of ``admm_bwd_vec_prefold_lanes``: the
     cached-factor vector recursion of
     ``cuda_riccati.backward_vectors_lanes_reference`` read off the packed
-    streams, its two outputs joined to ``dv``."""
+    streams, its two outputs joined to ``dv``; narrow streams widened as
+    they load."""
+    AK, BL, c = _wide(hf.dtype, AK, BL, c)
     nx = AK.shape[2]
     d, v = cuda_riccati.backward_vectors_lanes_reference(
         AK[:, :nx], BL[:, :nx], c, hf, None, AK[:, nx:], BL[:, nx:], pN,
@@ -199,34 +245,40 @@ def admm_bwd_vec_prefold_lanes(pN, AK, BL, c, Pc, hf, *, nu):
       d    = -(L L^T)^{-1} rbar     v    = B d + c
       p    = hf[nu:] + A^T Pcp + K^T rbar
 
-    Returns dv (N, nz, B) = [d | v].
+    Returns dv (N, nz, B) = [d | v].  AK, BL and c may be stored in
+    bfloat16 (all three), under the compute type of ``hf``.
 
     On the card: a block serves 32 scenarios, a lane each, and its warps
     take roles: a producer copies each stage (the packed streams as they
     lie, the scenarios' rows) into a shared-memory ring, one warp carries
     p through the stages, and tail warps compute d and v and store them
-    behind it; see the kernel source.
+    behind it; see the kernel source.  The narrow form widens AK and BL
+    into the ring as it copies them and c where the tails read it.
     """
     N, nz, nx = AK.shape[0], AK.shape[1], AK.shape[2]
     if nz != nx + nu:
         raise ValueError(f"AK has {nz} rows, expected nx + nu = {nx + nu}")
     Bt = hf.shape[-1]
     dt, dev = hf.dtype, hf.device
-    for name, x, shape in (
-        ("pN", pN, (nx, Bt)), ("AK", AK, (N, nz, nx, 1)),
-        ("BL", BL, (N, nz, nu, 1)), ("c", c, (N, nx, Bt)),
-        ("Pc", Pc, (N, nx, Bt)), ("hf", hf, (N, nz, Bt)),
+    narrow = _narrow("admm_bwd_vec_prefold_lanes",
+                     (("AK", AK), ("BL", BL), ("c", c)), dt)
+    st = cuda_riccati.NARROW if narrow else dt
+    for name, x, shape, xdt in (
+        ("pN", pN, (nx, Bt), dt), ("AK", AK, (N, nz, nx, 1), st),
+        ("BL", BL, (N, nz, nu, 1), st), ("c", c, (N, nx, Bt), st),
+        ("Pc", Pc, (N, nx, Bt), dt), ("hf", hf, (N, nz, Bt), dt),
     ):
-        _check(name, x, shape, dt, dev)
+        _check(name, x, shape, xdt, dev)
     if dev.type == "cpu":
         return admm_bwd_vec_prefold_lanes_reference(pN, AK, BL, c, Pc, hf,
                                                     nu=nu)
     if dev.type != "cuda":
         raise ValueError(f"admm_bwd_vec_prefold_lanes: no kernel for device {dev}")
-    lib = _library(dt, nx, nu)
+    lib = _library(dt, nx, nu, narrow=narrow)
     with torch.cuda.device(dev):
         dv = _launch_bwd_vec_prefold(lib, pN, AK, BL, c, Pc, hf, _stream())
-    LAUNCHES["admm_bwd_vec_prefold_lanes"] += 1
+    LAUNCHES["admm_bwd_vec_prefold_lanes[bf16]" if narrow
+             else "admm_bwd_vec_prefold_lanes"] += 1
     return dv
 
 
@@ -246,7 +298,9 @@ def admm_bwd_vec_lanes_reference(rho, pN, A, B, h, D, mask, P, L, K, c, wzy,
     """Plain PyTorch version of ``admm_bwd_vec_lanes``: the iterate fold,
     then the cached-factor vector recursion of
     ``cuda_riccati.backward_vectors_lanes_reference`` on each scenario's
-    rung (``rung`` (B,) int32, None for one rung)."""
+    rung (``rung`` (B,) int32, None for one rung); narrow streams widened
+    as they load."""
+    A, B, h, D, P, L, K, c = _wide(wzy.dtype, A, B, h, D, P, L, K, c)
     nx = A.shape[1]
     hf = _fold_hf(h, D, mask, rho, wzy, sigma)
     d, v = cuda_riccati.backward_vectors_lanes_reference(
@@ -292,12 +346,15 @@ def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
     The rung of scenario b is ``rung[b]`` ((B,) int32) or, as in the JAX
     wrapper, the row where the one-hot ``ladder_oh`` (R, B) is 1.  ``Pc``
     ((N,nx,B), one rung only) is the pre-folded ``P_{k+1} c_k``; ``P``
-    is then not read (it may be None).
+    is then not read (it may be None).  A, B, h, D, P, L, K and c may be
+    stored in bfloat16 (all of them), under the compute type of ``wzy``.
 
     On the card: as ``admm_bwd_vec_prefold_lanes``, with fold warps that
     compute hf (and P c) of whole stages ahead of the warp that carries p;
     the ring's slots hold all R rungs' factors, and a lane reads its
     scenario's rung at an offset in the slot.  See the kernel source.
+    The narrow form widens the shared runs into the ring as it copies them
+    and c where the fold and tail warps read it.
     """
     N, nx = A.shape[0], A.shape[1]
     nz, nc = nx + nu, D.shape[1]
@@ -307,17 +364,22 @@ def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
     R = L.shape[1] // nu
     if pc_mode and (R != 1 or ladder_oh is not None or rung is not None):
         raise ValueError("Pc mode is non-ladder only")
+    narrow = _narrow("admm_bwd_vec_lanes", (
+        ("A", A), ("B", B), ("h", h), ("D", D),
+        ("P", None if pc_mode else P), ("L", L), ("K", K), ("c", c)), dt)
+    st = cuda_riccati.NARROW if narrow else dt
     checks = [
-        ("rho", rho, (1, Bt)), ("pN", pN, (nx, Bt)),
-        ("A", A, (N, nx, nx, 1)), ("B", B, (N, nx, nu, 1)),
-        ("h", h, (N, nz, 1)), ("D", D, (N, nc, nz, 1)),
-        ("mask", mask, (N, nc, 1)), ("L", L, (N, R * nu, nu, 1)),
-        ("K", K, (N, R * nu, nx, 1)), ("c", c, (N, nx, Bt)),
-        ("wzy", wzy, (N, nz + 2 * nc, Bt)),
-        ("Pc", Pc, (N, nx, Bt)) if pc_mode else ("P", P, (N, R * nx, nx, 1)),
+        ("rho", rho, (1, Bt), dt), ("pN", pN, (nx, Bt), dt),
+        ("A", A, (N, nx, nx, 1), st), ("B", B, (N, nx, nu, 1), st),
+        ("h", h, (N, nz, 1), st), ("D", D, (N, nc, nz, 1), st),
+        ("mask", mask, (N, nc, 1), dt), ("L", L, (N, R * nu, nu, 1), st),
+        ("K", K, (N, R * nu, nx, 1), st), ("c", c, (N, nx, Bt), st),
+        ("wzy", wzy, (N, nz + 2 * nc, Bt), dt),
+        ("Pc", Pc, (N, nx, Bt), dt) if pc_mode
+        else ("P", P, (N, R * nx, nx, 1), st),
     ]
-    for name, x, shape in checks:
-        _check(name, x, shape, dt, dev)
+    for name, x, shape, xdt in checks:
+        _check(name, x, shape, xdt, dev)
     rung = _rungs(L, nu, R, rung, ladder_oh, Bt, dev)
     if dev.type == "cpu":
         return admm_bwd_vec_lanes_reference(
@@ -325,12 +387,13 @@ def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
             rung=rung, Pc=Pc)
     if dev.type != "cuda":
         raise ValueError(f"admm_bwd_vec_lanes: no kernel for device {dev}")
-    lib = _library(dt, nx, nu, nc, fold=True, rungs=R)
+    lib = _library(dt, nx, nu, nc, fold=True, rungs=R, narrow=narrow)
     with torch.cuda.device(dev):
         dv = _launch_bwd_vec(lib, rho, pN, A, B, h, D, mask,
                              None if pc_mode else P, L, K, c, wzy, rung, Pc,
                              sigma, _stream())
-    LAUNCHES["admm_bwd_vec_lanes"] += 1
+    LAUNCHES["admm_bwd_vec_lanes[bf16]" if narrow
+             else "admm_bwd_vec_lanes"] += 1
     return dv
 
 
@@ -377,7 +440,9 @@ def admm_fwd_update_lanes_reference(rho, x0, M, K, Hs, D, bnd, dv, wzy, h, *,
     MK = [M; K]; else M (N,R*nx,nx,1) and K (N,R*nu,nx,1) stack R rungs,
     picked per scenario by ``rung``.  ``bnd`` = stack(lb, ub, mask[,
     shift]) (N, 3+s, nc, 1); ``h`` None: no hf-emit (three outputs).
-    ``cones`` are normalized ``(offset, dim, kind)`` 3-tuples."""
+    ``cones`` are normalized ``(offset, dim, kind)`` 3-tuples.  Narrow
+    streams are widened as they load."""
+    M, K, Hs, D, h = _wide(wzy.dtype, M, K, Hs, D, h)
     nx = M.shape[2]
     if K is None:
         M, K = M[:, :nx], M[:, nx:]
@@ -481,14 +546,17 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
 
     Returns (wzy_new, [hf_next (N, nz, B),] xN (nx, B), res (4, B)) with
     res rows [r_prim, r_dual, prim_scale, dual_scale] maxima over the
-    stages; the caller folds the terminal stage.
+    stages; the caller folds the terminal stage.  M (or MK), K, Hs, D and
+    h may be stored in bfloat16 (all of them), under the compute type of
+    ``wzy``; the bounds, the mask and the shift stay in the compute type.
 
     On the card: a block serves 32 scenarios, a lane each, with warps in
     roles: a producer copies every stage's inputs (all R rungs of M and K)
     into a shared-memory ring, a chain warp runs x+ = M x + v, and tail
     warps take whole stages behind it (the projection, the dual update,
     the stores and the maxima); a lane reads its scenario's rung at an
-    offset in the slot.  See the kernel source.
+    offset in the slot.  See the kernel source.  The narrow form widens
+    its shared runs into the ring as it copies them.
     """
     cones = tuple(cones)
     nx = M.shape[2]
@@ -496,6 +564,10 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
     N, Bt = wzy.shape[0], wzy.shape[-1]
     nc = D.shape[1]
     dt, dev = wzy.dtype, wzy.device
+    narrow = _narrow("admm_fwd_update_lanes", (
+        ("MK" if K is None else "M", M), ("K", K), ("Hs", Hs), ("D", D),
+        ("h", h)), dt)
+    st = cuda_riccati.NARROW if narrow else dt
     packed_bnd = ub is None
     if K is None:
         if not packed_bnd or mask is not None or shift is not None \
@@ -503,11 +575,11 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
             raise ValueError("packed mode (K=None) takes bnd via lb "
                              "and is non-ladder only")
         R = 1
-        _check("MK", M, (N, nz, nx, 1), dt, dev)
+        _check("MK", M, (N, nz, nx, 1), st, dev)
     else:
         R = K.shape[1] // nu
-        _check("M", M, (N, R * nx, nx, 1), dt, dev)
-        _check("K", K, (N, R * nu, nx, 1), dt, dev)
+        _check("M", M, (N, R * nx, nx, 1), st, dev)
+        _check("K", K, (N, R * nu, nx, 1), st, dev)
     if packed_bnd:
         if mask is not None or shift is not None:
             raise ValueError("a packed bnd in lb takes ub, mask and shift "
@@ -528,15 +600,16 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
     has_shift = bnd.shape[1] == 4
     diag_cost = Hs.ndim == 3
     checks = [
-        ("rho", rho, (1, Bt)), ("x0", x0, (nx, Bt)),
-        ("Hs", Hs, (N, nz, 1) if diag_cost else (N, nz, nz, 1)),
-        ("D", D, (N, nc, nz, 1)), ("bnd", bnd, (N, bnd.shape[1], nc, 1)),
-        ("dv", dv, (N, nz, Bt)), ("wzy", wzy, (N, nz + 2 * nc, Bt)),
+        ("rho", rho, (1, Bt), dt), ("x0", x0, (nx, Bt), dt),
+        ("Hs", Hs, (N, nz, 1) if diag_cost else (N, nz, nz, 1), st),
+        ("D", D, (N, nc, nz, 1), st),
+        ("bnd", bnd, (N, bnd.shape[1], nc, 1), dt),
+        ("dv", dv, (N, nz, Bt), dt), ("wzy", wzy, (N, nz + 2 * nc, Bt), dt),
     ]
     if h is not None:
-        checks.append(("h", h, (N, nz, 1)))
-    for name, x, shape in checks:
-        _check(name, x, shape, dt, dev)
+        checks.append(("h", h, (N, nz, 1), st))
+    for name, x, shape, xdt in checks:
+        _check(name, x, shape, xdt, dev)
     rung = None if K is None else _rungs(K, nu, R, rung, ladder_oh, Bt, dev)
     if dev.type == "cpu":
         return admm_fwd_update_lanes_reference(
@@ -545,11 +618,12 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
     if dev.type != "cuda":
         raise ValueError(f"admm_fwd_update_lanes: no kernel for device {dev}")
     lib = _library(dt, nx, nu, nc, cones=cones, diag_cost=diag_cost,
-                   has_shift=has_shift, rungs=R)
+                   has_shift=has_shift, rungs=R, narrow=narrow)
     with torch.cuda.device(dev):
         out = _launch_fwd_update(lib, rho, x0, M, K, Hs, D, bnd, dv, wzy, h,
                                  rung, alpha, sigma, _stream())
-    LAUNCHES["admm_fwd_update_lanes"] += 1
+    LAUNCHES["admm_fwd_update_lanes[bf16]" if narrow
+             else "admm_fwd_update_lanes"] += 1
     return out
 
 

@@ -381,7 +381,9 @@ def backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN, *,
             "backward_lanes: bfloat16 stage streams run the gains-only form "
             "(emit_closed_loop=False, export_factors=False) that solve_lanes "
             "takes; the closed-loop maps and the factor export read the "
-            "compute type (ROADMAP M6: no path streams narrow data there)")
+            "compute type (no path streams narrow data there: the split "
+            "and ladder iterations build their factors at full width, as "
+            "JAX's do)")
     if dev.type == "cpu":
         return backward_lanes_reference(
             A, B, c, H, h, D, rho, rg, PN, pN,

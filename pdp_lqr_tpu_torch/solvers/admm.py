@@ -20,10 +20,13 @@ replicated one, ``_terminal_pN`` / ``_terminal_tail``):
   _solve_shared_split   ONE unbatched model serving B scenarios,
                         ``cached_factors`` with a batch-uniform rho: K4 +
                         K5 an iteration, K1 at each factor build;
+                        ``storage_dtype`` streams the stage data and the
+                        factors narrower (the narrow forms of K4, K5);
   _solve_shared_ladder  the same model with a ``rho_ladder``: per-scenario
                         rho snapped to R rungs whose factors are built
                         once a solve (one K1 launch over R instances);
-                        K6 + K5 (rung form) an iteration;
+                        K6 + K5 (rung form) an iteration; ``storage_dtype``
+                        as in the split one (the narrow forms of K6, K5);
   _solve_single_kernel  the single-kernel iteration, on either model: K8
                         an iteration (the whole sweep, rollout and tail),
                         per-instance rho, or cached factors rebuilt by K1
@@ -34,10 +37,13 @@ replicated one, ``_terminal_pN`` / ``_terminal_tail``):
                         K3 an iteration, the projection and residuals in
                         tensor code.
 
-``storage_dtype`` on the split and ladder iterations raises
-``NotImplementedError``.  ``solve`` / ``solve_batched`` run the loop on the
-torch-ops backends; ``solve_equilibrated`` wraps ``solve`` in Ruiz scaling
-(utils/scaling).
+On the split and ladder iterations ``storage_dtype`` (bfloat16) rounds the
+stage streams A, B, c, H + sigma I (its diagonal under ``diag_cost``), h and
+D, and the factors K, M, P, L after K1 builds them at full width; the
+rho-scale mask, the bounds, the shift, the terminal stage and the iterates
+stay in the compute type, as in JAX.  ``solve`` / ``solve_batched`` run the
+loop on the torch-ops backends; ``solve_equilibrated`` wraps ``solve`` in
+Ruiz scaling (utils/scaling).
 
 PyTorch runs eagerly, so what the JAX loop decides on the device
 (``lax.cond`` on a changed rho, the ``while_loop`` of ``early_exit``)
@@ -600,6 +606,13 @@ def solve_fused(
       ``cuda_riccati.backward_lanes`` per rho change;
     * the same with a ``rho_ladder``: per-scenario rho on the rungs, K6 +
       K5 an iteration on R rungs' factors built once;
+      on both, ``storage_dtype`` (bfloat16) stores the stage streams A, B,
+      c, H + sigma I (its diagonal under ``diag_cost``), h and D narrow,
+      and the factors K, M, P, L, built at full width, rounded to it; the
+      narrow forms of K4-K6 widen them on the card (the refactor fold of
+      hf and the pre-folded P c read the full-width h, D and c, and the
+      rounded P widened); ``state.factors`` then carries (AK, BL, MK) in
+      bfloat16 and (Pc, rho) in the compute type;
     * ``single_kernel=True``, on either kind of problem: K8 an iteration
       (per-instance rho; or ``cached_factors``, on a shared model with a
       batch-uniform rho, rebuilt by K1 when rho changes);
@@ -615,7 +628,9 @@ def solve_fused(
     own rule (JAX's asks whether the iteration fits the TPU's on-chip
     memory, which means nothing on the card): on a shared model, the split
     pair whenever the settings give batch-shared factors (a ladder, or
-    cached factors with a uniform rho and no ``storage_dtype``), K8
+    cached factors with a uniform rho), with or without ``storage_dtype``
+    (the split request in bfloat16 took 39 ms against K8's cached one's
+    114 at the quadrotor's N=512, B=4096; one H100, PERF.md), K8
     otherwise; on a batched problem K8, unless ``residual_weights`` asks
     for the replicated iteration: K8 took 0.6-0.75 of the replicated
     loop's time at B=1024, N=64 and N=512, with and without cached factors
@@ -659,8 +674,7 @@ def solve_fused(
     if single_kernel == "auto":
         if shared_mode:
             single_kernel = not (ladder or (
-                settings.cached_factors and settings.uniform_rho
-                and storage_dtype is None))
+                settings.cached_factors and settings.uniform_rho))
         else:
             single_kernel = residual_weights is None
     split_mode = shared_mode and not single_kernel
@@ -692,14 +706,10 @@ def solve_fused(
                          "or the shared split iteration")
     if storage_dtype not in (None, dt, torch.bfloat16):
         raise NotImplementedError(
-            f"storage_dtype {storage_dtype}: K8 streams the stage data in "
-            f"the compute type or bfloat16 only")
-    if storage_dtype is not None and split_mode:
-        raise NotImplementedError(
-            "storage_dtype on the split and ladder iterations (narrow "
-            "factor and stage streams into K4-K6; K1 builds the split "
-            "factors at full width) is not ported yet (ROADMAP Queue 1, M6 "
-            "split and ladder); single_kernel=True takes it")
+            f"storage_dtype {storage_dtype}: the kernels (K4-K6, K8) stream "
+            f"the stage data in the compute type or bfloat16 only")
+    if storage_dtype == dt:
+        storage_dtype = None                     # the compute type: a no-op
 
     if single_kernel:
         return _solve_single_kernel(problem, x0, cones, settings, state,
@@ -709,16 +719,18 @@ def solve_fused(
                                  soc_shift, residual_weights)
     if ladder:
         return _solve_shared_ladder(problem, x0, cones, settings, state,
-                                    soc_shift, ladder)
+                                    soc_shift, ladder, storage_dtype)
     return _solve_shared_split(problem, x0, cones, settings, state,
-                               soc_shift)
+                               soc_shift, storage_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
 class _SharedStreams:
     """The shared split iterations' stage streams: ONE copy of the model
     whatever B is (trailing size 1), the per-scenario drift c and the
-    terminal stage."""
+    terminal stage; and the streams the split kernels read, stored as
+    ``storage_dtype`` (the ``*_k`` fields: the full-width ones themselves
+    without it)."""
 
     A: torch.Tensor       # (N, nx, nx, 1)
     B: torch.Tensor       # (N, nx, nu, 1)
@@ -731,9 +743,17 @@ class _SharedStreams:
     bnd: torch.Tensor     # (N, 3+s, nc, 1) [lb | ub | rho scale (| shift)]
     HNx: torch.Tensor     # (nx, nx) terminal H[x, x] + sigma I
     term: _Terminal
+    A_k: torch.Tensor
+    B_k: torch.Tensor
+    c_k: torch.Tensor
+    Hs_k: torch.Tensor
+    D_k: torch.Tensor
+    h_k: torch.Tensor
+    narrow: object        # rounds a stream to the storage type (or keeps it)
 
 
-def _shared_streams(problem, Bb, cones, settings, soc_shift):
+def _shared_streams(problem, Bb, cones, settings, soc_shift,
+                    storage_dtype=None):
     sigma = settings.sigma
     dt, dev = problem.H.dtype, problem.H.device
     N, nu, nx, nc = problem.N, problem.nu, problem.nx, problem.nc
@@ -744,10 +764,15 @@ def _shared_streams(problem, Bb, cones, settings, soc_shift):
     scale1 = torch.where(eq1, mask1 * settings.rho_eq_boost, mask1)
     shift = None if soc_shift is None else torch.as_tensor(soc_shift).to(
         device=dev, dtype=dt)
+    # c in its lanes layout, and cast there straight to the storage type
+    # (one copy, not a narrow copy of the full-width one).
     if problem.c.ndim == 3:
-        c_l = cuda_riccati.to_lanes(problem.c.to(dt)).contiguous()
+        c_src = cuda_riccati.to_lanes(problem.c.to(dt))
     else:
-        c_l = problem.c.to(dt)[..., None].expand(N, nx, Bb).contiguous()
+        c_src = problem.c.to(dt)[..., None].expand(N, nx, Bb)
+    c_l = c_src.contiguous()
+    narrow = (lambda x: x) if storage_dtype is None else (
+        lambda x: x.to(storage_dtype, memory_format=torch.contiguous_format))
     eye_z = torch.eye(nz, dtype=dt, device=dev)
     H_l = one(problem.H[:-1] + sigma * eye_z)
     Hs_l = H_l
@@ -773,14 +798,17 @@ def _shared_streams(problem, Bb, cones, settings, soc_shift):
         h_absmax=problem.h.abs().max(),
         zero_u=torch.zeros((nu, Bb), dtype=dt, device=dev),
     )
+    A_l, B_l = one(problem.A), one(problem.B)
+    D_l, h_l = one(problem.D[:-1]), one(problem.h[:-1])
     return _SharedStreams(
-        A=one(problem.A), B=one(problem.B), c=c_l, H=H_l, Hs=Hs_l,
-        D=one(problem.D[:-1]), h=one(problem.h[:-1]),
+        A=A_l, B=B_l, c=c_l, H=H_l, Hs=Hs_l, D=D_l, h=h_l,
         mask=one(scale1[:-1]),                 # carries the per-row rho scale
         bnd=one(torch.stack(bnd_parts, dim=1)),                # (N, 3+s, nc, 1)
         HNx=problem.H[-1, nu:, nu:] + sigma * torch.eye(nx, dtype=dt,
                                                         device=dev),
-        term=term)
+        term=term, A_k=narrow(A_l), B_k=narrow(B_l),
+        c_k=c_l if storage_dtype is None else narrow(c_src),
+        Hs_k=narrow(Hs_l), D_k=narrow(D_l), h_k=narrow(h_l), narrow=narrow)
 
 
 def _shared_factors(S: _SharedStreams, rho_u):
@@ -823,10 +851,12 @@ def _unpacked_state(wzy, wN, zN, yN, nz, nc, rho, factors):
         rho=rho, factors=factors)
 
 
-def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
+def _solve_shared_split(problem, x0, cones, settings, state, soc_shift,
+                        storage_dtype):
     """``solve_fused`` in shared split mode with cached factors and a
     batch-uniform rho (the non-ladder ``iteration_split`` of the JAX
-    function)."""
+    function); ``storage_dtype``: the kernels' streams and the factors
+    stored narrower."""
     sigma, alpha = settings.sigma, settings.alpha
     dt, dev = problem.H.dtype, problem.H.device
     Bb = x0.shape[0]
@@ -834,17 +864,21 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
     nz = nu + nx
     cones3 = projections.normalize_cones(cones)
     tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
-    S = _shared_streams(problem, Bb, cones, settings, soc_shift)
+    S = _shared_streams(problem, Bb, cones, settings, soc_shift,
+                        storage_dtype)
     term = S.term
 
     def build_split_factors(rho):
-        """Factor build (rho is uniform over the batch) + the
-        per-scenario fold Pc = P_{k+1} c — only on refactor iterations.
-        The carry rides packed on the per-stage row axis: AK = [A; K],
-        BL = [B; L] for kernel A, MK = [M; K] for kernel B."""
-        K, M, P, L = _shared_factors(S, rho[:1])
-        return (torch.cat([S.A, K], dim=1), torch.cat([S.B, L], dim=1),
-                torch.cat([M, K], dim=1), cuda_riccati.fold_Pc(P, S.c), rho)
+        """Factor build (rho is uniform over the batch) at full width, the
+        factors then rounded to the storage type, + the per-scenario fold
+        Pc = P_{k+1} c (the rounded P widened, the full-width c) — only on
+        refactor iterations.  The carry rides packed on the per-stage row
+        axis: AK = [A; K], BL = [B; L] for kernel A, MK = [M; K] for
+        kernel B."""
+        K, M, P, L = (S.narrow(x) for x in _shared_factors(S, rho[:1]))
+        return (torch.cat([S.A_k, K], dim=1), torch.cat([S.B_k, L], dim=1),
+                torch.cat([M, K], dim=1),
+                cuda_riccati.fold_Pc(P.to(dt), S.c), rho)
 
     def fold_hf(wzy, rho):
         """hf = h - sigma w - D^T (rho m z - y) from the packed iterates:
@@ -865,8 +899,11 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
     wzy, wN, zN, yN = _packed_iterates(state, tensor)
     hf = fold_hf(wzy, rho)
     stats = _start_stats(Bb, dt, dev)
+    # A warm state's factors: (AK, BL, MK) in the storage type, as JAX
+    # casts them; (Pc, rho) in the compute type.
     fac = None if state.factors is None else tuple(
-        tensor(x) for x in state.factors)
+        S.narrow(tensor(x)) if i < 3 else tensor(x)
+        for i, x in enumerate(state.factors))
     x0_l = x0.T.contiguous()
     interval = max(1, settings.rho_update_interval)
     # Whether rho may differ from the rho the factors were built at: at
@@ -891,12 +928,12 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
             hf = fold_hf(wzy, rho)
         AK, BL, MK, Pc, _ = fac
 
-        dv = cuda_admm.admm_bwd_vec_prefold_lanes(pN, AK, BL, S.c, Pc, hf,
-                                                  nu=nu)
+        dv = cuda_admm.admm_bwd_vec_prefold_lanes(pN, AK, BL, S.c_k, Pc,
+                                                  hf, nu=nu)
         wzy, hf, xN, res = cuda_admm.admm_fwd_update_lanes(
-            rho[None, :], x0_l, MK, None, S.Hs, S.D, S.bnd, None, None,
+            rho[None, :], x0_l, MK, None, S.Hs_k, S.D_k, S.bnd, None, None,
             None, dv, wzy, nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
-            h=S.h)
+            h=S.h_k)
         wN, zN, yN, rho, stats = _terminal_tail(
             settings, term, cones3, nu, wN, zN, yN, rho, rhoN_m, stats, xN,
             res)
@@ -907,11 +944,12 @@ def _solve_shared_split(problem, x0, cones, settings, state, soc_shift):
 
 
 def _solve_shared_ladder(problem, x0, cones, settings, state, soc_shift,
-                         ladder):
+                         ladder, storage_dtype):
     """``solve_fused`` in shared split mode with a rho ladder (the ladder
     ``iteration_split`` of the JAX function): per-scenario rho, always on
-    a rung; the R rungs' factors are built once a solve, so there is no
-    refactor and no factor carry (``state.factors`` is None on return)."""
+    a rung; the R rungs' factors are built once a solve (at full width,
+    then rounded to ``storage_dtype``), so there is no refactor and no
+    factor carry (``state.factors`` is None on return)."""
     sigma, alpha = settings.sigma, settings.alpha
     dt, dev = problem.H.dtype, problem.H.device
     Bb, N = x0.shape[0], problem.N
@@ -919,7 +957,8 @@ def _solve_shared_ladder(problem, x0, cones, settings, state, soc_shift,
     nz = nu + nx
     cones3 = projections.normalize_cones(cones)
     tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
-    S = _shared_streams(problem, Bb, cones, settings, soc_shift)
+    S = _shared_streams(problem, Bb, cones, settings, soc_shift,
+                        storage_dtype)
     term = S.term
 
     rungs = torch.tensor(ladder, dtype=dt, device=dev)
@@ -927,7 +966,8 @@ def _solve_shared_ladder(problem, x0, cones, settings, state, soc_shift,
     # R rungs' factors stacked on rows, rung r at rows r*n .. (r+1)*n.
     stack = lambda X: X.permute(0, 3, 1, 2).reshape(
         N, R * X.shape[1], X.shape[2], 1).contiguous()
-    K_r, M_r, P_r, L_r = (stack(X) for X in _shared_factors(S, rungs))
+    K_r, M_r, P_r, L_r = (stack(S.narrow(X))
+                          for X in _shared_factors(S, rungs))
 
     if state is None:
         state = _batch_state(problem, Bb, settings)
@@ -950,10 +990,10 @@ def _solve_shared_ladder(problem, x0, cones, settings, state, soc_shift,
         rhoN_m = rho_row * term.scale
         pN = _terminal_pN(term, nu, sigma, wN, zN, yN, rhoN_m)
         dv = cuda_admm.admm_bwd_vec_lanes(
-            rho_row, pN, S.A, S.B, S.h, S.D, S.mask, P_r, L_r, K_r, S.c,
-            wzy, nu=nu, sigma=sigma, rung=rung)
+            rho_row, pN, S.A_k, S.B_k, S.h_k, S.D_k, S.mask, P_r, L_r, K_r,
+            S.c_k, wzy, nu=nu, sigma=sigma, rung=rung)
         wzy, xN, res = cuda_admm.admm_fwd_update_lanes(
-            rho_row, x0_l, M_r, K_r, S.Hs, S.D, S.bnd, None, None, None,
+            rho_row, x0_l, M_r, K_r, S.Hs_k, S.D_k, S.bnd, None, None, None,
             dv, wzy, nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
             rung=rung)
         wN, zN, yN, rho, stats = _terminal_tail(

@@ -16,7 +16,8 @@ counts, a box of the copy engine a strided copy), builds it with
 ``g++ -std=c++20`` into ``build/emulate/``, loads it through the wrappers'
 own ``ctypes`` bindings and holds every kernel and mode against its plain
 PyTorch version at small sizes (K1-K12, every form of K5 and of K8, K9 in
-both forms, K3 in segments; K8, per-instance K3, both forms of K2 and the
+both forms, K3 in segments, the narrow forms of K1, K4-K7, K11 and K12 on
+bfloat16 streams; K8, per-instance K3, both forms of K2 and the
 matrix sweep K1 / K9 / K11, K7 and K12 across several blocks with a
 ragged last one; K2, K5, K7 and K12 past their rings' slots).  It proves nothing about what ``nvcc`` accepts, about races between
 asynchronous copies and their waits, or about speed; it finds wrong
@@ -40,8 +41,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
-    iter_factors, narrow_storage, narrow_streams, pack_streams,
-    random_admm_inputs, random_iter_inputs, random_ladder_inputs,
+    K4_NARROW, K5_NARROW, K6_NARROW, iter_factors, narrow_args,
+    narrow_storage, narrow_streams, pack_streams, random_admm_inputs,
+    random_iter_inputs, random_ladder_inputs,
 )
 from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr  # noqa: E402
 
@@ -194,6 +196,7 @@ inline void mbar_wait(mbar_t* bar, unsigned parity) {
          v = a.load())
         a.wait(v);
 }
+inline void prefetch_l2(const void*) {}
 inline void bulk_copy(void* dst, const void* src, unsigned bytes, mbar_t* bar) {
     if (((size_t)dst & 15) || ((size_t)src & 15) || (bytes & 15)) std::abort();
     std::memcpy(dst, src, bytes);
@@ -738,6 +741,77 @@ K2_CASES = [
     (torch.float32, 12, 4, 10, 20, 64, 1e-4),
     (torch.float64, 3, 2, 9, 17, 33, 1e-10),
 ]
+def run_narrow_admm(dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift,
+                    tol):
+    """The narrow forms of the split pair (K4 on bfloat16 AK, BL, c; K5
+    packed on bfloat16 MK, Hs, D, h, with and without hf-emit) at one size
+    and mode, ``Bs`` scenarios on one shared model: c by boxes of the
+    bfloat16 map where Bs is a multiple of 8, by 2-byte loads otherwise."""
+    rng = np.random.default_rng(12)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} B={Bs} "
+           f"cones={cones} diag={diag_cost} shift={has_shift} bf16")
+    L = torch.tril(T(N, nu, nu) * 0.2)
+    L = (L + torch.diag_embed(1.0 + T(N, nu).abs())).unsqueeze(-1)
+    k4_in, k5_in = random_admm_inputs(
+        rng, T(N, nx, nx, 1) * 0.3, T(N, nx, nu, 1) * 0.5, T(N, nu, nx, 1) * 0.3,
+        T(N, nx, nx, 1) * 0.25, L, nc, Bs, cones, diag_cost, has_shift)
+    k4_in, k5_in = narrow_args(k4_in, K4_NARROW), narrow_args(k5_in, K5_NARROW)
+    check(f"K4 [{tag}]",
+          [ca._launch_bwd_vec_prefold(admm_library(dtype, nx, nu, narrow=True),
+                                      *k4_in, None)],
+          [ca.admm_bwd_vec_prefold_lanes_reference(*k4_in, nu=nu)], tol)
+    rho, x0, MK, Hs, D, bnd, dv, wzy, h = k5_in
+    lib = admm_library(dtype, nx, nu, nc, cones=cones, diag_cost=diag_cost,
+                       has_shift=has_shift, narrow=True)
+    for hh in (h, None):
+        check(f"K5 [{tag} hf-emit={hh is not None}]",
+              ca._launch_fwd_update(lib, rho, x0, MK, None, Hs, D, bnd, dv,
+                                    wzy, hh, None, 1.6, 1e-6, None),
+              ca.admm_fwd_update_lanes_reference(
+                  rho, x0, MK, None, Hs, D, bnd, dv, wzy, hh, nu=nu,
+                  cones=cones, alpha=1.6, sigma=1e-6), tol)
+
+
+def run_narrow_ladder(dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift,
+                      tol):
+    """The narrow forms of the ladder's pair at one size and mode: K6 on R
+    rungs of bfloat16 factors with bfloat16 A, B, h, D, c (and its Pc form
+    at one rung), K5's rung form on bfloat16 M, K, Hs, D without and with
+    hf-emit."""
+    rng = np.random.default_rng(13)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} B={Bs} "
+           f"R={R} cones={cones} diag={diag_cost} shift={has_shift} bf16")
+    k6_in, k5_in, rung, Pc = random_ladder_inputs(
+        rng, T(N, nx, nx, 1) * 0.3, T(N, nx, nu, 1) * 0.5, R, nc, Bs, cones,
+        diag_cost, has_shift)
+    k6_in, k5_in = narrow_args(k6_in, K6_NARROW), narrow_args(k5_in, K5_NARROW)
+    rung = rung if R > 1 else None
+    lib6 = admm_library(dtype, nx, nu, nc, fold=True, rungs=R, narrow=True)
+    check(f"K6 [{tag}]",
+          [ca._launch_bwd_vec(lib6, *k6_in, rung, None, 1e-6, None)],
+          [ca.admm_bwd_vec_lanes_reference(*k6_in, nu=nu, sigma=1e-6,
+                                           rung=rung)], tol)
+    if R == 1:
+        pc_in = k6_in[:7] + (None,) + k6_in[8:]
+        check(f"K6 Pc form [{tag}]",
+              [ca._launch_bwd_vec(lib6, *pc_in, None, Pc, 1e-6, None)],
+              [ca.admm_bwd_vec_lanes_reference(*pc_in, nu=nu, sigma=1e-6,
+                                               Pc=Pc)], tol)
+    rho, x0, M, Hs, D, bnd, dv, wzy, h = k5_in
+    K = k6_in[9]
+    lib5 = admm_library(dtype, nx, nu, nc, cones=cones, diag_cost=diag_cost,
+                        has_shift=has_shift, rungs=R, narrow=True)
+    for hh in (None, h):
+        check(f"K5 rung form [{tag} hf-emit={hh is not None}]",
+              ca._launch_fwd_update(lib5, rho, x0, M, K, Hs, D, bnd, dv, wzy,
+                                    hh, rung, 1.6, 1e-6, None),
+              ca.admm_fwd_update_lanes_reference(
+                  rho, x0, M, K, Hs, D, bnd, dv, wzy, hh, nu=nu,
+                  cones=cones, alpha=1.6, sigma=1e-6, rung=rung), tol)
+
+
 # (dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol): the
 # quadrotor's box rows with a diagonal and a full stage cost, its thrust
 # cone with a shift, a rotated cone and two cones on odd small shapes.
@@ -927,6 +1001,30 @@ NARROW_K7_CASES = [
     (torch.float32, 24, 6, 9, 72, 1e-4),
     (torch.float64, 24, 6, 11, 37, 1e-10),
 ]
+# (dtype, nx, nu, nc, N, Bs, cones, diag_cost, has_shift, tol): the narrow
+# split pair (K4, K5 packed) across blocks of 32, N past the rings' slots:
+# c by boxes of the bfloat16 map (72: a multiple of 8, the last block
+# ragged) and by 2-byte loads (67: odd, every other row starting mid-word;
+# 250: even, no multiple of 8), the thrust cone with a shift and a full
+# stage cost, and at the mass-spring chain's widths in float64 (the slots
+# within 227 KB).
+NARROW_ADMM_CASES = [
+    (torch.float64, 12, 4, 19, 21, 72, ((16, 3, "soc"),), True, True, 1e-10),
+    (torch.float32, 12, 4, 16, 7, 67, (), False, False, 1e-4),
+    (torch.float64, 12, 4, 16, 5, 250, (), True, False, 1e-10),
+    (torch.float64, 40, 10, 10, 4, 33, (), False, False, 1e-10),
+]
+# (dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol): the
+# narrow ladder pair (K6 on R rungs, its Pc form at one, K5's rung form)
+# across blocks, N past the slots: boxes (72, R=4), 2-byte loads on an odd
+# batch with the thrust cone (67, R=3) and on 250, one rung, and the
+# mass-spring chain's widths in float64.
+NARROW_LADDER_CASES = [
+    (torch.float64, 12, 4, 16, 20, 72, 4, (), True, False, 1e-10),
+    (torch.float32, 12, 4, 19, 6, 67, 3, ((16, 3, "soc"),), True, True, 1e-4),
+    (torch.float64, 12, 4, 16, 5, 250, 1, (), False, False, 1e-10),
+    (torch.float64, 40, 10, 10, 4, 33, 2, (), True, False, 1e-10),
+]
 WIDE = (WIDE_CASES, WIDE_ADMM_CASES, [], WIDE_ITER_CASES, [],
         WIDE_SWEEP_CASES, WIDE_K2_CASES, WIDE_K46_CASES, WIDE_K7_CASES)
 
@@ -939,12 +1037,15 @@ QUICK, ADMM_QUICK, LADDER_QUICK = (CASES[:1] + WIDE_CASES[:1], ADMM_CASES[:2],
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
 K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
 NARROW_SWEEP_QUICK, NARROW_K7_QUICK = NARROW_SWEEP_CASES[:2], NARROW_K7_CASES[:2]
+NARROW_ADMM_QUICK, NARROW_LADDER_QUICK = (NARROW_ADMM_CASES[:1],
+                                          NARROW_LADDER_CASES[:1])
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
          iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES,
          k2_cases=K2_CASES, k46_cases=K46_CASES, k7_cases=K7_CASES,
-         narrow_sweep_cases=(), narrow_k7_cases=()):
+         narrow_sweep_cases=(), narrow_k7_cases=(), narrow_admm_cases=(),
+         narrow_ladder_cases=()):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -970,6 +1071,10 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_narrow_sweep(*case)
     for case in narrow_k7_cases:
         run_narrow_k7(*case)
+    for case in narrow_admm_cases:
+        run_narrow_admm(*case)
+    for case in narrow_ladder_cases:
+        run_narrow_ladder(*case)
     print("emulated kernels agree with their plain versions")
     return 0
 
@@ -979,12 +1084,15 @@ if __name__ == "__main__":
     if "--quick" in args:
         sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
                       SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK,
-                      NARROW_SWEEP_QUICK, NARROW_K7_QUICK))
+                      NARROW_SWEEP_QUICK, NARROW_K7_QUICK, NARROW_ADMM_QUICK,
+                      NARROW_LADDER_QUICK))
     if "--wide" in args:
         sys.exit(main(*WIDE))
     if "--narrow" in args:
         sys.exit(main([], [], [], [], [], [], [], [], [], NARROW_SWEEP_CASES,
-                      NARROW_K7_CASES))
+                      NARROW_K7_CASES, NARROW_ADMM_CASES,
+                      NARROW_LADDER_CASES))
     main(narrow_sweep_cases=NARROW_SWEEP_CASES,
-         narrow_k7_cases=NARROW_K7_CASES)
+         narrow_k7_cases=NARROW_K7_CASES, narrow_admm_cases=NARROW_ADMM_CASES,
+         narrow_ladder_cases=NARROW_LADDER_CASES)
     sys.exit(main(*WIDE))

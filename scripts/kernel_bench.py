@@ -49,8 +49,11 @@ centroidal N=1024, B=4096 and, in the ADMM loop, B=2048); a tree without
 those models cannot run it.  ``--bf16`` adds the forms on bfloat16 stage
 streams to ``sweep`` (K1 gains only and K11, on the tensors
 ``solve_lanes`` and ``solve_packed`` hand them with
-``storage_dtype=torch.bfloat16``, B=4096) and to ``k7`` (K7 and K12 on
-theirs); a tree without them cannot run it.  Each form is held against its
+``storage_dtype=torch.bfloat16``, B=4096), to ``k7`` (K7 and K12 on
+theirs) and to ``k4``, ``k5`` and ``k6`` (the narrow forms of K4 and K5
+packed on the tensors of the split request with
+``storage_dtype=torch.bfloat16``, of K6 and K5's rung form on the
+ladder's); a tree without them cannot run it.  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
@@ -242,12 +245,12 @@ def latency_runs(sm, dev):
     return runs
 
 
-def k2_k5_runs(sm, dev):
+def k2_k5_runs(sm, dev, bf16=False):
     """K2 (shared, both modes; per instance) and K5 (packed with and
-    without hf-emit; the rung form) on the tensors their paths hand them,
-    each path run once with the kernels' calls recorded: name -> (kernel
-    call, plain call, output names, bytes read, operations, profile
-    sections)."""
+    without hf-emit; the rung form; with ``bf16`` also both on the narrow
+    requests' tensors) on the tensors their paths hand them, each path run
+    once with the kernels' calls recorded: name -> (kernel call, plain
+    call, output names, bytes read, operations, profile sections)."""
     import pdp_lqr_tpu_torch as plt_
     from pdp_lqr_tpu_torch.models import quadrotor
     from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
@@ -315,15 +318,49 @@ def k2_k5_runs(sm, dev):
         sm.nbytes(*k5r[:8], K5r, rung),
         sm.k5_flops(N, NX, NU, NC, sm.B_MAIN, True, emit_hf=False),
         K5_SECTIONS)
+    if bf16:
+        # The same two requests with storage_dtype=bfloat16.
+        for tag, st, state_ in (
+                ("[packed,bf16]", sm.ADMM_SETTINGS, None),
+                ("[rung,R=4,bf16]", sm.LADDER_SETTINGS, state)):
+            with sm.recorded_calls(ca, ["admm_fwd_update_lanes"]) as rec:
+                narrow_request(sm, model, c, x0, st, state_)
+            a, kw = rec["admm_fwd_update_lanes"]
+            inp = (a[0], a[1], a[2], a[4], a[5], a[6], a[10], a[11],
+                   kw.get("h"))
+            Kn, rn = a[3], kw.get("rung")
+            runs["admm_fwd_update_lanes" + tag] = (
+                lambda inp=inp, Kn=Kn, rn=rn: sm.k5_call(ca, inp, (), K=Kn,
+                                                         rung=rn),
+                lambda inp=inp, Kn=Kn, rn=rn: sm.k5_plain(ca, inp, (), K=Kn,
+                                                          rung=rn),
+                sm.K5_OUT if inp[8] is not None else sm.K5_RUNG_OUT,
+                sm.nbytes(*(x for x in inp + (Kn, rn) if x is not None)),
+                sm.k5_flops(N, NX, NU, NC, sm.B_MAIN, True,
+                            emit_hf=inp[8] is not None), K5_SECTIONS)
     torch.cuda.synchronize()
     return runs
 
 
-def k4_k6_runs(sm, dev):
+def narrow_request(sm, model, c, x0, settings, state):
+    """The split (``state`` None) or ladder request of ``solve_admm`` on
+    the quadrotor with ``storage_dtype=torch.bfloat16``."""
+    import dataclasses
+
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.solvers import admm
+    return plt_.solve_fused(dataclasses.replace(model, c=c), x0, (),
+                            admm.ADMMSettings(**settings), state=state,
+                            single_kernel=False, storage_dtype=torch.bfloat16)
+
+
+def k4_k6_runs(sm, dev, bf16=False):
     """K4 and K6 (R=4) on the tensors of the last iteration of
-    ``solve_admm``'s and the ladder's 20-iteration requests (B=4096):
-    name -> (kernel call, plain call, output names, bytes read,
-    operations, profile sections)."""
+    ``solve_admm``'s and the ladder's 20-iteration requests (B=4096; with
+    ``bf16`` also their narrow forms on the same requests' with
+    ``storage_dtype=torch.bfloat16``): name -> (kernel call, plain call,
+    output names, bytes read, operations, the library's (dtype, nx, nu, nc,
+    modes))."""
     import pdp_lqr_tpu_torch as plt_
     from pdp_lqr_tpu_torch.models import quadrotor
     from pdp_lqr_tpu_torch.ops import cuda_admm as ca
@@ -348,19 +385,31 @@ def k4_k6_runs(sm, dev):
         server.solve_admm(x0, (), admm.ADMMSettings(**sm.LADDER_SETTINGS),
                           state=state, c=c)
     a6, kw6 = rec[K6]
+    recs = {"": ((a4, kw4), (a6, kw6))}
+    if bf16:
+        with sm.recorded_calls(ca, [K4]) as r4:
+            narrow_request(sm, model, c, x0, sm.ADMM_SETTINGS, None)
+        with sm.recorded_calls(ca, [K6]) as r6:
+            narrow_request(sm, model, c, x0, sm.LADDER_SETTINGS, state)
+        recs[",bf16"] = (r4[K4], r6[K6])
     torch.cuda.synchronize()
-    return {
-        K4: (lambda: [ca.admm_bwd_vec_prefold_lanes(*a4, **kw4)],
-             lambda: [ca.admm_bwd_vec_prefold_lanes_reference(*a4, **kw4)],
-             sm.K4_OUT, sm.nbytes(*a4), sm.k2_flops(N, NX, NU, sm.B_MAIN),
-             (f32, NX, NU, None, {})),
-        K6 + "[R=4]": (
-            lambda: [ca.admm_bwd_vec_lanes(*a6, **kw6)],
-            lambda: [ca.admm_bwd_vec_lanes_reference(*a6, **kw6)],
+    runs = {}
+    for tag, ((a4, kw4), (a6, kw6)) in recs.items():
+        narrow = {"narrow": True} if tag else {}
+        runs[K4 + (f"[{tag[1:]}]" if tag else "")] = (
+            lambda a4=a4, kw4=kw4: [ca.admm_bwd_vec_prefold_lanes(*a4, **kw4)],
+            lambda a4=a4, kw4=kw4: [ca.admm_bwd_vec_prefold_lanes_reference(
+                *a4, **kw4)],
+            sm.K4_OUT, sm.nbytes(*a4), sm.k2_flops(N, NX, NU, sm.B_MAIN),
+            (f32, NX, NU, None, narrow))
+        runs[K6 + f"[R=4{tag}]"] = (
+            lambda a6=a6, kw6=kw6: [ca.admm_bwd_vec_lanes(*a6, **kw6)],
+            lambda a6=a6, kw6=kw6: [ca.admm_bwd_vec_lanes_reference(
+                *a6, **kw6)],
             sm.K6_OUT, sm.nbytes(*a6, kw6.get("rung")),
             sm.k6_flops(N, NX, NU, NC, sm.B_MAIN),
-            (f32, NX, NU, NC, {"fold": True, "rungs": 4})),
-    }
+            (f32, NX, NU, NC, {"fold": True, "rungs": 4, **narrow}))
+    return runs
 
 
 def k7_runs(sm, dev, bf16=False, batches=None):
@@ -424,8 +473,8 @@ def main():
                     help="K8's, K2's, K5's, K4's, K6's, K7's and K12's "
                          "diagnostic builds: cycles a stage by section")
     ap.add_argument("--bf16", action="store_true",
-                    help="sweep and k7: also the forms on bfloat16 stage "
-                         "streams")
+                    help="sweep, k7, k4, k5, k6: also the forms on "
+                         "bfloat16 streams")
     ap.add_argument("--batches", type=int, nargs="*", default=None,
                     help="k7: the batches to run (default 4096); sweep: "
                          "solve_lanes' K1 also at these (at most 4096); "
@@ -486,6 +535,13 @@ def main():
                                                   narrow=True)))
     if args.bf16 and "k7" in args.kernels:
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, narrow=True)))
+    if args.bf16 and {"k5", "k4", "k6"} & set(args.kernels):
+        jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, diag_cost=True,
+                                               rungs=R, narrow=True))
+                 for R in (1, 4)]
+        jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, narrow=True)),
+                 (ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, fold=True,
+                                               rungs=4, narrow=True))]
     paths = _build.build_many(jobs)
     regs = {}
     for job, p in zip(jobs, paths):
@@ -582,7 +638,7 @@ def main():
         return {"cycles_per_stage": {k: v / N for k, v in zip(names, out)}}
 
     if "k2" in args.kernels or "k5" in args.kernels:
-        runs = k2_k5_runs(sm, dev)
+        runs = k2_k5_runs(sm, dev, bf16=args.bf16)
         for name, (call, plain, names, moved, flops, sec) in runs.items():
             k5 = name.startswith("admm_fwd_update_lanes")
             if ("k5" if k5 else "k2") not in args.kernels:
@@ -591,7 +647,8 @@ def main():
                 call()
                 torch.cuda.synchronize()
                 lib = ca._library(f32, NX, NU, NC, diag_cost=True,
-                                  rungs=4 if "rung" in name else 1) if k5 \
+                                  rungs=4 if "rung" in name else 1,
+                                  narrow="bf16" in name) if k5 \
                     else cr._library(f32, NX, NU)
                 entry = "admm_read_prof" if k5 else "riccati_read_prof"
                 extra = (lambda lib=lib, entry=entry, sec=sec:
@@ -603,9 +660,9 @@ def main():
         del runs
 
     if {"k4", "k6"} & set(args.kernels):
-        runs = k4_k6_runs(sm, dev)
+        runs = k4_k6_runs(sm, dev, bf16=args.bf16)
         for name, (call, plain, names, moved, flops, lib_of) in runs.items():
-            if ("k6" if "[R=4]" in name else "k4") not in args.kernels:
+            if ("k6" if "[R=4" in name else "k4") not in args.kernels:
                 continue
             extra = lambda: {}
             if args.profile:

@@ -11,7 +11,9 @@ across their blocks and past their ring's slots; K1-K3, K7 and K9-K12 at
 the mass-spring chain's widths, nx=40, nu=10, in float64; the forms on
 bfloat16 stage streams of the matrix sweep, K1 gains only and K11, across
 their groups on an odd batch, and of K7 and K12 across their blocks on
-bfloat16 boxes and, on an odd batch, in aligned pairs) keeps
+bfloat16 boxes and, on an odd batch, in aligned pairs; the narrow forms
+of the split kernels, K4 and K5 packed with the thrust cone and a shift,
+K6 on four rungs and K5's rung form, on bfloat16 boxes of c) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
@@ -33,4 +35,5 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
     assert emu.main(emu.QUICK, emu.ADMM_QUICK, emu.LADDER_QUICK,
                     emu.ITER_QUICK, emu.K3_QUICK, emu.SWEEP_QUICK,
                     emu.K2_QUICK, emu.K46_QUICK, emu.K7_QUICK,
-                    emu.NARROW_SWEEP_QUICK, emu.NARROW_K7_QUICK) == 0
+                    emu.NARROW_SWEEP_QUICK, emu.NARROW_K7_QUICK,
+                    emu.NARROW_ADMM_QUICK, emu.NARROW_LADDER_QUICK) == 0

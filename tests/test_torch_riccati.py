@@ -397,7 +397,10 @@ def test_cpu_path_launches_no_kernel(port_prep):
                            "forward_packed[bf16]": 0}
     assert ca.LAUNCHES == {"admm_bwd_vec_prefold_lanes": 0,
                            "admm_bwd_vec_lanes": 0,
-                           "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0}
+                           "admm_fwd_update_lanes": 0, "admm_iter_lanes": 0,
+                           "admm_bwd_vec_prefold_lanes[bf16]": 0,
+                           "admm_bwd_vec_lanes[bf16]": 0,
+                           "admm_fwd_update_lanes[bf16]": 0}
 
 
 def test_kernel_defines_and_block_sizes():

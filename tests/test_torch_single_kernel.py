@@ -340,7 +340,7 @@ def _auto_route(setup, batched, settings, monkeypatch, **kw):
      "admm_bwd_vec_prefold_lanes"),                           # the split pair
     (False, dict(rho_ladder=(0.1, 1.0)), {}, "admm_bwd_vec_lanes"),
     (False, dict(cached_factors=True, uniform_rho=True),
-     dict(storage_dtype=torch.bfloat16), "admm_iter_lanes"),
+     dict(storage_dtype=torch.bfloat16), "admm_bwd_vec_prefold_lanes"),
     (True, {}, {}, "admm_iter_lanes"),                        # measured faster
     (True, {}, dict(storage_dtype=torch.bfloat16), "admm_iter_lanes"),
     (True, {}, dict(residual_weights=(np.ones((N + 1, NC)),
