@@ -49,7 +49,17 @@ four-rung ladder; ``solve_batch`` on a scenario batch of B=4096, checked
 against ``solve_fused``), the MPC loops (``simulate_realtime`` over 200
 ticks, against ``simulate``), ``solve_with_recovery`` over ``solve_lanes``
 with indefinite instances, and ``solve_equilibrated`` on rows scaled
-across 1e6.  It times the paths and their kernels with CUDA events.
+across 1e6; the segment-parallel solve in torch ops
+(``parallel.pdp_sharded``, both condensed variants, against float64), the
+g++ witness (``utils.native``, against ``solve_lanes`` in float64), the
+mesh over ranks (phase ``multirank``: two ranks sharing the card over
+gloo run ``fused_dp``, ``solve_fused_dp``, ``pdp_sharded_fused`` and
+``admm_sharded``, each against the same call in one process, their
+kernels counted on every rank; then a world of one rank on NCCL), and the
+six examples (``examples/torch_*.py``) at their card defaults (five run
+beside the ``kernels`` phase, which times nothing, and are finished
+before anything is timed; the roofline report then runs alone).  It
+times the paths and their kernels with CUDA events.
 Each phase prints one JSON line; any failed check raises, so the exit
 code is non-zero and no result line appears.  It needs one CUDA device
 and imports nothing of JAX.
@@ -82,8 +92,8 @@ N_SMALL, B_SMALL = 64, 256      # kernel-vs-plain comparison shape
 B_RAGGED = 250                  # not a multiple of a block's 32 scenarios
 B_ODD = 249                     # odd: K8's bfloat16 rows at odd offsets
 REQUESTS = 3                    # requests of the counted main-path run
-TIMED_REQUESTS = 20
-ADMM_TIMED_REQUESTS = 10
+TIMED_REQUESTS = 10
+ADMM_TIMED_REQUESTS = 5
 ALPHA = 1.6                     # ADMMSettings' relaxation
 
 # The conic ADMM request: the JAX package's bench settings for its split
@@ -262,7 +272,7 @@ WIDE_KERNEL_RTOL = 2.5e-3
 # is held to that, not to rounding); ``admm.solve_batched`` on each
 # backend against the same call on the CPU.  Each limit is 10x what was
 # measured on an H100 (PERF.md).
-N_API, B_API, S_API = 512, 64, 8
+N_API, B_API, S_API = 256, 64, 8
 # Measured: the classes against the sequential solver 1.32e-14, the KKT
 # class 2.86e-4, solve_batched against the CPU 3.11e-14.
 API_ATOL = 1.4e-13
@@ -375,7 +385,7 @@ def emit(phase, **fields):
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
+        capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
 
@@ -1305,6 +1315,17 @@ def kernels_wide(ca, cr, dev):
     return cases, timing
 
 
+@contextlib.contextmanager
+def cpu_threads(n):
+    """torch's CPU ops on ``n`` threads inside (restored after)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def wide_requests(plt_, admm, sequential, ca, cr, dev, card, check=True):
     """The four requests of the two wide models (see N_MS, N_CEN): each
     warmed up, counted once with the tensors it hands its kernels
@@ -1931,7 +1952,7 @@ def admm_bf16_phases(plt_, admm, ca, cr, card, model, c_t, x0_t, c_np, x0_np,
 
 
 def reference_api(plt_, admm, sequential, dev, card):
-    """The reference-shaped solvers on the card (quadrotor N=512, float64,
+    """The reference-shaped solvers on the card (quadrotor N=N_API, float64,
     a batched model of B=64): the four classes through the lifecycle, held
     against each other and the sequential witness, each step timed; then
     ``admm.solve_batched`` on each of the five backends with the thrust
@@ -2578,6 +2599,416 @@ def equilibrated(admm, dev, card):
          launches=launches)
 
 
+# ------------------------------------------------- the tenth slice's phases
+# pdp_sharded (torch ops): the segment-parallel solve at B_PDP, S_PDP, both
+# condensed variants, against the float64 sequential solver.
+PS_N_REF = 8
+# native: the g++ witness against the port's solve_lanes (float64).
+NATIVE_N, NATIVE_B, NATIVE_ATOL = 512, 64, 1e-9
+# multirank: two ranks sharing the one card over gloo, each call beside the
+# same call in one process; then a world of one rank on NCCL.
+MR_WORLD, MR_TIMEOUT_S, MR_REPS = 2, 600, 3
+# One solve: 1e-6 (float32); a 20-iteration ADMM loop in float32 carries
+# the rounding of products whose shapes differ on a rank (cuBLAS picks other
+# reduction orders for N/2 stages or B/2 rows): 3.5e-6 measured on
+# admm_sharded (one H100), held to ten times that.  float64: 1e-12.
+MR_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+MR_LOOP_RTOL = {torch.float32: 3.5e-5, torch.float64: 1e-12}
+MR_B_PDP, MR_TIME = 1024, 2
+MR_EARLY = dict(REP_SETTINGS, early_exit=True, max_iter=60)
+# examples: the six examples at their card defaults; five at once beside
+# phases that time nothing, then the roofline report (it times K1 and K7)
+# alone.
+# Those that launch no kernel start before the build (it takes 350-500 s).
+EXAMPLES_EARLY = ("torch_lqr_example", "torch_constrained_mpc")
+EXAMPLES = ("torch_latency_mpc", "torch_rocket_landing", "torch_scenario_mpc")
+ROOFLINE = "torch_roofline_report"
+EXAMPLES_EARLY_TIMEOUT_S = 900
+EXAMPLES_TIMEOUT_S = 300
+ROOFLINE_TIMEOUT_S = 120
+BOX = (-0.9916, 2.4084)
+EX_POSITION_ATOL = 1e-2        # the closed loop's final position vs [0, 0, 1]
+EX_BOX_ATOL = 1e-3             # the ADMM tolerance on the input box
+
+
+def pdp_sharded_phase(plt_, sequential, dev, card):
+    """parallel.pdp_sharded.solve (torch ops, no kernel) at full width:
+    the quadrotor written out once a scenario, B_PDP scenarios, S_PDP
+    segments, Cholesky and LU condensed solves, float32, against the
+    float64 sequential solver on the first scenarios."""
+    from pdp_lqr_tpu_torch.config import CondensedSolverType
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.parallel import make_mesh, pdp_sharded
+
+    model, _ = quadrotor(N=N_MAIN, constrained=True, dtype=torch.float32,
+                         device=dev)
+    rng = np.random.default_rng(SEED + 5)
+    c = torch.as_tensor(rng.normal(size=(B_PDP, N_MAIN, NX)) * 0.01).to(
+        device=dev, dtype=torch.float32)
+    x0 = torch.as_tensor(rng.normal(size=(B_PDP, NX)) * 0.1).to(
+        device=dev, dtype=torch.float32)
+    bp = batched(model, B_PDP, c)
+    it = plt_.init_iterates(bp, rho=RHO)
+    bp64 = bp.to(dtype=torch.float64)
+    ref, _ = sequential.solve_batched(
+        plt_.LQRProblem(**{f.name: getattr(bp64, f.name)[:PS_N_REF]
+                           for f in dataclasses.fields(bp64)}),
+        plt_.ADMMIterates(**{f.name: getattr(it, f.name)[:PS_N_REF].double()
+                             for f in dataclasses.fields(it)}),
+        x0[:PS_N_REF].double(), SIGMA)
+    mesh = make_mesh(time=S_PDP, device=dev)
+    out = {}
+    for st in CondensedSolverType:
+        request = lambda st=st: pdp_sharded.solve(mesh, bp, it, x0, SIGMA, st)
+        reset_kernel_counts()
+        ws = request()
+        torch.cuda.synchronize()
+        launches = no_kernel_launches()
+        require(ws.shape == (B_PDP, N_MAIN + 1, NX + NU) and
+                ws.dtype == torch.float32 and ws.device.type == "cuda")
+        require(bool(torch.isfinite(ws).all()), "pdp_sharded: not finite")
+        err = float((ws[:PS_N_REF].double() - ref).abs().max())
+        require(err <= MAIN_PATH_ATOL, st, err)
+        out[st.value] = {"max_abs_err_vs_sequential_f64": err,
+                         "request_ms": cuda_ms(request, 3, warmup=1),
+                         "launches": launches}
+    emit("pdp_sharded", card=card, model="quadrotor constrained, batched",
+         N=N_MAIN, B=B_PDP, S=S_PDP, dtype="float32",
+         atol=MAIN_PATH_ATOL, **out)
+
+
+def native_phase(plt_, cr, dev, card):
+    """utils.native (the g++ witness, on the host) against the port's
+    solve_lanes (K1 + K7, float64) on the quadrotor."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.utils import native
+
+    require(native.available(), "native: g++ did not build the engine")
+    model, _ = quadrotor(N=NATIVE_N, constrained=True, dtype=torch.float64,
+                         device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    c = torch.as_tensor(rng.normal(size=(NATIVE_B, NATIVE_N, NX)) * 0.01).to(dev)
+    x0 = torch.as_tensor(rng.normal(size=(NATIVE_B, NX)) * 0.1).to(dev)
+    bp = batched(model, NATIVE_B, c)
+    it = plt_.init_iterates(bp, rho=RHO)
+    reset_kernel_counts()
+    ws = cr.solve_lanes(bp, it, x0, SIGMA)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**zero_counts(), **cr.LAUNCHES}.items() if v}
+    require(launches == {"backward_lanes": 1, "forward_rollout_lanes": 1},
+            launches)
+    t0 = time.perf_counter()
+    ws_native = native.solve_batch(bp, it, x0, SIGMA)
+    native_s = time.perf_counter() - t0
+    require(ws_native.device == ws.device and ws_native.dtype == torch.float64)
+    err = float((ws_native - ws).abs().max())
+    require(err <= NATIVE_ATOL, "native vs solve_lanes", err)
+    emit("native", card=card, model="quadrotor constrained, batched",
+         N=NATIVE_N, B=NATIVE_B, dtype="float64", launches=launches,
+         max_abs_err_vs_solve_lanes=err, atol=NATIVE_ATOL,
+         native_host_s=native_s)
+
+
+def multirank_inputs(plt_, admm, dt, N, B, B_pdp, dev):
+    """The multi-rank calls' inputs on the card (views where the model is
+    written out once a scenario) and their one-process counterparts."""
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+    from pdp_lqr_tpu_torch.parallel import (admm_sharded, make_mesh,
+                                            pdp_sharded_fused)
+    model, _ = quadrotor(N=N, constrained=True, dtype=dt, device=dev)
+    model_c, cones = quadrotor(N=N, constrained=True, thrust_cone=True,
+                               dtype=dt, device=dev)
+    rng = np.random.default_rng(SEED + 7)
+    t = lambda x: torch.as_tensor(x).to(device=dev, dtype=dt)
+    c = t(rng.normal(size=(B, N, NX)) * 0.01)
+    x0 = t(rng.normal(size=(B, NX)) * 0.1)
+    x0a = t(0.03 + 0.01 * rng.normal(size=(B, NX)))
+    shift = np.zeros((N + 1, NC_CONE))
+    shift[:, NC] = THRUST_SHIFT
+    shift = t(shift)
+    bp = batched(model, B, c)
+    it = plt_.init_iterates(bp, rho=RHO)
+    head = lambda r: type(r)(**{f.name: getattr(r, f.name)[:B_pdp]
+                                for f in dataclasses.fields(r)})
+    bp_pdp, it_pdp = head(bp), head(it)
+    bp_c = batched(model_c, B_pdp, c[:B_pdp])
+    shared = dataclasses.replace(model, c=c)
+    split = admm.ADMMSettings(**ADMM_SETTINGS)
+    P = "pdp_lqr_tpu_torch.parallel."
+    calls = {
+        "fused_dp.solve": (P + "fused_dp:solve", 1, (bp, it, x0, SIGMA), {},
+                           lambda: cr.solve_lanes(bp, it, x0, SIGMA)),
+        "fused_dp.solve_fused_dp[split]": (
+            P + "fused_dp:solve_fused_dp", 1, (shared, x0a, (), split),
+            {"single_kernel": False},
+            lambda: admm.solve_fused(shared, x0a, (), split,
+                                     single_kernel=False)),
+        "pdp_sharded_fused.solve": (
+            P + "pdp_sharded_fused:solve", MR_TIME,
+            (bp_pdp, it_pdp, x0[:B_pdp], SIGMA), {},
+            lambda: pdp_sharded_fused.solve(make_mesh(time=MR_TIME, device=dev),
+                                            bp_pdp, it_pdp, x0[:B_pdp], SIGMA)),
+    }
+    for cached in (False, True):
+        st = admm.ADMMSettings(**REP_SETTINGS, cached_factors=cached)
+        calls[f"admm_sharded.solve[{'cached' if cached else 'uncached'}]"] = (
+            P + "admm_sharded:solve", MR_TIME,
+            (bp_c, x0a[:B_pdp], cones, st), {"soc_shift": shift},
+            lambda st=st: admm_sharded.solve(
+                make_mesh(time=MR_TIME, device=dev), bp_c, x0a[:B_pdp], cones,
+                st, soc_shift=shift))
+    return calls
+
+
+MR_LAUNCHES = {
+    "fused_dp.solve": {"backward_lanes": 1, "forward_rollout_lanes": 1},
+    "fused_dp.solve_fused_dp[split]": {
+        "backward_lanes": 1, "admm_bwd_vec_prefold_lanes": ADMM_ITERS,
+        "admm_fwd_update_lanes": ADMM_ITERS},
+    "pdp_sharded_fused.solve": {"backward_pdp_lanes": 1, "forward_lanes": 1},
+    "admm_sharded.solve[uncached]": {"backward_pdp_lanes": ADMM_ITERS,
+                                     "forward_lanes": ADMM_ITERS},
+    "admm_sharded.solve[cached]": {"backward_pdp_lanes": 1,
+                                   "backward_pdp_vectors_lanes": ADMM_ITERS,
+                                   "forward_lanes": ADMM_ITERS},
+}
+
+
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _rank_rows(name, rank, B):
+    """The rows of the global batch a rank's result holds (fused_dp splits
+    the batch over the ranks; the time meshes give every rank all rows)."""
+    if name.startswith("fused_dp"):
+        n = B // MR_WORLD
+        return slice(rank * n, (rank + 1) * n)
+    return slice(0, B)
+
+
+def multirank_phase(plt_, admm, dev, card):
+    """The mesh over ranks on the card: a world of MR_WORLD ranks sharing
+    the one card over gloo (``multihost.launch``), each call of
+    ``fused_dp``, ``pdp_sharded_fused`` and ``admm_sharded`` held against
+    the same call in this process (float32 at full width, float64 at
+    N_SMALL, B_SMALL) and its kernels counted on every rank; then a world
+    of one rank on NCCL.  Times are two ranks sharing one card (gloo) or
+    one rank (NCCL): not a scaling figure."""
+    from pdp_lqr_tpu_torch.parallel import admm_sharded, make_mesh, multihost
+    from pdp_lqr_tpu_torch.parallel import pdp_sharded_fused as psf
+
+    cases = {torch.float32: multirank_inputs(plt_, admm, torch.float32,
+                                             N_MAIN, B_MAIN, MR_B_PDP, dev),
+             torch.float64: multirank_inputs(plt_, admm, torch.float64,
+                                             N_SMALL, B_SMALL, B_SMALL, dev)}
+    jobs, plain = [], {}
+    for dt, calls in cases.items():
+        for name, (fn, t, args, kwargs, one) in calls.items():
+            key = f"{name}[{str(dt).split('.')[-1]}]"
+            jobs.append(dict(name=key, fn=fn, time=t, args=args, kwargs=kwargs,
+                             reps=MR_REPS if dt == torch.float32 else 0))
+            reset_kernel_counts()
+            plain[key] = one()
+            torch.cuda.synchronize()
+            plain[key + "/ms"] = (cuda_ms(one, MR_REPS, warmup=0)
+                                  if dt == torch.float32 else None)
+    t0 = time.time()
+    ranks = multihost.launch(jobs, MR_WORLD, device="cuda", backend="gloo",
+                             timeout=MR_TIMEOUT_S)
+    world_s = time.time() - t0
+    results = {}
+    for dt, calls in cases.items():
+        B = B_MAIN if dt == torch.float32 else B_SMALL
+        for name in calls:
+            key = f"{name}[{str(dt).split('.')[-1]}]"
+            ref, errs, launches, ms = plain[key], [], [], []
+            for rank in ranks:
+                res = next(r for r in rank["results"] if r["name"] == key)
+                require(res["error"] is None, key, rank["rank"], res["error"])
+                rows = _rank_rows(name, rank["rank"], B)
+                err = rel_diff(_first(res["out"]), _first(ref)[rows].cpu())
+                if isinstance(ref, tuple):
+                    err = max(err, rel_diff(res["out"][1].rho,
+                                            ref[1].rho[rows].cpu()))
+                    require(bool((res["out"][2].iterations
+                                  == ref[2].iterations[rows].cpu()).all()), key)
+                tol = (MR_LOOP_RTOL if isinstance(ref, tuple) else MR_RTOL)[dt]
+                require(err <= tol, key, rank["rank"], err)
+                require(res["launches"] == MR_LAUNCHES[name], key,
+                        rank["rank"], res["launches"])
+                errs.append(err)
+                launches.append(res["launches"])
+                ms.append(res["ms"])
+            results[key] = {"max_rel_err_vs_one_process": max(errs),
+                            "launches_by_rank": launches,
+                            "two_ranks_ms_by_rank": ms,
+                            "one_process_ms": plain[key + "/ms"]}
+    for rank in ranks:
+        require(rank["backend"] == "gloo" and rank["allow_tf32"] is False)
+        require(not {"jax", "jaxlib", "pdp_lqr_tpu"} & set(rank["packages"]),
+                rank["packages"])
+
+    # A world of one rank on NCCL: the collectives of pdp_sharded_fused and
+    # of admm_sharded's early exit through NCCL.
+    calls = cases[torch.float32]
+    _, _, args, _, _ = calls["pdp_sharded_fused.solve"]
+    bp_c, x0a, cones, _ = calls["admm_sharded.solve[uncached]"][2]
+    shift = calls["admm_sharded.solve[uncached]"][3]["soc_shift"]
+    early = admm.ADMMSettings(**MR_EARLY)
+    nccl_jobs = [
+        dict(name="pdp_sharded_fused", fn="pdp_lqr_tpu_torch.parallel."
+             "pdp_sharded_fused:solve", time=1, args=args, reps=MR_REPS),
+        dict(name="admm_sharded_early_exit", fn="pdp_lqr_tpu_torch.parallel."
+             "admm_sharded:solve", time=1, args=(bp_c, x0a, cones, early),
+             kwargs={"soc_shift": shift}, reps=MR_REPS)]
+    one = {"pdp_sharded_fused": lambda: psf.solve(make_mesh(device=dev), *args),
+           "admm_sharded_early_exit": lambda: admm_sharded.solve(
+               make_mesh(device=dev), bp_c, x0a, cones, early,
+               soc_shift=shift)}
+    t0 = time.time()
+    nccl = multihost.launch(nccl_jobs, 1, device="cuda", backend="nccl",
+                            timeout=MR_TIMEOUT_S)[0]
+    nccl_s = time.time() - t0
+    require(nccl["backend"] == "nccl")
+    nccl_out = {}
+    for res in nccl["results"]:
+        require(res["error"] is None, res["name"], res["error"])
+        ref = one[res["name"]]()
+        err = rel_diff(_first(res["out"]), _first(ref).cpu())
+        tol = (MR_LOOP_RTOL if isinstance(ref, tuple) else MR_RTOL)
+        require(err <= tol[torch.float32], res["name"], err)
+        nccl_out[res["name"]] = {"max_rel_err_vs_one_process": err,
+                                 "launches": res["launches"],
+                                 "one_rank_ms": res["ms"]}
+        if isinstance(ref, tuple):
+            its = int(res["out"][2].iterations[0])
+            require(its == int(ref[2].iterations[0].cpu()), res["name"])
+            nccl_out[res["name"]]["iterations"] = its
+    emit("multirank", card=card, model="quadrotor constrained (+ thrust cone "
+         "with a shift for admm_sharded)", world=MR_WORLD, backend="gloo",
+         device="two ranks sharing one card", N={"float32": N_MAIN,
+                                                 "float64": N_SMALL},
+         B={"float32": B_MAIN, "float64": B_SMALL}, B_time_mesh=MR_B_PDP,
+         time=MR_TIME, rtol={"solve": {str(k).split(".")[-1]: v
+                                       for k, v in MR_RTOL.items()},
+                             "admm_loop": {str(k).split(".")[-1]: v
+                                           for k, v in MR_LOOP_RTOL.items()}},
+         calls=results, world_s=world_s,
+         nccl={"world": 1, "device": "one rank on the card", "s": nccl_s,
+               **nccl_out})
+
+
+def example_path(name):
+    import pathlib
+    return str(pathlib.Path(__file__).resolve().parent / "examples"
+               / f"{name}.py")
+
+
+class ExampleRuns:
+    """Examples (``examples/torch_*.py``) at their card defaults, started
+    together as subprocesses; ``finish`` waits for them (each killed
+    ``timeout`` seconds after the start) and returns their exit codes and
+    output.  Every child is killed when the script exits, whatever its
+    exit."""
+
+    def __init__(self, names, timeout):
+        import atexit
+        import tempfile
+
+        self.t0 = time.time()
+        self.deadline = self.t0 + timeout
+        self.procs, self.logs = {}, {}
+        atexit.register(self.kill)
+        for name in names:
+            self.logs[name] = tempfile.TemporaryFile("w+")
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, example_path(name)],
+                stdout=self.logs[name], stderr=subprocess.STDOUT)
+
+    def kill(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    def finish(self):
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=max(1.0, self.deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+        self.kill()
+        outs = {}
+        for name, log in self.logs.items():
+            log.seek(0)
+            outs[name] = log.read()
+            log.close()
+        return {n: p.returncode for n, p in self.procs.items()}, outs
+
+
+def examples_phase(runs, card):
+    """The examples' exit codes and the figures they print, held to what
+    the JAX examples print as expectations; then the roofline report alone
+    on the card."""
+    codes, outs = {}, {}
+    for group in runs:
+        c, o = group.finish()
+        codes.update(c)
+        outs.update(o)
+    t_roof = time.time()
+    roof = subprocess.run([sys.executable, example_path(ROOFLINE)],
+                          capture_output=True, text=True,
+                          timeout=ROOFLINE_TIMEOUT_S)
+    codes[ROOFLINE], outs[ROOFLINE] = roof.returncode, roof.stdout + roof.stderr
+    roof_s = time.time() - t_roof
+    for name, code in codes.items():
+        require(code == 0, name, code, outs[name][-3000:])
+
+    def last_json(name):
+        """The figures an example prints as its last line."""
+        return json.loads(outs[name].strip().splitlines()[-1])
+
+    figs = {}
+    lqr = last_json("torch_lqr_example")
+    require(len(lqr) == 4 and all(abs(f["xN"][2] - 1.0) <= EX_POSITION_ATOL
+                                  for f in lqr.values()), lqr)
+    figs["torch_lqr_example"] = {k: v["xN"][2] for k, v in lqr.items()}
+    cm = last_json("torch_constrained_mpc")
+    require(max(abs(a - b) for a, b in zip(cm["final_position"],
+                                           (0.0, 0.0, 1.0)))
+            <= EX_POSITION_ATOL, cm)
+    require(cm["u_min"] >= BOX[0] - EX_BOX_ATOL
+            and cm["u_max"] <= BOX[1] + EX_BOX_ATOL, cm)
+    require(cm["mean_iterations"] <= cm["max_iter"], cm)
+    figs["torch_constrained_mpc"] = cm
+    rk = last_json("torch_rocket_landing")
+    require(rk["single"]["converged"] and rk["dtype"] == "float32", rk)
+    require(rk["closed_loop"]["altitude_end"] < rk["closed_loop"][
+        "altitude_start"], rk)
+    figs["torch_rocket_landing"] = rk
+    sc = last_json("torch_scenario_mpc")
+    require(sc["B"] == 1024 and sc["failed"] == 0, sc)
+    figs["torch_scenario_mpc"] = sc
+    rf = json.loads(roof.stdout.strip().splitlines()[-1])
+    require(rf["card"] == card and rf["ws_finite"], rf)
+    for k in ("backward", "forward"):
+        require(0.0 < rf[k]["utilization_pct_spec"] <= 100.0, k, rf[k])
+    figs["torch_roofline_report"] = rf
+    lat = [l for l in outs["torch_latency_mpc"].splitlines()
+           if "us/ADMM-iter" in l]
+    require(len(lat) >= 3, outs["torch_latency_mpc"][-2000:])
+    figs["torch_latency_mpc"] = lat
+    emit("examples", card=card,
+         seconds_since_start={"early": time.time() - runs[0].t0,
+                              "after_build": time.time() - runs[1].t0},
+         roofline_alone_s=roof_s, exit_codes=codes,
+         figures=figs, expect={"final_position": [0, 0, 1],
+                               "position_atol": EX_POSITION_ATOL,
+                               "box": BOX, "box_atol": EX_BOX_ATOL})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2594,11 +3025,16 @@ def main():
     require("jax" not in sys.modules and "pdp_lqr_tpu" not in sys.modules)
     require(torch.backends.cuda.matmul.allow_tf32 is False)
     dev = torch.device("cuda")
+    # The float64 references on the CPU step the tensors of a few scenarios:
+    # more threads only contend (reference_api's B=64 takes them all).
+    cpu_cores = torch.get_num_threads()
+    torch.set_num_threads(1)
 
     # ------------------------------------------------------------ 1: env
     card = card_line()
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
-                          capture_output=True, text=True, check=True).stdout
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout
     try:
         import triton
         triton_version = triton.__version__
@@ -2609,6 +3045,8 @@ def main():
          triton=triton_version, python=sys.version.split()[0])
 
     # ---------------------------------------------------------- 2: build
+    # The examples that launch no kernel run beside the build.
+    early_examples = ExampleRuns(EXAMPLES_EARLY, EXAMPLES_EARLY_TIMEOUT_S)
     t0 = time.time()
     jobs = []
     for dt in (torch.float32, torch.float64):
@@ -2656,6 +3094,8 @@ def main():
         [(job[1], _build.build_logs.get(path, "")) for job, path in zip(jobs, paths)])
     emit("build", card=card, seconds=round(time.time() - t0, 2),
          libraries=[p.name for p in paths], ptxas=regs)
+    # The other three examples run beside the next phase (it times nothing).
+    example_runs = (early_examples, ExampleRuns(EXAMPLES, EXAMPLES_TIMEOUT_S))
 
     # -------------------------------------------------------- 3: kernels
     # Each kernel against its plain version on the same CUDA tensors, at
@@ -2989,6 +3429,9 @@ def main():
                 launched)
     emit("kernels", card=card, shape={"N": N_SMALL, "B": B_SMALL, "nx": NX,
                                       "nu": NU, "nc": NC}, cases=cases)
+
+    # ------------------ 3a: the examples, finished before anything is timed
+    examples_phase(example_runs, card)
 
     # --------------------------------------------------- 3b: kernels_wide
     # Every kernel against its plain version at the mass-spring and
@@ -3807,7 +4250,8 @@ def main():
     wide_req = wide_requests(plt_, admm, sequential, ca, cr, dev, card)
 
     # ------------------------------------- 20c: the reference-shaped API
-    reference_api(plt_, admm, sequential, dev, card)
+    with cpu_threads(cpu_cores):
+        reference_api(plt_, admm, sequential, dev, card)
 
     # ------------- 20d: the realtime operators, MPC loops, recovery, scaling
     realtime_dense(admm, mpc, realtime, dev, card)
@@ -3817,6 +4261,13 @@ def main():
     recovery_launches = recovery_phase(plt_, recovery, sequential, ca, cr,
                                        model, c_t, x0_t, it32, dev, card)
     equilibrated(admm, dev, card)
+
+    # ------- 20e: the segments in torch ops, the g++ witness and the mesh
+    # over ranks (two ranks sharing the card over gloo; NCCL at a world of
+    # one)
+    pdp_sharded_phase(plt_, sequential, dev, card)
+    native_phase(plt_, cr, dev, card)
+    multirank_phase(plt_, admm, dev, card)
 
     # ---------------------------------------------------------- 21: timing
     # Peak device memory of a path: the largest allocation while its

@@ -35,7 +35,7 @@ import torch
 REPS = 10
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--horizon", type=int, default=64)
     ap.add_argument("--admm-iters", type=int, default=20)
@@ -58,7 +58,7 @@ def main():
                     help="also time the bfloat16-storage condensed operator")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (host clock)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("no CUDA device; pass --device cpu", file=sys.stderr)
@@ -186,7 +186,7 @@ def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 if __name__ == "__main__":

@@ -22,23 +22,34 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import argparse
+import json
 
 import numpy as np
 import torch
 
 
-def main():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--horizon", type=int, default=100)
     ap.add_argument("--f64", action="store_true", help="float64")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args()
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("no CUDA device; pass --device cpu", file=sys.stderr)
         return 1
+    run(args)
+    return 0
 
+
+def run(args) -> dict:
+    """Run the four solvers; returns (and prints as the last line, JSON)
+    each one's first 5 inputs u[0:5, 0] and final state x[N]."""
+    dev = torch.device(args.device)
     import pdp_lqr_tpu_torch as plt_
     from pdp_lqr_tpu_torch.models import quadrotor
     from pdp_lqr_tpu_torch.utils import profiling
@@ -48,6 +59,7 @@ def main():
     it = plt_.init_iterates(problem, rho=0.01)       # lqr_example.cpp:170
     x0 = torch.zeros(problem.nx, dtype=dtype, device=dev)
     sigma = 1e-6                                      # lqr_example.cpp:171
+    figures = {}
 
     def bench(name, solver):
         def lifecycle():
@@ -59,6 +71,8 @@ def main():
         print(f"=== {name} ===  ({t.p50_ms:.3f} ms/solve, {t.device})")
         print("u[0:5,0] :", np.array2string(ws[:5, 0], precision=6))
         print("x[N]     :", np.array2string(ws[-1, problem.nu:], precision=6))
+        figures[name] = {"u0": ws[:5, 0].tolist(),
+                         "xN": ws[-1, problem.nu:].tolist()}
         return ws
 
     ws_kkt = bench("QDLDL-analog block KKT",
@@ -78,7 +92,8 @@ def main():
             raise RuntimeError(f"{name} disagrees with sequential ({err:.2e})")
     err = np.abs(ws_kkt - ws_seq).max()
     print(f"max |kkt - seq|   = {err:.2e}  (rho_dyn=1e-6 regularization)")
-    return 0
+    print(json.dumps(figures))
+    return figures
 
 
 if __name__ == "__main__":

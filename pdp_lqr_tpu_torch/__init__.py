@@ -6,7 +6,7 @@ code is PyTorch; the fused sweep kernels are CUDA C++ built with ``nvcc``
 at first use (``ops/_build.py``).  It imports neither ``jax`` nor
 ``pdp_lqr_tpu``.
 
-Ported so far:
+Ported (everything the JAX package does):
 
 - ``config``, ``problem``, ``convert`` — constants, the stage-stacked
   problem model, and the numpy hand-over from the JAX package.
@@ -26,9 +26,12 @@ Ported so far:
   (``solve_lanes``, and ``solve_packed`` on row-packed streams); and the
   segment reduction of the parallel solver and its cached vector sweep.
 - ``ops.condensed`` — the condensed boundary system (Cholesky and LU).
-- ``parallel`` — the segment-parallel PDP solve
-  (``pdp_sharded_fused.solve``) and the conic ADMM loop on it
-  (``admm_sharded.solve``), the horizon in S segments on one card.
+- ``parallel`` — the segment-parallel PDP solve (``pdp_sharded_fused``
+  on the kernels, ``pdp_sharded`` in torch ops) and the conic ADMM loop on
+  it (``admm_sharded``), the horizon in S segments on one card or one
+  segment a rank of a ``torch.distributed`` world (``multihost``:
+  ``initialize``, ``make_pod_mesh``, ``launch``); ``fused_dp``, the batch
+  split over every rank.
 - ``ops.projections`` — box / SOC / rotated-SOC projections.
 - ``ops.cuda_admm`` — the split conic ADMM iteration on three kernels
   (prefold vector sweep; vector sweep with the iterate fold on R ladder
@@ -52,7 +55,8 @@ Ported so far:
   and ``replan_realtime`` / ``simulate_realtime`` on the operator path.
 - ``utils`` — ``profiling`` (CUDA-event timing, traces, the H100
   roofline, ``failure_mask``), ``scaling``, ``quality``, ``checkpoint``,
-  ``oracle`` (numpy witnesses).
+  ``oracle`` (numpy witnesses), ``native`` (the C++ witness, built with
+  g++).
 - ``api`` — the reference-shaped classes ``LQRSolver``,
   ``LQRParallelSolver``, ``QDLDLSolver`` and ``AssociativeScanSolver``
   (update_problem_data / backward / backward_without_factorization /

@@ -23,6 +23,15 @@ tests it (counted in ``solvers.admm.HOST_READS["early_exit"]``).  The
 projection, dual update and residuals are tensor code on the iterates'
 (N+1, rows, B) lanes layout, the terminal row folded in as the last row
 (JAX keeps it replicated beside the stage shards: the same numbers).
+
+On a rank mesh (``multihost.make_pod_mesh``) each rank iterates on its
+batch row's scenarios and its segment's stages, the terminal row
+replicated on every rank of its time group (each computes the same
+terminal update from the all-reduced terminal state, as JAX does); the
+per-instance residual maxima are ``all_reduce(MAX)`` over the time group
+(JAX's ``pmax``), and the early-exit flag is reduced over the whole
+world before any rank leaves the loop (JAX's ``pmin`` over both axes): a
+rank that left alone would hang its peers in their next collective.
 """
 
 from __future__ import annotations
@@ -62,22 +71,28 @@ def solve(
     stops once every instance converges.  Runs on mesh.device.
 
     Returns (ws (B, N+1, nz), ADMMState (batched), ADMMInfo (batched)).
+    On a rank mesh every rank passes the whole batch (``state`` the whole
+    batch's or its own rows', as a call returns them) and gets the rows of
+    its batch row back, (B/batch, N+1, ...), its time group's stages
+    joined.
     """
     cones = tuple(cones)
     cones3 = projections.normalize_cones(cones)
     dev = mesh.device
-    problem = problem.to(device=dev)
+    B_all, N_all = problem.h.shape[0], problem.N
+    check_mesh(mesh, N_all, B_all)
+    ax = mesh.time_axis()
+    problem = mesh.local(problem, B_all, N_all).to(device=dev)
     dt = problem.H.dtype
     Bb, N = problem.h.shape[0], problem.N
     nu, nc, nx = problem.nu, problem.nc, problem.nx
     nz = nu + nx
-    S = check_mesh(mesh, N, Bb)
     sigma, alpha = settings.sigma, settings.alpha
     # Per-instance adaptation (JAX's loop has no uniform_rho).
     rule = dataclasses.replace(settings, uniform_rho=False)
     tensor = lambda v: torch.as_tensor(v).to(device=dev, dtype=dt)
     l3 = lambda x: torch.movedim(x, 0, -1).contiguous()
-    x0 = tensor(x0)
+    x0 = tensor(torch.as_tensor(x0)[mesh.rows(B_all)])
 
     # The row mask and per-row rho scale (mask * eq boost) (N+1, nc, B),
     # the stage streams, H + sigma I and the terminal H_N[x, x] + sigma I.
@@ -86,7 +101,8 @@ def solve(
     h_l = l3(problem.h)                                    # (N+1, nz, B)
     DNx = l3(problem.D[:, -1, :, nu:])                     # (nc, nx, B)
     lb_l, ub_l = l3(problem.e_lb), l3(problem.e_ub)
-    shift_l = None if soc_shift is None else tensor(soc_shift)[..., None]
+    shift_l = None if soc_shift is None else \
+        tensor(mesh.stages(torch.as_tensor(soc_shift), N_all))[..., None]
     # The terminal row has no control: h, w and the sigma term of the dual
     # residual act on its x-block only.
     xrows = torch.ones((N + 1, nz, 1), dtype=dt, device=dev)
@@ -107,7 +123,8 @@ def solve(
     Dw = lambda w: bmv(D_t, w)
     Hw = lambda w: bmv(H_t, w)
     DTv = lambda v: bmv(D_t.transpose(-1, -2), v)
-    amax = lambda x: x.abs().amax(dim=(0, 1))              # -> (B,)
+    # Per-instance maxima over the stages (-> (B,)), over the time group.
+    amax = lambda x: ax.max(x.abs().amax(dim=(0, 1)))
     h_absmax = amax(h_l)
 
     def penalty(rho):
@@ -131,12 +148,12 @@ def solve(
             pNb = (h_t[-1, nu:] - torch.einsum("cxb,cb->xb", DNx, rg[-1])).T
         if factors is None:
             ws_l, xN = segment_solve_local(
-                S, A_l, B_l, c_l, Hs_l, h_t[:-1].contiguous(), D_l,
+                ax, A_l, B_l, c_l, Hs_l, h_t[:-1].contiguous(), D_l,
                 rho_vec[:-1].contiguous(), rg[:-1].contiguous(),
                 terminal_PN(rho_vec), pNb, x0)
         else:
             hf = (h_t - DTv(rg))[:-1].contiguous()
-            ws_l, xN = segment_solve_cached(S, factors, A_l, B_l, c_l, hf,
+            ws_l, xN = segment_solve_cached(ax, factors, A_l, B_l, c_l, hf,
                                             pNb, x0)
         zero_u = torch.zeros((1, nu, Bb), dtype=dt, device=dev)
         return torch.cat([ws_l, torch.cat([zero_u, xN.T[None]], dim=1)])
@@ -169,23 +186,27 @@ def solve(
     def build_factors(rho):
         """Segment + condensed matrix factorization at the carry's rho."""
         rho_vec, _ = penalty(rho)
-        return segment_factors_local(S, A_l, B_l, Hs_l, D_l,
+        return segment_factors_local(ax, A_l, B_l, Hs_l, D_l,
                                      rho_vec[:-1].contiguous(),
                                      terminal_PN(rho_vec))
 
     flags = {0: False}         # iterations run -> every instance converged
 
     def all_converged(carry):
-        """JAX's loop flag: every instance converged at the last
-        iteration (one host read an iteration count)."""
+        """JAX's loop flag: every instance of every rank converged at the
+        last iteration (one host read an iteration count)."""
         k = carry[4][0]
         if k not in flags:
             admm.HOST_READS["early_exit"] += 1
-            flags[k] = bool(carry[4][4].all())
+            flags[k] = mesh.all_true(carry[4][4].all())
         return flags[k]
 
     if state is None:
         state = admm._batch_state(problem, Bb, settings)
+    else:
+        state = mesh.local(ADMMState(w=state.w, z=state.z, y=state.y,
+                                     rho=torch.as_tensor(state.rho).expand(
+                                         state.w.shape[0])), B_all, N_all)
     carry = tuple(torch.movedim(tensor(x), 0, -1)
                   for x in (state.w, state.z, state.y)) + (
         tensor(state.rho).expand(Bb).contiguous(),
@@ -222,7 +243,9 @@ def solve(
             carry = iteration(carry)
 
     w, z, y, rho, stats = carry
-    w_b = torch.movedim(w, -1, 0)
-    return w_b, ADMMState(w=w_b, z=torch.movedim(z, -1, 0),
-                          y=torch.movedim(y, -1, 0), rho=rho), \
+    # The time group's stage rows joined, the terminal row after them.
+    joined = lambda x: torch.movedim(
+        torch.cat([ax.gather(x[:-1]), x[-1:]]), -1, 0)
+    w_b = joined(w)
+    return w_b, ADMMState(w=w_b, z=joined(z), y=joined(y), rho=rho), \
         admm._info(stats, Bb, dev)
