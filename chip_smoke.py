@@ -75,6 +75,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -810,15 +811,17 @@ def narrow_split_cases(ca, compare, rng, A, Bm, K, M, L, Bt):
 def narrow_group_batches(cr, dt, nx, nu, nc):
     """Two batches that reach the batch form of K1 / K11 on bfloat16 stage
     streams (G instances a block, the library's own G): the first multiple
-    of G past the pairs where groups take over (an entry of a group one
-    copy of 2G bytes), and G + 1 past it (4-byte pairs, at odd offsets
-    every other entry where G is even, and a ragged last group)."""
+    of G and of 8 past the pairs where groups take over (the stages land in
+    boxes of the copy engine, 8 instances a row), and G + 1 past it (4-byte
+    pairs by cp.async, at odd offsets every other entry where G is even,
+    and a ragged last group)."""
     group = lambda Bt: cr.sweep_group(dt, nx, nu, nc, Bt,
                                       emit_closed_loop=False, narrow=True)
     G = group(1 << 30)
-    past = G
+    step = G * 8 // math.gcd(G, 8)
+    past = step
     while group(past) == 0:
-        past += G
+        past += step
     return past, past + G + 1
 
 
@@ -1717,9 +1720,18 @@ def centroidal_lanes_bf16(plt_, ca, cr, dev, card):
     mem = {"bfloat16": peak_of(request)}
     ms = {"bfloat16": cuda_ms(request, WIDE_TIMED_REQUESTS, warmup=1)}
     full_request = lambda: cr.solve_lanes(*big, SIGMA)
+    k1_full_ms = None
     try:
         mem["float32"] = peak_of(full_request)
         ms["float32"] = cuda_ms(full_request, WIDE_TIMED_REQUESTS, warmup=1)
+        # K1's full-width form on the float32 request's own tensors, beside
+        # its narrow form's entry: the two forms at one shape in one call.
+        with recorded_calls(cr, ["backward_lanes"]) as rec:
+            full_request()
+        a, kw = rec["backward_lanes"]
+        k1_full_ms = cuda_ms(lambda: cr.backward_lanes(*a, **kw),
+                             WIDE_TIMED_REQUESTS)
+        del a, kw, rec
     except torch.cuda.OutOfMemoryError:
         mem["float32"] = ms["float32"] = "out of memory"
         torch.cuda.empty_cache()
@@ -1739,6 +1751,7 @@ def centroidal_lanes_bf16(plt_, ca, cr, dev, card):
          request_ms=ms, solves_per_s=B_CEN / (ms["bfloat16"] * 1e-3),
          kernel_ms={e["name"]: e["ms"] for e in entries},
          kernel_bound_ms={e["name"]: e["bound_ms"] for e in entries},
+         kernel_ms_full_width={"backward_lanes": k1_full_ms},
          memory=mem, card_memory_bytes=torch.cuda.get_device_properties(
              0).total_memory, stream_bytes={"float32": f32_streams,
                                             "bfloat16": f32_streams // 2},

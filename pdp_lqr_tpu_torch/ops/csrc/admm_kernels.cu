@@ -53,11 +53,12 @@
 // AK, BL and c; K6's A, B, h, D, P, L, K and c; K5's M, K, Hs, D and h.
 // The shared runs among them (a few kilobytes a stage, one copy that every
 // block reads from the L2) are widened into the compute-type slot layout
-// as the producers copy them (wd_load / wd_store: 2-byte loads issued
-// before the slot is free, widening stores after), so the chains, folds
-// and tails read the slots as they do at full width; the per-scenario c
-// stays 2 bytes an entry in the slot (a box of a bfloat16 map, or 2-byte
-// loads where no box takes its rows) and is widened where it is read.
+// as they are loaded (wd_load / wd_store: 2-byte loads issued before the
+// slot is free, widening stores after), so the chains, folds and tails
+// read the slots as they do at full width: K4's and K6's by a widening
+// warp of their own, K5's by its producer.  The per-scenario c stays 2
+// bytes an entry in the slot (a box of a bfloat16 map, or 2-byte loads
+// where no box takes its rows) and is widened where it is read.
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -100,48 +101,47 @@ __device__ __forceinline__ scalar up(stage_t v) { return v; }
 #endif
 constexpr bool NARROW = sizeof(stage_t) != sizeof(scalar);
 
-// The narrow forms' widening of shared runs into a slot.  RUNS lists a
-// stage's runs (NR of them; run q: words(q) entries, rows of cols(q)
-// words laid pitch(q) words apart from slot word dst(q)); of NW producer
-// warps, warp pw takes entries lane + 32 (pw + NW i) of each run.
-// wd_load issues its 2-byte loads into registers (v) before the slot is
-// free, wd_store writes them widened once it is; wd_arrive, the warp's
-// barrier arrival (release) after the stores, hands them on.  A load
-// waits for its data, where a copy of the full-width form does not: every
-// block reaches a stage's runs at about the same time, so each stage
-// would wait out a trip to device memory.  wd_prefetch asks the L2 cache
-// for the runs WD_AHEAD stages ahead, so the loads find them there.
+// The narrow forms' widening of shared runs into a slot, by one warp.
+// RUNS lists a stage's runs (NR of them; run q: words(q) entries, rows of
+// cols(q) words laid pitch(q) words apart from slot word dst(q)); lane l
+// takes entries l, l + 32, ... of each run.  wd_load issues its 2-byte
+// loads into registers (v) before the slot is free, wd_store writes them
+// widened once it is; wd_arrive, the warp's barrier arrival (release)
+// after the stores, hands them on.  A load waits for its data, where a
+// copy of the full-width form does not: every block reaches a stage's
+// runs at about the same time, so each stage would wait out a trip to
+// device memory.  wd_prefetch asks the L2 cache for the runs WD_AHEAD
+// stages ahead, so the loads find them there.
 constexpr int WD_AHEAD = 4;
-template <class RUNS, int NW, int Q = 0>
-__device__ __forceinline__ void wd_prefetch(const stage_t* const* at, int pw,
-                                            int lane)
+template <class RUNS, int Q = 0>
+__device__ __forceinline__ void wd_prefetch(const stage_t* const* at, int lane)
 {
     if constexpr (Q < RUNS::NR) {
         // The lines from the run's first byte on that cover its last.
         constexpr int LINES = (RUNS::words(Q) * (int)sizeof(stage_t) + 127)
             / 128;
 #pragma unroll 1
-        for (int j = pw * 32 + lane; j < LINES; j += 32 * NW)
+        for (int j = lane; j < LINES; j += 32)
             prefetch_l2(reinterpret_cast<const char*>(at[Q]) + j * 128);
-        wd_prefetch<RUNS, NW, Q + 1>(at, pw, lane);
+        wd_prefetch<RUNS, Q + 1>(at, lane);
     }
 }
-template <class RUNS, int NW>
+template <class RUNS>
 __host__ __device__ constexpr int wd_per(int q)
 {
-    return (RUNS::words(q) + 32 * NW - 1) / (32 * NW);
+    return (RUNS::words(q) + 31) / 32;
 }
-template <class RUNS, int NW>
+template <class RUNS>
 __host__ __device__ constexpr int wd_base(int q)
 {
     int b = 0;
-    for (int i = 0; i < q; ++i) b += wd_per<RUNS, NW>(i);
+    for (int i = 0; i < q; ++i) b += wd_per<RUNS>(i);
     return b;
 }
-template <class RUNS, int NW>
+template <class RUNS>
 __host__ __device__ constexpr int wd_total()
 {
-    return wd_base<RUNS, NW>(RUNS::NR) > 0 ? wd_base<RUNS, NW>(RUNS::NR) : 1;
+    return wd_base<RUNS>(RUNS::NR) > 0 ? wd_base<RUNS>(RUNS::NR) : 1;
 }
 // After a warp's widening stores: one arrival for the warp (the warp's
 // barrier orders its lanes' stores before lane 0's release): one atomic
@@ -153,35 +153,34 @@ __device__ __forceinline__ void wd_arrive(mbar_t* bar, int lane)
 }
 
 // at[q]: run q of this stage.
-template <class RUNS, int NW, int Q = 0>
+template <class RUNS, int Q = 0>
 __device__ __forceinline__ void wd_load(stage_t* v, const stage_t* const* at,
-                                        int pw, int lane)
+                                        int lane)
 {
     if constexpr (Q < RUNS::NR) {
-        constexpr int PER = wd_per<RUNS, NW>(Q), BASE = wd_base<RUNS, NW>(Q);
+        constexpr int PER = wd_per<RUNS>(Q), BASE = wd_base<RUNS>(Q);
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
-            const int e = (i * NW + pw) * 32 + lane;
+            const int e = i * 32 + lane;
             if (e < RUNS::words(Q)) v[BASE + i] = at[Q][e];
         }
-        wd_load<RUNS, NW, Q + 1>(v, at, pw, lane);
+        wd_load<RUNS, Q + 1>(v, at, lane);
     }
 }
-template <class RUNS, int NW, int Q = 0>
-__device__ __forceinline__ void wd_store(scalar* S, const stage_t* v, int pw,
-                                         int lane)
+template <class RUNS, int Q = 0>
+__device__ __forceinline__ void wd_store(scalar* S, const stage_t* v, int lane)
 {
     if constexpr (Q < RUNS::NR) {
-        constexpr int PER = wd_per<RUNS, NW>(Q), BASE = wd_base<RUNS, NW>(Q);
+        constexpr int PER = wd_per<RUNS>(Q), BASE = wd_base<RUNS>(Q);
         constexpr int COLS = RUNS::cols(Q) > 0 ? RUNS::cols(Q) : 1;
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
-            const int e = (i * NW + pw) * 32 + lane;
+            const int e = i * 32 + lane;
             if (e < RUNS::words(Q))
                 S[RUNS::dst(Q) + e / COLS * RUNS::pitch(Q) + e % COLS] =
                     up(v[BASE + i]);
         }
-        wd_store<RUNS, NW, Q + 1>(S, v, pw, lane);
+        wd_store<RUNS, Q + 1>(S, v, lane);
     }
 }
 #endif  // !ITER
@@ -389,8 +388,9 @@ __device__ __forceinline__ void rows_store(stage_t* dst,
 // block 0 sums the SM cycles of its sections (a fold or tail warp's per
 // stage it took); admm_read_prof copies the sums out.  Sections: producer
 // waiting, copying; fold waiting, folding; chain waiting, computing; tail
-// waiting, computing and storing.
-constexpr int VA_SECTIONS = 8;
+// waiting, computing and storing; (K6 narrow) widening warp waiting,
+// widening.
+constexpr int VA_SECTIONS = 10;
 #ifdef ADMM_PROFILE
 __device__ long long admm_prof[VA_SECTIONS];
 #define VA_PROF_INIT                                                         \
@@ -500,7 +500,7 @@ bwd_vec_prefold_kernel(
         // ---- (narrow form) widening warp: AK, BL; c's rows where no box
         // takes them.
         const size_t bc = valid ? b : Bs - 1;
-        stage_t wide[wd_total<K4Runs, 1>()], cv[NX];
+        stage_t wide[wd_total<K4Runs>()], cv[NX];
 #pragma unroll 1
         for (int n = 0; n < N; ++n) {
             const int s = n % K4_SLOTS;
@@ -509,15 +509,15 @@ bwd_vec_prefold_kernel(
                 const size_t ka = ks - WD_AHEAD;
                 const stage_t* ahead[2] = {AK + ka * NZ * NX,
                                            BL + ka * NZ * NU};
-                wd_prefetch<K4Runs, 1>(ahead, 0, lane);
+                wd_prefetch<K4Runs>(ahead, lane);
                 if (!tma) rows_prefetch<NX>(c + ka * NX * Bs, Bs, b0, lane);
             }
             const stage_t* at[2] = {AK + ks * NZ * NX, BL + ks * NZ * NU};
-            wd_load<K4Runs, 1>(wide, at, 0, lane);
+            wd_load<K4Runs>(wide, at, lane);
             if (!tma) rows_load<NX>(cv, c + ks * NX * Bs, Bs, bc);
             if (n >= K4_SLOTS) mbar_wait(&empty[s], (n / K4_SLOTS - 1) & 1);
             scalar* S = ring + s * K4_SLOT;
-            wd_store<K4Runs, 1>(S, wide, 0, lane);
+            wd_store<K4Runs>(S, wide, lane);
             if (!tma)
                 rows_store<NX>(reinterpret_cast<stage_t*>(S + K4_C), cv, lane);
             wd_arrive(&full[s], lane);
@@ -628,13 +628,20 @@ bwd_vec_prefold_kernel(
 // rung streams as one box each, its padding landing as zeros), the rows
 // as boxes on a warp of their own.  Warps: the chain (warp 0), the folds,
 // the tails, the producers.  PC_MODE: the per-scenario Pc = P_{k+1} c_k
-// rides the ring instead of the P stream (one rung only).  Narrow form:
-// the producers of the runs share the widening of every shared run but
-// the rho scale (K6Runs, an entry a lane of those warps in turn) into the
-// slot layout of the full-width form, rung padding included; the rho
-// scale keeps its copy; the warp of the rows keeps to its boxes (its
-// stage waits for no load); c lands 2 bytes an entry (the folds and the
-// tails widen it).
+// rides the ring instead of the P stream (one rung only).  Narrow form: a
+// widening warp of its own (after the producers), K4's narrow design,
+// loads every shared run but the rho scale (K6Runs: A, B, h, D and the
+// rungs of P, L and K, about 1,300 entries a stage at the quadrotor's
+// widths on four rungs), asked of the L2 WD_AHEAD stages ahead, stores
+// them widened into the slot layout of the full-width form once the
+// slot's copies have landed, and hands the slot to the folds (`widened`);
+// the producers issue copies only (the rho scale's, the rows' boxes), so
+// none of them waits for a load.  Measured on an H100 (PERF.md): with the
+// producers widening by loads, the narrow form ran 1.4x slower than the
+// full width; with the runs brought by the copy engine into a staging
+// area of the slot and widened from there, 2.4x; with this warp, faster
+// than the full width.  c lands 2 bytes an entry (the folds and the tails
+// widen it).
 
 constexpr int K6_NW = NZ + 2 * NC;            // wzy rows: w, z, y
 constexpr int K6_FOLDS_MAX = 3;
@@ -712,18 +719,22 @@ template <bool PC_MODE> struct K6Layout {
             : q == K6_MASK ? MASK : q == K6_P ? P : q == K6_L ? L : K;
     }
     // Stages in flight: one a fold and a tail warp, and the chain and the
-    // producers ahead.
+    // producers ahead (narrow: a fifth barrier a slot, `widened`, counted
+    // as 8 bytes more of each slot).
     static constexpr int SLOTS =
-        va_min(va_fit(SLOT), K6_FOLDS_MAX + VA_TAILS_MAX + 4);
+        va_min(va_fit(SLOT + (NARROW ? 8 / (int)sizeof(scalar) : 0)),
+               K6_FOLDS_MAX + VA_TAILS_MAX + 4);
     static constexpr int BAR = SLOTS * SLOT * (int)sizeof(scalar);
-    static constexpr int SMEM = BAR + 4 * 8 * SLOTS + 128;   // + alignment
+    static constexpr int SMEM = BAR + (4 + NARROW) * 8 * SLOTS + 128;   // + alignment
 };
 // No role has more warps than slots (the P-stream form has the fewer).
 constexpr int K6_FOLDS = va_min(K6Layout<false>::SLOTS, K6_FOLDS_MAX);
 constexpr int K6_TAILS = va_min(K6Layout<false>::SLOTS, VA_TAILS_MAX);
-// Warps: the chain, the folds, the tails, the producers.
+// Warps: the chain, the folds, the tails, the producers, (narrow) the
+// widening warp.
 constexpr int K6_PROD0 = 1 + K6_FOLDS + K6_TAILS;
-constexpr int K6_THREADS = 32 * (K6_PROD0 + K6_PRODUCERS);
+constexpr int K6_WIDEN = K6_PROD0 + K6_PRODUCERS;
+constexpr int K6_THREADS = 32 * (K6_WIDEN + NARROW);
 static_assert(K6Layout<false>::SLOTS >= 2, "K6: two stages do not fit a block");
 // The shared runs the narrow form widens: every run but the rho scale (P
 // none in Pc mode), each in its full-width slot place.
@@ -750,6 +761,7 @@ template <bool PC_MODE> struct K6Runs {
         return K6Layout<PC_MODE>::off(job(q));
     }
 };
+
 // The copy engine's maps: the scenarios' rows of c, wzy and Pc, then the
 // rung streams P, L and K.
 enum { K6_MC, K6_MWZY, K6_MPC, K6_MP, K6_ML, K6_MK, K6_MAPS };
@@ -779,6 +791,10 @@ bwd_vec_kernel(
     mbar_t* folded = full + SLOTS;
     mbar_t* ready = folded + SLOTS;
     mbar_t* empty = ready + SLOTS;
+    mbar_t* widened = empty + SLOTS;          // (narrow)
+    using Runs = K6Runs<PC_MODE>;
+    // The shared runs of the storage type, in the slot's order.
+    const stage_t* narrow_src[Runs::NR] = {A, B, h, D, P, L, K};
 
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
@@ -792,28 +808,53 @@ bwd_vec_kernel(
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < SLOTS; ++s) {
-            mbar_init(&full[s], (NARROW ? 34 : 33) * K6_PRODUCERS);
+            mbar_init(&full[s], 33 * K6_PRODUCERS + NARROW);
                                                  // each producer's lanes, and
                                                  // its lane 0's with the bytes
-                                                 // it expects (narrow: and
-                                                 // once after the widening
-                                                 // stores)
+                                                 // it expects (narrow: and the
+                                                 // rows warp's once after its
+                                                 // stores of c's rows)
             mbar_init(&folded[s], 32);           // the stage's fold warp's
             mbar_init(&ready[s], 32);            // the chain's
             mbar_init(&empty[s], 32);            // the stage's tail warp's
+            if (NARROW) mbar_init(&widened[s], 1);   // the widening warp's
         }
     }
     __syncthreads();
 
     // Stage n of the sweep is model stage k = N-1-n, in slot n % SLOTS.
-    if (warp >= K6_PROD0) {
+    if (NARROW && warp == K6_WIDEN) {
+        // ---- (narrow form) widening warp: the shared runs, loaded (asked
+        // of the L2 WD_AHEAD stages ahead), stored widened into the slot
+        // once its copies have landed.
+        stage_t wide[wd_total<Runs>()];
+        VA_PROF_INIT
+#pragma unroll 1
+        for (int n = 0; n < N; ++n) {
+            const int s = n % SLOTS;
+            const size_t ks = (size_t)(N - 1 - n);
+            const stage_t* at[Runs::NR];
+            if (n + WD_AHEAD < N) {
+#pragma unroll
+                for (int q = 0; q < Runs::NR; ++q)
+                    at[q] = narrow_src[q] + (ks - WD_AHEAD) * Runs::words(q);
+                wd_prefetch<Runs>(at, lane);
+            }
+#pragma unroll
+            for (int q = 0; q < Runs::NR; ++q)
+                at[q] = narrow_src[q] + ks * Runs::words(q);
+            wd_load<Runs>(wide, at, lane);
+            mbar_wait(&full[s], (n / SLOTS) & 1);
+            VA_MARK(8);
+            wd_store<Runs>(ring + s * Lay::SLOT, wide, lane);
+            wd_arrive(&widened[s], lane);
+            VA_MARK(9);
+        }
+        VA_PROF_DONE(8, 10, 1, 1)
+    } else if (warp >= K6_PROD0) {
         // ---- producer warp pw: its jobs of each stage.
         const int pw = warp - K6_PROD0;
         constexpr int SZ = (int)sizeof(scalar);
-        using Runs = K6Runs<PC_MODE>;
-        // The shared runs in the slot's order: all but the rho scale of
-        // the storage type.
-        const stage_t* narrow_src[Runs::NR] = {A, B, h, D, P, L, K};
         const scalar* src[K6_ROWS] = {
             (const scalar*)A, (const scalar*)B, (const scalar*)h,
             (const scalar*)D, mask, (const scalar*)P, (const scalar*)L,
@@ -835,41 +876,27 @@ bwd_vec_kernel(
         const bool vec = Bs % VA_VW == 0 && b0 + VA_W <= Bs
             && (((size_t)c | (size_t)wzy | (size_t)Pc) & 15) == 0;
         const bool rows_here = k6_owner(K6_ROWS) == pw;
-        // The warps that widen the runs: all but the rows' (one producer:
-        // that one).
-        constexpr int NWD = K6_PRODUCERS > 1 ? K6_PRODUCERS - 1 : 1;
-        const bool widens = !rows_here || K6_PRODUCERS == 1;
-        stage_t wide[wd_total<Runs, NWD>()], cv[NX];
+        stage_t cv[NX];
         VA_PROF_INIT
 #pragma unroll 1
         for (int n = 0; n < N; ++n) {
             const int s = n % SLOTS;
             const size_t ks = (size_t)(N - 1 - n);
             if constexpr (NARROW) {
-                const stage_t* at[Runs::NR];
-                if (n + WD_AHEAD < N) {
-                    const size_t ka = ks - WD_AHEAD;
-#pragma unroll
-                    for (int q = 0; q < Runs::NR; ++q)
-                        at[q] = narrow_src[q] + ka * Runs::words(q);
-                    if (widens) wd_prefetch<Runs, NWD>(at, pw, lane);
-                    if (rows_here && !row_boxes)
-                        rows_prefetch<NX>(c + ka * NX * Bs, Bs, b0, lane);
-                }
-#pragma unroll
-                for (int q = 0; q < Runs::NR; ++q)
-                    at[q] = narrow_src[q] + ks * Runs::words(q);
-                if (widens) wd_load<Runs, NWD>(wide, at, pw, lane);
-                if (rows_here && !row_boxes)
+                // c's rows where no box takes them (2-byte loads, the rows
+                // asked of the L2 WD_AHEAD stages ahead).
+                if (rows_here && !row_boxes) {
+                    if (n + WD_AHEAD < N)
+                        rows_prefetch<NX>(c + (ks - WD_AHEAD) * NX * Bs, Bs,
+                                          b0, lane);
                     rows_load<NX>(cv, c + ks * NX * Bs, Bs, bc);
+                }
             }
             if (n >= SLOTS) mbar_wait(&empty[s], (n / SLOTS - 1) & 1);
             VA_MARK(0);
             scalar* S = ring + s * Lay::SLOT;
             if (lane == 0) mbar_arrive_expect_tx(&full[s], tx);
             __syncwarp();
-            if constexpr (NARROW)
-                if (widens) wd_store<Runs, NWD>(S, wide, pw, lane);
 #pragma unroll
             for (int q = 0; q < K6_ROWS; ++q) {
                 if (k6_owner(q) != pw || skip(q)) continue;
@@ -919,7 +946,8 @@ bwd_vec_kernel(
                 }
             }
             mbar_arrive_on_copies(&full[s]);
-            if constexpr (NARROW) wd_arrive(&full[s], lane);
+            if constexpr (NARROW)
+                if (rows_here) wd_arrive(&full[s], lane);
             VA_MARK(1);
         }
         if (pw == 0) {
@@ -952,7 +980,8 @@ bwd_vec_kernel(
 #pragma unroll 1
         for (int n = f; n < N; n += K6_FOLDS) {
             const int s = n % SLOTS;
-            mbar_wait(&full[s], (n / SLOTS) & 1);
+            // (Narrow: the widening warp's hand-over, after the copies.)
+            mbar_wait(NARROW ? &widened[s] : &full[s], (n / SLOTS) & 1);
             VA_MARK(2);
             scalar* S = ring + s * Lay::SLOT;
             const scalar* wv = S + Lay::WZY + lane;      // w rows, z rows, y rows
@@ -1365,7 +1394,7 @@ fwd_update_kernel(
         const bool vec = Bs % VW == 0 && b0 + K5_W <= Bs
             && (((size_t)dv | (size_t)wzy) & 15) == 0;
         using Runs = K5Runs<EMIT_HF>;
-        stage_t wide[wd_total<Runs, 1>()];
+        stage_t wide[wd_total<Runs>()];
         K5_PROF_INIT
 #pragma unroll 1
         for (int k = 0; k < N; ++k) {
@@ -1384,16 +1413,16 @@ fwd_update_kernel(
                 const stage_t* at[Runs::NR];
                 if (k + WD_AHEAD < N) {
                     runs_at(ks + WD_AHEAD, at);
-                    wd_prefetch<Runs, 1>(at, 0, lane);
+                    wd_prefetch<Runs>(at, lane);
                 }
                 runs_at(ks, at);
-                wd_load<Runs, 1>(wide, at, 0, lane);
+                wd_load<Runs>(wide, at, lane);
             }
             if (k >= K5_SLOTS) mbar_wait(&empty[s], (k / K5_SLOTS - 1) & 1);
             K5_MARK(0);
             scalar* S = ring + s * K5_SLOT;
             if constexpr (NARROW) {
-                wd_store<Runs, 1>(S, wide, 0, lane);
+                wd_store<Runs>(S, wide, lane);
             } else {
                 // (Full width: stage_t is scalar.)
                 warp_copy_run(S + K5_M, (const scalar*)M + ks * m_stride,

@@ -122,6 +122,13 @@ inline int make_rows_map(CUtensorMap* map, const void* base,
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A hint, no copy: fetch a copy-engine map (a kernel parameter) ahead of
+// its first box, so that the first box does not wait for it.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map)
+{
+    asm volatile("prefetch.tensormap [%0];" :: "l"(map) : "memory");
+}
+
 // A hint, no copy: bring the 128-byte line holding `p` from device memory
 // into the L2 cache, for an ordinary load some stages later.
 __device__ __forceinline__ void prefetch_l2(const void* p)

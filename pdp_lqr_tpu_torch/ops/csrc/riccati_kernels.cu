@@ -167,24 +167,39 @@ __device__ long long riccati_prof[8];
 // Sc = (H | h | D | rho | rho g), and the gains go out as G = (K | d): only
 // the strides of the streams change (the entry point offsets the pointers).
 //
-// NARROW (bfloat16 stage streams, K1 gains only and K11): the block
-// stages a stage's entries into a staging area beside a ring of two slots,
-// 2 bytes an entry and instance, one stage ahead, and each thread widens
-// the very entries it copied into the next slot's compute-type runs: at
-// the end of step n, after its own wait on the copies of stage n+1, it
-// needs no barrier of its own, and the one at the top of step n+1
-// publishes the widened stage (its own items' reads of the staging are
-// done before it copies the next stage there).  The products never see
-// the storage type.  A staging area and two slots (not three) leave room
-// for two blocks an SM at the quadrotor's widths, as the compute-type form
-// has (MINB).  Where the batch is a multiple of G (and the streams
-// aligned), an entry of the G instances is one aligned run of 2G bytes:
-// one copy an entry (16 bytes in float32) where the compute type takes G
-// word copies.  Otherwise no copy moves 2 bytes: the
-// aligned 4-byte pairs of neighbouring scenarios that cover the G
-// instances (G/2 + 1 an entry: the first may sit in a pair's second half,
-// on an odd batch or an odd start) are copied one by one.  The staging
-// costs 4 (G/2 + 1) bytes an entry (SweepFit counts it).
+// NARROW (bfloat16 stage streams, K1 gains only and K11).  Measured on an
+// H100 (PERF.md), a stage of the batch form waits mostly on shared-memory
+// instructions: issuing the compute type's copies (a word a copy, G of
+// them an entry) takes 35-40 % of its cycles, and a widening pass costs
+// what its loads and stores cost, on whichever warp it runs (the registers
+// leave no room for a warp of its own: 128 a thread fill the SM with two
+// blocks of 8 warps at the quadrotor's widths, 255 one block at nz=30).
+// So the narrow forms keep the compute type's warp an instance and its two
+// slots, and spend as few of those instructions as they can:
+//   * the copy engine brings each stage of the G instances in boxes of a
+//     bfloat16 map (8 instances = 16 bytes a row, an entry a row, from a
+//     multiple of 8 instances: a box starts 16-byte aligned; a stream's
+//     rows in boxes of at most 256, spread over the block's warps, their
+//     maps fetched at the start; K11: its two packed streams) into a
+//     staging area, a stage ahead, and counts them off a shared-memory
+//     barrier (`landed`); where no box takes the streams (B no multiple
+//     of 8, unaligned; the block of one instance), the aligned 4-byte
+//     pairs that cover an entry's instances (G/2 + 1 of them: the first may
+//     sit in a pair's second half) go by cp.async, the stream's last by a
+//     zero-filling one, and every thread's copies count off the barrier;
+//   * at the end of stage n the block widens stage n+1 into the next slot,
+//     a thread four columns of a row of a stream at a time: four staging
+//     rows (one 16-byte load each), then each instance's four entries in
+//     one store where the run's rows are 16-byte aligned: 12 shared-memory
+//     instructions for 32 entries, where the compute type's copies take 32
+//     and a warp widening its own instance 64.
+// The products never see the storage type: reading H, h, D, rho and rho g
+// in bfloat16 from the staging at their reads instead (only [A c B]
+// widened, three staging stages) ran 25 % slower on an H100, a warp's
+// reads of its instance's entries, 16 bytes apart in the rows, falling
+// on 8 banks (PERF.md).  The block of one instance (ONE) takes the same
+// staging, widening and barrier, its stages by pairs (a box's rows would
+// bring 8 instances for its one).
 constexpr int VW = 16 / (int)sizeof(scalar);         // words a 16-byte access
 // Row widths (words), each a multiple of 4: every row starts 16 bytes
 // aligned (32 in float64), so a lane reads four entries a load.
@@ -247,30 +262,17 @@ template <bool EMIT_MV, bool EXPORT, bool PDP> struct SweepLayout {
 
 constexpr int SWEEP_SMEM_MAX = 232448;      // 227 KB, the most a block has
 
-// Narrow stage data: a stage's entries (every stream), the pairs that
-// cover an entry of g instances, and a slot's staging bytes (16-byte
-// aligned; a pair, or 2g bytes a run, an entry), beside 16 bytes of
-// alignment.
-constexpr int STAGE_ENTRIES = SD_ROWS + SC_ROWS;
-__host__ __device__ constexpr int entry_pairs(int g) { return (g + 2) / 2; }
-__host__ __device__ constexpr int staging_bytes(int g)
-{
-    return NARROW ? (STAGE_ENTRIES * entry_pairs(g) * 4 + 15) / 16 * 16 : 0;
-}
-
-// Narrow: one staging area, the copies one stage ahead (a stage of the
-// sweep takes microseconds, a copy's latency one), into a ring of two
-// compute-type slots (stage n, and stage n+1 being widened).
+// The compute-type forms' ring: SLOTS slots of S_STRIDE words an instance.
 template <bool EMIT_MV, bool EXPORT, bool PDP>
 constexpr int sweep_bytes(int g, int slots, int outs)
 {
     using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
     return (slots * g * S_STRIDE + g * L::CARRY + outs * g * L::OUT)
-        * (int)sizeof(scalar) + (NARROW ? staging_bytes(g) + 16 : 0);
+        * (int)sizeof(scalar);
 }
 
-// G * 8 + (OUTS - 1) * 4 + SLOTS of a form: the widest group from g0
-// down, 3 slots before 2 (narrow: 2), that fits with a double-buffered out
+// G * 8 + (OUTS - 1) * 4 + SLOTS of a compute-type form: the widest group
+// from g0 down, 3 slots before 2, that fits with a double-buffered out
 // slot; where none does, the same with one out slot (K9 exporting its
 // factors at nz=50 in float64: its out slot is 46 KB); one instance, 2
 // slots and one out slot where nothing fits.
@@ -279,11 +281,99 @@ constexpr int sweep_pick(int g0)
 {
     for (int outs = 2; outs >= 1; --outs)
         for (int g = g0; g >= 1; g /= 2)
-            for (int slots = NARROW ? 2 : 3; slots >= 2; --slots)
+            for (int slots = 3; slots >= 2; --slots)
                 if (sweep_bytes<EMIT_MV, EXPORT, PDP>(g, slots, outs)
                     <= SWEEP_SMEM_MAX)
                     return g * 8 + (outs - 1) * 4 + slots;
     return 8 + 2;
+}
+
+// The narrow forms' staging (see the note): a stage's entries as
+// rows, stream after stream in the streams' order A, B, c, H, h, D, rho,
+// rho g (K11: Sd = A | B | c, then Sc), each box region (a stream; K11 a
+// packed stream) taking box_count boxes of box_rows rows (a multiple of
+// 8: every box lands 128-byte aligned); a row is BOX_W instances' entries
+// (16 bytes) where the boxes take the streams, the pairs that cover G
+// instances (row_bytes) where they do not.
+constexpr int BOX_W = 8;
+__host__ __device__ constexpr int entry_pairs(int g) { return (g + 2) / 2; }
+__host__ __device__ constexpr int box_count(int e) { return (e + 255) / 256; }
+__host__ __device__ constexpr int box_rows(int e)
+{
+    return e > 0 ? ((e + box_count(e) - 1) / box_count(e) + 7) / 8 * 8 : 0;
+}
+__host__ __device__ constexpr int box_span(int e) { return box_count(e) * box_rows(e); }
+// The stage streams in the kernel's order: A, B, c, H, h, D, rho, rho g.
+constexpr int NSTREAMS = 8;
+__host__ __device__ constexpr int stream_entries(int q)
+{
+    return q == 0 ? NX * NX : q == 1 ? NX * NU : q == 2 ? NX : q == 3 ? NZ * NZ
+        : q == 4 ? NZ : q == 5 ? NC * NZ : NC;
+}
+template <bool PACKED> struct Regions {
+    static constexpr int N = PACKED ? 2 : NSTREAMS;
+    // A stage's rows of region r.
+    static __host__ __device__ constexpr int rows(int r)
+    {
+        return PACKED ? (r == 0 ? SD_ROWS : SC_ROWS) : stream_entries(r);
+    }
+    // Region r's first staging row.
+    static __host__ __device__ constexpr int start(int r)
+    {
+        int at = 0;
+        for (int i = 0; i < r; ++i) at += box_span(rows(i));
+        return at;
+    }
+    // Stream q's first staging row (K11: its rows within Sd or Sc).
+    static __host__ __device__ constexpr int row(int q)
+    {
+        if (!PACKED) return start(q);
+        int at = q < 3 ? 0 : start(1);
+        for (int i = q < 3 ? 0 : 3; i < q; ++i) at += stream_entries(i);
+        return at;
+    }
+    // The bytes the boxes of a stage bring.
+    static __host__ __device__ constexpr int box_bytes()
+    {
+        return start(N) * BOX_W * (int)sizeof(stage_t);
+    }
+};
+constexpr int STAGE_ROWS = Regions<false>::start(NSTREAMS) > Regions<true>::start(2)
+    ? Regions<false>::start(NSTREAMS) : Regions<true>::start(2);
+// A staging row's bytes: the pairs of g instances, at least a box's row
+// where boxes may bring the stage.
+__host__ __device__ constexpr int row_bytes(int g, bool boxes)
+{
+    return 4 * entry_pairs(g) > BOX_W * 2 || !boxes ? 4 * entry_pairs(g)
+                                                     : BOX_W * 2;
+}
+__host__ __device__ constexpr int stage_bytes(int g, bool boxes)
+{
+    return (STAGE_ROWS * row_bytes(g, boxes) + 127) / 128 * 128;
+}
+// The narrow forms' shared memory: two slots, a carry and OUTS out slots
+// an instance, 128 bytes of alignment, one staging stage and its barrier.
+template <bool EMIT_MV, bool EXPORT, bool PDP>
+constexpr int narrow_bytes(int g, int outs, bool boxes)
+{
+    using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
+    return g * (2 * S_STRIDE + L::CARRY + outs * L::OUT) * (int)sizeof(scalar)
+        + 128 + stage_bytes(g, boxes) + 16;
+}
+// G * 16 + BOXES * 8 + (OUTS - 1) * 4 + 2 of a narrow form: the widest
+// group from g0 down (at most BOX_W), with a double-buffered out slot
+// where it fits, else with one (the warps an SM first), rows that boxes
+// may fill (where the caller allows them) before rows of pairs only.
+template <bool EMIT_MV, bool EXPORT, bool PDP>
+constexpr int narrow_pick(int g0, bool boxes)
+{
+    for (int g = g0 < BOX_W ? g0 : BOX_W; g >= 1; g /= 2)
+        for (int outs = 2; outs >= 1; --outs)
+            for (int b = boxes ? 1 : 0; b >= 0; --b)
+                if (narrow_bytes<EMIT_MV, EXPORT, PDP>(g, outs, b)
+                    <= SWEEP_SMEM_MAX)
+                    return g * 16 + b * 8 + (outs - 1) * 4 + 2;
+    return 16 + 2;
 }
 
 // Warps of the block of one instance (ONE): on the shared model (Bt = 1)
@@ -293,23 +383,29 @@ constexpr int ONE_WARPS = 8;
 
 // A form's block: G instances of a warp each (ONE: one instance of
 // ONE_WARPS warps), and its ring.  OK is false only where one instance
-// alone does not fit.
+// alone does not fit.  Narrow forms (see the note): two slots and a
+// staging stage, boxes only in the batch form (NB), whose instances share
+// a box's rows.
 template <bool EMIT_MV, bool EXPORT, bool PDP, bool ONE> struct SweepFit {
-    static constexpr int PICK = sweep_pick<EMIT_MV, EXPORT, PDP>(
-        ONE ? 1 : 32 / (int)sizeof(scalar));
-    static constexpr int G = PICK / 8;
+    static constexpr bool NB = NARROW && !ONE;
+    static constexpr int PICK = NARROW
+        ? narrow_pick<EMIT_MV, EXPORT, PDP>(ONE ? 1 : 32 / (int)sizeof(scalar), NB)
+        : sweep_pick<EMIT_MV, EXPORT, PDP>(ONE ? 1 : 32 / (int)sizeof(scalar));
+    static constexpr int G = NARROW ? PICK / 16 : PICK / 8;
+    static constexpr bool BOXES = NARROW && PICK / 8 % 2;
     static constexpr int SLOTS = PICK % 4;
     static constexpr int OUTS = PICK / 4 % 2 + 1;   // out slots
     static constexpr int W = ONE ? ONE_WARPS : 1;
     static constexpr int THREADS = 32 * W * G;
-    static constexpr int BYTES = sweep_bytes<EMIT_MV, EXPORT, PDP>(G, SLOTS, OUTS);
+    static constexpr int BYTES = NARROW
+        ? narrow_bytes<EMIT_MV, EXPORT, PDP>(G, OUTS, BOXES)
+        : sweep_bytes<EMIT_MV, EXPORT, PDP>(G, SLOTS, OUTS);
     static constexpr bool OK = BYTES <= SWEEP_SMEM_MAX;
     // Narrow batch forms: two blocks an SM where their shared memory
     // allows (228 KB an SM, 1 KB of it a block's own), the registers
     // capped to match (the compute-type forms take two at the quadrotor's
     // widths unasked: 128 registers, 111 KB).
-    static constexpr int MINB = NARROW && !ONE && 2 * (BYTES + 1024) <= 233472
-        ? 2 : 1;
+    static constexpr int MINB = NB && 2 * (BYTES + 1024) <= 233472 ? 2 : 1;
 };
 
 // The tiles of the triangular steps, 2 x 4 outputs: column tile by column
@@ -456,98 +552,113 @@ __device__ __forceinline__ void stage_copy(scalar* __restrict__ dst,
     }
 }
 
-// Narrow stage data: the block's copies of one stream's E entries of its
-// G instances (entry e of instance 0 at src[e*Bs]) into the staging bytes
-// `stg` of the stream.  `runs` (the batch a multiple of G, every stream
-// aligned to 2G bytes): entry e's G instances as one copy of 2G bytes, to
-// stg + 2G e.  Otherwise as 4-byte pairs, pair j of entry e at word
-// e * NP + j: the aligned pair that holds instance 2j - o, o = 1 where
-// instance 0 sits in a pair's second half; a pair reaching `end` (past the
-// stream) is read plainly, its missing half zero.  Unrolled like
-// stage_copy.
-template <int E, int G, int NT>
-__device__ __forceinline__ void narrow_copy(char* __restrict__ stg,
-                                            const stage_t* src,
-                                            const stage_t* end, size_t Bs,
-                                            bool runs, int tid)
+// The narrow forms: a stream's pairs of a stage (E entries, entry e of
+// the group's first instance at src[e*Bs]) copied by the block's threads
+// into the staging rows from `rows` (RB bytes a row), a pair a copy; the
+// stream's last pair, where it reaches `end`, by a copy that fills what
+// lies past `end` with zeros (nothing past it is read).
+template <int E, int RB, int NT>
+__device__ __forceinline__ void narrow_pairs(char* __restrict__ rows,
+                                             const stage_t* src,
+                                             const stage_t* end, size_t Bs,
+                                             int tid)
 {
-    if constexpr (G >= 2) {
-        if (runs) {
-            constexpr int RUN = G * (int)sizeof(stage_t);
-#pragma unroll
-            for (int m = 0; m < (E + NT - 1) / NT; ++m) {
-                const int e = tid + m * NT;
-                if (e < E) __pipeline_memcpy_async(stg + e * RUN, src + e * Bs, RUN);
-            }
-            return;
-        }
+    constexpr int NP = RB / 4;
+#pragma unroll 1
+    for (int q = tid; q < E * NP; q += NT) {
+        const int e = q / NP, j = q % NP;
+        const stage_t* first = src + e * Bs;
+        const stage_t* a = first - (((size_t)first >> 1) & 1);
+        const stage_t* p = a + 2 * j;
+        const int past = p + 1 < end ? 0 : p < end ? 2 : 4;   // bytes
+        __pipeline_memcpy_async(rows + e * RB + 4 * j, past < 4 ? p : a, 4,
+                                past);
     }
-    constexpr int NP = entry_pairs(G);
-    unsigned* dst = reinterpret_cast<unsigned*>(stg);
+}
+
+// The narrow forms: a stream's staging rows (entry e of the G instances
+// at rows + e*rb; instance i 2 (i + o) bytes in: boxes start on a multiple
+// of BOX_W instances, o = ob the group's place in it; pairs start a half
+// early where the row's instance 0, at src[e*Bs], sits in a pair's second
+// half: o = 1) widened into the instances' runs of a slot (instance i's entry e at
+// dst[i*S_STRIDE + (e/COLS)*STRIDE + e%COLS]): a thread four columns of a
+// row at a time, its four staging rows loaded (16 bytes each where boxes
+// brought them, else RB/4 words), then each instance's four entries in one
+// store where the run's rows start 16-byte aligned (VEC), else two at a
+// time where they lie on a pair of words (ODD: the run's rows start on a
+// pair's second word), one otherwise.
+template <int ROWS, int COLS, int STRIDE, bool VEC, bool ODD, int G, int NT,
+          int RB>
+__device__ __forceinline__ void narrow_widen_rows(scalar* __restrict__ dst,
+                                                  const char* __restrict__ rows,
+                                                  bool boxes, int ob,
+                                                  const stage_t* src,
+                                                  size_t Bs, int tid)
+{
+    constexpr int C4 = (COLS + 3) / 4;
+    constexpr int NW = RB / 4;                    // words a pairs row holds
+#pragma unroll 1
+    for (int it = tid; it < ROWS * C4; it += NT) {
+        const int r = it / C4, c0 = it % C4 * 4;
+        const int k = COLS - c0 < 4 ? COLS - c0 : 4;
+        unsigned w[4][NW > 4 ? NW : 4];
 #pragma unroll
-    for (int m = 0; m < (E * NP + NT - 1) / NT; ++m) {
-        const int q = tid + m * NT;
-        if (q < E * NP) {
-            const int e = q / NP, j = q % NP;
-            const stage_t* first = src + e * Bs;
-            const int o = (int)(((size_t)first >> 1) & 1);
-            if (2 * j - o < G) {
-                const stage_t* p = first - o + 2 * j;
-                if (p + 1 < end)
-                    __pipeline_memcpy_async(dst + q, p, 4);
-                else
-                    dst[q] = p < end
-                        ? (unsigned)*reinterpret_cast<const unsigned short*>(p)
-                        : 0u;
+        for (int j = 0; j < 4; ++j) {
+            const int e = r * COLS + c0 + (j < k ? j : 0);
+            const char* row = rows + e * (boxes ? BOX_W * 2 : RB);
+            if (boxes) {
+                const uint4 v = *reinterpret_cast<const uint4*>(row);
+                unsigned long long lo = v.x | (unsigned long long)v.y << 32;
+                unsigned long long hi = v.z | (unsigned long long)v.w << 32;
+                if (ob) {                     // shift the group to the front
+                    const int sh = 16 * ob;
+                    lo = sh >= 64 ? hi >> (sh - 64) : lo >> sh | hi << (64 - sh);
+                    hi = sh >= 64 ? 0 : hi >> sh;
+                }
+                w[j][0] = (unsigned)lo; w[j][1] = (unsigned)(lo >> 32);
+                w[j][2] = (unsigned)hi; w[j][3] = (unsigned)(hi >> 32);
+            } else {
+                const unsigned* u = reinterpret_cast<const unsigned*>(row);
+#pragma unroll
+                for (int t = 0; t < NW; ++t) w[j][t] = u[t];
+                if (((size_t)(src + e * Bs) >> 1) & 1)   // a half early: shift
+#pragma unroll
+                    for (int t = 0; t < NW; ++t)
+                        w[j][t] = (w[j][t] >> 16)
+                            | (t + 1 < NW ? w[j][t + 1] << 16 : 0u);
+            }
+        }
+        scalar* d = dst + r * STRIDE + c0;
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+            scalar v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                v[j] = (scalar)__uint_as_float(
+                    i % 2 ? w[j][i / 2] & 0xffff0000u : w[j][i / 2] << 16);
+            scalar* di = d + i * S_STRIDE;
+            struct alignas(2 * sizeof(scalar)) Two { scalar a, b; };
+            auto two = [&](int j) {
+                *reinterpret_cast<Two*>(di + j) = Two{v[j], v[j + 1]};
+            };
+            if (VEC && k == 4) {
+                st4(di, v);
+            } else if (!ODD) {
+                if (k >= 2) two(0); else di[0] = v[0];
+                if (k == 4) two(2); else if (k == 3) di[2] = v[2];
+            } else {
+                di[0] = v[0];
+                if (k >= 3) two(1); else if (k == 2) di[1] = v[1];
+                if (k == 4) di[3] = v[3];
             }
         }
     }
 }
 
-// The entries of narrow_copy widened into the G instances' runs of a slot:
-// entry e of instance i to row e / COLS, column e % COLS of its run (rows
-// STRIDE apart), as stage_copy lays it.  A thread widens the entries it
-// copied, so its own wait on its copies is all it needs.
-template <int E, int COLS, int STRIDE, int G, int NT>
-__device__ __forceinline__ void narrow_widen(scalar* __restrict__ dst,
-                                             const char* __restrict__ stg,
-                                             const stage_t* src, size_t Bs,
-                                             bool runs, int tid)
-{
-    if constexpr (G >= 2) {
-        if (runs) {
-            constexpr int RUN = G * (int)sizeof(stage_t);
-#pragma unroll
-            for (int m = 0; m < (E + NT - 1) / NT; ++m) {
-                const int e = tid + m * NT;
-                if (e < E) {
-                    const stage_t* v = reinterpret_cast<const stage_t*>(stg + e * RUN);
-                    scalar* d = dst + (e / COLS) * STRIDE + e % COLS;
-#pragma unroll
-                    for (int i = 0; i < G; ++i) d[i * S_STRIDE] = up(v[i]);
-                }
-            }
-            return;
-        }
-    }
-    constexpr int NP = entry_pairs(G);
-    const unsigned* pairs = reinterpret_cast<const unsigned*>(stg);
-#pragma unroll
-    for (int m = 0; m < (E * NP + NT - 1) / NT; ++m) {
-        const int q = tid + m * NT;
-        if (q < E * NP) {
-            const int e = q / NP, j = q % NP;
-            const int o = (int)(((size_t)(src + e * Bs) >> 1) & 1);
-            const int i = 2 * j - o;             // the pair's first instance
-            if (i < G) {
-                const stage_t* v = reinterpret_cast<const stage_t*>(pairs + q);
-                scalar* d = dst + (e / COLS) * STRIDE + e % COLS;
-                if (i >= 0) d[i * S_STRIDE] = up(v[0]);
-                if (i + 1 < G) d[(i + 1) * S_STRIDE] = up(v[1]);
-            }
-        }
-    }
-}
+// The copy engine's maps of the narrow batch form's box regions (see
+// Regions; a compute-type library, and the block of one instance, pass an
+// unused one).
+struct SweepMaps { CUtensorMap m[NARROW ? NSTREAMS : 1]; };
 
 // An output stream of the G instances from the out slot (instances OW
 // words apart) to device memory: entry e of instance b0+i to
@@ -657,7 +768,8 @@ backward_kernel(
     const scalar* __restrict__ fi, scalar* __restrict__ Gp_out,
     scalar* __restrict__ F_out, scalar* __restrict__ P0_out,
     scalar* __restrict__ p0_out, scalar* __restrict__ F0_out,
-    scalar* __restrict__ C0_out, scalar* __restrict__ f0_out)
+    scalar* __restrict__ C0_out, scalar* __restrict__ f0_out,
+    const __grid_constant__ SweepMaps maps, int boxes)
 {
     using R = K1Rows<PACKED>;
     using L = SweepLayout<EMIT_MV, EXPORT, PDP>;
@@ -671,16 +783,18 @@ backward_kernel(
     constexpr int TR = 2, TW = 4;
     constexpr int TRA = ONE ? 1 : TR, TWA = ONE ? 1 : TW;
     constexpr int CW = L::CARRY, OW = L::OUT;
+    // The narrow forms (see the note): a staging stage, rows of RB bytes
+    // where pairs fill them, of BOX_W bfloat16 where boxes do.
+    constexpr bool BOXES = Fit::BOXES;
+    constexpr int RB = row_bytes(G, BOXES);
+    using Rg = Regions<PACKED>;
     extern __shared__ double smem_aligned[];
     scalar* ring = reinterpret_cast<scalar*>(smem_aligned);
     scalar* carries = ring + SLOTS * G * S_STRIDE;
     scalar* outs = carries + G * CW;
     char* staging = reinterpret_cast<char*>(
-        (reinterpret_cast<size_t>(outs + OUTS * G * OW) + 15) / 16 * 16);
-    // Narrow: a stream's first entry in a slot's staging.
-    constexpr int P_A = 0, P_C = P_A + NX * NX, P_B = P_C + NX;
-    constexpr int P_H = P_B + NX * NU, P_HV = P_H + NZ * NZ;
-    constexpr int P_D = P_HV + NZ, P_RHO = P_D + NC * NZ, P_RG = P_RHO + NC;
+        (reinterpret_cast<size_t>(outs + OUTS * G * OW) + 127) / 128 * 128);
+    mbar_t* landed = reinterpret_cast<mbar_t*>(staging + stage_bytes(G, BOXES));
 
     const int tid = threadIdx.x;
     const int lane = tid % T;
@@ -700,13 +814,10 @@ backward_kernel(
              | (size_t)F_out) & 15) == 0;
     // This thread's instance of the copies (the last one past the batch).
     const size_t bc = b0 + tid % G < Bs ? b0 + tid % G : Bs - 1;
-    // Narrow: an entry of the G instances one aligned run (see the note).
-    const bool runs = NARROW && G >= 2 && Bs % G == 0
-        && (((size_t)A | (size_t)B | (size_t)c | (size_t)H | (size_t)h
-             | (NC > 0 ? (size_t)D | (size_t)rho | (size_t)rg : 0))
-            % (2 * G)) == 0;
-    // Narrow: the bytes an entry takes in the staging.
-    const int step = runs ? 2 * G : 4 * entry_pairs(G);
+    // The end of a narrow stream: its last stage's last entry.
+    auto end = [&](const stage_t* x, int rows, int e) {
+        return x + ((size_t)(N - 1) * rows + e) * Bs;
+    };
     // This instance's carry.
     scalar* const cw = carries + inst * CW;
     scalar* const P = cw + L::P;
@@ -720,25 +831,47 @@ backward_kernel(
     scalar* const f = p + X4;
     scalar* const C = cw + L::C;
 
+    // Narrow: the copies of the stage at ks of the G instances into the
+    // staging: the boxes dealt over the warps' lane 0 (thread 0 posting
+    // their bytes), or every thread's pairs.
+    auto issue = [&](size_t ks) {
+        if constexpr (NARROW) {
+            char* st = staging;
+            if (BOXES && boxes) {
+                if (tid == 0) mbar_arrive_expect_tx(landed, Rg::box_bytes());
+                if (lane == 0) {
+                    int bx = 0;
+#pragma unroll
+                    for (int r = 0; r < Rg::N; ++r) {
+                        const int rows = Rg::rows(r), br = box_rows(rows);
+                        for (int j = 0; j < box_count(rows); ++j, ++bx)
+                            if (bx % G == inst)
+                                tma_box(st + (Rg::start(r) + j * br) * (BOX_W * 2),
+                                        &maps.m[r], (int)(b0 - b0 % BOX_W),
+                                        (int)(ks * rows + j * br), landed);
+                    }
+                }
+            } else {
+                narrow_pairs<NX * NX, RB, NT>(st + Rg::row(0) * RB, A + ks * R::A * Bs + b0, end(A, R::A, NX * NX), Bs, tid);
+                narrow_pairs<NX * NU, RB, NT>(st + Rg::row(1) * RB, B + ks * R::B * Bs + b0, end(B, R::B, NX * NU), Bs, tid);
+                narrow_pairs<NX, RB, NT>(st + Rg::row(2) * RB, c + ks * R::C * Bs + b0, end(c, R::C, NX), Bs, tid);
+                narrow_pairs<NZ * NZ, RB, NT>(st + Rg::row(3) * RB, H + ks * R::H * Bs + b0, end(H, R::H, NZ * NZ), Bs, tid);
+                narrow_pairs<NZ, RB, NT>(st + Rg::row(4) * RB, h + ks * R::HV * Bs + b0, end(h, R::HV, NZ), Bs, tid);
+                narrow_pairs<NC * NZ, RB, NT>(st + Rg::row(5) * RB, D + ks * R::D * Bs + b0, end(D, R::D, NC * NZ), Bs, tid);
+                narrow_pairs<NC, RB, NT>(st + Rg::row(6) * RB, rho + ks * R::RHO * Bs + b0, end(rho, R::RHO, NC), Bs, tid);
+                narrow_pairs<NC, RB, NT>(st + Rg::row(7) * RB, rg + ks * R::RHO * Bs + b0, end(rg, R::RHO, NC), Bs, tid);
+                mbar_arrive_on_copies(landed);
+            }
+        }
+    };
+
     // The block's copies of stage n (k = k0 + Nl-1 - n) into its slot
-    // (narrow: its pairs into the slot's staging words).
+    // (narrow: into the staging).
     auto prefetch = [&](int n) {
         if (n < Nl) {
             const size_t ks = (size_t)(k0 + Nl - 1 - n);
             if constexpr (NARROW) {
-                char* sg = staging;
-                // The end of a stream: its last stage's last entry.
-                auto end = [&](const stage_t* x, int rows, int e) {
-                    return x + ((size_t)(N - 1) * rows + e) * Bs;
-                };
-                narrow_copy<NX * NX, G, NT>(sg + P_A * step, A + ks * R::A * Bs + b0, end(A, R::A, NX * NX), Bs, runs, tid);
-                narrow_copy<NX, G, NT>(sg + P_C * step, c + ks * R::C * Bs + b0, end(c, R::C, NX), Bs, runs, tid);
-                narrow_copy<NX * NU, G, NT>(sg + P_B * step, B + ks * R::B * Bs + b0, end(B, R::B, NX * NU), Bs, runs, tid);
-                narrow_copy<NZ * NZ, G, NT>(sg + P_H * step, H + ks * R::H * Bs + b0, end(H, R::H, NZ * NZ), Bs, runs, tid);
-                narrow_copy<NZ, G, NT>(sg + P_HV * step, h + ks * R::HV * Bs + b0, end(h, R::HV, NZ), Bs, runs, tid);
-                narrow_copy<NC * NZ, G, NT>(sg + P_D * step, D + ks * R::D * Bs + b0, end(D, R::D, NC * NZ), Bs, runs, tid);
-                narrow_copy<NC, G, NT>(sg + P_RHO * step, rho + ks * R::RHO * Bs + b0, end(rho, R::RHO, NC), Bs, runs, tid);
-                narrow_copy<NC, G, NT>(sg + P_RG * step, rg + ks * R::RHO * Bs + b0, end(rg, R::RHO, NC), Bs, runs, tid);
+                issue(ks);
             } else {
                 scalar* sl = ring + ((n % SLOTS) * G + tid % G) * S_STRIDE;
                 stage_copy<NX * NX, NX, WAB, G, NT>(sl + S_AB, A + ks * R::A * Bs + bc, Bs, tid);
@@ -754,22 +887,25 @@ backward_kernel(
         __pipeline_commit();
     };
 
-    // Narrow: this thread's pairs of stage n widened into the slot's runs
-    // (after its own wait on their copies).
+    // Narrow: once stage n landed, the block widens it into its slot.
     auto widen = [&](int n) {
-        if (NARROW && n < Nl) {
-            const size_t ks = (size_t)(k0 + Nl - 1 - n);
-            scalar* sl = ring + (n % SLOTS) * G * S_STRIDE;     // instance 0's run
-            const char* sg = staging;
-            narrow_widen<NX * NX, NX, WAB, G, NT>(sl + S_AB, sg + P_A * step, A + ks * R::A * Bs + b0, Bs, runs, tid);
-            narrow_widen<NX, 1, WAB, G, NT>(sl + S_AB + NX, sg + P_C * step, c + ks * R::C * Bs + b0, Bs, runs, tid);
-            narrow_widen<NX * NU, NU, WAB, G, NT>(sl + S_AB + NX + 1, sg + P_B * step, B + ks * R::B * Bs + b0, Bs, runs, tid);
-            narrow_widen<NZ * NZ, NZ, WH, G, NT>(sl + S_H, sg + P_H * step, H + ks * R::H * Bs + b0, Bs, runs, tid);
-            narrow_widen<NZ, 1, WH, G, NT>(sl + S_H + NZ, sg + P_HV * step, h + ks * R::HV * Bs + b0, Bs, runs, tid);
-            narrow_widen<NC * NZ, NZ, WD, G, NT>(sl + S_D, sg + P_D * step, D + ks * R::D * Bs + b0, Bs, runs, tid);
-            narrow_widen<NC, 1, 1, G, NT>(sl + S_RHO, sg + P_RHO * step, rho + ks * R::RHO * Bs + b0, Bs, runs, tid);
-            narrow_widen<NC, 1, 1, G, NT>(sl + S_RG, sg + P_RG * step, rg + ks * R::RHO * Bs + b0, Bs, runs, tid);
-        }
+        if (n >= Nl) return;
+        const size_t ks = (size_t)(k0 + Nl - 1 - n);
+        mbar_wait(landed, n & 1);
+        scalar* sl = ring + (n % SLOTS) * G * S_STRIDE;     // instance 0's run
+        const char* st = staging;
+        const bool bx = BOXES && boxes;
+        const int rb = bx ? BOX_W * 2 : RB;                 // a row's bytes
+        const int ob = G % BOX_W ? (int)(b0 % BOX_W) : 0;   // in its box
+        constexpr bool VB = (S_AB + NX + 1) % 4 == 0;       // B's rows aligned
+        narrow_widen_rows<NX, NX, WAB, S_AB % 4 == 0, S_AB % 2, G, NT, RB>(sl + S_AB, st + rb * Rg::row(0), bx, ob, A + ks * R::A * Bs + b0, Bs, tid);
+        narrow_widen_rows<NX, NU, WAB, VB, (S_AB + NX + 1) % 2, G, NT, RB>(sl + S_AB + NX + 1, st + rb * Rg::row(1), bx, ob, B + ks * R::B * Bs + b0, Bs, tid);
+        narrow_widen_rows<NX, 1, WAB, false, false, G, NT, RB>(sl + S_AB + NX, st + rb * Rg::row(2), bx, ob, c + ks * R::C * Bs + b0, Bs, tid);
+        narrow_widen_rows<NZ, NZ, WH, S_H % 4 == 0, S_H % 2, G, NT, RB>(sl + S_H, st + rb * Rg::row(3), bx, ob, H + ks * R::H * Bs + b0, Bs, tid);
+        narrow_widen_rows<NZ, 1, WH, false, false, G, NT, RB>(sl + S_H + NZ, st + rb * Rg::row(4), bx, ob, h + ks * R::HV * Bs + b0, Bs, tid);
+        narrow_widen_rows<NC, NZ, WD, S_D % 4 == 0, S_D % 2, G, NT, RB>(sl + S_D, st + rb * Rg::row(5), bx, ob, D + ks * R::D * Bs + b0, Bs, tid);
+        narrow_widen_rows<1, NC, 1, S_RHO % 4 == 0, S_RHO % 2, G, NT, RB>(sl + S_RHO, st + rb * Rg::row(6), bx, ob, rho + ks * R::RHO * Bs + b0, Bs, tid);
+        narrow_widen_rows<1, NC, 1, S_RG % 4 == 0, S_RG % 2, G, NT, RB>(sl + S_RG, st + rb * Rg::row(7), bx, ob, rg + ks * R::RHO * Bs + b0, Bs, tid);
     };
 
     // The block's stores of stage n's outputs from its out slot (one
@@ -831,11 +967,19 @@ backward_kernel(
         else __syncwarp();
     };
 
-    for (int n = 0; n < SLOTS - 1; ++n) prefetch(n);
     if constexpr (NARROW) {
-        __pipeline_wait_prior(SLOTS - 2);     // stage 0 landed (my copies)
-        widen(0);
+        // The staging lands on its barrier: thread 0's posting of the
+        // boxes' bytes, or every thread once its pairs land.  The maps are
+        // fetched ahead of the first boxes.
+        if (tid == 0) mbar_init(landed, BOXES && boxes ? 1 : NT);
+        if (BOXES && boxes && lane == 0)
+#pragma unroll
+            for (int r = 0; r < Rg::N; ++r)
+                if (r % G == inst && Rg::rows(r) > 0) prefetch_map(&maps.m[r]);
+        __syncthreads();
     }
+    for (int n = 0; n < SLOTS - 1; ++n) prefetch(n);
+    if constexpr (NARROW) widen(0);
     carry_in<NX, NX, X4, G, NT, CW>(carries + L::P, PN + cs * NX * NX * Bs, Bs, b0, tid);
     carry_in<1, NX, 0, G, NT, CW>(carries + L::PV, pN + cs * NX * Bs, Bs, b0, tid);
     if (PDP) {
@@ -856,6 +1000,7 @@ backward_kernel(
         if constexpr (OUTS == 1) __syncthreads();   // stored before rewritten
         PROF_MARK(1);
         prefetch(n + SLOTS - 1);              // into the slot of stage n-1
+                                              // (narrow: the staging)
         PROF_MARK(2);
         scalar* const sl = ring + ((n % SLOTS) * G + inst) * S_STRIDE;
         const scalar* const sAB = sl + S_AB;
@@ -1094,10 +1239,7 @@ backward_kernel(
             }
         }
         PROF_MARK(7);
-        if constexpr (NARROW) {
-            __pipeline_wait_prior(SLOTS - 2); // stage n+1 landed (my copies)
-            widen(n + 1);                     // into the slot of stage n+1-SLOTS
-        }
+        if constexpr (NARROW) widen(n + 1);   // into the slot of stage n-1
     }
     PROF_DONE
     __pipeline_wait_prior(0);
@@ -1122,6 +1264,30 @@ struct BackwardArgs {
     scalar *Gp, *F, *P0, *p0, *F0, *C0, *f0;
 };
 
+// The narrow batch form's maps of its box regions (Regions: the streams,
+// K11 its two packed ones): 1 where boxes take them (B a multiple of
+// BOX_W, every region's base 16-byte aligned), 0 where its pairs go by
+// cp.async, or -(a CUDA error).
+template <bool PACKED>
+int sweep_maps(const BackwardArgs& a, SweepMaps& maps)
+{
+    using Rg = Regions<PACKED>;
+    const stage_t* streams[NSTREAMS] = {a.A, a.B, a.c, a.H, a.h, a.D, a.rho, a.rg};
+    auto base = [&](int r) { return PACKED ? (r == 0 ? a.A : a.H) : streams[r]; };
+    if (a.Bt % BOX_W) return 0;
+    for (int r = 0; r < Rg::N; ++r)
+        if (Rg::rows(r) > 0 && ((size_t)base(r) & 15)) return 0;
+    for (int r = 0; r < Rg::N; ++r) {
+        if (Rg::rows(r) == 0) continue;
+        const int e = make_rows_map(&maps.m[r], base(r),
+                                    (unsigned long long)a.N * Rg::rows(r), a.Bt,
+                                    box_rows(Rg::rows(r)), BOX_W,
+                                    (int)sizeof(stage_t));
+        if (e) return -e;
+    }
+    return 1;
+}
+
 template <bool EMIT_MV, bool EXPORT, bool PDP, bool PACKED, bool ONE>
 int launch_sweep(const BackwardArgs& a)
 {
@@ -1131,11 +1297,17 @@ int launch_sweep(const BackwardArgs& a)
     auto kernel = backward_kernel<EMIT_MV, EXPORT, PDP, PACKED, ONE>;
     int e = set_smem(kernel, smem);
     if (e) return e;
+    SweepMaps maps = {};
+    int boxes = 0;
+    if constexpr (Fit::BOXES) {
+        boxes = sweep_maps<PACKED>(a, maps);
+        if (boxes < 0) return -boxes;
+    }
     const int blocks = a.S * ((a.Bt + Fit::G - 1) / Fit::G);
     kernel<<<blocks, Fit::THREADS, smem, a.stream>>>(
         a.N, a.Bt, a.S, a.A, a.B, a.c, a.H, a.h, a.D, a.rho, a.rg, a.PN,
         a.pN, a.K, a.d, a.M, a.v, a.P, a.L, a.Fi, a.Ci, a.fi, a.Gp, a.F,
-        a.P0, a.p0, a.F0, a.C0, a.f0);
+        a.P0, a.p0, a.F0, a.C0, a.f0, maps, boxes);
     return (int)cudaGetLastError();
 }
 

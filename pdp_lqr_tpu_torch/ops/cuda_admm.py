@@ -353,8 +353,11 @@ def admm_bwd_vec_lanes(rho, pN, A, B, h, D, mask, P, L, K, c, wzy, *, nu,
     compute hf (and P c) of whole stages ahead of the warp that carries p;
     the ring's slots hold all R rungs' factors, and a lane reads its
     scenario's rung at an offset in the slot.  See the kernel source.
-    The narrow form widens the shared runs into the ring as it copies them
-    and c where the fold and tail warps read it.
+    In the narrow form a widening warp of its own loads the shared runs 2
+    bytes an entry (asked of the L2 a few stages ahead), stores them
+    widened into the ring's layout once the slot's copies landed and hands
+    the slot to the fold warps on a barrier of its own; the producer warps
+    only copy, and c is widened where the fold and tail warps read it.
     """
     N, nx = A.shape[0], A.shape[1]
     nz, nc = nx + nu, D.shape[1]

@@ -178,8 +178,9 @@ def _storage(name, stream, dt):
 
 
 def _check_aligned(name, streams):
-    """bfloat16 stage streams are copied in 4-byte pairs (K1, K11) and
-    by the copy engine (K7, K12): each must start on a 4-byte boundary."""
+    """bfloat16 stage streams are copied by the copy engine or, where its
+    boxes do not take them, in 4-byte pairs: each must start on a 4-byte
+    boundary."""
     for sname, x in streams:
         if x.data_ptr() % 4:
             raise ValueError(f"{name}: {sname}: bfloat16 stage data must "
@@ -357,9 +358,10 @@ def backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN, *,
     On the card: a warp an instance, a block of several consecutive
     instances that stage their data together (where the instances do not
     outnumber the SMs: a block each); see the note in the kernel source.
-    bfloat16 streams are staged an entry's scenarios a copy (where B is a
-    multiple of the block's instances; 4-byte pairs otherwise) and widened
-    in shared memory a stage ahead of use.
+    bfloat16 streams land a stage ahead in boxes of the copy engine, 8
+    instances a row (where B is a multiple of 8; 4-byte pairs otherwise),
+    and the block widens each stage into its slot at the end of the one
+    before.
     """
     N, nx, _, Bt = A.shape
     nu = B.shape[2]

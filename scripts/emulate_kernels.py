@@ -60,6 +60,7 @@ inline void __pipeline_wait_prior(int) {}
 #define __launch_bounds__(...)
 """,
     "cuda_runtime.h": """#pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -97,9 +98,16 @@ template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
     return emu_shuffle(v, lane / width * width + (unsigned)src % width);
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
+// Shared-memory atomics and fences: the host's, sequentially consistent.
+template <class T> inline T atomicAdd(T* p, T v) {
+    return std::atomic_ref<T>(*p).fetch_add(v);
+}
+inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 struct alignas(16) double2 { double x, y; };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -197,6 +205,7 @@ inline void mbar_wait(mbar_t* bar, unsigned parity) {
         a.wait(v);
 }
 inline void prefetch_l2(const void*) {}
+template <class M> inline void prefetch_map(const M*) {}
 inline void bulk_copy(void* dst, const void* src, unsigned bytes, mbar_t* bar) {
     if (((size_t)dst & 15) || ((size_t)src & 15) || (bytes & 15)) std::abort();
     std::memcpy(dst, src, bytes);
@@ -667,10 +676,13 @@ def run_k7(dtype, nx, nu, N, Bt, tol):
 def run_narrow_sweep(dtype, nx, nu, nc, N, Bt, tol, one=False):
     """The matrix sweep's forms on bfloat16 stage streams (K1 gains only,
     K11) on ``Bt`` instances, in the compute type ``dtype``: across its
-    groups of G, an entry of a group one copy where Bt is a multiple of G,
-    else pairs (a ragged last group; an odd Bt puts every other entry's
-    first instance in a pair's second half), or (``one``) a block an
-    instance."""
+    groups of G, the stages landing in boxes of the copy engine (8
+    instances a row) where Bt is a multiple of 8 and the library's
+    staging takes boxes, else as pairs (a ragged last group; an odd Bt
+    puts every other entry's first instance in a pair's second half), the
+    block widening [A c B] and the products reading the rest of a stage
+    in bfloat16 from the staging, N past the staging's stages, or
+    (``one``) a block an instance (pairs)."""
     rng = np.random.default_rng(10)
     T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
     tag = (f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} nc={nc} N={N} "
@@ -687,8 +699,8 @@ def run_narrow_sweep(dtype, nx, nu, nc, N, Bt, tol, one=False):
     G = lib.riccati_sweep_group(0, 0, 0, Bt)
     if (G == 0) != one or not one and Bt <= G:
         raise AssertionError(f"{tag}: B={Bt} takes G={G}")
-    # Copies of one run an entry where Bt is a multiple of G, else pairs.
-    tag += " runs" if G > 1 and Bt % G == 0 else " pairs"
+    # Boxes where Bt is a multiple of their 8 instances, else pairs.
+    tag += " boxes" if G > 0 and Bt % 8 == 0 else " pairs"
     check(f"K1 gains [{tag}]",
           cr._launch_backward(lib, *narrow, PN, pN, False, False, None),
           cr.backward_lanes_reference(*narrow, PN, pN,
@@ -962,23 +974,31 @@ WIDE_K7_CASES = [
 ]
 # (dtype, nx, nu, nc, N, Bt, tol[, one]): the narrow forms of the matrix
 # sweep (K1 gains only, K11 on bfloat16 stage streams) across their groups
-# (G = 4 in float64, 8 in float32 at the quadrotor's widths): Bt = 3G, an
-# entry one copy; the last ragged and Bt odd (2G + 3: pairs at odd
-# offsets; 2G + 2: even), at the widest widths in float64 (nx=40, nu=10:
-# the staging area within 227 KB; nx=24, nu=6, nc=6) and a block an
-# instance.
+# (G = 4 in float64, 8 in float32 at the quadrotor's and the centroidal
+# model's widths), N past the staging's stages (3 at the quadrotor's
+# widths, 2 at the centroidal model's): boxes (Bt a multiple of 8: 24, 16;
+# in float64 two groups a box row, the second starting mid-row; the
+# streams' box regions at odd widths, nx=3, nu=2), pairs (the last group
+# ragged; 2G + 3, 19 and 11: odd, at odd offsets; 18 and 12: even), at the
+# widest widths (nx=40, nu=10, no constraint rows: regions of no rows;
+# float64 G = 1) and a block an instance (pairs; an odd batch).
 NARROW_SWEEP_CASES = [
     (torch.float64, 12, 4, 16, 4, 11, 1e-10),
     (torch.float32, 12, 4, 16, 4, 24, 1e-4),
-    (torch.float64, 12, 4, 16, 5, 12, 1e-10),
-    (torch.float32, 24, 6, 6, 3, 12, 1e-4),
+    (torch.float32, 24, 6, 6, 5, 16, 1e-4),
+    (torch.float64, 12, 4, 16, 5, 16, 1e-10),
+    (torch.float32, 24, 6, 6, 4, 19, 1e-4),
     (torch.float32, 12, 4, 16, 4, 18, 1e-4),
     (torch.float32, 12, 4, 16, 4, 19, 1e-4),
     (torch.float64, 3, 2, 5, 6, 11, 1e-10),
+    (torch.float64, 3, 2, 5, 7, 16, 1e-10),
     (torch.float64, 12, 4, 16, 4, 5, 1e-10, True),
     (torch.float32, 3, 2, 5, 4, 3, 1e-4, True),
     (torch.float64, 40, 10, 0, 3, 5, 1e-10),
+    (torch.float64, 40, 10, 0, 3, 8, 1e-10),
+    (torch.float64, 24, 6, 6, 3, 12, 1e-10),
     (torch.float64, 24, 6, 6, 3, 11, 1e-10),
+    (torch.float64, 24, 6, 6, 3, 16, 1e-10),
     (torch.float32, 40, 10, 0, 3, 7, 1e-4),
 ]
 # (dtype, nx, nu, N, Bt, tol): the narrow forms of K7 and K12 across three
@@ -1015,14 +1035,18 @@ NARROW_ADMM_CASES = [
     (torch.float64, 40, 10, 10, 4, 33, (), False, False, 1e-10),
 ]
 # (dtype, nx, nu, nc, N, Bs, R, cones, diag_cost, has_shift, tol): the
-# narrow ladder pair (K6 on R rungs, its Pc form at one, K5's rung form)
-# across blocks, N past the slots: boxes (72, R=4), 2-byte loads on an odd
-# batch with the thrust cone (67, R=3) and on 250, one rung, and the
-# mass-spring chain's widths in float64.
+# narrow ladder pair (K6 on R rungs, its widening warp handing each slot to
+# the folds, its Pc form at one; K5's rung form) across blocks, N past the
+# slots: c by boxes (72, R=4), by 2-byte loads on an odd batch with the
+# thrust cone (67, R=3) and on 250, one rung; the centroidal model's
+# widths, odd widths (runs of odd lengths), and the mass-spring chain's
+# widths in float64 on two rungs.
 NARROW_LADDER_CASES = [
     (torch.float64, 12, 4, 16, 20, 72, 4, (), True, False, 1e-10),
     (torch.float32, 12, 4, 19, 6, 67, 3, ((16, 3, "soc"),), True, True, 1e-4),
     (torch.float64, 12, 4, 16, 5, 250, 1, (), False, False, 1e-10),
+    (torch.float32, 24, 6, 6, 12, 40, 1, CENTROIDAL_CONES, True, False, 1e-4),
+    (torch.float64, 3, 2, 5, 13, 35, 2, ((1, 3, "soc"),), False, True, 1e-10),
     (torch.float64, 40, 10, 10, 4, 33, 2, (), True, False, 1e-10),
 ]
 WIDE = (WIDE_CASES, WIDE_ADMM_CASES, [], WIDE_ITER_CASES, [],
@@ -1036,7 +1060,7 @@ QUICK, ADMM_QUICK, LADDER_QUICK = (CASES[:1] + WIDE_CASES[:1], ADMM_CASES[:2],
                                    LADDER_CASES[:1])
 ITER_QUICK, K3_QUICK, SWEEP_QUICK = ITER_CASES[:1], K3_CASES[:1], SWEEP_CASES[:1]
 K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
-NARROW_SWEEP_QUICK, NARROW_K7_QUICK = NARROW_SWEEP_CASES[:2], NARROW_K7_CASES[:2]
+NARROW_SWEEP_QUICK, NARROW_K7_QUICK = NARROW_SWEEP_CASES[:3], NARROW_K7_CASES[:2]
 NARROW_ADMM_QUICK, NARROW_LADDER_QUICK = (NARROW_ADMM_CASES[:1],
                                           NARROW_LADDER_CASES[:1])
 

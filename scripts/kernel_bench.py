@@ -7,7 +7,7 @@ them, and K1-K5 and K8 at the widest models' requests, on the card.
                                     [--kernels sweep latency k8 k3 k2 k5
                                                k4 k6 k7 wide]
                                     [--profile] [--bf16]
-                                    [--batches B ...]
+                                    [--batches B ...] [--match S ...]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
 once with the kernels' calls recorded, as ``chip_smoke.py`` does; the
@@ -49,7 +49,9 @@ centroidal N=1024, B=4096 and, in the ADMM loop, B=2048); a tree without
 those models cannot run it.  ``--bf16`` adds the forms on bfloat16 stage
 streams to ``sweep`` (K1 gains only and K11, on the tensors
 ``solve_lanes`` and ``solve_packed`` hand them with
-``storage_dtype=torch.bfloat16``, B=4096), to ``k7`` (K7 and K12 on
+``storage_dtype=torch.bfloat16``, B=4096; then K1 gains only in both forms
+at the centroidal model's N=1024, B=4096, ``centroidal_lanes_bf16``'s
+request), to ``k7`` (K7 and K12 on
 theirs) and to ``k4``, ``k5`` and ``k6`` (the narrow forms of K4 and K5
 packed on the tensors of the split request with
 ``storage_dtype=torch.bfloat16``, of K6 and K5's rung form on the
@@ -57,14 +59,18 @@ ladder's); a tree without them cannot run it.  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
-card by running this script once for each, in turns.
+card by running this script once for each, in turns.  ``--match`` times
+only the matrix sweep's forms whose names hold one of the given strings
+(``--match bf16 gains,B= centroidal``: the narrow forms beside the full
+ones they are compared with).
 
 Prints one JSON line a form: the median time of ``--reps`` launches by CUDA
 events, the bound (the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s), the error against the plain version, and
 the registers and spills ``ptxas`` reported for the library's kernels.
 ``--profile`` builds K8, K5, K4 and K6 with their diagnostic
-``-DADMM_PROFILE`` and K2, K7 and K12 with ``-DRICCATI_PROFILE`` (thread 0 of block 0,
+``-DADMM_PROFILE`` and K2, K7 and K12 (with ``sweep`` also the matrix
+sweep, K1, K9 and K11) with ``-DRICCATI_PROFILE`` (thread 0 of block 0,
 or lane 0 of each role's first warp, sums the SM cycles of each section of
 a stage; a fold or tail warp's per stage it took) and adds the cycles a
 stage of each section to their lines (where the tree's kernel has them);
@@ -112,11 +118,20 @@ K5_SECTIONS = ["producer: wait empty", "producer: copies",
 # K4's and K6's (kernel A; K4 has no fold warps).
 KA_SECTIONS = ["producer: wait empty", "producer: copies",
                "fold: wait full", "fold: rg hf Pc", "chain: wait",
-               "chain: Pcp rbar p", "tail: wait ready", "tail: d v stores"]
+               "chain: Pcp rbar p", "tail: wait ready", "tail: d v stores",
+               "widen: wait full", "widen: widen"]
 # K7's and K12's (producer 0 of 2, the chain, the store warp).
 K7_SECTIONS = ["producer: wait empty", "producer: copies",
                "chain: wait full", "chain: u x+", "chain: wait out slot",
                "chain: out rows", "store: wait full", "store: ws rows"]
+# The matrix sweep's under -DRICCATI_PROFILE: thread 0 of block 0 (lane 0
+# of instance 0's warp; a block of one instance: its thread 0).  "wait":
+# for the stage's copies and the block's barrier (the narrow forms: also
+# the block's widening of the next stage at the end of the stage before);
+# "copies": issuing them (narrow: the staging's boxes or pairs).
+SWEEP_SECTIONS = ["wait: stage n", "stores", "copies (narrow: staging)",
+                  "A: Dr and [P;F][A c B]", "B: fold and B^T[PA Pcp PB]",
+                  "C: chol and solves", "D: P+ p+ C", "D: M v F f"]
 
 
 def sweep_runs(sm, dev, shared_only=False, bf16=False, batches=None):
@@ -210,6 +225,52 @@ def sweep_runs(sm, dev, shared_only=False, bf16=False, batches=None):
                                                 sm.SIGMA, **kw),
                    sm.K1_GAINS, sm.k1_flops(N, NX, NU, NC, B))
     return runs
+
+
+def centroidal_sweep_runs(sm, dev):
+    """K1 gains only on the tensors ``solve_lanes`` hands it at the
+    centroidal model's widths (nx=24, nu=6, N=1024, B=4096: the request of
+    ``chip_smoke.py``'s ``centroidal_lanes_bf16``), in float32 and on
+    bfloat16 stage streams, as ``sweep_runs``."""
+    import dataclasses
+    import pdp_lqr_tpu_torch as plt_
+    from pdp_lqr_tpu_torch.models import centroidal
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+
+    f32, N, B = torch.float32, sm.N_CEN, sm.B_CEN
+    model, _ = centroidal(N=N, dtype=f32, device=dev)
+    rng = np.random.default_rng(sm.SEED)
+    c = model.c[None] + torch.as_tensor(
+        rng.normal(size=(B,) + tuple(model.c.shape)) * sm.C_SCALE_WIDE,
+        dtype=f32).to(dev)
+    x0 = torch.as_tensor(rng.normal(size=(B, model.nx)) * 0.1,
+                         dtype=f32).to(dev)
+    it = plt_.init_iterates(model, rho=sm.RHO)
+    its = plt_.ADMMIterates(**{f.name: getattr(it, f.name)[None].expand(
+        (B,) + getattr(it, f.name).shape) for f in dataclasses.fields(it)})
+    lanes = sm.batched(model, B, c)
+    flops = sm.k1_flops(N, model.nx, model.nu, model.nc, B)
+    runs = {}
+    for tag, kw in (("", {}), (",bf16", dict(storage_dtype=torch.bfloat16))):
+        with sm.recorded_calls(cr, ["backward_lanes"]) as rec:
+            cr.solve_lanes(lanes, its, x0, sm.SIGMA, **kw)
+        torch.cuda.synchronize()
+        runs[f"backward_lanes[per-instance,gains,centroidal{tag}]"] = (
+            cr.backward_lanes, *rec["backward_lanes"], sm.K1_GAINS, flops)
+    return runs
+
+
+def sweep_library_of(fn, a, kw):
+    """The library (dtype, nx, nu, nc, narrow) and the stages a block of
+    the sweep runs for a recorded call of K1, K9 or K11."""
+    if fn.__name__ == "backward_packed":
+        Sd, Sc, PN, pN, nu, nc = a[:6]
+        return (PN.dtype, PN.shape[0], nu, nc,
+                Sd.dtype == torch.bfloat16), Sd.shape[0]
+    A, Bm, PN = a[0], a[1], a[8]
+    stages = A.shape[0] // kw.get("segments", 1)
+    return (PN.dtype, A.shape[1], Bm.shape[2], a[5].shape[1],
+            A.dtype == torch.bfloat16), stages
 
 
 def latency_runs(sm, dev):
@@ -479,6 +540,9 @@ def main():
                     help="k7: the batches to run (default 4096); sweep: "
                          "solve_lanes' K1 also at these (at most 4096); "
                          "a batch no multiple of 8 takes the word copies")
+    ap.add_argument("--match", nargs="*", default=None,
+                    help="sweep: only the forms whose names hold one of "
+                         "these strings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: needs a CUDA device", file=sys.stderr)
@@ -489,16 +553,21 @@ def main():
     sm = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sm)
     from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr
+    def profiled(source, defines):
+        extra = {}
+        if not args.profile:
+            pass
+        elif source == ca.SOURCE:
+            extra = {"ADMM_PROFILE": 1}          # K8, K5, K4, K6
+        elif source == cr.SOURCE and ("NC" not in defines
+                                      or "sweep" in args.kernels):
+            extra = {"RICCATI_PROFILE": 1}       # K2, K7, K12 (K3, K10);
+                                                 # the sweep (K1, K9, K11)
+        return {**defines, **extra}
     if args.profile:
         load = _build.load
-        def profiled(source, defines):
-            extra = {}
-            if source == ca.SOURCE:
-                extra = {"ADMM_PROFILE": 1}          # K8, K5, K4, K6
-            elif source == cr.SOURCE and "NC" not in defines:
-                extra = {"RICCATI_PROFILE": 1}       # K2, K7, K12 (K3, K10)
-            return load(source, {**defines, **extra})
-        _build.load = profiled
+        _build.load = lambda source, defines: load(source,
+                                                   profiled(source, defines))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -533,6 +602,8 @@ def main():
     if args.bf16 and "sweep" in args.kernels:
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC,
                                                   narrow=True)))
+        jobs += [(cr.SOURCE, cr.kernel_defines(f32, *sm.WIDE["centroidal"][:3],
+                                               narrow=n)) for n in (False, True)]
     if args.bf16 and "k7" in args.kernels:
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, narrow=True)))
     if args.bf16 and {"k5", "k4", "k6"} & set(args.kernels):
@@ -542,6 +613,7 @@ def main():
         jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, narrow=True)),
                  (ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, fold=True,
                                                rungs=4, narrow=True))]
+    jobs = [(src, profiled(src, d)) for src, d in jobs]
     paths = _build.build_many(jobs)
     regs = {}
     for job, p in zip(jobs, paths):
@@ -572,18 +644,39 @@ def main():
     plain_of = {cr.backward_lanes: cr.backward_lanes_reference,
                 cr.backward_pdp_lanes: cr.backward_pdp_lanes_reference,
                 cr.backward_packed: cr.backward_packed_reference}
-    for mode, make in (("sweep", sweep_runs), ("latency", latency_runs)):
+
+    def sweep_sections(fn, a, kw):
+        (dt, nx, nu, nc, narrow), stages = sweep_library_of(fn, a, kw)
+        lib = cr._library(dt, nx, nu, nc, narrow)
+        out = (ctypes.c_longlong * 16)()     # an older tree's copies 8
+        lib.riccati_read_prof.argtypes = [ctypes.c_void_p]
+        sm.require(lib.riccati_read_prof(out) == 0, "riccati_read_prof")
+        return {"cycles_per_stage": {k: v / stages for k, v in
+                                     zip(SWEEP_SECTIONS, out) if v}}
+
+    sweeps = [("sweep", lambda: sweep_runs(sm, dev, bf16=args.bf16,
+                                           batches=args.batches)),
+              ("latency", lambda: latency_runs(sm, dev))]
+    if args.bf16:            # the narrow and full forms at nz=30
+        sweeps.insert(1, ("sweep", lambda: centroidal_sweep_runs(sm, dev)))
+    for mode, make in sweeps:
         if mode not in args.kernels:
             continue
-        runs = (make(sm, dev, bf16=args.bf16, batches=args.batches)
-                if mode == "sweep"
-                else make(sm, dev))
+        runs = make()
         for name, (fn, a, kw, names, flops) in runs.items():
+            if args.match and not any(m in name for m in args.match):
+                continue
             packed = name.startswith("backward_packed")
             listed = (lambda r: [r]) if packed else tuple
+            extra = ((lambda fn=fn, a=a, kw=kw: sweep_sections(fn, a, kw))
+                     if args.profile else (lambda: {}))
+            # (nz=30 in float32: the wide widths' tolerance, as the
+            # requests that run there are held to.)
             report(name, lambda: listed(fn(*a, **kw)),
                    lambda: listed(plain_of[fn](*a, **kw)), names,
-                   sm.nbytes(*(a[:4] if packed else a)), flops)
+                   sm.nbytes(*(a[:4] if packed else a)), flops, extra,
+                   tol=(sm.WIDE_KERNEL_RTOL if "centroidal" in name
+                        else sm.TOL[f32]))
         del runs
 
     rng = np.random.default_rng(sm.SEED)
@@ -631,11 +724,12 @@ def main():
         del a, factors
 
     def read_sections(lib, entry, names, N):
-        out = (ctypes.c_longlong * 8)()
+        out = (ctypes.c_longlong * 16)()     # K6 narrow's ten; others eight
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_void_p]
         sm.require(fn(out) == 0, entry)
-        return {"cycles_per_stage": {k: v / N for k, v in zip(names, out)}}
+        return {"cycles_per_stage": {k: v / N for k, v in zip(names, out)
+                                     if v}}
 
     if "k2" in args.kernels or "k5" in args.kernels:
         runs = k2_k5_runs(sm, dev, bf16=args.bf16)

@@ -10,10 +10,14 @@ rungs across their blocks of 32 scenarios, the last ragged, K7 and K12
 across their blocks and past their ring's slots; K1-K3, K7 and K9-K12 at
 the mass-spring chain's widths, nx=40, nu=10, in float64; the forms on
 bfloat16 stage streams of the matrix sweep, K1 gains only and K11, across
-their groups on an odd batch, and of K7 and K12 across their blocks on
-bfloat16 boxes and, on an odd batch, in aligned pairs; the narrow forms
-of the split kernels, K4 and K5 packed with the thrust cone and a shift,
-K6 on four rungs and K5's rung form, on bfloat16 boxes of c) keeps
+their groups on an odd batch (pairs by cp.async) and on batches of whole
+boxes of the copy engine at the quadrotor's and the centroidal model's
+widths, N past their staging's stages, and of K7 and K12 across their
+blocks on bfloat16 boxes and, on an odd batch, in aligned pairs; the
+narrow forms of the split kernels, K4 and K5 packed with the thrust cone
+and a shift, K6 on four rungs (its widening warp loading the shared runs and
+handing each slot to the folds) and K5's rung form, on bfloat16 boxes of
+c) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
