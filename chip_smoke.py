@@ -530,6 +530,8 @@ def registers_by_kernel(logs):
             if "NCONES" in log[0]:
                 key += (f",shift={log[0]['HAS_SHIFT']},cones={log[0]['NCONES']}"
                         f",nx={log[0]['NX']}")
+            elif int(log[0]["NX"]) != NX:       # a wide width's library
+                key += f",nx={log[0]['NX']}"
             found[key] = {"registers": int(regs), "spill_store_bytes": int(st),
                           "spill_load_bytes": int(ld)}
     return found

@@ -55,8 +55,8 @@
 // block reads from the L2) are widened into the compute-type slot layout
 // as they are loaded (wd_load / wd_store: 2-byte loads issued before the
 // slot is free, widening stores after), so the chains, folds and tails
-// read the slots as they do at full width: K4's and K6's by a widening
-// warp of their own, K5's by its producer.  The per-scenario c stays 2
+// read the slots as they do at full width, each kernel's by a widening
+// warp of its own.  The per-scenario c stays 2
 // bytes an entry in the slot (a box of a bfloat16 map, or 2-byte loads
 // where no box takes its rows) and is widened where it is read.
 //
@@ -1204,15 +1204,15 @@ __device__ __forceinline__ void dual_row(
 // shared matrices a few kilobytes a stage.  The only carry is x+ = M x + v:
 // everything else of stage k needs x_k and stage k's data alone.  So the
 // warps of a block take roles, on 32 consecutive scenarios (a lane each):
-//   * warp 0, the producer, copies each stage into a ring of K5_SLOTS
+//   * warp 0, the producer, copies each stage into a ring of SLOTS
 //     shared-memory slots: the scenarios' rows (dv, wzy) as two boxes of
 //     the copy engine (TMA, one instruction each, lane 0) where the row
 //     stride allows, else by cp.async a word a copy; the shared matrices
 //     by cp.async as contiguous runs, 16 bytes a copy where they allow;
 //   * warp 1, the chain, runs x+ = M x + v with x in registers and M read
 //     as a broadcast, and leaves x_k in the stage's slot;
-//   * warps 2 .. K5_TAILS+1, the tail, take whole stages (tail warp t the
-//     stages t, t + K5_TAILS, ...): a lane computes its scenario's u, w~,
+//   * warps 2 .. TAILS+1, the tail, take whole stages (tail warp t the
+//     stages t, t + TAILS, ...): a lane computes its scenario's u, w~,
 //     w+, z~, the projection (a cone's rows lie with one lane: no
 //     exchange), y+, hf+, the stores (a warp's store is one line) and its
 //     running maxima, several stages in flight at once behind the chain.
@@ -1227,9 +1227,11 @@ __device__ __forceinline__ void dual_row(
 // with them as boxes the tail does, and 8 tail warps beat 6 by 10-15 % in
 // the float32 diagonal-cost forms (with cp.async they did not); the row
 // loop unrolled by 2, more slots, and 1-D bulk copies (a run or a 128-byte
-// row an instruction) were no faster or slower.  Narrow form: the
-// producer widens M, K, Hs, D and h into their slot runs (K5Runs), loading
-// a stage's entries before its slot is free; bnd keeps its copies.
+// row an instruction) were no faster or slower.  Narrow form: a widening
+// warp of its own (the last) loads M, K, Hs, D and h (K5Runs), asked of
+// the L2 WD_AHEAD stages ahead, before the slot is free, stores them
+// widened into their slot runs and counts once off `full`; the producer
+// only copies (bnd, the rows), and no copy waits behind a load.
 
 #ifndef DIAG_COST
 #error "kernel B: build with -DDIAG_COST as well"
@@ -1244,13 +1246,21 @@ constexpr int K5_W = 32;                      // scenarios a block, a lane each
 constexpr int K5_VW = 16 / (int)sizeof(scalar);
 constexpr bool K5_VR = NX % K5_VW == 0;
 constexpr bool K5_VD = NZ % K5_VW == 0;
-// Tail warps, where slots allow: 8 in the float32 forms with a diagonal
-// stage cost (the served ones), 6 in the others.  Ten warps a block cap a
-// thread at 168 registers (registers go to 4 warps at a time: 384
-// threads' worth); the float64 and full-Hs forms spill there, at 8 warps
-// they keep 255.
-constexpr int K5_TAILS_MAX = sizeof(scalar) == 4 && DIAG_COST ? 8 : 6;
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+// Where five vectors of nz do not fit a tail warp's registers (the wide
+// widths, nz=30 and 50, where the one-pass tail spilled 0.1-7 KB), the tail
+// keeps w+ in the slot's dv rows and the D^T terms go in a second pass
+// (K5_TWO_PASS): the row loop leaves each row's coefficients (rho m z+ -
+// y+, y+, the dual residual's) in the slot's rows it has read (z, y, and
+// x: nc <= nx), and the rows of w sum them, K5_ECH entries at a time, in
+// the one-pass sums' order (the same numbers).
+constexpr bool K5_TWO_PASS = NZ > (sizeof(scalar) == 4 ? 20 : 16) && NC <= NX;
+constexpr int K5_ECH = K5_TWO_PASS ? 40 / (int)sizeof(scalar) : NZ;
+// Where x, x+ and a row of M do not fit the chain's registers (float64 at
+// nx=40), it runs x+ in axpy order from x_k in the slot, a column of M a
+// step (a scalar broadcast an entry: at nz=30 and 50 in float32 twice the
+// rows' time, which then set the pace; an H100, PERF.md).
+constexpr bool K5_AXPY_CHAIN = 3 * NX * (int)sizeof(scalar) > 4 * 200;
 
 // Slot (words): the shared runs, each from a 16-byte boundary (all R
 // rungs of M and K), then x_k, the dv rows and the wzy rows (32 words a
@@ -1269,23 +1279,43 @@ constexpr int K5_SLOT = K5_WZY + NW * K5_W;
 // After the slots: each tail warp's shifted cone values (NC rows of a
 // lane each) and the closing join of the maxima; then the barriers.
 constexpr int K5_VX = NCONES > 0 ? NC * K5_W : 0;
-constexpr int K5_FIXED = K5_TAILS_MAX * K5_VX + 4 * K5_TAILS_MAX * K5_W;
 constexpr int K5_SMEM_MAX = 232448;           // 227 KB, the most a block has
 constexpr int K5_SLOT_BYTES = K5_SLOT * (int)sizeof(scalar) + 3 * 8;
-constexpr int K5_FIT =
-    (K5_SMEM_MAX - K5_FIXED * (int)sizeof(scalar) - 8 - 128) / K5_SLOT_BYTES;
-// Stages in flight: one a tail warp, and the chain and the producer ahead.
-constexpr int K5_SLOTS = K5_FIT < K5_TAILS_MAX + 3 ? K5_FIT : K5_TAILS_MAX + 3;
-// No more tail warps than slots: a waiter names only the parity of the
-// phase it waits for, so two tail warps must never wait on one slot's
-// barrier for two different stages (with fewer slots than tail warps,
-// the later stage's wait would pass on the earlier stage's phase).
-constexpr int K5_TAILS = K5_SLOTS < K5_TAILS_MAX ? K5_SLOTS : K5_TAILS_MAX;
-constexpr int K5_THREADS = 32 * (2 + K5_TAILS);
-static_assert(K5_SLOTS >= 2, "kernel B: two stages do not fit a block");
-constexpr int K5_BAR_OFF =
-    ((K5_SLOTS * K5_SLOT + K5_FIXED) * (int)sizeof(scalar) + 7) / 8 * 8;
-constexpr int K5_SMEM = K5_BAR_OFF + 3 * 8 * K5_SLOTS + 128;   // + alignment
+// A form's warps and slots.  The tail sets the pace at the quadrotor's
+// widths (its row loop ~7 cycles an instruction a warp, far from the SM's
+// instruction rate: an H100, PERF.md), so the float32 diagonal-cost forms
+// (the served ones) take as many tail warps as their registers allow: 9 with
+// hf-emit (12 warps with the narrow form's widening warp: 168 registers a
+// thread, registers going to 4 warps at a time), 12 without (15 warps:
+// 128 registers, which the tail without hf+ keeps, spilling under 60
+// bytes; with hf+ it spilled 116 and ran slower).  At the two-pass widths
+// the tails wait on the chain, and 5 (8 warps at most: 255 registers)
+// keep the tail's long vectors out of local memory.  The float64 and
+// full-Hs forms take 6, 5 beside the widening warp (8 warps: 255
+// registers; at 9 warps, 168, the float64 narrow forms spilled 0.4-1.1 KB).
+template <bool EMIT_HF> struct K5Fit {
+    static constexpr int TAILS_MAX =
+        sizeof(scalar) == 4 && DIAG_COST
+            ? (K5_TWO_PASS ? 5 : EMIT_HF ? 9 : 12) : 6 - NARROW;
+    static constexpr int FIXED = TAILS_MAX * K5_VX + 4 * TAILS_MAX * K5_W;
+    static constexpr int FIT =
+        (K5_SMEM_MAX - FIXED * (int)sizeof(scalar) - 8 - 128) / K5_SLOT_BYTES;
+    // Stages in flight: one a tail warp, and the chain and the producer
+    // ahead.
+    static constexpr int SLOTS = FIT < TAILS_MAX + 3 ? FIT : TAILS_MAX + 3;
+    // No more tail warps than slots: a waiter names only the parity of the
+    // phase it waits for, so two tail warps must never wait on one slot's
+    // barrier for two different stages (with fewer slots than tail warps,
+    // the later stage's wait would pass on the earlier stage's phase).
+    static constexpr int TAILS = SLOTS < TAILS_MAX ? SLOTS : TAILS_MAX;
+    // Warps: the producer, the chain, the tails, (narrow) the widening warp.
+    static constexpr int WIDEN = 2 + TAILS;
+    static constexpr int THREADS = 32 * (WIDEN + NARROW);
+    static_assert(SLOTS >= 2, "kernel B: two stages do not fit a block");
+    static constexpr int BAR_OFF =
+        ((SLOTS * K5_SLOT + FIXED) * (int)sizeof(scalar) + 7) / 8 * 8;
+    static constexpr int SMEM = BAR_OFF + 3 * 8 * SLOTS + 128;   // + alignment
+};
 
 // The shared runs the narrow form widens: M and K (all rungs), Hs, D and
 // (EMIT_HF) h, each at its slot run.
@@ -1308,7 +1338,7 @@ template <bool EMIT_HF> struct K5Runs {
 // Diagnostic build (-DADMM_PROFILE): lane 0 of each role in block 0 sums
 // the SM cycles of its sections (K5_SECTIONS; the tail's per stage that
 // warp took); admm_read_prof copies the sums out.
-constexpr int K5_SECTIONS = 8;
+constexpr int K5_SECTIONS = 8 + 2 * NARROW;
 #ifdef ADMM_PROFILE
 __device__ long long admm_prof[K5_SECTIONS];
 #define K5_PROF_INIT                                                         \
@@ -1342,7 +1372,7 @@ __device__ __forceinline__ bool in_cone(int ci)
 }
 
 template <bool EMIT_HF>
-__global__ void __launch_bounds__(K5_THREADS, 1)
+__global__ void __launch_bounds__(K5Fit<EMIT_HF>::THREADS, 1)
 fwd_update_kernel(
     int N, int Bt, double alpha_d, double sigma_d, int m_stride, int k_stride,
     const scalar* __restrict__ rho, const scalar* __restrict__ x0,
@@ -1360,9 +1390,11 @@ fwd_update_kernel(
     char* base = reinterpret_cast<char*>(
         (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
     scalar* ring = reinterpret_cast<scalar*>(base);
+    using Fit = K5Fit<EMIT_HF>;
+    constexpr int K5_SLOTS = Fit::SLOTS, K5_TAILS = Fit::TAILS;
     scalar* vx_all = ring + K5_SLOTS * K5_SLOT;
-    scalar* join = vx_all + K5_TAILS_MAX * K5_VX;
-    mbar_t* full = reinterpret_cast<mbar_t*>(base + K5_BAR_OFF);
+    scalar* join = vx_all + Fit::TAILS_MAX * K5_VX;
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + Fit::BAR_OFF);
     mbar_t* ready = full + K5_SLOTS;
     mbar_t* empty = ready + K5_SLOTS;
 
@@ -1387,43 +1419,52 @@ fwd_update_kernel(
     }
     __syncthreads();
 
-    if (warp == 0) {
+    if (NARROW && warp == Fit::WIDEN) {
+        // ---- (narrow form) widening warp: stage k's shared runs, loaded
+        // (asked of the L2 WD_AHEAD stages ahead), stored widened into slot
+        // k % K5_SLOTS once the tail of stage k - K5_SLOTS has let go of it.
+        using Runs = K5Runs<EMIT_HF>;
+        stage_t wide[wd_total<Runs>()];
+        auto runs_at = [&](size_t ka, const stage_t** at) {
+            at[0] = M + ka * m_stride;
+            at[1] = K + ka * k_stride;
+            at[2] = Hs + ka * HS_WORDS;
+            at[3] = D + ka * NC * NZ;
+            at[4] = EMIT_HF ? h + ka * NZ : h;
+        };
+        K5_PROF_INIT
+#pragma unroll 1
+        for (int k = 0; k < N; ++k) {
+            const int s = k % K5_SLOTS;
+            const stage_t* at[Runs::NR];
+            if (k + WD_AHEAD < N) {
+                runs_at((size_t)(k + WD_AHEAD), at);
+                wd_prefetch<Runs>(at, lane);
+            }
+            runs_at((size_t)k, at);
+            wd_load<Runs>(wide, at, lane);
+            if (k >= K5_SLOTS) mbar_wait(&empty[s], (k / K5_SLOTS - 1) & 1);
+            K5_MARK(K5_SECTIONS - 2);
+            wd_store<Runs>(ring + s * K5_SLOT, wide, lane);
+            wd_arrive(&full[s], lane);
+            K5_MARK(K5_SECTIONS - 1);
+        }
+        K5_PROF_DONE(K5_SECTIONS - 2, K5_SECTIONS, 1, 1)
+    } else if (warp == 0) {
         // ---- producer: stage k into slot k % K5_SLOTS, once the tail of
-        // stage k - K5_SLOTS has let go of it.
+        // stage k - K5_SLOTS has let go of it (narrow: bnd and the rows).
         constexpr size_t VW = 16 / sizeof(scalar);
         const bool vec = Bs % VW == 0 && b0 + K5_W <= Bs
             && (((size_t)dv | (size_t)wzy) & 15) == 0;
-        using Runs = K5Runs<EMIT_HF>;
-        stage_t wide[wd_total<Runs>()];
         K5_PROF_INIT
 #pragma unroll 1
         for (int k = 0; k < N; ++k) {
             const int s = k % K5_SLOTS;
             const size_t ks = (size_t)k;
-            if constexpr (NARROW) {
-                // (A stage's runs from stage ka on, WD_AHEAD stages ahead
-                // into the L2 cache, then this stage's into registers.)
-                auto runs_at = [&](size_t ka, const stage_t** at) {
-                    at[0] = M + ka * m_stride;
-                    at[1] = K + ka * k_stride;
-                    at[2] = Hs + ka * HS_WORDS;
-                    at[3] = D + ka * NC * NZ;
-                    at[4] = EMIT_HF ? h + ka * NZ : h;
-                };
-                const stage_t* at[Runs::NR];
-                if (k + WD_AHEAD < N) {
-                    runs_at(ks + WD_AHEAD, at);
-                    wd_prefetch<Runs>(at, lane);
-                }
-                runs_at(ks, at);
-                wd_load<Runs>(wide, at, lane);
-            }
             if (k >= K5_SLOTS) mbar_wait(&empty[s], (k / K5_SLOTS - 1) & 1);
             K5_MARK(0);
             scalar* S = ring + s * K5_SLOT;
-            if constexpr (NARROW) {
-                wd_store<Runs>(S, wide, lane);
-            } else {
+            if constexpr (!NARROW) {
                 // (Full width: stage_t is scalar.)
                 warp_copy_run(S + K5_M, (const scalar*)M + ks * m_stride,
                               NRUNG * NX * NX, lane);
@@ -1454,7 +1495,6 @@ fwd_update_kernel(
                 if (lane == 0) mbar_arrive(&full[s]);
             }
             mbar_arrive_on_copies(&full[s]);
-            if constexpr (NARROW) wd_arrive(&full[s], lane);
             K5_MARK(1);
         }
         K5_PROF_DONE(0, 2, 1, 1)
@@ -1472,20 +1512,36 @@ fwd_update_kernel(
             scalar* S = ring + s * K5_SLOT;
             const scalar* sM = S + K5_M + r_ix * NX * NX;   // M[i][t] at i*NX + t
             const scalar* vv = S + K5_DV + NU * K5_W + lane;
-            scalar xn[NX];
+            if constexpr (K5_AXPY_CHAIN) {
+                // x_k into the slot first, then x+ in axpy order, a column
+                // of M a step (x the one vector of nx in registers).
 #pragma unroll
-            for (int i = 0; i < NX; ++i) {
-                scalar row[NX];
-                ld_row<NX, K5_VR>(row, sM + i * NX);
-                scalar acc = vv[i * K5_W];
+                for (int i = 0; i < NX; ++i) {
+                    S[K5_X + i * K5_W + lane] = x[i];
+                    x[i] = vv[i * K5_W];
+                }
+#pragma unroll 1
+                for (int t = 0; t < NX; ++t) {
+                    const scalar xt = S[K5_X + t * K5_W + lane];
 #pragma unroll
-                for (int t = 0; t < NX; ++t) acc += row[t] * x[t];
-                xn[i] = acc;
-            }
+                    for (int i = 0; i < NX; ++i) x[i] += sM[i * NX + t] * xt;
+                }
+            } else {
+                scalar xn[NX];
 #pragma unroll
-            for (int i = 0; i < NX; ++i) {
-                S[K5_X + i * K5_W + lane] = x[i];
-                x[i] = xn[i];
+                for (int i = 0; i < NX; ++i) {
+                    scalar row[NX];
+                    ld_row<NX, K5_VR>(row, sM + i * NX);
+                    scalar acc = vv[i * K5_W];
+#pragma unroll
+                    for (int t = 0; t < NX; ++t) acc += row[t] * x[t];
+                    xn[i] = acc;
+                }
+#pragma unroll
+                for (int i = 0; i < NX; ++i) {
+                    S[K5_X + i * K5_W + lane] = x[i];
+                    x[i] = xn[i];
+                }
             }
             mbar_arrive(&ready[s]);
             K5_MARK(3);
@@ -1495,7 +1551,7 @@ fwd_update_kernel(
             for (int i = 0; i < NX; ++i) xN[i * Bs + b] = x[i];
         }
         K5_PROF_DONE(2, 4, 1, 1)
-    } else {
+    } else if (warp < 2 + K5_TAILS) {
         // ---- tail warp t: stages t, t + K5_TAILS, ...
         const int t = warp - 2;
         const scalar alpha = (scalar)alpha_d;
@@ -1537,9 +1593,19 @@ fwd_update_kernel(
                 for (int q = 0; q < NX; ++q) acc += row[q] * w_t[NU + q];
                 w_t[j] = acc;
             }
+            // K5_TWO_PASS: w+ in the dv rows (the chain's v and the d read
+            // above are spent), each row's coefficients in its z, y and x
+            // rows once read (nc <= nx).
+            scalar* wn = ring + s * K5_SLOT + K5_DV + lane;
+            scalar* cs = ring + s * K5_SLOT + lane;
 #pragma unroll
-            for (int e = 0; e < NZ; ++e)
+            for (int e = 0; e < NZ; ++e) {
                 w_new[e] = alpha * w_t[e] + oma * wv[e * K5_W];
+                if constexpr (K5_TWO_PASS) wn[e * K5_W] = w_new[e];
+            }
+            auto wnew = [&](int e) {
+                return K5_TWO_PASS ? wn[e * K5_W] : w_new[e];
+            };
             // A cone's rows: the shifted values to project, all of them
             // before any row is projected.
 #pragma unroll
@@ -1560,26 +1626,34 @@ fwd_update_kernel(
 
             // Constraint rows: projection, dual update, their stores, and
             // their terms of hf+ and of the dual residual (D^T products as
-            // sums over the rows, c = 0 .. nc-1).
+            // sums over the rows, c = 0 .. nc-1; K5_TWO_PASS: the rows'
+            // coefficients, summed in the rows of w).
             scalar hfn[NZ], dT[NZ], dty[NZ];
-#pragma unroll
-            for (int e = 0; e < NZ; ++e) {
-                hfn[e] = EMIT_HF ? sh[e] - sigma * w_new[e] : (scalar)0;
+            auto init_terms = [&](int e) {
+                hfn[e] = EMIT_HF ? sh[e] - sigma * wnew(e) : (scalar)0;
                 dT[e] = (scalar)0;
                 dty[e] = (scalar)0;
+            };
+            if constexpr (!K5_TWO_PASS) {
+#pragma unroll
+                for (int e = 0; e < NZ; ++e) init_terms(e);
             }
             // The row loop stays rolled: unrolled, the tail's code outgrew
             // the instruction cache that its warps, at different rows,
             // share (a stage took 4x its issue time on an H100).
 #pragma unroll 1
             for (int ci = 0; ci < NC; ++ci) {
+                // z~ = D w~ and D w+ of the row (K5_TWO_PASS: D read where
+                // it is used, w+ from the slot).
                 scalar Dr[NZ];
-                ld_row<NZ, K5_VD>(Dr, sD + ci * NZ);
+                if constexpr (!K5_TWO_PASS)
+                    ld_row<NZ, K5_VD>(Dr, sD + ci * NZ);
                 scalar zt = (scalar)0, Dwn = (scalar)0;
 #pragma unroll
                 for (int e = 0; e < NZ; ++e) {
-                    zt += Dr[e] * w_t[e];
-                    Dwn += Dr[e] * w_new[e];
+                    const scalar De = K5_TWO_PASS ? sD[ci * NZ + e] : Dr[e];
+                    zt += De * w_t[e];
+                    Dwn += De * wnew(e);
                 }
                 const scalar zo = wv[(NZ + ci) * K5_W];
                 const scalar yo = wv[(NZ + NC + ci) * K5_W];
@@ -1601,37 +1675,68 @@ fwd_update_kernel(
                 ps = fmax(ps, fmax(fabs(Dwn), fabs(z_new)));
                 const scalar rg = rho_m * z_new - y_new;
                 const scalar ztt = rho_m * (amo * (zt - zo) + (zo - z_new));
+                if constexpr (K5_TWO_PASS) {
+                    cs[K5_WZY + (NZ + ci) * K5_W] = rg;
+                    cs[K5_WZY + (NZ + NC + ci) * K5_W] = y_new;
+                    cs[K5_X + ci * K5_W] = ztt;
+                } else {
 #pragma unroll
-                for (int e = 0; e < NZ; ++e) {
-                    if (EMIT_HF) hfn[e] -= rg * Dr[e];
-                    dT[e] += ztt * Dr[e];
-                    dty[e] += y_new * Dr[e];
+                    for (int e = 0; e < NZ; ++e) {
+                        if (EMIT_HF) hfn[e] -= rg * Dr[e];
+                        dT[e] += ztt * Dr[e];
+                        dty[e] += y_new * Dr[e];
+                    }
                 }
             }
             K5_MARK(6);
 
-            // Rows of w: w+, the next iteration's hf, the dual residual.
+            // Rows of w: w+, the next iteration's hf, the dual residual;
+            // K5_TWO_PASS: K5_ECH entries at a time, their D^T terms first
+            // (each row's three coefficients against its piece of D, rows
+            // c = 0 .. nc-1: the one-pass sums' order).
 #pragma unroll
-            for (int e = 0; e < NZ; ++e) {
-                const scalar dw_e = wv[e * K5_W] - w_t[e];
-                scalar Hdw, Hwn;
-                if (DIAG_COST) {
-                    Hdw = sHs[e] * dw_e;
-                    Hwn = sHs[e] * w_new[e];
-                } else {
-                    Hdw = (scalar)0;
-                    Hwn = (scalar)0;
+            for (int e0 = 0; e0 < NZ; e0 += K5_ECH) {
+                if constexpr (K5_TWO_PASS) {
 #pragma unroll
-                    for (int f = 0; f < NZ; ++f) {
-                        Hdw += sHs[e * NZ + f] * (wv[f * K5_W] - w_t[f]);
-                        Hwn += sHs[e * NZ + f] * w_new[f];
+                    for (int e = e0; e < e0 + K5_ECH && e < NZ; ++e)
+                        init_terms(e);
+#pragma unroll 1
+                    for (int ci = 0; ci < NC; ++ci) {
+                        const scalar rg = cs[K5_WZY + (NZ + ci) * K5_W];
+                        const scalar yn = cs[K5_WZY + (NZ + NC + ci) * K5_W];
+                        const scalar ztt = cs[K5_X + ci * K5_W];
+#pragma unroll
+                        for (int e = e0; e < e0 + K5_ECH && e < NZ; ++e) {
+                            const scalar De = sD[ci * NZ + e];
+                            if (EMIT_HF) hfn[e] -= rg * De;
+                            dT[e] += ztt * De;
+                            dty[e] += yn * De;
+                        }
                     }
                 }
-                dual_row(Hdw, Hwn, dT[e], dty[e], dw_e, w_new[e], oma, asig,
-                         sigma, rd, ds);
-                if (valid) {
-                    wzy_new[(ks * NW + e) * Bs + b] = w_new[e];
-                    if (EMIT_HF) hf_new[(ks * NZ + e) * Bs + b] = hfn[e];
+#pragma unroll
+                for (int e = e0; e < e0 + K5_ECH && e < NZ; ++e) {
+                    const scalar dw_e = wv[e * K5_W] - w_t[e];
+                    const scalar wn_e = wnew(e);
+                    scalar Hdw, Hwn;
+                    if (DIAG_COST) {
+                        Hdw = sHs[e] * dw_e;
+                        Hwn = sHs[e] * wn_e;
+                    } else {
+                        Hdw = (scalar)0;
+                        Hwn = (scalar)0;
+#pragma unroll
+                        for (int f = 0; f < NZ; ++f) {
+                            Hdw += sHs[e * NZ + f] * (wv[f * K5_W] - w_t[f]);
+                            Hwn += sHs[e * NZ + f] * wnew(f);
+                        }
+                    }
+                    dual_row(Hdw, Hwn, dT[e], dty[e], dw_e, wn_e, oma, asig,
+                             sigma, rd, ds);
+                    if (valid) {
+                        wzy_new[(ks * NW + e) * Bs + b] = wn_e;
+                        if (EMIT_HF) hf_new[(ks * NZ + e) * Bs + b] = hfn[e];
+                    }
                 }
             }
             mbar_arrive(&empty[s]);
@@ -2787,7 +2892,6 @@ int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
     if (N <= 0 || Bt <= 0) return 0;
     cudaStream_t st = (cudaStream_t)stream;
     const int blocks = (Bt + K5_W - 1) / K5_W;
-    const size_t smem = K5_SMEM;
 #define ADMM_FU_ARGS                                                         \
     N, Bt, alpha, sigma, m_stride, k_stride, (const scalar*)rho,             \
         (const scalar*)x0, (const stage_t*)M, (const stage_t*)K,             \
@@ -2808,13 +2912,17 @@ int admm_fwd_update(int N, int Bt, double alpha, double sigma, int m_stride,
         if (e) return e;
     }
     if (emit_hf) {
+        constexpr size_t smem = K5Fit<true>::SMEM;
+        constexpr int threads = K5Fit<true>::THREADS;
         int e = set_smem(fwd_update_kernel<true>, smem);
         if (e) return e;
-        fwd_update_kernel<true><<<blocks, K5_THREADS, smem, st>>>(ADMM_FU_ARGS);
+        fwd_update_kernel<true><<<blocks, threads, smem, st>>>(ADMM_FU_ARGS);
     } else {
+        constexpr size_t smem = K5Fit<false>::SMEM;
+        constexpr int threads = K5Fit<false>::THREADS;
         int e = set_smem(fwd_update_kernel<false>, smem);
         if (e) return e;
-        fwd_update_kernel<false><<<blocks, K5_THREADS, smem, st>>>(ADMM_FU_ARGS);
+        fwd_update_kernel<false><<<blocks, threads, smem, st>>>(ADMM_FU_ARGS);
     }
 #undef ADMM_FU_ARGS
     return (int)cudaGetLastError();

@@ -1344,147 +1344,10 @@ int launch_backward(const BackwardArgs& a)
 // One matrix set per scenario (every tensor has trailing size Bt).  These
 // are kernels of their own, not the shared-model ones below with another
 // stride: there a block stages ONE matrix set per stage in shared memory
-// for all its scenarios.  K10 gives a (segment, scenario) one thread: the
-// carries and the stage temporaries live in registers, and every stream,
-// matrices included, is batch-last, so a warp reads and writes whole
-// lines.  K3 and K2 stage the sets of 8 scenarios a block (see there).
-// A narrow library (STAGE_BF16) holds K7 and K12 alone.
+// for all its scenarios.  K3 and K2 stage the sets of 8 scenarios a block,
+// K7, K12 and K10 the sets of W scenarios a lane each (see there).  A
+// narrow library (STAGE_BF16) holds K7 and K12 alone.
 #ifndef STAGE_BF16
-
-constexpr int PI_THREADS = 64;               // K10: threads per block
-
-// ---- K10, the cached-factor vector sweep of the segment reduction (K9's
-// export_factors outputs P_{k+1}, K, chol(Huu), F_{k+1} per stage): K2's
-// per-instance recursion with the segment offset f = F v + f carried
-// beside p.  One thread per (segment, scenario), the carries in registers,
-// every stream batch-last as in K2; the blocks of segment s cover its
-// scenarios.  p starts at the segment's pi (zero but on the last), f at 0;
-// after the segment's first stage the thread writes (p0, f0).
-__global__ void backward_pdp_vectors_kernel(
-    int N, int Bt, int S,
-    const scalar* __restrict__ A, const scalar* __restrict__ B,
-    const scalar* __restrict__ c, const scalar* __restrict__ hf,
-    const scalar* __restrict__ P, const scalar* __restrict__ K,
-    const scalar* __restrict__ L, const scalar* __restrict__ F,
-    const scalar* __restrict__ pi,
-    scalar* __restrict__ d_out, scalar* __restrict__ v_out,
-    scalar* __restrict__ p0, scalar* __restrict__ f0)
-{
-    const unsigned bps = (Bt + PI_THREADS - 1) / PI_THREADS;   // blocks a segment
-    const size_t seg = blockIdx.x / bps;
-    const size_t b = (size_t)(blockIdx.x % bps) * blockDim.x + threadIdx.x;
-    if (b >= (size_t)Bt) return;
-    const size_t Bs = (size_t)Bt;
-    const int Nl = N / S;
-    const size_t s0 = seg * (size_t)Nl;         // the segment's first stage
-    A += s0 * NX * NX * Bs;
-    B += s0 * NX * NU * Bs;
-    c += s0 * NX * Bs;
-    hf += s0 * NZ * Bs;
-    P += s0 * NX * NX * Bs;
-    K += s0 * NU * NX * Bs;
-    L += s0 * NU * NU * Bs;
-    F += s0 * NX * NX * Bs;
-    d_out += s0 * NU * Bs;
-    v_out += s0 * NX * Bs;
-
-    scalar p[NX], f[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-        p[i] = pi[(seg * NX + i) * Bs + b];
-        f[i] = (scalar)0;
-    }
-
-    for (int k = Nl - 1; k >= 0; --k) {
-        const size_t ks = (size_t)k;
-        const scalar* Ak = A + ks * NX * NX * Bs + b;
-        const scalar* Bk = B + ks * NX * NU * Bs + b;
-        const scalar* Kk = K + ks * NU * NX * Bs + b;
-        const scalar* Lk = L + ks * NU * NU * Bs + b;
-        const scalar* Pk = P + ks * NX * NX * Bs + b;
-        const scalar* Fk = F + ks * NX * NX * Bs + b;
-
-        scalar cv[NX], Pcp[NX], rbar[NU], dv[NU], inv[NU], vv[NX];
-#pragma unroll
-        for (int i = 0; i < NX; ++i) cv[i] = c[(ks * NX + i) * Bs + b];
-#pragma unroll
-        for (int i = 0; i < NU; ++i) rbar[i] = hf[(ks * NZ + i) * Bs + b];
-
-        // Pcp = P c + p
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-            scalar acc = __ldg(Pk + (i * NX) * Bs) * cv[0];
-#pragma unroll
-            for (int t = 1; t < NX; ++t) acc += __ldg(Pk + (i * NX + t) * Bs) * cv[t];
-            Pcp[i] = acc + p[i];
-        }
-        // rbar = hf_u + B^T Pcp ; d = -(L L^T)^{-1} rbar
-#pragma unroll
-        for (int t = 0; t < NX; ++t) {
-#pragma unroll
-            for (int i = 0; i < NU; ++i)
-                rbar[i] += __ldg(Bk + (t * NU + i) * Bs) * Pcp[t];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / __ldg(Lk + (i * NU + i) * Bs);
-#pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            scalar acc = rbar[i];
-#pragma unroll
-            for (int t = 0; t < i; ++t) acc -= __ldg(Lk + (i * NU + t) * Bs) * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = NU - 1; i >= 0; --i) {
-            scalar acc = dv[i];
-#pragma unroll
-            for (int t = i + 1; t < NU; ++t) acc -= __ldg(Lk + (t * NU + i) * Bs) * dv[t];
-            dv[i] = acc * inv[i];
-        }
-#pragma unroll
-        for (int i = 0; i < NU; ++i) {
-            dv[i] = -dv[i];
-            d_out[(ks * NU + i) * Bs + b] = dv[i];
-        }
-        // v = B d + c
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-            scalar acc = cv[i];
-#pragma unroll
-            for (int t = 0; t < NU; ++t) acc += __ldg(Bk + (i * NU + t) * Bs) * dv[t];
-            vv[i] = acc;
-            v_out[(ks * NX + i) * Bs + b] = acc;
-        }
-        // p = hf_x + A^T Pcp + K^T rbar (into cv, no longer read)
-#pragma unroll
-        for (int i = 0; i < NX; ++i) cv[i] = hf[(ks * NZ + NU + i) * Bs + b];
-#pragma unroll
-        for (int t = 0; t < NX; ++t) {
-#pragma unroll
-            for (int i = 0; i < NX; ++i) cv[i] += __ldg(Ak + (t * NX + i) * Bs) * Pcp[t];
-        }
-#pragma unroll
-        for (int t = 0; t < NU; ++t) {
-#pragma unroll
-            for (int i = 0; i < NX; ++i) cv[i] += __ldg(Kk + (t * NX + i) * Bs) * rbar[t];
-        }
-#pragma unroll
-        for (int i = 0; i < NX; ++i) p[i] = cv[i];
-        // f = F v + f
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-            scalar acc = f[i];
-#pragma unroll
-            for (int t = 0; t < NX; ++t) acc += __ldg(Fk + (i * NX + t) * Bs) * vv[t];
-            f[i] = acc;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-        p0[(seg * NX + i) * Bs + b] = p[i];
-        f0[(seg * NX + i) * Bs + b] = f[i];
-    }
-}
 
 // ---- K3, per instance.  Segment form: the blocks of segment s roll its
 // N/S stages out from x0[s] and write their own end state to xN[s] (the
@@ -2698,6 +2561,318 @@ int launch_rollout(int N, int Bt, cudaStream_t st, const RoSrc<PACKED>& src,
                                               ws, xN);
 }
 
+#ifndef STAGE_BF16
+// ---- K10, the cached-factor vector sweep of the segment reduction (K9's
+// export_factors outputs P_{k+1}, K, chol(Huu), F_{k+1} per stage): K2's
+// per-instance recursion with the segment offset f carried beside p.  Per
+// segment of N/S stages, backwards from p = pi (zero but on the last
+// segment) and f = 0:
+//   Pcp = P c + p                  rbar = hf[:nu] + B^T Pcp
+//   d   = -(L L^T)^{-1} rbar       v    = B d + c
+//   p   = hf[nu:] + A^T Pcp + K^T rbar            f = F v + f
+// and after the segment's first stage (p0, f0) = (p, f).
+//
+// What bounds it on this card is bytes: 572 words a scenario and stage in
+// (A, B, c, hf, P, K, L, F at the quadrotor's widths) and 16 out, 0.37 ms
+// at S=8, B=1024, N=512 in float32.  The first design gave a (segment,
+// scenario) one thread that loaded its own stage (__ldg): about two warps
+// an SM there, too few loads in flight, and at nx=40 its carries and
+// temporaries spilled.  Here the warps of a block take roles on W
+// consecutive scenarios of one segment (a lane each; block = segment *
+// blocks_a_segment + group), as K7's do:
+//   * PV_PRODUCERS producer warps put whole stages into a ring of
+//     PvFit::SLOTS slots: each stream a (rows, W) box of the copy engine
+//     (several where taller than 256 rows), the streams dealt over the
+//     warps; where the rows are not whole 16-byte pieces (or a stream is
+//     not 16-byte aligned), every stream by cp.async a word a copy, dealt
+//     over all their lanes;
+//   * the chain warp carries p through Pcp, rbar and p, reading the rows
+//     of c, P, B, A and K at r*W + lane (a warp reads W consecutive words:
+//     no bank conflict), and leaves rbar in the slot;
+//   * the tail warp, behind it, carries f: d from rbar, v = B d + c, f += F
+//     v, and the d and v stores (a row of W scenarios a store).
+// Shared-memory barriers hand a slot on (full, ready: rbar is in it,
+// empty); no block-wide barrier a stage.  A lane past the batch computes
+// on zeros (the copy engine's) or the last scenario's rows and stores
+// nothing.
+constexpr int PV_PRODUCERS = 4;
+constexpr int PV_THREADS = 32 * (2 + PV_PRODUCERS);   // chain, tail, producers
+constexpr int PV_SLOTS_MAX = 4;
+constexpr int PV_STREAMS = 8;                // A, B, c, hf, P, K, L, F
+// The product steps a loop iteration (rolled at the wide widths, where the
+// registers of unrolled steps spilled in float64 at nx=40).
+constexpr int PV_UNROLL = NX <= 16 ? 4 : 1;
+
+__host__ __device__ constexpr int pv_rows(int q)
+{
+    return q == 0 || q == 4 || q == 7 ? NX * NX : q == 1 ? NX * NU
+        : q == 2 ? NX : q == 3 ? NZ : q == 5 ? NU * NX : NU * NU;
+}
+// The first byte of stream q in a slot of w scenarios, each from a
+// 128-byte boundary; q = PV_STREAMS: rbar's NU rows (the chain's), q =
+// PV_STREAMS + 1: a slot's bytes.
+__host__ __device__ constexpr int pv_off(int q, int w)
+{
+    constexpr int SZ = (int)sizeof(scalar);
+    int off = 0;
+    for (int i = 0; i < q; ++i) {
+        const int bytes = i < PV_STREAMS ? ro_span(pv_rows(i), w, SZ) * w * SZ
+                                         : NU * w * SZ;
+        off = (off + bytes + 127) / 128 * 128;
+    }
+    return off;
+}
+// Slots of w scenarios (and three barriers each) beside the chain's rows
+// of Pcp (nx rows of w).
+__host__ __device__ constexpr int pv_fit(int w)
+{
+    return (RO_SMEM_MAX - 128 - NX * w * (int)sizeof(scalar))
+        / (pv_off(PV_STREAMS + 1, w) + 3 * 8);
+}
+// W: the widest of 32, 16, 8, 4 (and 2 in float64: a box row of 16 bytes
+// at least) scenarios whose ring holds 3 slots, else 2.  32 in float32 at
+// the quadrotor's widths (3 slots of 72 KB), 8 at the centroidal model's,
+// 4 at nx=40 (2 slots of 91 KB).
+__host__ __device__ constexpr int pv_pick()
+{
+    constexpr int least_w = 16 / (int)sizeof(scalar);
+    for (int least = 3; least >= 2; --least)
+        for (int w = 32; w >= least_w; w /= 2)
+            if (pv_fit(w) >= least) return w;
+    return least_w;
+}
+struct PvFit {
+    static constexpr int W = pv_pick();
+    static constexpr int SLOTS = pv_fit(W) < PV_SLOTS_MAX ? pv_fit(W)
+                                                          : PV_SLOTS_MAX;
+    static constexpr int SLOT = pv_off(PV_STREAMS + 1, W);    // bytes
+    static constexpr int BAR = SLOTS * SLOT;
+    static constexpr int XS = BAR + 3 * 8 * SLOTS;           // Pcp's rows
+    static constexpr int SMEM = XS + NX * W * (int)sizeof(scalar) + 128;
+    static_assert(SLOTS >= 2, "K10: two stages of the least W do not fit");
+};
+struct PvSrc { const scalar* p[PV_STREAMS]; };
+struct PvMaps { CUtensorMap m[PV_STREAMS]; };
+
+__global__ void __launch_bounds__(PV_THREADS, 1)
+backward_pdp_vectors_kernel(
+    int N, int Bt, int S, const PvSrc src, const scalar* __restrict__ pi,
+    scalar* __restrict__ d_out, scalar* __restrict__ v_out,
+    scalar* __restrict__ p0, scalar* __restrict__ f0,
+    const __grid_constant__ PvMaps maps, int tma)
+{
+    constexpr int W = PvFit::W, SLOTS = PvFit::SLOTS;
+    constexpr int SZ = (int)sizeof(scalar);
+    extern __shared__ double smem_aligned[];
+    char* base = reinterpret_cast<char*>(
+        (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + PvFit::BAR);
+    mbar_t* ready = full + SLOTS;
+    mbar_t* empty = ready + SLOTS;
+
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int col = lane < W ? lane : W - 1;     // lanes past W shadow the last
+    const size_t Bs = (size_t)Bt;
+    const unsigned bps = (Bt + W - 1) / W;       // blocks a segment
+    const size_t seg = blockIdx.x / bps;
+    const size_t b0 = (size_t)(blockIdx.x % bps) * W;
+    const size_t b = b0 + col;
+    const bool mine = lane < W && b < Bs;        // stores its scenario's rows
+    const int Nl = N / S;
+    const int s0 = (int)seg * Nl;                // the segment's first stage
+    // Stream q (rbar: PV_STREAMS) of slot s.
+    auto slot = [&](int s, int q) {
+        return reinterpret_cast<scalar*>(base + s * PvFit::SLOT + pv_off(q, W));
+    };
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < SLOTS; ++s) {
+            mbar_init(&full[s], 33 * PV_PRODUCERS);   // each producer's lanes,
+                                                 // and its lane 0's with the
+                                                 // bytes it expects
+            mbar_init(&ready[s], 32);            // the chain's
+            mbar_init(&empty[s], 32);            // the tail's
+        }
+    }
+    __syncthreads();
+
+    // Stage n of the segment's sweep is model stage s0 + Nl-1-n, in slot
+    // n % SLOTS.
+    if (warp >= 2) {
+        // ---- producer warp pw: its streams' boxes, or its share of every
+        // stream's words.
+        const int pw = warp - 2;
+        const int tp = threadIdx.x - 64;         // thread of the producers
+        int tx = 0;                              // the bytes of its boxes
+#pragma unroll
+        for (int q = 0; q < PV_STREAMS; ++q)
+            if (q % PV_PRODUCERS == pw)
+                tx += ro_span(pv_rows(q), W, SZ) * W * SZ;
+        PROF_INIT_AT(blockIdx.x == 0 && tp == 0)
+#pragma unroll 1
+        for (int n = 0; n < Nl; ++n) {
+            const int s = n % SLOTS;
+            if (n >= SLOTS) mbar_wait(&empty[s], (n / SLOTS - 1) & 1);
+            PROF_MARK(0);
+            const int k = s0 + Nl - 1 - n;
+            if (lane == 0) mbar_arrive_expect_tx(&full[s], tma ? tx : 0);
+#pragma unroll
+            for (int q = 0; q < PV_STREAMS; ++q) {
+                constexpr int NT = 32 * PV_PRODUCERS;
+                const int rows = pv_rows(q);
+                scalar* dst = slot(s, q);
+                if (tma) {
+                    if (q % PV_PRODUCERS == pw && lane == 0)
+                        for (int i = 0; i < ro_boxes(rows); ++i)
+                            tma_box(dst + i * ro_box(rows, W, SZ) * W,
+                                    &maps.m[q], (int)b0,
+                                    k * rows + i * ro_box(rows, W, SZ),
+                                    &full[s]);
+                } else {
+                    const scalar* x = src.p[q] + (size_t)k * rows * Bs;
+#pragma unroll 1
+                    for (int t = tp; t < rows * W; t += NT) {
+                        const int r = t / W, j = t % W;
+                        const size_t bj = b0 + j < Bs ? b0 + j : Bs - 1;
+                        copy_word(dst + r * W + j, x + r * Bs + bj);
+                    }
+                }
+            }
+            mbar_arrive_on_copies(&full[s]);
+            PROF_MARK(1);
+        }
+        PROF_DONE_RANGE(0, 2)
+    } else if (warp == 0) {
+        // ---- chain: p in registers, rbar into the slot.
+        const size_t bc = b < Bs ? b : Bs - 1;
+        scalar* xs = reinterpret_cast<scalar*>(base + PvFit::XS) + col;
+        scalar p[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) p[i] = pi[(seg * NX + i) * Bs + bc];
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
+#pragma unroll 1
+        for (int n = 0; n < Nl; ++n) {
+            const int s = n % SLOTS;
+            mbar_wait(&full[s], (n / SLOTS) & 1);
+            PROF_MARK(2);
+            const scalar* sA = slot(s, 0) + col;
+            const scalar* sB = slot(s, 1) + col;
+            const scalar* sc = slot(s, 2) + col;
+            const scalar* shf = slot(s, 3) + col;
+            const scalar* sP = slot(s, 4) + col;
+            const scalar* sK = slot(s, 5) + col;
+            // The products in axpy order (a column of P, a row of B, A and K
+            // a step, their vector's entry read from shared memory), the
+            // steps rolled by PV_UNROLL: p and rbar the only vectors in
+            // registers.  Pcp = P c + p, into the chain's rows xs.
+#pragma unroll PV_UNROLL
+            for (int t = 0; t < NX; ++t) {
+                const scalar ct = sc[t * W];
+#pragma unroll
+                for (int i = 0; i < NX; ++i) p[i] += sP[(i * NX + t) * W] * ct;
+            }
+            // (A lane past W reads its shadow's rows and writes none: its
+            // numbers are stored nowhere.)
+            scalar rbar[NU];
+#pragma unroll
+            for (int i = 0; i < NX; ++i) {
+                if (lane < W) xs[i * W] = p[i];
+                p[i] = shf[(NU + i) * W];
+            }
+#pragma unroll
+            for (int u = 0; u < NU; ++u) rbar[u] = shf[u * W];
+            // rbar = hf_u + B^T Pcp ; p = hf_x + A^T Pcp + K^T rbar
+#pragma unroll PV_UNROLL
+            for (int t = 0; t < NX; ++t) {
+                const scalar xt = xs[t * W];
+#pragma unroll
+                for (int u = 0; u < NU; ++u) rbar[u] += sB[(t * NU + u) * W] * xt;
+#pragma unroll
+                for (int i = 0; i < NX; ++i) p[i] += sA[(t * NX + i) * W] * xt;
+            }
+#pragma unroll
+            for (int u = 0; u < NU; ++u) {
+#pragma unroll
+                for (int i = 0; i < NX; ++i) p[i] += sK[(u * NX + i) * W] * rbar[u];
+            }
+            if (lane < W) {
+                scalar* srb = slot(s, PV_STREAMS) + col;
+#pragma unroll
+                for (int u = 0; u < NU; ++u) srb[u * W] = rbar[u];
+            }
+            mbar_arrive(&ready[s]);
+            PROF_MARK(3);
+        }
+        PROF_DONE_RANGE(2, 4)
+        if (mine) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i) p0[(seg * NX + i) * Bs + b] = p[i];
+        }
+    } else {
+        // ---- tail: d, v and their stores, f in registers.
+        scalar f[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) f[i] = (scalar)0;
+        PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
+#pragma unroll 1
+        for (int n = 0; n < Nl; ++n) {
+            const int s = n % SLOTS;
+            mbar_wait(&ready[s], (n / SLOTS) & 1);
+            PROF_MARK(4);
+            const size_t k = (size_t)(s0 + Nl - 1 - n);
+            const scalar* sB = slot(s, 1) + col;
+            const scalar* sc = slot(s, 2) + col;
+            const scalar* sL = slot(s, 6) + col;
+            const scalar* sF = slot(s, 7) + col;
+            const scalar* srb = slot(s, PV_STREAMS) + col;
+            // d = -(L L^T)^{-1} rbar
+            scalar dv[NU], inv[NU];
+#pragma unroll
+            for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[(i * NU + i) * W];
+#pragma unroll
+            for (int i = 0; i < NU; ++i) {
+                scalar acc = srb[i * W];
+#pragma unroll
+                for (int t = 0; t < i; ++t) acc -= sL[(i * NU + t) * W] * dv[t];
+                dv[i] = acc * inv[i];
+            }
+#pragma unroll
+            for (int i = NU - 1; i >= 0; --i) {
+                scalar acc = dv[i];
+#pragma unroll
+                for (int t = i + 1; t < NU; ++t) acc -= sL[(t * NU + i) * W] * dv[t];
+                dv[i] = acc * inv[i];
+            }
+#pragma unroll
+            for (int i = 0; i < NU; ++i) {
+                dv[i] = -dv[i];
+                if (mine) d_out[(k * NU + i) * Bs + b] = dv[i];
+            }
+            // v = B d + c ; f = F v + f, a column of F an entry of v (f
+            // the only vector of nx in registers)
+#pragma unroll PV_UNROLL
+            for (int t = 0; t < NX; ++t) {
+                scalar vt = sc[t * W];
+#pragma unroll
+                for (int u = 0; u < NU; ++u) vt += sB[(t * NU + u) * W] * dv[u];
+                if (mine) v_out[(k * NX + t) * Bs + b] = vt;
+#pragma unroll
+                for (int i = 0; i < NX; ++i) f[i] += sF[(i * NX + t) * W] * vt;
+            }
+            mbar_arrive(&empty[s]);
+            PROF_MARK(5);
+        }
+        PROF_DONE_RANGE(4, 6)
+        if (mine) {
+#pragma unroll
+            for (int i = 0; i < NX; ++i) f0[(seg * NX + i) * Bs + b] = f[i];
+        }
+    }
+}
+
+#endif  // STAGE_BF16
+
 #endif  // NC
 
 }  // namespace
@@ -2913,7 +3088,10 @@ int riccati_forward(int N, int Bt, int shared, int S, void* stream,
     return (int)cudaGetLastError();
 }
 
-// K10: S segments; pi, p0 and f0 are (S, nx, Bt).
+// K10: S segments; pi, p0 and f0 are (S, nx, Bt).  The streams go by the
+// copy engine where its maps can take them (the row stride a multiple of
+// 16 bytes, each stream 16-byte aligned); a map that cannot be made is an
+// error.
 int riccati_backward_pdp_vectors(int N, int Bt, int S, void* stream,
                                  const void* A, const void* B, const void* c,
                                  const void* hf, const void* P, const void* K,
@@ -2922,13 +3100,28 @@ int riccati_backward_pdp_vectors(int N, int Bt, int S, void* stream,
 {
     if (N <= 0 || Bt <= 0) return 0;
     if (S <= 0 || N % S != 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    const int blocks = S * ((Bt + PI_THREADS - 1) / PI_THREADS);
-    backward_pdp_vectors_kernel<<<blocks, PI_THREADS, 0, st>>>(
-        N, Bt, S, (const scalar*)A, (const scalar*)B, (const scalar*)c,
-        (const scalar*)hf, (const scalar*)P, (const scalar*)K,
-        (const scalar*)L, (const scalar*)F, (const scalar*)pi, (scalar*)d,
-        (scalar*)v, (scalar*)p0, (scalar*)f0);
+    constexpr int SZ = (int)sizeof(scalar);
+    const PvSrc src = {{(const scalar*)A, (const scalar*)B, (const scalar*)c,
+                        (const scalar*)hf, (const scalar*)P, (const scalar*)K,
+                        (const scalar*)L, (const scalar*)F}};
+    bool tma = (size_t)Bt * SZ % 16 == 0;
+    for (int q = 0; q < PV_STREAMS; ++q)
+        tma = tma && ((size_t)src.p[q] & 15) == 0;
+    PvMaps maps = {};
+    for (int q = 0; tma && q < PV_STREAMS; ++q) {
+        const int rows = pv_rows(q);
+        const int err = make_rows_map(&maps.m[q], src.p[q], (size_t)N * rows,
+                                      Bt, ro_box(rows, PvFit::W, SZ), PvFit::W,
+                                      SZ);
+        if (err) return err;
+    }
+    const int e = set_smem(backward_pdp_vectors_kernel, PvFit::SMEM);
+    if (e) return e;
+    const int blocks = S * ((Bt + PvFit::W - 1) / PvFit::W);
+    backward_pdp_vectors_kernel<<<blocks, PV_THREADS, PvFit::SMEM,
+                                  (cudaStream_t)stream>>>(
+        N, Bt, S, src, (const scalar*)pi, (scalar*)d, (scalar*)v,
+        (scalar*)p0, (scalar*)f0, maps, (int)tma);
     return (int)cudaGetLastError();
 }
 #endif  // STAGE_BF16

@@ -558,8 +558,9 @@ def admm_fwd_update_lanes(rho, x0, M, K, Hs, D, lb, ub, mask, shift,
     into a shared-memory ring, a chain warp runs x+ = M x + v, and tail
     warps take whole stages behind it (the projection, the dual update,
     the stores and the maxima); a lane reads its scenario's rung at an
-    offset in the slot.  See the kernel source.  The narrow form widens
-    its shared runs into the ring as it copies them.
+    offset in the slot.  See the kernel source.  In the narrow form a
+    widening warp of its own loads the shared runs and stores them widened
+    into the ring; the producer only copies.
     """
     cones = tuple(cones)
     nx = M.shape[2]

@@ -864,8 +864,11 @@ def backward_pdp_vectors_lanes(A, B, c, hf, P, K, L, F, pi, *, segments=None):
     segment's boundary, (nx,B), or (S,nx,B) with ``segments=S`` (pi then
     (S,nx,B) too).
 
-    On the card: one thread per (segment, scenario), as the per-instance
-    backward_vectors_lanes; see the note in the kernel source.
+    On the card: a block serves W consecutive scenarios of one segment, a
+    lane each, with warps in roles: producers copy every stage into a
+    shared-memory ring (boxes of the copy engine where the batch's rows
+    are whole 16-byte pieces, word copies otherwise), a chain warp carries
+    p, a tail warp carries f and stores d and v; see the kernel source.
     """
     N, nx = A.shape[0], A.shape[1]
     nu = B.shape[2]

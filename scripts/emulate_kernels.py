@@ -673,6 +673,31 @@ def run_k7(dtype, nx, nu, N, Bt, tol):
           cr.forward_packed_reference(Sd, G, x0, nu), tol)
 
 
+def run_k10(dtype, nx, nu, N, Bt, S, tol):
+    """K10 in S segments of N/S stages (N = S: segments of one stage) on
+    ``Bt`` scenarios across its blocks of W scenarios of one segment (32
+    in float32 and 16 in float64 at the quadrotor's widths, 8 / 4 at the
+    centroidal model's, 4 / 2 at nx=40), the last ragged: the streams by
+    boxes of the copy engine where their rows are whole 16-byte pieces (Bt
+    a multiple of 4 in float32, of 2 in float64), a word a copy otherwise.
+    Random factors: K10 needs no relation between them."""
+    rng = np.random.default_rng(14)
+    T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
+    g = 1.0 / nx ** 0.5                  # products of norm about one
+    tag = f"{str(dtype).split('.')[-1]} nx={nx} nu={nu} N={N} B={Bt} S={S}"
+    A, B, P, F = (T(N, nx, nx, Bt) * g, T(N, nx, nu, Bt) * g,
+                  T(N, nx, nx, Bt) * g, T(N, nx, nx, Bt) * g)
+    K = T(N, nu, nx, Bt) * g
+    L = (torch.tril(T(N, nu, nu, Bt).permute(0, 3, 1, 2) * 0.2, diagonal=-1)
+         + torch.diag_embed(1.0 + T(N, Bt, nu).abs())).permute(0, 2, 3, 1)
+    k10_in = (A, B, T(N, nx, Bt) * 0.1, T(N, nx + nu, Bt), P, K,
+              L.contiguous(), F, T(S, nx, Bt))
+    check(f"K10 across blocks [{tag}]",
+          cr._launch_backward_pdp_vectors(library(dtype, nx, nu), *k10_in, S,
+                                          None),
+          cr.backward_pdp_vectors_lanes_reference(*k10_in, segments=S), tol)
+
+
 def run_narrow_sweep(dtype, nx, nu, nc, N, Bt, tol, one=False):
     """The matrix sweep's forms on bfloat16 stage streams (K1 gains only,
     K11) on ``Bt`` instances, in the compute type ``dtype``: across its
@@ -835,6 +860,9 @@ ADMM_CASES = [
     (torch.float32, 3, 2, 9, 5, 33, ((0, 3, "soc"), (4, 5, "rsoc")), True,
      True, 1e-3),
     (torch.float64, 2, 1, 1, 4, 5, (), False, False, 1e-10),
+    # The float32 diagonal-cost forms' tail warps (9 with hf-emit, 12
+    # without), N past their slots (12 and 15) twice.
+    (torch.float32, 12, 4, 16, 33, 40, (), True, False, 1e-3),
 ]
 # (dtype, nx, nu, nc, N, Bs, R, tol): kernel A (K4, and K6 on R rungs)
 # across blocks of 32 scenarios, N past the rings' slots (at most 10): the
@@ -972,6 +1000,23 @@ WIDE_K7_CASES = [
     (torch.float64, 24, 6, 10, 70, 1e-10),
     (torch.float32, 24, 6, 12, 67, 1e-4),
 ]
+# (dtype, nx, nu, N, Bt, S, tol): K10 across its blocks, the last ragged:
+# boxes of the copy engine (68 and 20 in float32, 34 and 4 in float64) and
+# a word a copy (67, 19, 9, 5: odd), in one segment past the ring's slots
+# (3 at the quadrotor's and the centroidal model's widths, 2 at nx=40), in
+# 4 and 2 and in segments of one stage (N = S), at the quadrotor's, the
+# centroidal model's and the mass-spring chain's widths.
+K10_CASES = [
+    (torch.float64, 12, 4, 6, 34, 2, 1e-10),
+    (torch.float64, 12, 4, 5, 19, 5, 1e-10),
+    (torch.float64, 40, 10, 4, 5, 1, 1e-10),
+    (torch.float32, 12, 4, 8, 68, 1, 1e-4),
+    (torch.float32, 12, 4, 8, 67, 4, 1e-4),
+    (torch.float32, 24, 6, 8, 20, 1, 1e-4),
+    (torch.float64, 24, 6, 4, 9, 4, 1e-10),
+    (torch.float32, 40, 10, 6, 12, 2, 1e-4),
+    (torch.float64, 40, 10, 3, 4, 3, 1e-10),
+]
 # (dtype, nx, nu, nc, N, Bt, tol[, one]): the narrow forms of the matrix
 # sweep (K1 gains only, K11 on bfloat16 stage streams) across their groups
 # (G = 4 in float64, 8 in float32 at the quadrotor's and the centroidal
@@ -1048,6 +1093,9 @@ NARROW_LADDER_CASES = [
     (torch.float32, 24, 6, 6, 12, 40, 1, CENTROIDAL_CONES, True, False, 1e-4),
     (torch.float64, 3, 2, 5, 13, 35, 2, ((1, 3, "soc"),), False, True, 1e-10),
     (torch.float64, 40, 10, 10, 4, 33, 2, (), True, False, 1e-10),
+    # The float32 diagonal-cost rung form's 12 tail warps (9 with hf-emit),
+    # N past their 15 slots twice.
+    (torch.float32, 12, 4, 16, 33, 40, 4, (), True, False, 1e-4),
 ]
 WIDE = (WIDE_CASES, WIDE_ADMM_CASES, [], WIDE_ITER_CASES, [],
         WIDE_SWEEP_CASES, WIDE_K2_CASES, WIDE_K46_CASES, WIDE_K7_CASES)
@@ -1063,13 +1111,16 @@ K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
 NARROW_SWEEP_QUICK, NARROW_K7_QUICK = NARROW_SWEEP_CASES[:3], NARROW_K7_CASES[:2]
 NARROW_ADMM_QUICK, NARROW_LADDER_QUICK = (NARROW_ADMM_CASES[:1],
                                           NARROW_LADDER_CASES[:1])
+# K10 on boxes and on word copies in segments of one stage (the libraries
+# of QUICK's float64 cases) and at nx=40.
+K10_QUICK = K10_CASES[:3]
 
 
 def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
          iter_cases=ITER_CASES, k3_cases=K3_CASES, sweep_cases=SWEEP_CASES,
          k2_cases=K2_CASES, k46_cases=K46_CASES, k7_cases=K7_CASES,
          narrow_sweep_cases=(), narrow_k7_cases=(), narrow_admm_cases=(),
-         narrow_ladder_cases=()):
+         narrow_ladder_cases=(), k10_cases=()):
     (OUT / "include").mkdir(parents=True, exist_ok=True)
     for name, text in HEADERS.items():
         (OUT / "include" / name).write_text(text)
@@ -1091,6 +1142,8 @@ def main(cases=CASES, admm_cases=ADMM_CASES, ladder_cases=LADDER_CASES,
         run_k46(*case)
     for case in k7_cases:
         run_k7(*case)
+    for case in k10_cases:
+        run_k10(*case)
     for case in narrow_sweep_cases:
         run_narrow_sweep(*case)
     for case in narrow_k7_cases:
@@ -1109,14 +1162,16 @@ if __name__ == "__main__":
         sys.exit(main(QUICK, ADMM_QUICK, LADDER_QUICK, ITER_QUICK, K3_QUICK,
                       SWEEP_QUICK, K2_QUICK, K46_QUICK, K7_QUICK,
                       NARROW_SWEEP_QUICK, NARROW_K7_QUICK, NARROW_ADMM_QUICK,
-                      NARROW_LADDER_QUICK))
+                      NARROW_LADDER_QUICK, K10_QUICK))
     if "--wide" in args:
         sys.exit(main(*WIDE))
+    if "--k10" in args:
+        sys.exit(main([], [], [], [], [], [], [], [], [], k10_cases=K10_CASES))
     if "--narrow" in args:
         sys.exit(main([], [], [], [], [], [], [], [], [], NARROW_SWEEP_CASES,
                       NARROW_K7_CASES, NARROW_ADMM_CASES,
                       NARROW_LADDER_CASES))
     main(narrow_sweep_cases=NARROW_SWEEP_CASES,
          narrow_k7_cases=NARROW_K7_CASES, narrow_admm_cases=NARROW_ADMM_CASES,
-         narrow_ladder_cases=NARROW_LADDER_CASES)
+         narrow_ladder_cases=NARROW_LADDER_CASES, k10_cases=K10_CASES)
     sys.exit(main(*WIDE))

@@ -5,7 +5,7 @@ them, and K1-K5 and K8 at the widest models' requests, on the card.
 
     python3 scripts/kernel_bench.py [--root DIR] [--reps 20]
                                     [--kernels sweep latency k8 k3 k2 k5
-                                               k4 k6 k7 wide]
+                                               k4 k6 k7 k10 wide]
                                     [--profile] [--bf16]
                                     [--batches B ...] [--match S ...]
 
@@ -40,7 +40,14 @@ last iteration of the 20-iteration ``solve_admm`` request (K4) and of the
 four-rung ladder request (K6, R=4), B=4096.  ``k7``: the rollout from
 the raw dynamics on the tensors ``solve_lanes`` hands K7 and
 ``solve_packed`` hands K12 (B=4096; ``--batches`` others, e.g. 4094 and 4095,
-whose rows no copy-engine box takes).  ``wide``: K1-K5 and K8 on the
+whose rows no copy-engine box takes).  ``k10``: the cached PDP vector
+sweep on the tensors the cached ``pdp_admm`` request hands it
+(``admm_sharded.solve`` with cached factors: the thrust-cone quadrotor
+with a shift, N=512, S=8, B=1024, float32; the same in float64; and its
+first 1023 scenarios, a batch whose rows no copy-engine box takes), then
+at ``kernels_wide``'s shapes (the mass-spring chain and the centroidal
+model, N=64, S=4, B=256, random stage data and the plain K9's exported
+factors, float32 and float64).  ``wide``: K1-K5 and K8 on the
 tensors the four requests of the two widest models hand them (each run
 once with the calls recorded, as ``chip_smoke.py``'s phases
 ``mass_spring_solve``, ``centroidal_solve``, ``centroidal_admm_split`` and
@@ -55,7 +62,9 @@ request), to ``k7`` (K7 and K12 on
 theirs) and to ``k4``, ``k5`` and ``k6`` (the narrow forms of K4 and K5
 packed on the tensors of the split request with
 ``storage_dtype=torch.bfloat16``, of K6 and K5's rung form on the
-ladder's); a tree without them cannot run it.  Each form is held against its
+ladder's; ``k5`` also times K5 packed, full and narrow, at
+``kernels_wide``'s shapes, N=64, B=256, at both wide widths); a tree
+without them cannot run it.  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
@@ -69,7 +78,7 @@ events, the bound (the larger of its bytes over 3.35 TB/s and its
 operations over 67 TFLOP/s), the error against the plain version, and
 the registers and spills ``ptxas`` reported for the library's kernels.
 ``--profile`` builds K8, K5, K4 and K6 with their diagnostic
-``-DADMM_PROFILE`` and K2, K7 and K12 (with ``sweep`` also the matrix
+``-DADMM_PROFILE`` and K2, K7, K12 and K10 (with ``sweep`` also the matrix
 sweep, K1, K9 and K11) with ``-DRICCATI_PROFILE`` (thread 0 of block 0,
 or lane 0 of each role's first warp, sums the SM cycles of each section of
 a stage; a fold or tail warp's per stage it took) and adds the cycles a
@@ -124,6 +133,14 @@ KA_SECTIONS = ["producer: wait empty", "producer: copies",
 K7_SECTIONS = ["producer: wait empty", "producer: copies",
                "chain: wait full", "chain: u x+", "chain: wait out slot",
                "chain: out rows", "store: wait full", "store: ws rows"]
+# K10's (producer 0 of 4, the chain, the tail; a cycles a stage of the
+# segment's sweep, block 0: segment 0's first scenarios).
+K10_SECTIONS = ["producer: wait empty", "producer: copies",
+                "chain: wait full", "chain: Pcp rbar p", "tail: wait ready",
+                "tail: d v f stores"]
+# The narrow K5's widening warp (after K5_SECTIONS; this tree's narrow
+# form only).
+K5_WIDEN_SECTIONS = ["widen: wait empty", "widen: stores"]
 # The matrix sweep's under -DRICCATI_PROFILE: thread 0 of block 0 (lane 0
 # of instance 0's warp; a block of one instance: its thread 0).  "wait":
 # for the stage's copies and the block's barrier (the narrow forms: also
@@ -403,6 +420,35 @@ def k2_k5_runs(sm, dev, bf16=False):
     return runs
 
 
+def k5_wide_runs(sm, dev):
+    """K5 packed with hf-emit, full width and narrow, at ``kernels_wide``'s
+    shapes (the mass-spring chain's rows and the centroidal model's two
+    cones, a diagonal cost, N=64, B=256, float32; the same random inputs as
+    that phase): name -> (kernel call, plain call, output names, bytes
+    read, operations, the library's (nx, nu, nc, cones))."""
+    from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
+
+    f32, N, Bt = torch.float32, sm.N_SMALL, sm.B_SMALL
+    runs = {}
+    for width, (nx, nu, nc, cones, nca) in sm.WIDE.items():
+        rng = np.random.default_rng(sm.SEED)
+        one = sm.random_stage_data(rng, N, nx, nu, nc, 1, f32, dev)
+        K, _, M, _, _, L = cr.backward_lanes_reference(*one,
+                                                       export_factors=True)
+        _, k5 = sm.random_admm_inputs(rng, one[0], one[1], K, M, L, nca, Bt,
+                                      cones, True, False)
+        for tag, inp in (("", k5), (",bf16", sm.narrow_args(k5, sm.K5_NARROW))):
+            runs[f"admm_fwd_update_lanes[{width},N={N},B={Bt}{tag}]"] = (
+                lambda inp=inp, cones=cones, nu=nu: sm.k5_call(ca, inp, cones,
+                                                               nu=nu),
+                lambda inp=inp, cones=cones, nu=nu: sm.k5_plain(ca, inp, cones,
+                                                                nu=nu),
+                sm.K5_OUT, sm.nbytes(*inp),
+                sm.k5_flops(N, nx, nu, nca, Bt, True), (nx, nu, nca, cones))
+    torch.cuda.synchronize()
+    return runs
+
+
 def narrow_request(sm, model, c, x0, settings, state):
     """The split (``state`` None) or ladder request of ``solve_admm`` on
     the quadrotor with ``storage_dtype=torch.bfloat16``."""
@@ -521,6 +567,77 @@ def k7_runs(sm, dev, bf16=False, batches=None):
     return runs
 
 
+def k10_runs(sm, dev):
+    """K10 on the tensors the cached PDP ADMM loop hands it and at
+    ``kernels_wide``'s shapes (see the module's note): name -> (kernel
+    call, plain call, output names, bytes read, operations, the library's
+    (dtype, nx, nu), stages a segment)."""
+    import dataclasses
+    from pdp_lqr_tpu_torch.models import quadrotor
+    from pdp_lqr_tpu_torch.ops import cuda_riccati as cr
+    from pdp_lqr_tpu_torch.parallel import admm_sharded, make_mesh
+    from pdp_lqr_tpu_torch.solvers import admm
+
+    N, NX, NU, f32 = sm.N_MAIN, sm.NX, sm.NU, torch.float32
+    K10 = "backward_pdp_vectors_lanes"
+    cone, cones = quadrotor(N=N, constrained=True, thrust_cone=True,
+                            dtype=f32, device=dev)
+    rng = np.random.default_rng(sm.SEED + 3)
+    B = sm.B_PDP
+    c = torch.as_tensor(rng.normal(size=(B, N, NX)) * 0.01).to(
+        device=dev, dtype=f32)
+    x0 = torch.as_tensor(rng.normal(size=(B, NX)) * 0.05).to(
+        device=dev, dtype=f32)
+    shift = np.zeros((N + 1, sm.NC_CONE), np.float32)
+    shift[:, sm.NC] = sm.THRUST_SHIFT
+    st = admm.ADMMSettings(**{**sm.REP_SETTINGS, "max_iter": 1},
+                           cached_factors=True)
+    with sm.recorded_calls(cr, [K10]) as rec:
+        admm_sharded.solve(make_mesh(time=sm.S_PDP, device=dev),
+                           sm.batched(cone, B, c), x0, cones, st,
+                           soc_shift=shift)
+    torch.cuda.synchronize()
+    a, kw = rec[K10]
+    S = kw["segments"]
+    runs = {}
+
+    def add(name, args, lib):
+        Bt, nx, nu = args[2].shape[-1], args[0].shape[1], args[1].shape[2]
+        n, seg = args[0].shape[0], args[-1].shape[0]
+        runs[name] = (
+            lambda: cr.backward_pdp_vectors_lanes(*args, segments=seg),
+            lambda: cr.backward_pdp_vectors_lanes_reference(*args,
+                                                            segments=seg),
+            sm.K10_OUT, sm.nbytes(*args), sm.k10_flops(n, nx, nu, Bt), lib,
+            n // seg)
+
+    add(f"{K10}[pdp_admm,S={S},B={B}]", a, (f32, NX, NU))
+    add(f"{K10}[pdp_admm,S={S},B={B},f64]",
+        tuple(x.double().contiguous() for x in a),
+        (torch.float64, NX, NU))
+    add(f"{K10}[pdp_admm,S={S},B={B - 1}]",
+        tuple(x[..., :B - 1].contiguous() for x in a), (f32, NX, NU))
+    del a
+    S = sm.S_SMALL
+    for width, (nx, nu, nc, _, _) in sm.WIDE.items():
+        for dt in (f32, torch.float64):
+            rng = np.random.default_rng(sm.SEED)
+            T = sm._normal(rng, dt, dev)
+            Nw, Bt = sm.N_SMALL, sm.B_SMALL
+            data = sm.random_stage_data(rng, Nw, nx, nu, nc, Bt, dt, dev)
+            k9 = data[:8] + sm.random_carries(rng, S, nx, Bt, dt, dev)
+            K9f, _, _, _, _, P9, L9, F9 = cr.backward_pdp_lanes_reference(
+                *k9, export_factors=True, segments=S)[:8]
+            args = (data[0], data[1], data[2], T(Nw, nx + nu, Bt), P9, K9f,
+                    L9, F9, T(S, nx, Bt))
+            add(f"{K10}[{width},N={Nw},S={S},B={Bt}"
+                + (",f64]" if dt == torch.float64 else "]"), args,
+                (dt, nx, nu))
+            del data, k9
+    torch.cuda.synchronize()
+    return runs
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
@@ -528,11 +645,11 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kernels", nargs="*",
                     choices=("sweep", "latency", "k8", "k3", "k2", "k5",
-                             "k4", "k6", "k7", "wide"),
+                             "k4", "k6", "k7", "k10", "wide"),
                     default=["sweep", "k8", "k3"])
     ap.add_argument("--profile", action="store_true",
-                    help="K8's, K2's, K5's, K4's, K6's, K7's and K12's "
-                         "diagnostic builds: cycles a stage by section")
+                    help="K8's, K2's, K5's, K4's, K6's, K7's, K12's and "
+                         "K10's diagnostic builds: cycles a stage by section")
     ap.add_argument("--bf16", action="store_true",
                     help="sweep, k7, k4, k5, k6: also the forms on "
                          "bfloat16 streams")
@@ -597,6 +714,12 @@ def main():
                                                rungs=4))]            # K6
     if {"k2", "k5", "k4", "k6", "k7"} & set(args.kernels):
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, NC)))   # K1
+    if "k10" in args.kernels:
+        jobs += [(cr.SOURCE, cr.kernel_defines(torch.float64, NX, NU)),
+                 (cr.SOURCE, cr.kernel_defines(f32, NX, NU, sm.NC_CONE))]
+        jobs += [(cr.SOURCE, cr.kernel_defines(dt, nx, nu))
+                 for nx, nu, *_ in sm.WIDE.values()
+                 for dt in (f32, torch.float64)]
     if "wide" in args.kernels:
         jobs += sm.wide_build_jobs(ca, cr, dtypes=(f32,))
     if args.bf16 and "sweep" in args.kernels:
@@ -606,6 +729,11 @@ def main():
                                                narrow=n)) for n in (False, True)]
     if args.bf16 and "k7" in args.kernels:
         jobs.append((cr.SOURCE, cr.kernel_defines(f32, NX, NU, narrow=True)))
+    if args.bf16 and "k5" in args.kernels:      # K5 at the wide widths
+        jobs += [(ca.SOURCE, ca.kernel_defines(dt, nx, nu, nca, cones=cones,
+                                               diag_cost=True, narrow=n))
+                 for nx, nu, _, cones, nca in sm.WIDE.values()
+                 for n in (False, True) for dt in (f32, torch.float64)]
     if args.bf16 and {"k5", "k4", "k6"} & set(args.kernels):
         jobs += [(ca.SOURCE, ca.kernel_defines(f32, NX, NU, NC, diag_cost=True,
                                                rungs=R, narrow=True))
@@ -621,8 +749,9 @@ def main():
             [(job[1], _build.build_logs.get(p, ""))]))
     regs = {k: v for k, v in regs.items()
             if k.startswith(("iter_kernel", "forward_kernel", "backward_kernel",
-                             "backward_vectors", "fwd_update_kernel",
-                             "bwd_vec", "forward_rollout"))}
+                             "backward_vectors", "backward_pdp_vectors",
+                             "fwd_update_kernel", "bwd_vec",
+                             "forward_rollout"))}
     print(json.dumps({"ptxas": regs}), flush=True)
 
     def report(name, call, plain, names, moved, flops, extra=lambda: {},
@@ -745,12 +874,33 @@ def main():
                                   narrow="bf16" in name) if k5 \
                     else cr._library(f32, NX, NU)
                 entry = "admm_read_prof" if k5 else "riccati_read_prof"
+                if k5 and "bf16" in name:
+                    sec = sec + K5_WIDEN_SECTIONS
                 extra = (lambda lib=lib, entry=entry, sec=sec:
                          read_sections(lib, entry, sec, sm.N_MAIN))
             else:
                 extra = lambda: {}
             report(name, lambda call=call: tuple(call()),
                    lambda plain=plain: tuple(plain()), names, moved, flops, extra)
+        del runs
+
+    if "k5" in args.kernels and args.bf16:
+        runs = k5_wide_runs(sm, dev)
+        for name, (call, plain, names, moved, flops, (nx, nu, nc,
+                                                      cones)) in runs.items():
+            extra = lambda: {}
+            if args.profile:
+                call()
+                torch.cuda.synchronize()
+                narrow = "bf16" in name
+                lib = ca._library(f32, nx, nu, nc, cones=cones,
+                                  diag_cost=True, narrow=narrow)
+                sec = K5_SECTIONS + (K5_WIDEN_SECTIONS if narrow else [])
+                extra = (lambda lib=lib, sec=sec: read_sections(
+                    lib, "admm_read_prof", sec, sm.N_SMALL))
+            report(name, lambda call=call: tuple(call()),
+                   lambda plain=plain: tuple(plain()), names, moved, flops,
+                   extra, tol=sm.WIDE_KERNEL_RTOL)
         del runs
 
     if {"k4", "k6"} & set(args.kernels):
@@ -787,6 +937,26 @@ def main():
                    lambda plain=plain: tuple(plain()), names, moved, flops,
                    rollout_sections if args.profile and "bf16" not in name
                    else (lambda: {}))
+        del runs
+
+    if "k10" in args.kernels:
+        runs = k10_runs(sm, dev)
+        for name, (call, plain, names, moved, flops, lib_of,
+                   stages) in runs.items():
+            extra = lambda: {}
+            if args.profile:
+                call()
+                torch.cuda.synchronize()
+                lib = cr._library(*lib_of)
+
+                def extra(lib=lib, stages=stages):
+                    # An older tree's K10 marks no sections: all zeros.
+                    got = read_sections(lib, "riccati_read_prof",
+                                        K10_SECTIONS, stages)
+                    return got if any(got["cycles_per_stage"].values()) else {}
+            report(name, lambda call=call: tuple(call()),
+                   lambda plain=plain: tuple(plain()), names, moved, flops,
+                   extra, tol=sm.TOL[lib_of[0]])
         del runs
 
     if "wide" in args.kernels:

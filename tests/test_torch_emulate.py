@@ -17,7 +17,8 @@ blocks on bfloat16 boxes and, on an odd batch, in aligned pairs; the
 narrow forms of the split kernels, K4 and K5 packed with the thrust cone
 and a shift, K6 on four rungs (its widening warp loading the shared runs and
 handing each slot to the folds) and K5's rung form, on bfloat16 boxes of
-c) keeps
+c; K10 across its blocks on boxes of the copy engine, on word copies in
+segments of one stage, and at nx=40) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
@@ -40,4 +41,5 @@ def test_kernel_source_agrees_with_plain_versions_on_host_threads():
                     emu.ITER_QUICK, emu.K3_QUICK, emu.SWEEP_QUICK,
                     emu.K2_QUICK, emu.K46_QUICK, emu.K7_QUICK,
                     emu.NARROW_SWEEP_QUICK, emu.NARROW_K7_QUICK,
-                    emu.NARROW_ADMM_QUICK, emu.NARROW_LADDER_QUICK) == 0
+                    emu.NARROW_ADMM_QUICK, emu.NARROW_LADDER_QUICK,
+                    emu.K10_QUICK) == 0
