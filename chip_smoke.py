@@ -514,10 +514,12 @@ def registers_by_kernel(logs):
                           r"forward_rollout_kernel|backward_kernel|"
                           r"forward_kernel|bwd_vec_prefold_kernel|"
                           r"bwd_vec_kernel|fwd_update_kernel|iter_kernel)"
-                          r"(?:I(d|f|13__nv_bfloat16)?((?:Lb[01]E)+)E)?", name)
+                          r"(?:I(d|f|13__nv_bfloat16)?((?:L[bi]n?\d+E)+)E)?",
+                          name)
             if not m:
                 continue
-            flags = ",".join(re.findall(r"Lb([01])E", m.group(3) or ""))
+            flags = ",".join(f.replace("n", "-") for f in
+                             re.findall(r"L[bi](n?\d+)E", m.group(3) or ""))
             if m.group(2) == "13__nv_bfloat16":
                 flags = "bf16," + flags
             key = f"{m.group(1)}<{flags}>/{scalar}/nc={log[0].get('NC', '-')}"
@@ -3323,10 +3325,12 @@ def main():
                     k8_cases += 1
 
         # K9 (both forms) in S_SMALL segments from random carries, K10 on
-        # its factors, K3 in the same segments, on a full and a ragged
-        # batch; K11 and K12 on the packed streams of the same stage data.
+        # its factors, K3 in the same segments, on a full, a ragged and an
+        # odd batch (K10's boxes of a 16-byte phase of rows: two, four in
+        # float32); K11 and K12 on the packed streams of the same stage data.
         pdp_data = random_stage_data(rng, N_SMALL, NX, NU, NC, B_SMALL, dt, dev)
-        for Bt in (B_SMALL, B_RAGGED):
+        pdp_batches = (B_SMALL, B_RAGGED, B_ODD)
+        for Bt in pdp_batches:
             stages = tuple(x[..., :Bt].contiguous() for x in pdp_data[:8])
             k9_in = stages + random_carries(rng, S_SMALL, NX, Bt, dt, dev)
             for export in (False, True):
@@ -3419,11 +3423,13 @@ def main():
 
         torch.cuda.synchronize()
         launched = {k: cr.LAUNCHES[k] - before[k] for k in cr.LAUNCHES}
+        n_p = len(pdp_batches)
         require(launched == {"backward_lanes": 10, "backward_vectors_lanes": 9,
-                             "forward_lanes": 6, "forward_rollout_lanes": 2,
-                             "backward_pdp_lanes": 9,
-                             "backward_pdp_vectors_lanes": 2,
-                             "backward_packed": 2, "forward_packed": 2,
+                             "forward_lanes": 4 + n_p,
+                             "forward_rollout_lanes": 2,
+                             "backward_pdp_lanes": 5 + 2 * n_p,
+                             "backward_pdp_vectors_lanes": n_p,
+                             "backward_packed": n_p, "forward_packed": n_p,
                              "backward_lanes[bf16]": 5,
                              "forward_rollout_lanes[bf16]": 5,
                              "backward_packed[bf16]": 5,

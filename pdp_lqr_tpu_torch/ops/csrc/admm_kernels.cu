@@ -1256,11 +1256,6 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 // the one-pass sums' order (the same numbers).
 constexpr bool K5_TWO_PASS = NZ > (sizeof(scalar) == 4 ? 20 : 16) && NC <= NX;
 constexpr int K5_ECH = K5_TWO_PASS ? 40 / (int)sizeof(scalar) : NZ;
-// Where x, x+ and a row of M do not fit the chain's registers (float64 at
-// nx=40), it runs x+ in axpy order from x_k in the slot, a column of M a
-// step (a scalar broadcast an entry: at nz=30 and 50 in float32 twice the
-// rows' time, which then set the pace; an H100, PERF.md).
-constexpr bool K5_AXPY_CHAIN = 3 * NX * (int)sizeof(scalar) > 4 * 200;
 
 // Slot (words): the shared runs, each from a 16-byte boundary (all R
 // rungs of M and K), then x_k, the dv rows and the wzy rows (32 words a
@@ -1284,19 +1279,18 @@ constexpr int K5_SLOT_BYTES = K5_SLOT * (int)sizeof(scalar) + 3 * 8;
 // A form's warps and slots.  The tail sets the pace at the quadrotor's
 // widths (its row loop ~7 cycles an instruction a warp, far from the SM's
 // instruction rate: an H100, PERF.md), so the float32 diagonal-cost forms
-// (the served ones) take as many tail warps as their registers allow: 9 with
-// hf-emit (12 warps with the narrow form's widening warp: 168 registers a
-// thread, registers going to 4 warps at a time), 12 without (15 warps:
-// 128 registers, which the tail without hf+ keeps, spilling under 60
-// bytes; with hf+ it spilled 116 and ran slower).  At the two-pass widths
-// the tails wait on the chain, and 5 (8 warps at most: 255 registers)
-// keep the tail's long vectors out of local memory.  The float64 and
-// full-Hs forms take 6, 5 beside the widening warp (8 warps: 255
-// registers; at 9 warps, 168, the float64 narrow forms spilled 0.4-1.1 KB).
+// (the served ones) take 8 tail warps with hf-emit (9 ran no faster) and
+// 12 without (15 warps: 128 registers, which the tail without hf+ keeps,
+// spilling under 60 bytes; with hf+ it spilled 116 and ran slower).  At
+// the two-pass widths the tails wait on the chain, and 5 (8 warps at
+// most: 255 registers) keep the tail's long vectors out of local memory.
+// The float64 and full-Hs forms take 6, 5 beside the widening warp (8
+// warps: 255 registers; at 9 warps, 168, the float64 narrow forms spilled
+// 0.4-1.1 KB).
 template <bool EMIT_HF> struct K5Fit {
     static constexpr int TAILS_MAX =
         sizeof(scalar) == 4 && DIAG_COST
-            ? (K5_TWO_PASS ? 5 : EMIT_HF ? 9 : 12) : 6 - NARROW;
+            ? (K5_TWO_PASS ? 5 : EMIT_HF ? 8 : 12) : 6 - NARROW;
     static constexpr int FIXED = TAILS_MAX * K5_VX + 4 * TAILS_MAX * K5_W;
     static constexpr int FIT =
         (K5_SMEM_MAX - FIXED * (int)sizeof(scalar) - 8 - 128) / K5_SLOT_BYTES;
@@ -1512,36 +1506,20 @@ fwd_update_kernel(
             scalar* S = ring + s * K5_SLOT;
             const scalar* sM = S + K5_M + r_ix * NX * NX;   // M[i][t] at i*NX + t
             const scalar* vv = S + K5_DV + NU * K5_W + lane;
-            if constexpr (K5_AXPY_CHAIN) {
-                // x_k into the slot first, then x+ in axpy order, a column
-                // of M a step (x the one vector of nx in registers).
+            scalar xn[NX];
 #pragma unroll
-                for (int i = 0; i < NX; ++i) {
-                    S[K5_X + i * K5_W + lane] = x[i];
-                    x[i] = vv[i * K5_W];
-                }
-#pragma unroll 1
-                for (int t = 0; t < NX; ++t) {
-                    const scalar xt = S[K5_X + t * K5_W + lane];
+            for (int i = 0; i < NX; ++i) {
+                scalar row[NX];
+                ld_row<NX, K5_VR>(row, sM + i * NX);
+                scalar acc = vv[i * K5_W];
 #pragma unroll
-                    for (int i = 0; i < NX; ++i) x[i] += sM[i * NX + t] * xt;
-                }
-            } else {
-                scalar xn[NX];
+                for (int t = 0; t < NX; ++t) acc += row[t] * x[t];
+                xn[i] = acc;
+            }
 #pragma unroll
-                for (int i = 0; i < NX; ++i) {
-                    scalar row[NX];
-                    ld_row<NX, K5_VR>(row, sM + i * NX);
-                    scalar acc = vv[i * K5_W];
-#pragma unroll
-                    for (int t = 0; t < NX; ++t) acc += row[t] * x[t];
-                    xn[i] = acc;
-                }
-#pragma unroll
-                for (int i = 0; i < NX; ++i) {
-                    S[K5_X + i * K5_W + lane] = x[i];
-                    x[i] = xn[i];
-                }
+            for (int i = 0; i < NX; ++i) {
+                S[K5_X + i * K5_W + lane] = x[i];
+                x[i] = xn[i];
             }
             mbar_arrive(&ready[s]);
             K5_MARK(3);

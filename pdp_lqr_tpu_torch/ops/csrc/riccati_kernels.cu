@@ -2578,82 +2578,133 @@ int launch_rollout(int N, int Bt, cudaStream_t st, const RoSrc<PACKED>& src,
 // scenario) one thread that loaded its own stage (__ldg): about two warps
 // an SM there, too few loads in flight, and at nx=40 its carries and
 // temporaries spilled.  Here the warps of a block take roles on W
-// consecutive scenarios of one segment (a lane each; block = segment *
-// blocks_a_segment + group), as K7's do:
+// consecutive scenarios of one segment (block = segment *
+// blocks_a_segment + group), as K7's do, and the G = 32 / W lanes of a
+// warp that share a scenario split its rows:
 //   * PV_PRODUCERS producer warps put whole stages into a ring of
-//     PvFit::SLOTS slots: each stream a (rows, W) box of the copy engine
-//     (several where taller than 256 rows), the streams dealt over the
-//     warps; where the rows are not whole 16-byte pieces (or a stream is
-//     not 16-byte aligned), every stream by cp.async a word a copy, dealt
-//     over all their lanes;
-//   * the chain warp carries p through Pcp, rbar and p, reading the rows
-//     of c, P, B, A and K at r*W + lane (a warp reads W consecutive words:
-//     no bank conflict), and leaves rbar in the slot;
-//   * the tail warp, behind it, carries f: d from rbar, v = B d + c, f += F
-//     v, and the d and v stores (a row of W scenarios a store).
-// Shared-memory barriers hand a slot on (full, ready: rbar is in it,
-// empty); no block-wide barrier a stage.  A lane past the batch computes
-// on zeros (the copy engine's) or the last scenario's rows and stores
-// nothing.
+//     PvFit::SLOTS slots, by boxes of the copy engine where every stream
+//     starts on 16 bytes, else by cp.async a word a copy (dealt over all
+//     their lanes).  A box takes rows whose stride is whole 16-byte pieces
+//     and starts on one; where Bt's rows are not (Bt no multiple of 4 in
+//     float32, of 2 in float64), the rows r = c, c + CL, c + 2 CL, ... of
+//     a stream (CL the rows a 16-byte phase takes to come round: 2 or 4)
+//     are, since a stage's rows are whole multiples of CL, rows of a view
+//     of the stream with CL * Bt words a row, and go as boxes of one phase
+//     c into the slot's part c: W + 16 bytes wide, from the 16-byte piece
+//     the phase's scenarios start in, o_c = c Bt mod (16 bytes) words
+//     before them (where some stream's rows are no multiple of CL, or two
+//     slots of such rows do not fit, the word copies);
+//   * the chain warp carries p through Pcp, rbar and p: lane g*W + j owns
+//     rows g, g + G, ... of scenario j's p (G = 1 at the quadrotor's
+//     widths in float32, 8 and 16 at nx=40).  It forms Pcp of its rows,
+//     rbar's share of them (joined over the scenario's lanes by
+//     __shfl_xor_sync), p's rows from Pcp in the chain's own shared rows,
+//     and leaves rbar in the slot;
+//   * the tail warp, behind it, carries f the same way: d from rbar, v's
+//     rows (into the tail's own shared rows), f += F v, and the d and v
+//     stores.
+// A warp reads W consecutive words of a row a scenario group: no bank
+// conflict between the scenarios; a lane's rows g + G m of P and F are
+// walked from column g * PV_SKEW on, so that the G groups read different
+// banks.  Shared-memory barriers hand a slot on (full, ready: rbar is in
+// it, empty); no block-wide barrier a stage.  A scenario past the batch
+// computes on zeros (the copy engine's), another row's entries (a phase's
+// box) or the last scenario's rows (word copies) and stores nothing.
 constexpr int PV_PRODUCERS = 4;
 constexpr int PV_THREADS = 32 * (2 + PV_PRODUCERS);   // chain, tail, producers
 constexpr int PV_SLOTS_MAX = 4;
 constexpr int PV_STREAMS = 8;                // A, B, c, hf, P, K, L, F
-// The product steps a loop iteration (rolled at the wide widths, where the
-// registers of unrolled steps spilled in float64 at nx=40).
-constexpr int PV_UNROLL = NX <= 16 ? 4 : 1;
+// A lane's first column of P and F: g * PV_SKEW (odd NX + PV_SKEW).
+constexpr int PV_SKEW = NX % 2 ? 2 : 1;
 
 __host__ __device__ constexpr int pv_rows(int q)
 {
     return q == 0 || q == 4 || q == 7 ? NX * NX : q == 1 ? NX * NU
         : q == 2 ? NX : q == 3 ? NZ : q == 5 ? NU * NX : NU * NU;
 }
+// A slot row's words: W, or (phases) W and a 16-byte piece.
+__host__ __device__ constexpr int pv_stride(int w, int cl)
+{
+    return cl == 1 ? w : w + 16 / (int)sizeof(scalar);
+}
+// The rows of a box of one phase of stream q (cl phases; cl = 1: the
+// stream) for w scenarios: at most 256, each box whole 128-byte pieces.
+// (No recursion and no loop but pv_off's over the streams: the kernels
+// call these with constant arguments, which the compiler folds.)
+__host__ __device__ constexpr int pv_box(int q, int w, int cl)
+{
+    const int pr = pv_rows(q) / cl, nb = ro_boxes(pr);
+    const int row = pv_stride(w, cl) * (int)sizeof(scalar);
+    const int low = row & -row;       // the largest power of 2 dividing it
+    const int a = low >= 128 ? 1 : 128 / low;    // rows of whole pieces
+    return ((pr + nb - 1) / nb + a - 1) / a * a;
+}
+// The slot rows of one phase of stream q.
+__host__ __device__ constexpr int pv_part(int q, int w, int cl)
+{
+    return ro_boxes(pv_rows(q) / cl) * pv_box(q, w, cl);
+}
 // The first byte of stream q in a slot of w scenarios, each from a
 // 128-byte boundary; q = PV_STREAMS: rbar's NU rows (the chain's), q =
 // PV_STREAMS + 1: a slot's bytes.
-__host__ __device__ constexpr int pv_off(int q, int w)
+__host__ __device__ constexpr int pv_off(int q, int w, int cl)
 {
     constexpr int SZ = (int)sizeof(scalar);
     int off = 0;
     for (int i = 0; i < q; ++i) {
-        const int bytes = i < PV_STREAMS ? ro_span(pv_rows(i), w, SZ) * w * SZ
-                                         : NU * w * SZ;
+        const int bytes = i == PV_STREAMS
+            ? NU * w * SZ : cl * pv_part(i, w, cl) * pv_stride(w, cl) * SZ;
         off = (off + bytes + 127) / 128 * 128;
     }
     return off;
 }
 // Slots of w scenarios (and three barriers each) beside the chain's rows
-// of Pcp (nx rows of w).
-__host__ __device__ constexpr int pv_fit(int w)
+// of Pcp and the tail's of v (nx rows of w each).
+__host__ __device__ constexpr int pv_fit(int w, int cl)
 {
-    return (RO_SMEM_MAX - 128 - NX * w * (int)sizeof(scalar))
-        / (pv_off(PV_STREAMS + 1, w) + 3 * 8);
+    return (RO_SMEM_MAX - 128 - 2 * NX * w * (int)sizeof(scalar))
+        / (pv_off(PV_STREAMS + 1, w, cl) + 3 * 8);
 }
 // W: the widest of 32, 16, 8, 4 (and 2 in float64: a box row of 16 bytes
-// at least) scenarios whose ring holds 3 slots, else 2.  32 in float32 at
+// at least) scenarios whose ring holds 3 slots, else 2: 32 in float32 at
 // the quadrotor's widths (3 slots of 72 KB), 8 at the centroidal model's,
 // 4 at nx=40 (2 slots of 91 KB).
-__host__ __device__ constexpr int pv_pick()
+__host__ __device__ constexpr int pv_pick(int cl)
 {
     constexpr int least_w = 16 / (int)sizeof(scalar);
     for (int least = 3; least >= 2; --least)
         for (int w = 32; w >= least_w; w /= 2)
-            if (pv_fit(w) >= least) return w;
+            if (pv_fit(w, cl) >= least) return w;
     return least_w;
 }
-struct PvFit {
-    static constexpr int W = pv_pick();
-    static constexpr int SLOTS = pv_fit(W) < PV_SLOTS_MAX ? pv_fit(W)
-                                                          : PV_SLOTS_MAX;
-    static constexpr int SLOT = pv_off(PV_STREAMS + 1, W);    // bytes
+// Boxes of cl phases: every stream's rows a whole number of phases, and
+// two slots of the phases' wider rows fit.
+__host__ __device__ constexpr bool pv_phases(int cl)
+{
+    for (int q = 0; q < PV_STREAMS; ++q)
+        if (pv_rows(q) % cl) return false;
+    return pv_fit(pv_pick(cl), cl) >= 2;
+}
+template <int CL> struct PvFit {
+    static constexpr int W = pv_pick(CL);
+    static constexpr int G = 32 / W;                 // lanes a scenario
+    static constexpr int RX = (NX + G - 1) / G;      // rows of p a lane
+    static constexpr int RS = pv_stride(W, CL);      // a slot row's words
+    // The product steps a loop iteration (rolled where a lane has many
+    // rows: one lane a scenario at nx=40 spilled in float64 unrolled).
+    static constexpr int UNROLL = RX <= 12 ? 4 : 1;
+    static constexpr int SLOTS = pv_fit(W, CL) < PV_SLOTS_MAX ? pv_fit(W, CL)
+                                                              : PV_SLOTS_MAX;
+    static constexpr int SLOT = pv_off(PV_STREAMS + 1, W, CL);   // bytes
     static constexpr int BAR = SLOTS * SLOT;
-    static constexpr int XS = BAR + 3 * 8 * SLOTS;           // Pcp's rows
-    static constexpr int SMEM = XS + NX * W * (int)sizeof(scalar) + 128;
+    static constexpr int XS = BAR + 3 * 8 * SLOTS;   // Pcp's rows, then v's
+    static constexpr int SMEM = XS + 2 * NX * W * (int)sizeof(scalar) + 128;
     static_assert(SLOTS >= 2, "K10: two stages of the least W do not fit");
 };
 struct PvSrc { const scalar* p[PV_STREAMS]; };
 struct PvMaps { CUtensorMap m[PV_STREAMS]; };
 
+template <int CL>
 __global__ void __launch_bounds__(PV_THREADS, 1)
 backward_pdp_vectors_kernel(
     int N, int Bt, int S, const PvSrc src, const scalar* __restrict__ pi,
@@ -2661,29 +2712,54 @@ backward_pdp_vectors_kernel(
     scalar* __restrict__ p0, scalar* __restrict__ f0,
     const __grid_constant__ PvMaps maps, int tma)
 {
-    constexpr int W = PvFit::W, SLOTS = PvFit::SLOTS;
+    using Fit = PvFit<CL>;
+    constexpr int W = Fit::W, SLOTS = Fit::SLOTS, G = Fit::G, RX = Fit::RX;
+    constexpr int UNR = Fit::UNROLL, RS = Fit::RS, VW = 16 / (int)sizeof(scalar);
     constexpr int SZ = (int)sizeof(scalar);
+    constexpr unsigned FULL = 0xffffffffu;
     extern __shared__ double smem_aligned[];
     char* base = reinterpret_cast<char*>(
         (reinterpret_cast<size_t>(smem_aligned) + 127) / 128 * 128);
-    mbar_t* full = reinterpret_cast<mbar_t*>(base + PvFit::BAR);
+    mbar_t* full = reinterpret_cast<mbar_t*>(base + Fit::BAR);
     mbar_t* ready = full + SLOTS;
     mbar_t* empty = ready + SLOTS;
 
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    const int col = lane < W ? lane : W - 1;     // lanes past W shadow the last
+    const int j = lane % W;                      // the lane's scenario
+    const int g = G == 1 ? 0 : lane / W;         // its rows: g, g + G, ...
     const size_t Bs = (size_t)Bt;
     const unsigned bps = (Bt + W - 1) / W;       // blocks a segment
     const size_t seg = blockIdx.x / bps;
     const size_t b0 = (size_t)(blockIdx.x % bps) * W;
-    const size_t b = b0 + col;
-    const bool mine = lane < W && b < Bs;        // stores its scenario's rows
+    const size_t b = b0 + j;
+    const bool mine = b < Bs;                    // stores its scenario's rows
     const int Nl = N / S;
     const int s0 = (int)seg * Nl;                // the segment's first stage
-    // Stream q (rbar: PV_STREAMS) of slot s.
+    // Row m of the lane's rows is g + G m; the last may lie past NX.
+    auto own = [&](int m) {
+        return NX % G == 0 || m < NX / G || g + G * m < NX;
+    };
+    // Stream q (rbar: PV_STREAMS) of slot s, at the lane's scenario; row r
+    // of stream q at [at(q, r)] (rbar's at [r * W]).  Phase c's boxes start
+    // oc(c) words before their scenarios.
+    const unsigned bm = Bt % VW;
+    auto oc = [&](unsigned c) { return (int)(c * bm % VW); };
     auto slot = [&](int s, int q) {
-        return reinterpret_cast<scalar*>(base + s * PvFit::SLOT + pv_off(q, W));
+        return reinterpret_cast<scalar*>(base + s * Fit::SLOT
+                                         + pv_off(q, W, CL)) + j;
+    };
+    auto at = [&](int q, int r) {
+        const unsigned u = r, c = u % CL;
+        return CL == 1 ? r * W
+            : (int)((c * pv_part(q, W, CL) + u / CL) * RS) + oc(c);
+    };
+    // Row a * NX + t: where NX is whole phases, row t's place and a whole
+    // phase rows on (the part of a lane's rows the compiler lifts out of
+    // the loops over t).
+    auto at_nx = [&](int q, int a, int t) {
+        if constexpr (NX % CL == 0) return at(q, t) + a * (NX / CL) * RS;
+        else return at(q, a * NX + t);
     };
 
     if (threadIdx.x == 0) {
@@ -2700,15 +2776,16 @@ backward_pdp_vectors_kernel(
     // Stage n of the segment's sweep is model stage s0 + Nl-1-n, in slot
     // n % SLOTS.
     if (warp >= 2) {
-        // ---- producer warp pw: its streams' boxes, or its share of every
-        // stream's words.
+        // ---- producer warp pw: its (stream, phase) boxes, or its share
+        // of every stream's words.
         const int pw = warp - 2;
         const int tp = threadIdx.x - 64;         // thread of the producers
         int tx = 0;                              // the bytes of its boxes
 #pragma unroll
         for (int q = 0; q < PV_STREAMS; ++q)
-            if (q % PV_PRODUCERS == pw)
-                tx += ro_span(pv_rows(q), W, SZ) * W * SZ;
+            for (int c = 0; c < CL; ++c)
+                if ((q * CL + c) % PV_PRODUCERS == pw)
+                    tx += pv_part(q, W, CL) * RS * SZ;
         PROF_INIT_AT(blockIdx.x == 0 && tp == 0)
 #pragma unroll 1
         for (int n = 0; n < Nl; ++n) {
@@ -2721,21 +2798,25 @@ backward_pdp_vectors_kernel(
             for (int q = 0; q < PV_STREAMS; ++q) {
                 constexpr int NT = 32 * PV_PRODUCERS;
                 const int rows = pv_rows(q);
-                scalar* dst = slot(s, q);
+                scalar* dst = slot(s, q) - j;
                 if (tma) {
-                    if (q % PV_PRODUCERS == pw && lane == 0)
-                        for (int i = 0; i < ro_boxes(rows); ++i)
-                            tma_box(dst + i * ro_box(rows, W, SZ) * W,
-                                    &maps.m[q], (int)b0,
-                                    k * rows + i * ro_box(rows, W, SZ),
-                                    &full[s]);
+                    // Phase c: view row k rows / CL on, columns from
+                    // c Bt + b0 - oc(c).
+                    const int pr = rows / CL, br = pv_box(q, W, CL);
+                    for (int c = 0; c < CL; ++c)
+                        if ((q * CL + c) % PV_PRODUCERS == pw && lane == 0)
+                            for (int i = 0; i < ro_boxes(pr); ++i)
+                                tma_box(dst + (c * pv_part(q, W, CL)
+                                               + i * br) * RS,
+                                        &maps.m[q], c * Bt + (int)b0 - oc(c),
+                                        k * pr + i * br, &full[s]);
                 } else {
                     const scalar* x = src.p[q] + (size_t)k * rows * Bs;
 #pragma unroll 1
                     for (int t = tp; t < rows * W; t += NT) {
-                        const int r = t / W, j = t % W;
-                        const size_t bj = b0 + j < Bs ? b0 + j : Bs - 1;
-                        copy_word(dst + r * W + j, x + r * Bs + bj);
+                        const int r = t / W, jj = t % W;
+                        const size_t bj = b0 + jj < Bs ? b0 + jj : Bs - 1;
+                        copy_word(dst + r * W + jj, x + r * Bs + bj);
                     }
                 }
             }
@@ -2744,76 +2825,97 @@ backward_pdp_vectors_kernel(
         }
         PROF_DONE_RANGE(0, 2)
     } else if (warp == 0) {
-        // ---- chain: p in registers, rbar into the slot.
+        // ---- chain: p's rows in registers, rbar into the slot.
         const size_t bc = b < Bs ? b : Bs - 1;
-        scalar* xs = reinterpret_cast<scalar*>(base + PvFit::XS) + col;
-        scalar p[NX];
+        scalar* xs = reinterpret_cast<scalar*>(base + Fit::XS) + j;
+        const int t0 = (g * PV_SKEW) % NX;       // the lane's first column
+        scalar p[RX];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) p[i] = pi[(seg * NX + i) * Bs + bc];
+        for (int m = 0; m < RX; ++m)
+            p[m] = own(m) ? pi[(seg * NX + g + G * m) * Bs + bc] : (scalar)0;
         PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
 #pragma unroll 1
         for (int n = 0; n < Nl; ++n) {
             const int s = n % SLOTS;
             mbar_wait(&full[s], (n / SLOTS) & 1);
             PROF_MARK(2);
-            const scalar* sA = slot(s, 0) + col;
-            const scalar* sB = slot(s, 1) + col;
-            const scalar* sc = slot(s, 2) + col;
-            const scalar* shf = slot(s, 3) + col;
-            const scalar* sP = slot(s, 4) + col;
-            const scalar* sK = slot(s, 5) + col;
-            // The products in axpy order (a column of P, a row of B, A and K
-            // a step, their vector's entry read from shared memory), the
-            // steps rolled by PV_UNROLL: p and rbar the only vectors in
-            // registers.  Pcp = P c + p, into the chain's rows xs.
-#pragma unroll PV_UNROLL
-            for (int t = 0; t < NX; ++t) {
-                const scalar ct = sc[t * W];
+            const scalar* sA = slot(s, 0);
+            const scalar* sB = slot(s, 1);
+            const scalar* sc = slot(s, 2);
+            const scalar* shf = slot(s, 3);
+            const scalar* sP = slot(s, 4);
+            const scalar* sK = slot(s, 5);
+            // The products in axpy order (a column of P, a row of B, A and
+            // K a step, their vector's entry read from shared memory), the
+            // steps rolled by UNR.  Pcp = P c + p of the lane's rows.
+#pragma unroll UNR
+            for (int t1 = 0; t1 < NX; ++t1) {
+                const int t = t1 + t0 < NX ? t1 + t0 : t1 + t0 - NX;
+                const scalar ct = sc[at(2, t)];
 #pragma unroll
-                for (int i = 0; i < NX; ++i) p[i] += sP[(i * NX + t) * W] * ct;
+                for (int m = 0; m < RX; ++m)
+                    if (own(m)) p[m] += sP[at_nx(4, g + G * m, t)] * ct;
             }
-            // (A lane past W reads its shadow's rows and writes none: its
-            // numbers are stored nowhere.)
+            // rbar = hf_u + B^T Pcp: the lane's rows' share (hf_u in lane
+            // g = 0's), joined over the scenario's G lanes; Pcp into the
+            // chain's rows; p = hf_x of the lane's rows.
             scalar rbar[NU];
 #pragma unroll
-            for (int i = 0; i < NX; ++i) {
-                if (lane < W) xs[i * W] = p[i];
-                p[i] = shf[(NU + i) * W];
+            for (int u = 0; u < NU; ++u)
+                rbar[u] = g == 0 ? shf[at(3, u)] : (scalar)0;
+            if constexpr (G > 1) __syncwarp();   // the last stage's reads
+#pragma unroll
+            for (int m = 0; m < RX; ++m) {
+                if (!own(m)) continue;
+                const int i = g + G * m;
+#pragma unroll
+                for (int u = 0; u < NU; ++u)
+                    rbar[u] += sB[at(1, i * NU + u)] * p[m];
+                xs[i * W] = p[m];
+                p[m] = shf[at(3, NU + i)];
             }
 #pragma unroll
-            for (int u = 0; u < NU; ++u) rbar[u] = shf[u * W];
-            // rbar = hf_u + B^T Pcp ; p = hf_x + A^T Pcp + K^T rbar
-#pragma unroll PV_UNROLL
+            for (int w = W; w < 32; w *= 2) {
+#pragma unroll
+                for (int u = 0; u < NU; ++u)
+                    rbar[u] += __shfl_xor_sync(FULL, rbar[u], w);
+            }
+            if constexpr (G > 1) __syncwarp();   // Pcp's rows written
+            // p = hf_x + A^T Pcp + K^T rbar
+#pragma unroll UNR
             for (int t = 0; t < NX; ++t) {
                 const scalar xt = xs[t * W];
 #pragma unroll
-                for (int u = 0; u < NU; ++u) rbar[u] += sB[(t * NU + u) * W] * xt;
-#pragma unroll
-                for (int i = 0; i < NX; ++i) p[i] += sA[(t * NX + i) * W] * xt;
+                for (int m = 0; m < RX; ++m)
+                    if (own(m)) p[m] += sA[at_nx(0, t, g + G * m)] * xt;
             }
 #pragma unroll
             for (int u = 0; u < NU; ++u) {
 #pragma unroll
-                for (int i = 0; i < NX; ++i) p[i] += sK[(u * NX + i) * W] * rbar[u];
+                for (int m = 0; m < RX; ++m)
+                    if (own(m))
+                        p[m] += sK[at_nx(5, u, g + G * m)] * rbar[u];
             }
-            if (lane < W) {
-                scalar* srb = slot(s, PV_STREAMS) + col;
+            scalar* srb = slot(s, PV_STREAMS);
 #pragma unroll
-                for (int u = 0; u < NU; ++u) srb[u * W] = rbar[u];
-            }
+            for (int u = 0; u < NU; ++u)
+                if (u % G == g) srb[u * W] = rbar[u];
             mbar_arrive(&ready[s]);
             PROF_MARK(3);
         }
         PROF_DONE_RANGE(2, 4)
         if (mine) {
 #pragma unroll
-            for (int i = 0; i < NX; ++i) p0[(seg * NX + i) * Bs + b] = p[i];
+            for (int m = 0; m < RX; ++m)
+                if (own(m)) p0[(seg * NX + g + G * m) * Bs + b] = p[m];
         }
     } else {
-        // ---- tail: d, v and their stores, f in registers.
-        scalar f[NX];
+        // ---- tail: d, v's rows and their stores, f's rows in registers.
+        scalar* vs = reinterpret_cast<scalar*>(base + Fit::XS) + NX * W + j;
+        const int t0 = (g * PV_SKEW) % NX;
+        scalar f[RX];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) f[i] = (scalar)0;
+        for (int m = 0; m < RX; ++m) f[m] = (scalar)0;
         PROF_INIT_AT(blockIdx.x == 0 && lane == 0)
 #pragma unroll 1
         for (int n = 0; n < Nl; ++n) {
@@ -2821,44 +2923,55 @@ backward_pdp_vectors_kernel(
             mbar_wait(&ready[s], (n / SLOTS) & 1);
             PROF_MARK(4);
             const size_t k = (size_t)(s0 + Nl - 1 - n);
-            const scalar* sB = slot(s, 1) + col;
-            const scalar* sc = slot(s, 2) + col;
-            const scalar* sL = slot(s, 6) + col;
-            const scalar* sF = slot(s, 7) + col;
-            const scalar* srb = slot(s, PV_STREAMS) + col;
-            // d = -(L L^T)^{-1} rbar
+            const scalar* sB = slot(s, 1);
+            const scalar* sc = slot(s, 2);
+            const scalar* sL = slot(s, 6);
+            const scalar* sF = slot(s, 7);
+            const scalar* srb = slot(s, PV_STREAMS);
+            // d = -(L L^T)^{-1} rbar, every lane of the scenario
             scalar dv[NU], inv[NU];
 #pragma unroll
-            for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[(i * NU + i) * W];
+            for (int i = 0; i < NU; ++i) inv[i] = (scalar)1 / sL[at(6, i * NU + i)];
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
                 scalar acc = srb[i * W];
 #pragma unroll
-                for (int t = 0; t < i; ++t) acc -= sL[(i * NU + t) * W] * dv[t];
+                for (int t = 0; t < i; ++t) acc -= sL[at(6, i * NU + t)] * dv[t];
                 dv[i] = acc * inv[i];
             }
 #pragma unroll
             for (int i = NU - 1; i >= 0; --i) {
                 scalar acc = dv[i];
 #pragma unroll
-                for (int t = i + 1; t < NU; ++t) acc -= sL[(t * NU + i) * W] * dv[t];
+                for (int t = i + 1; t < NU; ++t) acc -= sL[at(6, t * NU + i)] * dv[t];
                 dv[i] = acc * inv[i];
             }
 #pragma unroll
             for (int i = 0; i < NU; ++i) {
                 dv[i] = -dv[i];
-                if (mine) d_out[(k * NU + i) * Bs + b] = dv[i];
+                if (mine && i % G == g) d_out[(k * NU + i) * Bs + b] = dv[i];
             }
-            // v = B d + c ; f = F v + f, a column of F an entry of v (f
-            // the only vector of nx in registers)
-#pragma unroll PV_UNROLL
-            for (int t = 0; t < NX; ++t) {
-                scalar vt = sc[t * W];
+            // v = B d + c of the lane's rows, into the tail's rows
+            if constexpr (G > 1) __syncwarp();   // the last stage's reads
 #pragma unroll
-                for (int u = 0; u < NU; ++u) vt += sB[(t * NU + u) * W] * dv[u];
+            for (int m = 0; m < RX; ++m) {
+                if (!own(m)) continue;
+                const int t = g + G * m;
+                scalar vt = sc[at(2, t)];
+#pragma unroll
+                for (int u = 0; u < NU; ++u) vt += sB[at(1, t * NU + u)] * dv[u];
                 if (mine) v_out[(k * NX + t) * Bs + b] = vt;
+                vs[t * W] = vt;
+            }
+            if constexpr (G > 1) __syncwarp();   // v's rows written
+            // f = F v + f of the lane's rows, a column of F an entry of v
+#pragma unroll UNR
+            for (int t1 = 0; t1 < NX; ++t1) {
+                const int t = t1 + t0 < NX ? t1 + t0 : t1 + t0 - NX;
+                const scalar vt = vs[t * W];
 #pragma unroll
-                for (int i = 0; i < NX; ++i) f[i] += sF[(i * NX + t) * W] * vt;
+                for (int m = 0; m < RX; ++m)
+                    if (own(m)) f[m] += sF[at_nx(7, g + G * m, t)] * vt;
             }
             mbar_arrive(&empty[s]);
             PROF_MARK(5);
@@ -2866,9 +2979,34 @@ backward_pdp_vectors_kernel(
         PROF_DONE_RANGE(4, 6)
         if (mine) {
 #pragma unroll
-            for (int i = 0; i < NX; ++i) f0[(seg * NX + i) * Bs + b] = f[i];
+            for (int m = 0; m < RX; ++m)
+                if (own(m)) f0[(seg * NX + g + G * m) * Bs + b] = f[m];
         }
     }
+}
+
+template <int CL>
+int launch_pdp_vectors(int N, int Bt, int S, cudaStream_t st,
+                       const PvSrc& src, const void* pi, void* d, void* v,
+                       void* p0, void* f0, int tma)
+{
+    using Fit = PvFit<CL>;
+    constexpr int SZ = (int)sizeof(scalar);
+    PvMaps maps = {};
+    for (int q = 0; tma && q < PV_STREAMS; ++q) {
+        const int pr = pv_rows(q) / CL;
+        const int err = make_rows_map(&maps.m[q], src.p[q], (size_t)N * pr,
+                                      (size_t)CL * Bt,
+                                      pv_box(q, Fit::W, CL), Fit::RS, SZ);
+        if (err) return err;
+    }
+    const int e = set_smem(backward_pdp_vectors_kernel<CL>, Fit::SMEM);
+    if (e) return e;
+    const int blocks = S * ((Bt + Fit::W - 1) / Fit::W);
+    backward_pdp_vectors_kernel<CL><<<blocks, PV_THREADS, Fit::SMEM, st>>>(
+        N, Bt, S, src, (const scalar*)pi, (scalar*)d, (scalar*)v,
+        (scalar*)p0, (scalar*)f0, maps, tma);
+    return (int)cudaGetLastError();
 }
 
 #endif  // STAGE_BF16
@@ -3089,9 +3227,10 @@ int riccati_forward(int N, int Bt, int shared, int S, void* stream,
 }
 
 // K10: S segments; pi, p0 and f0 are (S, nx, Bt).  The streams go by the
-// copy engine where its maps can take them (the row stride a multiple of
-// 16 bytes, each stream 16-byte aligned); a map that cannot be made is an
-// error.
+// copy engine where every stream starts on 16 bytes: boxes of W where the
+// rows are whole 16-byte pieces, else (CL = 2 or 4) a box a 16-byte phase
+// of rows, where every stream's rows are whole multiples of CL; otherwise
+// a word a copy.  A map that cannot be made is an error.
 int riccati_backward_pdp_vectors(int N, int Bt, int S, void* stream,
                                  const void* A, const void* B, const void* c,
                                  const void* hf, const void* P, const void* K,
@@ -3100,29 +3239,27 @@ int riccati_backward_pdp_vectors(int N, int Bt, int S, void* stream,
 {
     if (N <= 0 || Bt <= 0) return 0;
     if (S <= 0 || N % S != 0) return (int)cudaErrorInvalidValue;
-    constexpr int SZ = (int)sizeof(scalar);
     const PvSrc src = {{(const scalar*)A, (const scalar*)B, (const scalar*)c,
                         (const scalar*)hf, (const scalar*)P, (const scalar*)K,
                         (const scalar*)L, (const scalar*)F}};
-    bool tma = (size_t)Bt * SZ % 16 == 0;
+    const cudaStream_t st = (cudaStream_t)stream;
+    bool tma = true;
     for (int q = 0; q < PV_STREAMS; ++q)
         tma = tma && ((size_t)src.p[q] & 15) == 0;
-    PvMaps maps = {};
-    for (int q = 0; tma && q < PV_STREAMS; ++q) {
-        const int rows = pv_rows(q);
-        const int err = make_rows_map(&maps.m[q], src.p[q], (size_t)N * rows,
-                                      Bt, ro_box(rows, PvFit::W, SZ), PvFit::W,
-                                      SZ);
-        if (err) return err;
+    int cl = 1;                                  // rows a 16-byte phase
+    while ((size_t)Bt * sizeof(scalar) * cl % 16) cl *= 2;
+    if constexpr (pv_phases(2)) {
+        if (tma && cl == 2)
+            return launch_pdp_vectors<2>(N, Bt, S, st, src, pi, d, v, p0, f0,
+                                         1);
     }
-    const int e = set_smem(backward_pdp_vectors_kernel, PvFit::SMEM);
-    if (e) return e;
-    const int blocks = S * ((Bt + PvFit::W - 1) / PvFit::W);
-    backward_pdp_vectors_kernel<<<blocks, PV_THREADS, PvFit::SMEM,
-                                  (cudaStream_t)stream>>>(
-        N, Bt, S, src, (const scalar*)pi, (scalar*)d, (scalar*)v,
-        (scalar*)p0, (scalar*)f0, maps, (int)tma);
-    return (int)cudaGetLastError();
+    if constexpr (sizeof(scalar) == 4 && pv_phases(4)) {
+        if (tma && cl == 4)
+            return launch_pdp_vectors<4>(N, Bt, S, st, src, pi, d, v, p0, f0,
+                                         1);
+    }
+    return launch_pdp_vectors<1>(N, Bt, S, st, src, pi, d, v, p0, f0,
+                                 tma && cl == 1);
 }
 #endif  // STAGE_BF16
 

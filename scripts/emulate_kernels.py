@@ -53,8 +53,13 @@ HEADERS = {
     "cuda_pipeline.h": """#pragma once
 #include <cstring>
 #include <cstddef>
+#include <cstdlib>
+// A copy of n bytes needs both ends n-byte aligned (the card faults).
 inline void __pipeline_memcpy_async(void* d, const void* s, size_t n, size_t z = 0)
-{ std::memcpy(d, s, n - z); std::memset((char*)d + n - z, 0, z); }
+{
+    if (((size_t)d | (size_t)s) % n) std::abort();
+    std::memcpy(d, s, n - z); std::memset((char*)d + n - z, 0, z);
+}
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
 #define __launch_bounds__(...)
@@ -96,6 +101,9 @@ template <class T> T emu_shuffle(T v, unsigned src) {
 template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
     const unsigned lane = threadIdx.x % 32;
     return emu_shuffle(v, lane / width * width + (unsigned)src % width);
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask) {
+    return emu_shuffle(v, (threadIdx.x % 32) ^ (unsigned)mask);
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 // Shared-memory atomics and fences: the host's, sequentially consistent.
@@ -225,6 +233,7 @@ inline int make_rows_map(CUtensorMap* map, const void* base,
 inline void tma_box(void* dst, const CUtensorMap* m, int col, int row,
                     mbar_t* bar) {
     if ((size_t)dst & 127) std::abort();
+    if ((long long)col * m->word % 16) std::abort();
     char* d = (char*)dst;
     for (unsigned r = 0; r < m->box_rows; ++r)
         for (unsigned c = 0; c < m->box_cols; ++c, d += m->word) {
@@ -673,14 +682,19 @@ def run_k7(dtype, nx, nu, N, Bt, tol):
           cr.forward_packed_reference(Sd, G, x0, nu), tol)
 
 
-def run_k10(dtype, nx, nu, N, Bt, S, tol):
+def run_k10(dtype, nx, nu, N, Bt, S, tol, offset=False):
     """K10 in S segments of N/S stages (N = S: segments of one stage) on
     ``Bt`` scenarios across its blocks of W scenarios of one segment (32
     in float32 and 16 in float64 at the quadrotor's widths, 8 / 4 at the
-    centroidal model's, 4 / 2 at nx=40), the last ragged: the streams by
-    boxes of the copy engine where their rows are whole 16-byte pieces (Bt
-    a multiple of 4 in float32, of 2 in float64), a word a copy otherwise.
-    Random factors: K10 needs no relation between them."""
+    centroidal model's, 4 / 2 at nx=40; G = 32 / W lanes a scenario), the
+    last ragged: the streams by boxes of the copy engine where every
+    stream starts on 16 bytes: boxes of W where the rows are whole 16-byte
+    pieces (Bt a multiple of 4 in float32, of 2 in float64), else boxes of
+    a 16-byte phase of rows, W + 16 bytes wide, where every stream's rows
+    of a stage are whole multiples of the phases (2 or 4) and two slots of
+    them fit, else a word a copy.  ``offset``:
+    every input starts a word into its storage (word copies).  Random
+    factors: K10 needs no relation between them."""
     rng = np.random.default_rng(14)
     T = lambda *s: torch.as_tensor(rng.normal(size=s)).to(dtype).contiguous()
     g = 1.0 / nx ** 0.5                  # products of norm about one
@@ -692,6 +706,13 @@ def run_k10(dtype, nx, nu, N, Bt, S, tol):
          + torch.diag_embed(1.0 + T(N, Bt, nu).abs())).permute(0, 2, 3, 1)
     k10_in = (A, B, T(N, nx, Bt) * 0.1, T(N, nx + nu, Bt), P, K,
               L.contiguous(), F, T(S, nx, Bt))
+    if offset:
+        def shifted(x):
+            buf = torch.empty(x.numel() + 1, dtype=dtype)
+            buf[1:].copy_(x.flatten())
+            return buf[1:].view(x.shape)
+        k10_in = tuple(shifted(x) for x in k10_in)
+        tag += " offset"
     check(f"K10 across blocks [{tag}]",
           cr._launch_backward_pdp_vectors(library(dtype, nx, nu), *k10_in, S,
                                           None),
@@ -1000,22 +1021,33 @@ WIDE_K7_CASES = [
     (torch.float64, 24, 6, 10, 70, 1e-10),
     (torch.float32, 24, 6, 12, 67, 1e-4),
 ]
-# (dtype, nx, nu, N, Bt, S, tol): K10 across its blocks, the last ragged:
-# boxes of the copy engine (68 and 20 in float32, 34 and 4 in float64) and
-# a word a copy (67, 19, 9, 5: odd), in one segment past the ring's slots
-# (3 at the quadrotor's and the centroidal model's widths, 2 at nx=40), in
-# 4 and 2 and in segments of one stage (N = S), at the quadrotor's, the
-# centroidal model's and the mass-spring chain's widths.
+# (dtype, nx, nu, N, Bt, S, tol[, offset]): K10 across its blocks, the
+# last ragged: boxes of the copy engine (68 and 20 in float32, 34 and 4 in
+# float64), boxes of a 16-byte phase of rows, W + 16 bytes wide from the
+# piece the phase starts in (67, 65: four phases in float32 at the
+# quadrotor's widths; 66: two; 19 and 9 in float64: two; 18 at the
+# centroidal model's in float32: two) and a word a copy (at nx=40, where
+# two slots of the phases' wider rows do not fit: 9 in float32, 5 and 3
+# in float64; 64 with every input a word into its storage), in one segment past the ring's slots (3 at the quadrotor's and
+# the centroidal model's widths, 2 at nx=40), in 4 and 2 and in segments
+# of one stage (N = S), at the quadrotor's, the centroidal model's and the
+# mass-spring chain's widths (G = 2 lanes a scenario at the quadrotor's in
+# float64, 4 and 8 at the centroidal model's, 8 and 16 at nx=40).
 K10_CASES = [
     (torch.float64, 12, 4, 6, 34, 2, 1e-10),
     (torch.float64, 12, 4, 5, 19, 5, 1e-10),
     (torch.float64, 40, 10, 4, 5, 1, 1e-10),
     (torch.float32, 12, 4, 8, 68, 1, 1e-4),
     (torch.float32, 12, 4, 8, 67, 4, 1e-4),
+    (torch.float32, 12, 4, 6, 65, 2, 1e-4),
+    (torch.float32, 12, 4, 5, 66, 5, 1e-4),
+    (torch.float32, 12, 4, 4, 64, 2, 1e-4, True),
     (torch.float32, 24, 6, 8, 20, 1, 1e-4),
     (torch.float64, 24, 6, 4, 9, 4, 1e-10),
     (torch.float32, 40, 10, 6, 12, 2, 1e-4),
-    (torch.float64, 40, 10, 3, 4, 3, 1e-10),
+    (torch.float64, 40, 10, 3, 3, 3, 1e-10),
+    (torch.float32, 40, 10, 4, 9, 2, 1e-4),
+    (torch.float32, 24, 6, 4, 18, 2, 1e-4),
 ]
 # (dtype, nx, nu, nc, N, Bt, tol[, one]): the narrow forms of the matrix
 # sweep (K1 gains only, K11 on bfloat16 stage streams) across their groups
@@ -1111,8 +1143,9 @@ K2_QUICK, K46_QUICK, K7_QUICK = K2_CASES[:1], K46_CASES[:1], K7_CASES[:1]
 NARROW_SWEEP_QUICK, NARROW_K7_QUICK = NARROW_SWEEP_CASES[:3], NARROW_K7_CASES[:2]
 NARROW_ADMM_QUICK, NARROW_LADDER_QUICK = (NARROW_ADMM_CASES[:1],
                                           NARROW_LADDER_CASES[:1])
-# K10 on boxes and on word copies in segments of one stage (the libraries
-# of QUICK's float64 cases) and at nx=40.
+# K10 on boxes and on a box a 16-byte phase of rows in segments of one
+# stage (the libraries of QUICK's float64 cases; two lanes a scenario) and
+# at nx=40 (16 lanes a scenario).
 K10_QUICK = K10_CASES[:3]
 
 

@@ -8,6 +8,7 @@ them, and K1-K5 and K8 at the widest models' requests, on the card.
                                                k4 k6 k7 k10 wide]
                                     [--profile] [--bf16]
                                     [--batches B ...] [--match S ...]
+                                    [--define NAME=VALUE ...]
 
 The matrix sweep runs on the tensors its paths hand it (each path run
 once with the kernels' calls recorded, as ``chip_smoke.py`` does; the
@@ -44,7 +45,8 @@ whose rows no copy-engine box takes).  ``k10``: the cached PDP vector
 sweep on the tensors the cached ``pdp_admm`` request hands it
 (``admm_sharded.solve`` with cached factors: the thrust-cone quadrotor
 with a shift, N=512, S=8, B=1024, float32; the same in float64; and its
-first 1023 scenarios, a batch whose rows no copy-engine box takes), then
+first 1023, 1022 and 1021 scenarios, batches whose rows no copy-engine box
+takes, in float32, and 1023 in float64), then
 at ``kernels_wide``'s shapes (the mass-spring chain and the centroidal
 model, N=64, S=4, B=256, random stage data and the plain K9's exported
 factors, float32 and float64).  ``wide``: K1-K5 and K8 on the
@@ -63,12 +65,15 @@ theirs) and to ``k4``, ``k5`` and ``k6`` (the narrow forms of K4 and K5
 packed on the tensors of the split request with
 ``storage_dtype=torch.bfloat16``, of K6 and K5's rung form on the
 ladder's; ``k5`` also times K5 packed, full and narrow, at
-``kernels_wide``'s shapes, N=64, B=256, at both wide widths); a tree
+``kernels_wide``'s shapes, N=64, B=256, at both wide widths, float32 and
+float64); a tree
 without them cannot run it.  Each form is held against its
 plain version first.  ``--root DIR`` imports
 ``pdp_lqr_tpu_torch`` from another checkout (its kernels built from its
 own sources into its own ``build/``), so two versions are timed on one
-card by running this script once for each, in turns.  ``--match`` times
+card by running this script once for each, in turns.  ``--define NAME=VALUE``
+builds every library with a further preprocessor define (a design's
+compile-time switch, timed beside the tree's own form).  ``--match`` times
 only the matrix sweep's forms whose names hold one of the given strings
 (``--match bf16 gains,B= centroidal``: the narrow forms beside the full
 ones they are compared with).
@@ -423,28 +428,32 @@ def k2_k5_runs(sm, dev, bf16=False):
 def k5_wide_runs(sm, dev):
     """K5 packed with hf-emit, full width and narrow, at ``kernels_wide``'s
     shapes (the mass-spring chain's rows and the centroidal model's two
-    cones, a diagonal cost, N=64, B=256, float32; the same random inputs as
-    that phase): name -> (kernel call, plain call, output names, bytes
-    read, operations, the library's (nx, nu, nc, cones))."""
+    cones, a diagonal cost, N=64, B=256, float32 and float64; the same
+    random inputs as that phase): name -> (kernel call, plain call, output
+    names, bytes read, operations, the library's (dtype, nx, nu, nc,
+    cones))."""
     from pdp_lqr_tpu_torch.ops import cuda_admm as ca, cuda_riccati as cr
 
-    f32, N, Bt = torch.float32, sm.N_SMALL, sm.B_SMALL
+    N, Bt = sm.N_SMALL, sm.B_SMALL
     runs = {}
-    for width, (nx, nu, nc, cones, nca) in sm.WIDE.items():
+    for (width, (nx, nu, nc, cones, nca)), dt in (
+            (w, dt) for w in sm.WIDE.items()
+            for dt in (torch.float32, torch.float64)):
         rng = np.random.default_rng(sm.SEED)
-        one = sm.random_stage_data(rng, N, nx, nu, nc, 1, f32, dev)
+        one = sm.random_stage_data(rng, N, nx, nu, nc, 1, dt, dev)
         K, _, M, _, _, L = cr.backward_lanes_reference(*one,
                                                        export_factors=True)
         _, k5 = sm.random_admm_inputs(rng, one[0], one[1], K, M, L, nca, Bt,
                                       cones, True, False)
+        f64 = ",f64" if dt == torch.float64 else ""
         for tag, inp in (("", k5), (",bf16", sm.narrow_args(k5, sm.K5_NARROW))):
-            runs[f"admm_fwd_update_lanes[{width},N={N},B={Bt}{tag}]"] = (
+            runs[f"admm_fwd_update_lanes[{width},N={N},B={Bt}{f64}{tag}]"] = (
                 lambda inp=inp, cones=cones, nu=nu: sm.k5_call(ca, inp, cones,
                                                                nu=nu),
                 lambda inp=inp, cones=cones, nu=nu: sm.k5_plain(ca, inp, cones,
                                                                 nu=nu),
                 sm.K5_OUT, sm.nbytes(*inp),
-                sm.k5_flops(N, nx, nu, nca, Bt, True), (nx, nu, nca, cones))
+                sm.k5_flops(N, nx, nu, nca, Bt, True), (dt, nx, nu, nca, cones))
     torch.cuda.synchronize()
     return runs
 
@@ -615,8 +624,12 @@ def k10_runs(sm, dev):
     add(f"{K10}[pdp_admm,S={S},B={B},f64]",
         tuple(x.double().contiguous() for x in a),
         (torch.float64, NX, NU))
-    add(f"{K10}[pdp_admm,S={S},B={B - 1}]",
-        tuple(x[..., :B - 1].contiguous() for x in a), (f32, NX, NU))
+    for Bp in (B - 1, B - 2, B - 3):
+        add(f"{K10}[pdp_admm,S={S},B={Bp}]",
+            tuple(x[..., :Bp].contiguous() for x in a), (f32, NX, NU))
+    add(f"{K10}[pdp_admm,S={S},B={B - 1},f64]",
+        tuple(x[..., :B - 1].double().contiguous() for x in a),
+        (torch.float64, NX, NU))
     del a
     S = sm.S_SMALL
     for width, (nx, nu, nc, _, _) in sm.WIDE.items():
@@ -657,6 +670,9 @@ def main():
                     help="k7: the batches to run (default 4096); sweep: "
                          "solve_lanes' K1 also at these (at most 4096); "
                          "a batch no multiple of 8 takes the word copies")
+    ap.add_argument("--define", nargs="*", default=[], metavar="NAME=VALUE",
+                    help="more preprocessor defines for every library "
+                         "built (a design's compile-time switch)")
     ap.add_argument("--match", nargs="*", default=None,
                     help="sweep: only the forms whose names hold one of "
                          "these strings")
@@ -670,18 +686,20 @@ def main():
     sm = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sm)
     from pdp_lqr_tpu_torch.ops import _build, cuda_admm as ca, cuda_riccati as cr
+    more = dict(d.split("=", 1) for d in args.define)
+
     def profiled(source, defines):
-        extra = {}
+        extra = dict(more)
         if not args.profile:
             pass
         elif source == ca.SOURCE:
-            extra = {"ADMM_PROFILE": 1}          # K8, K5, K4, K6
+            extra["ADMM_PROFILE"] = 1            # K8, K5, K4, K6
         elif source == cr.SOURCE and ("NC" not in defines
                                       or "sweep" in args.kernels):
-            extra = {"RICCATI_PROFILE": 1}       # K2, K7, K12 (K3, K10);
+            extra["RICCATI_PROFILE"] = 1         # K2, K7, K12 (K3, K10);
                                                  # the sweep (K1, K9, K11)
         return {**defines, **extra}
-    if args.profile:
+    if args.profile or more:
         load = _build.load
         _build.load = lambda source, defines: load(source,
                                                    profiled(source, defines))
@@ -886,14 +904,14 @@ def main():
 
     if "k5" in args.kernels and args.bf16:
         runs = k5_wide_runs(sm, dev)
-        for name, (call, plain, names, moved, flops, (nx, nu, nc,
+        for name, (call, plain, names, moved, flops, (dt, nx, nu, nc,
                                                       cones)) in runs.items():
             extra = lambda: {}
             if args.profile:
                 call()
                 torch.cuda.synchronize()
                 narrow = "bf16" in name
-                lib = ca._library(f32, nx, nu, nc, cones=cones,
+                lib = ca._library(dt, nx, nu, nc, cones=cones,
                                   diag_cost=True, narrow=narrow)
                 sec = K5_SECTIONS + (K5_WIDEN_SECTIONS if narrow else [])
                 extra = (lambda lib=lib, sec=sec: read_sections(

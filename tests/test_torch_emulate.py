@@ -17,8 +17,8 @@ blocks on bfloat16 boxes and, on an odd batch, in aligned pairs; the
 narrow forms of the split kernels, K4 and K5 packed with the thrust cone
 and a shift, K6 on four rungs (its widening warp loading the shared runs and
 handing each slot to the folds) and K5's rung form, on bfloat16 boxes of
-c; K10 across its blocks on boxes of the copy engine, on word copies in
-segments of one stage, and at nx=40) keeps
+c; K10 across its blocks on boxes of the copy engine, on a box a 16-byte
+phase of rows in segments of one stage, and at nx=40) keeps
 the rewrite in step with the kernel source, and catches a wrong index or
 a missing barrier in the source where there is no card.
 """
